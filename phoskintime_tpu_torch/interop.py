@@ -1,0 +1,63 @@
+"""Carry the JAX package's objects across into this package's types.
+
+:func:`from_reference` reads a reference object by attribute and
+``np.asarray`` — it never imports JAX — and returns the port's
+equivalent, so one set of inputs can drive both packages:
+
+* a ``NetworkTopology`` -> :class:`~phoskintime_tpu_torch.network.topology.NetworkTopology`;
+* a ``GlobalSystem`` -> :class:`~phoskintime_tpu_torch.network.system.GlobalSystem`
+  with the same ``kin_grid``, ``Kmat`` and ``custom_y0``;
+* a ``LossData`` -> :class:`~phoskintime_tpu_torch.network.lossdata.LossData`;
+* a dict (a parameter dict, ``slices``, a demo bundle) -> a dict of the
+  converted values;
+* an array (a ``theta`` vector, a parameter leaf) -> a numpy array.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from phoskintime_tpu_torch.config.numerics import torch_dtype
+from phoskintime_tpu_torch.network.lossdata import LossData
+from phoskintime_tpu_torch.network.system import GlobalSystem
+from phoskintime_tpu_torch.network.topology import NetworkTopology
+
+
+def _topology(t) -> NetworkTopology:
+    return NetworkTopology(
+        proteins=list(t.proteins), kinases=list(t.kinases),
+        sites=[list(s) for s in t.sites],
+        n_sites=np.asarray(t.n_sites, np.int32),
+        p2i=dict(t.p2i), k2i=dict(t.k2i), proxy_map=dict(t.proxy_map),
+        driver_map=np.asarray(t.driver_map, np.int32),
+        W_pad=np.asarray(t.W_pad, float), tf_mat=np.asarray(t.tf_mat, float),
+        tf_deg=np.asarray(t.tf_deg, float), model=int(t.model))
+
+
+def from_reference(obj, *, dtype: torch.dtype | None = None, device="cpu"):
+    """The port's equivalent of a JAX-package object (see module doc).
+
+    A system is made at ``dtype`` (default: the reference system's own
+    numpy dtype) on ``device``; other values ignore both."""
+    if hasattr(obj, "W_pad") and hasattr(obj, "driver_map"):
+        return _topology(obj)
+    if hasattr(obj, "topo") and hasattr(obj, "Kmat") and hasattr(obj, "kin_grid"):
+        y0 = getattr(obj, "custom_y0", None)
+        return GlobalSystem(
+            _topology(obj.topo), np.asarray(obj.kin_grid, float),
+            np.asarray(obj.Kmat, float),
+            custom_y0=None if y0 is None else np.asarray(y0, float),
+            dtype=dtype or torch_dtype(getattr(obj, "dtype", np.float64)),
+            device=device)
+    if hasattr(obj, "_fields") and "p_prot" in obj._fields:
+        return LossData(*(v if isinstance(v, int) else np.asarray(v)
+                          for v in obj))
+    if isinstance(obj, Mapping):
+        return {k: from_reference(v, dtype=dtype, device=device)
+                for k, v in obj.items()}
+    if obj is None or isinstance(obj, (slice, str, int, float, bool)):
+        return obj
+    return np.asarray(obj)

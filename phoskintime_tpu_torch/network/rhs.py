@@ -1,0 +1,158 @@
+"""Right-hand side of the global network model, mechanisms 0 and 1.
+
+Counterpart of ``phoskintime_tpu/network/rhs.py``: distributive (0) and
+sequential (1) phosphorylation with the rational soft-clipped synthesis
+rate, over the padded (N, width) state. The combinatorial (2) and
+saturating (4) mechanisms are ROADMAP queue 1 item "Mechanisms 2 and 4
+on the objective" and raise ``NotImplementedError`` here.
+
+Within one kinase bucket these mechanisms are affine in the state; the
+only coupling between proteins is the TF input u, and with u frozen the
+linear part is block-diagonal (:meth:`PaddedRHS.linear_blocks`). That is
+the structure the exponential integrator in ``network/expo.py`` uses.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_NOT_PORTED = ("model {} is not ported yet (ROADMAP.md queue 1: "
+               "'Mechanisms 2 and 4 on the objective')")
+
+
+def check_model(model: int) -> None:
+    """Raise for a mechanism the port does not cover yet."""
+    if int(model) not in (0, 1):
+        raise NotImplementedError(_NOT_PORTED.format(model))
+
+
+def synthesis_rate(A, tf_scale, u_squashed):
+    """Rational Hill-like synthesis rate; ``u_squashed`` lies in (-1, 1).
+
+    Activation: A * (1 + tf_scale*u / (1 + u + 1e-6));
+    repression: A / (1 + tf_scale*|u|)."""
+    act = A * (1.0 + (tf_scale * u_squashed) / (1.0 + u_squashed + 1e-6))
+    rep = A / (1.0 + tf_scale * torch.abs(u_squashed))
+    return torch.where(u_squashed >= 0.0, act, rep)
+
+
+def tf_inputs(tf_mat, tf_deg, P_vec):
+    """Squashed TF drive u in (-1, 1) for one member: P_vec (N,)."""
+    v = (tf_mat @ P_vec) / tf_deg
+    return v / (1.0 + torch.abs(v))
+
+
+class PaddedRHS:
+    """RHS over the padded state, holding the topology tensors at one
+    dtype on one device. ``rhs(t, y_flat, jb, params)`` evaluates one
+    member; ``jb`` indexes the kinase grid (the bucket of t)."""
+
+    def __init__(self, topo, Kmat, dtype=torch.float64, device="cpu"):
+        check_model(topo.model)
+        f = dict(dtype=dtype, device=device)
+        self.model = int(topo.model)
+        self.N = topo.N
+        self.Smax = topo.max_sites
+        self.width = topo.width
+        self.W_pad = torch.as_tensor(topo.W_pad, **f)
+        self.tf_mat = torch.as_tensor(topo.tf_mat, **f)
+        self.tf_deg = torch.as_tensor(topo.tf_deg, **f)
+        self.driver_map = torch.as_tensor(topo.driver_map, device=device)
+        self.driven = self.driver_map >= 0
+        self.driver_idx = torch.clamp(self.driver_map, min=0).long()
+        self.site_mask = torch.as_tensor(topo.site_mask(), **f)
+        self.Kmat = torch.as_tensor(Kmat, **f)          # (K, n_buckets)
+
+    def kinase_activity(self, params, jb: int):
+        """Kt = K(t) * c_k at the clamped bucket index."""
+        jb = min(max(int(jb), 0), self.Kmat.shape[1] - 1)
+        return self.Kmat[:, jb] * params["c_k"]
+
+    def site_rates(self, Kt):
+        """S (N, Smax): per-site phospho drive W . Kt."""
+        return torch.einsum("nsk,k->ns", self.W_pad, Kt)
+
+    def total_protein(self, Y):
+        return Y[:, 1] + torch.sum(Y[:, 2:] * self.site_mask, dim=1)
+
+    def p_vec(self, Y, Kt):
+        """Observable protein vector; kinase-driven proteins take the live
+        kinase activity in place of their simulated total."""
+        return torch.where(self.driven, Kt[self.driver_idx], self.total_protein(Y))
+
+    def __call__(self, t, y_flat, jb, params, u_override=None):
+        """dy/dt for one member (flat (N*width,) state). ``u_override``
+        freezes the TF input, which leaves the block-diagonal linear part."""
+        Y = y_flat.reshape(self.N, self.width)
+        Kt = self.kinase_activity(params, jb)
+        S = self.site_rates(Kt)
+        u = (tf_inputs(self.tf_mat, self.tf_deg, self.p_vec(Y, Kt))
+             if u_override is None else u_override)
+        synth = synthesis_rate(params["A_i"], params["tf_scale"], u)
+        rhs = self._rhs_sequential if self.model == 1 else self._rhs_distributive
+        return rhs(Y, S, synth, params).reshape(-1)
+
+    def _rhs_distributive(self, Y, S, synth, p):
+        """Model 0: every site is phosphorylated from P0 directly."""
+        B, C, D, E, Dp = p["B_i"], p["C_i"], p["D_i"], p["E_i"], p["Dp_i"]
+        msk = self.site_mask
+        R, P0, sites = Y[:, 0], Y[:, 1], Y[:, 2:] * msk
+        Sm = S * msk
+        dR = synth - B * R
+        d_sites = (Sm * P0[:, None]
+                   - (E[:, None] + Dp + D[:, None]) * sites) * msk
+        dP0 = C * R - (D + Sm.sum(1)) * P0 + E * sites.sum(1)
+        return torch.cat([dR[:, None], dP0[:, None], d_sites], dim=1)
+
+    def _rhs_sequential(self, Y, S, synth, p):
+        """Model 1: a chain P0 -> s_1 -> s_2 -> ... with back-steps at E."""
+        B, C, D, E, Dp = p["B_i"], p["C_i"], p["D_i"], p["E_i"], p["Dp_i"]
+        msk = self.site_mask
+        R, P0, sites = Y[:, 0], Y[:, 1], Y[:, 2:] * msk
+        Sm = S * msk
+        has_sites = msk[:, 0]
+        zero = torch.zeros_like(Sm[:, :1])
+        prev = torch.cat([P0[:, None], sites[:, :-1]], dim=1)
+        k_next = torch.cat([Sm[:, 1:], zero], dim=1)
+        has_next = torch.cat([msk[:, 1:], zero], dim=1)
+        nxt = torch.cat([sites[:, 1:], zero], dim=1)
+        dR = synth - B * R
+        d_sites = (Sm * prev
+                   + E[:, None] * nxt * has_next
+                   - (k_next * has_next + E[:, None] + Dp + D[:, None]) * sites) * msk
+        dP0 = (C * R - D * P0 - Sm[:, 0] * P0 * has_sites
+               + E * sites[:, 0] * has_sites)
+        return torch.cat([dR[:, None], dP0[:, None], d_sites], dim=1)
+
+    def linear_blocks(self, S, p):
+        """(N, w, w) block-diagonal linear operator with the TF input frozen.
+
+        Exact, since these mechanisms are linear in the state; entries are
+        written in place rather than contracted against one-hot placement
+        tables, so no matmul (and no TF32 question) is involved."""
+        N, w = self.N, self.width
+        msk = self.site_mask
+        B, C, D, E, Dp = p["B_i"], p["C_i"], p["D_i"], p["E_i"], p["Dp_i"]
+        Sm = S * msk
+        L = Sm.new_zeros((N, w, w))
+        L[:, 0, 0] = -B
+        L[:, 1, 0] = C
+        j = torch.arange(self.Smax, device=Sm.device)
+        if self.model == 0:
+            L[:, 1, 1] = -D - Sm.sum(1)
+            L[:, 1, 2 + j] = E[:, None] * msk
+            L[:, 2 + j, 1] = Sm
+            L[:, 2 + j, 2 + j] = -(E[:, None] + Dp + D[:, None]) * msk
+            return L
+        has_sites = msk[:, 0]
+        zero = torch.zeros_like(Sm[:, :1])
+        has_next = torch.cat([msk[:, 1:], zero], dim=1)
+        k_next = torch.cat([Sm[:, 1:], zero], dim=1)
+        L[:, 1, 1] = -D - Sm[:, 0] * has_sites
+        if w > 2:
+            L[:, 1, 2] = E * has_sites
+        L[:, 2, 1] = Sm[:, 0]
+        L[:, 3 + j[:-1], 2 + j[:-1]] = Sm[:, 1:]
+        L[:, 2 + j[:-1], 3 + j[:-1]] = (E[:, None] * has_next * msk)[:, :-1]
+        L[:, 2 + j, 2 + j] = -(k_next * has_next + E[:, None] + Dp + D[:, None]) * msk
+        return L

@@ -1,0 +1,70 @@
+"""GlobalSystem: topology + kinase input + the RHS tensors on one device.
+
+Counterpart of ``phoskintime_tpu/network/system.py``. Parameters are a
+plain dict of tensors (physical space):
+c_k (K,), A_i/B_i/C_i/D_i/E_i (N,), Dp_i (N, Smax) padded, tf_scale ();
+the batched paths carry a leading population axis on every leaf.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from phoskintime_tpu_torch.config.numerics import working_dtype
+from phoskintime_tpu_torch.network.rhs import PaddedRHS
+from phoskintime_tpu_torch.network.topology import NetworkTopology
+
+
+def default_params(topo: NetworkTopology, dtype=np.float64) -> dict:
+    """Neutral defaults (all ones) as host numpy arrays, Dp padded."""
+    return {
+        "c_k": np.ones(topo.K, dtype),
+        "A_i": np.ones(topo.N, dtype),
+        "B_i": np.ones(topo.N, dtype),
+        "C_i": np.ones(topo.N, dtype),
+        "D_i": np.ones(topo.N, dtype),
+        "Dp_i": np.ones((topo.N, topo.max_sites), dtype),
+        "E_i": np.ones(topo.N, dtype),
+        "tf_scale": dtype(1.0),
+    }
+
+
+def flat_site_values(topo: NetworkTopology, padded: np.ndarray) -> np.ndarray:
+    """(N, Smax) padded per-site values -> flat (total_sites,) order."""
+    return np.asarray(padded)[topo.site_mask()]
+
+
+@dataclasses.dataclass
+class GlobalSystem:
+    """Static topology, kinase input and default y0, with the RHS tensors
+    made once at ``dtype`` on ``device`` (default: float32 on CUDA,
+    float64 on the CPU). Host inputs (Kmat, grid, y0) stay float64 numpy."""
+
+    topo: NetworkTopology
+    kin_grid: np.ndarray      # protein timepoint grid (bucket boundaries)
+    Kmat: np.ndarray          # (K, len(grid))
+    custom_y0: np.ndarray | None = None
+    dtype: torch.dtype | None = None      # None: working_dtype(device)
+    device: torch.device | str = "cpu"
+
+    def __post_init__(self):
+        self.device = torch.device(self.device)
+        if self.dtype is None:
+            self.dtype = working_dtype(self.device)
+        self.rhs = PaddedRHS(self.topo, self.Kmat, dtype=self.dtype,
+                             device=self.device)
+
+    def y0(self) -> np.ndarray:
+        """Padded (N, width) initial state: R = 1, P0 = 1, valid phospho
+        slots 0.01."""
+        if self.custom_y0 is not None:
+            return np.array(self.custom_y0, dtype=float, copy=True)
+        topo = self.topo
+        Y = np.zeros((topo.N, topo.width))
+        Y[:, 0] = 1.0
+        Y[:, 1] = 1.0
+        Y[:, 2:] = 0.01 * topo.site_mask()
+        return Y

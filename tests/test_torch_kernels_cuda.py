@@ -1,0 +1,94 @@
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
+
+Every test here needs an NVIDIA GPU with nvcc: it is marked ``cuda`` and
+skips without one. The file imports no JAX, so on a machine with a card
+and without JAX it runs on its own:
+
+    python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from phoskintime_tpu_torch.demo import build_demo_network
+from phoskintime_tpu_torch.network.objective import make_population_objective
+from phoskintime_tpu_torch.ops.phi_tables import (ladder_len, phi_tables,
+                                                  phi_tables_reference)
+
+pytestmark = pytest.mark.cuda
+
+# float32 against float32: errors relative to the table's largest entry,
+# the JAX package's own tolerance for its Pallas table kernels
+SCALED_ATOL_F32 = 2e-5
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def compartmental_blocks(rng, Bu, w, B):
+    """Blocks shaped like the model's: non-negative transfers off the
+    diagonal, each column's outflow plus its own decay on the diagonal."""
+    L = rng.uniform(0.0, 2.0, (Bu, w, w, B))
+    L[:, np.arange(w), np.arange(w), :] = 0.0
+    L[:, np.arange(w), np.arange(w), :] = -(L.sum(axis=1)
+                                            + rng.uniform(0.01, 4.0, (Bu, w, B)))
+    return L
+
+
+def assert_scaled_close(got, want, atol=SCALED_ATOL_F32):
+    scale = float(torch.max(torch.abs(want))) + 1e-30
+    err = float(torch.max(torch.abs(got - want))) / scale
+    assert err <= atol, err
+
+
+@pytest.mark.parametrize("w", range(2, 9))
+def test_kernel_matches_plain(cuda_device, w):
+    rng = np.random.default_rng(w)
+    L = torch.as_tensor(compartmental_blocks(rng, 2, w, 1000),
+                        dtype=torch.float32, device=cuda_device)
+    binv, h_u = np.asarray([0, 1, 1]), np.asarray([0.0625, 2.0, 16.0])
+    lad = max(ladder_len(w, h) for h in h_u)
+    before = phi_tables.launches
+    got = phi_tables(L, binv, h_u, lad)
+    torch.cuda.synchronize()
+    assert phi_tables.launches == before + 1
+    for g, r in zip(got, phi_tables_reference(L, binv, h_u, lad)):
+        assert g.shape == r.shape and g.dtype == torch.float32
+        assert_scaled_close(g, r)
+
+
+@pytest.mark.parametrize("bad, err", [
+    (dict(dtype=torch.float64), NotImplementedError),
+    (dict(w=9), NotImplementedError),
+    (dict(strided=True), ValueError),
+])
+def test_kernel_rejects(cuda_device, bad, err):
+    w = bad.get("w", 4)
+    L = torch.zeros((1, w, w, 64 if bad.get("strided") else 32),
+                    dtype=bad.get("dtype", torch.float32), device=cuda_device)
+    if bad.get("strided"):
+        L = L[..., ::2]
+    with pytest.raises(err):
+        phi_tables(L, [0], [1.0], 4)
+
+
+def test_objective_goes_through_the_kernel(cuda_device):
+    b = build_demo_network(n_proteins=12, n_kinases=5, seed=0,
+                           dtype=torch.float32, device=cuda_device)
+    args = (b["system"], b["slices"], b["loss_data"], b["defaults"],
+            b["lambdas"], b["grid"])
+    rng = np.random.default_rng(0)
+    thetas = b["theta0"][None] + 0.05 * rng.normal(size=(5, len(b["theta0"])))
+    phi_tables.launches = 0
+    F = make_population_objective(*args, pop_chunk=2)(thetas)
+    assert phi_tables.launches == 3                  # one per chunk
+    Fp = make_population_objective(*args, pop_chunk=2, use_kernel=False)(thetas)
+    assert F.shape == (5, 3) and bool(torch.isfinite(F).all())
+    # float32 tables of one algorithm in two builds, through 133 ETD2RK steps
+    assert float(torch.max(torch.abs(F - Fp) / torch.abs(Fp))) <= 1e-3

@@ -1,0 +1,148 @@
+"""Propagator tables of the PyTorch port against the JAX package.
+
+The plain version (``phi_tables_reference``) is held against the JAX
+lane-layout table build ``_phi_vectors_lanes`` and against the Pallas pages
+kernel run in interpret mode; the CUDA kernel itself is held against the
+plain version on the card in ``test_torch_kernels_cuda.py``.
+Inputs are made with numpy from a seed and fed to both packages.
+"""
+
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from phoskintime_tpu.network.expo import _phi_vectors_lanes
+from phoskintime_tpu.ops.phi_pallas import ladder_len as jax_ladder_len
+from phoskintime_tpu.ops.phi_pallas import phi_vectors_pallas_pages
+from phoskintime_tpu_torch.ops import phi_tables as pm
+from phoskintime_tpu_torch.ops.phi_tables import (ladder_len, phi_tables,
+                                                  phi_tables_reference)
+
+torch.set_num_threads(2)
+
+# float32 tolerance: two float32 builds of one table differ by rounding
+# that the squaring ladder amplifies, so errors are taken relative to the
+# table's largest entry (the JAX package's own pages-kernel tolerance)
+SCALED_ATOL_F32 = 2e-5
+# float64: the same algorithm in another summation order; rtol 1e-12 with a
+# floor of 1e-12 of the largest entry for entries that decay towards zero,
+# whose own relative error is set by cancellation, not by the algorithm
+RTOL_F64 = 1e-12
+
+
+def random_blocks(rng, Bu, w, B):
+    """Blocks like test_pallas.py's: normal off-diagonals, strongly
+    decaying diagonals."""
+    L = rng.normal(0, 0.5, (Bu, w, w, B))
+    for i in range(w):
+        L[:, i, i, :] = -rng.uniform(0.01, 20.0, (Bu, B))
+    return L
+
+
+def assert_scaled_close(got, want, atol):
+    got, want = np.asarray(got, float), np.asarray(want, float)
+    scale = np.max(np.abs(want)) + 1e-30
+    np.testing.assert_allclose(got / scale, want / scale, rtol=0, atol=atol)
+
+
+def test_package_imports_without_jax():
+    code = ("import sys; import phoskintime_tpu_torch, "
+            "phoskintime_tpu_torch.network.objective, phoskintime_tpu_torch.demo, "
+            "phoskintime_tpu_torch.interop; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m == 'phoskintime_tpu' or m.startswith('phoskintime_tpu.')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("w", [3, 6])
+def test_ladder_len_matches_jax(w):
+    for h in [0.03125, 0.0625, 0.5, 1.75, 3.75, 15.0, 16.0, 100.0]:
+        assert ladder_len(w, h) == jax_ladder_len(w, h)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_reference_matches_jax_lanes(dtype):
+    rng = np.random.default_rng(5)
+    Bu, w, B = 3, 6, 200
+    L = random_blocks(rng, Bu, w, B).astype(dtype)
+    binv = np.asarray([0, 1, 2, 1, 0], np.int32)
+    h_u = np.asarray([0.0625, 1.0, 16.0, 4.0, 0.5])
+    # the JAX CPU path clips each lane's squaring count at 24; so does this
+    E, p1, p2 = phi_tables_reference(torch.as_tensor(L), binv, h_u, 24)
+    assert E.dtype == torch.from_numpy(L).dtype and E.shape == (5, w, w, B)
+    for u in range(len(binv)):
+        want = _phi_vectors_lanes(jnp.asarray(L[binv[u]]),
+                                  jnp.full((B,), h_u[u], dtype))
+        for got, ref in zip((E[u], p1[u], p2[u]), want):
+            ref = np.asarray(ref)
+            if dtype == np.float64:
+                np.testing.assert_allclose(
+                    got.numpy(), ref, rtol=RTOL_F64,
+                    atol=RTOL_F64 * np.max(np.abs(ref)))
+            else:
+                assert_scaled_close(got.numpy(), ref, SCALED_ATOL_F32)
+
+
+def test_reference_matches_pallas_pages_interpret():
+    """Smallest shape (w = 3, two pairs): interpret mode traces the
+    unrolled w^3-per-step ladder, which grows fast with w."""
+    rng = np.random.default_rng(7)
+    Bu, w, B = 2, 3, 100
+    L = random_blocks(rng, Bu, w, B).astype(np.float32)
+    binv = np.asarray([0, 1], np.int32)
+    h_u = np.asarray([0.5, 2.0], np.float32)
+    lad = max(ladder_len(w, float(h)) for h in h_u)
+    want = phi_vectors_pallas_pages(jnp.asarray(L), binv, h_u, lad,
+                                    blk8=128, interpret=True)
+    got = phi_tables(torch.as_tensor(L), binv, h_u, lad)
+    for g, ref in zip(got, want):
+        assert g.shape == ref.shape and g.dtype == torch.float32
+        assert_scaled_close(g.numpy(), ref, SCALED_ATOL_F32)
+
+
+def test_cpu_tensor_takes_the_plain_version():
+    rng = np.random.default_rng(0)
+    L = torch.as_tensor(random_blocks(rng, 2, 4, 33), dtype=torch.float32)
+    binv, h_u = np.asarray([1, 0, 1]), np.asarray([0.25, 1.0, 4.0])
+    before = phi_tables.launches
+    got = phi_tables(L, binv, h_u, 12)
+    want = phi_tables_reference(L, binv, h_u, 12)
+    assert phi_tables.launches == before          # no kernel on the CPU
+    for g, r in zip(got, want):
+        assert torch.equal(g, r)
+
+
+def test_clip_at_ladder():
+    """A lane whose need exceeds the ladder stops there, as in the kernel."""
+    L = torch.full((1, 2, 2, 1), -64.0, dtype=torch.float64)
+    E_clip = phi_tables(L, [0], [16.0], 3)[0]
+    E_full = phi_tables(L, [0], [16.0], 24)[0]
+    assert not torch.allclose(E_clip, E_full)
+
+
+@pytest.mark.parametrize("bad", [
+    dict(L=torch.zeros((2, 3, 4, 5))),                        # not square
+    dict(binv=[0, 2], h_u=[1.0, 1.0]),                        # bucket out of range
+    dict(binv=[0], h_u=[1.0, 2.0]),                           # length mismatch
+    dict(use_kernel=True),                                    # kernel on the CPU
+])
+def test_wrapper_rejects(bad):
+    args = dict(L=torch.zeros((2, 3, 3, 5)), binv=[0, 1], h_u=[1.0, 2.0])
+    args.update(bad)
+    use_kernel = args.pop("use_kernel", None)
+    with pytest.raises(ValueError):
+        phi_tables(args["L"], args["binv"], args["h_u"], 8, use_kernel=use_kernel)
+
+
+def test_library_path_is_keyed_by_source():
+    path = pm.library_path()
+    assert path.parent == pm.BUILD_DIR and path.suffix == ".so"
+    assert "csrc" in str(pm.SOURCE) and pm.SOURCE.exists()
+    assert "arch=compute_90a,code=sm_90a" in pm.NVCC_FLAGS
