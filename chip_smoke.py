@@ -7,17 +7,29 @@ non-zero:
 
 1. device: the card, its power limit, CUDA and nvcc versions; full-float32
    matmuls (TF32 off);
-2. build: compile the hand-written kernels from ``phoskintime_tpu_torch/csrc``;
-3. kernel vs plain: ``phi_tables`` against ``phi_tables_reference`` on the
-   card at the main path's own shapes (one 2048-member chunk of the bench
-   problem) and at every block width 2..8, scaled atol 2e-5; both timed;
-4. main path: the population objective at pop 8192 in chunks of 2048 on
-   the bench problem (``build_demo_network(40, 12, seed=0)``, float32),
-   counting kernel launches, checking F against the plain tables, and
-   timing evals/s;
-5. accuracy: fold changes at the true parameters against a tight SciPy
-   LSODA oracle (rtol 1e-7, atol 1e-9) of the same equations, max
-   relative error below 1e-3.
+2. build: compile the hand-written kernels from ``phoskintime_tpu_torch/csrc``,
+   one ``nvcc`` per source, all started together;
+3. kernel vs plain: ``phi_tables`` (w <= 8) against ``phi_tables_reference``
+   on the card at the main path's own shapes (one 2048-member chunk of the
+   bench problem) and at every block width 2..8, scaled atol 2e-5; the
+   kernel, the plain version and ``torch.linalg.matrix_exp`` of the
+   augmented matrix timed, and the kernel's bound worked out;
+3b. the same for ``phi_tables_wide`` (9 <= w <= 17) at the model-2 chunk's
+   class shapes (w = 9 and 17) and at every width 9..17, and for
+   ``phi_vectors`` (one pair) at w = 7 and 17;
+4. main path, model 0: the population objective at pop 8192 in chunks of
+   2048 on the bench problem (``build_demo_network(40, 12, seed=0)``,
+   float32), counting kernel launches, checking F against the plain
+   tables, and timing evals/s;
+4b. main path, model 2: the same objective on the combinatorial mechanism
+   (``build_demo_network(40, 12, model=2, seed=0)``) at pop 2048 in one
+   chunk: 3 launches of ``phi_tables`` and 2 of ``phi_tables_wide``;
+5. accuracy, model 0: fold changes at the true parameters against a tight
+   SciPy LSODA oracle (rtol 1e-7, atol 1e-9) of the same equations, max
+   relative error below 1e-3;
+5b. precision, model 2: float32 fold changes on the card against the
+   port's float64 result on the CPU, max relative error below 1e-3, and
+   both against a LSODA oracle of the hypercube equations.
 
 The line before the last is a JSON summary of each kernel; the last line
 is ``{"ok": true, "device": {...}}``. There is no CPU fallback.
@@ -26,6 +38,7 @@ is ``{"ok": true, "device": {...}}``. There is no CPU fallback.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -38,13 +51,21 @@ from phoskintime_tpu_torch.network import expo
 from phoskintime_tpu_torch.network.objective import make_population_objective
 from phoskintime_tpu_torch.network.params import unpack_params
 from phoskintime_tpu_torch.network.simulate import extract_observables, fold_changes
+from phoskintime_tpu_torch.network.system import GlobalSystem
 from phoskintime_tpu_torch.ops import phi_tables as phi_mod
-from phoskintime_tpu_torch.ops.phi_tables import phi_tables, phi_tables_reference
+from phoskintime_tpu_torch.ops.phi_tables import (phi_tables, phi_tables_reference,
+                                                  phi_tables_wide, phi_vectors)
 
 POP, CHUNK, N_PROTEINS, N_KINASES = 8192, 2048, 40, 12
+POP2 = 2048               # model 2: one chunk, as benchmarks/model_rates.py
 KERNEL_ATOL = 2e-5        # scaled by max |plain|, as tests/test_pallas.py
-F_RTOL = 1e-3             # objective with the kernel vs with the plain tables
+F_RTOL = 1e-3             # objective with the kernels vs with the plain tables
 ACCURACY_GATE = 1e-3      # fold changes vs the LSODA oracle, as bench.py
+PRECISION_GATE = 1e-3     # model 2: float32 on the card vs float64 on the CPU
+# the card's published peaks (H100 SXM data sheet): FP32 outside the
+# tensor cores, and HBM bandwidth
+PEAK_FP32_FLOPS, PEAK_HBM_BYTES = 67e12, 3.35e12
+KERNELS = (phi_tables, phi_tables_wide)
 
 
 def say(phase: str, **fields) -> None:
@@ -95,55 +116,124 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    path, seconds = phi_mod.build_library()
-    log = path.with_suffix(".log").read_text()
-    regs = [ln.split("ptxas info    : ")[-1] for ln in log.splitlines()
-            if "registers" in ln or "spill" in ln]
-    say("2 build", library=path.name, seconds=f"{seconds:.2f}")
-    for ln in regs:
-        print("    " + ln)
+    t0 = time.perf_counter()
+    built = phi_mod.build_libraries()
+    say("2 build", wall_seconds=f"{time.perf_counter() - t0:.2f}")
+    for path, seconds in built.items():
+        say("2 build", library=path.name, seconds=f"{seconds:.2f}")
+        for ln in path.with_suffix(".log").read_text().splitlines():
+            width = re.search(r"Compiling entry function '\w*?ILi(\d+)E", ln)
+            if width:
+                print(f"    w={width.group(1)}")
+            elif "registers" in ln or "spill" in ln:
+                print("    " + ln.split("ptxas info    : ")[-1].strip())
 
 
-def phase_kernel(b, thetas, card) -> dict:
-    params_b = unpack_params(thetas[:CHUNK], b["slices"], b["topo"])
-    L, binv, h_u, ladder = expo.table_inputs(b["system"], params_b, b["grid"])
-    got = phi_tables(L, binv, h_u, ladder)
-    want = phi_tables_reference(L, binv, h_u, ladder)
+def reset_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def table_bound(L, binv, h_u, ladder) -> tuple[float, str]:
+    """(bound_ms, bound_by) of a table build on these inputs: the larger of
+    the bytes it must move (L read once, the tables written once) over HBM
+    bandwidth and its FP32 FMAs over the FP32 peak. FMAs per (pair, lane):
+    7 w^3 (Horner) + 7 w^2 (series) + s (w^3 + 2 w^2) (ladder), with s the
+    lane's own squaring count on this data."""
+    w, B = L.shape[1], L.shape[3]
+    fmas = 0.0
+    for b, h in zip(np.asarray(binv), np.asarray(h_u)):
+        A = L[int(b)] * float(h)
+        norm = torch.amax(torch.sum(torch.abs(A), dim=1), dim=0)
+        s = torch.clamp(torch.ceil(torch.log2(torch.clamp(norm, min=1e-30) / 0.5)),
+                        0.0, float(ladder))
+        steps = float(torch.nan_to_num(s, nan=0.0).sum())
+        fmas += B * (7 * w ** 3 + 7 * w ** 2) + steps * (w ** 3 + 2 * w ** 2)
+    nbytes = 4.0 * (L.numel() + len(binv) * (w * w + 2 * w) * B)
+    t_ops, t_bytes = 2.0 * fmas / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def augmented(L, binv, h_u) -> torch.Tensor:
+    """(U*B, w+2, w+2) matrices [[L h, e0, 0], [0, 0, 1], [0, 0, 0]] whose
+    exponential holds E, phi1(L h) e0 and phi2(L h) e0: the input of the
+    library yardstick ``torch.linalg.matrix_exp``."""
+    U, w, B = len(binv), L.shape[1], L.shape[3]
+    h = torch.as_tensor(np.asarray(h_u, np.float32), device=L.device)
+    M = L.new_zeros((U, B, w + 2, w + 2))
+    M[:, :, :w, :w] = (L[torch.as_tensor(np.asarray(binv, np.int64), device=L.device)]
+                       * h[:, None, None, None]).permute(0, 3, 1, 2)
+    M[:, :, 0, w] = 1.0
+    M[:, :, w, w + 1] = 1.0
+    return M.reshape(U * B, w + 2, w + 2)
+
+
+def library_check(X, want, h_u) -> float:
+    """Scaled error of the matrix_exp tables against the plain version."""
+    E, p1, p2 = want
+    U, w, B = E.shape[0], E.shape[1], E.shape[3]
+    X = X.reshape(U, B, w + 2, w + 2)
+    h = torch.as_tensor(np.asarray(h_u, np.float32), device=X.device)[:, None, None]
+    got = (X[:, :, :w, :w].permute(0, 2, 3, 1),
+           (X[:, :, :w, w] * h).permute(0, 2, 1),
+           (X[:, :, :w, w + 1] * h * h).permute(0, 2, 1))
+    return max(scaled_err(g, r)[1] for g, r in zip(got, want))
+
+
+def compartmental(rng, Bu, w, B) -> torch.Tensor:
+    """Blocks like the model's own: non-negative transfer rates off the
+    diagonal, each column's outflow plus its own decay on the diagonal."""
+    Lw = rng.uniform(0.0, 2.0, (Bu, w, w, B))
+    Lw[:, np.arange(w), np.arange(w), :] = 0.0
+    decay = rng.uniform(0.01, 4.0, (Bu, w, B))
+    Lw[:, np.arange(w), np.arange(w), :] = -(Lw.sum(axis=1) + decay)
+    return torch.as_tensor(Lw, dtype=torch.float32, device="cuda")
+
+
+def check_and_time(label, L, binv, h_u, ladder, card, reps=20, run_k=None,
+                   run_p=None) -> dict:
+    """One table build through a kernel against its plain version (by
+    default ``phi_tables``, which routes by width, and
+    ``phi_tables_reference``): errors, then times in the order plain,
+    kernel, kernel, plain, matrix_exp, and the bound."""
+    run_k = run_k or (lambda: phi_tables(L, binv, h_u, ladder))
+    run_p = run_p or (lambda: phi_tables_reference(L, binv, h_u, ladder))
+    got, want = run_k(), run_p()
     torch.cuda.synchronize()
     errs = [scaled_err(g, w) for g, w in zip(got, want)]
-    max_abs = max(e[0] for e in errs)
-    worst = max(e[1] for e in errs)
+    max_abs, worst = max(e[0] for e in errs), max(e[1] for e in errs)
     # both float32 versions against the float64 plain tables (12 terms)
     exact = phi_tables_reference(L.double(), binv, h_u, ladder)
     vs64 = lambda outs: max(scaled_err(g.double(), x)[1] for g, x in zip(outs, exact))
-    say("3 kernel main-path", shape=tuple(L.shape), pairs=len(binv),
-        ladder=ladder, max_abs_err=f"{max_abs:.3e}",
-        max_scaled_err=f"{worst:.3e}", tol=KERNEL_ATOL,
+    say(f"{label} check", shape=tuple(L.shape), pairs=len(binv), ladder=ladder,
+        max_abs_err=f"{max_abs:.3e}", max_scaled_err=f"{worst:.3e}", tol=KERNEL_ATOL,
         kernel_vs_f64=f"{vs64(got):.3e}", plain_vs_f64=f"{vs64(want):.3e}")
     del exact
     if not worst <= KERNEL_ATOL:
-        raise AssertionError(f"phi_tables kernel disagrees: {worst:.3e}")
+        raise AssertionError(f"{label}: kernel disagrees with the plain version: {worst:.3e}")
 
-    # plain, kernel, kernel, plain: each version timed twice
-    run_k = lambda: phi_tables(L, binv, h_u, ladder)
-    run_p = lambda: phi_tables_reference(L, binv, h_u, ladder)
-    p1, k1, k2, p2 = (cuda_ms(run_p, 3), cuda_ms(run_k, 20),
-                      cuda_ms(run_k, 20), cuda_ms(run_p, 3))
+    p1, k1, k2, p2 = (cuda_ms(run_p, 3), cuda_ms(run_k, reps),
+                      cuda_ms(run_k, reps), cuda_ms(run_p, 3))
+    M = augmented(L, binv, h_u)
+    lib_ms = cuda_ms(lambda: torch.linalg.matrix_exp(M), 3)
+    lib_err = library_check(torch.linalg.matrix_exp(M), want, h_u)
+    del M
+    bound_ms, bound_by = table_bound(L, binv, h_u, ladder)
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    say("3 kernel timing", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        runs_ms=[round(x, 4) for x in (p1, k1, k2, p2)], card=repr(card))
+    say(f"{label} timing", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        runs_ms=[round(x, 4) for x in (p1, k1, k2, p2)],
+        library_vs_plain=f"{lib_err:.3e}", card=repr(card))
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
-    # every block width on compartmental blocks like the model's own:
-    # non-negative transfer rates off the diagonal, each column's outflow
-    # plus its own decay on the diagonal
+
+def check_widths(widths) -> None:
+    """Every block width on compartmental blocks over 1000 lanes (not a
+    multiple of the kernels' tiles), three pairs over two buckets."""
     rng = np.random.default_rng(1)
-    for w in range(2, 9):
-        Bu, B = 2, 1000                    # 1000 lanes: not a multiple of 128
-        Lw = rng.uniform(0.0, 2.0, (Bu, w, w, B))
-        Lw[:, np.arange(w), np.arange(w), :] = 0.0
-        decay = rng.uniform(0.01, 4.0, (Bu, w, B))
-        Lw[:, np.arange(w), np.arange(w), :] = -(Lw.sum(axis=1) + decay)
-        Lw = torch.as_tensor(Lw, dtype=torch.float32, device="cuda")
+    for w in widths:
+        Lw = compartmental(rng, 2, w, 1000)
         bw = np.asarray([0, 1, 1], np.int32)
         hw = np.asarray([0.0625, 2.0, 16.0])
         lad = max(phi_mod.ladder_len(w, h) for h in hw)
@@ -151,13 +241,96 @@ def phase_kernel(b, thetas, card) -> dict:
                 zip(phi_tables(Lw, bw, hw, lad), phi_tables_reference(Lw, bw, hw, lad))]
         torch.cuda.synchronize()
         worst_w = max(e[1] for e in errs)
-        say("3 kernel width", w=w, lanes=B, max_scaled_err=f"{worst_w:.3e}")
+        say("3 kernel width", w=w, lanes=1000, max_scaled_err=f"{worst_w:.3e}")
         if not worst_w <= KERNEL_ATOL:
-            raise AssertionError(f"phi_tables kernel disagrees at w={w}: {worst_w:.3e}")
+            raise AssertionError(f"kernel disagrees at w={w}: {worst_w:.3e}")
+
+
+def phase_kernel(b, thetas, card) -> dict:
+    params_b = unpack_params(thetas[:CHUNK], b["slices"], b["topo"])
+    (L, binv, h_u, ladder), = expo.table_inputs(b["system"], params_b, b["grid"])
+    out = check_and_time("3 kernel main-path", L, binv, h_u, ladder, card)
+    check_widths(range(2, 9))
     return {"name": "phi_tables", "route": "cuda",
             "source": "phoskintime_tpu_torch/csrc/phi_tables.cu",
-            "replaces": "phoskintime_tpu/ops/phi_pallas.py:352",
-            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+            "replaces": "phoskintime_tpu/ops/phi_pallas.py:352", **out}
+
+
+def phase_wide_kernel(b2, thetas2, card) -> dict:
+    """3b: the wide kernel at the model-2 chunk's own class shapes (the
+    w = 17 class is the main-path entry of the summary), every width
+    9..17, and phi_vectors at w = 7 and 17."""
+    params_b = unpack_params(thetas2[:CHUNK], b2["slices"], b2["topo"])
+    per_class = expo.table_inputs(b2["system"], params_b, b2["grid"])
+    summary = {}
+    for L, binv, h_u, ladder in per_class:
+        if L.shape[1] > 8:
+            summary[L.shape[1]] = check_and_time(
+                f"3b wide main-path w={L.shape[1]}", L, binv, h_u, ladder, card, reps=5)
+    del per_class
+    check_widths(range(9, 18))
+
+    # phi_vectors, one pair (U = 1) of compartmental blocks, h = 2
+    rng = np.random.default_rng(2)
+    for w in (7, 17):
+        Lv = compartmental(rng, 1, w, 20480)
+        lad = phi_mod.ladder_len(w, 2.0)
+        one = lambda **kw: tuple(x[None] for x in phi_vectors(Lv[0], 2.0, lad, **kw))
+        check_and_time(f"3b phi_vectors w={w}", Lv, [0], [2.0], lad, card,
+                       run_k=one, run_p=lambda: one(use_kernel=False))
+    return {"name": "phi_tables_wide", "route": "cuda",
+            "source": "phoskintime_tpu_torch/csrc/phi_tables_wide.cu",
+            "replaces": "phoskintime_tpu/ops/phi_pallas.py:406", **summary[17]}
+
+
+def profile_call(fn) -> dict:
+    """One call under torch.profiler: the device's kernel and copy events,
+    the union of their intervals (device-busy ms), and the host wall of
+    the call ended by a synchronize; the idle share is 1 - busy / wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, z in spans:
+        if z > end:
+            busy_us += z - max(a, end)
+            end = z
+    if not spans:
+        return {"device_events": 0, "wall_ms": f"{wall_ms:.3f}",
+                "busy_ms": "not measured (empty device trace)"}
+    return {"device_events": len(spans), "busy_ms": f"{busy_us / 1e3:.3f}",
+            "wall_ms": f"{wall_ms:.3f}",
+            "idle_share": f"{1.0 - busy_us / 1e3 / wall_ms:.3f}"}
+
+
+def stage_cut(label, b, thetas, objective, card) -> None:
+    """Where one chunk's time goes, by CUDA events around each stage run
+    on its own: softplus unpack, the linear blocks, the tables, the whole
+    batched simulate (blocks + tables + scan) and the whole objective;
+    then one objective call under the profiler."""
+    system, grid = b["system"], b["grid"]
+    params_b = unpack_params(thetas, b["slices"], b["topo"])
+    inputs = expo.table_inputs(system, params_b, grid)
+    ms = {"unpack": cuda_ms(lambda: unpack_params(thetas, b["slices"], b["topo"]), 3),
+          "blocks": cuda_ms(lambda: expo.table_inputs(system, params_b, grid), 3),
+          "tables": cuda_ms(lambda: [phi_tables(*a) for a in inputs], 10),
+          "simulate": cuda_ms(lambda: expo.exponential_simulate_batched(
+              system, params_b, grid), 3),
+          "objective": cuda_ms(lambda: objective(thetas), 3)}
+    ms["scan"] = ms["simulate"] - ms["blocks"] - ms["tables"]
+    ms["loss_and_unpack"] = ms["objective"] - ms["simulate"]
+    say(f"{label} stages", members=thetas.shape[0],
+        **{k: f"{v:.3f}" for k, v in ms.items()}, unit="ms", card=repr(card))
+    say(f"{label} profile", members=thetas.shape[0],
+        **profile_call(lambda: objective(thetas)))
 
 
 def phase_main_path(b, thetas, card) -> int:
@@ -168,17 +341,17 @@ def phase_main_path(b, thetas, card) -> int:
     objective(thetas)                      # warm-up (allocator, cuBLAS)
     torch.cuda.synchronize()
 
-    phi_tables.launches = 0
+    reset_counts()
     F = objective(thetas)
     torch.cuda.synchronize()
-    launches = phi_tables.launches
+    launches = {k.__name__: k.launches for k in KERNELS}
     n_chunks = -(-POP // CHUNK)
     if tuple(F.shape) != (POP, 3) or not bool(torch.isfinite(F).all()):
         raise AssertionError("non-finite or misshapen objectives")
-    if launches != n_chunks:
-        raise AssertionError(f"phi_tables launched {launches} times for {n_chunks} chunks")
+    if launches != {"phi_tables": n_chunks, "phi_tables_wide": 0}:
+        raise AssertionError(f"kernel launches {launches} for {n_chunks} chunks")
     say("4 main path", pop=POP, chunk=CHUNK, F_shape=tuple(F.shape),
-        finite=True, phi_tables_launches=launches)
+        finite=True, launches=launches)
 
     plain = make_population_objective(*args, pop_chunk=CHUNK, use_kernel=False)
     Fp = plain(thetas[:256])
@@ -190,6 +363,43 @@ def phase_main_path(b, thetas, card) -> int:
     ms = cuda_ms(lambda: objective(thetas), 3)
     say("4 main path rate", evals_per_s=f"{POP / (ms / 1e3):.1f}",
         ms_per_pop=f"{ms:.3f}", card=repr(card))
+    stage_cut("4", b, thetas[:CHUNK], objective, card)
+    return launches
+
+
+def phase_main_path_model2(b2, thetas2, card) -> dict:
+    """4b: the model-2 objective, width-bucketed into five classes: w = 2,
+    3, 5 through phi_tables, w = 9, 17 through phi_tables_wide."""
+    args = (b2["system"], b2["slices"], b2["loss_data"], b2["defaults"],
+            b2["lambdas"], b2["grid"])
+    objective = make_population_objective(*args, pop_chunk=CHUNK)
+    torch.cuda.synchronize()
+    objective(thetas2)                     # warm-up
+    torch.cuda.synchronize()
+
+    reset_counts()
+    F = objective(thetas2)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in KERNELS}
+    if tuple(F.shape) != (POP2, 3) or not bool(torch.isfinite(F).all()):
+        raise AssertionError("model 2: non-finite or misshapen objectives")
+    if launches != {"phi_tables": 3, "phi_tables_wide": 2}:
+        raise AssertionError(f"model 2: kernel launches {launches}, want 3 and 2")
+    say("4b model-2 main path", pop=POP2, chunk=CHUNK, F_shape=tuple(F.shape),
+        finite=True, classes=[(wc, len(i)) for wc, i in expo.width_classes(b2["topo"])],
+        launches=launches)
+
+    plain = make_population_objective(*args, pop_chunk=CHUNK, use_kernel=False)
+    Fp = plain(thetas2[:256])
+    rel = float(torch.max(torch.abs(F[:256] - Fp) / torch.abs(Fp)))
+    say("4b model-2 vs plain", members=256, max_rel_err=f"{rel:.3e}", tol=F_RTOL)
+    if not rel <= F_RTOL:
+        raise AssertionError(f"model 2: objective with the kernels drifted: {rel:.3e}")
+
+    ms = cuda_ms(lambda: objective(thetas2), 3)
+    say("4b model-2 rate", evals_per_s=f"{POP2 / (ms / 1e3):.1f}",
+        ms_per_pop=f"{ms:.3f}", card=repr(card))
+    stage_cut("4b", b2, thetas2, objective, card)
     return launches
 
 
@@ -261,23 +471,145 @@ def phase_accuracy(b) -> None:
         raise AssertionError(f"ETD2RK drifted from the LSODA oracle: {err:.3e}")
 
 
+def rel_err(got, want) -> float:
+    """Max relative error over lists of arrays, |want| floored at 1e-6."""
+    return max(float(np.max(np.abs(g - o) / np.maximum(np.abs(o), 1e-6)))
+               for g, o in zip(got, want))
+
+
+def hypercube(topo):
+    """(bit (Smax, M), neighbour (Smax, M), valid sites (N, Smax), valid
+    states (N, M)) of the combinatorial mechanism: state m of a protein
+    sets bit j when site j is phosphorylated; m ^ 2^j is its neighbour
+    across site j."""
+    smax = topo.max_sites
+    m = np.arange(1 << smax)
+    j = np.arange(smax)[:, None]
+    return ((m[None, :] >> j) & 1, m[None, :] ^ (1 << j),
+            topo.site_mask().astype(float), topo.state_mask().astype(float))
+
+
+def oracle_rhs_model2(b):
+    """dy/dt of the combinatorial mechanism (model 2), float64 numpy, written
+    out from the equations: state m of a protein gains from its neighbour
+    across site j by phosphorylation (bit j set in m, rate S_j) or by
+    dephosphorylation (bit j clear, rate E) and loses by the reverse
+    edges; it decays at D (m = 0) or at the sum of Dp_j + D over its set
+    bits; translation C R feeds m = 0; mRNA as in model 0."""
+    topo, system = b["topo"], b["system"]
+    p = {k: np.asarray(v, float) for k, v in b["true"].items()}
+    Kmat, grid = np.asarray(system.Kmat, float), np.asarray(system.kin_grid, float)
+    bit, nbr, valid_s, valid_m = hypercube(topo)
+    N, w = topo.N, topo.width
+    driven = topo.driver_map >= 0
+    D = p["D_i"][:, None]
+    decay = np.where(np.arange(valid_m.shape[1])[None, :] == 0, D,
+                     ((p["Dp_i"] + D) * valid_s) @ bit)            # (N, M)
+    E = p["E_i"][:, None, None]
+
+    def rhs(y, t):
+        Y = y.reshape(N, w)
+        R, X = Y[:, 0], Y[:, 1:] * valid_m
+        jb = min(max(int(np.searchsorted(grid, t, side="right") - 1), 0),
+                 Kmat.shape[1] - 1)
+        Kt = Kmat[:, jb] * p["c_k"]
+        S = np.einsum("nsk,k->ns", topo.W_pad, Kt)[:, :, None]     # (N, Smax, 1)
+        Pv = X.sum(1)
+        Pv[driven] = Kt[topo.driver_map[driven]]
+        v = (topo.tf_mat @ Pv) / topo.tf_deg
+        u = v / (1.0 + np.abs(v))
+        act = p["A_i"] * (1.0 + p["tf_scale"] * u / (1.0 + u + 1e-6))
+        rep = p["A_i"] / (1.0 + p["tf_scale"] * np.abs(u))
+        gain = np.where(bit[None] == 1, S, E) * X[:, nbr]            # (N, Smax, M)
+        loss = np.where(bit[None] == 1, E, S) * X[:, None, :]
+        dX = ((gain - loss) * valid_s[:, :, None]).sum(1) - decay * X
+        dX[:, 0] += p["C_i"] * R
+        dY = np.concatenate([(np.where(u >= 0.0, act, rep) - p["B_i"] * R)[:, None],
+                             dX * valid_m], axis=1)
+        return dY.reshape(-1)
+
+    return rhs
+
+
+def fold_changes_model2_np(Y, times, topo):
+    """(fc_rna, fc_protein, fc_phospho at valid sites) of a model-2 run
+    (T, N, w): the total sums the valid states, site j sums the states
+    with bit j set."""
+    bit, _, _, valid_m = hypercube(topo)
+    base = lambda t0: int(np.argmin(np.abs(times - t0)))
+    fc = lambda sig, b: np.maximum(sig, 1e-12) / np.maximum(sig[b][None], 1e-12)
+    X = Y[:, :, 1:] * valid_m
+    pho = np.einsum("tnm,jm->tnj", X, bit)
+    return (fc(Y[:, :, 0], base(4.0)), fc(X.sum(2), base(0.0)),
+            fc(pho, base(0.0))[:, topo.site_mask()])
+
+
+def port_fold_changes(system, true, times):
+    """The port's fold changes at one parameter set, as float64 numpy."""
+    p_b = {k: np.asarray(v)[None] for k, v in true.items()}
+    ys, success = expo.exponential_simulate_batched(system, p_b, times)
+    if not bool(success[0]):
+        raise AssertionError("ETD2RK failed at the true parameters")
+    got = [x.double().cpu().numpy() for x in
+           fold_changes(extract_observables(system, ys[0]), times)]
+    got[2] = got[2][:, system.topo.site_mask()]
+    return got
+
+
+def phase_precision_model2(b2) -> None:
+    """5b: float32 on the card against the port's float64 on the CPU (the
+    gate), and both against a LSODA oracle of the hypercube equations."""
+    from scipy.integrate import odeint
+
+    system, topo = b2["system"], b2["topo"]
+    times = np.asarray(b2["grid"], float)
+    got32 = port_fold_changes(system, b2["true"], times)
+    sys64 = GlobalSystem(topo, system.kin_grid, system.Kmat, dtype=torch.float64,
+                         device="cpu")
+    got64 = port_fold_changes(sys64, b2["true"], times)
+    err = rel_err(got32, got64)
+    Y = odeint(oracle_rhs_model2(b2), system.y0().reshape(-1), times, rtol=1e-7,
+               atol=1e-9, mxstep=20000).reshape(len(times), topo.N, topo.width)
+    want = fold_changes_model2_np(Y, times, topo)
+    say("5b model-2 precision", f32_card_vs_f64_cpu=f"{err:.3e}", gate=PRECISION_GATE,
+        f32_vs_lsoda=f"{rel_err(got32, want):.3e}",
+        f64_vs_lsoda=f"{rel_err(got64, want):.3e}", oracle="LSODA rtol 1e-7 atol 1e-9")
+    if not err < PRECISION_GATE:
+        raise AssertionError(f"model 2: float32 drifted from float64: {err:.3e}")
+
+
+def population(b, pop: int) -> torch.Tensor:
+    """theta0 plus seeded noise, as bench.py and benchmarks/model_rates.py."""
+    rng = np.random.default_rng(0)
+    return torch.as_tensor(
+        b["theta0"][None] + 0.05 * rng.normal(size=(pop, len(b["theta0"]))),
+        dtype=torch.float32, device="cuda")
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
     t0 = time.perf_counter()
     b = build_demo_network(N_PROTEINS, N_KINASES, seed=0, dtype=torch.float32,
                            device="cuda")
-    rng = np.random.default_rng(0)
-    thetas = torch.as_tensor(
-        b["theta0"][None] + 0.05 * rng.normal(size=(POP, len(b["theta0"]))),
-        dtype=torch.float32, device="cuda")
-    topo = b["topo"]
-    say("setup", N=topo.N, K=topo.K, w=topo.width, n_theta=len(b["theta0"]),
-        T=len(b["grid"]), seconds=f"{time.perf_counter() - t0:.2f}")
+    b2 = build_demo_network(N_PROTEINS, N_KINASES, model=2, seed=0,
+                            dtype=torch.float32, device="cuda")
+    thetas, thetas2 = population(b, POP), population(b2, POP2)
+    for bb in (b, b2):
+        topo = bb["topo"]
+        say("setup", model=topo.model, N=topo.N, K=topo.K, w=topo.width,
+            n_theta=len(bb["theta0"]), T=len(bb["grid"]))
+    say("setup", seconds=f"{time.perf_counter() - t0:.2f}")
     kernel = phase_kernel(b, thetas, card)
-    kernel["launches"] = phase_main_path(b, thetas, card)
+    wide = phase_wide_kernel(b2, thetas2, card)
+    paths = {"model0-pop8192": phase_main_path(b, thetas, card),
+             "model2-pop2048": phase_main_path_model2(b2, thetas2, card)}
+    for entry in (kernel, wide):
+        entry["launches_by_path"] = {p: n[entry["name"]] for p, n in paths.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
     phase_accuracy(b)
-    print(json.dumps({"kernels": [kernel]}))
+    phase_precision_model2(b2)
+    print(json.dumps({"kernels": [kernel, wide]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

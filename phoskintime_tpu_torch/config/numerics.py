@@ -11,12 +11,29 @@ device a tensor lives on:
 :class:`~phoskintime_tpu_torch.network.system.GlobalSystem` takes this
 default; a caller that wants another dtype passes it explicitly. No
 environment variable is read.
+
+The entry points place the model on the card unless the caller asks for
+the CPU (``device="cpu"``); :func:`resolve_device` raises where there is
+no card rather than falling back to the CPU.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+DEFAULT_DEVICE = "cuda"
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a card
+    raises instead of quietly becoming the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; the port runs on the card by "
+            "default: pass device='cpu' to run on the CPU")
+    return device
 
 
 def working_dtype(device) -> torch.dtype:

@@ -2,10 +2,11 @@
 
 Counterpart of ``phoskintime_tpu/demo.py::build_demo_network``. The same
 numpy ``default_rng`` draws in the same order give the same topology,
-kinase input, true parameters and raw packing as the JAX package. The
-synthetic observations come from this package's own ETD2RK integrator at
-float64 on the host (the JAX package uses RK45), so they agree with the
-JAX bundle's only to the integrators' accuracy.
+kinase input, true parameters and raw packing as the JAX package, for
+every mechanism the port runs (0, 1, 2). The synthetic observations come
+from this package's own ETD2RK integrator at float64 on the CPU, whatever
+device the bundle's system is made for (the JAX package uses RK45), so
+they agree with the JAX bundle's only to the integrators' accuracy.
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from phoskintime_tpu_torch.config.numerics import numpy_dtype
+from phoskintime_tpu_torch.config.numerics import (DEFAULT_DEVICE, numpy_dtype,
+                                                   resolve_device)
 from phoskintime_tpu_torch.network.expo import exponential_simulate_batched
 from phoskintime_tpu_torch.network.kinase_input import build_kinase_matrix
 from phoskintime_tpu_torch.network.lossdata import prepare_loss_data
@@ -59,9 +61,11 @@ def _observations(system64, true, topo, times):
 
 def build_demo_network(n_proteins: int = 40, n_kinases: int = 12,
                        max_sites: int = 4, model: int = 0, seed: int = 0,
-                       dtype: torch.dtype = torch.float32, device="cpu"):
+                       dtype: torch.dtype = torch.float32, device=DEFAULT_DEVICE):
     """Deterministic synthetic network + data as a dict bundle; the system
-    is made at ``dtype`` on ``device``, host data stays numpy."""
+    is made at ``dtype`` on ``device`` (default: the card; raises where
+    there is none), host data stays numpy."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     proteins = [f"P{i:03d}" for i in range(n_proteins)]
     kinases = [f"K{i:02d}" for i in range(n_kinases)]
@@ -96,7 +100,8 @@ def build_demo_network(n_proteins: int = 40, n_kinases: int = 12,
     true = {k: np.asarray(v, np_dt) for k, v in true.items()}
 
     grid = np.unique(np.concatenate([GRID, RNA_GRID]))
-    prot, rna, pho = _observations(GlobalSystem(topo, GRID, Kmat), true, topo, grid)
+    system64 = GlobalSystem(topo, GRID, Kmat, dtype=torch.float64, device="cpu")
+    prot, rna, pho = _observations(system64, true, topo, grid)
     loss_data = prepare_loss_data(topo, prot, rna, pho, grid)
     defaults = default_params(topo, np_dt)
     theta0, slices, xl, xu = init_raw_params(defaults, topo, BOUNDS)

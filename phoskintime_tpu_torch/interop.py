@@ -20,7 +20,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from phoskintime_tpu_torch.config.numerics import torch_dtype
+from phoskintime_tpu_torch.config.numerics import DEFAULT_DEVICE, torch_dtype
 from phoskintime_tpu_torch.network.lossdata import LossData
 from phoskintime_tpu_torch.network.system import GlobalSystem
 from phoskintime_tpu_torch.network.topology import NetworkTopology
@@ -37,11 +37,13 @@ def _topology(t) -> NetworkTopology:
         tf_deg=np.asarray(t.tf_deg, float), model=int(t.model))
 
 
-def from_reference(obj, *, dtype: torch.dtype | None = None, device="cpu"):
+def from_reference(obj, *, dtype: torch.dtype | None = None, device=DEFAULT_DEVICE):
     """The port's equivalent of a JAX-package object (see module doc).
 
     A system is made at ``dtype`` (default: the reference system's own
-    numpy dtype) on ``device``; other values ignore both."""
+    numpy dtype) on ``device`` (default: the card; raises where there is
+    none); other values ignore both. The topology carries its mechanism,
+    so a model-2 system comes across with its hypercube tables."""
     if hasattr(obj, "W_pad") and hasattr(obj, "driver_map"):
         return _topology(obj)
     if hasattr(obj, "topo") and hasattr(obj, "Kmat") and hasattr(obj, "kin_grid"):

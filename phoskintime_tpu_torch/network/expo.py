@@ -1,19 +1,27 @@
 """Exponential (ETD2RK) integrator for the global network model, batched
 over a population.
 
-Counterpart of the unbucketed path of
-``phoskintime_tpu/network/expo.py::exponential_simulate_batched`` for the
-affine mechanisms 0 and 1. Within one kinase bucket the RHS splits as
-dy = L y + g(y): L is block-diagonal per protein (width w = 2 + Smax) and
-g is the synthesis drive in the R slot, the only coupling between
-proteins. Each segment of the static plan takes the exponential
-trapezoidal step (Cox & Matthews 2002)
+Counterpart of ``phoskintime_tpu/network/expo.py::
+exponential_simulate_batched`` for the affine mechanisms 0, 1 and 2.
+Within one kinase bucket the RHS splits as dy = L y + g(y): L is
+block-diagonal per protein (width w = 2 + Smax, or 1 + 2^Smax for the
+combinatorial mechanism) and g is the synthesis drive in the R slot, the
+only coupling between proteins. Each segment of the static plan takes the
+exponential trapezoidal step (Cox & Matthews 2002)
 
     a   = E y + p1 g(y)
     y+  = a + (p2 / h) (g(a) - g(y))
 
 with E = expm(L h), p1 = h phi1(L h) e0, p2 = h^2 phi2(L h) e0 built once
 per (bucket, h) pair by :func:`~phoskintime_tpu_torch.ops.phi_tables.phi_tables`.
+
+Every mechanism's blocks are written out as lane planes
+(:func:`_linear_blocks_lanes` for models 0/1, :func:`_block_linear_operators`
+for model 2, where the JAX package differentiates its RHS instead). Model 2
+runs width-bucketed by
+default: proteins with s sites keep blocks of width 1 + 2^s, grouped into
+width classes, each with its own tables and its own slice of the state
+(:func:`width_classes`).
 
 Layout: the state is (w, P*N) — slot planes with member-major lanes — so
 the tables, the state and the synthesis drive all keep the lane axis last.
@@ -153,30 +161,149 @@ def _linear_blocks_lanes(system, params_b: dict, buckets: np.ndarray):
     return torch.stack([torch.stack(r, dim=1) for r in rows], dim=1)
 
 
+def _block_linear_operators_class(system, params_b: dict, buckets: np.ndarray,
+                                  idx: np.ndarray, wc: int):
+    """(Bu, wc, wc, P*Nc) model-2 linear blocks of the proteins ``idx`` at
+    width ``wc``, one slab per bucket, lanes member-major.
+
+    The JAX package recovers these blocks with one ``jax.jvp`` of the RHS
+    per column, the TF input frozen. The RHS is affine in the state, so
+    the port writes the same entries out as wc*wc lane planes, each an
+    elementwise function of parameter lanes and the Smax site rates
+    (Bu, P, K) @ (K, Nc), as :func:`_linear_blocks_lanes` does for models
+    0/1; on the card the derivative route (a vmapped ``torch.func.jvp``)
+    took most of the objective's time (PERF.md). Slots are
+    [R, X_0 .. X_{wc-2}], X_m the state whose set bits are the
+    phosphorylated sites:
+
+      dR/dR = -B;  dX_0/dR = C (translation);
+      dX_m/dX_m = -(sum_j v_j (E if bit j of m else S_j)) - decay_m;
+      dX_m/dX_{m^2^j} = v_j (S_j if bit j of m else E),
+
+    with v_j the site mask, decay_0 = D and decay_m the sum of Dp_j + D
+    over the set bits of m, and every row and column masked by the
+    protein's valid states. ``tests/test_torch_model2.py`` holds them
+    against the JAX package's jvp blocks and the port's own RHS."""
+    rhs = system.rhs
+    Smax = rhs.Smax
+    dev = rhs.Kmat.device
+    idx_t = torch.as_tensor(np.asarray(idx, np.int64), device=dev)
+    P = params_b["c_k"].shape[0]
+    Bu, lanes = len(buckets), P * len(idx_t)
+    bk = torch.as_tensor(np.asarray(buckets, np.int64), device=dev)
+    Kt = params_b["c_k"][None] * rhs.Kmat[:, bk].T[:, None, :]   # (Bu, P, K)
+    msk = rhs.site_mask[idx_t]                                   # (Nc, Smax)
+    stm = rhs.state_mask[idx_t]                                  # (Nc, Mmax)
+
+    def lane(x):                                    # (P, Nc) -> (1, P*Nc)
+        return x.reshape(1, lanes)
+
+    def bc(x):
+        return x.expand(Bu, lanes)
+
+    S = [torch.einsum("bpk,nk->bpn", Kt, rhs.W_pad[idx_t, j, :]).reshape(Bu, lanes)
+         for j in range(Smax)]
+    B_l, C_l, D_l, E_l = (lane(params_b[k][:, idx_t]) for k in ("B_i", "C_i", "D_i", "E_i"))
+    Dp_l = [lane(params_b["Dp_i"][:, idx_t, j]) for j in range(Smax)]
+    v_l = [lane(msk[None, :, j].expand(P, -1)) for j in range(Smax)]
+    st_l = [lane(stm[None, :, m].expand(P, -1)) for m in range(wc - 1)]
+    zero = Kt.new_zeros((Bu, lanes))
+
+    rows = [[zero] * wc for _ in range(wc)]
+    rows[0][0] = bc(-B_l)
+    if wc > 1:
+        rows[1][0] = bc(C_l * st_l[0])
+    for m in range(wc - 1):
+        set_bits = [j for j in range(Smax) if (m >> j) & 1]
+        out = sum(v_l[j] * (E_l if j in set_bits else S[j]) for j in range(Smax))
+        decay = D_l if m == 0 else sum((Dp_l[j] + D_l) * v_l[j] for j in set_bits)
+        rows[1 + m][1 + m] = bc((-out - decay) * st_l[m] * st_l[m])
+        for j in range(Smax):
+            m2 = m ^ (1 << j)
+            if m2 < wc - 1:
+                rate = S[j] if j in set_bits else E_l
+                rows[1 + m][1 + m2] = bc(v_l[j] * rate * st_l[m] * st_l[m2])
+    return torch.stack([torch.stack(r, dim=1) for r in rows], dim=1)
+
+
+def _block_linear_operators(system, params_b: dict, buckets: np.ndarray):
+    """(Bu, w, w, P*N) model-2 linear blocks of every protein at the full
+    width, written out as :func:`_block_linear_operators_class` does."""
+    rhs = system.rhs
+    return _block_linear_operators_class(system, params_b, buckets,
+                                         np.arange(rhs.N), rhs.width)
+
+
+def width_classes(topo, width_bucketing: bool | None = None) -> list:
+    """Width classes of the combinatorial mechanism: [(wc, protein idx)].
+
+    ``width_bucketing`` None is the auto rule (model 2 at w >= 9); False
+    keeps the single full-width path (an empty list); True lifts the auto
+    threshold. Models 0/1 never bucket. Protein widths 1 + 2^s are merged
+    greedily in ascending order until a group holds at least 5% of the
+    proteins; a group runs at its largest width, which is exact for its
+    narrower members (their padded rows and columns are zero)."""
+    if width_bucketing is None:
+        width_bucketing = topo.model == 2 and topo.width >= 9
+    if not (width_bucketing and topo.model == 2):
+        return []
+    ws_prot = 1 + 2 ** np.asarray(topo.n_sites)
+    uniq_ws = sorted({int(v) for v in ws_prot})
+    classes: list = []
+    if len(uniq_ws) > 1:
+        acc: list = []
+        for wc in uniq_ws:
+            acc.append(np.where(ws_prot == wc)[0])
+            if sum(len(a) for a in acc) / topo.N >= 0.05 or wc == uniq_ws[-1]:
+                classes.append((wc, np.concatenate(acc)))
+                acc = []
+    return classes if len(classes) > 1 else []
+
+
 def _plan(system, t_eval, substep: float):
     return _segment_plan(tuple(np.asarray(system.kin_grid, float)),
                          tuple(np.asarray(t_eval, float)), float(substep))
 
 
-def table_inputs(system, params_b: dict, t_eval, substep: float = 16.0):
-    """The arguments the main path hands to :func:`phi_tables`:
-    (L (Bu, w, w, P*N), binv (U,) int32, u_h (U,), ladder)."""
+def table_inputs(system, params_b: dict, t_eval, substep: float = 16.0,
+                 width_bucketing: bool | None = None) -> list:
+    """The arguments the main path hands to :func:`phi_tables`, one tuple
+    per width class (a single one unless model 2 runs width-bucketed):
+    [(L (Bu, wc, wc, P*Nc), binv (U,) int32, u_h (U,), ladder)]."""
     u_jb, u_h = _plan(system, t_eval, substep)[5:]
     bucket_uniq, bucket_inv = np.unique(u_jb, return_inverse=True)
-    L = _linear_blocks_lanes(system, params_b, bucket_uniq)
-    ladder = max(ladder_len(system.topo.width, float(h)) for h in u_h)
-    return L, bucket_inv.astype(np.int32), u_h, ladder
+    binv = bucket_inv.astype(np.int32)
+    classes = width_classes(system.topo, width_bucketing)
+    if classes:
+        blocks = [(_block_linear_operators_class(system, params_b, bucket_uniq,
+                                                 idx, wc), wc)
+                  for wc, idx in classes]
+    elif system.topo.model == 2:
+        blocks = [(_block_linear_operators(system, params_b, bucket_uniq),
+                   system.topo.width)]
+    else:
+        blocks = [(_linear_blocks_lanes(system, params_b, bucket_uniq),
+                   system.topo.width)]
+    return [(L, binv, u_h, max(ladder_len(wc, float(h)) for h in u_h))
+            for L, wc in blocks]
+
+
+def _lanes_mv(M, v):
+    """(w, w, B) x (w, B) -> (w, B), the lane-batched matvec."""
+    return torch.sum(M * v[None], dim=1)
 
 
 def exponential_simulate_batched(system, params_b: dict, t_eval,
                                  substep: float = 16.0, y0=None,
                                  use_kernel: bool | None = None,
-                                 differentiable: bool = False):
+                                 differentiable: bool = False,
+                                 width_bucketing: bool | None = None):
     """Batched ETD2RK over a population: ``params_b`` leaves carry a leading
     axis P. Returns (ys (P, T, N*w), success (P,)) on the system's device.
 
-    ``use_kernel`` goes to :func:`phi_tables` (None: the CUDA kernel on a
+    ``use_kernel`` goes to :func:`phi_tables` (None: the CUDA kernels on a
     CUDA system, the plain version on the CPU; False: the plain version).
+    ``width_bucketing`` picks the model-2 layout (see :func:`width_classes`).
     """
     if differentiable:
         raise NotImplementedError(
@@ -190,27 +317,59 @@ def exponential_simulate_batched(system, params_b: dict, t_eval,
     params_b = {k: torch.as_tensor(v, dtype=dt, device=dev)
                 for k, v in params_b.items()}
     P = params_b["c_k"].shape[0]
-    lanes = P * N
     if y0 is None:
         y0 = system.y0()
     y0 = torch.as_tensor(np.asarray(y0, float).reshape(N, w), dtype=dt, device=dev)
 
     _, seg_h, seg_jb, out_idx, seg_uidx, _, _ = _plan(system, t_eval, substep)
-    E_u, P1_u, P2_u = phi_tables(*table_inputs(system, params_b, t_eval, substep),
-                                 use_kernel=use_kernel)
+    tables = [phi_tables(*args, use_kernel=use_kernel) for args in
+              table_inputs(system, params_b, t_eval, substep, width_bucketing)]
+    classes = width_classes(topo, width_bucketing)
+    runs, out_pos = _run_plan(seg_uidx, out_idx)
+    n_buckets = rhs.Kmat.shape[1]
+
+    def drive_at(jb):
+        """(P, N) live kinase drive of bucket ``jb`` for driven proteins."""
+        jb = min(max(int(jb), 0), n_buckets - 1)
+        return (rhs.Kmat[:, jb][None, :] * params_b["c_k"])[:, rhs.driver_idx]
+
+    if classes:
+        ys = _class_scan(system, params_b, y0, classes, tables, runs, out_pos,
+                         seg_uidx, seg_jb, seg_h, drive_at)
+    else:
+        ys = _full_scan(system, params_b, y0, tables[0], runs, out_pos,
+                        seg_uidx, seg_jb, seg_h, drive_at)
+    success = torch.isfinite(ys).all(dim=2).all(dim=1)
+    return ys, success
+
+
+def _full_scan(system, params_b, y0, table, runs, out_pos, seg_uidx, seg_jb,
+               seg_h, drive_at):
+    """The run-structured scan at the full width: every protein in one
+    (w, P*N) state."""
+    rhs = system.rhs
+    N, w = rhs.N, rhs.width
+    P = params_b["c_k"].shape[0]
+    lanes = P * N
+    E_u, P1_u, P2_u = table
 
     # synthesis drive g(y) in the R slot: total protein per lane, replaced
     # by the live kinase activity for kinase-driven proteins, then the TF
     # matvec and the rational rate
-    msk_lane = rhs.site_mask.T.repeat(1, P)                  # (Smax, P*N)
+    if rhs.model == 2:
+        stm_lane = rhs.state_mask.T.repeat(1, P)             # (Mmax, P*N)
+    else:
+        msk_lane = rhs.site_mask.T.repeat(1, P)              # (Smax, P*N)
     driven = rhs.driven.repeat(P)
     A_b = params_b["A_i"]                                    # (P, N)
     ts_b = params_b["tf_scale"][:, None]                     # (P, 1)
     tf_T = rhs.tf_mat.T
-    n_buckets = rhs.Kmat.shape[1]
 
     def synth_of(yl, drive):
-        tot = yl[1] + torch.sum(yl[2:] * msk_lane, dim=0)
+        if rhs.model == 2:
+            tot = torch.sum(yl[1:] * stm_lane, dim=0)
+        else:
+            tot = yl[1] + torch.sum(yl[2:] * msk_lane, dim=0)
         Pv = torch.where(driven, drive, tot)
         v = (Pv.reshape(P, N) @ tf_T) / rhs.tf_deg
         u = v / (1.0 + torch.abs(v))
@@ -218,24 +377,87 @@ def exponential_simulate_batched(system, params_b: dict, t_eval,
 
     # runs of equal (bucket, h): the table row, the bucket's kinase drive
     # and 1/h are fixed for the whole run; only run ends are kept
-    runs, out_pos = _run_plan(seg_uidx, out_idx)
     yl = y0.reshape(1, N, w).expand(P, N, w).reshape(lanes, w).T.contiguous()
     states = [yl]
     for start, n in runs:
         uidx = int(seg_uidx[start])
-        jb = min(max(int(seg_jb[start]), 0), n_buckets - 1)
         Es, P1 = E_u[uidx], P1_u[uidx]
         P2h = P2_u[uidx] * (1.0 / float(seg_h[start]))
-        drive = (rhs.Kmat[:, jb][None, :] * params_b["c_k"])[:, rhs.driver_idx]
-        drive = drive.reshape(lanes)
+        drive = drive_at(seg_jb[start]).reshape(lanes)
         for _ in range(n):
             s_n = synth_of(yl, drive)
-            a = torch.sum(Es * yl[None], dim=1) + P1 * s_n
+            a = _lanes_mv(Es, yl) + P1 * s_n
             s_a = synth_of(a, drive)
             yl = a + P2h * (s_a - s_n)
         states.append(yl)
-    sel = torch.stack(states)[torch.as_tensor(out_pos, device=dev)]  # (T, w, PN)
-    T = len(out_idx)
-    ys = sel.reshape(T, w, P, N).permute(2, 0, 3, 1).reshape(P, T, N * w)
-    success = torch.isfinite(ys).all(dim=2).all(dim=1)
-    return ys, success
+    sel = torch.stack(states)[torch.as_tensor(out_pos, device=yl.device)]  # (T, w, PN)
+    T = len(out_pos)
+    return sel.reshape(T, w, P, N).permute(2, 0, 3, 1).reshape(P, T, N * w)
+
+
+def _class_scan(system, params_b, y0, classes, tables, runs, out_pos, seg_uidx,
+                seg_jb, seg_h, drive_at):
+    """The run-structured scan over width classes (model 2).
+
+    Proteins are permuted once so that each class is a contiguous range;
+    each class keeps its own (wc, P*Nc) state and its own tables, and the
+    synthesis drive runs on the permuted topology, so no step gathers
+    lanes. The padded full-width trajectory is assembled once at the end.
+    """
+    rhs = system.rhs
+    N, w = rhs.N, rhs.width
+    P = params_b["c_k"].shape[0]
+    dev = y0.device
+    prot_perm = np.concatenate([idx for _, idx in classes])
+    pp = torch.as_tensor(prot_perm, device=dev)
+    poffs = np.cumsum([0] + [len(idx) for _, idx in classes])
+    spans = [(int(poffs[ci]), len(idx), wc) for ci, (wc, idx) in enumerate(classes)]
+
+    tfm_T = rhs.tf_mat[pp][:, pp].T
+    tfd_p = rhs.tf_deg[pp]
+    driven_p = rhs.driven[pp]
+    inv = pp.new_tensor(np.argsort(prot_perm))        # permuted -> original
+    stm_p = rhs.state_mask[pp]                          # (N, Mmax), permuted
+    A_p = params_b["A_i"][:, pp]                        # (P, N)
+    ts_b = params_b["tf_scale"][:, None]                # (P, 1)
+    # per-class valid-state planes, tiled member-major: (wc - 1, P*nc)
+    stm_lane = [stm_p[off:off + nc, :wc - 1].T.repeat(1, P) for off, nc, wc in spans]
+
+    def synth_perm(yls, drive_p):
+        """(P, N) synthesis drive, permuted order, from the class states."""
+        tot = torch.cat([torch.sum(yc[1:] * sm, dim=0).reshape(P, nc)
+                         for yc, sm, (_, nc, _) in zip(yls, stm_lane, spans)], dim=1)
+        Pv = torch.where(driven_p[None, :], drive_p, tot)
+        v = (Pv @ tfm_T) / tfd_p[None, :]
+        u = v / (1.0 + torch.abs(v))
+        return synthesis_rate(A_p, ts_b, u)
+
+    def class_part(x, off, nc):                          # (P, N) -> (P*nc,)
+        return x[:, off:off + nc].reshape(P * nc)
+
+    Y0p = y0[pp]                                         # (N, w), permuted
+    yls = [Y0p[off:off + nc, :wc].T.repeat(1, P).contiguous() for off, nc, wc in spans]
+    states = [yls]
+    for start, n in runs:
+        uidx = int(seg_uidx[start])
+        h = float(seg_h[start])
+        rows = [(Ec[uidx], P1c[uidx], P2c[uidx] / h) for Ec, P1c, P2c in tables]
+        drive_p = drive_at(seg_jb[start])[:, pp]
+        for _ in range(n):
+            s_n = synth_perm(yls, drive_p)
+            a = [_lanes_mv(Es, yc) + P1 * class_part(s_n, off, nc)
+                 for yc, (Es, P1, _), (off, nc, _) in zip(yls, rows, spans)]
+            d = synth_perm(a, drive_p) - s_n
+            yls = [ac + P2h * class_part(d, off, nc)
+                   for ac, (_, _, P2h), (off, nc, _) in zip(a, rows, spans)]
+        states.append(yls)
+
+    sel = torch.as_tensor(out_pos, device=dev)
+    T = len(out_pos)
+    parts = []
+    for ci, (off, nc, wc) in enumerate(spans):
+        sc = torch.stack([st[ci] for st in states])[sel]          # (T, wc, P*nc)
+        full = torch.cat([sc, sc.new_zeros((T, w - wc, P * nc))], dim=1)
+        parts.append(full.reshape(T, w, P, nc))
+    ys_p = torch.cat(parts, dim=3)                                # (T, w, P, N) permuted
+    return ys_p[..., inv].permute(2, 0, 3, 1).reshape(P, T, N * w)

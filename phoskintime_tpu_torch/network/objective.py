@@ -92,7 +92,8 @@ def _auto_pop_chunk(n_proteins: int, lanes_target: int = 81920) -> int:
 def make_population_objective(system, slices, loss_data, defaults, lambdas,
                               time_grid, loss_mode=0, fail_value=1e12,
                               y0=None, substep=16.0, use_kernel=None,
-                              differentiable=False, pop_chunk="auto"):
+                              differentiable=False, pop_chunk="auto",
+                              width_bucketing=None):
     """Batched objective ``thetas (P, n) -> F (P, 3)`` on the system's
     device and dtype.
 
@@ -100,7 +101,9 @@ def make_population_objective(system, slices, loss_data, defaults, lambdas,
     last chunk padded with copies of the last row whose results are
     dropped; ``"auto"`` sizes it by :func:`_auto_pop_chunk`, None never
     chunks. ``use_kernel`` goes to the propagator-table build (None: the
-    CUDA kernel on a CUDA system; False: the plain version).
+    CUDA kernels on a CUDA system; False: the plain version).
+    ``width_bucketing`` goes to the integrator (None: per-width-class
+    tables for the combinatorial mechanism at w >= 9).
     ``differentiable=True`` is not ported yet and raises."""
     if differentiable:
         raise NotImplementedError(
@@ -140,7 +143,7 @@ def make_population_objective(system, slices, loss_data, defaults, lambdas,
 
         ys, success = exponential_simulate_batched(
             system, params_b, t_eval, substep=substep, y0=y0,
-            use_kernel=use_kernel)
+            use_kernel=use_kernel, width_bucketing=width_bucketing)
         obs = extract_observables(system, ys)
         if dense is not None:
             losses = (dense_loss(obs.TOT, ld.prot_base_idx, dense[0]),

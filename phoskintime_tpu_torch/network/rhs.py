@@ -1,29 +1,48 @@
-"""Right-hand side of the global network model, mechanisms 0 and 1.
+"""Right-hand side of the global network model, mechanisms 0, 1 and 2.
 
-Counterpart of ``phoskintime_tpu/network/rhs.py``: distributive (0) and
-sequential (1) phosphorylation with the rational soft-clipped synthesis
-rate, over the padded (N, width) state. The combinatorial (2) and
-saturating (4) mechanisms are ROADMAP queue 1 item "Mechanisms 2 and 4
-on the objective" and raise ``NotImplementedError`` here.
+Counterpart of ``phoskintime_tpu/network/rhs.py``: distributive (0),
+sequential (1) and combinatorial (2, the hypercube of phospho-states)
+phosphorylation with the rational soft-clipped synthesis rate, over the
+padded (N, width) state. The saturating mechanism (4) is ROADMAP queue 1
+item "Mechanism 4 on the objective" and raises ``NotImplementedError``.
 
 Within one kinase bucket these mechanisms are affine in the state; the
 only coupling between proteins is the TF input u, and with u frozen the
-linear part is block-diagonal (:meth:`PaddedRHS.linear_blocks`). That is
-the structure the exponential integrator in ``network/expo.py`` uses.
+linear part is block-diagonal (:meth:`PaddedRHS.linear_blocks` for
+models 0/1, ``network/expo.py::_block_linear_operators`` for model 2).
+That is the structure the exponential integrator uses.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+
+import numpy as np
 import torch
 
+from phoskintime_tpu_torch.config.numerics import DEFAULT_DEVICE, resolve_device
+
 _NOT_PORTED = ("model {} is not ported yet (ROADMAP.md queue 1: "
-               "'Mechanisms 2 and 4 on the objective')")
+               "'Mechanism 4 on the objective')")
 
 
 def check_model(model: int) -> None:
     """Raise for a mechanism the port does not cover yet."""
-    if int(model) not in (0, 1):
+    if int(model) not in (0, 1, 2):
         raise NotImplementedError(_NOT_PORTED.format(model))
+
+
+@lru_cache(maxsize=None)
+def _hypercube_tables(smax: int):
+    """Static bitmask tables of the combinatorial mechanism, host numpy:
+    ``bits[j, m]`` is bit j of state m (float 0/1) and ``xor_idx[j, m]``
+    is ``m XOR (1 << j)``, the neighbour of m across site j."""
+    mmax = 1 << smax
+    m = np.arange(mmax, dtype=np.int64)[None, :]
+    j = np.arange(smax, dtype=np.int64)[:, None]
+    bits = ((m >> j) & 1).astype(np.float64)
+    xor_idx = (m ^ (1 << j)).astype(np.int32)
+    return bits, xor_idx
 
 
 def synthesis_rate(A, tf_scale, u_squashed):
@@ -44,11 +63,13 @@ def tf_inputs(tf_mat, tf_deg, P_vec):
 
 class PaddedRHS:
     """RHS over the padded state, holding the topology tensors at one
-    dtype on one device. ``rhs(t, y_flat, jb, params)`` evaluates one
-    member; ``jb`` indexes the kinase grid (the bucket of t)."""
+    dtype on one device (default: the card). ``rhs(t, y_flat, jb,
+    params)`` evaluates one member; ``jb`` indexes the kinase grid (the
+    bucket of t)."""
 
-    def __init__(self, topo, Kmat, dtype=torch.float64, device="cpu"):
+    def __init__(self, topo, Kmat, dtype=torch.float64, device=DEFAULT_DEVICE):
         check_model(topo.model)
+        device = resolve_device(device)
         f = dict(dtype=dtype, device=device)
         self.model = int(topo.model)
         self.N = topo.N
@@ -62,6 +83,13 @@ class PaddedRHS:
         self.driver_idx = torch.clamp(self.driver_map, min=0).long()
         self.site_mask = torch.as_tensor(topo.site_mask(), **f)
         self.Kmat = torch.as_tensor(Kmat, **f)          # (K, n_buckets)
+        if self.model == 2:
+            bits, xor_idx = _hypercube_tables(self.Smax)
+            self.bits = torch.as_tensor(bits, **f)                  # (Smax, Mmax)
+            self.xor_idx = torch.as_tensor(xor_idx, dtype=torch.long,
+                                           device=device)           # (Smax, Mmax)
+            self.state_mask = torch.as_tensor(topo.state_mask(), **f)  # (N, Mmax)
+            self.Mmax = topo.max_states
 
     def kinase_activity(self, params, jb: int):
         """Kt = K(t) * c_k at the clamped bucket index."""
@@ -73,6 +101,8 @@ class PaddedRHS:
         return torch.einsum("nsk,k->ns", self.W_pad, Kt)
 
     def total_protein(self, Y):
+        if self.model == 2:
+            return torch.sum(Y[:, 1:] * self.state_mask, dim=1)
         return Y[:, 1] + torch.sum(Y[:, 2:] * self.site_mask, dim=1)
 
     def p_vec(self, Y, Kt):
@@ -89,7 +119,8 @@ class PaddedRHS:
         u = (tf_inputs(self.tf_mat, self.tf_deg, self.p_vec(Y, Kt))
              if u_override is None else u_override)
         synth = synthesis_rate(params["A_i"], params["tf_scale"], u)
-        rhs = self._rhs_sequential if self.model == 1 else self._rhs_distributive
+        rhs = {0: self._rhs_distributive, 1: self._rhs_sequential,
+               2: self._rhs_combinatorial}[self.model]
         return rhs(Y, S, synth, params).reshape(-1)
 
     def _rhs_distributive(self, Y, S, synth, p):
@@ -124,12 +155,44 @@ class PaddedRHS:
                + E * sites[:, 0] * has_sites)
         return torch.cat([dR[:, None], dP0[:, None], d_sites], dim=1)
 
+    def _rhs_combinatorial(self, Y, S, synth, p):
+        """Model 2, the hypercube: per set bit of a state, a dephospho edge
+        at rate E and decay Dp_j + D; per clear bit, a phospho edge at rate
+        S_j. Translation feeds state 0, which decays at plain D. Written
+        out of place, so ``torch.func`` can differentiate through it."""
+        B, C, D, E, Dp = p["B_i"], p["C_i"], p["D_i"], p["E_i"], p["Dp_i"]
+        R = Y[:, 0]
+        X = Y[:, 1:] * self.state_mask                  # (N, Mmax)
+        smask = self.site_mask                          # (N, Smax)
+        Sm = S * smask
+        dR = synth - B * R
+
+        # X_x[n, j, m] = X[n, m ^ (1 << j)], the neighbour across site j
+        X_x = torch.index_select(X, 1, self.xor_idx.reshape(-1)).reshape(
+            self.N, self.Smax, self.Mmax)
+        bits = self.bits[None]                          # (1, Smax, Mmax)
+        inflow = bits * Sm[:, :, None] * X_x + (1 - bits) * E[:, None, None] * X_x
+        outflow = (bits * E[:, None, None] * X[:, None, :]
+                   + (1 - bits) * Sm[:, :, None] * X[:, None, :])
+        dX = torch.sum((inflow - outflow) * smask[:, :, None], dim=1)
+
+        decay = torch.einsum("nj,jm->nm", (Dp + D[:, None]) * smask, self.bits)
+        decay = torch.cat([D[:, None], decay[:, 1:]], dim=1)   # state 0: D
+        dX = dX - decay * X
+        dX = torch.cat([dX[:, :1] + (C * R)[:, None], dX[:, 1:]], dim=1)
+        dX = dX * self.state_mask
+        return torch.cat([dR[:, None], dX], dim=1)
+
     def linear_blocks(self, S, p):
-        """(N, w, w) block-diagonal linear operator with the TF input frozen.
+        """(N, w, w) block-diagonal linear operator with the TF input frozen,
+        models 0/1 (model 2's are written out in lane layout in
+        ``network/expo.py``).
 
         Exact, since these mechanisms are linear in the state; entries are
         written in place rather than contracted against one-hot placement
         tables, so no matmul (and no TF32 question) is involved."""
+        if self.model not in (0, 1):
+            raise ValueError("linear_blocks is written out for models 0/1 only")
         N, w = self.N, self.width
         msk = self.site_mask
         B, C, D, E, Dp = p["B_i"], p["C_i"], p["D_i"], p["E_i"], p["Dp_i"]

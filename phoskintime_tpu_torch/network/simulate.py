@@ -26,11 +26,18 @@ class Observables(NamedTuple):
 
 def extract_observables(system, Y_flat: torch.Tensor) -> Observables:
     """Raw observables from a padded trajectory (..., T, N*width); any
-    leading axes (a population) carry through."""
+    leading axes (a population) carry through. Model 2: the total is the
+    sum over valid states, and site j's signal sums the states with bit
+    j set."""
     topo = system.topo
     check_model(topo.model)
     Y = Y_flat.reshape(*Y_flat.shape[:-1], topo.N, topo.width)
-    sites = Y[..., 2:] * system.rhs.site_mask.to(Y.dtype)
+    rhs = system.rhs
+    if topo.model == 2:
+        X = Y[..., 1:] * rhs.state_mask.to(Y.dtype)
+        PHO = torch.einsum("...nm,jm->...nj", X, rhs.bits.to(Y.dtype))
+        return Observables(Y[..., 0], X.sum(-1), PHO)
+    sites = Y[..., 2:] * rhs.site_mask.to(Y.dtype)
     return Observables(Y[..., 0], Y[..., 1] + sites.sum(-1), sites)
 
 

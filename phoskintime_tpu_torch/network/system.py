@@ -13,7 +13,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from phoskintime_tpu_torch.config.numerics import working_dtype
+from phoskintime_tpu_torch.config.numerics import (DEFAULT_DEVICE,
+                                                   resolve_device,
+                                                   working_dtype)
 from phoskintime_tpu_torch.network.rhs import PaddedRHS
 from phoskintime_tpu_torch.network.topology import NetworkTopology
 
@@ -40,31 +42,36 @@ def flat_site_values(topo: NetworkTopology, padded: np.ndarray) -> np.ndarray:
 @dataclasses.dataclass
 class GlobalSystem:
     """Static topology, kinase input and default y0, with the RHS tensors
-    made once at ``dtype`` on ``device`` (default: float32 on CUDA,
-    float64 on the CPU). Host inputs (Kmat, grid, y0) stay float64 numpy."""
+    made once at ``dtype`` on ``device`` (default: the card, where the
+    working dtype is float32; ``device="cpu"`` works at float64). Host
+    inputs (Kmat, grid, y0) stay float64 numpy."""
 
     topo: NetworkTopology
     kin_grid: np.ndarray      # protein timepoint grid (bucket boundaries)
     Kmat: np.ndarray          # (K, len(grid))
     custom_y0: np.ndarray | None = None
     dtype: torch.dtype | None = None      # None: working_dtype(device)
-    device: torch.device | str = "cpu"
+    device: torch.device | str = DEFAULT_DEVICE
 
     def __post_init__(self):
-        self.device = torch.device(self.device)
+        self.device = resolve_device(self.device)
         if self.dtype is None:
             self.dtype = working_dtype(self.device)
         self.rhs = PaddedRHS(self.topo, self.Kmat, dtype=self.dtype,
                              device=self.device)
 
     def y0(self) -> np.ndarray:
-        """Padded (N, width) initial state: R = 1, P0 = 1, valid phospho
-        slots 0.01."""
+        """Padded (N, width) initial state: R = 1, then P0 = 1 and the
+        valid phospho slots 0.01 (models 0/1), or the unphosphorylated
+        state X_0 = 1 and the valid states X_1.. 0.01 (model 2)."""
         if self.custom_y0 is not None:
             return np.array(self.custom_y0, dtype=float, copy=True)
         topo = self.topo
         Y = np.zeros((topo.N, topo.width))
         Y[:, 0] = 1.0
         Y[:, 1] = 1.0
-        Y[:, 2:] = 0.01 * topo.site_mask()
+        if topo.model == 2:
+            Y[:, 2:] = 0.01 * topo.state_mask()[:, 1:]
+        else:
+            Y[:, 2:] = 0.01 * topo.site_mask()
         return Y

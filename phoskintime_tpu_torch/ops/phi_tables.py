@@ -1,17 +1,22 @@
 """ETD2RK propagator tables: E = expm(L h), p1 = h phi1(L h) e0,
 p2 = h^2 phi2(L h) e0, for every (bucket, h) pair of the segment plan.
 
-Counterpart of ``phoskintime_tpu/ops/phi_pallas.py``. Two versions of one
-function:
+Counterpart of ``phoskintime_tpu/ops/phi_pallas.py``:
 
-* :func:`phi_tables` — the entry point. On a CUDA float32 tensor with
-  w <= 8 it launches the hand-written kernel ``csrc/phi_tables.cu`` (the
-  port of ``phi_vectors_pallas_pages``) and adds one to
-  ``phi_tables.launches``. On a CPU tensor it runs the plain version.
-* :func:`phi_tables_reference` — the plain PyTorch version, the port of
-  ``network/expo.py::_phi_vectors_lanes`` looped over the pairs.
+* :func:`phi_tables` — the entry point. On a CUDA float32 tensor it
+  launches a hand-written kernel: ``csrc/phi_tables.cu`` for 2 <= w <= 8
+  (the port of ``phi_vectors_pallas_pages``; one more in
+  ``phi_tables.launches``), or, through :func:`phi_tables_wide`,
+  ``csrc/phi_tables_wide.cu`` for 9 <= w <= 17 (the port of
+  ``phi_vectors_pallas_all``; one more in ``phi_tables_wide.launches``).
+  On a CPU tensor it runs the plain version.
+* :func:`phi_vectors` — one pair, the port of ``phi_vectors_pallas``: the
+  same kernels with U = 1.
+* :func:`phi_tables_reference` — the plain PyTorch version at any width,
+  the port of ``network/expo.py::_phi_vectors_lanes`` looped over the pairs.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` on first use, into
+Each kernel source is compiled with ``nvcc`` for ``sm_90a`` on first use
+(one ``nvcc`` per source, all started together), into
 ``phoskintime_tpu_torch/_build/`` under a name keyed by a hash of the
 source and flags, and bound with ``ctypes`` through a plain C interface.
 """
@@ -35,17 +40,20 @@ _RADIUS = 0.5
 # ladder sizing: ||L h||_inf <= RATE_CAP * w * h for softplus-bounded rates
 _RATE_CAP = 32.0
 _MAX_SQUARINGS = 24
-_MAX_KERNEL_WIDTH = 8
+_MAX_KERNEL_WIDTH = 8           # csrc/phi_tables.cu
+_MAX_WIDE_WIDTH = 17            # csrc/phi_tables_wide.cu: model 2 up to Smax = 4
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "phi_tables.cu"
+WIDE_SOURCE = _PKG / "csrc" / "phi_tables_wide.cu"
+SOURCES = (SOURCE, WIDE_SOURCE)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_WIDE_NOT_PORTED = ("phi_tables kernel takes float32 with 2 <= w <= {}; "
-                    "got {} at w = {} (the wide-block kernel is ROADMAP.md "
-                    "queue 2, kernel 2: phi_vectors_pallas_all)")
+_NOT_COVERED = ("the phi_tables kernels take float32 with 2 <= w <= {}; got {} "
+                "at w = {} (wider blocks, model 2 at Smax >= 5, are ROADMAP.md "
+                "queue 2, kernel 1b: 'phi_tables_wide above w = 17')")
 
 
 def ladder_len(w: int, h: float, max_squarings: int = _MAX_SQUARINGS) -> int:
@@ -133,7 +141,7 @@ def phi_tables_reference(L: torch.Tensor, binv, h_u, ladder: int):
 
 
 # ---------------------------------------------------------------------------
-# the kernel
+# the kernels
 # ---------------------------------------------------------------------------
 
 
@@ -145,51 +153,107 @@ def nvcc_path() -> str:
 
     if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
         return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: building csrc/phi_tables.cu needs "
+    raise RuntimeError("nvcc not found: building the kernels in csrc/ needs "
                        "the CUDA toolkit")
 
 
-def library_path() -> Path:
-    """Where the built library lives: keyed by the source and flags."""
-    key = hashlib.sha256(SOURCE.read_bytes()
+def library_path(source: Path = SOURCE) -> Path:
+    """Where the library of ``source`` lives: keyed by the source and flags."""
+    key = hashlib.sha256(source.read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libphi_tables_{key}.so"
+    return BUILD_DIR / f"lib{source.stem}_{key}.so"
 
 
-def build_library() -> tuple[Path, float]:
-    """Compile the kernel if its library is not built yet; returns the
-    library path and the seconds the build took (0 when it was there).
-    The compiler's register report is kept beside it as ``.log``."""
-    out = library_path()
-    if out.exists():
-        return out, 0.0
+def build_libraries() -> dict:
+    """Compile every kernel source whose library is not built yet, one
+    ``nvcc`` per source, all started together. Returns {library path:
+    seconds its build took (0 when it was there)}. The compiler's register
+    report is kept beside each library as ``.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    out, jobs = {}, []
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out, seconds
+    for src in SOURCES:
+        lib = library_path(src)
+        if lib.exists():
+            out[lib] = 0.0
+            continue
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        jobs.append((lib, tmp, proc))
+    failed = []
+    for lib, tmp, proc in jobs:
+        log = proc.communicate()[0]
+        out[lib] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{lib.name}: nvcc failed ({proc.returncode}):\n{log}")
+            continue
+        lib.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
-_LIB: ctypes.CDLL | None = None
+_ENTRIES: dict = {}
 
 
-def _library() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build_library()[0]))
-        lib.phi_tables_f32.argtypes = ([ctypes.c_void_p] * 6
-                                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        lib.phi_tables_f32.restype = ctypes.c_int
-        lib.phi_tables_error_string.argtypes = [ctypes.c_int]
-        lib.phi_tables_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+def _entry(source: Path, name: str):
+    """(launch function, error-string function) of the C entry ``name`` in
+    the library built from ``source``; builds the libraries if needed."""
+    if name not in _ENTRIES:
+        lib_path = library_path(source)
+        if not lib_path.exists():
+            build_libraries()
+        lib = ctypes.CDLL(str(lib_path))
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = getattr(lib, f"{source.stem}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _ENTRIES[name] = (fn, err)
+    return _ENTRIES[name]
+
+
+def _check(L: torch.Tensor, binv, h_u):
+    if L.dim() != 4 or L.shape[1] != L.shape[2]:
+        raise ValueError(f"L must be (Bu, w, w, B); got {tuple(L.shape)}")
+    binv = np.asarray(binv)
+    h_u = np.asarray(h_u)
+    if binv.shape != h_u.shape or binv.ndim != 1:
+        raise ValueError("binv and h_u must be (U,) arrays of one length")
+    if len(binv) and (binv.min() < 0 or binv.max() >= L.shape[0]):
+        raise ValueError("binv indexes past the buckets of L")
+    return binv, h_u
+
+
+def _launch(source: Path, name: str, L, binv, h_u, ladder: int):
+    """Allocate the tables and launch one kernel on L's device and stream."""
+    if not L.is_contiguous():
+        raise ValueError("L must be contiguous")
+    w, B = L.shape[1], L.shape[3]
+    U = len(binv)
+    # grid: (lane tiles, U), lane index a 32-bit int
+    if not (0 < U <= 65535 and 0 < B < 2 ** 31 // w):
+        raise ValueError(f"unsupported table size U={U}, B={B}")
+    if not 0 <= int(ladder) <= _MAX_SQUARINGS:
+        raise ValueError(f"ladder {ladder} outside [0, {_MAX_SQUARINGS}]")
+    dev = L.device
+    binv_d = torch.as_tensor(binv, dtype=torch.int32).to(dev)
+    h_d = torch.as_tensor(h_u, dtype=torch.float32).to(dev)
+    E = torch.empty((U, w, w, B), dtype=torch.float32, device=dev)
+    p1 = torch.empty((U, w, B), dtype=torch.float32, device=dev)
+    p2 = torch.empty((U, w, B), dtype=torch.float32, device=dev)
+    fn, err = _entry(source, name)
+    with torch.cuda.device(dev):          # launch in L's device context
+        rc = fn(L.data_ptr(), binv_d.data_ptr(), h_d.data_ptr(),
+                E.data_ptr(), p1.data_ptr(), p2.data_ptr(),
+                w, U, B, int(ladder), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: " + err(rc).decode())
+    return E, p1, p2
 
 
 def phi_tables(L: torch.Tensor, binv, h_u, ladder: int, *,
@@ -202,53 +266,55 @@ def phi_tables(L: torch.Tensor, binv, h_u, ladder: int, *,
       h_u: (U,) host float array, the segment length of each pair.
       ladder: bound on each lane's squaring count (the max of
         :func:`ladder_len` over the pairs).
-      use_kernel: None routes by device (kernel on CUDA, plain version on
-        the CPU); False forces the plain version (comparisons only).
+      use_kernel: None routes by device (a kernel on CUDA, the plain
+        version on the CPU); False forces the plain version (comparisons
+        only).
     Returns E (U, w, w, B), p1 (U, w, B), p2 (U, w, B).
     """
-    if L.dim() != 4 or L.shape[1] != L.shape[2]:
-        raise ValueError(f"L must be (Bu, w, w, B); got {tuple(L.shape)}")
-    binv = np.asarray(binv)
-    h_u = np.asarray(h_u)
-    if binv.shape != h_u.shape or binv.ndim != 1:
-        raise ValueError("binv and h_u must be (U,) arrays of one length")
-    if len(binv) and (binv.min() < 0 or binv.max() >= L.shape[0]):
-        raise ValueError("binv indexes past the buckets of L")
+    binv, h_u = _check(L, binv, h_u)
     if use_kernel is None:
         use_kernel = L.is_cuda
     if not use_kernel:
         return phi_tables_reference(L, binv, h_u, ladder)
     if not L.is_cuda:
         raise ValueError("use_kernel=True needs a CUDA tensor")
-    w, B = L.shape[1], L.shape[3]
-    if L.dtype != torch.float32 or not 2 <= w <= _MAX_KERNEL_WIDTH:
-        raise NotImplementedError(
-            _WIDE_NOT_PORTED.format(_MAX_KERNEL_WIDTH, L.dtype, w))
-    if not L.is_contiguous():
-        raise ValueError("L must be contiguous")
-    U = len(binv)
-    # grid: (ceil(B / 128), U), lane index a 32-bit int
-    if not (0 < U <= 65535 and 0 < B < 2 ** 31):
-        raise ValueError(f"unsupported table size U={U}, B={B}")
-    if not 0 <= int(ladder) <= _MAX_SQUARINGS:
-        raise ValueError(f"ladder {ladder} outside [0, {_MAX_SQUARINGS}]")
-    dev = L.device
-    binv_d = torch.as_tensor(binv, dtype=torch.int32).to(dev)
-    h_d = torch.as_tensor(h_u, dtype=torch.float32).to(dev)
-    E = torch.empty((U, w, w, B), dtype=torch.float32, device=dev)
-    p1 = torch.empty((U, w, B), dtype=torch.float32, device=dev)
-    p2 = torch.empty((U, w, B), dtype=torch.float32, device=dev)
-    lib = _library()
-    with torch.cuda.device(dev):          # launch in L's device context
-        rc = lib.phi_tables_f32(L.data_ptr(), binv_d.data_ptr(), h_d.data_ptr(),
-                                E.data_ptr(), p1.data_ptr(), p2.data_ptr(),
-                                w, U, B, int(ladder),
-                                torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("phi_tables kernel launch failed: "
-                           + lib.phi_tables_error_string(rc).decode())
+    w = L.shape[1]
+    if L.dtype != torch.float32 or not 2 <= w <= _MAX_WIDE_WIDTH:
+        raise NotImplementedError(_NOT_COVERED.format(_MAX_WIDE_WIDTH, L.dtype, w))
+    if w > _MAX_KERNEL_WIDTH:
+        return phi_tables_wide(L, binv, h_u, ladder)
+    out = _launch(SOURCE, "phi_tables_f32", L, binv, h_u, ladder)
     phi_tables.launches += 1
-    return E, p1, p2
+    return out
 
 
 phi_tables.launches = 0
+
+
+def phi_tables_wide(L: torch.Tensor, binv, h_u, ladder: int):
+    """The wide-block kernel ``csrc/phi_tables_wide.cu`` (9 <= w <= 17,
+    float32, CUDA), the port of ``phi_vectors_pallas_all``. Arguments and
+    results as :func:`phi_tables`, which routes these widths here."""
+    binv, h_u = _check(L, binv, h_u)
+    w = L.shape[1]
+    if not L.is_cuda:
+        raise ValueError("phi_tables_wide needs a CUDA tensor")
+    if L.dtype != torch.float32 or not _MAX_KERNEL_WIDTH < w <= _MAX_WIDE_WIDTH:
+        raise NotImplementedError(_NOT_COVERED.format(_MAX_WIDE_WIDTH, L.dtype, w))
+    out = _launch(WIDE_SOURCE, "phi_tables_wide_f32", L, binv, h_u, ladder)
+    phi_tables_wide.launches += 1
+    return out
+
+
+phi_tables_wide.launches = 0
+
+
+def phi_vectors(L: torch.Tensor, h: float, ladder: int, *,
+                use_kernel: bool | None = None):
+    """One (L, h) pair: L (w, w, B) -> E (w, w, B), p1 (w, B), p2 (w, B).
+    The port of ``phi_vectors_pallas``: :func:`phi_tables` with U = 1."""
+    if L.dim() != 3:
+        raise ValueError(f"L must be (w, w, B); got {tuple(L.shape)}")
+    E, p1, p2 = phi_tables(L[None], np.zeros(1, np.int32), np.asarray([float(h)]),
+                           ladder, use_kernel=use_kernel)
+    return E[0], p1[0], p2[0]

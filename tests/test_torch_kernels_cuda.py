@@ -12,9 +12,11 @@ import pytest
 import torch
 
 from phoskintime_tpu_torch.demo import build_demo_network
+from phoskintime_tpu_torch.network.expo import width_classes
 from phoskintime_tpu_torch.network.objective import make_population_objective
 from phoskintime_tpu_torch.ops.phi_tables import (ladder_len, phi_tables,
-                                                  phi_tables_reference)
+                                                  phi_tables_reference,
+                                                  phi_tables_wide, phi_vectors)
 
 pytestmark = pytest.mark.cuda
 
@@ -63,9 +65,46 @@ def test_kernel_matches_plain(cuda_device, w):
         assert_scaled_close(g, r)
 
 
+@pytest.mark.parametrize("w", range(9, 18))
+def test_wide_kernel_matches_plain(cuda_device, w):
+    rng = np.random.default_rng(w)
+    L = torch.as_tensor(compartmental_blocks(rng, 2, w, 1000),
+                        dtype=torch.float32, device=cuda_device)
+    binv, h_u = np.asarray([0, 1, 1]), np.asarray([0.0625, 2.0, 16.0])
+    lad = max(ladder_len(w, h) for h in h_u)
+    before = (phi_tables.launches, phi_tables_wide.launches)
+    got = phi_tables(L, binv, h_u, lad)              # routes w > 8 to the wide kernel
+    torch.cuda.synchronize()
+    assert (phi_tables.launches, phi_tables_wide.launches) == (before[0], before[1] + 1)
+    for g, r in zip(got, phi_tables_reference(L, binv, h_u, lad)):
+        assert g.shape == r.shape and g.dtype == torch.float32
+        assert_scaled_close(g, r)
+    for g, r in zip(phi_vectors(L[1], 2.0, lad), phi_vectors(L[1], 2.0, lad, use_kernel=False)):
+        assert_scaled_close(g, r)
+
+
+@pytest.mark.parametrize("w", [6, 9, 17])
+def test_nan_lane_stays_in_its_lane(cuda_device, w):
+    """A NaN member gets NaN tables and leaves every other lane, its tile's
+    neighbours included, exactly as it was."""
+    rng = np.random.default_rng(0)
+    L = torch.as_tensor(compartmental_blocks(rng, 1, w, 256),
+                        dtype=torch.float32, device=cuda_device)
+    binv, h_u = np.asarray([0, 0]), np.asarray([1.0, 16.0])
+    lad = max(ladder_len(w, h) for h in h_u)
+    clean = phi_tables(L, binv, h_u, lad)
+    L[..., 37] = float("nan")
+    dirty = phi_tables(L, binv, h_u, lad)
+    torch.cuda.synchronize()
+    keep = torch.arange(256, device=cuda_device) != 37
+    for c, d in zip(clean, dirty):
+        assert torch.equal(c[..., keep], d[..., keep])
+        assert bool(torch.isnan(d[..., 37]).all())
+
+
 @pytest.mark.parametrize("bad, err", [
     (dict(dtype=torch.float64), NotImplementedError),
-    (dict(w=9), NotImplementedError),
+    (dict(w=18), NotImplementedError),
     (dict(strided=True), ValueError),
 ])
 def test_kernel_rejects(cuda_device, bad, err):
@@ -91,4 +130,21 @@ def test_objective_goes_through_the_kernel(cuda_device):
     Fp = make_population_objective(*args, pop_chunk=2, use_kernel=False)(thetas)
     assert F.shape == (5, 3) and bool(torch.isfinite(F).all())
     # float32 tables of one algorithm in two builds, through 133 ETD2RK steps
+    assert float(torch.max(torch.abs(F - Fp) / torch.abs(Fp))) <= 1e-3
+
+
+def test_model2_objective_goes_through_both_kernels(cuda_device):
+    b = build_demo_network(n_proteins=12, n_kinases=5, model=2, seed=0,
+                           dtype=torch.float32, device=cuda_device)
+    widths = [wc for wc, _ in width_classes(b["topo"])]
+    args = (b["system"], b["slices"], b["loss_data"], b["defaults"],
+            b["lambdas"], b["grid"])
+    rng = np.random.default_rng(0)
+    thetas = b["theta0"][None] + 0.05 * rng.normal(size=(4, len(b["theta0"])))
+    phi_tables.launches = phi_tables_wide.launches = 0
+    F = make_population_objective(*args, pop_chunk=4)(thetas)
+    assert phi_tables.launches == sum(wc <= 8 for wc in widths)
+    assert phi_tables_wide.launches == sum(wc > 8 for wc in widths) > 0
+    Fp = make_population_objective(*args, pop_chunk=4, use_kernel=False)(thetas)
+    assert F.shape == (4, 3) and bool(torch.isfinite(F).all())
     assert float(torch.max(torch.abs(F - Fp) / torch.abs(Fp))) <= 1e-3

@@ -35,7 +35,7 @@ KEYS = ("system", "slices", "loss_data", "defaults", "lambdas", "grid")
 def bundles(request):
     bj = jax_demo(n_proteins=10, n_kinases=4, model=request.param, seed=0,
                   dtype=np.float64)
-    return bj, from_reference({k: bj[k] for k in KEYS})
+    return bj, from_reference({k: bj[k] for k in KEYS}, device="cpu")
 
 
 def thetas_for(bj, P, seed=1):
@@ -122,7 +122,7 @@ def test_differentiable_not_ported(bundles):
 def test_demo_bundle_matches_jax():
     """Same draws, same structure; observations from another integrator."""
     bj = jax_demo(n_proteins=12, n_kinases=5, seed=2)
-    bt = build_demo_network(n_proteins=12, n_kinases=5, seed=2)
+    bt = build_demo_network(n_proteins=12, n_kinases=5, seed=2, device="cpu")
     tj, tt = bj["topo"], bt["topo"]
     for f in ("proteins", "kinases", "sites", "p2i", "k2i", "proxy_map"):
         assert getattr(tt, f) == getattr(tj, f), f

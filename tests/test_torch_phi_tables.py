@@ -9,6 +9,7 @@ Inputs are made with numpy from a seed and fed to both packages.
 
 import subprocess
 import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -50,14 +51,19 @@ def assert_scaled_close(got, want, atol):
 
 
 def test_package_imports_without_jax():
-    code = ("import sys; import phoskintime_tpu_torch, "
-            "phoskintime_tpu_torch.network.objective, phoskintime_tpu_torch.demo, "
-            "phoskintime_tpu_torch.interop; "
+    """Every module of the port, and chip_smoke.py, in a fresh interpreter."""
+    root = Path(__file__).resolve().parent.parent
+    mods = sorted(".".join(p.relative_to(root).with_suffix("").parts)
+                  for p in (root / "phoskintime_tpu_torch").rglob("*.py"))
+    mods = [m.removesuffix(".__init__") for m in mods] + ["chip_smoke"]
+    assert "phoskintime_tpu_torch.network.expo" in mods and len(mods) > 15
+    code = ("import importlib, sys; "
+            f"[importlib.import_module(m) for m in {mods!r}]; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'phoskintime_tpu' or m.startswith('phoskintime_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stdout + out.stderr
 
 
