@@ -7,8 +7,9 @@ non-zero:
 
 1. device: the card, its power limit, CUDA and nvcc versions; full-float32
    matmuls (TF32 off);
-2. build: compile the hand-written kernels from ``phoskintime_tpu_torch/csrc``,
-   one ``nvcc`` per source, all started together;
+2. build: compile the three hand-written kernel sources from
+   ``phoskintime_tpu_torch/csrc``, one ``nvcc`` per source, all started
+   together;
 3. kernel vs plain: ``phi_tables`` (w <= 8) against ``phi_tables_reference``
    on the card at the main path's own shapes (one 2048-member chunk of the
    bench problem) and at every block width 2..8, scaled atol 2e-5; the
@@ -17,6 +18,14 @@ non-zero:
 3b. the same for ``phi_tables_wide`` (9 <= w <= 17) at the model-2 chunk's
    class shapes (w = 9 and 17) and at every width 9..17, and for
    ``phi_vectors`` (one pair) at w = 7 and 17;
+3c. the same for ``etd2rk_scan`` (the whole ETD2RK scan) against
+   ``etd2rk_scan_reference`` and the eager scan, on the model-0 chunk's own
+   inputs (w = 6) and on an unbucketed model-2 chunk (w = 17), and at every
+   width 2..17 on small random problems, rtol 2e-3 / atol 1e-5 on the
+   trajectory, and on members of 200 proteins (one member a block) at
+   w = 6, 14 and 17; the kernel, the plain version, the eager scan and
+   that scan replayed from a CUDA graph timed, and the kernel's bound
+   worked out;
 4. main path, model 0: the population objective at pop 8192 in chunks of
    2048 on the bench problem (``build_demo_network(40, 12, seed=0)``,
    float32), counting kernel launches, checking F against the plain
@@ -24,12 +33,19 @@ non-zero:
 4b. main path, model 2: the same objective on the combinatorial mechanism
    (``build_demo_network(40, 12, model=2, seed=0)``) at pop 2048 in one
    chunk: 3 launches of ``phi_tables`` and 2 of ``phi_tables_wide``;
+4c. the scan kernel on the main path: the model-0 objective at pop 8192
+   with ``use_scan_kernel=True`` (one ``etd2rk_scan`` launch per chunk, F
+   against the eager objective, evals/s, stage cut, idle share), then the
+   model-2 objective unbucketed with the scan kernel at pop 2048 (one
+   ``etd2rk_scan`` and one ``phi_tables_wide`` launch, F against the default
+   bucketed objective, evals/s beside the unbucketed eager rate);
 5. accuracy, model 0: fold changes at the true parameters against a tight
    SciPy LSODA oracle (rtol 1e-7, atol 1e-9) of the same equations, max
-   relative error below 1e-3;
+   relative error below 1e-3, by the eager scan and by the scan kernel;
 5b. precision, model 2: float32 fold changes on the card against the
    port's float64 result on the CPU, max relative error below 1e-3, and
-   both against a LSODA oracle of the hypercube equations.
+   both against a LSODA oracle of the hypercube equations; again with the
+   scan kernel, unbucketed.
 
 The line before the last is a JSON summary of each kernel; the last line
 is ``{"ok": true, "device": {...}}``. There is no CPU fallback.
@@ -52,9 +68,12 @@ from phoskintime_tpu_torch.network.objective import make_population_objective
 from phoskintime_tpu_torch.network.params import unpack_params
 from phoskintime_tpu_torch.network.simulate import extract_observables, fold_changes
 from phoskintime_tpu_torch.network.system import GlobalSystem
+from phoskintime_tpu_torch.ops import cuda_build
 from phoskintime_tpu_torch.ops import phi_tables as phi_mod
 from phoskintime_tpu_torch.ops.phi_tables import (phi_tables, phi_tables_reference,
                                                   phi_tables_wide, phi_vectors)
+from phoskintime_tpu_torch.ops.scan_kernel import (etd2rk_scan, etd2rk_scan_reference,
+                                                   random_scan_problem)
 
 POP, CHUNK, N_PROTEINS, N_KINASES = 8192, 2048, 40, 12
 POP2 = 2048               # model 2: one chunk, as benchmarks/model_rates.py
@@ -62,10 +81,14 @@ KERNEL_ATOL = 2e-5        # scaled by max |plain|, as tests/test_pallas.py
 F_RTOL = 1e-3             # objective with the kernels vs with the plain tables
 ACCURACY_GATE = 1e-3      # fold changes vs the LSODA oracle, as bench.py
 PRECISION_GATE = 1e-3     # model 2: float32 on the card vs float64 on the CPU
+# the whole scan against its plain version and the eager scan, on the
+# trajectory: the JAX package's tolerance for its Pallas scan kernel
+# (tests/test_pallas.py:262-263)
+SCAN_RTOL, SCAN_ATOL = 2e-3, 1e-5
 # the card's published peaks (H100 SXM data sheet): FP32 outside the
 # tensor cores, and HBM bandwidth
 PEAK_FP32_FLOPS, PEAK_HBM_BYTES = 67e12, 3.35e12
-KERNELS = (phi_tables, phi_tables_wide)
+KERNELS = (phi_tables, phi_tables_wide, etd2rk_scan)
 
 
 def say(phase: str, **fields) -> None:
@@ -102,7 +125,7 @@ def phase_device() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     card = smi.splitlines()[0]
     print(card, flush=True)
-    nvcc = subprocess.run([phi_mod.nvcc_path(), "--version"], capture_output=True,
+    nvcc = subprocess.run([cuda_build.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on; the port needs full float32")
@@ -117,7 +140,7 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    built = phi_mod.build_libraries()
+    built = cuda_build.build_libraries()
     say("2 build", wall_seconds=f"{time.perf_counter() - t0:.2f}")
     for path, seconds in built.items():
         say("2 build", library=path.name, seconds=f"{seconds:.2f}")
@@ -283,6 +306,110 @@ def phase_wide_kernel(b2, thetas2, card) -> dict:
             "replaces": "phoskintime_tpu/ops/phi_pallas.py:406", **summary[17]}
 
 
+def scan_bound(args, plan) -> tuple[float, str]:
+    """(bound_ms, bound_by) of one scan on these inputs: every input read
+    once and the T snapshots written once, over HBM bandwidth, against the
+    FP32 operations over the FP32 peak. Per segment and lane: E y (w^2 FMAs),
+    p1 g and p2h d (w each), two totals (w - 1 each), two TF matvecs (nnz/N
+    FMAs each) and two rational rates (~15 operations each); an FMA is 2."""
+    E = args[0]
+    w, B = E.shape[1], E.shape[3]
+    S, P = len(plan.uidx), B // plan.N
+    nbytes = 4.0 * (sum(x.numel() for x in args) + plan.T * w * B)
+    ops = S * (B * (2 * w * w + 4 * w + 4 * (w - 1) + 31) + 4 * P * len(plan.tf_col))
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def scan_close(label, got, want) -> tuple[float, float]:
+    """Gate the trajectory at rtol/atol, as tests/test_pallas.py; returns
+    (max abs error, max abs error / max |want|)."""
+    bad = torch.abs(got - want) > SCAN_ATOL + SCAN_RTOL * torch.abs(want)
+    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: {int(bad.sum())} entries outside rtol "
+                             f"{SCAN_RTOL} / atol {SCAN_ATOL}")
+    return scaled_err(got, want)
+
+
+def graph_of(fn):
+    """(replay, output) of ``fn`` captured once in a CUDA graph, after a
+    warm-up on a side stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph.replay, out
+
+
+def check_and_time_scan(label, b, thetas, card, **kw) -> dict:
+    """The scan of one chunk by three routes on the inputs the integrator
+    assembles (``expo.ScanSetup``; ``kw``: its options): the kernel against
+    the plain version and the eager scan (gated), then times in the order
+    plain, kernel, kernel, plain, eager, eager replayed from a CUDA graph,
+    and the bound."""
+    params_b = unpack_params(thetas, b["slices"], b["topo"])
+    scan = expo.ScanSetup(b["system"], params_b, b["grid"], **kw)
+    args, plan, eager = scan.kernel_args(), scan.plan, scan.run_eager
+    E = args[0]
+    w, B = E.shape[1], E.shape[3]
+    T, P, N = plan.T, B // plan.N, plan.N
+    run_k = lambda: etd2rk_scan(*args, plan)
+    run_p = lambda: etd2rk_scan_reference(*args, plan)
+    got, want = run_k(), run_p()
+    ys_e = eager()
+    torch.cuda.synchronize()
+    max_abs, scaled = scan_close(f"{label} vs plain", got, want)
+    as_eager = got.reshape(T, w, P, N).permute(2, 0, 3, 1).reshape(P, T, N * w)
+    _, scaled_e = scan_close(f"{label} vs eager", as_eager, ys_e)
+    say(f"{label} check", w=w, lanes=B, segments=len(plan.uidx), pairs=E.shape[0],
+        snapshots=T, max_abs_err=f"{max_abs:.3e}", max_scaled_err=f"{scaled:.3e}",
+        kernel_vs_eager_scaled=f"{scaled_e:.3e}", rtol=SCAN_RTOL, atol=SCAN_ATOL)
+
+    p1, k1, k2, p2 = (cuda_ms(run_p, 3), cuda_ms(run_k, 10), cuda_ms(run_k, 10),
+                      cuda_ms(run_p, 3))
+    eager_ms = cuda_ms(eager, 3)
+    replay, ys_g = graph_of(eager)
+    replay()
+    torch.cuda.synchronize()
+    if not torch.equal(ys_g, ys_e):
+        raise AssertionError(f"{label}: the CUDA graph's scan differs from the eager one")
+    graph_ms = cuda_ms(replay, 5)
+    del replay, ys_g
+    bound_ms, bound_by = scan_bound(args, plan)
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    say(f"{label} timing", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        eager_ms=f"{eager_ms:.4f}", cuda_graph_ms=f"{graph_ms:.4f}",
+        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        runs_ms=[round(x, 4) for x in (p1, k1, k2, p2)], card=repr(card))
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "eager_ms": eager_ms,
+            "cuda_graph_ms": graph_ms}
+
+
+def phase_scan_kernel(b, thetas, b2, thetas2, card) -> dict:
+    """3c: the scan kernel at the model-0 chunk (the summary's entry) and
+    an unbucketed model-2 chunk, then every width 2..17, then members of
+    200 proteins."""
+    out = check_and_time_scan("3c scan main-path", b, thetas[:CHUNK], card)
+    out["model2_unbucketed"] = check_and_time_scan(
+        "3c scan model-2 unbucketed", b2, thetas2[:CHUNK], card, width_bucketing=False)
+    for w, N in [(w, 7) for w in range(2, 18)] + [(6, 200), (14, 200), (17, 200)]:
+        args, plan = random_scan_problem(w, N=N, P=300 if N == 7 else 12, seed=w,
+                                         device="cuda")
+        got, want = etd2rk_scan(*args, plan), etd2rk_scan_reference(*args, plan)
+        torch.cuda.synchronize()
+        max_abs, scaled = scan_close(f"3c scan w={w} N={N}", got, want)
+        say("3c scan width", w=w, proteins=N, lanes=args[0].shape[3],
+            max_abs_err=f"{max_abs:.3e}", max_scaled_err=f"{scaled:.3e}")
+    return {"name": "etd2rk_scan", "route": "cuda",
+            "source": "phoskintime_tpu_torch/csrc/etd2rk_scan.cu",
+            "replaces": "phoskintime_tpu/ops/scan_pallas.py:246", **out}
+
+
 def profile_call(fn) -> dict:
     """One call under torch.profiler: the device's kernel and copy events,
     the union of their intervals (device-busy ms), and the host wall of
@@ -311,19 +438,22 @@ def profile_call(fn) -> dict:
             "idle_share": f"{1.0 - busy_us / 1e3 / wall_ms:.3f}"}
 
 
-def stage_cut(label, b, thetas, objective, card) -> None:
+def stage_cut(label, b, thetas, objective, card, **kw) -> None:
     """Where one chunk's time goes, by CUDA events around each stage run
     on its own: softplus unpack, the linear blocks, the tables, the whole
     batched simulate (blocks + tables + scan) and the whole objective;
-    then one objective call under the profiler."""
+    then one objective call under the profiler. ``kw`` goes to the
+    integrator (``width_bucketing``, ``use_scan_kernel``)."""
     system, grid = b["system"], b["grid"]
     params_b = unpack_params(thetas, b["slices"], b["topo"])
-    inputs = expo.table_inputs(system, params_b, grid)
+    wb = kw.get("width_bucketing")
+    inputs = expo.table_inputs(system, params_b, grid, width_bucketing=wb)
     ms = {"unpack": cuda_ms(lambda: unpack_params(thetas, b["slices"], b["topo"]), 3),
-          "blocks": cuda_ms(lambda: expo.table_inputs(system, params_b, grid), 3),
+          "blocks": cuda_ms(lambda: expo.table_inputs(system, params_b, grid,
+                                                      width_bucketing=wb), 3),
           "tables": cuda_ms(lambda: [phi_tables(*a) for a in inputs], 10),
           "simulate": cuda_ms(lambda: expo.exponential_simulate_batched(
-              system, params_b, grid), 3),
+              system, params_b, grid, **kw), 3),
           "objective": cuda_ms(lambda: objective(thetas), 3)}
     ms["scan"] = ms["simulate"] - ms["blocks"] - ms["tables"]
     ms["loss_and_unpack"] = ms["objective"] - ms["simulate"]
@@ -348,7 +478,7 @@ def phase_main_path(b, thetas, card) -> int:
     n_chunks = -(-POP // CHUNK)
     if tuple(F.shape) != (POP, 3) or not bool(torch.isfinite(F).all()):
         raise AssertionError("non-finite or misshapen objectives")
-    if launches != {"phi_tables": n_chunks, "phi_tables_wide": 0}:
+    if launches != {"phi_tables": n_chunks, "phi_tables_wide": 0, "etd2rk_scan": 0}:
         raise AssertionError(f"kernel launches {launches} for {n_chunks} chunks")
     say("4 main path", pop=POP, chunk=CHUNK, F_shape=tuple(F.shape),
         finite=True, launches=launches)
@@ -383,7 +513,7 @@ def phase_main_path_model2(b2, thetas2, card) -> dict:
     launches = {k.__name__: k.launches for k in KERNELS}
     if tuple(F.shape) != (POP2, 3) or not bool(torch.isfinite(F).all()):
         raise AssertionError("model 2: non-finite or misshapen objectives")
-    if launches != {"phi_tables": 3, "phi_tables_wide": 2}:
+    if launches != {"phi_tables": 3, "phi_tables_wide": 2, "etd2rk_scan": 0}:
         raise AssertionError(f"model 2: kernel launches {launches}, want 3 and 2")
     say("4b model-2 main path", pop=POP2, chunk=CHUNK, F_shape=tuple(F.shape),
         finite=True, classes=[(wc, len(i)) for wc, i in expo.width_classes(b2["topo"])],
@@ -401,6 +531,64 @@ def phase_main_path_model2(b2, thetas2, card) -> dict:
         ms_per_pop=f"{ms:.3f}", card=repr(card))
     stage_cut("4b", b2, thetas2, objective, card)
     return launches
+
+
+def scan_path(label, b, thetas, card, want_launches, **kw) -> dict:
+    """One objective run through the scan kernel (``kw``: the integrator's
+    options besides ``use_scan_kernel=True``), in chunks of CHUNK: launches
+    per kernel, F against the default objective (eager scan), evals/s,
+    stage cut and profiler. Returns the launches."""
+    args = (b["system"], b["slices"], b["loss_data"], b["defaults"], b["lambdas"],
+            b["grid"])
+    objective = make_population_objective(*args, pop_chunk=CHUNK, use_scan_kernel=True,
+                                          **kw)
+    torch.cuda.synchronize()
+    objective(thetas)                      # warm-up
+    torch.cuda.synchronize()
+
+    reset_counts()
+    F = objective(thetas)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in KERNELS}
+    pop = thetas.shape[0]
+    if tuple(F.shape) != (pop, 3) or not bool(torch.isfinite(F).all()):
+        raise AssertionError(f"{label}: non-finite or misshapen objectives")
+    if launches != want_launches:
+        raise AssertionError(f"{label}: kernel launches {launches}, want {want_launches}")
+    say(f"{label} main path", pop=pop, chunk=CHUNK, F_shape=tuple(F.shape), finite=True,
+        launches=launches, **kw)
+
+    default = make_population_objective(*args, pop_chunk=CHUNK)
+    Fe = default(thetas)
+    rel = float(torch.max(torch.abs(F - Fe) / torch.abs(Fe)))
+    say(f"{label} vs eager", members=pop, max_rel_err=f"{rel:.3e}", tol=F_RTOL,
+        reference="default objective (eager scan)")
+    if not rel <= F_RTOL:
+        raise AssertionError(f"{label}: objective through the scan kernel drifted: {rel:.3e}")
+
+    ms = cuda_ms(lambda: objective(thetas), 3)
+    rates = {"evals_per_s": f"{pop / (ms / 1e3):.1f}", "ms_per_pop": f"{ms:.3f}"}
+    if kw:                                 # the same layout through the eager scan
+        eager = make_population_objective(*args, pop_chunk=CHUNK, **kw)
+        ms_e = cuda_ms(lambda: eager(thetas), 3)
+        rates["eager_same_layout_evals_per_s"] = f"{pop / (ms_e / 1e3):.1f}"
+    say(f"{label} rate", **rates, card=repr(card))
+    stage_cut(label, b, thetas[:CHUNK], objective, card, use_scan_kernel=True, **kw)
+    return launches
+
+
+def phase_scan_paths(b, thetas, b2, thetas2, card) -> dict:
+    """4c: the model-0 objective at pop 8192 and the unbucketed model-2
+    objective at pop 2048 through the scan kernel."""
+    n_chunks = -(-POP // CHUNK)
+    return {
+        "model0-pop8192-scan": scan_path(
+            "4c model-0 scan", b, thetas, card,
+            {"phi_tables": n_chunks, "phi_tables_wide": 0, "etd2rk_scan": n_chunks}),
+        "model2-pop2048-unbucketed-scan": scan_path(
+            "4c model-2 scan", b2, thetas2, card,
+            {"phi_tables": 0, "phi_tables_wide": 1, "etd2rk_scan": 1},
+            width_bucketing=False)}
 
 
 def oracle_rhs(b):
@@ -447,16 +635,23 @@ def fold_changes_np(Y, times, msk):
             fc(sites, base(0.0))[:, msk])
 
 
-def phase_accuracy(b) -> None:
+def phase_accuracy(b, **kw) -> None:
+    """5: the model-0 fold changes against the LSODA oracle; ``kw`` goes to
+    the integrator (``use_scan_kernel=True``: through the scan kernel)."""
     from scipy.integrate import odeint
 
     system, topo = b["system"], b["topo"]
     times = np.asarray(b["grid"], float)
     msk = topo.site_mask()
     p_b = {k: np.asarray(v)[None] for k, v in b["true"].items()}
-    ys, success = expo.exponential_simulate_batched(system, p_b, times)
+    before = etd2rk_scan.launches
+    ys, success = expo.exponential_simulate_batched(system, p_b, times, **kw)
+    torch.cuda.synchronize()
+    scan_launches = etd2rk_scan.launches - before
     if not bool(success[0]):
         raise AssertionError("ETD2RK failed at the true parameters")
+    if scan_launches != int(bool(kw.get("use_scan_kernel"))):
+        raise AssertionError(f"the accuracy run made {scan_launches} scan-kernel launches")
     obs = extract_observables(system, ys[0])
     got = [x.double().cpu().numpy() for x in fold_changes(obs, times)]
     got[2] = got[2][:, msk]
@@ -465,7 +660,8 @@ def phase_accuracy(b) -> None:
     want = fold_changes_np(Y, times, msk)
     err = max(float(np.max(np.abs(g - o) / np.maximum(np.abs(o), 1e-6)))
               for g, o in zip(got, want))
-    say("5 accuracy", max_rel_err=f"{err:.3e}", gate=ACCURACY_GATE,
+    say("5 accuracy", scan_kernel_launches=scan_launches,
+        max_rel_err=f"{err:.3e}", gate=ACCURACY_GATE,
         dtype="float32", oracle="LSODA rtol 1e-7 atol 1e-9")
     if not err < ACCURACY_GATE:
         raise AssertionError(f"ETD2RK drifted from the LSODA oracle: {err:.3e}")
@@ -544,10 +740,11 @@ def fold_changes_model2_np(Y, times, topo):
             fc(pho, base(0.0))[:, topo.site_mask()])
 
 
-def port_fold_changes(system, true, times):
-    """The port's fold changes at one parameter set, as float64 numpy."""
+def port_fold_changes(system, true, times, **kw):
+    """The port's fold changes at one parameter set, as float64 numpy;
+    ``kw`` goes to the integrator."""
     p_b = {k: np.asarray(v)[None] for k, v in true.items()}
-    ys, success = expo.exponential_simulate_batched(system, p_b, times)
+    ys, success = expo.exponential_simulate_batched(system, p_b, times, **kw)
     if not bool(success[0]):
         raise AssertionError("ETD2RK failed at the true parameters")
     got = [x.double().cpu().numpy() for x in
@@ -577,6 +774,18 @@ def phase_precision_model2(b2) -> None:
     if not err < PRECISION_GATE:
         raise AssertionError(f"model 2: float32 drifted from float64: {err:.3e}")
 
+    before = etd2rk_scan.launches
+    scan32 = port_fold_changes(system, b2["true"], times, width_bucketing=False,
+                               use_scan_kernel=True)
+    launches = etd2rk_scan.launches - before
+    err = rel_err(scan32, got64)
+    say("5b model-2 precision", scan_kernel_launches=launches, width_bucketing=False,
+        f32_card_vs_f64_cpu=f"{err:.3e}", gate=PRECISION_GATE,
+        f32_vs_lsoda=f"{rel_err(scan32, want):.3e}")
+    if launches != 1 or not err < PRECISION_GATE:
+        raise AssertionError(f"model 2, scan kernel ({launches} launches): float32 "
+                             f"drifted from float64: {err:.3e}")
+
 
 def population(b, pop: int) -> torch.Tensor:
     """theta0 plus seeded noise, as bench.py and benchmarks/model_rates.py."""
@@ -602,14 +811,17 @@ def main() -> int:
     say("setup", seconds=f"{time.perf_counter() - t0:.2f}")
     kernel = phase_kernel(b, thetas, card)
     wide = phase_wide_kernel(b2, thetas2, card)
+    scan = phase_scan_kernel(b, thetas, b2, thetas2, card)
     paths = {"model0-pop8192": phase_main_path(b, thetas, card),
-             "model2-pop2048": phase_main_path_model2(b2, thetas2, card)}
-    for entry in (kernel, wide):
+             "model2-pop2048": phase_main_path_model2(b2, thetas2, card),
+             **phase_scan_paths(b, thetas, b2, thetas2, card)}
+    for entry in (kernel, wide, scan):
         entry["launches_by_path"] = {p: n[entry["name"]] for p, n in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
     phase_accuracy(b)
+    phase_accuracy(b, use_scan_kernel=True)
     phase_precision_model2(b2)
-    print(json.dumps({"kernels": [kernel, wide]}))
+    print(json.dumps({"kernels": [kernel, wide, scan]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,7 +14,7 @@ Conventions:
 
 Importing the package loads torch and numpy only: no JAX, no kernel build.
 Each hand-written CUDA kernel is compiled on first use (see
-:mod:`phoskintime_tpu_torch.ops.phi_tables`).
+:mod:`phoskintime_tpu_torch.ops.cuda_build`).
 """
 
 __version__ = "0.1.0"

@@ -25,17 +25,22 @@ width classes, each with its own tables and its own slice of the state
 
 Layout: the state is (w, P*N) — slot planes with member-major lanes — so
 the tables, the state and the synthesis drive all keep the lane axis last.
+
+The unbucketed scan runs eagerly (:func:`_full_scan`, one launch per
+operation) or, with ``use_scan_kernel=True``, as one kernel
+(:func:`~phoskintime_tpu_torch.ops.scan_kernel.etd2rk_scan`).
 """
 
 from __future__ import annotations
 
-from functools import lru_cache
+from functools import cached_property, lru_cache
 
 import numpy as np
 import torch
 
 from phoskintime_tpu_torch.network.rhs import check_model, synthesis_rate
 from phoskintime_tpu_torch.ops.phi_tables import ladder_len, phi_tables
+from phoskintime_tpu_torch.ops.scan_kernel import etd2rk_scan, prepare_scan_plan
 
 
 @lru_cache(maxsize=None)
@@ -293,52 +298,134 @@ def _lanes_mv(M, v):
     return torch.sum(M * v[None], dim=1)
 
 
+def _setup(system, params_b: dict, y0):
+    """Parameters as tensors and y0 as (N, w), at the system's dtype and
+    device."""
+    rhs = system.rhs
+    f = dict(dtype=rhs.Kmat.dtype, device=rhs.Kmat.device)
+    params_b = {k: torch.as_tensor(v, **f) for k, v in params_b.items()}
+    if y0 is None:
+        y0 = system.y0()
+    y0 = torch.as_tensor(np.asarray(y0, float).reshape(rhs.N, rhs.width), **f)
+    return params_b, y0
+
+
+def _drive_fn(rhs, params_b: dict):
+    """drive_at(jb): the (P, N) live kinase drive of bucket ``jb`` (clipped
+    to the grid) for driven proteins."""
+    n_buckets = rhs.Kmat.shape[1]
+
+    def drive_at(jb):
+        jb = min(max(int(jb), 0), n_buckets - 1)
+        return (rhs.Kmat[:, jb][None, :] * params_b["c_k"])[:, rhs.driver_idx]
+
+    return drive_at
+
+
+class ScanSetup:
+    """The scan of one :func:`exponential_simulate_batched` call, assembled
+    once: the parameters and y0 at the system's dtype and device, the
+    static segment plan, the width classes and their tables
+    (:func:`phi_tables`, ``use_kernel`` routing it). Both routes read these
+    same inputs and return ys (P, T, N*w):
+
+    * :meth:`run_eager` — the run-structured scan (:func:`_class_scan` where
+      model 2 runs width-bucketed, else :func:`_full_scan`);
+    * :meth:`run_kernel` — the unbucketed scan as one :func:`etd2rk_scan`
+      on :meth:`kernel_args` and :attr:`plan`.
+    """
+
+    def __init__(self, system, params_b: dict, t_eval, substep: float = 16.0,
+                 y0=None, use_kernel: bool | None = None,
+                 width_bucketing: bool | None = None):
+        self.system = system
+        self.params_b, self.y0 = _setup(system, params_b, y0)
+        (_, self.seg_h, self.seg_jb, self.out_idx, self.seg_uidx, _,
+         self.u_h) = _plan(system, t_eval, substep)
+        self.classes = width_classes(system.topo, width_bucketing)
+        self.tables = [phi_tables(*args, use_kernel=use_kernel) for args in
+                       table_inputs(system, self.params_b, t_eval, substep,
+                                    width_bucketing)]
+
+    def run_eager(self):
+        runs, out_pos = _run_plan(self.seg_uidx, self.out_idx)
+        rest = (runs, out_pos, self.seg_uidx, self.seg_jb, self.seg_h,
+                _drive_fn(self.system.rhs, self.params_b))
+        if self.classes:
+            return _class_scan(self.system, self.params_b, self.y0, self.classes,
+                               self.tables, *rest)
+        return _full_scan(self.system, self.params_b, self.y0, self.tables[0], *rest)
+
+    @cached_property
+    def plan(self):
+        """:func:`prepare_scan_plan` of the unbucketed path."""
+        if self.classes:
+            raise ValueError("the scan kernel runs the unbucketed path only")
+        return prepare_scan_plan(self.system.rhs, self.seg_jb, self.seg_uidx, self.u_h,
+                                 self.out_idx, len(self.out_idx))
+
+    def kernel_args(self) -> tuple:
+        """The arguments of :func:`etd2rk_scan` but its plan: (E, p1, p2h,
+        y0 (w, P*N), drv (NB, P*N), A, ts).
+
+        The 1/h of the correction term is folded into p2 per pair, with the
+        h of the pair's first segment (the eager scan takes the h of each
+        run's first segment; a pair's segments share h up to rounding).
+        ``drv`` holds the live kinase drive of every lane in every bucket,
+        read by the kernel for driven proteins only."""
+        rhs, plan, params_b = self.system.rhs, self.plan, self.params_b
+        N, w = rhs.N, rhs.width
+        P = params_b["c_k"].shape[0]
+        lanes = P * N
+        E_u, P1_u, P2_u = self.tables[0]
+        first = np.unique(plan.uidx, return_index=True)[1]
+        inv_h = torch.as_tensor(1.0 / np.asarray(self.seg_h, float)[first],
+                                dtype=P2_u.dtype, device=P2_u.device)
+        p2h = P2_u * inv_h[:, None, None]
+        didx = torch.as_tensor(plan.driver_idx, device=rhs.Kmat.device)
+        drv = (params_b["c_k"][:, :, None] * rhs.Kmat[None])[:, didx, :]
+        drv = drv.permute(2, 0, 1).reshape(-1, lanes).contiguous()     # (NB, P*N)
+        A = params_b["A_i"].reshape(lanes).contiguous()
+        ts = params_b["tf_scale"][:, None].expand(P, N).reshape(lanes).contiguous()
+        yl = self.y0.reshape(1, N, w).expand(P, N, w).reshape(lanes, w).T.contiguous()
+        return E_u, P1_u, p2h, yl, drv, A, ts
+
+    def run_kernel(self, use_kernel: bool | None = None):
+        """The counterpart of the JAX package's ``_run_scan_megakernel``."""
+        rhs, plan = self.system.rhs, self.plan
+        P = self.params_b["c_k"].shape[0]
+        ys = etd2rk_scan(*self.kernel_args(), plan, use_kernel=use_kernel)
+        return (ys.reshape(plan.T, rhs.width, P, rhs.N).permute(2, 0, 3, 1)
+                .reshape(P, plan.T, rhs.N * rhs.width))
+
+
 def exponential_simulate_batched(system, params_b: dict, t_eval,
                                  substep: float = 16.0, y0=None,
                                  use_kernel: bool | None = None,
                                  differentiable: bool = False,
-                                 width_bucketing: bool | None = None):
+                                 width_bucketing: bool | None = None,
+                                 use_scan_kernel: bool | None = None):
     """Batched ETD2RK over a population: ``params_b`` leaves carry a leading
     axis P. Returns (ys (P, T, N*w), success (P,)) on the system's device.
 
-    ``use_kernel`` goes to :func:`phi_tables` (None: the CUDA kernels on a
-    CUDA system, the plain version on the CPU; False: the plain version).
-    ``width_bucketing`` picks the model-2 layout (see :func:`width_classes`).
+    ``use_kernel`` goes to :func:`phi_tables` and :func:`etd2rk_scan` (None:
+    the CUDA kernels on a CUDA system, the plain versions on the CPU;
+    False: the plain versions). ``width_bucketing`` picks the model-2 layout
+    (see :func:`width_classes`). ``use_scan_kernel``: None (the default, as
+    in the JAX package) or False runs the eager scan; True runs the whole
+    unbucketed scan as one :func:`etd2rk_scan`. The width-bucketed model-2
+    path ignores it.
     """
     if differentiable:
         raise NotImplementedError(
             "differentiable=True is not ported yet (ROADMAP.md queue 1: "
             "'Gradients and polish')")
-    topo = system.topo
-    check_model(topo.model)
-    rhs = system.rhs
-    N, w = topo.N, topo.width
-    dev, dt = rhs.Kmat.device, rhs.Kmat.dtype
-    params_b = {k: torch.as_tensor(v, dtype=dt, device=dev)
-                for k, v in params_b.items()}
-    P = params_b["c_k"].shape[0]
-    if y0 is None:
-        y0 = system.y0()
-    y0 = torch.as_tensor(np.asarray(y0, float).reshape(N, w), dtype=dt, device=dev)
-
-    _, seg_h, seg_jb, out_idx, seg_uidx, _, _ = _plan(system, t_eval, substep)
-    tables = [phi_tables(*args, use_kernel=use_kernel) for args in
-              table_inputs(system, params_b, t_eval, substep, width_bucketing)]
-    classes = width_classes(topo, width_bucketing)
-    runs, out_pos = _run_plan(seg_uidx, out_idx)
-    n_buckets = rhs.Kmat.shape[1]
-
-    def drive_at(jb):
-        """(P, N) live kinase drive of bucket ``jb`` for driven proteins."""
-        jb = min(max(int(jb), 0), n_buckets - 1)
-        return (rhs.Kmat[:, jb][None, :] * params_b["c_k"])[:, rhs.driver_idx]
-
-    if classes:
-        ys = _class_scan(system, params_b, y0, classes, tables, runs, out_pos,
-                         seg_uidx, seg_jb, seg_h, drive_at)
+    check_model(system.topo.model)
+    scan = ScanSetup(system, params_b, t_eval, substep, y0, use_kernel, width_bucketing)
+    if use_scan_kernel and not scan.classes:
+        ys = scan.run_kernel(use_kernel)
     else:
-        ys = _full_scan(system, params_b, y0, tables[0], runs, out_pos,
-                        seg_uidx, seg_jb, seg_h, drive_at)
+        ys = scan.run_eager()
     success = torch.isfinite(ys).all(dim=2).all(dim=1)
     return ys, success
 
@@ -390,7 +477,9 @@ def _full_scan(system, params_b, y0, table, runs, out_pos, seg_uidx, seg_jb,
             s_a = synth_of(a, drive)
             yl = a + P2h * (s_a - s_n)
         states.append(yl)
-    sel = torch.stack(states)[torch.as_tensor(out_pos, device=yl.device)]  # (T, w, PN)
+    # selected on the host, so the scan issues no copy and can be captured
+    # in a CUDA graph
+    sel = torch.stack([states[int(k)] for k in out_pos])        # (T, w, PN)
     T = len(out_pos)
     return sel.reshape(T, w, P, N).permute(2, 0, 3, 1).reshape(P, T, N * w)
 

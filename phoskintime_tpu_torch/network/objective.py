@@ -93,7 +93,7 @@ def make_population_objective(system, slices, loss_data, defaults, lambdas,
                               time_grid, loss_mode=0, fail_value=1e12,
                               y0=None, substep=16.0, use_kernel=None,
                               differentiable=False, pop_chunk="auto",
-                              width_bucketing=None):
+                              width_bucketing=None, use_scan_kernel=None):
     """Batched objective ``thetas (P, n) -> F (P, 3)`` on the system's
     device and dtype.
 
@@ -103,7 +103,9 @@ def make_population_objective(system, slices, loss_data, defaults, lambdas,
     chunks. ``use_kernel`` goes to the propagator-table build (None: the
     CUDA kernels on a CUDA system; False: the plain version).
     ``width_bucketing`` goes to the integrator (None: per-width-class
-    tables for the combinatorial mechanism at w >= 9).
+    tables for the combinatorial mechanism at w >= 9), and so does
+    ``use_scan_kernel`` (None: the eager scan; True: the whole unbucketed
+    scan as one kernel).
     ``differentiable=True`` is not ported yet and raises."""
     if differentiable:
         raise NotImplementedError(
@@ -143,7 +145,8 @@ def make_population_objective(system, slices, loss_data, defaults, lambdas,
 
         ys, success = exponential_simulate_batched(
             system, params_b, t_eval, substep=substep, y0=y0,
-            use_kernel=use_kernel, width_bucketing=width_bucketing)
+            use_kernel=use_kernel, width_bucketing=width_bucketing,
+            use_scan_kernel=use_scan_kernel)
         obs = extract_observables(system, ys)
         if dense is not None:
             losses = (dense_loss(obs.TOT, ld.prot_base_idx, dense[0]),

@@ -1,0 +1,98 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+Each source in :data:`SOURCES` is compiled with ``nvcc`` for ``sm_90a`` on
+first use (one ``nvcc`` per source, all started together), into
+``phoskintime_tpu_torch/_build/`` under a name keyed by a hash of the
+source and flags, and bound with ``ctypes`` through a plain C interface:
+every library exports its launch functions and ``<stem>_error_string``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+SOURCES = (CSRC / "phi_tables.cu", CSRC / "phi_tables_wide.cu", CSRC / "etd2rk_scan.cu")
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: building the kernels in csrc/ needs "
+                       "the CUDA toolkit")
+
+
+def library_path(source: Path) -> Path:
+    """Where the library of ``source`` lives: keyed by the source and flags."""
+    key = hashlib.sha256(source.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}_{key}.so"
+
+
+def build_libraries() -> dict:
+    """Compile every kernel source whose library is not built yet, one
+    ``nvcc`` per source, all started together. Returns {library path:
+    seconds its build took (0 when it was there)}. The compiler's register
+    report is kept beside each library as ``.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out, jobs = {}, []
+    t0 = time.perf_counter()
+    for src in SOURCES:
+        lib = library_path(src)
+        if lib.exists():
+            out[lib] = 0.0
+            continue
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        jobs.append((lib, tmp, proc))
+    failed = []
+    for lib, tmp, proc in jobs:
+        log = proc.communicate()[0]
+        out[lib] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{lib.name}: nvcc failed ({proc.returncode}):\n{log}")
+            continue
+        lib.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
+_ENTRIES: dict = {}
+
+
+def entry(source: Path, name: str, argtypes: list):
+    """(launch function, error-string function) of the C entry ``name`` in
+    the library built from ``source``, which returns a CUDA error code;
+    builds the libraries if needed."""
+    if name not in _ENTRIES:
+        lib_path = library_path(source)
+        if not lib_path.exists():
+            build_libraries()
+        lib = ctypes.CDLL(str(lib_path))
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        err = getattr(lib, f"{source.stem}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _ENTRIES[name] = (fn, err)
+    return _ENTRIES[name]

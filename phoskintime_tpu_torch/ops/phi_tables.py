@@ -15,24 +15,18 @@ Counterpart of ``phoskintime_tpu/ops/phi_pallas.py``:
 * :func:`phi_tables_reference` — the plain PyTorch version at any width,
   the port of ``network/expo.py::_phi_vectors_lanes`` looped over the pairs.
 
-Each kernel source is compiled with ``nvcc`` for ``sm_90a`` on first use
-(one ``nvcc`` per source, all started together), into
-``phoskintime_tpu_torch/_build/`` under a name keyed by a hash of the
-source and flags, and bound with ``ctypes`` through a plain C interface.
+Each kernel source is compiled on first use and bound with ``ctypes``
+(:mod:`phoskintime_tpu_torch.ops.cuda_build`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
+
+from phoskintime_tpu_torch.ops.cuda_build import CSRC, entry
 
 # kernel (float32) series: 8 Taylor terms after scaling to radius 0.5
 _TAYLOR_TERMS = 8
@@ -43,13 +37,9 @@ _MAX_SQUARINGS = 24
 _MAX_KERNEL_WIDTH = 8           # csrc/phi_tables.cu
 _MAX_WIDE_WIDTH = 17            # csrc/phi_tables_wide.cu: model 2 up to Smax = 4
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "phi_tables.cu"
-WIDE_SOURCE = _PKG / "csrc" / "phi_tables_wide.cu"
-SOURCES = (SOURCE, WIDE_SOURCE)
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = CSRC / "phi_tables.cu"
+WIDE_SOURCE = CSRC / "phi_tables_wide.cu"
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 _NOT_COVERED = ("the phi_tables kernels take float32 with 2 <= w <= {}; got {} "
                 "at w = {} (wider blocks, model 2 at Smax >= 5, are ROADMAP.md "
@@ -145,78 +135,6 @@ def phi_tables_reference(L: torch.Tensor, binv, h_u, ladder: int):
 # ---------------------------------------------------------------------------
 
 
-def nvcc_path() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: building the kernels in csrc/ needs "
-                       "the CUDA toolkit")
-
-
-def library_path(source: Path = SOURCE) -> Path:
-    """Where the library of ``source`` lives: keyed by the source and flags."""
-    key = hashlib.sha256(source.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}_{key}.so"
-
-
-def build_libraries() -> dict:
-    """Compile every kernel source whose library is not built yet, one
-    ``nvcc`` per source, all started together. Returns {library path:
-    seconds its build took (0 when it was there)}. The compiler's register
-    report is kept beside each library as ``.log``."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out, jobs = {}, []
-    t0 = time.perf_counter()
-    for src in SOURCES:
-        lib = library_path(src)
-        if lib.exists():
-            out[lib] = 0.0
-            continue
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                text=True)
-        jobs.append((lib, tmp, proc))
-    failed = []
-    for lib, tmp, proc in jobs:
-        log = proc.communicate()[0]
-        out[lib] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"{lib.name}: nvcc failed ({proc.returncode}):\n{log}")
-            continue
-        lib.with_suffix(".log").write_text(log)
-        os.replace(tmp, lib)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return out
-
-
-_ENTRIES: dict = {}
-
-
-def _entry(source: Path, name: str):
-    """(launch function, error-string function) of the C entry ``name`` in
-    the library built from ``source``; builds the libraries if needed."""
-    if name not in _ENTRIES:
-        lib_path = library_path(source)
-        if not lib_path.exists():
-            build_libraries()
-        lib = ctypes.CDLL(str(lib_path))
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        err = getattr(lib, f"{source.stem}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _ENTRIES[name] = (fn, err)
-    return _ENTRIES[name]
-
-
 def _check(L: torch.Tensor, binv, h_u):
     if L.dim() != 4 or L.shape[1] != L.shape[2]:
         raise ValueError(f"L must be (Bu, w, w, B); got {tuple(L.shape)}")
@@ -229,7 +147,7 @@ def _check(L: torch.Tensor, binv, h_u):
     return binv, h_u
 
 
-def _launch(source: Path, name: str, L, binv, h_u, ladder: int):
+def _launch(source, name: str, L, binv, h_u, ladder: int):
     """Allocate the tables and launch one kernel on L's device and stream."""
     if not L.is_contiguous():
         raise ValueError("L must be contiguous")
@@ -246,7 +164,7 @@ def _launch(source: Path, name: str, L, binv, h_u, ladder: int):
     E = torch.empty((U, w, w, B), dtype=torch.float32, device=dev)
     p1 = torch.empty((U, w, B), dtype=torch.float32, device=dev)
     p2 = torch.empty((U, w, B), dtype=torch.float32, device=dev)
-    fn, err = _entry(source, name)
+    fn, err = entry(source, name, _ARGTYPES)
     with torch.cuda.device(dev):          # launch in L's device context
         rc = fn(L.data_ptr(), binv_d.data_ptr(), h_d.data_ptr(),
                 E.data_ptr(), p1.data_ptr(), p2.data_ptr(),

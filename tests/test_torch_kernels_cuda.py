@@ -17,12 +17,17 @@ from phoskintime_tpu_torch.network.objective import make_population_objective
 from phoskintime_tpu_torch.ops.phi_tables import (ladder_len, phi_tables,
                                                   phi_tables_reference,
                                                   phi_tables_wide, phi_vectors)
+from phoskintime_tpu_torch.ops.scan_kernel import (etd2rk_scan, etd2rk_scan_reference,
+                                                   random_scan_problem)
 
 pytestmark = pytest.mark.cuda
 
 # float32 against float32: errors relative to the table's largest entry,
 # the JAX package's own tolerance for its Pallas table kernels
 SCALED_ATOL_F32 = 2e-5
+# the whole scan, float32 against float32 on the trajectory: the JAX
+# package's tolerance for its Pallas scan kernel (tests/test_pallas.py:262-263)
+SCAN_RTOL, SCAN_ATOL = 2e-3, 1e-5
 
 
 @pytest.fixture
@@ -148,3 +153,109 @@ def test_model2_objective_goes_through_both_kernels(cuda_device):
     Fp = make_population_objective(*args, pop_chunk=4, use_kernel=False)(thetas)
     assert F.shape == (4, 3) and bool(torch.isfinite(F).all())
     assert float(torch.max(torch.abs(F - Fp) / torch.abs(Fp))) <= 1e-3
+
+
+# --- the whole-scan kernel --------------------------------------------------------
+
+
+@pytest.mark.parametrize("w", range(2, 18))
+def test_scan_kernel_matches_plain(cuda_device, w):
+    args, plan = random_scan_problem(w, seed=w, device=cuda_device)
+    before = etd2rk_scan.launches
+    got = etd2rk_scan(*args, plan)
+    torch.cuda.synchronize()
+    assert etd2rk_scan.launches == before + 1
+    want = etd2rk_scan_reference(*args, plan)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=SCAN_RTOL, atol=SCAN_ATOL)
+
+
+@pytest.mark.parametrize("w", [6, 14, 17])
+def test_scan_kernel_wide_member(cuda_device, w):
+    """Members of 200 proteins: one member a block, 224 threads, the widest
+    blocks the kernel takes."""
+    args, plan = random_scan_problem(w, N=200, P=12, seed=w, device=cuda_device)
+    got = etd2rk_scan(*args, plan)
+    torch.testing.assert_close(got, etd2rk_scan_reference(*args, plan),
+                               rtol=SCAN_RTOL, atol=SCAN_ATOL)
+
+
+def test_scan_shared_segment_end(cuda_device):
+    """Two t_eval points (slots 2 and 3) on one segment: the kernel writes
+    slot 2 and the wrapper copies it to slot 3, as the plain version does."""
+    args, plan = random_scan_problem(7, seed=3, device=cuda_device)
+    out_slot = plan.out_slot.copy()
+    out_slot[out_slot == 3] = -1
+    plan = plan._replace(out_slot=out_slot, slot_map=np.asarray([0, 1, 2, 2, 4, 5]))
+    got = etd2rk_scan(*args, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], got[3])
+    torch.testing.assert_close(got, etd2rk_scan_reference(*args, plan),
+                               rtol=SCAN_RTOL, atol=SCAN_ATOL)
+
+
+def test_scan_nan_member_stays_in_its_lanes(cuda_device):
+    """A NaN member (member 37, which shares its thread block with other
+    members) leaves every other member's snapshots bit-identical."""
+    args, plan = random_scan_problem(6, N=7, P=200, device=cuda_device)
+    clean = etd2rk_scan(*args, plan)
+    A = args[5].clone()
+    A[7 * 37:7 * 38] = float("nan")
+    dirty = etd2rk_scan(*args[:5], A, args[6], plan)
+    torch.cuda.synchronize()
+    keep = (torch.arange(1400, device=cuda_device) // 7) != 37
+    assert torch.equal(clean[..., keep], dirty[..., keep])
+    assert bool(torch.isnan(dirty[1:, 0, ~keep]).all())
+
+
+def test_scan_driven_override_is_a_select(cuda_device):
+    """A non-finite state of a kinase-driven protein (protein 0) reaches none
+    of its member's other proteins: their TF input reads the kinase drive."""
+    args, plan = random_scan_problem(5, N=7, P=50, device=cuda_device)
+    assert plan.driven[0] == 1
+    clean = etd2rk_scan(*args, plan)
+    y0 = args[3].clone()
+    y0[1:, 7 * 9] = float("inf")                       # member 9, protein 0
+    dirty = etd2rk_scan(*args[:3], y0, *args[4:], plan)
+    torch.cuda.synchronize()
+    keep = torch.arange(350, device=cuda_device) != 7 * 9
+    assert torch.equal(clean[..., keep], dirty[..., keep])
+
+
+@pytest.mark.parametrize("bad, err", [
+    ("float64", NotImplementedError),
+    ("w18", NotImplementedError),
+    ("proteins", NotImplementedError),
+    ("strided", ValueError),
+])
+def test_scan_kernel_rejects(cuda_device, bad, err):
+    w, N = (18 if bad == "w18" else 4), (257 if bad == "proteins" else 5)
+    args, plan = random_scan_problem(w, N=N, P=2, S=8)      # built on the CPU
+    args = [x.to(cuda_device) for x in args]
+    if bad == "float64":
+        args = [x.double() for x in args]
+    if bad == "strided":
+        args[0] = args[0].transpose(1, 2)
+    with pytest.raises(err):
+        etd2rk_scan(*args, plan)
+
+
+@pytest.mark.parametrize("model", [0, 2])
+def test_objective_goes_through_the_scan_kernel(cuda_device, model):
+    """One scan launch per chunk (model 2 unbucketed: its tables in the wide
+    kernel); F against the default objective (eager scan)."""
+    b = build_demo_network(n_proteins=12, n_kinases=5, model=model, seed=0,
+                           dtype=torch.float32, device=cuda_device)
+    args = (b["system"], b["slices"], b["loss_data"], b["defaults"],
+            b["lambdas"], b["grid"])
+    rng = np.random.default_rng(0)
+    thetas = b["theta0"][None] + 0.05 * rng.normal(size=(5, len(b["theta0"])))
+    kw = dict(width_bucketing=False) if model == 2 else {}
+    phi_tables.launches = phi_tables_wide.launches = etd2rk_scan.launches = 0
+    F = make_population_objective(*args, pop_chunk=2, use_scan_kernel=True, **kw)(thetas)
+    torch.cuda.synchronize()
+    assert etd2rk_scan.launches == 3                 # one per chunk
+    assert (phi_tables_wide if model == 2 else phi_tables).launches == 3
+    Fe = make_population_objective(*args, pop_chunk=2)(thetas)
+    assert F.shape == (5, 3) and bool(torch.isfinite(F).all())
+    assert float(torch.max(torch.abs(F - Fe) / torch.abs(Fe))) <= 1e-3

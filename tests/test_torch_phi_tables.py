@@ -19,6 +19,7 @@ import torch
 from phoskintime_tpu.network.expo import _phi_vectors_lanes
 from phoskintime_tpu.ops.phi_pallas import ladder_len as jax_ladder_len
 from phoskintime_tpu.ops.phi_pallas import phi_vectors_pallas_pages
+from phoskintime_tpu_torch.ops import cuda_build
 from phoskintime_tpu_torch.ops import phi_tables as pm
 from phoskintime_tpu_torch.ops.phi_tables import (ladder_len, phi_tables,
                                                   phi_tables_reference)
@@ -148,7 +149,9 @@ def test_wrapper_rejects(bad):
 
 
 def test_library_path_is_keyed_by_source():
-    path = pm.library_path()
-    assert path.parent == pm.BUILD_DIR and path.suffix == ".so"
+    path = cuda_build.library_path(pm.SOURCE)
+    assert path.parent == cuda_build.BUILD_DIR and path.suffix == ".so"
     assert "csrc" in str(pm.SOURCE) and pm.SOURCE.exists()
-    assert "arch=compute_90a,code=sm_90a" in pm.NVCC_FLAGS
+    assert pm.SOURCE in cuda_build.SOURCES and all(s.exists() for s in cuda_build.SOURCES)
+    assert len({cuda_build.library_path(s) for s in cuda_build.SOURCES}) == 3
+    assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
