@@ -7,7 +7,7 @@ non-zero:
 
 1. device: the card, its power limit, CUDA and nvcc versions; full-float32
    matmuls (TF32 off);
-2. build: compile the three hand-written kernel sources from
+2. build: compile the five hand-written kernel sources from
    ``phoskintime_tpu_torch/csrc``, one ``nvcc`` per source, all started
    together;
 3. kernel vs plain: ``phi_tables`` (w <= 8) against ``phi_tables_reference``
@@ -47,6 +47,33 @@ non-zero:
    both against a LSODA oracle of the hypercube equations; again with the
    scan kernel, unbucketed.
 
+The RK45 oracle path and the steady states:
+
+3d. ``hypercube_flux`` (the model-2 edge flux) against its plain gather
+   version in float32 and float64 at the RK45 objective's shape (92,160
+   rows of 16 states), at smax 1..6, and at the JAX package's size table
+   (B = 40 .. 327,680), printed beside the reference's TPU v5e figures;
+   scaled tolerance 2e-5 (float32) and 1e-12 (float64); times and bound;
+3e. ``thomas_solve_batched`` against its plain version and
+   ``torch.linalg.solve`` of the dense matrices, float32 and float64, at
+   the steady state's own shape (45 chains of 5), at a population's chains
+   (368,640 of 5) and at n = 2..17; times and bound;
+4d. main path, RK45: ``make_objective(solver="rk45")`` on the model-2
+   bench network at pop 2048, float32, alone on the card: 7 flux launches
+   a loop iteration plus 2, evals/s, steps, and the idle share of a
+   profiled window; then, in worker processes started together (each RK45
+   run is host-bound, so they overlap), F on 8 members against the plain
+   flux and against the port's float64 CPU result (rel 1e-3), and models 0
+   and 1 once at pop 2048;
+5c. RK45 accuracy (workers): fold changes at the true parameters against
+   the LSODA oracles, models 0 and 2, float32 and float64 on the card,
+   below 1e-3;
+6. steady states on the card: the three mechanisms on an isolated network
+   against the CPU (1e-12), the RHS there within 1e-9 of 0, one Thomas
+   launch for the sequential one (and on the bench network's 45 chains),
+   and, in a worker, ``simulate_until_steady`` on the bench model-0
+   network.
+
 The line before the last is a JSON summary of each kernel; the last line
 is ``{"ok": true, "device": {...}}``. There is no CPU fallback.
 """
@@ -62,13 +89,18 @@ import time
 import numpy as np
 import torch
 
-from phoskintime_tpu_torch.demo import build_demo_network
-from phoskintime_tpu_torch.network import expo
-from phoskintime_tpu_torch.network.objective import make_population_objective
+from phoskintime_tpu_torch.demo import GRID, build_demo_network
+from phoskintime_tpu_torch.network import expo, steadystate
+from phoskintime_tpu_torch.network.analysis import simulate_until_steady
+from phoskintime_tpu_torch.network.objective import make_objective, make_population_objective
 from phoskintime_tpu_torch.network.params import unpack_params
-from phoskintime_tpu_torch.network.simulate import extract_observables, fold_changes
-from phoskintime_tpu_torch.network.system import GlobalSystem
+from phoskintime_tpu_torch.network.simulate import (extract_observables, fold_changes,
+                                                    simulate, simulate_batched)
+from phoskintime_tpu_torch.network.system import GlobalSystem, default_params
+from phoskintime_tpu_torch.network.topology import build_topology
 from phoskintime_tpu_torch.ops import cuda_build
+from phoskintime_tpu_torch.ops.hypercube_flux import hypercube_flux
+from phoskintime_tpu_torch.ops.tridiag import thomas_solve_batched, thomas_solve_reference
 from phoskintime_tpu_torch.ops import phi_tables as phi_mod
 from phoskintime_tpu_torch.ops.phi_tables import (phi_tables, phi_tables_reference,
                                                   phi_tables_wide, phi_vectors)
@@ -77,6 +109,9 @@ from phoskintime_tpu_torch.ops.scan_kernel import (etd2rk_scan, etd2rk_scan_refe
 
 POP, CHUNK, N_PROTEINS, N_KINASES = 8192, 2048, 40, 12
 POP2 = 2048               # model 2: one chunk, as benchmarks/model_rates.py
+# simulate_until_steady's horizon in phase 6, minutes: one day, not the
+# function's seven (about 12,000 host-bound steps, ~100 s; PERF.md)
+STEADY_T_FINAL = 24 * 60.0
 KERNEL_ATOL = 2e-5        # scaled by max |plain|, as tests/test_pallas.py
 F_RTOL = 1e-3             # objective with the kernels vs with the plain tables
 ACCURACY_GATE = 1e-3      # fold changes vs the LSODA oracle, as bench.py
@@ -85,10 +120,26 @@ PRECISION_GATE = 1e-3     # model 2: float32 on the card vs float64 on the CPU
 # trajectory: the JAX package's tolerance for its Pallas scan kernel
 # (tests/test_pallas.py:262-263)
 SCAN_RTOL, SCAN_ATOL = 2e-3, 1e-5
-# the card's published peaks (H100 SXM data sheet): FP32 outside the
-# tensor cores, and HBM bandwidth
-PEAK_FP32_FLOPS, PEAK_HBM_BYTES = 67e12, 3.35e12
-KERNELS = (phi_tables, phi_tables_wide, etd2rk_scan)
+# the card's published peaks (H100 SXM data sheet): FP32 and FP64 outside
+# the tensor cores, and HBM bandwidth
+PEAK_FP32_FLOPS, PEAK_FP64_FLOPS, PEAK_HBM_BYTES = 67e12, 34e12, 3.35e12
+KERNELS = (phi_tables, phi_tables_wide, etd2rk_scan, hypercube_flux, thomas_solve_batched)
+# the new kernels against their plain versions, scaled by the largest entry:
+# float32 as the table kernels; float64 rounding only
+SCALED_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
+STEADY_TOL = 1e-12        # steady states on the card vs the CPU, float64
+RHS_AT_STEADY = 1e-9      # |dy/dt| at an analytic steady state
+# the JAX package's own hypercube-kernel table (pallas_kernels.py:21-26):
+# rows -> (Pallas us, XLA gather us), smax 4, float32, on a TPU v5e -- the
+# reference's record, printed beside this card's times, never as the port's
+JAX_V5E_FLUX_US = {40: (978, 730), 400: (1434, 667), 4096: (1847, 846),
+                   40960: (1833, 640), 327680: (15341, 951)}
+# three proteins of 2, 1 and 3 sites under one kinase, no TF edges: the JAX
+# package's isolated network (tests/test_network.py:225-236)
+ISOLATED = [("GA", "S1", "K"), ("GA", "S2", "K"), ("GB", "S1", "K"),
+            ("GC", "S1", "K"), ("GC", "S2", "K"), ("GC", "S3", "K")]
+STEADY = {0: steadystate.steady_state_distributive, 1: steadystate.steady_state_sequential,
+          2: steadystate.steady_state_combinatorial}
 
 
 def say(phase: str, **fields) -> None:
@@ -155,6 +206,22 @@ def phase_build() -> None:
 def reset_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+
+
+def counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def expect(**nonzero) -> dict:
+    """The launch counts of a path: the named kernels, 0 for the rest."""
+    return {k.__name__: nonzero.get(k.__name__, 0) for k in KERNELS}
+
+
+def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    operations over ``peak``."""
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def table_bound(L, binv, h_u, ladder) -> tuple[float, str]:
@@ -410,10 +477,145 @@ def phase_scan_kernel(b, thetas, b2, thetas2, card) -> dict:
             "replaces": "phoskintime_tpu/ops/scan_pallas.py:246", **out}
 
 
-def profile_call(fn) -> dict:
-    """One call under torch.profiler: the device's kernel and copy events,
-    the union of their intervals (device-busy ms), and the host wall of
-    the call ended by a synchronize; the idle share is 1 - busy / wall."""
+def flux_bound(rows: int, smax: int, itemsize: int) -> tuple[float, str]:
+    """Bound of one edge flux: X read and dX written once, smax site rates
+    and one dephospho rate a row; two products and two sums a site and
+    state."""
+    M = 1 << smax
+    return bound(itemsize * rows * (2 * M + smax + 1), 4.0 * rows * M * smax,
+                 PEAK_FP32_FLOPS if itemsize == 4 else PEAK_FP64_FLOPS)
+
+
+def check_and_time_flux(label, rows, smax, dtype, card, reps=20, quiet=False) -> dict:
+    """The flux kernel against its plain (gather) version on random rows:
+    the gate, then times in the order plain, kernel, kernel, plain, and the
+    bound."""
+    rng = np.random.default_rng(rows + smax)
+    f = dict(dtype=dtype, device="cuda")
+    X = torch.as_tensor(rng.uniform(0, 1, (rows, 1 << smax)), **f)
+    S = torch.as_tensor(rng.uniform(0.1, 2.0, (rows, smax)), **f)
+    E = torch.as_tensor(rng.uniform(0.1, 2.0, rows), **f)
+    run_k = lambda: hypercube_flux(X, S, E, smax)
+    run_p = lambda: hypercube_flux(X, S, E, smax, use_kernel=False)
+    got, want = run_k(), run_p()
+    torch.cuda.synchronize()
+    max_abs, scaled = scaled_err(got, want)
+    if not scaled <= SCALED_TOL[dtype]:
+        raise AssertionError(f"{label}: flux kernel disagrees: {scaled:.3e}")
+    if quiet:
+        return {"max_abs_err": max_abs}
+    p1, k1, k2, p2 = (cuda_ms(run_p, reps), cuda_ms(run_k, reps), cuda_ms(run_k, reps),
+                      cuda_ms(run_p, reps))
+    dev_ms = kernel_device_ms(device_events(lambda: [run_k() for _ in range(reps)])[0],
+                              "hypercube_flux_kernel")
+    bound_ms, bound_by = flux_bound(rows, smax, X.element_size())
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    say(label, rows=rows, smax=smax, dtype=str(dtype).split(".")[-1],
+        max_abs_err=f"{max_abs:.3e}", max_scaled_err=f"{scaled:.3e}",
+        tol=SCALED_TOL[dtype], ms=f"{ms:.4f}", device_ms=measured(dev_ms),
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        runs_ms=[round(x, 4) for x in (p1, k1, k2, p2)], card=repr(card))
+    return {"max_abs_err": max_abs, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def phase_flux_kernel(card) -> dict:
+    """3d: the flux kernel at the RK45 objective's shape (pop 2048 x 45
+    proteins, 16 states), float32 (the summary's entry) and float64, at
+    smax 1..6 in both dtypes, and at the JAX package's size table."""
+    rows = POP2 * 45
+    out = check_and_time_flux("3d flux main-path", rows, 4, torch.float32, card)
+    out["float64"] = check_and_time_flux("3d flux main-path", rows, 4, torch.float64, card)
+    for smax in range(1, 7):
+        for dtype in (torch.float32, torch.float64):
+            err = check_and_time_flux("3d flux width", 10001, smax, dtype, card,
+                                      quiet=True)["max_abs_err"]
+            say("3d flux width", smax=smax, rows=10001, dtype=str(dtype).split(".")[-1],
+                max_abs_err=f"{err:.3e}")
+    table = {}
+    for B, (jax_pallas, jax_xla) in JAX_V5E_FLUX_US.items():
+        t = check_and_time_flux("3d flux size", B, 4, torch.float32, card)
+        table[B] = {k: t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+        say("3d flux size table", rows=B, kernel_us=f"{1e3 * t['ms']:.2f}",
+            kernel_device_us=measured(t["device_ms"], 1e3, 2),
+            plain_gather_us=f"{1e3 * t['plain_ms']:.2f}",
+            reference_tpu_v5e_pallas_us=jax_pallas, reference_tpu_v5e_xla_us=jax_xla,
+            note="the v5e figures are the JAX package's record, not this card's")
+    out["size_table"] = table
+    return {"name": "hypercube_flux", "route": "cuda",
+            "source": "phoskintime_tpu_torch/csrc/hypercube_flux.cu",
+            "replaces": "phoskintime_tpu/ops/pallas_kernels.py:165", **out}
+
+
+def tridiagonal(B, n, dtype, seed=0):
+    """Diagonally dominant systems on the card, as tests/test_pallas.py's."""
+    rng = np.random.default_rng(seed)
+    a, c, d = (rng.normal(0, 1, (B, n)) for _ in range(3))
+    b = np.abs(rng.normal(0, 1, (B, n))) + 4.0
+    a[:, 0] = c[:, -1] = 0.0
+    return [torch.as_tensor(v, dtype=dtype, device="cuda") for v in (a, b, c, d)]
+
+
+def check_and_time_thomas(label, B, n, dtype, card, reps=20, quiet=False) -> dict:
+    """The Thomas kernel against its plain version and against
+    torch.linalg.solve of the dense matrices (the library yardstick):
+    gates, then times in the order plain, kernel, kernel, plain, library,
+    and the bound."""
+    a, b, c, d = args = tridiagonal(B, n, dtype, seed=B + n)
+    dense = torch.diag_embed(b) + torch.diag_embed(a[:, 1:], -1) + torch.diag_embed(c[:, :-1], 1)
+    run_k = lambda: thomas_solve_batched(*args)
+    run_p = lambda: thomas_solve_reference(*args)
+    run_l = lambda: torch.linalg.solve(dense, d)
+    got, want, lib = run_k(), run_p(), run_l()
+    torch.cuda.synchronize()
+    max_abs, scaled = scaled_err(got, want)
+    lib_err = scaled_err(got, lib)[1]
+    if not (scaled <= SCALED_TOL[dtype] and lib_err <= 10 * SCALED_TOL[dtype]):
+        raise AssertionError(f"{label}: Thomas kernel disagrees: {scaled:.3e}, "
+                             f"vs the dense solve {lib_err:.3e}")
+    if quiet:
+        return {"max_abs_err": max_abs}
+    p1, k1, k2, p2 = (cuda_ms(run_p, reps), cuda_ms(run_k, reps), cuda_ms(run_k, reps),
+                      cuda_ms(run_p, reps))
+    lib_ms = cuda_ms(run_l, reps)
+    dev_ms = kernel_device_ms(device_events(lambda: [run_k() for _ in range(reps)])[0],
+                              "thomas_kernel")
+    isz = a.element_size()
+    bound_ms, bound_by = bound(isz * 5 * B * n, 8.0 * B * n,
+                               PEAK_FP32_FLOPS if isz == 4 else PEAK_FP64_FLOPS)
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    say(label, systems=B, n=n, dtype=str(dtype).split(".")[-1],
+        max_abs_err=f"{max_abs:.3e}", max_scaled_err=f"{scaled:.3e}",
+        vs_dense_solve=f"{lib_err:.3e}", ms=f"{ms:.4f}", device_ms=measured(dev_ms),
+        plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+        bound_by=bound_by, runs_ms=[round(x, 4) for x in (p1, k1, k2, p2)], card=repr(card))
+    return {"max_abs_err": max_abs, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def phase_thomas_kernel(card) -> dict:
+    """3e: the Thomas kernel at the steady state's own shape (45 chains of
+    5, float64: the summary's entry) and float32, at a population's chains
+    (8192 x 45 of 5) in both dtypes, and at n = 2..17."""
+    out = check_and_time_thomas("3e thomas main-path", 45, 5, torch.float64, card)
+    out["float32"] = check_and_time_thomas("3e thomas main-path", 45, 5, torch.float32, card)
+    out["population"] = {str(dtype).split(".")[-1]: check_and_time_thomas(
+        "3e thomas population", 8192 * 45, 5, dtype, card)
+        for dtype in (torch.float32, torch.float64)}
+    for n in range(2, 18):
+        for dtype in (torch.float32, torch.float64):
+            err = check_and_time_thomas("3e thomas n", 1000, n, dtype, card,
+                                        quiet=True)["max_abs_err"]
+            say("3e thomas n", n=n, systems=1000, dtype=str(dtype).split(".")[-1],
+                max_abs_err=f"{err:.3e}")
+    return {"name": "thomas_solve_batched", "route": "cuda",
+            "source": "phoskintime_tpu_torch/csrc/thomas.cu",
+            "replaces": "phoskintime_tpu/ops/pallas_kernels.py:95", **out}
+
+
+def device_events(fn):
+    """(device events (name, start us, end us), host wall ms) of one call
+    under torch.profiler, ended by a synchronize."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -423,8 +625,30 @@ def profile_call(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    return ([(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA], wall_ms)
+
+
+def measured(x, scale: float = 1.0, digits: int = 4) -> str:
+    """A measured number for a log line, or "not measured" where the
+    trace had none."""
+    return "not measured" if x is None else f"{scale * x:.{digits}f}"
+
+
+def kernel_device_ms(events, name_part: str):
+    """Mean device duration (ms) of the events whose name holds
+    ``name_part``; None where the trace holds none."""
+    durs = [z - a for name, a, z in events if name_part in name]
+    return sum(durs) / len(durs) / 1e3 if durs else None
+
+
+def profile_call(fn, kernel: str | None = None) -> dict:
+    """One call under torch.profiler: the device's kernel and copy events,
+    the union of their intervals (device-busy ms), and the host wall of
+    the call ended by a synchronize; the idle share is 1 - busy / wall.
+    ``kernel``: also the mean device time of the kernels of that name."""
+    events, wall_ms = device_events(fn)
+    spans = sorted((a, z) for _, a, z in events)
     busy_us, end = 0.0, float("-inf")
     for a, z in spans:
         if z > end:
@@ -433,9 +657,12 @@ def profile_call(fn) -> dict:
     if not spans:
         return {"device_events": 0, "wall_ms": f"{wall_ms:.3f}",
                 "busy_ms": "not measured (empty device trace)"}
-    return {"device_events": len(spans), "busy_ms": f"{busy_us / 1e3:.3f}",
-            "wall_ms": f"{wall_ms:.3f}",
-            "idle_share": f"{1.0 - busy_us / 1e3 / wall_ms:.3f}"}
+    out = {"device_events": len(spans), "busy_ms": f"{busy_us / 1e3:.3f}",
+           "wall_ms": f"{wall_ms:.3f}",
+           "idle_share": f"{1.0 - busy_us / 1e3 / wall_ms:.3f}"}
+    if kernel:
+        out[f"{kernel}_device_us"] = measured(kernel_device_ms(events, kernel), 1e3, 2)
+    return out
 
 
 def stage_cut(label, b, thetas, objective, card, **kw) -> None:
@@ -474,11 +701,11 @@ def phase_main_path(b, thetas, card) -> int:
     reset_counts()
     F = objective(thetas)
     torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in KERNELS}
+    launches = counts()
     n_chunks = -(-POP // CHUNK)
     if tuple(F.shape) != (POP, 3) or not bool(torch.isfinite(F).all()):
         raise AssertionError("non-finite or misshapen objectives")
-    if launches != {"phi_tables": n_chunks, "phi_tables_wide": 0, "etd2rk_scan": 0}:
+    if launches != expect(phi_tables=n_chunks):
         raise AssertionError(f"kernel launches {launches} for {n_chunks} chunks")
     say("4 main path", pop=POP, chunk=CHUNK, F_shape=tuple(F.shape),
         finite=True, launches=launches)
@@ -510,10 +737,10 @@ def phase_main_path_model2(b2, thetas2, card) -> dict:
     reset_counts()
     F = objective(thetas2)
     torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in KERNELS}
+    launches = counts()
     if tuple(F.shape) != (POP2, 3) or not bool(torch.isfinite(F).all()):
         raise AssertionError("model 2: non-finite or misshapen objectives")
-    if launches != {"phi_tables": 3, "phi_tables_wide": 2, "etd2rk_scan": 0}:
+    if launches != expect(phi_tables=3, phi_tables_wide=2):
         raise AssertionError(f"model 2: kernel launches {launches}, want 3 and 2")
     say("4b model-2 main path", pop=POP2, chunk=CHUNK, F_shape=tuple(F.shape),
         finite=True, classes=[(wc, len(i)) for wc, i in expo.width_classes(b2["topo"])],
@@ -549,7 +776,7 @@ def scan_path(label, b, thetas, card, want_launches, **kw) -> dict:
     reset_counts()
     F = objective(thetas)
     torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in KERNELS}
+    launches = counts()
     pop = thetas.shape[0]
     if tuple(F.shape) != (pop, 3) or not bool(torch.isfinite(F).all()):
         raise AssertionError(f"{label}: non-finite or misshapen objectives")
@@ -584,10 +811,10 @@ def phase_scan_paths(b, thetas, b2, thetas2, card) -> dict:
     return {
         "model0-pop8192-scan": scan_path(
             "4c model-0 scan", b, thetas, card,
-            {"phi_tables": n_chunks, "phi_tables_wide": 0, "etd2rk_scan": n_chunks}),
+            expect(phi_tables=n_chunks, etd2rk_scan=n_chunks)),
         "model2-pop2048-unbucketed-scan": scan_path(
             "4c model-2 scan", b2, thetas2, card,
-            {"phi_tables": 0, "phi_tables_wide": 1, "etd2rk_scan": 1},
+            expect(phi_tables_wide=1, etd2rk_scan=1),
             width_bucketing=False)}
 
 
@@ -638,8 +865,6 @@ def fold_changes_np(Y, times, msk):
 def phase_accuracy(b, **kw) -> None:
     """5: the model-0 fold changes against the LSODA oracle; ``kw`` goes to
     the integrator (``use_scan_kernel=True``: through the scan kernel)."""
-    from scipy.integrate import odeint
-
     system, topo = b["system"], b["topo"]
     times = np.asarray(b["grid"], float)
     msk = topo.site_mask()
@@ -655,9 +880,7 @@ def phase_accuracy(b, **kw) -> None:
     obs = extract_observables(system, ys[0])
     got = [x.double().cpu().numpy() for x in fold_changes(obs, times)]
     got[2] = got[2][:, msk]
-    Y = odeint(oracle_rhs(b), system.y0().reshape(-1), times, rtol=1e-7,
-               atol=1e-9, mxstep=20000).reshape(len(times), topo.N, topo.width)
-    want = fold_changes_np(Y, times, msk)
+    want = lsoda_fold_changes(b)
     err = max(float(np.max(np.abs(g - o) / np.maximum(np.abs(o), 1e-6)))
               for g, o in zip(got, want))
     say("5 accuracy", scan_kernel_launches=scan_launches,
@@ -740,24 +963,47 @@ def fold_changes_model2_np(Y, times, topo):
             fc(pho, base(0.0))[:, topo.site_mask()])
 
 
+_ORACLES: dict = {}
+
+
+def lsoda_fold_changes(b):
+    """The fold changes of a LSODA oracle (rtol 1e-7, atol 1e-9) of the
+    bundle's mechanism (0 or 2) at its true parameters, float64 numpy;
+    computed once per mechanism."""
+    from scipy.integrate import odeint
+
+    system, topo = b["system"], b["topo"]
+    if topo.model not in _ORACLES:
+        times = np.asarray(b["grid"], float)
+        rhs = oracle_rhs(b) if topo.model == 0 else oracle_rhs_model2(b)
+        Y = odeint(rhs, system.y0().reshape(-1), times, rtol=1e-7, atol=1e-9,
+                   mxstep=20000).reshape(len(times), topo.N, topo.width)
+        _ORACLES[topo.model] = (fold_changes_np(Y, times, topo.site_mask())
+                                if topo.model == 0 else fold_changes_model2_np(Y, times, topo))
+    return _ORACLES[topo.model]
+
+
+def fold_changes_of(system, ys, times):
+    """A trajectory's fold changes (phospho at valid sites), float64 numpy."""
+    got = [x.double().cpu().numpy() for x in
+           fold_changes(extract_observables(system, ys), times)]
+    got[2] = got[2][:, system.topo.site_mask()]
+    return got
+
+
 def port_fold_changes(system, true, times, **kw):
-    """The port's fold changes at one parameter set, as float64 numpy;
-    ``kw`` goes to the integrator."""
+    """The port's ETD2RK fold changes at one parameter set, as float64
+    numpy; ``kw`` goes to the integrator."""
     p_b = {k: np.asarray(v)[None] for k, v in true.items()}
     ys, success = expo.exponential_simulate_batched(system, p_b, times, **kw)
     if not bool(success[0]):
         raise AssertionError("ETD2RK failed at the true parameters")
-    got = [x.double().cpu().numpy() for x in
-           fold_changes(extract_observables(system, ys[0]), times)]
-    got[2] = got[2][:, system.topo.site_mask()]
-    return got
+    return fold_changes_of(system, ys[0], times)
 
 
 def phase_precision_model2(b2) -> None:
     """5b: float32 on the card against the port's float64 on the CPU (the
     gate), and both against a LSODA oracle of the hypercube equations."""
-    from scipy.integrate import odeint
-
     system, topo = b2["system"], b2["topo"]
     times = np.asarray(b2["grid"], float)
     got32 = port_fold_changes(system, b2["true"], times)
@@ -765,9 +1011,7 @@ def phase_precision_model2(b2) -> None:
                          device="cpu")
     got64 = port_fold_changes(sys64, b2["true"], times)
     err = rel_err(got32, got64)
-    Y = odeint(oracle_rhs_model2(b2), system.y0().reshape(-1), times, rtol=1e-7,
-               atol=1e-9, mxstep=20000).reshape(len(times), topo.N, topo.width)
-    want = fold_changes_model2_np(Y, times, topo)
+    want = lsoda_fold_changes(b2)
     say("5b model-2 precision", f32_card_vs_f64_cpu=f"{err:.3e}", gate=PRECISION_GATE,
         f32_vs_lsoda=f"{rel_err(got32, want):.3e}",
         f64_vs_lsoda=f"{rel_err(got64, want):.3e}", oracle="LSODA rtol 1e-7 atol 1e-9")
@@ -787,6 +1031,203 @@ def phase_precision_model2(b2) -> None:
                              f"drifted from float64: {err:.3e}")
 
 
+def bundle_args(b) -> tuple:
+    return (b["system"], b["slices"], b["loss_data"], b["defaults"], b["lambdas"], b["grid"])
+
+
+def host_bundle(b) -> dict:
+    """A bundle's host data: what a worker process needs to make the same
+    system and objective at another dtype or on another device."""
+    system = b["system"]
+    return {"topo": system.topo, "kin_grid": system.kin_grid, "Kmat": system.Kmat,
+            **{k: b[k] for k in ("true", "slices", "loss_data", "defaults", "lambdas",
+                                 "grid")}}
+
+
+def worker_job(job: str, hb: dict, dtype: str, device: str, arg=None):
+    """One RK45 run in a worker process, on a system made from ``hb``:
+    ``"objective"`` F of the members ``arg = (thetas, use_kernel)``;
+    ``"fold_changes"`` the fold changes at the true parameters;
+    ``"until_steady"`` simulate_until_steady to ``t_final = arg``. Returns
+    (result, steps, seconds)."""
+    torch.set_num_threads(1)
+    system = GlobalSystem(hb["topo"], hb["kin_grid"], hb["Kmat"],
+                          dtype=getattr(torch, dtype), device=device)
+    t0 = time.perf_counter()
+    if job == "objective":
+        thetas, use_kernel = arg
+        objective = make_objective(system, *(hb[k] for k in ("slices", "loss_data",
+                                                               "defaults", "lambdas", "grid")),
+                                   use_kernel=use_kernel)
+        F = objective(thetas)
+        out, steps = F.double().cpu().numpy(), int(objective.n_steps.max())
+    elif job == "fold_changes":
+        times = np.asarray(hb["grid"], float)
+        res = simulate(system, hb["true"], times)
+        if not bool(res.success):
+            raise AssertionError(f"RK45 failed at the true parameters ({dtype})")
+        out, steps = fold_changes_of(system, res.ys, times), int(res.n_steps)
+    else:
+        rep = simulate_until_steady(system, hb["true"], t_final=arg)
+        out, steps = rep, None
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, steps, time.perf_counter() - t0
+
+
+def start_rk45_workers(b, b1, b2, thetas, thetas1, thetas2) -> tuple:
+    """The RK45 runs that need no launch count, each in its own process on
+    the card (or the CPU), all started together: every run is host-bound
+    at some milliseconds a step, so they overlap instead of queueing.
+    Returns (pool, {name: future})."""
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    hb0, hb1, hb2 = host_bundle(b), host_bundle(b1), host_bundle(b2)
+    th2 = thetas2.cpu().numpy()
+    jobs = {
+        "4d plain flux": ("objective", hb2, "float32", "cuda", (th2[:8], False)),
+        "4d float64 cpu": ("objective", hb2, "float64", "cpu", (th2[:8], None)),
+        "4d model0": ("objective", hb0, "float32", "cuda", (thetas[:POP2].cpu().numpy(), None)),
+        "4d model1": ("objective", hb1, "float32", "cuda", (thetas1.cpu().numpy(), None)),
+        **{f"5c model{hb['topo'].model} {dt}": ("fold_changes", hb, dt, "cuda")
+           for hb in (hb0, hb2) for dt in ("float32", "float64")},
+        "6 until_steady": ("until_steady", hb0, "float64", "cuda", STEADY_T_FINAL),
+    }
+    pool = ProcessPoolExecutor(max_workers=len(jobs), mp_context=get_context("spawn"))
+    return pool, {name: pool.submit(worker_job, *spec) for name, spec in jobs.items()}
+
+
+def phase_rk45_path(b2, thetas2, card) -> dict:
+    """4d: the RK45 objective on the model-2 bench network at pop 2048 (one
+    chunk), float32, in this process, alone on the card. The batched loop
+    runs as many iterations as its slowest member takes steps (frozen
+    members are evaluated too): 7 flux launches an iteration, 2 before
+    the loop. Then a short profiled window."""
+    system, topo = b2["system"], b2["topo"]
+    objective = make_objective(*bundle_args(b2))
+    reset_counts()
+    t0 = time.perf_counter()
+    F = objective(thetas2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    steps = objective.n_steps.cpu().numpy()
+    iters = int(steps.max())
+    if tuple(F.shape) != (POP2, 3) or not bool(torch.isfinite(F).all()):
+        raise AssertionError("4d: non-finite or misshapen objectives")
+    if launches != expect(hypercube_flux=7 * iters + 2):
+        raise AssertionError(f"4d: kernel launches {launches} for {iters} iterations, "
+                             f"want {7 * iters + 2} of hypercube_flux")
+    say("4d rk45 main path", pop=POP2, F_shape=tuple(F.shape), launches=launches,
+        steps_max=iters, steps_median=f"{np.median(steps):.1f}",
+        failed_members=int((F >= 1e12).any(dim=1).sum()),
+        evals_per_s=f"{POP2 / wall:.1f}", seconds=f"{wall:.3f}",
+        ms_per_iteration=f"{1e3 * wall / iters:.3f}", card=repr(card))
+
+    # a steady window of the loop under the profiler (the whole call holds
+    # millions of events)
+    params_b = unpack_params(thetas2, b2["slices"], topo)
+    say("4d rk45 profile", members=POP2, window="the first 40 iterations",
+        **profile_call(lambda: simulate_batched(system, params_b, b2["grid"], max_steps=40),
+                       kernel="hypercube_flux_kernel"))
+    return {"model2-rk45-pop2048": launches}, F
+
+
+def finish_rk45_workers(pool, futures, F, oracles, card) -> None:
+    """4d, 5c and 6's worker runs: F against the plain flux and against
+    float64 on the CPU, models 0 and 1, the accuracy gates against the
+    LSODA ``oracles`` ({model: fold changes}), and simulate_until_steady."""
+    try:
+        got = {name: fut.result() for name, fut in futures.items()}
+    finally:
+        pool.shutdown()
+    for name, ref in (("4d plain flux", "plain flux (use_kernel=False)"),
+                      ("4d float64 cpu", "float64 on the CPU")):
+        Fr, steps, secs = got[name]
+        rel = float(np.max(np.abs(F[:8].double().cpu().numpy() - Fr) / np.abs(Fr)))
+        say(name, members=8, max_rel_err=f"{rel:.3e}", tol=F_RTOL, reference=ref,
+            steps_max=steps, seconds=f"{secs:.2f}")
+        if not rel <= F_RTOL:
+            raise AssertionError(f"{name}: the RK45 objective drifted: {rel:.3e}")
+    for name in ("4d model0", "4d model1"):
+        Fm, steps, secs = got[name]
+        if not np.isfinite(Fm).all():
+            raise AssertionError(f"{name}: non-finite objectives")
+        say(f"{name} rk45", pop=len(Fm), evals_per_s=f"{len(Fm) / secs:.1f}",
+            steps_max=steps, failed_members=int((Fm >= 1e12).any(axis=1).sum()),
+            seconds=f"{secs:.2f}", note="run beside the other workers", card=repr(card))
+    for name in sorted(k for k in got if k.startswith("5c")):
+        fc, steps, secs = got[name]
+        model = int(name.split()[1][-1])
+        err = rel_err(fc, oracles[model])
+        say("5c rk45 accuracy", model=model, dtype=name.split()[-1], steps=steps,
+            max_rel_err=f"{err:.3e}", gate=ACCURACY_GATE, oracle="LSODA rtol 1e-7 atol 1e-9",
+            seconds=f"{secs:.2f}")
+        if not err < ACCURACY_GATE:
+            raise AssertionError(f"{name}: RK45 drifted from LSODA: {err:.3e}")
+    rep, _, secs = got["6 until_steady"]
+    if not (np.isfinite(rep.tot).all() and np.isfinite(rep.final_rate).all()):
+        raise AssertionError("6: simulate_until_steady gave non-finite levels")
+    say("6 simulate_until_steady", model=0, t_final_min=STEADY_T_FINAL,
+        converged=f"{int(rep.converged.sum())}/{len(rep.converged)}",
+        max_final_rate=f"{float(rep.final_rate.max()):.3e}", seconds=f"{secs:.2f}",
+        dtype="float64", card=repr(card))
+
+
+def isolated(model: int):
+    topo = build_topology(ISOLATED, None, model=model)
+    topo.driver_map[:] = -1
+    return topo
+
+
+def steady_vs_cpu(label, fn, topo, want_launches) -> tuple:
+    """One steady state on the card, its launches, against the CPU."""
+    reset_counts()
+    Y = fn(topo)
+    n = counts()
+    if n != want_launches:
+        raise AssertionError(f"{label}: launches {n}, want {want_launches}")
+    cpu = fn(topo, device="cpu")
+    err = float(np.max(np.abs(Y - cpu)) / np.max(np.abs(cpu)))
+    if not err <= STEADY_TOL:
+        raise AssertionError(f"{label}: the card's steady state differs: {err:.3e}")
+    return Y, n, err
+
+
+def phase_steady_states(b1) -> dict:
+    """6: the three steady states on the card (float64) against the CPU,
+    the RHS there, and the sequential one on the bench network's 45 chains
+    (the Thomas kernel's path run)."""
+    for model, fn in STEADY.items():
+        topo = isolated(model)
+        want = expect(thomas_solve_batched=1) if model == 1 else expect()
+        Y, n, err = steady_vs_cpu(f"6 model {model}", fn, topo, want)
+        system = GlobalSystem(topo, GRID, np.ones((topo.K, len(GRID))), dtype=torch.float64,
+                              device="cuda")
+        params = default_params(topo)
+        params["Dp_i"] = params["Dp_i"] * topo.site_mask()
+        pt = {k: torch.as_tensor(np.asarray(v, float), dtype=torch.float64, device="cuda")
+              for k, v in params.items()}
+        y = torch.as_tensor(Y.reshape(1, -1), dtype=torch.float64, device="cuda")
+        dy = system.rhs.batched(0.0, y, torch.zeros(1, dtype=torch.long, device="cuda"),
+                                {k: v[None] for k, v in pt.items()})
+        resid = max(float(torch.max(torch.abs(dy))),
+                    float(torch.max(torch.abs(system.rhs(0.0, y[0], 0, pt)))))
+        say("6 steady state", model=model, proteins=topo.N, vs_cpu=f"{err:.3e}",
+            tol=STEADY_TOL, rhs_max_abs=f"{resid:.3e}", rhs_tol=RHS_AT_STEADY,
+            launches={k: v for k, v in n.items() if v})
+        if not resid <= RHS_AT_STEADY:
+            raise AssertionError(f"6: the RHS at the model-{model} steady state: {resid:.3e}")
+
+    _, launches, err = steady_vs_cpu("6 bench chains", steadystate.steady_state_sequential,
+                                     b1["topo"], expect(thomas_solve_batched=1))
+    say("6 steady state bench", model=1, chains=b1["topo"].N,
+        n=b1["topo"].max_sites + 1, vs_cpu=f"{err:.3e}", launches=launches)
+
+    return {"steady-state-sequential-bench": launches}
+
+
 def population(b, pop: int) -> torch.Tensor:
     """theta0 plus seeded noise, as bench.py and benchmarks/model_rates.py."""
     rng = np.random.default_rng(0)
@@ -799,12 +1240,10 @@ def main() -> int:
     card = phase_device()
     phase_build()
     t0 = time.perf_counter()
-    b = build_demo_network(N_PROTEINS, N_KINASES, seed=0, dtype=torch.float32,
-                           device="cuda")
-    b2 = build_demo_network(N_PROTEINS, N_KINASES, model=2, seed=0,
-                            dtype=torch.float32, device="cuda")
-    thetas, thetas2 = population(b, POP), population(b2, POP2)
-    for bb in (b, b2):
+    b, b1, b2 = (build_demo_network(N_PROTEINS, N_KINASES, model=m, seed=0,
+                                    dtype=torch.float32, device="cuda") for m in (0, 1, 2))
+    thetas, thetas1, thetas2 = population(b, POP), population(b1, POP2), population(b2, POP2)
+    for bb in (b, b1, b2):
         topo = bb["topo"]
         say("setup", model=topo.model, N=topo.N, K=topo.K, w=topo.width,
             n_theta=len(bb["theta0"]), T=len(bb["grid"]))
@@ -812,16 +1251,29 @@ def main() -> int:
     kernel = phase_kernel(b, thetas, card)
     wide = phase_wide_kernel(b2, thetas2, card)
     scan = phase_scan_kernel(b, thetas, b2, thetas2, card)
+    flux = phase_flux_kernel(card)
+    thomas = phase_thomas_kernel(card)
     paths = {"model0-pop8192": phase_main_path(b, thetas, card),
              "model2-pop2048": phase_main_path_model2(b2, thetas2, card),
              **phase_scan_paths(b, thetas, b2, thetas2, card)}
-    for entry in (kernel, wide, scan):
+    rk45_paths, F_rk45 = phase_rk45_path(b2, thetas2, card)
+    paths.update(rk45_paths)
+    pool, futures = start_rk45_workers(b, b1, b2, thetas, thetas1, thetas2)
+    try:
+        phase_accuracy(b)
+        phase_accuracy(b, use_scan_kernel=True)
+        phase_precision_model2(b2)
+        paths.update(phase_steady_states(b1))
+    except BaseException:
+        pool.shutdown(cancel_futures=True)
+        raise
+    finish_rk45_workers(pool, futures, F_rk45, {0: lsoda_fold_changes(b),
+                                                 2: lsoda_fold_changes(b2)}, card)
+    entries = [kernel, wide, scan, flux, thomas]
+    for entry in entries:
         entry["launches_by_path"] = {p: n[entry["name"]] for p, n in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
-    phase_accuracy(b)
-    phase_accuracy(b, use_scan_kernel=True)
-    phase_precision_model2(b2)
-    print(json.dumps({"kernels": [kernel, wide, scan]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,10 +3,12 @@
 Counterpart of ``phoskintime_tpu/demo.py::build_demo_network``. The same
 numpy ``default_rng`` draws in the same order give the same topology,
 kinase input, true parameters and raw packing as the JAX package, for
-every mechanism the port runs (0, 1, 2). The synthetic observations come
-from this package's own ETD2RK integrator at float64 on the CPU, whatever
-device the bundle's system is made for (the JAX package uses RK45), so
-they agree with the JAX bundle's only to the integrators' accuracy.
+every mechanism the port runs (0, 1, 2). The synthetic observations are
+the fold changes at the true parameters, as the JAX package's
+``simulate_and_measure`` makes them: RK45 (``rtol=1e-5``, ``atol=1e-7``,
+``max_steps=5000``, ``dt_max=16``) at the bundle's dtype on the CPU, over
+the union of ``GRID`` and ``RNA_GRID``, whatever device the bundle's
+system is made for.
 """
 
 from __future__ import annotations
@@ -16,11 +18,11 @@ import torch
 
 from phoskintime_tpu_torch.config.numerics import (DEFAULT_DEVICE, numpy_dtype,
                                                    resolve_device)
-from phoskintime_tpu_torch.network.expo import exponential_simulate_batched
 from phoskintime_tpu_torch.network.kinase_input import build_kinase_matrix
 from phoskintime_tpu_torch.network.lossdata import prepare_loss_data
 from phoskintime_tpu_torch.network.params import init_raw_params
-from phoskintime_tpu_torch.network.simulate import extract_observables, fold_changes
+from phoskintime_tpu_torch.network.simulate import (extract_observables, fold_changes,
+                                                    simulate)
 from phoskintime_tpu_torch.network.system import GlobalSystem, default_params
 from phoskintime_tpu_torch.network.topology import build_topology
 
@@ -32,15 +34,14 @@ BOUNDS = {"c_k": (1e-3, 4.0), "A_i": (1e-3, 4.0), "B_i": (1e-3, 4.0),
           "E_i": (1e-4, 4.0), "tf_scale": (0.5, 6.0)}
 
 
-def _observations(system64, true, topo, times):
+def _observations(system_cpu, true, topo, times):
     """Column tables (protein, RNA, phospho) of fold changes at ``true``,
     sliced to the modality grids, gene-major then site then time."""
-    p_b = {k: np.asarray(v, float)[None] for k, v in true.items()}
-    ys, success = exponential_simulate_batched(system64, p_b, times)
-    if not bool(success[0]):
-        raise RuntimeError("ETD2RK failed at the demo's true parameters")
+    res = simulate(system_cpu, true, times, rtol=1e-5, atol=1e-7, max_steps=5000)
+    if not bool(res.success):
+        raise RuntimeError("RK45 failed at the demo's true parameters")
     fc_r, fc_p, fc_ph = (x.numpy() for x in fold_changes(
-        extract_observables(system64, ys[0]), times))
+        extract_observables(system_cpu, res.ys), times))
     on_p = np.isin(times, GRID)
     on_r = np.isin(times, RNA_GRID)
     prot = {"protein": [], "time": [], "fc": []}
@@ -100,8 +101,8 @@ def build_demo_network(n_proteins: int = 40, n_kinases: int = 12,
     true = {k: np.asarray(v, np_dt) for k, v in true.items()}
 
     grid = np.unique(np.concatenate([GRID, RNA_GRID]))
-    system64 = GlobalSystem(topo, GRID, Kmat, dtype=torch.float64, device="cpu")
-    prot, rna, pho = _observations(system64, true, topo, grid)
+    system_cpu = GlobalSystem(topo, GRID, Kmat, dtype=dtype, device="cpu")
+    prot, rna, pho = _observations(system_cpu, true, topo, grid)
     loss_data = prepare_loss_data(topo, prot, rna, pho, grid)
     defaults = default_params(topo, np_dt)
     theta0, slices, xl, xu = init_raw_params(defaults, topo, BOUNDS)

@@ -1,8 +1,9 @@
-"""Population objective: thetas (P, n) -> F (P, 3).
+"""Population objectives: thetas (P, n) -> F (P, 3).
 
 Counterpart of ``phoskintime_tpu/network/objective.py``. One evaluation
 unpacks the softplus parameters, integrates with the batched ETD2RK path
-(:mod:`phoskintime_tpu_torch.network.expo`), and scores the three
+(:mod:`phoskintime_tpu_torch.network.expo`, :func:`make_population_objective`)
+or the RK45 oracle (:func:`make_objective`), and scores the three
 modalities (protein, RNA, phospho) with a robust loss, each weight-sum
 normalized, plus a prior-adherence penalty added to all three. A member
 whose integration fails or whose losses are not finite gets ``fail_value``.
@@ -17,7 +18,8 @@ import torch
 
 from phoskintime_tpu_torch.network.expo import exponential_simulate_batched
 from phoskintime_tpu_torch.network.params import unpack_params
-from phoskintime_tpu_torch.network.simulate import extract_observables
+from phoskintime_tpu_torch.network.simulate import (check_solver, extract_observables,
+                                                    simulate_batched)
 from phoskintime_tpu_torch.ops.losses import robust_loss
 
 EPS = 1e-9
@@ -89,76 +91,64 @@ def _auto_pop_chunk(n_proteins: int, lanes_target: int = 81920) -> int:
         math.log2(max(1.0, lanes_target / max(1, n_proteins))))))
 
 
-def make_population_objective(system, slices, loss_data, defaults, lambdas,
-                              time_grid, loss_mode=0, fail_value=1e12,
-                              y0=None, substep=16.0, use_kernel=None,
-                              differentiable=False, pop_chunk="auto",
-                              width_bucketing=None, use_scan_kernel=None):
-    """Batched objective ``thetas (P, n) -> F (P, 3)`` on the system's
-    device and dtype.
-
-    ``pop_chunk``: populations larger than this run chunk by chunk, the
-    last chunk padded with copies of the last row whose results are
-    dropped; ``"auto"`` sizes it by :func:`_auto_pop_chunk`, None never
-    chunks. ``use_kernel`` goes to the propagator-table build (None: the
-    CUDA kernels on a CUDA system; False: the plain version).
-    ``width_bucketing`` goes to the integrator (None: per-width-class
-    tables for the combinatorial mechanism at w >= 9), and so does
-    ``use_scan_kernel`` (None: the eager scan; True: the whole unbucketed
-    scan as one kernel).
-    ``differentiable=True`` is not ported yet and raises."""
-    if differentiable:
-        raise NotImplementedError(
-            "differentiable=True is not ported yet (ROADMAP.md queue 1: "
-            "'Gradients and polish')")
+def _scorer(system, loss_data, defaults, lambdas, n_times: int, loss_mode: int,
+            fail_value: float, dense_loss: bool):
+    """``score(params_b, ys, success) -> F (P, 3)``: the three weight-sum
+    normalized modality losses of each member's trajectory, each plus the
+    prior-adherence penalty (the mean squared relative deviation of the
+    protein-level parameters from ``defaults``); ``fail_value`` where the
+    integration failed or a loss is not finite. ``dense_loss``: the dense
+    masked loss where the observation table allows it, else the gathers of
+    :func:`modality_losses`."""
     rhs = system.rhs
     f = dict(dtype=rhs.Kmat.dtype, device=rhs.Kmat.device)
     scales = [(1.0 / max(1e-6, float(np.sum(w))), lambdas[m]) for m, w in
               (("protein", loss_data.w_prot), ("rna", loss_data.w_rna),
                ("phospho", loss_data.w_pho))]
-    t_eval = np.asarray(time_grid, float)
     defaults_t = {k: torch.as_tensor(np.asarray(defaults[k], float), **f)
                   for k in PRIOR_KEYS}
     cnt = max(1, sum(defaults_t[k].numel() for k in PRIOR_KEYS))
     topo = system.topo
-    if isinstance(pop_chunk, str):               # "auto"
-        pop_chunk = _auto_pop_chunk(topo.N)
-    dense = _dense_loss_tensors(loss_data, len(t_eval), topo.N, topo.max_sites)
+    dense = (_dense_loss_tensors(loss_data, n_times, topo.N, topo.max_sites)
+             if dense_loss else None)
     if dense is not None:
-        dense = [(torch.as_tensor(O, **f), torch.as_tensor(W, **f))
-                 for O, W in dense]
+        dense = [(torch.as_tensor(O, **f), torch.as_tensor(W, **f)) for O, W in dense]
     lf = robust_loss(loss_mode)
     ld = loss_data
 
-    def dense_loss(sig, base_idx, OW):
+    def dense_one(sig, base_idx, OW):
         O, W = OW
         fc = torch.clamp(sig, min=EPS) / torch.clamp(sig[:, base_idx:base_idx + 1], min=EPS)
         return torch.sum((W * lf(O - fc, fc, O)).reshape(sig.shape[0], -1), dim=1)
 
-    def objective_chunk(thetas):
-        params_b = unpack_params(thetas, slices, topo)
+    def score(params_b, ys, success):
         acc = 0.0
         for k in PRIOR_KEYS:
             diff = (params_b[k] - defaults_t[k][None]) / (defaults_t[k][None] + 1e-6)
             acc = acc + torch.sum((diff ** 2).reshape(diff.shape[0], -1), dim=1)
         prior_penalty = lambdas["prior"] * acc / cnt
-
-        ys, success = exponential_simulate_batched(
-            system, params_b, t_eval, substep=substep, y0=y0,
-            use_kernel=use_kernel, width_bucketing=width_bucketing,
-            use_scan_kernel=use_scan_kernel)
         obs = extract_observables(system, ys)
         if dense is not None:
-            losses = (dense_loss(obs.TOT, ld.prot_base_idx, dense[0]),
-                      dense_loss(obs.R, ld.rna_base_idx, dense[1]),
-                      dense_loss(obs.PHO, ld.pho_base_idx, dense[2]))
+            losses = (dense_one(obs.TOT, ld.prot_base_idx, dense[0]),
+                      dense_one(obs.R, ld.rna_base_idx, dense[1]),
+                      dense_one(obs.PHO, ld.pho_base_idx, dense[2]))
         else:
             losses = modality_losses(obs, ld, loss_mode)
-        F = torch.stack([l * n * lam for l, (n, lam) in zip(losses, scales)],
-                        dim=1)
+        F = torch.stack([l * n * lam for l, (n, lam) in zip(losses, scales)], dim=1)
         F = F + prior_penalty[:, None]
         ok = success & torch.isfinite(F).all(dim=1)
         return torch.where(ok[:, None], F, torch.full_like(F, fail_value))
+
+    return score
+
+
+def _in_chunks(objective_chunk, pop_chunk, n_proteins: int, f: dict):
+    """``objective_pop(thetas)``: ``objective_chunk`` over chunks of at most
+    ``pop_chunk`` members, the last chunk padded with copies of the last
+    row whose results are dropped; ``"auto"`` sizes it by
+    :func:`_auto_pop_chunk`, None never chunks."""
+    if isinstance(pop_chunk, str):               # "auto"
+        pop_chunk = _auto_pop_chunk(n_proteins)
 
     @torch.no_grad()
     def objective_pop(thetas):
@@ -172,6 +162,85 @@ def make_population_objective(system, slices, loss_data, defaults, lambdas,
         return torch.cat([objective_chunk(c) for c in thetas.split(pop_chunk)])[:P]
 
     return objective_pop
+
+
+def make_population_objective(system, slices, loss_data, defaults, lambdas,
+                              time_grid, loss_mode=0, fail_value=1e12,
+                              y0=None, substep=16.0, use_kernel=None,
+                              differentiable=False, pop_chunk="auto",
+                              width_bucketing=None, use_scan_kernel=None):
+    """Batched objective ``thetas (P, n) -> F (P, 3)`` on the system's
+    device and dtype, by the ETD2RK integrator.
+
+    ``pop_chunk``: see :func:`_in_chunks`. ``use_kernel`` goes to the
+    propagator-table build (None: the
+    CUDA kernels on a CUDA system; False: the plain version).
+    ``width_bucketing`` goes to the integrator (None: per-width-class
+    tables for the combinatorial mechanism at w >= 9), and so does
+    ``use_scan_kernel`` (None: the eager scan; True: the whole unbucketed
+    scan as one kernel).
+    ``differentiable=True`` is not ported yet and raises."""
+    if differentiable:
+        raise NotImplementedError(
+            "differentiable=True is not ported yet (ROADMAP.md queue 1: "
+            "'Gradients and polish')")
+    t_eval = np.asarray(time_grid, float)
+    score = _scorer(system, loss_data, defaults, lambdas, len(t_eval), loss_mode,
+                    fail_value, dense_loss=True)
+    topo = system.topo
+
+    def objective_chunk(thetas):
+        params_b = unpack_params(thetas, slices, topo)
+        ys, success = exponential_simulate_batched(
+            system, params_b, t_eval, substep=substep, y0=y0,
+            use_kernel=use_kernel, width_bucketing=width_bucketing,
+            use_scan_kernel=use_scan_kernel)
+        return score(params_b, ys, success)
+
+    return _in_chunks(objective_chunk, pop_chunk, topo.N,
+                      dict(dtype=system.rhs.Kmat.dtype, device=system.rhs.Kmat.device))
+
+
+def make_objective(system, slices, loss_data, defaults, lambdas, time_grid,
+                   loss_mode=0, fail_value=1e12, rtol=1e-5, atol=1e-7,
+                   max_steps=5000, y0=None, solver="rk45", pop_chunk="auto",
+                   use_kernel=None):
+    """The RK45 oracle objective, batched: ``thetas (P, n) -> F (P, 3)``,
+    the counterpart of ``jax.vmap`` of the JAX package's ``make_objective``.
+
+    Each member unpacks its softplus parameters, integrates with
+    :func:`~phoskintime_tpu_torch.network.simulate.simulate_batched`
+    (``rtol``, ``atol``, ``max_steps``; each member steps on its own) and is
+    scored by the gathers of :func:`modality_losses` plus the prior
+    penalty; ``fail_value`` where its integration failed or a loss is not
+    finite. ``pop_chunk`` as :func:`make_population_objective`;
+    ``use_kernel`` goes to the model-2 edge flux (False: its plain
+    version). Solvers other than ``"rk45"`` raise. After each call,
+    ``objective.n_steps`` holds the (P,) int32 step counts of its members."""
+    check_solver(solver)
+    t_eval = np.asarray(time_grid, float)
+    score = _scorer(system, loss_data, defaults, lambdas, len(t_eval), loss_mode,
+                    fail_value, dense_loss=False)
+    topo = system.topo
+    steps = []
+
+    def objective_chunk(thetas):
+        params_b = unpack_params(thetas, slices, topo)
+        res = simulate_batched(system, params_b, t_eval, rtol=rtol, atol=atol,
+                               max_steps=max_steps, y0=y0, use_kernel=use_kernel)
+        steps.append(res.n_steps)
+        return score(params_b, res.ys, res.success)
+
+    run = _in_chunks(objective_chunk, pop_chunk, topo.N,
+                     dict(dtype=system.rhs.Kmat.dtype, device=system.rhs.Kmat.device))
+
+    def objective(thetas):
+        steps.clear()
+        F = run(thetas)
+        objective.n_steps = torch.cat(steps)[:F.shape[0]]
+        return F
+
+    return objective
 
 
 def evaluate_population(objective, thetas):

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from phoskintime_tpu_torch.config.numerics import DEFAULT_DEVICE, resolve_device
+from phoskintime_tpu_torch.ops.hypercube_flux import hypercube_flux
 
 _NOT_PORTED = ("model {} is not ported yet (ROADMAP.md queue 1: "
                "'Mechanism 4 on the objective')")
@@ -56,16 +57,17 @@ def synthesis_rate(A, tf_scale, u_squashed):
 
 
 def tf_inputs(tf_mat, tf_deg, P_vec):
-    """Squashed TF drive u in (-1, 1) for one member: P_vec (N,)."""
-    v = (tf_mat @ P_vec) / tf_deg
+    """Squashed TF drive u in (-1, 1): P_vec (..., N), one row per member."""
+    v = torch.matmul(P_vec, tf_mat.T) / tf_deg
     return v / (1.0 + torch.abs(v))
 
 
 class PaddedRHS:
     """RHS over the padded state, holding the topology tensors at one
     dtype on one device (default: the card). ``rhs(t, y_flat, jb,
-    params)`` evaluates one member; ``jb`` indexes the kinase grid (the
-    bucket of t)."""
+    params)`` evaluates one member, ``jb`` an int indexing the kinase grid
+    (the bucket of t); :meth:`batched` evaluates a population, each member
+    in its own bucket. The mechanisms are written over any leading axes."""
 
     def __init__(self, topo, Kmat, dtype=torch.float64, device=DEFAULT_DEVICE):
         check_model(topo.model)
@@ -76,6 +78,7 @@ class PaddedRHS:
         self.Smax = topo.max_sites
         self.width = topo.width
         self.W_pad = torch.as_tensor(topo.W_pad, **f)
+        self.W_rows = self.W_pad.reshape(self.N * self.Smax, -1)   # (N*Smax, K)
         self.tf_mat = torch.as_tensor(topo.tf_mat, **f)
         self.tf_deg = torch.as_tensor(topo.tf_deg, **f)
         self.driver_map = torch.as_tensor(topo.driver_map, device=device)
@@ -84,10 +87,8 @@ class PaddedRHS:
         self.site_mask = torch.as_tensor(topo.site_mask(), **f)
         self.Kmat = torch.as_tensor(Kmat, **f)          # (K, n_buckets)
         if self.model == 2:
-            bits, xor_idx = _hypercube_tables(self.Smax)
+            bits, _ = _hypercube_tables(self.Smax)
             self.bits = torch.as_tensor(bits, **f)                  # (Smax, Mmax)
-            self.xor_idx = torch.as_tensor(xor_idx, dtype=torch.long,
-                                           device=device)           # (Smax, Mmax)
             self.state_mask = torch.as_tensor(topo.state_mask(), **f)  # (N, Mmax)
             self.Mmax = topo.max_states
 
@@ -97,18 +98,18 @@ class PaddedRHS:
         return self.Kmat[:, jb] * params["c_k"]
 
     def site_rates(self, Kt):
-        """S (N, Smax): per-site phospho drive W . Kt."""
-        return torch.einsum("nsk,k->ns", self.W_pad, Kt)
+        """S (..., N, Smax): per-site phospho drive W . Kt, Kt (..., K)."""
+        return torch.matmul(Kt, self.W_rows.T).reshape(*Kt.shape[:-1], self.N, self.Smax)
 
     def total_protein(self, Y):
         if self.model == 2:
-            return torch.sum(Y[:, 1:] * self.state_mask, dim=1)
-        return Y[:, 1] + torch.sum(Y[:, 2:] * self.site_mask, dim=1)
+            return torch.sum(Y[..., 1:] * self.state_mask, dim=-1)
+        return Y[..., 1] + torch.sum(Y[..., 2:] * self.site_mask, dim=-1)
 
     def p_vec(self, Y, Kt):
         """Observable protein vector; kinase-driven proteins take the live
         kinase activity in place of their simulated total."""
-        return torch.where(self.driven, Kt[self.driver_idx], self.total_protein(Y))
+        return torch.where(self.driven, Kt[..., self.driver_idx], self.total_protein(Y))
 
     def __call__(self, t, y_flat, jb, params, u_override=None):
         """dy/dt for one member (flat (N*width,) state). ``u_override``
@@ -119,69 +120,88 @@ class PaddedRHS:
         u = (tf_inputs(self.tf_mat, self.tf_deg, self.p_vec(Y, Kt))
              if u_override is None else u_override)
         synth = synthesis_rate(params["A_i"], params["tf_scale"], u)
-        rhs = {0: self._rhs_distributive, 1: self._rhs_sequential,
-               2: self._rhs_combinatorial}[self.model]
-        return rhs(Y, S, synth, params).reshape(-1)
+        return self._mechanism(Y, S, synth, params).reshape(-1)
+
+    def batched(self, t, y, jb, params_b, use_kernel: bool | None = None):
+        """dy/dt for a population: y (P, N*width), jb (P,) int (each
+        member's own bucket), every leaf of ``params_b`` with a leading P.
+        Model 2's edge flux runs through :func:`hypercube_flux` on the
+        (P*N, Mmax) rows (``use_kernel`` goes there). Returns (P, N*width)."""
+        P = y.shape[0]
+        Y = y.reshape(P, self.N, self.width)
+        jb = torch.clamp(jb, 0, self.Kmat.shape[1] - 1)
+        Kt = self.Kmat[:, jb].T * params_b["c_k"]               # (P, K)
+        S = self.site_rates(Kt)
+        u = tf_inputs(self.tf_mat, self.tf_deg, self.p_vec(Y, Kt))
+        synth = synthesis_rate(params_b["A_i"], params_b["tf_scale"][:, None], u)
+        return self._mechanism(Y, S, synth, params_b, use_kernel).reshape(P, -1)
+
+    def _mechanism(self, Y, S, synth, p, use_kernel=None):
+        if self.model == 2:
+            return self._rhs_combinatorial(Y, S, synth, p, use_kernel)
+        if self.model == 1:
+            return self._rhs_sequential(Y, S, synth, p)
+        return self._rhs_distributive(Y, S, synth, p)
 
     def _rhs_distributive(self, Y, S, synth, p):
         """Model 0: every site is phosphorylated from P0 directly."""
         B, C, D, E, Dp = p["B_i"], p["C_i"], p["D_i"], p["E_i"], p["Dp_i"]
         msk = self.site_mask
-        R, P0, sites = Y[:, 0], Y[:, 1], Y[:, 2:] * msk
+        R, P0, sites = Y[..., 0], Y[..., 1], Y[..., 2:] * msk
         Sm = S * msk
         dR = synth - B * R
-        d_sites = (Sm * P0[:, None]
-                   - (E[:, None] + Dp + D[:, None]) * sites) * msk
-        dP0 = C * R - (D + Sm.sum(1)) * P0 + E * sites.sum(1)
-        return torch.cat([dR[:, None], dP0[:, None], d_sites], dim=1)
+        d_sites = (Sm * P0[..., None]
+                   - (E[..., None] + Dp + D[..., None]) * sites) * msk
+        dP0 = C * R - (D + Sm.sum(-1)) * P0 + E * sites.sum(-1)
+        return torch.cat([dR[..., None], dP0[..., None], d_sites], dim=-1)
 
     def _rhs_sequential(self, Y, S, synth, p):
         """Model 1: a chain P0 -> s_1 -> s_2 -> ... with back-steps at E."""
         B, C, D, E, Dp = p["B_i"], p["C_i"], p["D_i"], p["E_i"], p["Dp_i"]
         msk = self.site_mask
-        R, P0, sites = Y[:, 0], Y[:, 1], Y[:, 2:] * msk
+        R, P0, sites = Y[..., 0], Y[..., 1], Y[..., 2:] * msk
         Sm = S * msk
-        has_sites = msk[:, 0]
-        zero = torch.zeros_like(Sm[:, :1])
-        prev = torch.cat([P0[:, None], sites[:, :-1]], dim=1)
-        k_next = torch.cat([Sm[:, 1:], zero], dim=1)
-        has_next = torch.cat([msk[:, 1:], zero], dim=1)
-        nxt = torch.cat([sites[:, 1:], zero], dim=1)
+        has_sites = msk[..., 0]
+        zero = torch.zeros_like(Sm[..., :1])
+        prev = torch.cat([P0[..., None], sites[..., :-1]], dim=-1)
+        k_next = torch.cat([Sm[..., 1:], zero], dim=-1)
+        has_next = torch.cat([msk[..., 1:], torch.zeros_like(msk[..., :1])], dim=-1)
+        nxt = torch.cat([sites[..., 1:], zero], dim=-1)
         dR = synth - B * R
         d_sites = (Sm * prev
-                   + E[:, None] * nxt * has_next
-                   - (k_next * has_next + E[:, None] + Dp + D[:, None]) * sites) * msk
-        dP0 = (C * R - D * P0 - Sm[:, 0] * P0 * has_sites
-               + E * sites[:, 0] * has_sites)
-        return torch.cat([dR[:, None], dP0[:, None], d_sites], dim=1)
+                   + E[..., None] * nxt * has_next
+                   - (k_next * has_next + E[..., None] + Dp + D[..., None]) * sites) * msk
+        dP0 = (C * R - D * P0 - Sm[..., 0] * P0 * has_sites
+               + E * sites[..., 0] * has_sites)
+        return torch.cat([dR[..., None], dP0[..., None], d_sites], dim=-1)
 
-    def _rhs_combinatorial(self, Y, S, synth, p):
+    def _rhs_combinatorial(self, Y, S, synth, p, use_kernel=None):
         """Model 2, the hypercube: per set bit of a state, a dephospho edge
         at rate E and decay Dp_j + D; per clear bit, a phospho edge at rate
-        S_j. Translation feeds state 0, which decays at plain D. Written
-        out of place, so ``torch.func`` can differentiate through it."""
+        S_j. Translation feeds state 0, which decays at plain D.
+
+        The edge flux is :func:`hypercube_flux` of the states masked to the
+        valid ones and the rates masked to the valid sites: an invalid site
+        j of a protein with ns sites has j >= ns, so every state carrying
+        bit j is itself invalid (m >= 2^ns) and its terms vanish, which is
+        the JAX package's per-site ``valid`` factor."""
         B, C, D, E, Dp = p["B_i"], p["C_i"], p["D_i"], p["E_i"], p["Dp_i"]
-        R = Y[:, 0]
-        X = Y[:, 1:] * self.state_mask                  # (N, Mmax)
+        R = Y[..., 0]
+        X = Y[..., 1:] * self.state_mask                # (..., N, Mmax)
         smask = self.site_mask                          # (N, Smax)
         Sm = S * smask
         dR = synth - B * R
+        dX = hypercube_flux(X.reshape(-1, self.Mmax).contiguous(),
+                            Sm.reshape(-1, self.Smax).contiguous(),
+                            E.reshape(-1).contiguous(), self.Smax,
+                            use_kernel=use_kernel).reshape(X.shape)
 
-        # X_x[n, j, m] = X[n, m ^ (1 << j)], the neighbour across site j
-        X_x = torch.index_select(X, 1, self.xor_idx.reshape(-1)).reshape(
-            self.N, self.Smax, self.Mmax)
-        bits = self.bits[None]                          # (1, Smax, Mmax)
-        inflow = bits * Sm[:, :, None] * X_x + (1 - bits) * E[:, None, None] * X_x
-        outflow = (bits * E[:, None, None] * X[:, None, :]
-                   + (1 - bits) * Sm[:, :, None] * X[:, None, :])
-        dX = torch.sum((inflow - outflow) * smask[:, :, None], dim=1)
-
-        decay = torch.einsum("nj,jm->nm", (Dp + D[:, None]) * smask, self.bits)
-        decay = torch.cat([D[:, None], decay[:, 1:]], dim=1)   # state 0: D
+        decay = torch.matmul((Dp + D[..., None]) * smask, self.bits)
+        decay = torch.cat([D[..., None], decay[..., 1:]], dim=-1)   # state 0: D
         dX = dX - decay * X
-        dX = torch.cat([dX[:, :1] + (C * R)[:, None], dX[:, 1:]], dim=1)
+        dX = torch.cat([dX[..., :1] + (C * R)[..., None], dX[..., 1:]], dim=-1)
         dX = dX * self.state_mask
-        return torch.cat([dR[:, None], dX], dim=1)
+        return torch.cat([dR[..., None], dX], dim=-1)
 
     def linear_blocks(self, S, p):
         """(N, w, w) block-diagonal linear operator with the TF input frozen,

@@ -1,9 +1,12 @@
-"""Observables and fold changes of a simulated trajectory.
+"""Simulation by the RK45 oracle integrator, observables and fold changes.
 
-Counterpart of ``extract_observables`` and ``fold_changes`` in
-``phoskintime_tpu/network/simulate.py``. The RK45 ``simulate`` there is
-the oracle integrator, ROADMAP queue 1 item "Oracle integrators"; the
-port's objective runs the ETD2RK path of ``network/expo.py``.
+Counterpart of ``phoskintime_tpu/network/simulate.py``: :func:`simulate`
+(one member, the JAX package's signature) and :func:`simulate_batched` (a
+population, the counterpart of ``jax.vmap`` of ``simulate``) integrate the
+padded system with :func:`~phoskintime_tpu_torch.ops.integrators.odeint_rk45`,
+the kinase grid as bucket boundaries; :func:`extract_observables` and
+:func:`fold_changes` read a trajectory. ``simulate_and_measure`` returns
+pandas frames and waits for the host layer (ROADMAP.md queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -14,14 +17,57 @@ import numpy as np
 import torch
 
 from phoskintime_tpu_torch.network.rhs import check_model
+from phoskintime_tpu_torch.ops.integrators import ODEResult, odeint_rk45
 
 EPS = 1e-12
+
+
+def check_solver(solver: str) -> None:
+    """Raise for a solver the port does not run yet ("esdirk", "expo")."""
+    if solver != "rk45":
+        raise NotImplementedError(
+            f"solver={solver!r} is not ported yet (ROADMAP.md queue 1 item 3, "
+            "'Oracle integrators'); the port integrates with 'rk45'")
 
 
 class Observables(NamedTuple):
     R: torch.Tensor     # (..., T, N) mRNA
     TOT: torch.Tensor   # (..., T, N) total protein
     PHO: torch.Tensor   # (..., T, N, Smax) per-site phospho signal
+
+
+def simulate_batched(system, params_b: dict, t_eval, rtol=1e-5, atol=1e-7,
+                     max_steps=5000, y0=None, dt_max=16.0, solver: str = "rk45",
+                     use_kernel: bool | None = None) -> ODEResult:
+    """Integrate a population on the system's device and dtype: every leaf
+    of ``params_b`` has a leading axis P (tensors or numpy). ``y0``: None
+    (the system's default), one padded state (N, width) or (N*width,) for
+    every member, or (P, N*width). Returns ys (P, T, N*width) and per-member
+    success and step counts. ``use_kernel`` goes to the model-2 edge flux
+    (None: the kernel on a CUDA system)."""
+    check_solver(solver)
+    check_model(system.topo.model)
+    rhs = system.rhs
+    f = dict(dtype=rhs.Kmat.dtype, device=rhs.Kmat.device)
+    params_b = {k: torch.as_tensor(v, **f) for k, v in params_b.items()}
+    P = params_b["c_k"].shape[0]
+    d = rhs.N * rhs.width
+    y0 = torch.as_tensor(system.y0() if y0 is None else y0, **f)
+    y0 = y0.reshape(-1, d).expand(P, d).contiguous()
+    return odeint_rk45(system.rhs_batched(params_b, use_kernel), y0, t_eval,
+                       boundaries=np.asarray(system.kin_grid, float),
+                       max_steps=max_steps, rtol=rtol, atol=atol, dt_max=dt_max)
+
+
+def simulate(system, params: dict, t_eval, rtol=1e-5, atol=1e-7, max_steps=5000,
+             y0=None, dt_max=16.0, solver: str = "rk45") -> ODEResult:
+    """One member: :func:`simulate_batched` at P = 1. Returns ys (T, N*width),
+    success () and the step counts ()."""
+    params_b = {k: v[None] if isinstance(v, torch.Tensor) else np.asarray(v)[None]
+                for k, v in params.items()}
+    res = simulate_batched(system, params_b, t_eval, rtol, atol, max_steps, y0,
+                           dt_max, solver)
+    return ODEResult(*(x[0] for x in res))
 
 
 def extract_observables(system, Y_flat: torch.Tensor) -> Observables:

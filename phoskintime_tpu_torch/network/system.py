@@ -75,3 +75,13 @@ class GlobalSystem:
         else:
             Y[:, 2:] = 0.01 * topo.site_mask()
         return Y
+
+    def rhs_flat(self, params):
+        """Bucketed RHS of one member for the integrator: (t, y_flat, jb) -> dy."""
+        return lambda t, y, jb: self.rhs(t, y, jb, params)
+
+    def rhs_batched(self, params_b, use_kernel: bool | None = None):
+        """Bucketed RHS of a population for the batched integrator:
+        (t (P,), y (P, N*width), jb (P,)) -> dy (P, N*width); ``use_kernel``
+        goes to the model-2 edge flux."""
+        return lambda t, y, jb: self.rhs.batched(t, y, jb, params_b, use_kernel)

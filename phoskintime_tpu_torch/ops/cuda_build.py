@@ -19,7 +19,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = (CSRC / "phi_tables.cu", CSRC / "phi_tables_wide.cu", CSRC / "etd2rk_scan.cu")
+SOURCES = tuple(CSRC / f"{stem}.cu" for stem in (
+    "phi_tables", "phi_tables_wide", "etd2rk_scan", "hypercube_flux", "thomas"))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

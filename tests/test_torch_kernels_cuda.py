@@ -7,13 +7,24 @@ and without JAX it runs on its own:
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
 """
 
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from phoskintime_tpu_torch.demo import build_demo_network
+from phoskintime_tpu_torch.network import steadystate
 from phoskintime_tpu_torch.network.expo import width_classes
-from phoskintime_tpu_torch.network.objective import make_population_objective
+from phoskintime_tpu_torch.network.objective import make_objective, make_population_objective
+from phoskintime_tpu_torch.network.rhs import tf_inputs
+from phoskintime_tpu_torch.network.simulate import extract_observables, simulate_batched
+from phoskintime_tpu_torch.network.system import GlobalSystem
+from phoskintime_tpu_torch.network.topology import build_topology
+from phoskintime_tpu_torch.ops.hypercube_flux import hypercube_flux, hypercube_flux_reference
+from phoskintime_tpu_torch.ops.tridiag import thomas_solve_batched, thomas_solve_reference
 from phoskintime_tpu_torch.ops.phi_tables import (ladder_len, phi_tables,
                                                   phi_tables_reference,
                                                   phi_tables_wide, phi_vectors)
@@ -259,3 +270,216 @@ def test_objective_goes_through_the_scan_kernel(cuda_device, model):
     Fe = make_population_objective(*args, pop_chunk=2)(thetas)
     assert F.shape == (5, 3) and bool(torch.isfinite(F).all())
     assert float(torch.max(torch.abs(F - Fe) / torch.abs(Fe))) <= 1e-3
+
+
+# --- the hypercube edge flux and the Thomas solve ------------------------------------
+
+# float64 kernels against float64 plain versions: rounding only
+SCALED_ATOL_F64 = 1e-12
+
+
+def flux_inputs(rng, rows, smax, dtype, device):
+    f = dict(dtype=dtype, device=device)
+    return (torch.as_tensor(rng.uniform(0, 1, (rows, 1 << smax)), **f),
+            torch.as_tensor(rng.uniform(0.1, 2.0, (rows, smax)), **f),
+            torch.as_tensor(rng.uniform(0.1, 2.0, rows), **f))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("smax", range(1, 7))
+def test_hypercube_kernel_matches_plain(cuda_device, smax, dtype):
+    """1,001 rows (the last warp ragged), smax 1-5 by warp shuffles, 6
+    through shared memory as well."""
+    X, S, E = flux_inputs(np.random.default_rng(smax), 1001, smax, dtype, cuda_device)
+    before = hypercube_flux.launches
+    got = hypercube_flux(X, S, E, smax)
+    torch.cuda.synchronize()
+    assert hypercube_flux.launches == before + 1
+    assert got.shape == X.shape and got.dtype == dtype
+    assert_scaled_close(got, hypercube_flux_reference(X, S, E, smax),
+                        SCALED_ATOL_F32 if dtype == torch.float32 else SCALED_ATOL_F64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [1, 2, 5, 17, 64])
+def test_thomas_kernel_matches_plain(cuda_device, n, dtype):
+    rng = np.random.default_rng(n)
+    B = 1000
+    a, c, d = (rng.normal(0, 1, (B, n)) for _ in range(3))
+    b = np.abs(rng.normal(0, 1, (B, n))) + 4.0
+    a[:, 0] = c[:, -1] = 0.0
+    args = [torch.as_tensor(v, dtype=dtype, device=cuda_device) for v in (a, b, c, d)]
+    before = thomas_solve_batched.launches
+    got = thomas_solve_batched(*args)
+    torch.cuda.synchronize()
+    assert thomas_solve_batched.launches == before + 1
+    tol = SCALED_ATOL_F32 if dtype == torch.float32 else SCALED_ATOL_F64
+    assert_scaled_close(got, thomas_solve_reference(*args), tol)
+    dense = (torch.diag_embed(args[1]) + torch.diag_embed(args[0][:, 1:], -1)
+             + torch.diag_embed(args[2][:, :-1], 1))
+    assert_scaled_close(got, torch.linalg.solve(dense, args[3]), 10 * tol)
+
+
+def test_thomas_kernel_pivot_guard(cuda_device):
+    """A zero pivot: 1e-300 in float64 (finite), no guard in float32."""
+    a = torch.zeros((2, 3), dtype=torch.float64, device=cuda_device)
+    b = torch.full_like(a, 4.0)
+    b[1, 0] = 0.0
+    c, d = torch.ones_like(a), torch.ones_like(a)
+    assert bool(torch.isfinite(thomas_solve_batched(a, b, c, d)).all())
+    got32 = thomas_solve_batched(a.float(), b.float(), c.float(), d.float())
+    want32 = thomas_solve_reference(a.float(), b.float(), c.float(), d.float())
+    assert torch.equal(torch.isfinite(got32), torch.isfinite(want32))
+    assert not bool(torch.isfinite(got32[1]).all())
+
+
+@pytest.mark.parametrize("bad", ["flux_half", "flux_strided", "thomas_n65", "thomas_half"])
+def test_new_kernels_reject(cuda_device, bad):
+    rng = np.random.default_rng(0)
+    if bad.startswith("flux"):
+        X, S, E = flux_inputs(rng, 8, 3, torch.float32, cuda_device)
+        if bad == "flux_half":
+            X, S, E = X.half(), S.half(), E.half()
+        else:
+            S = torch.cat([S, S], dim=1)[:, ::2]
+        with pytest.raises(NotImplementedError if bad == "flux_half" else ValueError):
+            hypercube_flux(X, S, E, 3)
+    else:
+        n = 65 if bad == "thomas_n65" else 4
+        args = [torch.ones((3, n), device=cuda_device) for _ in range(4)]
+        if bad == "thomas_half":
+            args = [x.half() for x in args]
+        with pytest.raises(NotImplementedError):
+            thomas_solve_batched(*args)
+
+
+def test_batched_rhs_matches_call_and_cpu(cuda_device):
+    """Model 2 at float64 on the card (the flux kernel): batched at P = 1
+    equals the one-member call, and a population equals the CPU's plain
+    flux."""
+    b = build_demo_network(n_proteins=8, n_kinases=3, model=2, seed=1,
+                           dtype=torch.float64, device=cuda_device)
+    system = b["system"]
+    cpu = GlobalSystem(system.topo, system.kin_grid, system.Kmat, dtype=torch.float64,
+                       device="cpu")
+    rng = np.random.default_rng(0)
+    P, d = 5, system.rhs.N * system.rhs.width
+    y = rng.uniform(0.0, 1.5, (P, d))
+    jb = np.asarray([0, 3, 6, 9, 13])
+    pop = {k: np.asarray(v, float)[None] * rng.uniform(0.7, 1.3, (P,) + (1,) * np.ndim(v))
+           for k, v in b["true"].items()}
+    on_card = {k: torch.as_tensor(v, device=cuda_device) for k, v in pop.items()}
+    before = hypercube_flux.launches
+    got = system.rhs.batched(0.0, torch.as_tensor(y, device=cuda_device),
+                             torch.as_tensor(jb, device=cuda_device), on_card)
+    torch.cuda.synchronize()
+    assert hypercube_flux.launches == before + 1
+    want = cpu.rhs.batched(0.0, torch.as_tensor(y), torch.as_tensor(jb),
+                           {k: torch.as_tensor(v) for k, v in pop.items()})
+    assert_scaled_close(got.cpu(), want, SCALED_ATOL_F64)
+    one = system.rhs(0.0, torch.as_tensor(y[2], device=cuda_device), int(jb[2]),
+                     {k: v[2] for k, v in on_card.items()})
+    assert_scaled_close(got[2], one, SCALED_ATOL_F64)
+
+
+def test_rk45_path_goes_through_the_flux_kernel(cuda_device):
+    """Model 2 by RK45 at float32: 7 flux launches a loop iteration (6
+    stages and the derivative after the step) and 2 before the loop (f0
+    and the starting-step trial); the loop runs as many iterations as the
+    slowest member takes steps. F against the plain flux."""
+    b = build_demo_network(n_proteins=8, n_kinases=3, model=2, seed=1,
+                           dtype=torch.float32, device=cuda_device)
+    rng = np.random.default_rng(0)
+    thetas = b["theta0"][None] + 0.05 * rng.normal(size=(4, len(b["theta0"])))
+    args = (b["system"], b["slices"], b["loss_data"], b["defaults"], b["lambdas"], b["grid"])
+    pop = {k: np.asarray(v, float)[None] * rng.uniform(0.8, 1.2, (4,) + (1,) * np.ndim(v))
+           for k, v in b["true"].items()}
+    hypercube_flux.launches = 0
+    res = simulate_batched(b["system"], pop, b["grid"])
+    torch.cuda.synchronize()
+    assert bool(res.success.all())
+    assert hypercube_flux.launches == 7 * int(res.n_steps.max()) + 2
+    hypercube_flux.launches = 0
+    F = make_objective(*args, pop_chunk=None)(thetas)
+    assert hypercube_flux.launches > 0
+    Fp = make_objective(*args, pop_chunk=None, use_kernel=False)(thetas)
+    assert F.shape == (4, 3) and bool(torch.isfinite(F).all())
+    assert float(torch.max(torch.abs(F - Fp) / torch.abs(Fp))) <= 1e-3
+
+
+def test_steady_state_sequential_launches_thomas_once(cuda_device):
+    topo = build_topology([("GA", "S1", "K"), ("GA", "S2", "K"), ("GB", "S1", "K"),
+                           ("GC", "S1", "K"), ("GC", "S2", "K"), ("GC", "S3", "K")],
+                          None, model=1)
+    before = thomas_solve_batched.launches
+    got = steadystate.steady_state_sequential(topo, device=cuda_device)
+    assert thomas_solve_batched.launches == before + 1
+    np.testing.assert_allclose(got, steadystate.steady_state_sequential(topo, device="cpu"),
+                               rtol=1e-12, atol=1e-15)
+
+
+# --- matmul precision ---------------------------------------------------------------
+
+# full float32 against float64 on the same float32 inputs, relative to the
+# largest entry: sums of 4 to 48 products keep ~1e-7; TF32's 10-bit
+# mantissa gives ~1e-4
+TF32_BREAKS = 1e-5
+
+
+def matmul_pieces(device, dtype, seed=0):
+    """(tf_inputs, site_rates, model-2 observables) of the port on a random
+    model-2 network of 48 proteins (up to 4 sites of 3 kinases each out of
+    12, dense TF rows; 48, so that cuBLAS may pick its tensor-core kernels
+    when TF32 is allowed) for 4,096 members, from float32 inputs."""
+    rng = np.random.default_rng(seed)
+    prots = [f"P{i:02d}" for i in range(48)]
+    rows = [(p, f"S{j}", f"K{k:02d}") for p in prots for j in range(int(rng.integers(0, 5)))
+            for k in rng.choice(12, size=3, replace=False)]
+    tf_rows = [(a, b) for a in prots for b in prots if rng.uniform() < 0.5]
+    topo = build_topology(rows, tf_rows, model=2,
+                          kin_alpha={r: rng.uniform(0.5, 1.5) for r in rows})
+    grid = np.asarray([0.0, 1.0])
+    system = GlobalSystem(topo, grid, rng.uniform(0.5, 1.5, (topo.K, 2)), dtype=dtype,
+                          device=device)
+    rhs = system.rhs
+    f = dict(dtype=torch.float32, device=device)
+    P = 4096
+    Pv = torch.as_tensor(rng.uniform(0.0, 2.0, (P, topo.N)), **f).to(dtype)
+    Kt = torch.as_tensor(rng.uniform(0.0, 2.0, (P, topo.K)), **f).to(dtype)
+    Y = torch.as_tensor(rng.uniform(0.0, 1.0, (P // 16, 15, topo.N * topo.width)), **f)
+    return (tf_inputs(rhs.tf_mat.float().to(dtype), rhs.tf_deg.float().to(dtype), Pv),
+            rhs.site_rates(Kt), extract_observables(system, Y.to(dtype)).PHO)
+
+
+def scaled_errors(device):
+    got = matmul_pieces(device, torch.float32)
+    want = matmul_pieces(device, torch.float64)
+    return [float(torch.max(torch.abs(g.double() - w)) / torch.max(torch.abs(w)))
+            for g, w in zip(got, want)]
+
+
+def test_matmuls_run_in_full_float32(cuda_device):
+    """The port's float32 matmuls (the TF matvec, the site-rate and the
+    model-2 observable contractions) agree with float64 to 1e-5, which
+    TF32 breaks (checked here by turning it on), and importing every
+    module of the port leaves TF32 off."""
+    root = Path(__file__).resolve().parent.parent
+    mods = sorted(".".join(p.relative_to(root).with_suffix("").parts)
+                  for p in (root / "phoskintime_tpu_torch").rglob("*.py"))
+    code = ("import importlib, torch; "
+            f"[importlib.import_module(m.removesuffix('.__init__')) for m in {mods!r}]; "
+            "print(torch.backends.cuda.matmul.allow_tf32, "
+            "torch.get_float32_matmul_precision())")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=root)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "highest"], out.stdout
+
+    errs = scaled_errors(cuda_device)
+    assert max(errs) <= TF32_BREAKS, errs
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        errs_tf32 = scaled_errors(cuda_device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert min(errs_tf32) > TF32_BREAKS, errs_tf32

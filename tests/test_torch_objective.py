@@ -120,9 +120,19 @@ def test_differentiable_not_ported(bundles):
 
 
 def test_demo_bundle_matches_jax():
-    """Same draws, same structure; observations from another integrator."""
-    bj = jax_demo(n_proteins=12, n_kinases=5, seed=2)
-    bt = build_demo_network(n_proteins=12, n_kinases=5, seed=2, device="cpu")
+    """The default float32 bundle: same draws, same structure, observations
+    from RK45 at float32 on both sides."""
+    check_demo_bundle("float32")
+
+
+def test_demo_bundle_float64_matches_jax():
+    check_demo_bundle("float64")
+
+
+def check_demo_bundle(dtype):
+    bj = jax_demo(n_proteins=12, n_kinases=5, seed=2, dtype=getattr(np, dtype))
+    bt = build_demo_network(n_proteins=12, n_kinases=5, seed=2,
+                            dtype=getattr(torch, dtype), device="cpu")
     tj, tt = bj["topo"], bt["topo"]
     for f in ("proteins", "kinases", "sites", "p2i", "k2i", "proxy_map"):
         assert getattr(tt, f) == getattr(tj, f), f
@@ -136,12 +146,15 @@ def test_demo_bundle_matches_jax():
         np.testing.assert_array_equal(bt[k], bj[k], err_msg=k)
         assert bt[k].dtype == bj[k].dtype, k
     assert bt["slices"] == bj["slices"] and bt["lambdas"] == bj["lambdas"]
-    assert bt["system"].dtype == torch.float32
+    assert bt["system"].dtype == getattr(torch, dtype)
+    # float64: the same RK45 steps on both sides, rounding apart (measured
+    # 1.2e-13). float32: the port runs in float32 throughout, while the JAX
+    # package's float32 bundle integrates from a float64 y0 and so promotes
+    # most of its arithmetic to float64; the two step sequences part at the
+    # integrator's own tolerance (measured 1.13e-05 at this size)
+    rtol = 1e-9 if dtype == "float64" else 1e-4
     for f, a, b in zip(bj["loss_data"]._fields, bt["loss_data"], bj["loss_data"]):
         if f.startswith("obs"):
-            # port: ETD2RK at float64; JAX: RK45 (rtol 1e-5) at float32. Both
-            # sit within the 1e-3 accuracy gate of a tight LSODA oracle
-            # (measured 1.6e-4 apart at this size)
-            np.testing.assert_allclose(a, b, rtol=1e-3, err_msg=f)
+            np.testing.assert_allclose(a, b, rtol=rtol, err_msg=f)
         else:
             np.testing.assert_array_equal(a, b, err_msg=f)

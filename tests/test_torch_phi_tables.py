@@ -52,17 +52,22 @@ def assert_scaled_close(got, want, atol):
 
 
 def test_package_imports_without_jax():
-    """Every module of the port, and chip_smoke.py, in a fresh interpreter."""
+    """Every module of the port, and chip_smoke.py, in a fresh interpreter:
+    none loads JAX or the JAX package, and none turns on TF32 matmuls."""
     root = Path(__file__).resolve().parent.parent
     mods = sorted(".".join(p.relative_to(root).with_suffix("").parts)
                   for p in (root / "phoskintime_tpu_torch").rglob("*.py"))
     mods = [m.removesuffix(".__init__") for m in mods] + ["chip_smoke"]
     assert "phoskintime_tpu_torch.network.expo" in mods and len(mods) > 15
+    for new in ("ops.hypercube_flux", "ops.tridiag", "ops.integrators",
+                "network.analysis", "network.steadystate"):
+        assert f"phoskintime_tpu_torch.{new}" in mods, new
     code = ("import importlib, sys; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'phoskintime_tpu' or m.startswith('phoskintime_tpu.')]; "
-            "print(bad); sys.exit(1 if bad else 0)")
+            "import torch; tf32 = torch.backends.cuda.matmul.allow_tf32; "
+            "print(bad, tf32); sys.exit(1 if bad or tf32 else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stdout + out.stderr
@@ -153,5 +158,5 @@ def test_library_path_is_keyed_by_source():
     assert path.parent == cuda_build.BUILD_DIR and path.suffix == ".so"
     assert "csrc" in str(pm.SOURCE) and pm.SOURCE.exists()
     assert pm.SOURCE in cuda_build.SOURCES and all(s.exists() for s in cuda_build.SOURCES)
-    assert len({cuda_build.library_path(s) for s in cuda_build.SOURCES}) == 3
+    assert len({cuda_build.library_path(s) for s in cuda_build.SOURCES}) == 5
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
