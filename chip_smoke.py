@@ -13,19 +13,22 @@ non-zero:
 3. kernel vs plain: ``phi_tables`` (w <= 8) against ``phi_tables_reference``
    on the card at the main path's own shapes (one 2048-member chunk of the
    bench problem) and at every block width 2..8, scaled atol 2e-5; the
-   kernel, the plain version and ``torch.linalg.matrix_exp`` of the
-   augmented matrix timed, and the kernel's bound worked out;
+   kernel (by CUDA events and, on the device, by the profiler), the plain
+   version and ``torch.linalg.matrix_exp`` of the augmented matrix timed,
+   and the kernel's bound and its share of it worked out;
 3b. the same for ``phi_tables_wide`` (9 <= w <= 17) at the model-2 chunk's
-   class shapes (w = 9 and 17) and at every width 9..17, and for
+   class shapes (w = 9 and 17), at the unbucketed chunk's full width (w =
+   17 over all 92,160 lanes) and at every width 9..17, and for
    ``phi_vectors`` (one pair) at w = 7 and 17;
 3c. the same for ``etd2rk_scan`` (the whole ETD2RK scan) against
    ``etd2rk_scan_reference`` and the eager scan, on the model-0 chunk's own
    inputs (w = 6) and on an unbucketed model-2 chunk (w = 17), and at every
    width 2..17 on small random problems, rtol 2e-3 / atol 1e-5 on the
-   trajectory, and on members of 200 proteins (one member a block) at
-   w = 6, 14 and 17; the kernel, the plain version, the eager scan and
-   that scan replayed from a CUDA graph timed, and the kernel's bound
-   worked out;
+   trajectory, and on members of 199 to 225 proteins (one member a block)
+   at w = 6, 14, 16 and 17, each side of the switch from E in shared
+   memory to E streamed; the kernel (events and device), the plain
+   version, the eager scan and that scan replayed from a CUDA graph timed,
+   the kernel's bound and share of it worked out, and the variant named;
 4. main path, model 0: the population objective at pop 8192 in chunks of
    2048 on the bench problem (``build_demo_network(40, 12, seed=0)``,
    float32), counting kernel launches, checking F against the plain
@@ -105,7 +108,7 @@ from phoskintime_tpu_torch.ops import phi_tables as phi_mod
 from phoskintime_tpu_torch.ops.phi_tables import (phi_tables, phi_tables_reference,
                                                   phi_tables_wide, phi_vectors)
 from phoskintime_tpu_torch.ops.scan_kernel import (etd2rk_scan, etd2rk_scan_reference,
-                                                   random_scan_problem)
+                                                   random_scan_problem, scan_launch_shape)
 
 POP, CHUNK, N_PROTEINS, N_KINASES = 8192, 2048, 40, 12
 POP2 = 2048               # model 2: one chunk, as benchmarks/model_rates.py
@@ -281,11 +284,13 @@ def compartmental(rng, Bu, w, B) -> torch.Tensor:
 
 
 def check_and_time(label, L, binv, h_u, ladder, card, reps=20, run_k=None,
-                   run_p=None) -> dict:
+                   run_p=None, kernel=None) -> dict:
     """One table build through a kernel against its plain version (by
     default ``phi_tables``, which routes by width, and
     ``phi_tables_reference``): errors, then times in the order plain,
-    kernel, kernel, plain, matrix_exp, and the bound."""
+    kernel, kernel, plain, matrix_exp, the bound, and (``kernel``: a part
+    of the kernel's name) its device time by the profiler and share of the
+    bound."""
     run_k = run_k or (lambda: phi_tables(L, binv, h_u, ladder))
     run_p = run_p or (lambda: phi_tables_reference(L, binv, h_u, ladder))
     got, want = run_k(), run_p()
@@ -309,13 +314,28 @@ def check_and_time(label, L, binv, h_u, ladder, card, reps=20, run_k=None,
     lib_err = library_check(torch.linalg.matrix_exp(M), want, h_u)
     del M
     bound_ms, bound_by = table_bound(L, binv, h_u, ladder)
+    dev_ms = kernel_ms_on_device(run_k, kernel, reps)
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    say(f"{label} timing", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+    say(f"{label} timing", ms=f"{ms:.4f}", device_ms=measured(dev_ms),
+        plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+        bound_by=bound_by, share_of_bound=share(bound_ms, dev_ms),
         runs_ms=[round(x, 4) for x in (p1, k1, k2, p2)],
         library_vs_plain=f"{lib_err:.3e}", card=repr(card))
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+    return {"max_abs_err": max_abs, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def kernel_ms_on_device(run, kernel, reps):
+    """Mean device ms of the kernels named ``kernel`` over ``reps`` calls of
+    ``run`` under the profiler; None without a name or a trace."""
+    if not kernel:
+        return None
+    return kernel_device_ms(device_events(lambda: [run() for _ in range(reps)])[0], kernel)
+
+
+def share(bound_ms, dev_ms) -> str:
+    """The bound over the device time, or "not measured"."""
+    return "not measured" if not dev_ms else f"{bound_ms / dev_ms:.3f}"
 
 
 def check_widths(widths) -> None:
@@ -339,7 +359,8 @@ def check_widths(widths) -> None:
 def phase_kernel(b, thetas, card) -> dict:
     params_b = unpack_params(thetas[:CHUNK], b["slices"], b["topo"])
     (L, binv, h_u, ladder), = expo.table_inputs(b["system"], params_b, b["grid"])
-    out = check_and_time("3 kernel main-path", L, binv, h_u, ladder, card)
+    out = check_and_time("3 kernel main-path", L, binv, h_u, ladder, card,
+                         kernel="phi_tables_kernel")
     check_widths(range(2, 9))
     return {"name": "phi_tables", "route": "cuda",
             "source": "phoskintime_tpu_torch/csrc/phi_tables.cu",
@@ -348,16 +369,22 @@ def phase_kernel(b, thetas, card) -> dict:
 
 def phase_wide_kernel(b2, thetas2, card) -> dict:
     """3b: the wide kernel at the model-2 chunk's own class shapes (the
-    w = 17 class is the main-path entry of the summary), every width
-    9..17, and phi_vectors at w = 7 and 17."""
+    w = 17 class is the main-path entry of the summary) and at the
+    unbucketed chunk's full width, every width 9..17, and phi_vectors at
+    w = 7 and 17."""
     params_b = unpack_params(thetas2[:CHUNK], b2["slices"], b2["topo"])
     per_class = expo.table_inputs(b2["system"], params_b, b2["grid"])
     summary = {}
     for L, binv, h_u, ladder in per_class:
         if L.shape[1] > 8:
             summary[L.shape[1]] = check_and_time(
-                f"3b wide main-path w={L.shape[1]}", L, binv, h_u, ladder, card, reps=5)
+                f"3b wide main-path w={L.shape[1]}", L, binv, h_u, ladder, card, reps=5,
+                kernel="phi_tables_wide_kernel")
     del per_class
+    full, = expo.table_inputs(b2["system"], params_b, b2["grid"], width_bucketing=False)
+    unbucketed = check_and_time("3b wide main-path unbucketed w=17", *full, card, reps=5,
+                                kernel="phi_tables_wide_kernel")
+    del full
     check_widths(range(9, 18))
 
     # phi_vectors, one pair (U = 1) of compartmental blocks, h = 2
@@ -370,7 +397,8 @@ def phase_wide_kernel(b2, thetas2, card) -> dict:
                        run_k=one, run_p=lambda: one(use_kernel=False))
     return {"name": "phi_tables_wide", "route": "cuda",
             "source": "phoskintime_tpu_torch/csrc/phi_tables_wide.cu",
-            "replaces": "phoskintime_tpu/ops/phi_pallas.py:406", **summary[17]}
+            "replaces": "phoskintime_tpu/ops/phi_pallas.py:406", **summary[17],
+            "class_w9": summary[9], "unbucketed_w17": unbucketed}
 
 
 def scan_bound(args, plan) -> tuple[float, str]:
@@ -424,6 +452,7 @@ def check_and_time_scan(label, b, thetas, card, **kw) -> dict:
     E = args[0]
     w, B = E.shape[1], E.shape[3]
     T, P, N = plan.T, B // plan.N, plan.N
+    variant = scan_launch_shape(w, N).variant
     run_k = lambda: etd2rk_scan(*args, plan)
     run_p = lambda: etd2rk_scan_reference(*args, plan)
     got, want = run_k(), run_p()
@@ -433,7 +462,8 @@ def check_and_time_scan(label, b, thetas, card, **kw) -> dict:
     as_eager = got.reshape(T, w, P, N).permute(2, 0, 3, 1).reshape(P, T, N * w)
     _, scaled_e = scan_close(f"{label} vs eager", as_eager, ys_e)
     say(f"{label} check", w=w, lanes=B, segments=len(plan.uidx), pairs=E.shape[0],
-        snapshots=T, max_abs_err=f"{max_abs:.3e}", max_scaled_err=f"{scaled:.3e}",
+        runs=len(plan.runs), variant=variant, snapshots=T,
+        max_abs_err=f"{max_abs:.3e}", max_scaled_err=f"{scaled:.3e}",
         kernel_vs_eager_scaled=f"{scaled_e:.3e}", rtol=SCAN_RTOL, atol=SCAN_ATOL)
 
     p1, k1, k2, p2 = (cuda_ms(run_p, 3), cuda_ms(run_k, 10), cuda_ms(run_k, 10),
@@ -447,31 +477,35 @@ def check_and_time_scan(label, b, thetas, card, **kw) -> dict:
     graph_ms = cuda_ms(replay, 5)
     del replay, ys_g
     bound_ms, bound_by = scan_bound(args, plan)
+    dev_ms = kernel_ms_on_device(run_k, "etd2rk_scan_kernel", 10)
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    say(f"{label} timing", ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-        eager_ms=f"{eager_ms:.4f}", cuda_graph_ms=f"{graph_ms:.4f}",
-        bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+    say(f"{label} timing", variant=variant, ms=f"{ms:.4f}", device_ms=measured(dev_ms),
+        plain_ms=f"{plain_ms:.4f}", eager_ms=f"{eager_ms:.4f}",
+        cuda_graph_ms=f"{graph_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        share_of_bound=share(bound_ms, dev_ms),
         runs_ms=[round(x, 4) for x in (p1, k1, k2, p2)], card=repr(card))
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "eager_ms": eager_ms,
-            "cuda_graph_ms": graph_ms}
+    return {"max_abs_err": max_abs, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "variant": variant, "eager_ms": eager_ms, "cuda_graph_ms": graph_ms}
 
 
 def phase_scan_kernel(b, thetas, b2, thetas2, card) -> dict:
     """3c: the scan kernel at the model-0 chunk (the summary's entry) and
     an unbucketed model-2 chunk, then every width 2..17, then members of
-    200 proteins."""
+    199 to 225 proteins, each side of the variant switch."""
     out = check_and_time_scan("3c scan main-path", b, thetas[:CHUNK], card)
     out["model2_unbucketed"] = check_and_time_scan(
         "3c scan model-2 unbucketed", b2, thetas2[:CHUNK], card, width_bucketing=False)
-    for w, N in [(w, 7) for w in range(2, 18)] + [(6, 200), (14, 200), (17, 200)]:
+    wide_members = [(6, 200), (14, 200), (16, 224), (16, 225), (17, 199), (17, 200)]
+    for w, N in [(w, 7) for w in range(2, 18)] + wide_members:
         args, plan = random_scan_problem(w, N=N, P=300 if N == 7 else 12, seed=w,
                                          device="cuda")
         got, want = etd2rk_scan(*args, plan), etd2rk_scan_reference(*args, plan)
         torch.cuda.synchronize()
         max_abs, scaled = scan_close(f"3c scan w={w} N={N}", got, want)
         say("3c scan width", w=w, proteins=N, lanes=args[0].shape[3],
-            max_abs_err=f"{max_abs:.3e}", max_scaled_err=f"{scaled:.3e}")
+            variant=scan_launch_shape(w, N).variant, max_abs_err=f"{max_abs:.3e}",
+            max_scaled_err=f"{scaled:.3e}")
     return {"name": "etd2rk_scan", "route": "cuda",
             "source": "phoskintime_tpu_torch/csrc/etd2rk_scan.cu",
             "replaces": "phoskintime_tpu/ops/scan_pallas.py:246", **out}

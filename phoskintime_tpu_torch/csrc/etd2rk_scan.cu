@@ -20,42 +20,83 @@
 // drv (NB, B), A / ts (B,), ys (T, w, B), with B = P * N. Per protein:
 // totw (w, N), the total-protein weight of each slot (row 0, the R slot,
 // is never read); driven (N,); the TF rows of (tf_mat / tf_deg) as CSR
-// (tf_ptr (N+1,), tf_col, tf_coef) and tf_deg (N,).
+// (tf_ptr (N+1,), tf_col, tf_coef) and tf_deg (N,). The plan comes as runs,
+// (first segment, length, pair, bucket), a run being a maximal stretch of
+// consecutive segments of one pair (ops/scan_kernel.py::scan_runs; a pair
+// has one bucket), with each segment's snapshot slot out_slot.
 //
 // What bounds it on this card. Read once, the tables are U (w^2 + 2w) B
-// floats: 248 MB for the bench chunk (U = 14, w = 6, B = 92,160), 0.074 ms
-// at 3.35 TB/s; the arithmetic is about S B (w^2 + 4w + 2 nnz/N + 20) FMAs,
-// ~1.0 G there, 0.03 ms at 67 TFLOP/s. So bytes bound it. The scan cannot hold the
-// tables on chip (248 MB against 50 MB of L2 and 33 MB of registers and
-// shared memory), so each segment streams its pair's rows from L2 or HBM:
-// S (w^2 + 2w) B floats, 2.35 GB at the bench chunk, which is what this
-// simple design moves.
+// floats: 248 MB for the bench's model-0 chunk (U = 14, w = 6, B = 92,160),
+// 1.67 GB for its unbucketed model-2 chunk (w = 17), 0.074 and 0.50 ms at
+// 3.35 TB/s; the arithmetic is about S B (w^2 + 4w + 2 nnz/N + 20) FMAs,
+// 1.0 G and 4.1 G there (0.03 and 0.12 ms at 67 TFLOP/s). So bytes bound
+// it, if each table is read once. The tables do not fit on chip (248 MB
+// against 50 MB of L2), and a design that reads a pair's rows at every
+// segment moves S (w^2 + 2w) B floats: 2.35 GB at w = 6, from L2 while a
+// 17.7 MB pair slab fits there, and 15.8 GB at w = 17, all from HBM (a
+// pair slab is 119 MB).
 //
-// What the design does about it. One thread per (member, protein) lane
-// keeps its w-slot state, a, and its total-protein weights in registers for
-// all S segments; nothing but the snapshots is written back. The TF matvec
-// couples proteins only within a member, so a thread block holds whole
-// members (members_per_block of them, about block_threads / N) and no block
-// ever needs another block's data: the members' totals Pv are exchanged
-// through shared memory, one __syncthreads() per synthesis evaluation (two
-// per segment), with two buffers alternating so that a segment's second
-// write cannot overrun a read of its first. Each thread reads only its own
-// member's Pv, so a non-finite member changes no other member's values.
-// The E row of the segment's pair is read lanes fastest: a warp's loads are
-// coalesced, and consecutive segments of one pair find it in L2 (13 MB per
-// pair at the bench chunk). The per-segment uidx, jb and out_slot are small
-// device arrays read by every thread (cache broadcasts). The driven
+// What the design does about it. The segment plan is run-structured: the
+// bench's 133 segments fall into 14 runs, one pair each. A thread block
+// loads its lanes' rows of a run's pair once, at the run's first segment,
+// and keeps them on chip until the run's last, so every table is read once;
+// the live kinase drive of a driven lane is read once a run too.
+// Where they stay depends on the width, in three variants of one template,
+// chosen by (w, N) alone (ops/scan_kernel.py::scan_launch_shape):
+//   registers (w <= 8): E's w^2 entries and p1, p2h in the thread's
+//     registers (w^2 + 2w <= 80 floats beside y, a and tw); no spills.
+//   shared (9 <= w <= 17, a member's E rows fit 227 KB): E in dynamic
+//     shared memory, each lane's w^2 entries contiguous (padded to an odd
+//     stride at even w, so a warp's 32 lanes read 32 banks and every
+//     address is the lane's base plus a constant), copied in with cp.async
+//     at the run's first segment (each thread copies and reads only its
+//     own lane's entries, so no barrier guards the slab); p1 and p2h in
+//     registers. 4 (w^2 + 2) bytes a lane with the totals' buffers (4 more
+//     at even w): a member fits while w <= 15, at w = 16 up to N = 224,
+//     at w = 17 up to N = 199; at the bench's N = 45, two members a block
+//     (90 lanes, 104,760 B).
+//   stream (w = 16, 17 above those N): E read from memory at every segment
+//     as the first design did (L2 or HBM); p1 and p2h in registers per run.
+// One thread per (member, protein) lane keeps its w-slot state, a, and its
+// total-protein weights in registers for all S segments; nothing but the
+// snapshots is written back. The TF matvec couples proteins only within a
+// member, so a thread block holds whole members (about 128 lanes, fewer
+// where shared memory runs out) and no block needs another block's data:
+// the members' totals Pv are exchanged through shared memory, one
+// __syncthreads() per synthesis evaluation (two per segment), with two
+// buffers alternating so that a segment's second write cannot overrun a
+// read of its first. Each thread reads only its own member's Pv, so a
+// non-finite member changes no other member's values. The arithmetic is
+// the first design's, FMA for FMA (the same fmaf chains over j, the same
+// synthesis), so the output does not depend on the variant. The driven
 // override is a select, not the Pallas kernel's blend, so a non-finite
 // total cannot poison a driven protein. FP32 FMA only: no tensor cores.
+// The kernel is latency-bound: each segment is a chain of two barriers, the
+// TF gathers and four divisions, so the more blocks an SM holds the better.
+// The w = 6 build (the bench's model 0) is bounded to 85 registers (80
+// used, a 52-byte spill), which fits the chunk's 1,024 blocks in one wave
+// (0.49 -> 0.35 ms on the H100); w = 7 and 8 use 148 and 167, the shared
+// variant 168 at w = 17, the stream variant up to 255, and nothing else
+// spills. chip_smoke.py's build phase prints ptxas's report of every
+// instantiation.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-// One build of each width, bounded at 256 threads a block (up to 255
-// registers a thread: no width spills), so a member holds at most 256
-// proteins.
+// One build of each width and variant, bounded at 256 threads a block (up
+// to 255 registers a thread), so a member holds at most 256 proteins.
 constexpr int kMaxThreads = 256;
+constexpr int kMaxShared = 232448;       // dynamic shared memory a block may opt into
+constexpr int kDefaultShared = 48 * 1024;
+
+enum Variant { kRegisters = 0, kShared = 1, kStream = 2 };
+
+// Shared variant: a lane's E takes kStride floats, its w^2 entries row-major
+// and one more at even w, so that the 32 lanes of a warp, kStride (odd)
+// words apart, read 32 different banks.
+template <int W>
+constexpr int kStride = W * W + (W % 2 == 0 ? 1 : 0);
 
 struct Lane {
   bool active;
@@ -90,21 +131,35 @@ __device__ __forceinline__ float synth(const float (&v)[W], const float (&tw)[W]
   return u >= 0.0f ? act : rep;
 }
 
-template <int W>
-__global__ void __launch_bounds__(kMaxThreads)
+// A 4-byte asynchronous copy from device to shared memory, and the wait for
+// all of this thread's copies.
+__device__ __forceinline__ void copy_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void wait_async() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <int W, int V>
+__global__ void __launch_bounds__(kMaxThreads, V == kRegisters && W <= 6 ? 3 : 1)
 etd2rk_scan_kernel(const float* __restrict__ E, const float* __restrict__ p1,
                    const float* __restrict__ p2h, const float* __restrict__ y0,
                    const float* __restrict__ drv, const float* __restrict__ A,
                    const float* __restrict__ ts, const float* __restrict__ totw,
                    const int* __restrict__ driven, const int* __restrict__ tf_ptr,
                    const int* __restrict__ tf_col, const float* __restrict__ tf_coef,
-                   const float* __restrict__ tf_deg, const int* __restrict__ uidx,
-                   const int* __restrict__ jb, const int* __restrict__ out_slot,
+                   const float* __restrict__ tf_deg, const int* __restrict__ runs,
+                   const int* __restrict__ out_slot,
                    const int* __restrict__ init_slots, float* __restrict__ ys,
-                   int n_init, int S, int N, int P, int members_per_block) {
-  extern __shared__ float pv[];                       // 2 x members_per_block x N
+                   int n_init, int n_runs, int N, int P, int members_per_block) {
+  // 2 x span Pv floats, then (shared variant) each lane's E: kStride a lane
+  extern __shared__ float smem[];
   const int span = members_per_block * N;
   const int t = threadIdx.x;
+  float* pv = smem;
+  float* Es = smem + 2 * span + t * kStride<W>;
   const int member = blockIdx.x * members_per_block + t / N;
   const size_t B = static_cast<size_t>(P) * N;
   const size_t lane = static_cast<size_t>(member) * N + t % N;
@@ -112,7 +167,8 @@ etd2rk_scan_kernel(const float* __restrict__ E, const float* __restrict__ p1,
   Lane ln;
   ln.active = t < span && member < P;
   ln.base = (t / N) * N;
-  float y[W], a[W], tw[W];
+  float y[W], a[W], tw[W], q1[W], q2[W];
+  float e[V == kRegisters ? W * W : 1];
   if (ln.active) {
     const int q = t % N;
     ln.row_beg = tf_ptr[q];
@@ -133,48 +189,87 @@ etd2rk_scan_kernel(const float* __restrict__ E, const float* __restrict__ p1,
     }
   }
 
-  for (int s = 0; s < S; ++s) {
-    const int u = __ldg(uidx + s);
-    const float drive = (ln.active && ln.driven)
-                            ? drv[static_cast<size_t>(__ldg(jb + s)) * B + lane] : 0.0f;
-    const float sn = synth<W>(y, tw, drive, pv, ln, tf_col, tf_coef);
-    if (ln.active) {
-      const float* Eu = E + static_cast<size_t>(u) * W * W * B + lane;
+  for (int r = 0; r < n_runs; ++r) {
+    const int s0 = __ldg(runs + 4 * r), s1 = s0 + __ldg(runs + 4 * r + 1);
+    const int u = __ldg(runs + 4 * r + 2), bucket = __ldg(runs + 4 * r + 3);
+    const float* Eu = E + static_cast<size_t>(u) * W * W * B + lane;
+    // the plane stride, opaque to the compiler: hoisted out of the run loop
+    // its w^2 multiples would be as many live registers, and spill
+    size_t Br = B;
+    asm volatile("" : "+l"(Br));
+    float drive = 0.0f;
+    if (ln.active) {                   // the run's rows and drive, read once
       const float* p1u = p1 + static_cast<size_t>(u) * W * B + lane;
+      const float* p2u = p2h + static_cast<size_t>(u) * W * B + lane;
 #pragma unroll
       for (int i = 0; i < W; ++i) {
-        float acc = 0.0f;
+        q1[i] = p1u[i * Br];
+        q2[i] = p2u[i * Br];
+      }
+      if (ln.driven) drive = drv[static_cast<size_t>(bucket) * Br + lane];
+      if constexpr (V == kRegisters) {
 #pragma unroll
-        for (int j = 0; j < W; ++j) acc = fmaf(Eu[(i * W + j) * B], y[j], acc);
-        a[i] = fmaf(p1u[i * B], sn, acc);
+        for (int k = 0; k < W * W; ++k) e[k] = Eu[k * Br];
+      } else if constexpr (V == kShared) {
+#pragma unroll
+        for (int k = 0; k < W * W; ++k) copy_async4(Es + k, Eu + k * Br);
+        wait_async();
       }
     }
-    const float sa = synth<W>(a, tw, drive, pv + span, ln, tf_col, tf_coef);
-    if (ln.active) {
-      const float* p2u = p2h + static_cast<size_t>(u) * W * B + lane;
-      const float d = sa - sn;
+    for (int s = s0; s < s1; ++s) {
+      // the stream variant's E addresses, opaque to the compiler likewise
+      const float* Eseg = Eu;
+      size_t Bseg = B;
+      if constexpr (V == kStream) asm volatile("" : "+l"(Eseg), "+l"(Bseg));
+      const float sn = synth<W>(y, tw, drive, pv, ln, tf_col, tf_coef);
+      if (ln.active) {
 #pragma unroll
-      for (int i = 0; i < W; ++i) y[i] = fmaf(p2u[i * B], d, a[i]);
-      const int slot = __ldg(out_slot + s);
-      if (slot >= 0) {
-        float* out = ys + static_cast<size_t>(slot) * W * B + lane;
+        for (int i = 0; i < W; ++i) {
+          float acc = 0.0f;
 #pragma unroll
-        for (int i = 0; i < W; ++i) out[i * B] = y[i];
+          for (int j = 0; j < W; ++j) {
+            float eij;
+            if constexpr (V == kRegisters) eij = e[i * W + j];
+            else if constexpr (V == kShared) eij = Es[i * W + j];
+            else eij = Eseg[(i * W + j) * Bseg];
+            acc = fmaf(eij, y[j], acc);
+          }
+          a[i] = fmaf(q1[i], sn, acc);
+        }
+      }
+      const float sa = synth<W>(a, tw, drive, pv + span, ln, tf_col, tf_coef);
+      if (ln.active) {
+        const float d = sa - sn;
+#pragma unroll
+        for (int i = 0; i < W; ++i) y[i] = fmaf(q2[i], d, a[i]);
+        const int slot = __ldg(out_slot + s);
+        if (slot >= 0) {
+          float* out = ys + static_cast<size_t>(slot) * W * B + lane;
+#pragma unroll
+          for (int i = 0; i < W; ++i) out[i * B] = y[i];
+        }
       }
     }
   }
 }
 
-template <int W>
-int launch(const void* const* in, void* ys, int n_init, int S, int N, int P,
-           int block_threads, cudaStream_t stream) {
-  const int members = block_threads / N > 0 ? block_threads / N : 1;
+template <int W, int V>
+int launch(const void* const* in, void* ys, int n_init, int n_runs, int N, int P,
+           int members, cudaStream_t stream) {
   const int span = members * N;
   const int threads = (span + 31) / 32 * 32;
-  if (threads > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t shared = (2 + (V == kShared ? kStride<W> : 0)) * static_cast<size_t>(span)
+                        * sizeof(float);
+  if (members < 1 || threads > kMaxThreads || shared > kMaxShared)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = etd2rk_scan_kernel<W, V>;
+  if (shared > kDefaultShared) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
   const int blocks = (P + members - 1) / members;
-  const size_t shared = 2 * static_cast<size_t>(span) * sizeof(float);
-  etd2rk_scan_kernel<W><<<blocks, threads, shared, stream>>>(
+  kernel<<<blocks, threads, shared, stream>>>(
       static_cast<const float*>(in[0]), static_cast<const float*>(in[1]),
       static_cast<const float*>(in[2]), static_cast<const float*>(in[3]),
       static_cast<const float*>(in[4]), static_cast<const float*>(in[5]),
@@ -183,31 +278,34 @@ int launch(const void* const* in, void* ys, int n_init, int S, int N, int P,
       static_cast<const int*>(in[10]), static_cast<const float*>(in[11]),
       static_cast<const float*>(in[12]), static_cast<const int*>(in[13]),
       static_cast<const int*>(in[14]), static_cast<const int*>(in[15]),
-      static_cast<const int*>(in[16]), static_cast<float*>(ys),
-      n_init, S, N, P, members);
+      static_cast<float*>(ys),
+      n_init, n_runs, N, P, members);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// `in` holds 17 device pointers, in the kernel's order: E, p1, p2h, y0, drv,
-// A, ts, totw, driven, tf_ptr, tf_col, tf_coef, tf_deg, uidx, jb, out_slot,
-// init_slots (int arrays int32, the rest float32). Writes ys (T, w, B).
-// Launches on `stream` without synchronising and returns cudaGetLastError()
-// (0 on success).
-extern "C" int etd2rk_scan_f32(const void* const* in, void* ys, int w, int n_init,
-                               int S, int N, int P, int block_threads, void* stream) {
+// `in` holds 16 device pointers, in the kernel's order: E, p1, p2h, y0, drv,
+// A, ts, totw, driven, tf_ptr, tf_col, tf_coef, tf_deg, runs, out_slot,
+// init_slots (int arrays int32, the rest float32). `variant` is 0 (registers,
+// w <= 8), 1 (shared) or 2 (stream, both 9 <= w <= 17); `members` whole
+// members a block. Writes ys (T, w, B). Launches on `stream` without
+// synchronising and returns the first CUDA error code (0 on success).
+extern "C" int etd2rk_scan_f32(const void* const* in, void* ys, int w, int variant,
+                               int members, int n_init, int n_runs, int N, int P,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ETD2RK_CASE(W) \
-  case W: return launch<W>(in, ys, n_init, S, N, P, block_threads, st);
-  switch (w) {
-    ETD2RK_CASE(2) ETD2RK_CASE(3) ETD2RK_CASE(4) ETD2RK_CASE(5)
-    ETD2RK_CASE(6) ETD2RK_CASE(7) ETD2RK_CASE(8) ETD2RK_CASE(9)
-    ETD2RK_CASE(10) ETD2RK_CASE(11) ETD2RK_CASE(12) ETD2RK_CASE(13)
-    ETD2RK_CASE(14) ETD2RK_CASE(15) ETD2RK_CASE(16) ETD2RK_CASE(17)
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define ETD2RK_CASE(W, V) \
+  if (w == W && variant == V) return launch<W, V>(in, ys, n_init, n_runs, N, P, members, st);
+#define ETD2RK_WIDE(W) ETD2RK_CASE(W, kShared) ETD2RK_CASE(W, kStream)
+  ETD2RK_CASE(2, kRegisters) ETD2RK_CASE(3, kRegisters) ETD2RK_CASE(4, kRegisters)
+  ETD2RK_CASE(5, kRegisters) ETD2RK_CASE(6, kRegisters) ETD2RK_CASE(7, kRegisters)
+  ETD2RK_CASE(8, kRegisters)
+  ETD2RK_WIDE(9) ETD2RK_WIDE(10) ETD2RK_WIDE(11) ETD2RK_WIDE(12) ETD2RK_WIDE(13)
+  ETD2RK_WIDE(14) ETD2RK_WIDE(15) ETD2RK_WIDE(16) ETD2RK_WIDE(17)
+#undef ETD2RK_WIDE
 #undef ETD2RK_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* etd2rk_scan_error_string(int code) {

@@ -26,177 +26,393 @@
 // over its HBM bandwidth (67 TFLOP/s over 3.35 TB/s) is 10 FMAs per
 // byte, so the build is bound by FMAs, not by HBM.
 //
-// What the design does about it. The w <= 8 kernel keeps a whole block in
-// one thread's registers; at w = 17 that is 3 x 289 floats, beyond the
-// 255-register limit. Here one thread block owns one pair and a tile of
-// 32 lanes, and each thread owns one (row, lane): it keeps its row of A
-// (and of A/k, and of the product it is forming) in registers, while E
-// lives in shared memory as [w][w][32], lanes fastest, so each warp's
-// shared loads and stores hit 32 consecutive words (no bank conflicts).
-// A product is formed row by row in registers, then written back after a
-// __syncthreads(). Nothing between loading L and storing the tables
-// touches device memory, and the loads and stores of L and the tables
-// are coalesced along the lane axis. Each FMA takes one shared load,
-// which caps the rate at a quarter of the FMA peak; more rows per thread
-// (register tiling) or tensor-core products are later work. FP32 FMA
-// only: no tensor cores, no TF32.
-//
-// The ladder runs the tile's largest s, as the Pallas kernel skips a tile
-// once all its lanes are done; each lane commits a step only while it is
-// below its own s, so its values do not depend on its neighbours. A lane
-// with a NaN in A takes no part in the tile's trip count (its tables are
-// all NaN, as the plain version's), so one failed member cannot change
-// the tables of the members that share its tile.
+// What the design does about it. The products are w x w x w per lane, far
+// too small for the tensor cores' tiles in full float32 (TF32 breaks the
+// kernels' 2e-5 agreement), so they run on the FP32 pipes, and the task
+// is to keep those fed. A warp issues one instruction a cycle on each of
+// the SM's four schedulers, and shared memory serves one 32-word load a
+// cycle for the whole SM, so a product that takes one shared load per FMA
+// runs at most at a quarter of the FMA peak. Here:
+//   * Register tiling. A thread owns R consecutive rows of one lane's
+//     products, T = ceil(w / R) threads a lane. It keeps its rows of the
+//     left operand in registers (A/k in the Horner steps; its rows of E,
+//     loaded once a step, in the ladder) and walks the columns, loading a
+//     whole column of the right operand before its FMAs: each shared load
+//     feeds R FMAs, and a column's load latency is paid once. The series
+//     matvecs and the ladder's E p1, E p2 follow the same rows.
+//   * Warp-owned lanes. The T threads of a lane sit in one warp, and each
+//     warp owns LW = 32 / T lanes and its own slice of shared memory, so
+//     every barrier is a __syncwarp(). Within the slice E is held twice,
+//     [w][w][LW] lanes fastest (a warp's loads hit LW consecutive words,
+//     each broadcast to the lane's T threads): a product reads one plane
+//     and writes the other, one barrier a product. The vectors (row sums,
+//     the series term, p1 and p2) are double-buffered the same way.
+//   * No division in a loop. The division operator ends in a check and a
+//     branch to its slow path, so the compiler runs a batch of divisions
+//     one after another at full latency: with them a Horner step (w R of
+//     A/k) costs three ladder steps (clock64() stamps,
+//     tools/phase_clocks.py), and the kernel twice its time. Every
+//     divisor here is a constant: powers of two are exact multiplies, and
+//     the others take Markstein's correction (div_k below), correctly
+//     rounded, so the tables are the operator's to the bit.
+//   * The ladder's trip count is the warp's largest count over its LW
+//     lanes; each lane commits a step only while it is below its own s
+//     (past it, it copies its E into the other plane once), as the Pallas
+//     kernel skips a tile once all its lanes are done. A lane with a NaN in
+//     A takes no part in the warp's trip count (its tables are all NaN, as
+//     the plain version's), so one failed member cannot change the tables
+//     of its warp's other members.
+// The arithmetic is the first design's, FMA for FMA (the same j order in
+// every sum, the identity added after each Horner product), so the tables
+// do not depend on R or on the lane grouping. FP32 FMA only: no tensor
+// cores, no TF32.
+// Launch shapes (ops/phi_tables.py::wide_launch_shape), from a sweep of R
+// in {3..9} and 1, 2 or 4 warps a block on the H100 (PERF.md): R = 9 at
+// w = 9 (T = 1, 32 lanes a warp), R = 5 at w = 17 (T = 4, 8 lanes a warp,
+// 20.7 KB of shared memory a warp), 2 warps a block; the other widths take
+// an R that compiles without spills. At w = 17 the kernel uses 255
+// registers a thread (8 warps an SM) and spills nothing.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 32;          // lanes per thread block
 constexpr int kTaylorTerms = 8;
 constexpr float kRadius = 0.5f;    // pre-squaring radius of the series
+constexpr int kMaxWarps = 8;       // warps a block
+constexpr int kMaxShared = 232448;
+constexpr int kDefaultShared = 48 * 1024;
 
-template <int W>
-__global__ void __launch_bounds__(W * kTile)
+// x / k for a constant divisor k > 0 with rk its correctly rounded
+// reciprocal, without a division: q = x rk is within an ulp of x / k, the
+// residual x - q k is exact by fma, and q + (x - q k) rk, rounded, is the
+// correctly rounded quotient (Markstein), the division operator's result,
+// wherever it lies in the normal range. Outside it (and for a NaN or an
+// infinite x) `off` is set, and the caller redoes its batch with the
+// operator. A zero x is returned as it is, sign and all, as 0 / k is.
+// The operator's own fast path ends in a check and a branch to its slow
+// path, and the compiler does not overlap one division with the next: a
+// batch of them runs at their full latency, one after another.
+__device__ __forceinline__ float div_k(float x, float k, float rk, bool& off) {
+  const float q = x * rk;
+  const float q1 = fmaf(fmaf(-q, k, x), rk, q);
+  const float m = fabsf(q1);
+  off = off || (x != 0.0f && !(m >= 0x1p-124f && m <= 0x1p124f));
+  return x == 0.0f ? x : q1;
+}
+
+template <int W, int R>
+struct Shape {
+  static constexpr int T = (W + R - 1) / R;   // threads a lane
+  static constexpr int LW = 32 / T;           // lanes a warp
+  static constexpr int kThreads = T * LW;     // busy threads a warp
+  static constexpr int kPlane = W * W * LW;   // floats of one E plane
+  static constexpr int kVec = W * LW;         // floats of one vector
+  static constexpr int kWarpFloats = 2 * kPlane + 4 * kVec;
+};
+
+template <int W, int R>
+__global__ void __launch_bounds__(kMaxWarps * 32)
 phi_tables_wide_kernel(const float* __restrict__ L, const int* __restrict__ binv,
                        const float* __restrict__ h_u, float* __restrict__ E_out,
                        float* __restrict__ p1_out, float* __restrict__ p2_out,
                        int B, int ladder) {
-  __shared__ float Es[W][W][kTile];  // E, lanes fastest
-  __shared__ float va[W][kTile];     // row sums, then the series term, then p1
-  __shared__ float vb[W][kTile];     // p2
-  __shared__ float s_tile[kTile];    // each lane's step count
-
-  const int l = threadIdx.x % kTile;  // lane within the tile
-  const int i = threadIdx.x / kTile;  // the row this thread owns
-  const int lane = blockIdx.x * kTile + l;
-  const bool live = lane < B;         // lanes past B run a zero block
+  using S = Shape<W, R>;
+  constexpr int LW = S::LW;
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x / 32, tw = threadIdx.x % 32;
+  if (tw >= S::kThreads) return;       // the warp's spare threads hold no lane
+  const unsigned mask = S::kThreads == 32 ? 0xffffffffu : (1u << S::kThreads) - 1u;
+  const int g = tw / LW;               // row group: rows i0 .. i0 + R - 1
+  const int l = tw % LW;               // lane within the warp
+  const int i0 = g * R;
+  const int lane = (blockIdx.x * (blockDim.x / 32) + warp) * LW + l;
+  const bool live = lane < B;          // lanes past B run a zero block
   const int u = blockIdx.y;
   const size_t plane = static_cast<size_t>(B);
   const float h = h_u[u];
 
-  // row i of A = L h, and its absolute sum
-  float a[W];
-  float row = 0.0f;
-  const float* Lr = L + (static_cast<size_t>(binv[u]) * W + i) * W * plane + lane;
+  float* const base = smem + warp * S::kWarpFloats + l;
+  float* const Ep[2] = {base, base + S::kPlane};       // entry (i, c): [(i W + c) LW]
+  float* const vec = base + 2 * S::kPlane;             // vector k, entry i: [(k W + i) LW]
+
+  // rows i0.. of A = L h, and their absolute sums
+  float a[R][W];
+  const float* Lb = L + static_cast<size_t>(binv[u]) * W * W * plane + lane;
 #pragma unroll
-  for (int j = 0; j < W; ++j) {
-    a[j] = live ? Lr[j * plane] * h : 0.0f;
-    row += fabsf(a[j]);
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r;
+    float row = 0.0f;
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      a[r][j] = (live && i < W) ? Lb[(i * W + j) * plane] * h : 0.0f;
+      row += fabsf(a[r][j]);
+    }
+    if (i < W) vec[i * LW] = row;
   }
-  va[i][l] = row;
-  __syncthreads();
+  __syncwarp(mask);
 
   // inf-norm over the lane's rows; a NaN row marks the lane non-finite
   float norm = 0.0f;
   bool finite = true;
 #pragma unroll
   for (int r = 0; r < W; ++r) {
-    const float v = va[r][l];
+    const float v = vec[r * LW];
     finite = finite && (v == v);
     norm = fmaxf(norm, v);
   }
   float s = ceilf(log2f(fmaxf(norm, 1e-30f) / kRadius));
   s = fminf(fmaxf(s, 0.0f), static_cast<float>(ladder));
   const int n_lane = finite ? static_cast<int>(s) : 0;
-  if (i == 0) s_tile[l] = static_cast<float>(n_lane);
+  const int n_warp = __reduce_max_sync(mask, n_lane);
   const float scale = finite ? exp2f(s) : __int_as_float(0x7fc00000);  // NaN
+  const float inv_scale = finite ? exp2f(-s) : scale;  // x / 2^s = x 2^-s exactly
 #pragma unroll
-  for (int j = 0; j < W; ++j) a[j] = a[j] / scale;
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) a[r][j] = a[r][j] * inv_scale;
+  }
   const float hs = h / scale;
-  __syncthreads();                    // s_tile written, va free again
-  int n_tile = 0;
-#pragma unroll
-  for (int t = 0; t < kTile; ++t) n_tile = max(n_tile, static_cast<int>(s_tile[t]));
+  __syncwarp(mask);                    // every read of the row sums done
 
-  // E = expm(A) by Horner: E = I + A/8, then E = I + (A/k) E for k = 7..1
+  // E = I + A/8 into plane 0
 #pragma unroll
-  for (int c = 0; c < W; ++c)
-    Es[i][c][l] = a[c] / static_cast<float>(kTaylorTerms) + (i == c ? 1.0f : 0.0f);
-  float t[W];
-  for (int k = kTaylorTerms - 1; k >= 1; --k) {
-    float ak[W];
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r;
+    if (i < W) {
 #pragma unroll
-    for (int j = 0; j < W; ++j) ak[j] = a[j] / static_cast<float>(k);
-    __syncthreads();                  // E complete
-#pragma unroll
-    for (int c = 0; c < W; ++c) {
-      float acc = ak[0] * Es[0][c][l];
-#pragma unroll
-      for (int j = 1; j < W; ++j) acc = fmaf(ak[j], Es[j][c][l], acc);
-      t[c] = acc;
+      for (int c = 0; c < W; ++c)
+        Ep[0][(i * W + c) * LW] = a[r][c] * (1.0f / kTaylorTerms) + (i == c ? 1.0f : 0.0f);
     }
-    __syncthreads();                  // every read of E done
-#pragma unroll
-    for (int c = 0; c < W; ++c) Es[i][c][l] = t[c] + (i == c ? 1.0f : 0.0f);
   }
 
-  // phi1 / phi2 e0 columns; this thread holds entry i of each vector
-  float term = a[0];                  // (A e0)_i
-  float v1 = (i == 0 ? 1.0f : 0.0f) + term / 2.0f;
-  float v2 = (i == 0 ? 0.5f : 0.0f) + term / 6.0f;
+  // phi1 / phi2 e0 columns; this thread holds entries i0.. of each vector
+  float term[R], v1[R], v2[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r;
+    term[r] = a[r][0];                 // (A e0)_i
+    v1[r] = (i == 0 ? 1.0f : 0.0f) + term[r] * 0.5f;
+    v2[r] = (i == 0 ? 0.5f : 0.0f) + term[r] / 6.0f;
+  }
+#pragma unroll 1
   for (int k = 2; k <= kTaylorTerms; ++k) {
-    va[i][l] = term;
-    __syncthreads();
-    float acc = a[0] * va[0][l];
+    float* tv = vec + (k & 1) * S::kVec;
 #pragma unroll
-    for (int j = 1; j < W; ++j) acc = fmaf(a[j], va[j][l], acc);
-    __syncthreads();                  // every read of the term done
-    term = acc / static_cast<float>(k);
-    v1 = v1 + term / static_cast<float>(k + 1);
-    v2 = v2 + term / static_cast<float>((k + 1) * (k + 2));
-  }
-  float p1 = v1 * hs;
-  float p2 = v2 * (hs * hs);
-
-  // doubling ladder: the tile's largest step count, each lane masked at its own
-  float hc = hs;
-  for (int it = 0; it < n_tile; ++it) {
-    va[i][l] = p1;
-    vb[i][l] = p2;
-    float e[W];
+    for (int r = 0; r < R; ++r)
+      if (i0 + r < W) tv[(i0 + r) * LW] = term[r];
+    __syncwarp(mask);                  // the term complete (and, at k = 2, E)
+    float acc[R];
+    {
+      const float b = tv[0];
 #pragma unroll
-    for (int j = 0; j < W; ++j) e[j] = Es[i][j][l];
-    __syncthreads();                  // p1, p2 and E complete
-    float q1 = e[0] * va[0][l];
-    float q2 = e[0] * vb[0][l];
+      for (int r = 0; r < R; ++r) acc[r] = a[r][0] * b;
+    }
 #pragma unroll
     for (int j = 1; j < W; ++j) {
-      q1 = fmaf(e[j], va[j][l], q1);
-      q2 = fmaf(e[j], vb[j][l], q2);
+      const float b = tv[j * LW];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = fmaf(a[r][j], b, acc[r]);
+    }
+    const float d0 = k, d1 = k + 1, d2 = (k + 1) * (k + 2);
+    const float r0 = __frcp_rn(d0), r1 = __frcp_rn(d1), r2 = __frcp_rn(d2);
+    bool off = false;
+    float t1[R], t2[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      term[r] = div_k(acc[r], d0, r0, off);
+      t1[r] = div_k(term[r], d1, r1, off);
+      t2[r] = div_k(term[r], d2, r2, off);
+    }
+    if (off) {                         // a quotient outside the normal range
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        term[r] = acc[r] / d0;
+        t1[r] = term[r] / d1;
+        t2[r] = term[r] / d2;
+      }
     }
 #pragma unroll
+    for (int r = 0; r < R; ++r) {
+      v1[r] = v1[r] + t1[r];
+      v2[r] = v2[r] + t2[r];
+    }
+  }
+
+  // E = expm(A) by Horner: E = I + (A/k) E for k = 7..1, plane to plane
+  int cur = 0;
+#pragma unroll 1
+  for (int k = kTaylorTerms - 1; k >= 1; --k) {
+    const float kf = k, rk = __frcp_rn(kf);
+    float ak[R][W];
+    bool off = false;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int j = 0; j < W; ++j) ak[r][j] = div_k(a[r][j], kf, rk, off);
+    }
+    if (off) {                         // a quotient outside the normal range
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int j = 0; j < W; ++j) ak[r][j] = a[r][j] / kf;
+      }
+    }
+    const float* Ec = Ep[cur];
+    float* En = Ep[cur ^ 1];
+#pragma unroll 1
     for (int c = 0; c < W; ++c) {
-      float acc = e[0] * Es[0][c][l];
+      float b[W], acc[R];
 #pragma unroll
-      for (int j = 1; j < W; ++j) acc = fmaf(e[j], Es[j][c][l], acc);
-      t[c] = acc;
+      for (int j = 0; j < W; ++j) b[j] = Ec[(j * W + c) * LW];   // the column first
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = ak[r][0] * b[0];
+#pragma unroll
+      for (int j = 1; j < W; ++j) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(ak[r][j], b[j], acc[r]);
+      }
+      // + 0 here and + 1 on the diagonal below: the plain version's
+      // acc + (i == c), without a compare for every entry
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (i0 + r < W) En[((i0 + r) * W + c) * LW] = acc[r] + 0.0f;
     }
-    __syncthreads();                  // every read of E, p1 and p2 done
-    if (it < n_lane) {
 #pragma unroll
-      for (int c = 0; c < W; ++c) Es[i][c][l] = t[c];
-      p2 = p2 + q2 + p1 * hc;
-      p1 = p1 + q1;
+    for (int r = 0; r < R; ++r) {
+      const int i = i0 + r;
+      if (i < W) En[(i * W + i) * LW] = En[(i * W + i) * LW] + 1.0f;
+    }
+    __syncwarp(mask);                  // E complete, every read of the old one done
+    cur ^= 1;
+  }
+
+  float p1[R], p2[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    p1[r] = v1[r] * hs;
+    p2[r] = v2[r] * (hs * hs);
+  }
+
+  // doubling ladder: the warp's largest step count, each lane masked at its
+  // own; vector buffer b holds p1 in entries 0..W-1 and p2 in W..2W-1
+  float* const V[2] = {vec, vec + 2 * S::kVec};
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r;
+    if (i < W) {
+      V[0][i * LW] = p1[r];
+      V[0][(W + i) * LW] = p2[r];
+    }
+  }
+  __syncwarp(mask);
+  float hc = hs;
+  int vc = 0;
+#pragma unroll 1
+  for (int it = 0; it < n_warp; ++it) {
+    const bool go = it < n_lane;
+    const float* Ec = Ep[cur];
+    float* En = Ep[cur ^ 1];
+    const float* Vc = V[vc];
+    float e[R][W];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int j = 0; j < W; ++j) e[r][j] = i0 + r < W ? Ec[((i0 + r) * W + j) * LW] : 0.0f;
+    }
+    float q1[R], q2[R];
+    {
+      const float b1 = Vc[0], b2 = Vc[W * LW];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        q1[r] = e[r][0] * b1;
+        q2[r] = e[r][0] * b2;
+      }
+    }
+#pragma unroll
+    for (int j = 1; j < W; ++j) {
+      const float b1 = Vc[j * LW], b2 = Vc[(W + j) * LW];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        q1[r] = fmaf(e[r][j], b1, q1[r]);
+        q2[r] = fmaf(e[r][j], b2, q2[r]);
+      }
+    }
+#pragma unroll 1
+    for (int c = 0; c < W; ++c) {
+      float b[W], acc[R];
+#pragma unroll
+      for (int j = 0; j < W; ++j) b[j] = Ec[(j * W + c) * LW];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = e[r][0] * b[0];
+#pragma unroll
+      for (int j = 1; j < W; ++j) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(e[r][j], b[j], acc[r]);
+      }
+      // a lane past its own count copies its E over once, at its first idle
+      // step; both planes hold it from then on
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int at = ((i0 + r) * W + c) * LW;
+        if (i0 + r < W && go) En[at] = acc[r];
+        else if (i0 + r < W && it == n_lane) En[at] = Ec[at];
+      }
+    }
+    if (go) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        p2[r] = p2[r] + q2[r] + p1[r] * hc;
+        p1[r] = p1[r] + q1[r];
+      }
       hc = 2.0f * hc;
     }
+    float* Vn = V[vc ^ 1];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = i0 + r;
+      if (i < W) {
+        Vn[i * LW] = p1[r];
+        Vn[(W + i) * LW] = p2[r];
+      }
+    }
+    __syncwarp(mask);                  // E, p1 and p2 complete; every read done
+    cur ^= 1;
+    vc ^= 1;
   }
 
   if (live) {
-    const size_t r = static_cast<size_t>(u) * W + i;
-    float* Eo = E_out + r * W * plane + lane;
 #pragma unroll
-    for (int c = 0; c < W; ++c) Eo[c * plane] = Es[i][c][l];  // this thread's own row
-    p1_out[r * plane + lane] = p1;
-    p2_out[r * plane + lane] = p2;
+    for (int r = 0; r < R; ++r) {
+      const int i = i0 + r;
+      if (i < W) {
+        const size_t row = static_cast<size_t>(u) * W + i;
+        float* Eo = E_out + row * W * plane + lane;
+#pragma unroll
+        for (int c = 0; c < W; ++c) Eo[c * plane] = Ep[cur][(i * W + c) * LW];
+        p1_out[row * plane + lane] = p1[r];
+        p2_out[row * plane + lane] = p2[r];
+      }
+    }
   }
 }
 
-template <int W>
+template <int W, int R>
 int launch(const void* L, const void* binv, const void* h_u, void* E, void* p1,
-           void* p2, int U, int B, int ladder, cudaStream_t stream) {
-  const dim3 grid((B + kTile - 1) / kTile, U);
-  phi_tables_wide_kernel<W><<<grid, W * kTile, 0, stream>>>(
+           void* p2, int U, int B, int ladder, int warps, cudaStream_t stream) {
+  using S = Shape<W, R>;
+  const size_t shared = static_cast<size_t>(warps) * S::kWarpFloats * sizeof(float);
+  if (warps < 1 || warps > kMaxWarps || shared > kMaxShared)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = phi_tables_wide_kernel<W, R>;
+  if (shared > kDefaultShared) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  const int lanes = warps * S::LW;
+  const dim3 grid((B + lanes - 1) / lanes, U);
+  kernel<<<grid, warps * 32, shared, stream>>>(
       static_cast<const float*>(L), static_cast<const int*>(binv),
       static_cast<const float*>(h_u), static_cast<float*>(E),
       static_cast<float*>(p1), static_cast<float*>(p2), B, ladder);
@@ -206,24 +422,20 @@ int launch(const void* L, const void* binv, const void* h_u, void* E, void* p1,
 }  // namespace
 
 // L (Bu, w, w, B), binv (U,) int32, h_u (U,) float32, all on the device;
-// writes E (U, w, w, B), p1 (U, w, B), p2 (U, w, B). Launches on `stream`
-// without synchronising and returns cudaGetLastError() (0 on success).
+// writes E (U, w, w, B), p1 (U, w, B), p2 (U, w, B). `rows` is R (rows of a
+// lane's products a thread owns; the builds below) and `warps` the warps a
+// block. Launches on `stream` without synchronising and returns the first
+// CUDA error code (0 on success).
 extern "C" int phi_tables_wide_f32(const void* L, const void* binv, const void* h_u,
                                    void* E, void* p1, void* p2, int w, int U, int B,
-                                   int ladder, void* stream) {
+                                   int ladder, int rows, int warps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (w) {
-    case 9: return launch<9>(L, binv, h_u, E, p1, p2, U, B, ladder, st);
-    case 10: return launch<10>(L, binv, h_u, E, p1, p2, U, B, ladder, st);
-    case 11: return launch<11>(L, binv, h_u, E, p1, p2, U, B, ladder, st);
-    case 12: return launch<12>(L, binv, h_u, E, p1, p2, U, B, ladder, st);
-    case 13: return launch<13>(L, binv, h_u, E, p1, p2, U, B, ladder, st);
-    case 14: return launch<14>(L, binv, h_u, E, p1, p2, U, B, ladder, st);
-    case 15: return launch<15>(L, binv, h_u, E, p1, p2, U, B, ladder, st);
-    case 16: return launch<16>(L, binv, h_u, E, p1, p2, U, B, ladder, st);
-    case 17: return launch<17>(L, binv, h_u, E, p1, p2, U, B, ladder, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define WIDE_CASE(W, R) \
+  if (w == W && rows == R) return launch<W, R>(L, binv, h_u, E, p1, p2, U, B, ladder, warps, st);
+  WIDE_CASE(9, 9) WIDE_CASE(10, 5) WIDE_CASE(11, 6) WIDE_CASE(12, 6) WIDE_CASE(13, 3)
+  WIDE_CASE(14, 5) WIDE_CASE(15, 5) WIDE_CASE(16, 4) WIDE_CASE(17, 5)
+#undef WIDE_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* phi_tables_wide_error_string(int code) {

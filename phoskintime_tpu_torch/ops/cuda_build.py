@@ -22,6 +22,8 @@ CSRC = _PKG / "csrc"
 SOURCES = tuple(CSRC / f"{stem}.cu" for stem in (
     "phi_tables", "phi_tables_wide", "etd2rk_scan", "hypercube_flux", "thomas"))
 BUILD_DIR = _PKG / "_build"
+# dynamic shared memory one thread block may opt into on the H100 (227 KB)
+MAX_SHARED_BYTES = 232448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -22,6 +22,7 @@ Each kernel source is compiled on first use and bound with ``ctypes``
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,6 +41,13 @@ _MAX_WIDE_WIDTH = 17            # csrc/phi_tables_wide.cu: model 2 up to Smax = 
 SOURCE = CSRC / "phi_tables.cu"
 WIDE_SOURCE = CSRC / "phi_tables_wide.cu"
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_WIDE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+# csrc/phi_tables_wide.cu: R, the rows of a lane's products one thread
+# owns, at each width (T = ceil(w / R) threads a lane, 32 // T lanes a
+# warp), and the warps a block; chosen on the H100 (PERF.md)
+_WIDE_ROWS = {9: 9, 10: 5, 11: 6, 12: 6, 13: 3, 14: 5, 15: 5, 16: 4, 17: 5}
+_WIDE_WARPS = 2
 
 _NOT_COVERED = ("the phi_tables kernels take float32 with 2 <= w <= {}; got {} "
                 "at w = {} (wider blocks, model 2 at Smax >= 5, are ROADMAP.md "
@@ -147,8 +155,33 @@ def _check(L: torch.Tensor, binv, h_u):
     return binv, h_u
 
 
-def _launch(source, name: str, L, binv, h_u, ladder: int):
-    """Allocate the tables and launch one kernel on L's device and stream."""
+class WideShape(NamedTuple):
+    """The launch shape of ``csrc/phi_tables_wide.cu`` at one width."""
+    rows: int               # R: rows of a lane's products a thread owns
+    threads_per_lane: int   # T = ceil(w / R)
+    lanes_per_warp: int     # 32 // T
+    warps: int              # warps a block
+    shared_bytes: int       # dynamic shared memory a block
+
+
+def wide_launch_shape(w: int) -> WideShape:
+    """The wide kernel's launch shape at width ``w`` (9..17): each warp's
+    slice of shared memory holds two E planes and four vectors of its
+    lanes, ``2 w^2 + 4 w`` floats a lane. Raises NotImplementedError
+    outside the kernel's domain."""
+    if not _MAX_KERNEL_WIDTH < w <= _MAX_WIDE_WIDTH:
+        raise NotImplementedError(_NOT_COVERED.format(_MAX_WIDE_WIDTH, "a width", w))
+    R = _WIDE_ROWS[w]
+    T = -(-w // R)
+    lw = 32 // T
+    return WideShape(R, T, lw, _WIDE_WARPS,
+                     4 * _WIDE_WARPS * lw * (2 * w * w + 4 * w))
+
+
+def _launch(source, name: str, L, binv, h_u, ladder: int, argtypes=_ARGTYPES,
+            extra: tuple = ()):
+    """Allocate the tables and launch one kernel on L's device and stream
+    (``extra``: the launch-shape integers after ``ladder``)."""
     if not L.is_contiguous():
         raise ValueError("L must be contiguous")
     w, B = L.shape[1], L.shape[3]
@@ -164,11 +197,11 @@ def _launch(source, name: str, L, binv, h_u, ladder: int):
     E = torch.empty((U, w, w, B), dtype=torch.float32, device=dev)
     p1 = torch.empty((U, w, B), dtype=torch.float32, device=dev)
     p2 = torch.empty((U, w, B), dtype=torch.float32, device=dev)
-    fn, err = entry(source, name, _ARGTYPES)
+    fn, err = entry(source, name, argtypes)
     with torch.cuda.device(dev):          # launch in L's device context
         rc = fn(L.data_ptr(), binv_d.data_ptr(), h_d.data_ptr(),
                 E.data_ptr(), p1.data_ptr(), p2.data_ptr(),
-                w, U, B, int(ladder), torch.cuda.current_stream(dev).cuda_stream)
+                w, U, B, int(ladder), *extra, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: " + err(rc).decode())
     return E, p1, p2
@@ -219,7 +252,9 @@ def phi_tables_wide(L: torch.Tensor, binv, h_u, ladder: int):
         raise ValueError("phi_tables_wide needs a CUDA tensor")
     if L.dtype != torch.float32 or not _MAX_KERNEL_WIDTH < w <= _MAX_WIDE_WIDTH:
         raise NotImplementedError(_NOT_COVERED.format(_MAX_WIDE_WIDTH, L.dtype, w))
-    out = _launch(WIDE_SOURCE, "phi_tables_wide_f32", L, binv, h_u, ladder)
+    shape = wide_launch_shape(w)
+    out = _launch(WIDE_SOURCE, "phi_tables_wide_f32", L, binv, h_u, ladder,
+                  _WIDE_ARGTYPES, (shape.rows, shape.warps))
     phi_tables_wide.launches += 1
     return out
 

@@ -3,11 +3,13 @@
 Counterpart of ``phoskintime_tpu/ops/scan_pallas.py``:
 
 * :func:`prepare_scan_plan` — the static plan of the scan (segment table
-  rows, buckets and snapshot slots; the total-protein weights; the
-  driven proteins; the TF coupling as CSR rows).
+  rows, buckets and snapshot slots; the runs of segments that share a
+  pair, :func:`scan_runs`; the total-protein weights; the driven
+  proteins; the TF coupling as CSR rows).
 * :func:`etd2rk_scan` — the entry point. On a CUDA float32 tensor it
   launches ``csrc/etd2rk_scan.cu`` (the port of ``etd2rk_scan_pallas``)
-  and adds one to ``etd2rk_scan.launches``; on a CPU tensor, or with
+  in the variant :func:`scan_launch_shape` picks by (w, N), and adds one
+  to ``etd2rk_scan.launches``; on a CPU tensor, or with
   ``use_kernel=False``, it runs the plain version.
 * :func:`etd2rk_scan_reference` — the plain PyTorch version, segment by
   segment.
@@ -28,15 +30,18 @@ import numpy as np
 import torch
 
 from phoskintime_tpu_torch.network.rhs import synthesis_rate
-from phoskintime_tpu_torch.ops.cuda_build import CSRC, entry
+from phoskintime_tpu_torch.ops.cuda_build import CSRC, MAX_SHARED_BYTES, entry
 
 SOURCE = CSRC / "etd2rk_scan.cu"
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _MIN_WIDTH, _MAX_WIDTH = 2, 17      # the widths of the two table kernels
 _MAX_PROTEINS = 256                 # one member's lanes fit one thread block
+_MAX_REGISTER_WIDTH = 8             # E's w^2 entries in a thread's registers
 # lanes per thread block, in whole members: the fastest of 64-1024 at the
 # bench chunk on the H100 (PERF.md)
 _BLOCK_LANES = 128
+# csrc/etd2rk_scan.cu's variants, by where a run's E rows stay
+VARIANTS = ("registers", "shared", "stream")
 
 _NOT_COVERED = ("the etd2rk_scan kernel takes float32 with 2 <= w <= 17 and at "
                 "most 256 proteins; got {} at w = {}, N = {} (ROADMAP.md queue 2, "
@@ -51,6 +56,7 @@ class ScanPlan(NamedTuple):
     uidx: np.ndarray        # (S,) int32: the segment's table row (pair)
     jb: np.ndarray          # (S,) int32: its kinase bucket, in [0, NB - 1]
     out_slot: np.ndarray    # (S,) int32: snapshot written after it, -1 none
+    runs: np.ndarray        # (R, 4) int32: (first segment, length, pair, bucket) a run
     init_slots: np.ndarray  # (n,) int32: snapshots equal to y0 (t_eval <= 0)
     slot_map: np.ndarray    # (T,) int64: the written snapshot of each t_eval point
     totw: np.ndarray        # (w, N): total-protein weight of each slot; row 0 is 0
@@ -64,6 +70,53 @@ class ScanPlan(NamedTuple):
 
 def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def scan_runs(uidx, jb) -> np.ndarray:
+    """(R, 4) int32 (first segment, length, pair, bucket): the maximal
+    stretches of consecutive segments that share one pair and one kinase
+    bucket, in order (a pair of the segment plan has one bucket, so these
+    are the runs of the pairs). Unlike ``network/expo.py::_run_plan`` a run
+    is not split at snapshots: the kernel writes a snapshot after any
+    segment."""
+    uidx, jb = np.asarray(uidx, np.int32), np.asarray(jb, np.int32)
+    first = np.flatnonzero(np.diff(uidx, prepend=-1) | np.diff(jb, prepend=-1))
+    lengths = np.diff(np.append(first, len(uidx)))
+    return np.stack([first, lengths, uidx[first], jb[first]], axis=1).astype(np.int32)
+
+
+class ScanShape(NamedTuple):
+    """The launch shape of ``csrc/etd2rk_scan.cu`` for one (w, N)."""
+    variant: str            # where a run's E rows stay: one of VARIANTS
+    members: int            # whole members a thread block
+    threads: int            # threads a block: the members' lanes, in whole warps
+    shared_bytes: int       # dynamic shared memory a block
+
+
+def scan_launch_shape(w: int, N: int) -> ScanShape:
+    """The scan kernel's variant and block for width ``w`` and ``N``
+    proteins a member, by (w, N) alone. w <= 8 keeps a run's E rows in
+    registers; 9 <= w <= 17 keeps them in shared memory, 4 (w^2 + 2) bytes
+    a lane with the totals' two buffers (4 more at even w, whose rows are
+    padded to an odd stride), while one member's fit the block's 232,448
+    bytes (w <= 15 always; w = 16 up to N = 224, w = 17 up to N = 199), and
+    past that streams them from memory at every segment. A block holds the
+    whole members that fit ``_BLOCK_LANES`` lanes (at least one) and its
+    shared memory. Raises NotImplementedError outside the kernel's
+    domain."""
+    if not (_MIN_WIDTH <= w <= _MAX_WIDTH and 1 <= N <= _MAX_PROTEINS):
+        raise NotImplementedError(_NOT_COVERED.format("a shape", w, N))
+    lane_bytes = 4 * 2                                     # the totals' buffers
+    shared_lane = 4 * (w * w + (w + 1) % 2 + 2)
+    if w <= _MAX_REGISTER_WIDTH:
+        variant = "registers"
+    elif N * shared_lane <= MAX_SHARED_BYTES:
+        variant, lane_bytes = "shared", shared_lane
+    else:
+        variant = "stream"
+    members = max(1, min(_BLOCK_LANES // N, MAX_SHARED_BYTES // (N * lane_bytes)))
+    return ScanShape(variant, members, -(-members * N // 32) * 32,
+                     members * N * lane_bytes)
 
 
 def prepare_scan_plan(rhs, seg_jb, seg_uidx, u_h, out_idx, T):
@@ -100,10 +153,10 @@ def prepare_scan_plan(rhs, seg_jb, seg_uidx, u_h, out_idx, T):
     tfm = _host(rhs.tf_mat).astype(np.float64)
     rows, cols = np.nonzero(tfm)
     n_buckets = int(rhs.Kmat.shape[1])
+    jb = np.clip(np.asarray(seg_jb, np.int32), 0, n_buckets - 1)
     return ScanPlan(
-        N=N, T=int(T), uidx=seg_uidx,
-        jb=np.clip(np.asarray(seg_jb, np.int32), 0, n_buckets - 1),
-        out_slot=out_slot, init_slots=np.flatnonzero(out_idx < 0).astype(np.int32),
+        N=N, T=int(T), uidx=seg_uidx, jb=jb, out_slot=out_slot, runs=scan_runs(seg_uidx, jb),
+        init_slots=np.flatnonzero(out_idx < 0).astype(np.int32),
         slot_map=slot_map, totw=totw, driven=_host(rhs.driven).astype(np.int32),
         driver_idx=_host(rhs.driver_idx).astype(np.int64),
         tf_ptr=np.searchsorted(rows, np.arange(N + 1)).astype(np.int32),
@@ -134,6 +187,8 @@ def _check(E, p1, p2h, y0, drv, A, ts, plan: ScanPlan):
                 or plan.out_slot.max() >= plan.T))
             or (len(plan.init_slots) and plan.init_slots.max() >= plan.T)):
         raise ValueError("the plan indexes past the tables, buckets or snapshots")
+    if not np.array_equal(plan.runs, scan_runs(plan.uidx, plan.jb)):
+        raise ValueError("the plan's runs are not the runs of its uidx and jb")
 
 
 def etd2rk_scan_reference(E, p1, p2h, y0, drv, A, ts, plan: ScanPlan):
@@ -186,7 +241,7 @@ def _copy_shared_ends(ys, plan: ScanPlan):
     return ys[torch.as_tensor(plan.slot_map, device=ys.device)]
 
 
-def _launch(E, p1, p2h, y0, drv, A, ts, plan: ScanPlan, block_threads: int):
+def _launch(E, p1, p2h, y0, drv, A, ts, plan: ScanPlan, shape: ScanShape):
     """Allocate the snapshots and launch the kernel on E's device and stream."""
     tensors = (E, p1, p2h, y0, drv, A, ts)
     if not all(x.is_contiguous() for x in tensors):
@@ -198,8 +253,8 @@ def _launch(E, p1, p2h, y0, drv, A, ts, plan: ScanPlan, block_threads: int):
     # the plan's small arrays in one int32 and one float32 upload; freed on
     # return, their memory is reused only by work queued after the kernel on
     # this stream (PyTorch's caching allocator is stream-ordered)
-    ints = (plan.driven, plan.tf_ptr, plan.tf_col, plan.uidx, plan.jb,
-            plan.out_slot, plan.init_slots)
+    ints = (plan.driven, plan.tf_ptr, plan.tf_col, plan.runs, plan.out_slot,
+            plan.init_slots)
     floats = (plan.totw, plan.tf_coef, plan.tf_deg)
     i_off = np.cumsum([0] + [a.size for a in ints])
     f_off = np.cumsum([0] + [a.size for a in floats])
@@ -210,13 +265,14 @@ def _launch(E, p1, p2h, y0, drv, A, ts, plan: ScanPlan, block_threads: int):
     ip = [i_dev.data_ptr() + 4 * int(o) for o in i_off[:-1]]
     fp = [f_dev.data_ptr() + 4 * int(o) for o in f_off[:-1]]
     ptrs = [x.data_ptr() for x in tensors] + [
-        fp[0], ip[0], ip[1], ip[2], fp[1], fp[2], ip[3], ip[4], ip[5], ip[6]]
+        fp[0], ip[0], ip[1], ip[2], fp[1], fp[2], ip[3], ip[4], ip[5]]
     ys = torch.empty((plan.T, w, B), dtype=torch.float32, device=dev)
     fn, err = entry(SOURCE, "etd2rk_scan_f32", _ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs), ys.data_ptr(), w,
-                len(plan.init_slots), len(plan.uidx), plan.N, B // plan.N,
-                int(block_threads), torch.cuda.current_stream(dev).cuda_stream)
+                VARIANTS.index(shape.variant), shape.members, len(plan.init_slots),
+                len(plan.runs), plan.N, B // plan.N,
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("etd2rk_scan kernel launch failed: " + err(rc).decode())
     return ys
@@ -251,7 +307,7 @@ def etd2rk_scan(E, p1, p2h, y0, drv, A, ts, plan: ScanPlan, *,
     if (E.dtype != torch.float32 or not _MIN_WIDTH <= w <= _MAX_WIDTH
             or plan.N > _MAX_PROTEINS):
         raise NotImplementedError(_NOT_COVERED.format(E.dtype, w, plan.N))
-    ys = _launch(E, p1, p2h, y0, drv, A, ts, plan, _BLOCK_LANES)
+    ys = _launch(E, p1, p2h, y0, drv, A, ts, plan, scan_launch_shape(w, plan.N))
     etd2rk_scan.launches += 1
     return _copy_shared_ends(ys, plan)
 
@@ -293,13 +349,14 @@ def random_scan_problem(w: int, N: int = 7, P: int = 300, S: int = 40, *,
     totw[1] = 1.0
     totw[2:] = rng.uniform(size=(w - 2, N)) < 0.7
     uidx = rng.integers(0, 3, S).astype(np.int32)
+    jb = binv[uidx].astype(np.int32)
     out_slot = np.full(S, -1, np.int32)
     out_slot[np.sort(rng.choice(S - 1, 4, replace=False))] = [1, 2, 3, 4]
     out_slot[S - 1] = 5
     driven = np.zeros(N, np.int32)
     driven[[0, 3]] = 1
     plan = ScanPlan(
-        N=N, T=6, uidx=uidx, jb=binv[uidx].astype(np.int32), out_slot=out_slot,
+        N=N, T=6, uidx=uidx, jb=jb, out_slot=out_slot, runs=scan_runs(uidx, jb),
         init_slots=np.asarray([0], np.int32), slot_map=np.arange(6), totw=totw,
         driven=driven, driver_idx=np.zeros(N, np.int64),
         tf_ptr=np.searchsorted(rows, np.arange(N + 1)).astype(np.int32),

@@ -29,7 +29,8 @@ from phoskintime_tpu_torch.ops.phi_tables import (ladder_len, phi_tables,
                                                   phi_tables_reference,
                                                   phi_tables_wide, phi_vectors)
 from phoskintime_tpu_torch.ops.scan_kernel import (etd2rk_scan, etd2rk_scan_reference,
-                                                   random_scan_problem)
+                                                   random_scan_problem, scan_launch_shape,
+                                                   scan_runs)
 
 pytestmark = pytest.mark.cuda
 
@@ -96,6 +97,29 @@ def test_wide_kernel_matches_plain(cuda_device, w):
         assert g.shape == r.shape and g.dtype == torch.float32
         assert_scaled_close(g, r)
     for g, r in zip(phi_vectors(L[1], 2.0, lad), phi_vectors(L[1], 2.0, lad, use_kernel=False)):
+        assert_scaled_close(g, r)
+
+
+@pytest.mark.parametrize("w", [9, 13, 17])
+def test_wide_kernel_mixed_squaring_counts(cuda_device, w):
+    """Lanes whose squaring counts run from 0 to the ladder's clip side by
+    side in every warp (the warp's trip count is its largest lane's, each
+    lane stepping only to its own), against the plain version."""
+    rng = np.random.default_rng(w)
+    B, lad = 640, ladder_len(w, 16.0)
+    L = compartmental_blocks(rng, 1, w, B)
+    norm = np.abs(L[0]).sum(axis=1).max(axis=0)                # (B,)
+    want_s = np.arange(B) % (lad + 3) - 1                      # -1 .. lad + 1, clipped
+    L = L * (0.5 * 2.0 ** want_s / norm * rng.uniform(0.6, 0.95, B))[None, None, None]
+    L = torch.as_tensor(L, dtype=torch.float32, device=cuda_device)
+    binv, h_u = np.asarray([0]), np.asarray([1.0])
+    A = L[0].double()
+    s = torch.clamp(torch.ceil(torch.log2(torch.amax(torch.sum(torch.abs(A), dim=1), dim=0)
+                                          / 0.5)), 0, lad)
+    assert set(s.long().tolist()) == set(range(lad + 1))
+    got = phi_tables(L, binv, h_u, lad)
+    torch.cuda.synchronize()
+    for g, r in zip(got, phi_tables_reference(L, binv, h_u, lad)):
         assert_scaled_close(g, r)
 
 
@@ -186,6 +210,39 @@ def test_scan_kernel_wide_member(cuda_device, w):
     """Members of 200 proteins: one member a block, 224 threads, the widest
     blocks the kernel takes."""
     args, plan = random_scan_problem(w, N=200, P=12, seed=w, device=cuda_device)
+    got = etd2rk_scan(*args, plan)
+    torch.testing.assert_close(got, etd2rk_scan_reference(*args, plan),
+                               rtol=SCAN_RTOL, atol=SCAN_ATOL)
+
+
+@pytest.mark.parametrize("w, N, variant", [
+    (8, 45, "registers"), (9, 45, "shared"), (16, 224, "shared"), (16, 225, "stream"),
+    (17, 199, "shared"), (17, 200, "stream")])
+def test_scan_kernel_variants_at_their_thresholds(cuda_device, w, N, variant):
+    """Each variant of the kernel, at each side of the switch from E in
+    registers to E in shared memory (w = 8 / 9) and from shared memory to
+    streaming (the largest member whose E rows fit the block, at w = 16 and
+    17), against the plain version."""
+    assert scan_launch_shape(w, N).variant == variant
+    args, plan = random_scan_problem(w, N=N, P=5, seed=N, device=cuda_device)
+    before = etd2rk_scan.launches
+    got = etd2rk_scan(*args, plan)
+    torch.cuda.synchronize()
+    assert etd2rk_scan.launches == before + 1
+    torch.testing.assert_close(got, etd2rk_scan_reference(*args, plan),
+                               rtol=SCAN_RTOL, atol=SCAN_ATOL)
+
+
+@pytest.mark.parametrize("w", [6, 13, 17])
+def test_scan_kernel_pairs_out_of_order(cuda_device, w):
+    """A plan whose pairs come back out of order, in runs of 1 to 6
+    segments: each run's rows are loaded at its first segment."""
+    args, plan = random_scan_problem(w, N=11, P=40, S=24, seed=w, device=cuda_device)
+    uidx = np.asarray([2, 2, 0, 1, 1, 1, 0, 2, 2, 2, 2, 2, 2, 1, 0, 0, 1, 2, 0, 0, 0, 1, 1, 2],
+                      np.int32)
+    jb = np.asarray([0, 1, 1])[uidx].astype(np.int32)
+    plan = plan._replace(uidx=uidx, jb=jb, runs=scan_runs(uidx, jb))
+    assert len(plan.runs) == 12
     got = etd2rk_scan(*args, plan)
     torch.testing.assert_close(got, etd2rk_scan_reference(*args, plan),
                                rtol=SCAN_RTOL, atol=SCAN_ATOL)

@@ -34,9 +34,10 @@ from phoskintime_tpu_torch.network.params import unpack_params
 from phoskintime_tpu_torch.network.rhs import PaddedRHS, _hypercube_tables
 from phoskintime_tpu_torch.network.simulate import extract_observables
 from phoskintime_tpu_torch.network.system import GlobalSystem
+from phoskintime_tpu_torch.ops.cuda_build import MAX_SHARED_BYTES
 from phoskintime_tpu_torch.ops.phi_tables import (ladder_len, phi_tables,
-                                                  phi_tables_reference,
-                                                  phi_tables_wide, phi_vectors)
+                                                  phi_tables_reference, phi_tables_wide,
+                                                  phi_vectors, wide_launch_shape)
 
 torch.set_num_threads(2)
 
@@ -388,6 +389,21 @@ def test_wide_wrappers_on_the_cpu():
         phi_tables_wide(L, [0], [1.0], 8)
     with pytest.raises(ValueError):
         phi_vectors(L, 1.0, 8)                      # (1, w, w, B): not one pair
+
+
+@pytest.mark.parametrize("w", range(9, 18))
+def test_wide_launch_shape(w):
+    """The wide kernel's launch shape: a lane's T threads own R rows each
+    (T R >= w > (T - 1) R), all in one warp, and a block's slices of two E
+    planes and four vectors fit the shared memory a block may opt into."""
+    shape = wide_launch_shape(w)
+    R, T, lw = shape.rows, shape.threads_per_lane, shape.lanes_per_warp
+    assert (T - 1) * R < w <= T * R and lw == 32 // T and T * lw <= 32
+    assert 1 <= shape.warps <= 8
+    assert shape.shared_bytes == 4 * shape.warps * lw * (2 * w * w + 4 * w) <= MAX_SHARED_BYTES
+    for bad in (8, 18):
+        with pytest.raises(NotImplementedError):
+            wide_launch_shape(bad)
 
 
 # --- the device default -----------------------------------------------------------

@@ -9,6 +9,7 @@ Inputs are made with numpy from a seed and fed to both packages.
 
 import subprocess
 import sys
+from fractions import Fraction
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -160,3 +161,43 @@ def test_library_path_is_keyed_by_source():
     assert pm.SOURCE in cuda_build.SOURCES and all(s.exists() for s in cuda_build.SOURCES)
     assert len({cuda_build.library_path(s) for s in cuda_build.SOURCES}) == 5
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
+
+
+# --- the wide kernel's division -----------------------------------------------------
+
+
+def _round_f32(q: Fraction) -> float:
+    """The float32 nearest the rational q (ties to even), in the normal range."""
+    if q == 0:
+        return 0.0
+    sign, a = (-1 if q < 0 else 1), abs(q)
+    e = a.numerator.bit_length() - a.denominator.bit_length() - 24
+    while a / Fraction(2) ** e >= 2 ** 24:
+        e += 1
+    while a / Fraction(2) ** e < 2 ** 23:
+        e -= 1
+    m = a / Fraction(2) ** e
+    n, rest = divmod(m.numerator, m.denominator)
+    if 2 * rest > m.denominator or (2 * rest == m.denominator and n % 2):
+        n += 1
+    return sign * float(Fraction(n) * Fraction(2) ** e)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 20, 30, 42, 56, 72, 90])
+def test_markstein_division_is_correctly_rounded(k):
+    """csrc/phi_tables_wide.cu divides by its constants (the Taylor index
+    k, k + 1 and (k + 1)(k + 2)) without the division operator: q = x rk,
+    then q + (x - q k) rk with rk the correctly rounded 1 / k and each
+    step a float32 fma. In exact rational arithmetic that is the correctly
+    rounded x / k, the operator's result, for seeded x over 60 decades."""
+    rng = np.random.default_rng(k)
+    xs = np.concatenate([rng.uniform(-1, 1, 300),
+                         rng.uniform(-1, 1, 300) * 10.0 ** rng.integers(-30, 30, 300)])
+    rk = Fraction(_round_f32(Fraction(1, k)))
+    for x in xs.astype(np.float32):
+        fx = Fraction(float(x))
+        q = Fraction(_round_f32(fx * rk))
+        residual = Fraction(_round_f32(fx - q * k))          # fma(-q, k, x): exact
+        assert residual == fx - q * k
+        assert _round_f32(q + residual * rk) == _round_f32(fx / k), (k, float(x))
+

@@ -29,11 +29,18 @@ from phoskintime_tpu.network.objective import \
     make_population_objective as jax_objective
 from phoskintime_tpu.ops.scan_pallas import etd2rk_scan_pallas
 from phoskintime_tpu.ops.scan_pallas import prepare_scan_plan as jax_plan
+from phoskintime_tpu_torch.demo import GRID as DEMO_GRID
+from phoskintime_tpu_torch.demo import RNA_GRID
 from phoskintime_tpu_torch.interop import from_reference
 from phoskintime_tpu_torch.network import expo
 from phoskintime_tpu_torch.network.objective import make_population_objective
-from phoskintime_tpu_torch.ops.scan_kernel import (etd2rk_scan, etd2rk_scan_reference,
-                                                   prepare_scan_plan, random_scan_problem)
+from phoskintime_tpu_torch.network.system import GlobalSystem
+from phoskintime_tpu_torch.network.topology import build_topology
+from phoskintime_tpu_torch.ops.cuda_build import MAX_SHARED_BYTES
+from phoskintime_tpu_torch.ops.scan_kernel import (VARIANTS, etd2rk_scan,
+                                                   etd2rk_scan_reference, prepare_scan_plan,
+                                                   random_scan_problem, scan_launch_shape,
+                                                   scan_runs)
 
 torch.set_num_threads(2)
 
@@ -279,6 +286,90 @@ def test_scan_setup_routes_agree():
                               width_bucketing=True)
     with pytest.raises(ValueError, match="unbucketed"):
         bucketed.plan
+
+
+# --- the runs and the launch shape -------------------------------------------------
+
+
+def assert_runs_partition(plan):
+    """The plan's runs cover its segments in order, one pair and its bucket
+    a run, and are maximal: neighbouring runs have different pairs."""
+    runs = plan.runs
+    assert runs.dtype == np.int32 and runs.shape == (len(runs), 4)
+    assert runs[0, 0] == 0 and np.all(runs[:, 1] >= 1)
+    np.testing.assert_array_equal(runs[1:, 0], runs[:-1, 0] + runs[:-1, 1])
+    assert runs[-1, 0] + runs[-1, 1] == len(plan.uidx)
+    for first, n, pair, bucket in runs:
+        assert np.all(plan.uidx[first:first + n] == pair)
+        assert np.all(plan.jb[first:first + n] == bucket)
+    assert np.all(runs[1:, 2] != runs[:-1, 2])
+
+
+def test_runs_partition_the_segments(small):
+    """The run table of prepare_scan_plan on the small networks' plans."""
+    _, plan = plans(*small[:2])
+    assert_runs_partition(plan)
+    np.testing.assert_array_equal(plan.runs, scan_runs(plan.uidx, plan.jb))
+
+
+def test_bench_plan_runs():
+    """The bench network's plan (kinase grid GRID, t_eval GRID with the RNA
+    grid, substep 16) has 133 segments over 14 pairs in 14 runs, one run a
+    pair: each table is needed for one stretch of the scan only."""
+    topo = build_topology([("GA", "S1", "K"), ("GB", "S1", "K")], None, model=0)
+    system = GlobalSystem(topo, DEMO_GRID, np.ones((topo.K, len(DEMO_GRID))), device="cpu")
+    t_eval = np.unique(np.concatenate([DEMO_GRID, RNA_GRID]))
+    _, _, seg_jb, out_idx, seg_uidx, _, u_h = expo._plan(system, t_eval, 16.0)
+    plan = prepare_scan_plan(system.rhs, seg_jb, seg_uidx, u_h, out_idx, len(out_idx))
+    assert_runs_partition(plan)
+    assert len(plan.uidx) == 133 and len(u_h) == 14
+    assert plan.runs[:, 1].tolist() == [8, 8, 8, 8, 8, 4, 4, 4, 4, 8, 16, 8, 15, 30]
+    assert sorted(plan.runs[:, 2].tolist()) == list(range(14))
+
+
+@pytest.mark.parametrize("w", [2, 6, 9, 13, 17])
+def test_random_plans_recur_out_of_order(w):
+    """random_scan_problem's plans, which the card tests hold the kernel to,
+    bring every pair back in several short runs (1 to 5 segments)."""
+    for N, P in ((7, 300), (200, 12)):
+        _, plan = random_scan_problem(w, N=N, P=P, seed=w)
+        assert_runs_partition(plan)
+        assert plan.runs[:, 1].max() <= 5
+        assert np.all(np.bincount(plan.runs[:, 2]) >= 2)
+
+
+def test_stale_runs_are_refused():
+    """A plan whose runs are not those of its uidx and jb never reaches a
+    kernel; a bucket that changes inside a stretch of one pair starts a
+    run."""
+    args, plan = random_scan_problem(4, N=5, P=4)
+    with pytest.raises(ValueError, match="runs"):
+        etd2rk_scan(*args, plan._replace(uidx=plan.uidx[::-1].copy()))
+    np.testing.assert_array_equal(scan_runs([1, 1, 1, 0], [0, 0, 1, 1]),
+                                  [[0, 2, 1, 0], [2, 1, 1, 1], [3, 1, 0, 1]])
+
+
+@pytest.mark.parametrize("w", range(2, 18))
+def test_scan_launch_shape(w):
+    """The kernel's variant and block for every N it takes: E in registers
+    up to w = 8, in shared memory while one member's rows fit a block
+    (every N up to w = 15, N <= 224 at w = 16, N <= 199 at w = 17),
+    streamed past that; whole members, at most 256 threads, and never more
+    shared memory than a block may opt into."""
+    last_shared = {9: 256, 10: 256, 11: 256, 12: 256, 13: 256, 14: 256, 15: 256,
+                   16: 224, 17: 199}
+    for N in range(1, 257):
+        shape = scan_launch_shape(w, N)
+        want = ("registers" if w <= 8 else "shared" if N <= last_shared[w] else "stream")
+        assert shape.variant == want and shape.variant in VARIANTS, (w, N)
+        lane_bytes = 4 * (w * w + (w + 1) % 2 + 2) if want == "shared" else 8
+        assert shape.shared_bytes == shape.members * N * lane_bytes <= MAX_SHARED_BYTES
+        assert shape.members >= 1 and shape.members * N <= shape.threads <= 256
+        assert shape.threads % 32 == 0 and shape.threads - shape.members * N < 32
+        assert shape.members == 1 or shape.members * N <= 128
+    for bad in ((w, 0), (w, 257), (1, 7), (18, 7)):
+        with pytest.raises(NotImplementedError):
+            scan_launch_shape(*bad)
 
 
 def test_mechanism_gate():
