@@ -7,9 +7,18 @@ non-zero:
 
 1. device: the card, its power limit, CUDA and nvcc versions; full-float32
    matmuls (TF32 off);
-2. build: compile the five hand-written kernel sources from
+2. build: compile the six hand-written kernel sources from
    ``phoskintime_tpu_torch/csrc``, one ``nvcc`` per source, all started
-   together;
+   together, and print each instance's registers and spills;
+3f. the FP32 FMA peak: ``sq_chain`` (the port of ``benchmarks/vpu_peak.py``)
+   against its plain version at 2 steps (where the output still depends on
+   the seeds and on c's x term), nacc 1/2/4/8, within 1e-6 of max |plain|,
+   the FFMAs of each instance's SASS (reps x nacc an element), then the
+   sweep over nacc x threads a block (256 and 512), each arm by the slope of 8 and 24 chained
+   launches: its best arm is this run's measured FP32 peak, printed beside
+   the data sheet's 67 TFLOP/s with the card's power limit. Every later
+   FP32 bound is printed against both (``share_of_bound``: the data sheet;
+   ``share_of_measured_bound``: the measured peak);
 3. kernel vs plain: ``phi_tables`` (w <= 8) against ``phi_tables_reference``
    on the card at the main path's own shapes (one 2048-member chunk of the
    bench problem) and at every block width 2..8, scaled atol 2e-5; the
@@ -77,8 +86,31 @@ The RK45 oracle path and the steady states:
    and, in a worker, ``simulate_until_steady`` on the bench model-0
    network.
 
-The line before the last is a JSON summary of each kernel; the last line
-is ``{"ok": true, "device": {...}}``. There is no CPU fallback.
+3g. float64 on the card: the float64 instances of ``phi_tables`` (the model-0
+   chunk), ``phi_tables_wide`` (the model-2 w = 17 and w = 9 classes and the
+   unbucketed full width) and ``etd2rk_scan`` (the model-0 chunk and the
+   unbucketed model-2 chunk) against their plain versions (tables 1e-12
+   scaled, the scan rtol 1e-10 / atol 1e-12), timed against the FP64 peak
+   or bytes; then ``make_population_objective`` at float64 on the card
+   (model 0 by both scan routes, model 2 bucketed and unbucketed through the
+   scan kernel) against the port's float64 CPU result on 8 members (rel
+   1e-9), with its launches;
+7. the global fit: ``run_global_fit`` on the north-star network
+   (``build_demo_network(150, 24, seed=1)``, float32, N = 150, 1,103
+   parameters) at pop 10,000, by the all-device loop (``gens_per_dispatch=5``,
+   two blocks) and by the default route (device variation, host survival)
+   for 2 generations: launches, evals/s, seconds a generation, the ideal
+   point never rising, the survivors' F against a re-evaluation of their X
+   (rel 1e-3); one generation of each route profiled (idle share, the
+   host survival's share on the host clock, synchronizing reads); then on
+   the bench network pop 256 for 5 generations with one refinement round
+   and the Fréchet pick (``n_evals`` covering both rounds, ``best_idx``
+   within the Pareto set).
+
+The line before the last is a JSON summary of each kernel (the float64
+instances and ``sq_chain`` included, each with the launches of its own main
+path); the last line is ``{"ok": true, "device": {...}}``. There is no CPU
+fallback.
 """
 
 from __future__ import annotations
@@ -88,21 +120,27 @@ import re
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from phoskintime_tpu_torch.demo import GRID, build_demo_network
+from phoskintime_tpu_torch.demo import GRID, RNA_GRID, build_demo_network
 from phoskintime_tpu_torch.network import expo, steadystate
 from phoskintime_tpu_torch.network.analysis import simulate_until_steady
-from phoskintime_tpu_torch.network.objective import make_objective, make_population_objective
+from phoskintime_tpu_torch.network.objective import (_auto_pop_chunk, make_objective,
+                                                     make_population_objective)
+from phoskintime_tpu_torch.network.optimize import run_global_fit
 from phoskintime_tpu_torch.network.params import unpack_params
 from phoskintime_tpu_torch.network.simulate import (extract_observables, fold_changes,
                                                     simulate, simulate_batched)
 from phoskintime_tpu_torch.network.system import GlobalSystem, default_params
 from phoskintime_tpu_torch.network.topology import build_topology
 from phoskintime_tpu_torch.ops import cuda_build
+from phoskintime_tpu_torch.ops import fma_peak
 from phoskintime_tpu_torch.ops.hypercube_flux import hypercube_flux
+from phoskintime_tpu_torch.ops.nsga import das_dennis, make_device_ga_step, nsga3_survival
+from phoskintime_tpu_torch.ops.nsga_device import make_device_ga_blocks
 from phoskintime_tpu_torch.ops.tridiag import thomas_solve_batched, thomas_solve_reference
 from phoskintime_tpu_torch.ops import phi_tables as phi_mod
 from phoskintime_tpu_torch.ops.phi_tables import (phi_tables, phi_tables_reference,
@@ -124,9 +162,24 @@ PRECISION_GATE = 1e-3     # model 2: float32 on the card vs float64 on the CPU
 # (tests/test_pallas.py:262-263)
 SCAN_RTOL, SCAN_ATOL = 2e-3, 1e-5
 # the card's published peaks (H100 SXM data sheet): FP32 and FP64 outside
-# the tensor cores, and HBM bandwidth
+# the tensor cores, and HBM bandwidth; every bound_ms is taken against them
 PEAK_FP32_FLOPS, PEAK_FP64_FLOPS, PEAK_HBM_BYTES = 67e12, 34e12, 3.35e12
-KERNELS = (phi_tables, phi_tables_wide, etd2rk_scan, hypercube_flux, thomas_solve_batched)
+# the FP32 FMA peak this run measures in phase 3f (sq_chain's best arm),
+# beside which every FP32 bound is printed a second time
+MEASURED = {"fp32_flops": None}
+# threads a block in 3f's sweep (the module's full sweep adds 128 and 1024;
+# on the H100 the best arm was at 256 or 512 threads)
+SWEEP_THREADS = (256, 512)
+KERNELS = (phi_tables, phi_tables_wide, etd2rk_scan, hypercube_flux, thomas_solve_batched,
+           fma_peak.sq_chain)
+# float64 on the card (3g): tables against their plain versions scaled as
+# the float64 kernels; the scan elementwise; an objective against the
+# port's float64 result on the CPU
+F64_SCAN_RTOL, F64_SCAN_ATOL, F64_OBJECTIVE_RTOL = 1e-10, 1e-12, 1e-9
+# the global fit (7): the north-star network and population (bench.py:407-412)
+NORTHSTAR = dict(n_proteins=150, n_kinases=24, seed=1)
+NORTHSTAR_POP = 10_000
+FIT_F_RTOL = 1e-3         # survivors' F against a re-evaluation of their X
 # the new kernels against their plain versions, scaled by the largest entry:
 # float32 as the table kernels; float64 rounding only
 SCALED_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
@@ -145,9 +198,14 @@ STEADY = {0: steadystate.steady_state_distributive, 1: steadystate.steady_state_
           2: steadystate.steady_state_combinatorial}
 
 
+T_START = time.perf_counter()
+
+
 def say(phase: str, **fields) -> None:
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
-          flush=True)
+    """One log line: the phase, the seconds since the script started, and
+    the fields."""
+    print(f"[{phase}] t={time.perf_counter() - T_START:.1f} "
+          + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -199,9 +257,11 @@ def phase_build() -> None:
     for path, seconds in built.items():
         say("2 build", library=path.name, seconds=f"{seconds:.2f}")
         for ln in path.with_suffix(".log").read_text().splitlines():
-            width = re.search(r"Compiling entry function '\w*?ILi(\d+)E", ln)
-            if width:
-                print(f"    w={width.group(1)}")
+            inst = re.search(r"Compiling entry function '\w*?_kernelI([fd]?)((?:Li\d+E)+)", ln)
+            if inst:
+                args = re.findall(r"Li(\d+)E", inst.group(2))
+                print(f"    {'float64' if inst.group(1) == 'd' else 'float32'} "
+                      f"<{', '.join(args)}>")
             elif "registers" in ln or "spill" in ln:
                 print("    " + ln.split("ptxas info    : ")[-1].strip())
 
@@ -220,31 +280,49 @@ def expect(**nonzero) -> dict:
     return {k.__name__: nonzero.get(k.__name__, 0) for k in KERNELS}
 
 
-def bound(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
-    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    operations over ``peak``."""
+class Bound(NamedTuple):
+    ms: float               # the larger of bytes / HBM rate and operations / data-sheet peak
+    by: str                 # "bytes" or "operations"
+    ms_measured: float      # the same with this run's measured FP32 peak (FP64: data sheet)
+
+
+def bound(nbytes: float, ops: float, itemsize: int = 4) -> Bound:
+    """The least time of a function that moves ``nbytes`` and does ``ops``
+    operations of the type of ``itemsize`` (4: FP32, 8: FP64)."""
+    peak = PEAK_FP32_FLOPS if itemsize == 4 else PEAK_FP64_FLOPS
+    measured = (MEASURED["fp32_flops"] or PEAK_FP32_FLOPS) if itemsize == 4 else PEAK_FP64_FLOPS
     t_ops, t_bytes = ops / peak, nbytes / PEAK_HBM_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return Bound(1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+                 1e3 * max(ops / measured, t_bytes))
 
 
-def table_bound(L, binv, h_u, ladder) -> tuple[float, str]:
-    """(bound_ms, bound_by) of a table build on these inputs: the larger of
-    the bytes it must move (L read once, the tables written once) over HBM
-    bandwidth and its FP32 FMAs over the FP32 peak. FMAs per (pair, lane):
-    7 w^3 (Horner) + 7 w^2 (series) + s (w^3 + 2 w^2) (ladder), with s the
+def bound_fields(b: Bound, dev_ms) -> dict:
+    """A bound and the device time's share of it, against the data sheet
+    and against the measured FP32 peak, for a log line."""
+    return {"bound_ms": f"{b.ms:.4f}", "bound_by": b.by, "share_of_bound": share(b.ms, dev_ms),
+            "bound_ms_measured_peak": f"{b.ms_measured:.4f}",
+            "share_of_measured_bound": share(b.ms_measured, dev_ms)}
+
+
+def table_bound(L, binv, h_u, ladder) -> Bound:
+    """The bound of a table build on these inputs: the bytes it must move
+    (L read once, the tables written once) and its FMAs. FMAs per (pair,
+    lane), n the series' terms (8 in float32, 12 in float64): (n - 1) w^3
+    (Horner) + (n - 1) w^2 (series) + s (w^3 + 2 w^2) (ladder), with s the
     lane's own squaring count on this data."""
     w, B = L.shape[1], L.shape[3]
+    isz = L.element_size()
+    terms, radius = (8, 0.5) if isz == 4 else (12, 0.25)
     fmas = 0.0
     for b, h in zip(np.asarray(binv), np.asarray(h_u)):
         A = L[int(b)] * float(h)
         norm = torch.amax(torch.sum(torch.abs(A), dim=1), dim=0)
-        s = torch.clamp(torch.ceil(torch.log2(torch.clamp(norm, min=1e-30) / 0.5)),
+        s = torch.clamp(torch.ceil(torch.log2(torch.clamp(norm, min=1e-30) / radius)),
                         0.0, float(ladder))
         steps = float(torch.nan_to_num(s, nan=0.0).sum())
-        fmas += B * (7 * w ** 3 + 7 * w ** 2) + steps * (w ** 3 + 2 * w ** 2)
-    nbytes = 4.0 * (L.numel() + len(binv) * (w * w + 2 * w) * B)
-    t_ops, t_bytes = 2.0 * fmas / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+        fmas += B * (terms - 1) * (w ** 3 + w ** 2) + steps * (w ** 3 + 2 * w ** 2)
+    nbytes = float(isz) * (L.numel() + len(binv) * (w * w + 2 * w) * B)
+    return bound(nbytes, 2.0 * fmas, isz)
 
 
 def augmented(L, binv, h_u) -> torch.Tensor:
@@ -252,7 +330,7 @@ def augmented(L, binv, h_u) -> torch.Tensor:
     exponential holds E, phi1(L h) e0 and phi2(L h) e0: the input of the
     library yardstick ``torch.linalg.matrix_exp``."""
     U, w, B = len(binv), L.shape[1], L.shape[3]
-    h = torch.as_tensor(np.asarray(h_u, np.float32), device=L.device)
+    h = torch.as_tensor(np.asarray(h_u), dtype=L.dtype, device=L.device)
     M = L.new_zeros((U, B, w + 2, w + 2))
     M[:, :, :w, :w] = (L[torch.as_tensor(np.asarray(binv, np.int64), device=L.device)]
                        * h[:, None, None, None]).permute(0, 3, 1, 2)
@@ -266,7 +344,7 @@ def library_check(X, want, h_u) -> float:
     E, p1, p2 = want
     U, w, B = E.shape[0], E.shape[1], E.shape[3]
     X = X.reshape(U, B, w + 2, w + 2)
-    h = torch.as_tensor(np.asarray(h_u, np.float32), device=X.device)[:, None, None]
+    h = torch.as_tensor(np.asarray(h_u), dtype=X.dtype, device=X.device)[:, None, None]
     got = (X[:, :, :w, :w].permute(0, 2, 3, 1),
            (X[:, :, :w, w] * h).permute(0, 2, 1),
            (X[:, :, :w, w + 1] * h * h).permute(0, 2, 1))
@@ -284,45 +362,49 @@ def compartmental(rng, Bu, w, B) -> torch.Tensor:
 
 
 def check_and_time(label, L, binv, h_u, ladder, card, reps=20, run_k=None,
-                   run_p=None, kernel=None) -> dict:
+                   run_p=None, kernel=None, plain_reps=3) -> dict:
     """One table build through a kernel against its plain version (by
     default ``phi_tables``, which routes by width, and
-    ``phi_tables_reference``): errors, then times in the order plain,
-    kernel, kernel, plain, matrix_exp, the bound, and (``kernel``: a part
-    of the kernel's name) its device time by the profiler and share of the
-    bound."""
+    ``phi_tables_reference``): errors (scaled tolerance by L's type), then
+    times in the order plain, kernel, kernel, plain, matrix_exp, the bound,
+    and (``kernel``: a part of the kernel's name) its device time by the
+    profiler and share of the bound."""
     run_k = run_k or (lambda: phi_tables(L, binv, h_u, ladder))
     run_p = run_p or (lambda: phi_tables_reference(L, binv, h_u, ladder))
+    tol = SCALED_TOL[L.dtype]
     got, want = run_k(), run_p()
     torch.cuda.synchronize()
     errs = [scaled_err(g, w) for g, w in zip(got, want)]
     max_abs, worst = max(e[0] for e in errs), max(e[1] for e in errs)
-    # both float32 versions against the float64 plain tables (12 terms)
-    exact = phi_tables_reference(L.double(), binv, h_u, ladder)
-    vs64 = lambda outs: max(scaled_err(g.double(), x)[1] for g, x in zip(outs, exact))
-    say(f"{label} check", shape=tuple(L.shape), pairs=len(binv), ladder=ladder,
-        max_abs_err=f"{max_abs:.3e}", max_scaled_err=f"{worst:.3e}", tol=KERNEL_ATOL,
-        kernel_vs_f64=f"{vs64(got):.3e}", plain_vs_f64=f"{vs64(want):.3e}")
-    del exact
-    if not worst <= KERNEL_ATOL:
+    extra = {}
+    if L.dtype == torch.float32:
+        # both float32 versions against the float64 plain tables (12 terms)
+        exact = phi_tables_reference(L.double(), binv, h_u, ladder)
+        vs64 = lambda outs: max(scaled_err(g.double(), x)[1] for g, x in zip(outs, exact))
+        extra = {"kernel_vs_f64": f"{vs64(got):.3e}", "plain_vs_f64": f"{vs64(want):.3e}"}
+        del exact
+    say(f"{label} check", shape=tuple(L.shape), dtype=str(L.dtype).split(".")[-1],
+        pairs=len(binv), ladder=ladder, max_abs_err=f"{max_abs:.3e}",
+        max_scaled_err=f"{worst:.3e}", tol=tol, **extra)
+    if not worst <= tol:
         raise AssertionError(f"{label}: kernel disagrees with the plain version: {worst:.3e}")
 
-    p1, k1, k2, p2 = (cuda_ms(run_p, 3), cuda_ms(run_k, reps),
-                      cuda_ms(run_k, reps), cuda_ms(run_p, 3))
+    p1, k1, k2, p2 = (cuda_ms(run_p, plain_reps), cuda_ms(run_k, reps),
+                      cuda_ms(run_k, reps), cuda_ms(run_p, plain_reps))
     M = augmented(L, binv, h_u)
     lib_ms = cuda_ms(lambda: torch.linalg.matrix_exp(M), 3)
     lib_err = library_check(torch.linalg.matrix_exp(M), want, h_u)
     del M
-    bound_ms, bound_by = table_bound(L, binv, h_u, ladder)
+    b = table_bound(L, binv, h_u, ladder)
     dev_ms = kernel_ms_on_device(run_k, kernel, reps)
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     say(f"{label} timing", ms=f"{ms:.4f}", device_ms=measured(dev_ms),
-        plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-        bound_by=bound_by, share_of_bound=share(bound_ms, dev_ms),
+        plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}", **bound_fields(b, dev_ms),
         runs_ms=[round(x, 4) for x in (p1, k1, k2, p2)],
         library_vs_plain=f"{lib_err:.3e}", card=repr(card))
     return {"max_abs_err": max_abs, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "bound_ms": b.ms, "bound_by": b.by, "bound_ms_measured_peak": b.ms_measured,
+            "library_ms": lib_ms}
 
 
 def kernel_ms_on_device(run, kernel, reps):
@@ -401,28 +483,34 @@ def phase_wide_kernel(b2, thetas2, card) -> dict:
             "class_w9": summary[9], "unbucketed_w17": unbucketed}
 
 
-def scan_bound(args, plan) -> tuple[float, str]:
-    """(bound_ms, bound_by) of one scan on these inputs: every input read
-    once and the T snapshots written once, over HBM bandwidth, against the
-    FP32 operations over the FP32 peak. Per segment and lane: E y (w^2 FMAs),
-    p1 g and p2h d (w each), two totals (w - 1 each), two TF matvecs (nnz/N
-    FMAs each) and two rational rates (~15 operations each); an FMA is 2."""
+def scan_bound(args, plan) -> Bound:
+    """The bound of one scan on these inputs: every input read once and the
+    T snapshots written once, against its operations of the working type.
+    Per segment and lane: E y (w^2 FMAs), p1 g and p2h d (w each), two
+    totals (w - 1 each), two TF matvecs (nnz/N FMAs each) and two rational
+    rates (~15 operations each); an FMA is 2."""
     E = args[0]
     w, B = E.shape[1], E.shape[3]
     S, P = len(plan.uidx), B // plan.N
-    nbytes = 4.0 * (sum(x.numel() for x in args) + plan.T * w * B)
+    nbytes = float(E.element_size()) * (sum(x.numel() for x in args) + plan.T * w * B)
     ops = S * (B * (2 * w * w + 4 * w + 4 * (w - 1) + 31) + 4 * P * len(plan.tf_col))
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return bound(nbytes, ops, E.element_size())
+
+
+def scan_tols(dtype) -> tuple[float, float]:
+    """(rtol, atol) of a scan against another route: the JAX package's
+    (tests/test_pallas.py:262-263) in float32, rounding only in float64."""
+    return (SCAN_RTOL, SCAN_ATOL) if dtype == torch.float32 else (F64_SCAN_RTOL, F64_SCAN_ATOL)
 
 
 def scan_close(label, got, want) -> tuple[float, float]:
-    """Gate the trajectory at rtol/atol, as tests/test_pallas.py; returns
-    (max abs error, max abs error / max |want|)."""
-    bad = torch.abs(got - want) > SCAN_ATOL + SCAN_RTOL * torch.abs(want)
+    """Gate the trajectory at rtol/atol (by its type); returns (max abs
+    error, max abs error / max |want|)."""
+    rtol, atol = scan_tols(got.dtype)
+    bad = torch.abs(got - want) > atol + rtol * torch.abs(want)
     if bool(bad.any()) or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{label}: {int(bad.sum())} entries outside rtol "
-                             f"{SCAN_RTOL} / atol {SCAN_ATOL}")
+                             f"{rtol} / atol {atol}")
     return scaled_err(got, want)
 
 
@@ -452,7 +540,7 @@ def check_and_time_scan(label, b, thetas, card, **kw) -> dict:
     E = args[0]
     w, B = E.shape[1], E.shape[3]
     T, P, N = plan.T, B // plan.N, plan.N
-    variant = scan_launch_shape(w, N).variant
+    variant = scan_launch_shape(w, N, E.element_size()).variant
     run_k = lambda: etd2rk_scan(*args, plan)
     run_p = lambda: etd2rk_scan_reference(*args, plan)
     got, want = run_k(), run_p()
@@ -461,10 +549,11 @@ def check_and_time_scan(label, b, thetas, card, **kw) -> dict:
     max_abs, scaled = scan_close(f"{label} vs plain", got, want)
     as_eager = got.reshape(T, w, P, N).permute(2, 0, 3, 1).reshape(P, T, N * w)
     _, scaled_e = scan_close(f"{label} vs eager", as_eager, ys_e)
-    say(f"{label} check", w=w, lanes=B, segments=len(plan.uidx), pairs=E.shape[0],
-        runs=len(plan.runs), variant=variant, snapshots=T,
-        max_abs_err=f"{max_abs:.3e}", max_scaled_err=f"{scaled:.3e}",
-        kernel_vs_eager_scaled=f"{scaled_e:.3e}", rtol=SCAN_RTOL, atol=SCAN_ATOL)
+    rtol, atol = scan_tols(E.dtype)
+    say(f"{label} check", w=w, dtype=str(E.dtype).split(".")[-1], lanes=B,
+        segments=len(plan.uidx), pairs=E.shape[0], runs=len(plan.runs), variant=variant,
+        snapshots=T, max_abs_err=f"{max_abs:.3e}", max_scaled_err=f"{scaled:.3e}",
+        kernel_vs_eager_scaled=f"{scaled_e:.3e}", rtol=rtol, atol=atol)
 
     p1, k1, k2, p2 = (cuda_ms(run_p, 3), cuda_ms(run_k, 10), cuda_ms(run_k, 10),
                       cuda_ms(run_p, 3))
@@ -476,17 +565,17 @@ def check_and_time_scan(label, b, thetas, card, **kw) -> dict:
         raise AssertionError(f"{label}: the CUDA graph's scan differs from the eager one")
     graph_ms = cuda_ms(replay, 5)
     del replay, ys_g
-    bound_ms, bound_by = scan_bound(args, plan)
+    b = scan_bound(args, plan)
     dev_ms = kernel_ms_on_device(run_k, "etd2rk_scan_kernel", 10)
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     say(f"{label} timing", variant=variant, ms=f"{ms:.4f}", device_ms=measured(dev_ms),
         plain_ms=f"{plain_ms:.4f}", eager_ms=f"{eager_ms:.4f}",
-        cuda_graph_ms=f"{graph_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
-        share_of_bound=share(bound_ms, dev_ms),
+        cuda_graph_ms=f"{graph_ms:.4f}", **bound_fields(b, dev_ms),
         runs_ms=[round(x, 4) for x in (p1, k1, k2, p2)], card=repr(card))
     return {"max_abs_err": max_abs, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "variant": variant, "eager_ms": eager_ms, "cuda_graph_ms": graph_ms}
+            "bound_ms": b.ms, "bound_by": b.by, "bound_ms_measured_peak": b.ms_measured,
+            "library_ms": None, "variant": variant, "eager_ms": eager_ms,
+            "cuda_graph_ms": graph_ms}
 
 
 def phase_scan_kernel(b, thetas, b2, thetas2, card) -> dict:
@@ -511,13 +600,12 @@ def phase_scan_kernel(b, thetas, b2, thetas2, card) -> dict:
             "replaces": "phoskintime_tpu/ops/scan_pallas.py:246", **out}
 
 
-def flux_bound(rows: int, smax: int, itemsize: int) -> tuple[float, str]:
+def flux_bound(rows: int, smax: int, itemsize: int) -> Bound:
     """Bound of one edge flux: X read and dX written once, smax site rates
     and one dephospho rate a row; two products and two sums a site and
     state."""
     M = 1 << smax
-    return bound(itemsize * rows * (2 * M + smax + 1), 4.0 * rows * M * smax,
-                 PEAK_FP32_FLOPS if itemsize == 4 else PEAK_FP64_FLOPS)
+    return bound(itemsize * rows * (2 * M + smax + 1), 4.0 * rows * M * smax, itemsize)
 
 
 def check_and_time_flux(label, rows, smax, dtype, card, reps=20, quiet=False) -> dict:
@@ -542,15 +630,16 @@ def check_and_time_flux(label, rows, smax, dtype, card, reps=20, quiet=False) ->
                       cuda_ms(run_p, reps))
     dev_ms = kernel_device_ms(device_events(lambda: [run_k() for _ in range(reps)])[0],
                               "hypercube_flux_kernel")
-    bound_ms, bound_by = flux_bound(rows, smax, X.element_size())
+    b = flux_bound(rows, smax, X.element_size())
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     say(label, rows=rows, smax=smax, dtype=str(dtype).split(".")[-1],
         max_abs_err=f"{max_abs:.3e}", max_scaled_err=f"{scaled:.3e}",
         tol=SCALED_TOL[dtype], ms=f"{ms:.4f}", device_ms=measured(dev_ms),
-        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+        plain_ms=f"{plain_ms:.4f}", **bound_fields(b, dev_ms),
         runs_ms=[round(x, 4) for x in (p1, k1, k2, p2)], card=repr(card))
     return {"max_abs_err": max_abs, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": b.ms, "bound_by": b.by, "bound_ms_measured_peak": b.ms_measured,
+            "library_ms": None}
 
 
 def phase_flux_kernel(card) -> dict:
@@ -615,16 +704,16 @@ def check_and_time_thomas(label, B, n, dtype, card, reps=20, quiet=False) -> dic
     dev_ms = kernel_device_ms(device_events(lambda: [run_k() for _ in range(reps)])[0],
                               "thomas_kernel")
     isz = a.element_size()
-    bound_ms, bound_by = bound(isz * 5 * B * n, 8.0 * B * n,
-                               PEAK_FP32_FLOPS if isz == 4 else PEAK_FP64_FLOPS)
+    b = bound(isz * 5 * B * n, 8.0 * B * n, isz)
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     say(label, systems=B, n=n, dtype=str(dtype).split(".")[-1],
         max_abs_err=f"{max_abs:.3e}", max_scaled_err=f"{scaled:.3e}",
         vs_dense_solve=f"{lib_err:.3e}", ms=f"{ms:.4f}", device_ms=measured(dev_ms),
-        plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-        bound_by=bound_by, runs_ms=[round(x, 4) for x in (p1, k1, k2, p2)], card=repr(card))
+        plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}", **bound_fields(b, dev_ms),
+        runs_ms=[round(x, 4) for x in (p1, k1, k2, p2)], card=repr(card))
     return {"max_abs_err": max_abs, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "bound_ms": b.ms, "bound_by": b.by, "bound_ms_measured_peak": b.ms_measured,
+            "library_ms": lib_ms}
 
 
 def phase_thomas_kernel(card) -> dict:
@@ -649,18 +738,25 @@ def phase_thomas_kernel(card) -> dict:
 
 def device_events(fn):
     """(device events (name, start us, end us), host wall ms) of one call
-    under torch.profiler, ended by a synchronize."""
+    under torch.profiler (CUDA activity only), ended by a synchronize. The
+    events are read from the profiler's raw results: its event list costs
+    ~0.1 ms of host time an event to build, over a minute for a fit
+    generation's trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    return ([(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == DeviceType.CUDA], wall_ms)
+    raw = [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    # µs from the first event, taken in integer ns (absolute ns in a double
+    # keep only a quarter-µs)
+    t0_ns = min((a for _, a, _ in raw), default=0)
+    return [(name, (a - t0_ns) / 1e3, (z - t0_ns) / 1e3) for name, a, z in raw], wall_ms
 
 
 def measured(x, scale: float = 1.0, digits: int = 4) -> str:
@@ -681,7 +777,11 @@ def profile_call(fn, kernel: str | None = None) -> dict:
     the union of their intervals (device-busy ms), and the host wall of
     the call ended by a synchronize; the idle share is 1 - busy / wall.
     ``kernel``: also the mean device time of the kernels of that name."""
-    events, wall_ms = device_events(fn)
+    return summarize_events(*device_events(fn), kernel)
+
+
+def summarize_events(events, wall_ms, kernel: str | None = None) -> dict:
+    """:func:`profile_call`'s fields from one call's device events."""
     spans = sorted((a, z) for _, a, z in events)
     busy_us, end = 0.0, float("-inf")
     for a, z in spans:
@@ -1262,6 +1362,305 @@ def phase_steady_states(b1) -> dict:
     return {"steady-state-sequential-bench": launches}
 
 
+# --- 3f: the FMA-peak probe ----------------------------------------------------------
+
+
+def phase_fma_peak(card) -> tuple[dict, dict]:
+    """3f: sq_chain against its plain version at ``fma_peak.CHECK_REPS``
+    steps, nacc 1/2/4/8, within ``fma_peak.CHECK_TOL`` of max |plain| (the
+    kernel contracts y*y + c into one FMA, the plain version rounds the
+    multiply and the add; at so few steps the output still depends on the
+    seeds, on c's x term and on the step count, and the check fails unless
+    it spreads far beyond the tolerance); the FFMAs in each instance's SASS
+    (reps x nacc, or something shortened the chains); then the peak sweep,
+    the probe's main path (each arm by the slope of 8 and 24 chained
+    launches), whose best arm becomes this run's measured FP32 peak.
+    Returns (the kernel's entry, {path: launches})."""
+    X = fma_peak.probe_input("cuda")
+    max_abs, reps, tol = 0.0, fma_peak.CHECK_REPS, fma_peak.CHECK_TOL
+    for nacc in fma_peak.NACCS:
+        got, want = fma_peak.sq_chain(X, reps, nacc), fma_peak.sq_chain_reference(X, reps, nacc)
+        torch.cuda.synchronize()
+        err, scaled = scaled_err(got, want)
+        spread = float(want.max() - want.min()) / float(want.abs().max())
+        say("3f sq_chain check", nacc=nacc, reps=reps, elements=X.numel(),
+            max_abs_err=f"{err:.3e}", max_scaled_err=f"{scaled:.3e}", tol=tol,
+            scaled_spread=f"{spread:.3e}")
+        if not scaled <= tol or not spread > 1e4 * tol:
+            raise AssertionError(f"3f: sq_chain disagrees at nacc={nacc}: {scaled:.3e} "
+                                 f"(the plain output's scaled spread {spread:.3e})")
+        max_abs = max(max_abs, err)
+    ffma = fma_peak.sass_ffma_counts()
+    want = {(n, r): n * r for n in fma_peak.NACCS for r in fma_peak.BUILT_REPS}
+    say("3f sq_chain sass", ffma={f"nacc{n}_reps{r}": c for (n, r), c in sorted(ffma.items())},
+        want="reps * nacc an element")
+    if ffma != want:
+        raise AssertionError(f"3f: FFMA counts {ffma}, want {want}")
+
+    reset_counts()
+    sweep = fma_peak.measure_peak(X, threads=SWEEP_THREADS, emit=lambda arm: say(
+        "3f peak arm", nacc=arm["nacc"], threads=arm["threads"], reps=arm["reps"],
+        tflops=f"{arm['tflops']:.3f}", chain_ms=arm["chain_ms"], card=repr(card)))
+    launches = counts()
+    if launches != expect(sq_chain=launches["sq_chain"]) or not launches["sq_chain"]:
+        raise AssertionError(f"3f: the sweep's launches {launches}")
+    peak = sweep["peak_tflops"]
+    MEASURED["fp32_flops"] = peak * 1e12
+    best = sweep["best"]
+    say("3f peak", tflops=f"{peak:.3f}", nacc=best["nacc"], threads=best["threads"],
+        datasheet_tflops=PEAK_FP32_FLOPS / 1e12,
+        share_of_datasheet=f"{peak * 1e12 / PEAK_FP32_FLOPS:.3f}", card=repr(card))
+
+    # the best arm at the probe's own size: per-launch time from the slope,
+    # device time, the plain version, the bound (operations, data sheet)
+    nacc, th = best["nacc"], best["threads"]
+    ms = (best["chain_ms"]["24"] - best["chain_ms"]["8"]) / 16
+    dev_ms = kernel_ms_on_device(lambda: fma_peak.sq_chain(X, fma_peak.REPS, nacc, threads=th),
+                                 "sq_chain_kernel", 10)
+    plain_ms = cuda_ms(lambda: fma_peak.sq_chain_reference(X, fma_peak.REPS, nacc), 1)
+    b = bound(8.0 * X.numel(), fma_peak.chain_flops(X, fma_peak.REPS, nacc))
+    say("3f sq_chain timing", nacc=nacc, threads=th, reps=fma_peak.REPS, ms=f"{ms:.4f}",
+        device_ms=measured(dev_ms), plain_ms=f"{plain_ms:.4f}", **bound_fields(b, dev_ms),
+        card=repr(card))
+    entry = {"name": "sq_chain", "route": "cuda",
+             "source": "phoskintime_tpu_torch/csrc/sq_chain.cu",
+             "replaces": "benchmarks/vpu_peak.py:58", "max_abs_err": max_abs, "ms": ms,
+             "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b.ms, "bound_by": b.by,
+             "bound_ms_measured_peak": b.ms_measured, "library_ms": None,
+             "measured_peak_tflops": peak, "best_arm": {"nacc": nacc, "threads": th}}
+    return entry, {"fma-peak-sweep": launches}
+
+
+# --- 3g: float64 on the card ---------------------------------------------------------
+
+
+def at_float64(b) -> dict:
+    """The bundle with its system at float64 on the card."""
+    s = b["system"]
+    return {**b, "system": GlobalSystem(s.topo, s.kin_grid, s.Kmat, dtype=torch.float64,
+                                        device="cuda")}
+
+
+def float64_path(label, b64, thetas, card, want, **kw) -> dict:
+    """A float64 objective on the card in chunks of CHUNK: its launches, F
+    on 8 members against the port's float64 CPU result (rel 1e-9), evals/s."""
+    objective = make_population_objective(*bundle_args(b64), pop_chunk=CHUNK, **kw)
+    objective(thetas[:8])                  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    F = objective(thetas)
+    torch.cuda.synchronize()
+    launches = counts()
+    if tuple(F.shape) != (len(thetas), 3) or not bool(torch.isfinite(F).all()):
+        raise AssertionError(f"{label}: non-finite or misshapen objectives")
+    if launches != want:
+        raise AssertionError(f"{label}: kernel launches {launches}, want {want}")
+    s = b64["system"]
+    cpu = GlobalSystem(s.topo, s.kin_grid, s.Kmat, dtype=torch.float64, device="cpu")
+    Fc = make_population_objective(cpu, *bundle_args(b64)[1:], **kw)(thetas[:8].cpu())
+    rel = float(torch.max(torch.abs(F[:8].cpu() - Fc) / torch.abs(Fc)))
+    ms = cuda_ms(lambda: objective(thetas), 2)
+    say(f"{label} float64 path", pop=len(thetas), launches=launches,
+        vs_f64_cpu=f"{rel:.3e}", tol=F64_OBJECTIVE_RTOL,
+        evals_per_s=f"{len(thetas) / (ms / 1e3):.1f}", card=repr(card), **kw)
+    if not rel <= F64_OBJECTIVE_RTOL:
+        raise AssertionError(f"{label}: float64 on the card drifted from the CPU: {rel:.3e}")
+    return launches
+
+
+def phase_float64(b, thetas, b2, thetas2, card) -> tuple[list, dict]:
+    """3g: the float64 instances of the three kernels at the main path's
+    shapes (tables within 1e-12 scaled of their plain versions, the scan
+    within rtol 1e-10 / atol 1e-12, times and bounds at the FP64 peak), then
+    the float64 objective on the card (model 0 by both scan routes, model 2
+    bucketed and unbucketed through the scan kernel) against the CPU.
+    Returns (the three kernels' entries, {path: launches})."""
+    b64, b2_64 = at_float64(b), at_float64(b2)
+    th, th2 = thetas[:CHUNK].double(), thetas2[:CHUNK].double()
+    params_b = unpack_params(th, b64["slices"], b64["topo"])
+    (L, binv, h_u, ladder), = expo.table_inputs(b64["system"], params_b, b64["grid"])
+    tables = check_and_time("3g f64 tables model-0", L, binv, h_u, ladder, card, reps=10,
+                            plain_reps=1, kernel="phi_tables_kernel")
+    del L
+    params2 = unpack_params(th2, b2_64["slices"], b2_64["topo"])
+    wide = {}
+    for L, binv, h_u, ladder in expo.table_inputs(b2_64["system"], params2, b2_64["grid"]):
+        if L.shape[1] > 8:
+            wide[L.shape[1]] = check_and_time(f"3g f64 wide w={L.shape[1]}", L, binv, h_u,
+                                              ladder, card, reps=5, plain_reps=1,
+                                              kernel="phi_tables_wide_kernel")
+        del L
+    full, = expo.table_inputs(b2_64["system"], params2, b2_64["grid"], width_bucketing=False)
+    wide_full = check_and_time("3g f64 wide unbucketed w=17", *full, card, reps=3,
+                               plain_reps=1, kernel="phi_tables_wide_kernel")
+    del full
+    scan = check_and_time_scan("3g f64 scan model-0", b64, th, card)
+    scan2 = check_and_time_scan("3g f64 scan model-2 unbucketed", b2_64, th2, card,
+                                width_bucketing=False)
+    paths = {
+        "model0-f64-chunk2048": float64_path("3g model-0", b64, th, card, expect(phi_tables=1)),
+        "model0-f64-chunk2048-scan": float64_path(
+            "3g model-0 scan", b64, th, card, expect(phi_tables=1, etd2rk_scan=1),
+            use_scan_kernel=True),
+        "model2-f64-chunk2048": float64_path("3g model-2", b2_64, th2, card,
+                                             expect(phi_tables=3, phi_tables_wide=2)),
+        "model2-f64-chunk2048-unbucketed-scan": float64_path(
+            "3g model-2 scan", b2_64, th2, card, expect(phi_tables_wide=1, etd2rk_scan=1),
+            width_bucketing=False, use_scan_kernel=True)}
+    entries = [
+        {"name": "phi_tables_f64", "counter": "phi_tables", "route": "cuda",
+         "source": "phoskintime_tpu_torch/csrc/phi_tables.cu",
+         "replaces": "phoskintime_tpu/ops/phi_pallas.py:352", **tables},
+        {"name": "phi_tables_wide_f64", "counter": "phi_tables_wide", "route": "cuda",
+         "source": "phoskintime_tpu_torch/csrc/phi_tables_wide.cu",
+         "replaces": "phoskintime_tpu/ops/phi_pallas.py:406", **wide[17], "class_w9": wide[9],
+         "unbucketed_w17": wide_full},
+        {"name": "etd2rk_scan_f64", "counter": "etd2rk_scan", "route": "cuda",
+         "source": "phoskintime_tpu_torch/csrc/etd2rk_scan.cu",
+         "replaces": "phoskintime_tpu/ops/scan_pallas.py:246", **scan,
+         "model2_unbucketed": scan2}]
+    return entries, paths
+
+
+# --- 7: the global fit ---------------------------------------------------------------
+
+
+def generation_profile(label, fn, card) -> None:
+    """One generation ``fn`` (its route already warm) under the profiler and
+    CUDA's sync debug mode: its synchronizing reads (one warning each; the
+    mode does not see every kind), device events, busy and idle share.
+    ``fn`` returns the host clock's ms of the generation's host-only step
+    (the default route's survival) or None where it has none; its share
+    of the generation's wall is taken on that one clock."""
+    import warnings
+
+    host = []
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            events, wall_ms = device_events(lambda: host.append(fn()))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    host_fields = ({"host_steps": "none (every step on the card)"} if host[0] is None else
+                   {"host_survival_ms": f"{host[0]:.3f}",
+                    "host_survival_share": f"{host[0] / wall_ms:.3f}"})
+    say(f"{label} profile", sync_reads=syncs, **host_fields,
+        **summarize_events(events, wall_ms), card=repr(card))
+
+
+def fit_route(label, ns, card, n_gen, n_chunks, **kw) -> tuple:
+    """run_global_fit on the north-star network at pop NORTHSTAR_POP: its
+    launches (phi_tables once a chunk of every evaluation), generations,
+    evals/s and seconds a generation (the callback's clock, each
+    generation ended by a synchronize), the ideal point never rising, and
+    the survivors' F against a re-evaluation of their X."""
+    marks = []
+
+    def cb(gen, X, F):
+        torch.cuda.synchronize()
+        marks.append((gen, time.perf_counter()))
+        return False
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_global_fit(*bundle_args(ns), ns["xl"], ns["xu"], pop=NORTHSTAR_POP, n_gen=n_gen,
+                         seed=0, ftol=0.0, ftol_period=10_000, n_max_evals=None,
+                         frechet_pick=False, callback=cb, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    gens = len(res.history)
+    if launches != expect(phi_tables=(gens + 1) * n_chunks):
+        raise AssertionError(f"{label}: launches {launches} for {gens + 1} evaluations "
+                             f"of {n_chunks} chunks")
+    ideals = np.array([h[1] for h in res.history])
+    rises = int((np.diff(ideals, axis=0) > 0).sum())
+    F_re = make_population_objective(*bundle_args(ns))(res.X).cpu().numpy()
+    rel = float(np.max(np.abs(F_re - res.F) / np.abs(res.F)))
+    per_gen = np.diff([t for _, t in marks]) / np.diff([g for g, _ in marks]) if len(marks) > 1 \
+        else np.asarray([(marks[0][1] - t0) / marks[0][0]])
+    say(f"{label}", pop=NORTHSTAR_POP, generations=gens, n_evals=res.n_evals,
+        launches=launches, wall_s=f"{wall:.2f}", evals_per_s=f"{res.n_evals / wall:.1f}",
+        s_per_generation=[round(float(x), 3) for x in per_gen],
+        pareto=len(res.pareto_F), ideal=[float(x) for x in ideals[-1]],
+        ideal_rises=rises, survivors_vs_reeval=f"{rel:.3e}", tol=FIT_F_RTOL, card=repr(card),
+        **kw)
+    if rises or not rel <= FIT_F_RTOL or not np.isfinite(res.F).all():
+        raise AssertionError(f"{label}: ideal rose {rises} times or survivors' F drifted "
+                             f"({rel:.3e})")
+    return res, launches
+
+
+def phase_global_fit(b, card) -> dict:
+    """7: run_global_fit at full width on the north-star network
+    (``build_demo_network(150, 24, seed=1)``, float32, bench.py:407-412) at
+    pop 10,000: the all-device loop (gens_per_dispatch=5, two blocks), then
+    the default route (device variation, host survival) for 2 generations;
+    then one generation of each route profiled; then, on the bench network,
+    pop 256 for 5 generations with one refinement round and the Fréchet
+    pick. Returns {path: launches}."""
+    t0 = time.perf_counter()
+    ns = build_demo_network(**NORTHSTAR, dtype=torch.float32, device="cuda")
+    n_chunks = -(-NORTHSTAR_POP // _auto_pop_chunk(ns["topo"].N))
+    say("7 setup", N=ns["topo"].N, K=ns["topo"].K, n_theta=len(ns["theta0"]),
+        chunks=n_chunks, seconds=f"{time.perf_counter() - t0:.2f}")
+    dev, dev_launches = fit_route("7 global fit all-device", ns, card, 10, n_chunks,
+                                  gens_per_dispatch=5)
+    host, host_launches = fit_route("7 global fit default", ns, card, 2, n_chunks)
+
+    # one generation of each route, as run_global_fit runs it
+    objective = make_population_objective(*bundle_args(ns))
+    f = dict(dtype=torch.float32, device="cuda")
+    n_var = len(ns["xl"])
+    bl, bu = torch.as_tensor(ns["xl"], **f), torch.as_tensor(ns["xu"], **f)
+    init, block, _ = make_device_ga_blocks(objective, n_var, NORTHSTAR_POP, gens_per_block=1,
+                                           **f)
+    carry = init(dev.X)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def device_generation():
+        block(*carry, gen, bl, bu)
+
+    generation_profile("7 all-device generation", device_generation, card)
+    refs = das_dennis(3, 20)
+    rng = np.random.default_rng(1)
+    X, F, rank, _, nd = nsga3_survival(host.X, host.F, NORTHSTAR_POP, refs, rng)
+    step = make_device_ga_step(objective, ns["xl"], ns["xu"], NORTHSTAR_POP, **f)
+
+    def host_generation():
+        off, F_off = step(X, rank, nd, 7)
+        t0 = time.perf_counter()
+        nsga3_survival(np.vstack([X, off]), np.vstack([F, F_off]), NORTHSTAR_POP, refs, rng)
+        return 1e3 * (time.perf_counter() - t0)
+
+    generation_profile("7 default-route generation", host_generation, card)
+    del ns, objective, carry, init, block
+
+    # refinement and the Frechet pick on the bench network
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run_global_fit(*bundle_args(b), b["xl"], b["xu"], pop=256, n_gen=5, seed=0, ftol=0.0,
+                         refine=True, num_refinements=1, frechet_pick=True,
+                         df_prot=b["df_prot"], df_rna=b["df_rna"], df_pho=b["df_pho"],
+                         t_points=(GRID, RNA_GRID, GRID))
+    torch.cuda.synchronize()
+    refine_launches = counts()
+    want_evals = 256 * 6 + 256 * 11        # main fit (1 + 5), the round (1 + 10)
+    say("7 refinement and pick", pop=256, n_evals=res.n_evals, want=want_evals,
+        pareto=len(res.pareto_X), best_idx=res.best_idx,
+        best_score=f"{float(res.frechet_scores[res.best_idx]):.6g}",
+        launches=refine_launches, seconds=f"{time.perf_counter() - t0:.2f}", card=repr(card))
+    if res.n_evals != want_evals or not 0 <= res.best_idx < len(res.pareto_X) \
+            or not refine_launches["phi_tables"]:
+        raise AssertionError("7: refinement or the pick went wrong")
+    return {"global-fit-pop10000-all-device": dev_launches,
+            "global-fit-pop10000-default": host_launches,
+            "global-fit-pop256-refine-pick": refine_launches}
+
+
 def population(b, pop: int) -> torch.Tensor:
     """theta0 plus seeded noise, as bench.py and benchmarks/model_rates.py."""
     rng = np.random.default_rng(0)
@@ -1273,6 +1672,7 @@ def population(b, pop: int) -> torch.Tensor:
 def main() -> int:
     card = phase_device()
     phase_build()
+    probe, probe_paths = phase_fma_peak(card)
     t0 = time.perf_counter()
     b, b1, b2 = (build_demo_network(N_PROTEINS, N_KINASES, model=m, seed=0,
                                     dtype=torch.float32, device="cuda") for m in (0, 1, 2))
@@ -1287,6 +1687,7 @@ def main() -> int:
     scan = phase_scan_kernel(b, thetas, b2, thetas2, card)
     flux = phase_flux_kernel(card)
     thomas = phase_thomas_kernel(card)
+    f64_entries, paths64 = phase_float64(b, thetas, b2, thetas2, card)
     paths = {"model0-pop8192": phase_main_path(b, thetas, card),
              "model2-pop2048": phase_main_path_model2(b2, thetas2, card),
              **phase_scan_paths(b, thetas, b2, thetas2, card)}
@@ -1303,10 +1704,17 @@ def main() -> int:
         raise
     finish_rk45_workers(pool, futures, F_rk45, {0: lsoda_fold_changes(b),
                                                  2: lsoda_fold_changes(b2)}, card)
-    entries = [kernel, wide, scan, flux, thomas]
-    for entry in entries:
-        entry["launches_by_path"] = {p: n[entry["name"]] for p, n in paths.items()}
-        entry["launches"] = sum(entry["launches_by_path"].values())
+    paths.update(phase_global_fit(b, card))
+    for group, group_paths in (([kernel, wide, scan, flux, thomas], paths),
+                               (f64_entries, paths64), ([probe], probe_paths)):
+        for entry in group:
+            counter = entry.pop("counter", entry["name"])
+            entry["launches_by_path"] = {p: n[counter] for p, n in group_paths.items()}
+            entry["launches"] = sum(entry["launches_by_path"].values())
+            if not entry["launches"]:
+                raise AssertionError(f"{entry['name']}: no launch on its main path")
+    entries = [kernel, wide, scan, flux, thomas, probe, *f64_entries]
+    say("done", seconds=f"{time.perf_counter() - T_START:.1f}", card=repr(card))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

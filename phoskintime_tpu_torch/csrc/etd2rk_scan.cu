@@ -1,5 +1,5 @@
 // The whole ETD2RK segment scan of the population objective in one launch,
-// float32, block widths 2 <= w <= 17. For each segment s of the static plan,
+// float32 and float64 (one template), block widths 2 <= w <= 17. For each segment s of the static plan,
 // with u = uidx[s] its (bucket, h) pair and b = jb[s] its kinase bucket,
 //   a  = E[u] y + p1[u] g(y)
 //   y' = a + p2h[u] (g(a) - g(y))
@@ -79,8 +79,18 @@
 // variant 168 at w = 17, the stream variant up to 255, and nothing else
 // spills. chip_smoke.py's build phase prints ptxas's report of every
 // instantiation.
+//
+// float64: the same template at twice the bytes (so bytes bound it still).
+// The plan's coefficients (totals' weights, TF rows, degrees) come at the
+// working type, never rounded to float32 as the Pallas kernel rounds its
+// TF coefficients. E's w^2 words take twice the registers, so the register
+// variant stops at w = 6 and w = 7, 8 keep E in shared memory; a lane takes
+// 8 (w^2 + 2) bytes there, so a member's E rows fit 227 KB up to N = 99 at
+// w = 17 (ops/scan_kernel.py::scan_launch_shape picks by w, N and type).
 
 #include <cuda_runtime.h>
+
+#include "real.cuh"
 
 namespace {
 
@@ -92,83 +102,91 @@ constexpr int kDefaultShared = 48 * 1024;
 
 enum Variant { kRegisters = 0, kShared = 1, kStream = 2 };
 
-// Shared variant: a lane's E takes kStride floats, its w^2 entries row-major
+// Shared variant: a lane's E takes kStride words, its w^2 entries row-major
 // and one more at even w, so that the 32 lanes of a warp, kStride (odd)
-// words apart, read 32 different banks.
+// words apart, read 32 different banks (in float64, each half-warp's 16
+// lanes read 16 different bank pairs).
 template <int W>
 constexpr int kStride = W * W + (W % 2 == 0 ? 1 : 0);
 
+template <typename T>
 struct Lane {
   bool active;
   int base;            // this member's first slot in a Pv buffer
   int row_beg, row_end;
   bool driven;
-  float amp, tsc, deg;
+  T amp, tsc, deg;
 };
 
 // g(v): the synthesis drive of this lane. Every thread of the block calls it
 // (the barrier is block-wide); only active lanes write or read `buf`.
-template <int W>
-__device__ __forceinline__ float synth(const float (&v)[W], const float (&tw)[W],
-                                       float drive, float* buf, const Lane& ln,
-                                       const int* __restrict__ tf_col,
-                                       const float* __restrict__ tf_coef) {
+template <typename T, int W>
+__device__ __forceinline__ T synth(const T (&v)[W], const T (&tw)[W], T drive, T* buf,
+                                   const Lane<T>& ln, const int* __restrict__ tf_col,
+                                   const T* __restrict__ tf_coef) {
   if (ln.active) {
-    float tot = 0.0f;
+    T tot = T(0);
 #pragma unroll
-    for (int i = 1; i < W; ++i) tot = fmaf(tw[i], v[i], tot);
+    for (int i = 1; i < W; ++i) tot = real::fma(tw[i], v[i], tot);
     buf[threadIdx.x] = ln.driven ? drive : tot;
   }
   __syncthreads();
-  if (!ln.active) return 0.0f;
-  float acc = 0.0f;
+  if (!ln.active) return T(0);
+  T acc = T(0);
   for (int k = ln.row_beg; k < ln.row_end; ++k)
-    acc = fmaf(__ldg(tf_coef + k), buf[ln.base + __ldg(tf_col + k)], acc);
-  const float x = acc / ln.deg;
-  const float u = x / (1.0f + fabsf(x));
-  const float act = ln.amp * (1.0f + (ln.tsc * u) / ((1.0f + u) + 1e-6f));
-  const float rep = ln.amp / (1.0f + ln.tsc * fabsf(u));
-  return u >= 0.0f ? act : rep;
+    acc = real::fma(__ldg(tf_coef + k), buf[ln.base + __ldg(tf_col + k)], acc);
+  const T x = acc / ln.deg;
+  const T u = x / (T(1) + real::abs(x));
+  const T act = ln.amp * (T(1) + (ln.tsc * u) / ((T(1) + u) + T(1e-6)));
+  const T rep = ln.amp / (T(1) + ln.tsc * real::abs(u));
+  return u >= T(0) ? act : rep;
 }
 
-// A 4-byte asynchronous copy from device to shared memory, and the wait for
-// all of this thread's copies.
-__device__ __forceinline__ void copy_async4(float* dst, const float* src) {
+// An asynchronous copy of one 4- or 8-byte word from device to shared
+// memory, and the wait for all of this thread's copies.
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy_async(double* dst, const double* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void wait_async() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <int W, int V>
-__global__ void __launch_bounds__(kMaxThreads, V == kRegisters && W <= 6 ? 3 : 1)
-etd2rk_scan_kernel(const float* __restrict__ E, const float* __restrict__ p1,
-                   const float* __restrict__ p2h, const float* __restrict__ y0,
-                   const float* __restrict__ drv, const float* __restrict__ A,
-                   const float* __restrict__ ts, const float* __restrict__ totw,
+template <typename T, int W, int V>
+__global__ void __launch_bounds__(kMaxThreads,
+                                  sizeof(T) == 4 && V == kRegisters && W <= 6 ? 3 : 1)
+etd2rk_scan_kernel(const T* __restrict__ E, const T* __restrict__ p1,
+                   const T* __restrict__ p2h, const T* __restrict__ y0,
+                   const T* __restrict__ drv, const T* __restrict__ A,
+                   const T* __restrict__ ts, const T* __restrict__ totw,
                    const int* __restrict__ driven, const int* __restrict__ tf_ptr,
-                   const int* __restrict__ tf_col, const float* __restrict__ tf_coef,
-                   const float* __restrict__ tf_deg, const int* __restrict__ runs,
+                   const int* __restrict__ tf_col, const T* __restrict__ tf_coef,
+                   const T* __restrict__ tf_deg, const int* __restrict__ runs,
                    const int* __restrict__ out_slot,
-                   const int* __restrict__ init_slots, float* __restrict__ ys,
+                   const int* __restrict__ init_slots, T* __restrict__ ys,
                    int n_init, int n_runs, int N, int P, int members_per_block) {
-  // 2 x span Pv floats, then (shared variant) each lane's E: kStride a lane
-  extern __shared__ float smem[];
+  // 2 x span Pv words, then (shared variant) each lane's E: kStride a lane
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const smem = reinterpret_cast<T*>(smem_raw);
   const int span = members_per_block * N;
   const int t = threadIdx.x;
-  float* pv = smem;
-  float* Es = smem + 2 * span + t * kStride<W>;
+  T* pv = smem;
+  T* Es = smem + 2 * span + t * kStride<W>;
   const int member = blockIdx.x * members_per_block + t / N;
   const size_t B = static_cast<size_t>(P) * N;
   const size_t lane = static_cast<size_t>(member) * N + t % N;
 
-  Lane ln;
+  Lane<T> ln;
   ln.active = t < span && member < P;
   ln.base = (t / N) * N;
-  float y[W], a[W], tw[W], q1[W], q2[W];
-  float e[V == kRegisters ? W * W : 1];
+  T y[W], a[W], tw[W], q1[W], q2[W];
+  T e[V == kRegisters ? W * W : 1];
   if (ln.active) {
     const int q = t % N;
     ln.row_beg = tf_ptr[q];
@@ -183,7 +201,7 @@ etd2rk_scan_kernel(const float* __restrict__ E, const float* __restrict__ p1,
       tw[i] = totw[i * N + q];
     }
     for (int k = 0; k < n_init; ++k) {
-      float* out = ys + static_cast<size_t>(init_slots[k]) * W * B + lane;
+      T* out = ys + static_cast<size_t>(init_slots[k]) * W * B + lane;
 #pragma unroll
       for (int i = 0; i < W; ++i) out[i * B] = y[i];
     }
@@ -192,15 +210,15 @@ etd2rk_scan_kernel(const float* __restrict__ E, const float* __restrict__ p1,
   for (int r = 0; r < n_runs; ++r) {
     const int s0 = __ldg(runs + 4 * r), s1 = s0 + __ldg(runs + 4 * r + 1);
     const int u = __ldg(runs + 4 * r + 2), bucket = __ldg(runs + 4 * r + 3);
-    const float* Eu = E + static_cast<size_t>(u) * W * W * B + lane;
+    const T* Eu = E + static_cast<size_t>(u) * W * W * B + lane;
     // the plane stride, opaque to the compiler: hoisted out of the run loop
     // its w^2 multiples would be as many live registers, and spill
     size_t Br = B;
     asm volatile("" : "+l"(Br));
-    float drive = 0.0f;
+    T drive = T(0);
     if (ln.active) {                   // the run's rows and drive, read once
-      const float* p1u = p1 + static_cast<size_t>(u) * W * B + lane;
-      const float* p2u = p2h + static_cast<size_t>(u) * W * B + lane;
+      const T* p1u = p1 + static_cast<size_t>(u) * W * B + lane;
+      const T* p2u = p2h + static_cast<size_t>(u) * W * B + lane;
 #pragma unroll
       for (int i = 0; i < W; ++i) {
         q1[i] = p1u[i * Br];
@@ -212,39 +230,39 @@ etd2rk_scan_kernel(const float* __restrict__ E, const float* __restrict__ p1,
         for (int k = 0; k < W * W; ++k) e[k] = Eu[k * Br];
       } else if constexpr (V == kShared) {
 #pragma unroll
-        for (int k = 0; k < W * W; ++k) copy_async4(Es + k, Eu + k * Br);
+        for (int k = 0; k < W * W; ++k) copy_async(Es + k, Eu + k * Br);
         wait_async();
       }
     }
     for (int s = s0; s < s1; ++s) {
       // the stream variant's E addresses, opaque to the compiler likewise
-      const float* Eseg = Eu;
+      const T* Eseg = Eu;
       size_t Bseg = B;
       if constexpr (V == kStream) asm volatile("" : "+l"(Eseg), "+l"(Bseg));
-      const float sn = synth<W>(y, tw, drive, pv, ln, tf_col, tf_coef);
+      const T sn = synth<T, W>(y, tw, drive, pv, ln, tf_col, tf_coef);
       if (ln.active) {
 #pragma unroll
         for (int i = 0; i < W; ++i) {
-          float acc = 0.0f;
+          T acc = T(0);
 #pragma unroll
           for (int j = 0; j < W; ++j) {
-            float eij;
+            T eij;
             if constexpr (V == kRegisters) eij = e[i * W + j];
             else if constexpr (V == kShared) eij = Es[i * W + j];
             else eij = Eseg[(i * W + j) * Bseg];
-            acc = fmaf(eij, y[j], acc);
+            acc = real::fma(eij, y[j], acc);
           }
-          a[i] = fmaf(q1[i], sn, acc);
+          a[i] = real::fma(q1[i], sn, acc);
         }
       }
-      const float sa = synth<W>(a, tw, drive, pv + span, ln, tf_col, tf_coef);
+      const T sa = synth<T, W>(a, tw, drive, pv + span, ln, tf_col, tf_coef);
       if (ln.active) {
-        const float d = sa - sn;
+        const T d = sa - sn;
 #pragma unroll
-        for (int i = 0; i < W; ++i) y[i] = fmaf(q2[i], d, a[i]);
+        for (int i = 0; i < W; ++i) y[i] = real::fma(q2[i], d, a[i]);
         const int slot = __ldg(out_slot + s);
         if (slot >= 0) {
-          float* out = ys + static_cast<size_t>(slot) * W * B + lane;
+          T* out = ys + static_cast<size_t>(slot) * W * B + lane;
 #pragma unroll
           for (int i = 0; i < W; ++i) out[i * B] = y[i];
         }
@@ -253,16 +271,16 @@ etd2rk_scan_kernel(const float* __restrict__ E, const float* __restrict__ p1,
   }
 }
 
-template <int W, int V>
+template <typename T, int W, int V>
 int launch(const void* const* in, void* ys, int n_init, int n_runs, int N, int P,
            int members, cudaStream_t stream) {
   const int span = members * N;
   const int threads = (span + 31) / 32 * 32;
   const size_t shared = (2 + (V == kShared ? kStride<W> : 0)) * static_cast<size_t>(span)
-                        * sizeof(float);
+                        * sizeof(T);
   if (members < 1 || threads > kMaxThreads || shared > kMaxShared)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = etd2rk_scan_kernel<W, V>;
+  const auto kernel = etd2rk_scan_kernel<T, W, V>;
   if (shared > kDefaultShared) {
     const cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
@@ -270,15 +288,15 @@ int launch(const void* const* in, void* ys, int n_init, int n_runs, int N, int P
   }
   const int blocks = (P + members - 1) / members;
   kernel<<<blocks, threads, shared, stream>>>(
-      static_cast<const float*>(in[0]), static_cast<const float*>(in[1]),
-      static_cast<const float*>(in[2]), static_cast<const float*>(in[3]),
-      static_cast<const float*>(in[4]), static_cast<const float*>(in[5]),
-      static_cast<const float*>(in[6]), static_cast<const float*>(in[7]),
+      static_cast<const T*>(in[0]), static_cast<const T*>(in[1]),
+      static_cast<const T*>(in[2]), static_cast<const T*>(in[3]),
+      static_cast<const T*>(in[4]), static_cast<const T*>(in[5]),
+      static_cast<const T*>(in[6]), static_cast<const T*>(in[7]),
       static_cast<const int*>(in[8]), static_cast<const int*>(in[9]),
-      static_cast<const int*>(in[10]), static_cast<const float*>(in[11]),
-      static_cast<const float*>(in[12]), static_cast<const int*>(in[13]),
+      static_cast<const int*>(in[10]), static_cast<const T*>(in[11]),
+      static_cast<const T*>(in[12]), static_cast<const int*>(in[13]),
       static_cast<const int*>(in[14]), static_cast<const int*>(in[15]),
-      static_cast<float*>(ys),
+      static_cast<T*>(ys),
       n_init, n_runs, N, P, members);
   return static_cast<int>(cudaGetLastError());
 }
@@ -287,26 +305,43 @@ int launch(const void* const* in, void* ys, int n_init, int n_runs, int N, int P
 
 // `in` holds 16 device pointers, in the kernel's order: E, p1, p2h, y0, drv,
 // A, ts, totw, driven, tf_ptr, tf_col, tf_coef, tf_deg, runs, out_slot,
-// init_slots (int arrays int32, the rest float32). `variant` is 0 (registers,
-// w <= 8), 1 (shared) or 2 (stream, both 9 <= w <= 17); `members` whole
-// members a block. Writes ys (T, w, B). Launches on `stream` without
-// synchronising and returns the first CUDA error code (0 on success).
+// init_slots (int arrays int32, the rest in the entry's type). `variant` is 0
+// (registers: w <= 8 in float32, w <= 6 in float64), 1 (shared) or 2
+// (stream, both for the wider blocks); `members` whole members a block.
+// Writes ys (T, w, B). Launches on `stream` without synchronising and
+// returns the first CUDA error code (0 on success).
+#define ETD2RK_CASE(T, W, V)                                                      \
+  if (w == W && variant == V)                                                     \
+    return launch<T, W, V>(in, ys, n_init, n_runs, N, P, members,                 \
+                           static_cast<cudaStream_t>(stream));
+#define ETD2RK_REGS(T, W) ETD2RK_CASE(T, W, kRegisters)
+#define ETD2RK_WIDE(T, W) ETD2RK_CASE(T, W, kShared) ETD2RK_CASE(T, W, kStream)
 extern "C" int etd2rk_scan_f32(const void* const* in, void* ys, int w, int variant,
                                int members, int n_init, int n_runs, int N, int P,
                                void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ETD2RK_CASE(W, V) \
-  if (w == W && variant == V) return launch<W, V>(in, ys, n_init, n_runs, N, P, members, st);
-#define ETD2RK_WIDE(W) ETD2RK_CASE(W, kShared) ETD2RK_CASE(W, kStream)
-  ETD2RK_CASE(2, kRegisters) ETD2RK_CASE(3, kRegisters) ETD2RK_CASE(4, kRegisters)
-  ETD2RK_CASE(5, kRegisters) ETD2RK_CASE(6, kRegisters) ETD2RK_CASE(7, kRegisters)
-  ETD2RK_CASE(8, kRegisters)
-  ETD2RK_WIDE(9) ETD2RK_WIDE(10) ETD2RK_WIDE(11) ETD2RK_WIDE(12) ETD2RK_WIDE(13)
-  ETD2RK_WIDE(14) ETD2RK_WIDE(15) ETD2RK_WIDE(16) ETD2RK_WIDE(17)
-#undef ETD2RK_WIDE
-#undef ETD2RK_CASE
+  ETD2RK_REGS(float, 2) ETD2RK_REGS(float, 3) ETD2RK_REGS(float, 4)
+  ETD2RK_REGS(float, 5) ETD2RK_REGS(float, 6) ETD2RK_REGS(float, 7)
+  ETD2RK_REGS(float, 8)
+  ETD2RK_WIDE(float, 9) ETD2RK_WIDE(float, 10) ETD2RK_WIDE(float, 11)
+  ETD2RK_WIDE(float, 12) ETD2RK_WIDE(float, 13) ETD2RK_WIDE(float, 14)
+  ETD2RK_WIDE(float, 15) ETD2RK_WIDE(float, 16) ETD2RK_WIDE(float, 17)
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+extern "C" int etd2rk_scan_f64(const void* const* in, void* ys, int w, int variant,
+                               int members, int n_init, int n_runs, int N, int P,
+                               void* stream) {
+  ETD2RK_REGS(double, 2) ETD2RK_REGS(double, 3) ETD2RK_REGS(double, 4)
+  ETD2RK_REGS(double, 5) ETD2RK_REGS(double, 6)
+  ETD2RK_WIDE(double, 7) ETD2RK_WIDE(double, 8)
+  ETD2RK_WIDE(double, 9) ETD2RK_WIDE(double, 10) ETD2RK_WIDE(double, 11)
+  ETD2RK_WIDE(double, 12) ETD2RK_WIDE(double, 13) ETD2RK_WIDE(double, 14)
+  ETD2RK_WIDE(double, 15) ETD2RK_WIDE(double, 16) ETD2RK_WIDE(double, 17)
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+#undef ETD2RK_WIDE
+#undef ETD2RK_REGS
+#undef ETD2RK_CASE
 
 extern "C" const char* etd2rk_scan_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

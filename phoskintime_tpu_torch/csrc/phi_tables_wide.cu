@@ -1,4 +1,5 @@
-// ETD2RK propagator tables for wide blocks, 9 <= w <= 17, in float32:
+// ETD2RK propagator tables for wide blocks, 9 <= w <= 17, in float32 and
+// float64 (one template):
 //   E = expm(L h),  p1 = h phi1(L h) e0,  p2 = h^2 phi2(L h) e0
 // for every (bucket, h) pair and every lane. These are the combinatorial
 // mechanism's width classes (w = 1 + 2^s for a protein with s sites).
@@ -72,13 +73,32 @@
 // 20.7 KB of shared memory a warp), 2 warps a block; the other widths take
 // an R that compiles without spills. At w = 17 the kernel uses 255
 // registers a thread (8 warps an SM) and spills nothing.
+//
+// float64. The same steps with the JAX package's float64 series (12
+// Horner terms at radius 0.25, as the plain version) and the division
+// operator (IEEE, correctly rounded) in place of Markstein's correction,
+// which is written for float. A thread's 2 R w words of A and A/k are
+// twice the registers, so the float64 instances take smaller R (3 up to
+// w = 12, 2 above: _WIDE_ROWS_F64 in ops/phi_tables.py), and the shared
+// slice of a lane is 8 (2 w^2 + 4 w) bytes. FP64 FMAs run at half the
+// FP32 rate, so FMAs bound it all the more.
 
 #include <cuda_runtime.h>
 
+#include "real.cuh"
+
 namespace {
 
-constexpr int kTaylorTerms = 8;
-constexpr float kRadius = 0.5f;    // pre-squaring radius of the series
+// the JAX package's series for each type: terms and pre-squaring radius
+template <typename T> struct Series;
+template <> struct Series<float> {
+  static constexpr int kTerms = 8;
+  static constexpr float kRadius = 0.5f;
+};
+template <> struct Series<double> {
+  static constexpr int kTerms = 12;
+  static constexpr double kRadius = 0.25;
+};
 constexpr int kMaxWarps = 8;       // warps a block
 constexpr int kMaxShared = 232448;
 constexpr int kDefaultShared = 48 * 1024;
@@ -101,25 +121,30 @@ __device__ __forceinline__ float div_k(float x, float k, float rk, bool& off) {
   return x == 0.0f ? x : q1;
 }
 
+// float64: the division operator, correctly rounded; `off` is never set
+__device__ __forceinline__ double div_k(double x, double k, double, bool&) { return x / k; }
+
 template <int W, int R>
 struct Shape {
   static constexpr int T = (W + R - 1) / R;   // threads a lane
   static constexpr int LW = 32 / T;           // lanes a warp
   static constexpr int kThreads = T * LW;     // busy threads a warp
-  static constexpr int kPlane = W * W * LW;   // floats of one E plane
-  static constexpr int kVec = W * LW;         // floats of one vector
-  static constexpr int kWarpFloats = 2 * kPlane + 4 * kVec;
+  static constexpr int kPlane = W * W * LW;   // words of one E plane
+  static constexpr int kVec = W * LW;         // words of one vector
+  static constexpr int kWarpWords = 2 * kPlane + 4 * kVec;
 };
 
-template <int W, int R>
+template <typename Real, int W, int R>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-phi_tables_wide_kernel(const float* __restrict__ L, const int* __restrict__ binv,
-                       const float* __restrict__ h_u, float* __restrict__ E_out,
-                       float* __restrict__ p1_out, float* __restrict__ p2_out,
+phi_tables_wide_kernel(const Real* __restrict__ L, const int* __restrict__ binv,
+                       const Real* __restrict__ h_u, Real* __restrict__ E_out,
+                       Real* __restrict__ p1_out, Real* __restrict__ p2_out,
                        int B, int ladder) {
   using S = Shape<W, R>;
   constexpr int LW = S::LW;
-  extern __shared__ float smem[];
+  constexpr int kTerms = Series<Real>::kTerms;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Real* const smem = reinterpret_cast<Real*>(smem_raw);
   const int warp = threadIdx.x / 32, tw = threadIdx.x % 32;
   if (tw >= S::kThreads) return;       // the warp's spare threads hold no lane
   const unsigned mask = S::kThreads == 32 ? 0xffffffffu : (1u << S::kThreads) - 1u;
@@ -130,94 +155,95 @@ phi_tables_wide_kernel(const float* __restrict__ L, const int* __restrict__ binv
   const bool live = lane < B;          // lanes past B run a zero block
   const int u = blockIdx.y;
   const size_t plane = static_cast<size_t>(B);
-  const float h = h_u[u];
+  const Real h = h_u[u];
 
-  float* const base = smem + warp * S::kWarpFloats + l;
-  float* const Ep[2] = {base, base + S::kPlane};       // entry (i, c): [(i W + c) LW]
-  float* const vec = base + 2 * S::kPlane;             // vector k, entry i: [(k W + i) LW]
+  Real* const base = smem + warp * S::kWarpWords + l;
+  Real* const Ep[2] = {base, base + S::kPlane};        // entry (i, c): [(i W + c) LW]
+  Real* const vec = base + 2 * S::kPlane;              // vector k, entry i: [(k W + i) LW]
 
   // rows i0.. of A = L h, and their absolute sums
-  float a[R][W];
-  const float* Lb = L + static_cast<size_t>(binv[u]) * W * W * plane + lane;
+  Real a[R][W];
+  const Real* Lb = L + static_cast<size_t>(binv[u]) * W * W * plane + lane;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int i = i0 + r;
-    float row = 0.0f;
+    Real row = Real(0);
 #pragma unroll
     for (int j = 0; j < W; ++j) {
-      a[r][j] = (live && i < W) ? Lb[(i * W + j) * plane] * h : 0.0f;
-      row += fabsf(a[r][j]);
+      a[r][j] = (live && i < W) ? Lb[(i * W + j) * plane] * h : Real(0);
+      row += real::abs(a[r][j]);
     }
     if (i < W) vec[i * LW] = row;
   }
   __syncwarp(mask);
 
   // inf-norm over the lane's rows; a NaN row marks the lane non-finite
-  float norm = 0.0f;
+  Real norm = Real(0);
   bool finite = true;
 #pragma unroll
   for (int r = 0; r < W; ++r) {
-    const float v = vec[r * LW];
+    const Real v = vec[r * LW];
     finite = finite && (v == v);
-    norm = fmaxf(norm, v);
+    norm = real::max(norm, v);
   }
-  float s = ceilf(log2f(fmaxf(norm, 1e-30f) / kRadius));
-  s = fminf(fmaxf(s, 0.0f), static_cast<float>(ladder));
+  Real s = real::ceil(real::log2(real::max(norm, Real(1e-30)) / Series<Real>::kRadius));
+  s = real::min(real::max(s, Real(0)), static_cast<Real>(ladder));
   const int n_lane = finite ? static_cast<int>(s) : 0;
   const int n_warp = __reduce_max_sync(mask, n_lane);
-  const float scale = finite ? exp2f(s) : __int_as_float(0x7fc00000);  // NaN
-  const float inv_scale = finite ? exp2f(-s) : scale;  // x / 2^s = x 2^-s exactly
+  const Real scale = finite ? real::exp2(s) : real::nan<Real>();
+  const Real inv_scale = finite ? real::exp2(-s) : scale;  // x / 2^s = x 2^-s exactly
 #pragma unroll
   for (int r = 0; r < R; ++r) {
 #pragma unroll
     for (int j = 0; j < W; ++j) a[r][j] = a[r][j] * inv_scale;
   }
-  const float hs = h / scale;
+  const Real hs = h / scale;
   __syncwarp(mask);                    // every read of the row sums done
 
-  // E = I + A/8 into plane 0
+  // E = I + A/n into plane 0 (n the series' terms)
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int i = i0 + r;
     if (i < W) {
 #pragma unroll
       for (int c = 0; c < W; ++c)
-        Ep[0][(i * W + c) * LW] = a[r][c] * (1.0f / kTaylorTerms) + (i == c ? 1.0f : 0.0f);
+        Ep[0][(i * W + c) * LW] =
+            a[r][c] * (Real(1) / Real(kTerms)) + (i == c ? Real(1) : Real(0));
     }
   }
 
   // phi1 / phi2 e0 columns; this thread holds entries i0.. of each vector
-  float term[R], v1[R], v2[R];
+  Real term[R], v1[R], v2[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int i = i0 + r;
     term[r] = a[r][0];                 // (A e0)_i
-    v1[r] = (i == 0 ? 1.0f : 0.0f) + term[r] * 0.5f;
-    v2[r] = (i == 0 ? 0.5f : 0.0f) + term[r] / 6.0f;
+    v1[r] = (i == 0 ? Real(1) : Real(0)) + term[r] * Real(0.5);
+    v2[r] = (i == 0 ? Real(0.5) : Real(0)) + term[r] / Real(6);
   }
 #pragma unroll 1
-  for (int k = 2; k <= kTaylorTerms; ++k) {
-    float* tv = vec + (k & 1) * S::kVec;
+  for (int k = 2; k <= kTerms; ++k) {
+    Real* tv = vec + (k & 1) * S::kVec;
 #pragma unroll
     for (int r = 0; r < R; ++r)
       if (i0 + r < W) tv[(i0 + r) * LW] = term[r];
     __syncwarp(mask);                  // the term complete (and, at k = 2, E)
-    float acc[R];
+    Real acc[R];
     {
-      const float b = tv[0];
+      const Real b = tv[0];
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r] = a[r][0] * b;
     }
 #pragma unroll
     for (int j = 1; j < W; ++j) {
-      const float b = tv[j * LW];
+      const Real b = tv[j * LW];
 #pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = fmaf(a[r][j], b, acc[r]);
+      for (int r = 0; r < R; ++r) acc[r] = real::fma(a[r][j], b, acc[r]);
     }
-    const float d0 = k, d1 = k + 1, d2 = (k + 1) * (k + 2);
-    const float r0 = __frcp_rn(d0), r1 = __frcp_rn(d1), r2 = __frcp_rn(d2);
+    const Real d0 = k, d1 = k + 1, d2 = (k + 1) * (k + 2);
+    const Real r0 = real::rcp(d0), r1 = real::rcp(d1), r2 = real::rcp(d2);
     bool off = false;
-    float t1[R], t2[R];
+    Real t1[R], t2[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       term[r] = div_k(acc[r], d0, r0, off);
@@ -239,12 +265,12 @@ phi_tables_wide_kernel(const float* __restrict__ L, const int* __restrict__ binv
     }
   }
 
-  // E = expm(A) by Horner: E = I + (A/k) E for k = 7..1, plane to plane
+  // E = expm(A) by Horner: E = I + (A/k) E for k = n-1..1, plane to plane
   int cur = 0;
 #pragma unroll 1
-  for (int k = kTaylorTerms - 1; k >= 1; --k) {
-    const float kf = k, rk = __frcp_rn(kf);
-    float ak[R][W];
+  for (int k = kTerms - 1; k >= 1; --k) {
+    const Real kf = k, rk = real::rcp(kf);
+    Real ak[R][W];
     bool off = false;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -258,11 +284,11 @@ phi_tables_wide_kernel(const float* __restrict__ L, const int* __restrict__ binv
         for (int j = 0; j < W; ++j) ak[r][j] = a[r][j] / kf;
       }
     }
-    const float* Ec = Ep[cur];
-    float* En = Ep[cur ^ 1];
+    const Real* Ec = Ep[cur];
+    Real* En = Ep[cur ^ 1];
 #pragma unroll 1
     for (int c = 0; c < W; ++c) {
-      float b[W], acc[R];
+      Real b[W], acc[R];
 #pragma unroll
       for (int j = 0; j < W; ++j) b[j] = Ec[(j * W + c) * LW];   // the column first
 #pragma unroll
@@ -270,24 +296,24 @@ phi_tables_wide_kernel(const float* __restrict__ L, const int* __restrict__ binv
 #pragma unroll
       for (int j = 1; j < W; ++j) {
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(ak[r][j], b[j], acc[r]);
+        for (int r = 0; r < R; ++r) acc[r] = real::fma(ak[r][j], b[j], acc[r]);
       }
       // + 0 here and + 1 on the diagonal below: the plain version's
       // acc + (i == c), without a compare for every entry
 #pragma unroll
       for (int r = 0; r < R; ++r)
-        if (i0 + r < W) En[((i0 + r) * W + c) * LW] = acc[r] + 0.0f;
+        if (i0 + r < W) En[((i0 + r) * W + c) * LW] = acc[r] + Real(0);
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int i = i0 + r;
-      if (i < W) En[(i * W + i) * LW] = En[(i * W + i) * LW] + 1.0f;
+      if (i < W) En[(i * W + i) * LW] = En[(i * W + i) * LW] + Real(1);
     }
     __syncwarp(mask);                  // E complete, every read of the old one done
     cur ^= 1;
   }
 
-  float p1[R], p2[R];
+  Real p1[R], p2[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     p1[r] = v1[r] * hs;
@@ -296,7 +322,7 @@ phi_tables_wide_kernel(const float* __restrict__ L, const int* __restrict__ binv
 
   // doubling ladder: the warp's largest step count, each lane masked at its
   // own; vector buffer b holds p1 in entries 0..W-1 and p2 in W..2W-1
-  float* const V[2] = {vec, vec + 2 * S::kVec};
+  Real* const V[2] = {vec, vec + 2 * S::kVec};
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int i = i0 + r;
@@ -306,23 +332,23 @@ phi_tables_wide_kernel(const float* __restrict__ L, const int* __restrict__ binv
     }
   }
   __syncwarp(mask);
-  float hc = hs;
+  Real hc = hs;
   int vc = 0;
 #pragma unroll 1
   for (int it = 0; it < n_warp; ++it) {
     const bool go = it < n_lane;
-    const float* Ec = Ep[cur];
-    float* En = Ep[cur ^ 1];
-    const float* Vc = V[vc];
-    float e[R][W];
+    const Real* Ec = Ep[cur];
+    Real* En = Ep[cur ^ 1];
+    const Real* Vc = V[vc];
+    Real e[R][W];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
 #pragma unroll
-      for (int j = 0; j < W; ++j) e[r][j] = i0 + r < W ? Ec[((i0 + r) * W + j) * LW] : 0.0f;
+      for (int j = 0; j < W; ++j) e[r][j] = i0 + r < W ? Ec[((i0 + r) * W + j) * LW] : Real(0);
     }
-    float q1[R], q2[R];
+    Real q1[R], q2[R];
     {
-      const float b1 = Vc[0], b2 = Vc[W * LW];
+      const Real b1 = Vc[0], b2 = Vc[W * LW];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         q1[r] = e[r][0] * b1;
@@ -331,16 +357,16 @@ phi_tables_wide_kernel(const float* __restrict__ L, const int* __restrict__ binv
     }
 #pragma unroll
     for (int j = 1; j < W; ++j) {
-      const float b1 = Vc[j * LW], b2 = Vc[(W + j) * LW];
+      const Real b1 = Vc[j * LW], b2 = Vc[(W + j) * LW];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        q1[r] = fmaf(e[r][j], b1, q1[r]);
-        q2[r] = fmaf(e[r][j], b2, q2[r]);
+        q1[r] = real::fma(e[r][j], b1, q1[r]);
+        q2[r] = real::fma(e[r][j], b2, q2[r]);
       }
     }
 #pragma unroll 1
     for (int c = 0; c < W; ++c) {
-      float b[W], acc[R];
+      Real b[W], acc[R];
 #pragma unroll
       for (int j = 0; j < W; ++j) b[j] = Ec[(j * W + c) * LW];
 #pragma unroll
@@ -348,7 +374,7 @@ phi_tables_wide_kernel(const float* __restrict__ L, const int* __restrict__ binv
 #pragma unroll
       for (int j = 1; j < W; ++j) {
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(e[r][j], b[j], acc[r]);
+        for (int r = 0; r < R; ++r) acc[r] = real::fma(e[r][j], b[j], acc[r]);
       }
       // a lane past its own count copies its E over once, at its first idle
       // step; both planes hold it from then on
@@ -365,9 +391,9 @@ phi_tables_wide_kernel(const float* __restrict__ L, const int* __restrict__ binv
         p2[r] = p2[r] + q2[r] + p1[r] * hc;
         p1[r] = p1[r] + q1[r];
       }
-      hc = 2.0f * hc;
+      hc = Real(2) * hc;
     }
-    float* Vn = V[vc ^ 1];
+    Real* Vn = V[vc ^ 1];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int i = i0 + r;
@@ -387,7 +413,7 @@ phi_tables_wide_kernel(const float* __restrict__ L, const int* __restrict__ binv
       const int i = i0 + r;
       if (i < W) {
         const size_t row = static_cast<size_t>(u) * W + i;
-        float* Eo = E_out + row * W * plane + lane;
+        Real* Eo = E_out + row * W * plane + lane;
 #pragma unroll
         for (int c = 0; c < W; ++c) Eo[c * plane] = Ep[cur][(i * W + c) * LW];
         p1_out[row * plane + lane] = p1[r];
@@ -397,14 +423,14 @@ phi_tables_wide_kernel(const float* __restrict__ L, const int* __restrict__ binv
   }
 }
 
-template <int W, int R>
+template <typename Real, int W, int R>
 int launch(const void* L, const void* binv, const void* h_u, void* E, void* p1,
            void* p2, int U, int B, int ladder, int warps, cudaStream_t stream) {
   using S = Shape<W, R>;
-  const size_t shared = static_cast<size_t>(warps) * S::kWarpFloats * sizeof(float);
+  const size_t shared = static_cast<size_t>(warps) * S::kWarpWords * sizeof(Real);
   if (warps < 1 || warps > kMaxWarps || shared > kMaxShared)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = phi_tables_wide_kernel<W, R>;
+  const auto kernel = phi_tables_wide_kernel<Real, W, R>;
   if (shared > kDefaultShared) {
     const cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shared));
@@ -413,30 +439,42 @@ int launch(const void* L, const void* binv, const void* h_u, void* E, void* p1,
   const int lanes = warps * S::LW;
   const dim3 grid((B + lanes - 1) / lanes, U);
   kernel<<<grid, warps * 32, shared, stream>>>(
-      static_cast<const float*>(L), static_cast<const int*>(binv),
-      static_cast<const float*>(h_u), static_cast<float*>(E),
-      static_cast<float*>(p1), static_cast<float*>(p2), B, ladder);
+      static_cast<const Real*>(L), static_cast<const int*>(binv),
+      static_cast<const Real*>(h_u), static_cast<Real*>(E),
+      static_cast<Real*>(p1), static_cast<Real*>(p2), B, ladder);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// L (Bu, w, w, B), binv (U,) int32, h_u (U,) float32, all on the device;
-// writes E (U, w, w, B), p1 (U, w, B), p2 (U, w, B). `rows` is R (rows of a
-// lane's products a thread owns; the builds below) and `warps` the warps a
-// block. Launches on `stream` without synchronising and returns the first
-// CUDA error code (0 on success).
+// L (Bu, w, w, B), binv (U,) int32, h_u (U,), all on the device, L, h_u and
+// the tables in the entry's type; writes E (U, w, w, B), p1 (U, w, B), p2
+// (U, w, B). `rows` is R (rows of a lane's products a thread owns; the
+// builds below, _WIDE_ROWS and _WIDE_ROWS_F64 in ops/phi_tables.py) and
+// `warps` the warps a block. Launches on `stream` without synchronising and
+// returns the first CUDA error code (0 on success).
+#define WIDE_CASE(T, W, R)                                                        \
+  if (w == W && rows == R)                                                        \
+    return launch<T, W, R>(L, binv, h_u, E, p1, p2, U, B, ladder, warps,          \
+                           static_cast<cudaStream_t>(stream));
 extern "C" int phi_tables_wide_f32(const void* L, const void* binv, const void* h_u,
                                    void* E, void* p1, void* p2, int w, int U, int B,
                                    int ladder, int rows, int warps, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define WIDE_CASE(W, R) \
-  if (w == W && rows == R) return launch<W, R>(L, binv, h_u, E, p1, p2, U, B, ladder, warps, st);
-  WIDE_CASE(9, 9) WIDE_CASE(10, 5) WIDE_CASE(11, 6) WIDE_CASE(12, 6) WIDE_CASE(13, 3)
-  WIDE_CASE(14, 5) WIDE_CASE(15, 5) WIDE_CASE(16, 4) WIDE_CASE(17, 5)
-#undef WIDE_CASE
+  WIDE_CASE(float, 9, 9) WIDE_CASE(float, 10, 5) WIDE_CASE(float, 11, 6)
+  WIDE_CASE(float, 12, 6) WIDE_CASE(float, 13, 3) WIDE_CASE(float, 14, 5)
+  WIDE_CASE(float, 15, 5) WIDE_CASE(float, 16, 4) WIDE_CASE(float, 17, 5)
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+extern "C" int phi_tables_wide_f64(const void* L, const void* binv, const void* h_u,
+                                   void* E, void* p1, void* p2, int w, int U, int B,
+                                   int ladder, int rows, int warps, void* stream) {
+  WIDE_CASE(double, 9, 3) WIDE_CASE(double, 10, 3) WIDE_CASE(double, 11, 3)
+  WIDE_CASE(double, 12, 3) WIDE_CASE(double, 13, 2) WIDE_CASE(double, 14, 2)
+  WIDE_CASE(double, 15, 2) WIDE_CASE(double, 16, 2) WIDE_CASE(double, 17, 2)
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+#undef WIDE_CASE
 
 extern "C" const char* phi_tables_wide_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

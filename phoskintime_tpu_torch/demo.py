@@ -65,7 +65,9 @@ def build_demo_network(n_proteins: int = 40, n_kinases: int = 12,
                        dtype: torch.dtype = torch.float32, device=DEFAULT_DEVICE):
     """Deterministic synthetic network + data as a dict bundle; the system
     is made at ``dtype`` on ``device`` (default: the card; raises where
-    there is none), host data stays numpy."""
+    there is none), host data stays numpy. ``df_prot``, ``df_rna`` and
+    ``df_pho`` are the observation tables as column dicts (``protein``,
+    ``psite``, ``time``, ``fc``), where the JAX package has DataFrames."""
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     proteins = [f"P{i:03d}" for i in range(n_proteins)]
@@ -109,7 +111,8 @@ def build_demo_network(n_proteins: int = 40, n_kinases: int = 12,
     theta_true, _, _, _ = init_raw_params(true, topo, BOUNDS)
 
     return dict(system=GlobalSystem(topo, GRID, Kmat, dtype=dtype, device=device),
-                topo=topo, true=true, loss_data=loss_data, grid=grid,
+                topo=topo, true=true, df_prot=prot, df_rna=rna, df_pho=pho,
+                loss_data=loss_data, grid=grid,
                 defaults=defaults, theta0=np.asarray(theta0, np_dt),
                 theta_true=np.asarray(theta_true, float),
                 slices=slices, xl=xl, xu=xu,

@@ -197,8 +197,13 @@ def make_population_objective(system, slices, loss_data, defaults, lambdas,
             use_scan_kernel=use_scan_kernel)
         return score(params_b, ys, success)
 
-    return _in_chunks(objective_chunk, pop_chunk, topo.N,
-                      dict(dtype=system.rhs.Kmat.dtype, device=system.rhs.Kmat.device))
+    objective_pop = _in_chunks(objective_chunk, pop_chunk, topo.N,
+                               dict(dtype=system.rhs.Kmat.dtype,
+                                    device=system.rhs.Kmat.device))
+    # population-native: run_global_fit may run variation (and survival) on
+    # the device around it
+    objective_pop._is_population = True
+    return objective_pop
 
 
 def make_objective(system, slices, loss_data, defaults, lambdas, time_grid,
@@ -245,5 +250,5 @@ def make_objective(system, slices, loss_data, defaults, lambdas, time_grid,
 
 def evaluate_population(objective, thetas):
     """Evaluate a (P, n) population on one device. The JAX package's mesh
-    sharding is ROADMAP.md queue 1 item "The global-fit loop"."""
+    sharding is ROADMAP.md queue 1 item 1b, "Population sharding"."""
     return objective(thetas)

@@ -5,6 +5,8 @@ first use (one ``nvcc`` per source, all started together), into
 ``phoskintime_tpu_torch/_build/`` under a name keyed by a hash of the
 source and flags, and bound with ``ctypes`` through a plain C interface:
 every library exports its launch functions and ``<stem>_error_string``.
+The sources share the headers ``csrc/*.cuh``, whose bytes are part of
+every library's key.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = tuple(CSRC / f"{stem}.cu" for stem in (
-    "phi_tables", "phi_tables_wide", "etd2rk_scan", "hypercube_flux", "thomas"))
+    "phi_tables", "phi_tables_wide", "etd2rk_scan", "hypercube_flux", "thomas",
+    "sq_chain"))
 BUILD_DIR = _PKG / "_build"
 # dynamic shared memory one thread block may opt into on the H100 (227 KB)
 MAX_SHARED_BYTES = 232448
@@ -41,8 +44,10 @@ def nvcc_path() -> str:
 
 
 def library_path(source: Path) -> Path:
-    """Where the library of ``source`` lives: keyed by the source and flags."""
-    key = hashlib.sha256(source.read_bytes()
+    """Where the library of ``source`` lives: keyed by the source, the
+    shared headers and the flags."""
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(source.read_bytes() + headers
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}_{key}.so"
 

@@ -3,8 +3,9 @@ p2 = h^2 phi2(L h) e0, for every (bucket, h) pair of the segment plan.
 
 Counterpart of ``phoskintime_tpu/ops/phi_pallas.py``:
 
-* :func:`phi_tables` — the entry point. On a CUDA float32 tensor it
-  launches a hand-written kernel: ``csrc/phi_tables.cu`` for 2 <= w <= 8
+* :func:`phi_tables` — the entry point. On a CUDA float32 or float64
+  tensor it launches a hand-written kernel (one template, an entry for
+  each type): ``csrc/phi_tables.cu`` for 2 <= w <= 8
   (the port of ``phi_vectors_pallas_pages``; one more in
   ``phi_tables.launches``), or, through :func:`phi_tables_wide`,
   ``csrc/phi_tables_wide.cu`` for 9 <= w <= 17 (the port of
@@ -45,13 +46,16 @@ _WIDE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 # csrc/phi_tables_wide.cu: R, the rows of a lane's products one thread
 # owns, at each width (T = ceil(w / R) threads a lane, 32 // T lanes a
-# warp), and the warps a block; chosen on the H100 (PERF.md)
+# warp), and the warps a block; float32 chosen on the H100 (PERF.md). The
+# float64 instances hold twice the registers a row, so take fewer rows.
 _WIDE_ROWS = {9: 9, 10: 5, 11: 6, 12: 6, 13: 3, 14: 5, 15: 5, 16: 4, 17: 5}
+_WIDE_ROWS_F64 = {9: 3, 10: 3, 11: 3, 12: 3, 13: 2, 14: 2, 15: 2, 16: 2, 17: 2}
 _WIDE_WARPS = 2
+_ENTRY_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
-_NOT_COVERED = ("the phi_tables kernels take float32 with 2 <= w <= {}; got {} "
-                "at w = {} (wider blocks, model 2 at Smax >= 5, are ROADMAP.md "
-                "queue 2, kernel 1b: 'phi_tables_wide above w = 17')")
+_NOT_COVERED = ("the phi_tables kernels take float32 or float64 with 2 <= w <= {}; "
+                "got {} at w = {} (wider blocks, model 2 at Smax >= 5, are "
+                "ROADMAP.md queue 2, kernel 1b: 'phi_tables_wide above w = 17')")
 
 
 def ladder_len(w: int, h: float, max_squarings: int = _MAX_SQUARINGS) -> int:
@@ -164,18 +168,18 @@ class WideShape(NamedTuple):
     shared_bytes: int       # dynamic shared memory a block
 
 
-def wide_launch_shape(w: int) -> WideShape:
-    """The wide kernel's launch shape at width ``w`` (9..17): each warp's
-    slice of shared memory holds two E planes and four vectors of its
-    lanes, ``2 w^2 + 4 w`` floats a lane. Raises NotImplementedError
-    outside the kernel's domain."""
+def wide_launch_shape(w: int, itemsize: int = 4) -> WideShape:
+    """The wide kernel's launch shape at width ``w`` (9..17) for elements of
+    ``itemsize`` bytes (4 or 8): each warp's slice of shared memory holds
+    two E planes and four vectors of its lanes, ``2 w^2 + 4 w`` words a
+    lane. Raises NotImplementedError outside the kernel's domain."""
     if not _MAX_KERNEL_WIDTH < w <= _MAX_WIDE_WIDTH:
         raise NotImplementedError(_NOT_COVERED.format(_MAX_WIDE_WIDTH, "a width", w))
-    R = _WIDE_ROWS[w]
+    R = {4: _WIDE_ROWS, 8: _WIDE_ROWS_F64}[itemsize][w]
     T = -(-w // R)
     lw = 32 // T
     return WideShape(R, T, lw, _WIDE_WARPS,
-                     4 * _WIDE_WARPS * lw * (2 * w * w + 4 * w))
+                     itemsize * _WIDE_WARPS * lw * (2 * w * w + 4 * w))
 
 
 def _launch(source, name: str, L, binv, h_u, ladder: int, argtypes=_ARGTYPES,
@@ -191,13 +195,13 @@ def _launch(source, name: str, L, binv, h_u, ladder: int, argtypes=_ARGTYPES,
         raise ValueError(f"unsupported table size U={U}, B={B}")
     if not 0 <= int(ladder) <= _MAX_SQUARINGS:
         raise ValueError(f"ladder {ladder} outside [0, {_MAX_SQUARINGS}]")
-    dev = L.device
+    dev, f = L.device, dict(dtype=L.dtype, device=L.device)
     binv_d = torch.as_tensor(binv, dtype=torch.int32).to(dev)
-    h_d = torch.as_tensor(h_u, dtype=torch.float32).to(dev)
-    E = torch.empty((U, w, w, B), dtype=torch.float32, device=dev)
-    p1 = torch.empty((U, w, B), dtype=torch.float32, device=dev)
-    p2 = torch.empty((U, w, B), dtype=torch.float32, device=dev)
-    fn, err = entry(source, name, argtypes)
+    h_d = torch.as_tensor(h_u, dtype=L.dtype).to(dev)
+    E = torch.empty((U, w, w, B), **f)
+    p1 = torch.empty((U, w, B), **f)
+    p2 = torch.empty((U, w, B), **f)
+    fn, err = entry(source, f"{name}_{_ENTRY_SUFFIX[L.dtype]}", argtypes)
     with torch.cuda.device(dev):          # launch in L's device context
         rc = fn(L.data_ptr(), binv_d.data_ptr(), h_d.data_ptr(),
                 E.data_ptr(), p1.data_ptr(), p2.data_ptr(),
@@ -230,11 +234,11 @@ def phi_tables(L: torch.Tensor, binv, h_u, ladder: int, *,
     if not L.is_cuda:
         raise ValueError("use_kernel=True needs a CUDA tensor")
     w = L.shape[1]
-    if L.dtype != torch.float32 or not 2 <= w <= _MAX_WIDE_WIDTH:
+    if L.dtype not in _ENTRY_SUFFIX or not 2 <= w <= _MAX_WIDE_WIDTH:
         raise NotImplementedError(_NOT_COVERED.format(_MAX_WIDE_WIDTH, L.dtype, w))
     if w > _MAX_KERNEL_WIDTH:
         return phi_tables_wide(L, binv, h_u, ladder)
-    out = _launch(SOURCE, "phi_tables_f32", L, binv, h_u, ladder)
+    out = _launch(SOURCE, "phi_tables", L, binv, h_u, ladder)
     phi_tables.launches += 1
     return out
 
@@ -244,16 +248,17 @@ phi_tables.launches = 0
 
 def phi_tables_wide(L: torch.Tensor, binv, h_u, ladder: int):
     """The wide-block kernel ``csrc/phi_tables_wide.cu`` (9 <= w <= 17,
-    float32, CUDA), the port of ``phi_vectors_pallas_all``. Arguments and
-    results as :func:`phi_tables`, which routes these widths here."""
+    float32 or float64, CUDA), the port of ``phi_vectors_pallas_all``.
+    Arguments and results as :func:`phi_tables`, which routes these widths
+    here."""
     binv, h_u = _check(L, binv, h_u)
     w = L.shape[1]
     if not L.is_cuda:
         raise ValueError("phi_tables_wide needs a CUDA tensor")
-    if L.dtype != torch.float32 or not _MAX_KERNEL_WIDTH < w <= _MAX_WIDE_WIDTH:
+    if L.dtype not in _ENTRY_SUFFIX or not _MAX_KERNEL_WIDTH < w <= _MAX_WIDE_WIDTH:
         raise NotImplementedError(_NOT_COVERED.format(_MAX_WIDE_WIDTH, L.dtype, w))
-    shape = wide_launch_shape(w)
-    out = _launch(WIDE_SOURCE, "phi_tables_wide_f32", L, binv, h_u, ladder,
+    shape = wide_launch_shape(w, L.element_size())
+    out = _launch(WIDE_SOURCE, "phi_tables_wide", L, binv, h_u, ladder,
                   _WIDE_ARGTYPES, (shape.rows, shape.warps))
     phi_tables_wide.launches += 1
     return out

@@ -6,9 +6,10 @@ Counterpart of ``phoskintime_tpu/ops/scan_pallas.py``:
   rows, buckets and snapshot slots; the runs of segments that share a
   pair, :func:`scan_runs`; the total-protein weights; the driven
   proteins; the TF coupling as CSR rows).
-* :func:`etd2rk_scan` — the entry point. On a CUDA float32 tensor it
-  launches ``csrc/etd2rk_scan.cu`` (the port of ``etd2rk_scan_pallas``)
-  in the variant :func:`scan_launch_shape` picks by (w, N), and adds one
+* :func:`etd2rk_scan` — the entry point. On a CUDA float32 or float64
+  tensor it launches ``csrc/etd2rk_scan.cu`` (the port of
+  ``etd2rk_scan_pallas``; an entry for each type) in the variant
+  :func:`scan_launch_shape` picks by (w, N, type), and adds one
   to ``etd2rk_scan.launches``; on a CPU tensor, or with
   ``use_kernel=False``, it runs the plain version.
 * :func:`etd2rk_scan_reference` — the plain PyTorch version, segment by
@@ -36,16 +37,19 @@ SOURCE = CSRC / "etd2rk_scan.cu"
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _MIN_WIDTH, _MAX_WIDTH = 2, 17      # the widths of the two table kernels
 _MAX_PROTEINS = 256                 # one member's lanes fit one thread block
-_MAX_REGISTER_WIDTH = 8             # E's w^2 entries in a thread's registers
+# E's w^2 entries in a thread's registers, by element size: float64 takes
+# two registers a word
+_MAX_REGISTER_WIDTH = {4: 8, 8: 6}
+_ENTRY = {torch.float32: "etd2rk_scan_f32", torch.float64: "etd2rk_scan_f64"}
 # lanes per thread block, in whole members: the fastest of 64-1024 at the
 # bench chunk on the H100 (PERF.md)
 _BLOCK_LANES = 128
 # csrc/etd2rk_scan.cu's variants, by where a run's E rows stay
 VARIANTS = ("registers", "shared", "stream")
 
-_NOT_COVERED = ("the etd2rk_scan kernel takes float32 with 2 <= w <= 17 and at "
-                "most 256 proteins; got {} at w = {}, N = {} (ROADMAP.md queue 2, "
-                "kernel 2b: 'etd2rk_scan beyond w = 17 or N = 256')")
+_NOT_COVERED = ("the etd2rk_scan kernel takes float32 or float64 with 2 <= w <= 17 "
+                "and at most 256 proteins; got {} at w = {}, N = {} (ROADMAP.md "
+                "queue 2, kernel 2b: 'etd2rk_scan beyond w = 17 or N = 256')")
 
 
 class ScanPlan(NamedTuple):
@@ -93,22 +97,24 @@ class ScanShape(NamedTuple):
     shared_bytes: int       # dynamic shared memory a block
 
 
-def scan_launch_shape(w: int, N: int) -> ScanShape:
-    """The scan kernel's variant and block for width ``w`` and ``N``
-    proteins a member, by (w, N) alone. w <= 8 keeps a run's E rows in
-    registers; 9 <= w <= 17 keeps them in shared memory, 4 (w^2 + 2) bytes
-    a lane with the totals' two buffers (4 more at even w, whose rows are
-    padded to an odd stride), while one member's fit the block's 232,448
-    bytes (w <= 15 always; w = 16 up to N = 224, w = 17 up to N = 199), and
-    past that streams them from memory at every segment. A block holds the
-    whole members that fit ``_BLOCK_LANES`` lanes (at least one) and its
-    shared memory. Raises NotImplementedError outside the kernel's
-    domain."""
+def scan_launch_shape(w: int, N: int, itemsize: int = 4) -> ScanShape:
+    """The scan kernel's variant and block for width ``w``, ``N`` proteins
+    a member and elements of ``itemsize`` bytes (4 or 8), by (w, N,
+    itemsize) alone. Small blocks (w <= 8 in float32, w <= 6 in float64)
+    keep a run's E rows in registers; wider ones keep them in shared
+    memory, itemsize (w^2 + 2) bytes a lane with the totals' two buffers
+    (one word more at even w, whose rows are padded to an odd stride),
+    while one member's fit the block's 232,448 bytes (in float32: w <= 15
+    always, w = 16 up to N = 224, w = 17 up to N = 199; in float64 about
+    half those N), and past that stream them from memory at every segment.
+    A block holds the whole members that fit ``_BLOCK_LANES`` lanes (at
+    least one) and its shared memory. Raises NotImplementedError outside
+    the kernel's domain."""
     if not (_MIN_WIDTH <= w <= _MAX_WIDTH and 1 <= N <= _MAX_PROTEINS):
         raise NotImplementedError(_NOT_COVERED.format("a shape", w, N))
-    lane_bytes = 4 * 2                                     # the totals' buffers
-    shared_lane = 4 * (w * w + (w + 1) % 2 + 2)
-    if w <= _MAX_REGISTER_WIDTH:
+    lane_bytes = itemsize * 2                              # the totals' buffers
+    shared_lane = itemsize * (w * w + (w + 1) % 2 + 2)
+    if w <= _MAX_REGISTER_WIDTH[itemsize]:
         variant = "registers"
     elif N * shared_lane <= MAX_SHARED_BYTES:
         variant, lane_bytes = "shared", shared_lane
@@ -244,13 +250,15 @@ def _copy_shared_ends(ys, plan: ScanPlan):
 def _launch(E, p1, p2h, y0, drv, A, ts, plan: ScanPlan, shape: ScanShape):
     """Allocate the snapshots and launch the kernel on E's device and stream."""
     tensors = (E, p1, p2h, y0, drv, A, ts)
+    isz = E.element_size()
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("the scan's tensors must be contiguous")
     w, B = y0.shape
     if not 0 < B < 2 ** 31:
         raise ValueError(f"unsupported lane count B={B}")
     dev = E.device
-    # the plan's small arrays in one int32 and one float32 upload; freed on
+    # the plan's small arrays in one int32 and one upload at E's type (never
+    # rounded to float32 in a float64 scan); freed on
     # return, their memory is reused only by work queued after the kernel on
     # this stream (PyTorch's caching allocator is stream-ordered)
     ints = (plan.driven, plan.tf_ptr, plan.tf_col, plan.runs, plan.out_slot,
@@ -261,13 +269,13 @@ def _launch(E, p1, p2h, y0, drv, A, ts, plan: ScanPlan, shape: ScanShape):
     i_dev = torch.from_numpy(np.concatenate([np.ravel(a) for a in ints])
                              .astype(np.int32)).to(dev)
     f_dev = torch.from_numpy(np.concatenate([np.ravel(a) for a in floats])
-                             .astype(np.float32)).to(dev)
+                             .astype(np.float32 if isz == 4 else np.float64)).to(dev)
     ip = [i_dev.data_ptr() + 4 * int(o) for o in i_off[:-1]]
-    fp = [f_dev.data_ptr() + 4 * int(o) for o in f_off[:-1]]
+    fp = [f_dev.data_ptr() + isz * int(o) for o in f_off[:-1]]
     ptrs = [x.data_ptr() for x in tensors] + [
         fp[0], ip[0], ip[1], ip[2], fp[1], fp[2], ip[3], ip[4], ip[5]]
-    ys = torch.empty((plan.T, w, B), dtype=torch.float32, device=dev)
-    fn, err = entry(SOURCE, "etd2rk_scan_f32", _ARGTYPES)
+    ys = torch.empty((plan.T, w, B), dtype=E.dtype, device=dev)
+    fn, err = entry(SOURCE, _ENTRY[E.dtype], _ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs), ys.data_ptr(), w,
                 VARIANTS.index(shape.variant), shape.members, len(plan.init_slots),
@@ -304,10 +312,11 @@ def etd2rk_scan(E, p1, p2h, y0, drv, A, ts, plan: ScanPlan, *,
     if not E.is_cuda:
         raise ValueError("use_kernel=True needs a CUDA tensor")
     w = E.shape[1]
-    if (E.dtype != torch.float32 or not _MIN_WIDTH <= w <= _MAX_WIDTH
+    if (E.dtype not in _ENTRY or not _MIN_WIDTH <= w <= _MAX_WIDTH
             or plan.N > _MAX_PROTEINS):
         raise NotImplementedError(_NOT_COVERED.format(E.dtype, w, plan.N))
-    ys = _launch(E, p1, p2h, y0, drv, A, ts, plan, scan_launch_shape(w, plan.N))
+    ys = _launch(E, p1, p2h, y0, drv, A, ts, plan,
+                 scan_launch_shape(w, plan.N, E.element_size()))
     etd2rk_scan.launches += 1
     return _copy_shared_ends(ys, plan)
 

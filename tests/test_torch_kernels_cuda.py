@@ -143,7 +143,7 @@ def test_nan_lane_stays_in_its_lane(cuda_device, w):
 
 
 @pytest.mark.parametrize("bad, err", [
-    (dict(dtype=torch.float64), NotImplementedError),
+    (dict(dtype=torch.float16), NotImplementedError),
     (dict(w=18), NotImplementedError),
     (dict(strided=True), ValueError),
 ])
@@ -291,7 +291,7 @@ def test_scan_driven_override_is_a_select(cuda_device):
 
 
 @pytest.mark.parametrize("bad, err", [
-    ("float64", NotImplementedError),
+    ("float16", NotImplementedError),
     ("w18", NotImplementedError),
     ("proteins", NotImplementedError),
     ("strided", ValueError),
@@ -300,8 +300,8 @@ def test_scan_kernel_rejects(cuda_device, bad, err):
     w, N = (18 if bad == "w18" else 4), (257 if bad == "proteins" else 5)
     args, plan = random_scan_problem(w, N=N, P=2, S=8)      # built on the CPU
     args = [x.to(cuda_device) for x in args]
-    if bad == "float64":
-        args = [x.double() for x in args]
+    if bad == "float16":
+        args = [x.half() for x in args]
     if bad == "strided":
         args[0] = args[0].transpose(1, 2)
     with pytest.raises(err):
@@ -540,3 +540,138 @@ def test_matmuls_run_in_full_float32(cuda_device):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     assert min(errs_tf32) > TF32_BREAKS, errs_tf32
+
+
+# --- float64 instances of the table and scan kernels --------------------------------
+
+
+@pytest.mark.parametrize("w", range(2, 18))
+def test_float64_tables_match_plain(cuda_device, w):
+    """The float64 instance of either table kernel (12 series terms at radius
+    0.25) against the float64 plain version: rounding only."""
+    rng = np.random.default_rng(w)
+    L = torch.as_tensor(compartmental_blocks(rng, 2, w, 1000), dtype=torch.float64,
+                        device=cuda_device)
+    binv, h_u = np.asarray([0, 1, 1]), np.asarray([0.0625, 2.0, 16.0])
+    lad = max(ladder_len(w, h) for h in h_u)
+    before = (phi_tables.launches, phi_tables_wide.launches)
+    got = phi_tables(L, binv, h_u, lad)
+    torch.cuda.synchronize()
+    assert (phi_tables.launches - before[0], phi_tables_wide.launches - before[1]) == \
+        ((1, 0) if w <= 8 else (0, 1))
+    for g, r in zip(got, phi_tables_reference(L, binv, h_u, lad)):
+        assert g.dtype == torch.float64
+        assert_scaled_close(g, r, SCALED_ATOL_F64)
+
+
+@pytest.mark.parametrize("w, N, variant", [
+    (6, 7, "registers"), (7, 7, "shared"), (9, 45, "shared"), (13, 20, "shared"),
+    (17, 99, "shared"), (17, 100, "stream"), (16, 200, "stream")])
+def test_float64_scan_matches_plain(cuda_device, w, N, variant):
+    """The float64 scan at each variant and each side of its switches."""
+    assert scan_launch_shape(w, N, 8).variant == variant
+    args, plan = random_scan_problem(w, N=N, P=300 if N < 20 else 6, seed=w + N,
+                                     dtype=torch.float64, device=cuda_device)
+    before = etd2rk_scan.launches
+    got = etd2rk_scan(*args, plan)
+    torch.cuda.synchronize()
+    assert etd2rk_scan.launches == before + 1 and got.dtype == torch.float64
+    torch.testing.assert_close(got, etd2rk_scan_reference(*args, plan), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("model, kw", [
+    (0, {}), (0, dict(use_scan_kernel=True)), (2, {}),
+    (2, dict(width_bucketing=False, use_scan_kernel=True))],
+    ids=["model0", "model0-scan", "model2", "model2-unbucketed-scan"])
+def test_float64_objective_on_the_card_matches_cpu(cuda_device, model, kw):
+    """A float64 system on the card runs its kernels (no raise) and matches
+    the port's float64 CPU result."""
+    b = build_demo_network(n_proteins=8, n_kinases=4, model=model, seed=0,
+                           dtype=torch.float64, device=cuda_device)
+    cpu = GlobalSystem(b["system"].topo, b["system"].kin_grid, b["system"].Kmat,
+                       dtype=torch.float64, device="cpu")
+    args = (b["slices"], b["loss_data"], b["defaults"], b["lambdas"], b["grid"])
+    rng = np.random.default_rng(0)
+    thetas = b["theta0"][None] + 0.05 * rng.normal(size=(4, len(b["theta0"])))
+    phi_tables.launches = phi_tables_wide.launches = etd2rk_scan.launches = 0
+    F = make_population_objective(b["system"], *args, **kw)(thetas)
+    torch.cuda.synchronize()
+    assert phi_tables.launches + phi_tables_wide.launches > 0
+    assert etd2rk_scan.launches == int(bool(kw.get("use_scan_kernel")))
+    Fc = make_population_objective(cpu, *args, **kw)(thetas)
+    np.testing.assert_allclose(F.cpu().numpy(), Fc.numpy(), rtol=1e-9)
+
+
+# --- the FMA-peak probe ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nacc", [1, 2, 4, 8])
+def test_sq_chain_matches_plain(cuda_device, nacc):
+    """The kernel contracts y*y + c into one FMA, the plain version rounds
+    twice: at the check's few steps (the output still depends on the seeds
+    and on c's x term), within ``CHECK_TOL`` of max |plain|, on outputs
+    that spread far beyond it."""
+    from phoskintime_tpu_torch.ops import fma_peak
+
+    X = fma_peak.probe_input(cuda_device, cols=4096)
+    before = fma_peak.sq_chain.launches
+    got = fma_peak.sq_chain(X, fma_peak.CHECK_REPS, nacc)
+    torch.cuda.synchronize()
+    assert fma_peak.sq_chain.launches == before + 1
+    want = fma_peak.sq_chain_reference(X, fma_peak.CHECK_REPS, nacc)
+    assert_scaled_close(got, want, atol=fma_peak.CHECK_TOL)
+    assert float(want.max() - want.min()) > 1e4 * fma_peak.CHECK_TOL * float(want.abs().max())
+
+
+def test_sq_chain_instruction_stream_and_slope(cuda_device):
+    """reps x nacc FFMAs in each instance's SASS (nothing shortened the
+    chains), and a positive slope below the data sheet's rate."""
+    from phoskintime_tpu_torch.ops import fma_peak
+
+    counts = fma_peak.sass_ffma_counts()
+    assert counts == {(n, r): n * r for n in fma_peak.NACCS for r in fma_peak.BUILT_REPS}
+    tf, times = fma_peak.slope_tflops(fma_peak.probe_input(cuda_device), 512, 4, 256, n=2)
+    assert times[24] > times[8] and 1.0 < tf < 1.2 * fma_peak.DATASHEET_FP32_TFLOPS
+
+
+# --- the global fit's device routes ---------------------------------------------------
+
+
+def test_device_survival_on_the_card_matches_cpu(cuda_device):
+    """Ranks, normalisation, association and niching on the card, on the
+    same draws as the CPU: the same survivors."""
+    from phoskintime_tpu_torch.ops.nsga import das_dennis
+    from phoskintime_tpu_torch.ops.nsga_device import SurvivalDraws, device_survival
+
+    rng = np.random.default_rng(4)
+    Q, R = 2000, 28
+    F, X = rng.random((Q, 3)), rng.random((Q, 6))
+    refs = das_dennis(3, 6)
+    unit = refs / np.linalg.norm(refs, axis=1, keepdims=True)
+    draws = SurvivalDraws(torch.as_tensor(rng.random(R)), torch.as_tensor(rng.random(Q)))
+    t = lambda x, d: torch.as_tensor(x, device=d)
+    cpu = device_survival(t(X, "cpu"), t(F, "cpu"), Q // 2, t(unit, "cpu"), draws)
+    card = device_survival(t(X, cuda_device), t(F, cuda_device), Q // 2, t(unit, cuda_device),
+                           SurvivalDraws(*(d.to(cuda_device) for d in draws)))
+    for name, c, g in zip(("X", "F", "rank", "niche"), cpu, card):
+        np.testing.assert_array_equal(g.cpu().numpy(), c.numpy(), err_msg=name)
+    # nd is the root of a difference of near squares (|F|^2 - proj^2), summed
+    # in another order on the card: absolute error ~ eps |F|^2 / nd
+    np.testing.assert_allclose(card[4].cpu().numpy(), cpu[4].numpy(), rtol=0, atol=1e-13)
+
+
+@pytest.mark.parametrize("gens_per_dispatch", [1, 3])
+def test_global_fit_on_the_card(cuda_device, gens_per_dispatch):
+    """run_global_fit at float32 on the card by both routes: evaluations
+    counted, finite Pareto set, the pick within it."""
+    from phoskintime_tpu_torch.network.optimize import run_global_fit
+
+    b = build_demo_network(n_proteins=8, n_kinases=4, seed=1, dtype=torch.float32,
+                           device=cuda_device)
+    res = run_global_fit(b["system"], b["slices"], b["loss_data"], b["defaults"],
+                         b["lambdas"], b["grid"], b["xl"], b["xu"], pop=64, n_gen=3,
+                         seed=0, ftol=0.0, gens_per_dispatch=gens_per_dispatch,
+                         frechet_pick=True, df_prot=b["df_prot"], df_rna=b["df_rna"],
+                         df_pho=b["df_pho"], t_points=(b["grid"],) * 3)
+    assert res.n_evals == 64 * 4 and np.isfinite(res.pareto_F).all()
+    assert 0 <= res.best_idx < len(res.pareto_X)

@@ -61,7 +61,9 @@ def test_package_imports_without_jax():
     mods = [m.removesuffix(".__init__") for m in mods] + ["chip_smoke"]
     assert "phoskintime_tpu_torch.network.expo" in mods and len(mods) > 15
     for new in ("ops.hypercube_flux", "ops.tridiag", "ops.integrators",
-                "network.analysis", "network.steadystate"):
+                "network.analysis", "network.steadystate", "ops.fma_peak", "ops.nsga",
+                "ops.nsga_device", "ops.frechet", "native", "parallel.checkpoint",
+                "network.optimize", "network.bounds", "network.weights"):
         assert f"phoskintime_tpu_torch.{new}" in mods, new
     code = ("import importlib, sys; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
@@ -159,7 +161,8 @@ def test_library_path_is_keyed_by_source():
     assert path.parent == cuda_build.BUILD_DIR and path.suffix == ".so"
     assert "csrc" in str(pm.SOURCE) and pm.SOURCE.exists()
     assert pm.SOURCE in cuda_build.SOURCES and all(s.exists() for s in cuda_build.SOURCES)
-    assert len({cuda_build.library_path(s) for s in cuda_build.SOURCES}) == 5
+    assert len(cuda_build.SOURCES) == 6
+    assert len({cuda_build.library_path(s) for s in cuda_build.SOURCES}) == 6
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
 
 
