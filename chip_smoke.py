@@ -24,7 +24,8 @@ non-zero:
    bench problem) and at every block width 2..8, scaled atol 2e-5; the
    kernel (by CUDA events and, on the device, by the profiler), the plain
    version and ``torch.linalg.matrix_exp`` of the augmented matrix timed,
-   and the kernel's bound and its share of it worked out;
+   and the kernel's bound and its share of it worked out; the squaring
+   counts' mean a lane and a warp at the main-path chunk;
 3b. the same for ``phi_tables_wide`` (9 <= w <= 17) at the model-2 chunk's
    class shapes (w = 9 and 17), at the unbucketed chunk's full width (w =
    17 over all 92,160 lanes) and at every width 9..17, and for
@@ -63,13 +64,17 @@ The RK45 oracle path and the steady states:
 
 3d. ``hypercube_flux`` (the model-2 edge flux) against its plain gather
    version in float32 and float64 at the RK45 objective's shape (92,160
-   rows of 16 states), at smax 1..6, and at the JAX package's size table
-   (B = 40 .. 327,680), printed beside the reference's TPU v5e figures;
-   scaled tolerance 2e-5 (float32) and 1e-12 (float64); times and bound;
+   rows of 16 states), at smax 0..10, and at the row counts of the JAX
+   package's size table (B = 40 .. 327,680); scaled tolerance 2e-5
+   (float32) and 1e-12 (float64); times, bound (the bytes over the HBM
+   rate, held against the device time with L2 flushed before each call;
+   back-to-back calls find the data in L2 and are printed beside it) and
+   the wrapper's host µs a call;
 3e. ``thomas_solve_batched`` against its plain version and
    ``torch.linalg.solve`` of the dense matrices, float32 and float64, at
-   the steady state's own shape (45 chains of 5), at a population's chains
-   (368,640 of 5) and at n = 2..17; times and bound;
+   the steady state's own shape (45 chains of 5) beside one chain of 2
+   (the launch floor), at a population's chains (368,640 of 5) and at
+   n = 2..17; times and bound;
 4d. main path, RK45: ``make_objective(solver="rk45")`` on the model-2
    bench network at pop 2048, float32, alone on the card: 7 flux launches
    a loop iteration plus 2, evals/s, steps, and the idle share of a
@@ -185,11 +190,11 @@ FIT_F_RTOL = 1e-3         # survivors' F against a re-evaluation of their X
 SCALED_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
 STEADY_TOL = 1e-12        # steady states on the card vs the CPU, float64
 RHS_AT_STEADY = 1e-9      # |dy/dt| at an analytic steady state
-# the JAX package's own hypercube-kernel table (pallas_kernels.py:21-26):
-# rows -> (Pallas us, XLA gather us), smax 4, float32, on a TPU v5e -- the
-# reference's record, printed beside this card's times, never as the port's
-JAX_V5E_FLUX_US = {40: (978, 730), 400: (1434, 667), 4096: (1847, 846),
-                   40960: (1833, 640), 327680: (15341, 951)}
+# rows of the flux size table (smax 4, float32): the row counts of the JAX
+# package's own table (pallas_kernels.py:21-26), timed on this card
+FLUX_SIZE_ROWS = (40, 400, 4096, 40960, 327680)
+# back-to-back calls that time the flux wrapper's host cost
+HOST_CALLS = 1000
 # three proteins of 2, 1 and 3 sites under one kinase, no TF edges: the JAX
 # package's isolated network (tests/test_network.py:225-236)
 ISOLATED = [("GA", "S1", "K"), ("GA", "S2", "K"), ("GB", "S1", "K"),
@@ -257,9 +262,10 @@ def phase_build() -> None:
     for path, seconds in built.items():
         say("2 build", library=path.name, seconds=f"{seconds:.2f}")
         for ln in path.with_suffix(".log").read_text().splitlines():
-            inst = re.search(r"Compiling entry function '\w*?_kernelI([fd]?)((?:Li\d+E)+)", ln)
+            inst = re.search(r"Compiling entry function '\w*?_kernel\w*?I([fd]?)((?:L[ib]\d+E)+)",
+                             ln)
             if inst:
-                args = re.findall(r"Li(\d+)E", inst.group(2))
+                args = re.findall(r"L[ib](\d+)E", inst.group(2))
                 print(f"    {'float64' if inst.group(1) == 'd' else 'float32'} "
                       f"<{', '.join(args)}>")
             elif "registers" in ln or "spill" in ln:
@@ -438,11 +444,31 @@ def check_widths(widths) -> None:
             raise AssertionError(f"kernel disagrees at w={w}: {worst_w:.3e}")
 
 
+def squaring_counts(L, binv, h_u, ladder) -> dict:
+    """The mean squaring count s of a (pair, lane) on these inputs, and the
+    mean over the kernel's warps of their largest lane's s (a warp of 32
+    neighbouring lanes runs its ladder to that)."""
+    isz = L.element_size()
+    radius = 0.5 if isz == 4 else 0.25
+    lane, warp = [], []
+    for b, h in zip(np.asarray(binv), np.asarray(h_u)):
+        A = L[int(b)] * float(h)
+        norm = torch.amax(torch.sum(torch.abs(A), dim=1), dim=0)
+        s = torch.clamp(torch.ceil(torch.log2(torch.clamp(norm, min=1e-30) / radius)),
+                        0.0, float(ladder))
+        s = torch.nan_to_num(s, nan=0.0)
+        lane.append(float(s.mean()))
+        pad = torch.nn.functional.pad(s, (0, -s.numel() % 32))
+        warp.append(float(pad.reshape(-1, 32).amax(dim=1).mean()))
+    return {"mean_s_a_lane": f"{np.mean(lane):.3f}", "mean_s_a_warp": f"{np.mean(warp):.3f}"}
+
+
 def phase_kernel(b, thetas, card) -> dict:
     params_b = unpack_params(thetas[:CHUNK], b["slices"], b["topo"])
     (L, binv, h_u, ladder), = expo.table_inputs(b["system"], params_b, b["grid"])
     out = check_and_time("3 kernel main-path", L, binv, h_u, ladder, card,
                          kernel="phi_tables_kernel")
+    say("3 kernel squaring counts", **squaring_counts(L, binv, h_u, ladder))
     check_widths(range(2, 9))
     return {"name": "phi_tables", "route": "cuda",
             "source": "phoskintime_tpu_torch/csrc/phi_tables.cu",
@@ -608,15 +634,47 @@ def flux_bound(rows: int, smax: int, itemsize: int) -> Bound:
     return bound(itemsize * rows * (2 * M + smax + 1), 4.0 * rows * M * smax, itemsize)
 
 
-def check_and_time_flux(label, rows, smax, dtype, card, reps=20, quiet=False) -> dict:
-    """The flux kernel against its plain (gather) version on random rows:
-    the gate, then times in the order plain, kernel, kernel, plain, and the
-    bound."""
+def flux_inputs(rows, smax, dtype) -> tuple:
+    """Random rows of states, site rates and dephospho rates on the card."""
     rng = np.random.default_rng(rows + smax)
     f = dict(dtype=dtype, device="cuda")
-    X = torch.as_tensor(rng.uniform(0, 1, (rows, 1 << smax)), **f)
-    S = torch.as_tensor(rng.uniform(0.1, 2.0, (rows, smax)), **f)
-    E = torch.as_tensor(rng.uniform(0.1, 2.0, rows), **f)
+    return (torch.as_tensor(rng.uniform(0, 1, (rows, 1 << smax)), **f),
+            torch.as_tensor(rng.uniform(0.1, 2.0, (rows, smax)), **f),
+            torch.as_tensor(rng.uniform(0.1, 2.0, rows), **f))
+
+
+def host_cost(fn, n: int = HOST_CALLS) -> dict:
+    """µs a call of ``fn``: the host's to issue ``n`` back-to-back calls
+    with no synchronize, the wall's once one synchronize ends them, and by
+    CUDA events over ``n`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"host_us": 1e6 * (t1 - t0) / n, "wall_us": 1e6 * (t2 - t0) / n,
+            "events_us": 1e3 * cuda_ms(fn, n)}
+
+
+def l2_flush_buffer() -> torch.Tensor:
+    """A buffer of four times the card's L2: summing it leaves L2 holding
+    its clean lines alone, nothing of an earlier kernel's data and nothing
+    to write back."""
+    return torch.zeros(torch.cuda.get_device_properties(0).L2_cache_size, dtype=torch.float32,
+                       device="cuda")
+
+
+def check_and_time_flux(label, rows, smax, dtype, card, reps=20, quiet=False,
+                        flush=None) -> dict:
+    """The flux kernel against its plain (gather) version on random rows:
+    the gate, then times in the order plain, kernel, kernel, plain, the
+    bound, and the kernel's device time with ``flush`` (a buffer larger
+    than L2) read before each call, the time held against the bound,
+    beside its time on back-to-back calls, which find the data in L2."""
+    X, S, E = flux_inputs(rows, smax, dtype)
     run_k = lambda: hypercube_flux(X, S, E, smax)
     run_p = lambda: hypercube_flux(X, S, E, smax, use_kernel=False)
     got, want = run_k(), run_p()
@@ -628,42 +686,57 @@ def check_and_time_flux(label, rows, smax, dtype, card, reps=20, quiet=False) ->
         return {"max_abs_err": max_abs}
     p1, k1, k2, p2 = (cuda_ms(run_p, reps), cuda_ms(run_k, reps), cuda_ms(run_k, reps),
                       cuda_ms(run_p, reps))
-    dev_ms = kernel_device_ms(device_events(lambda: [run_k() for _ in range(reps)])[0],
+    warm_ms = kernel_device_ms(device_events(lambda: [run_k() for _ in range(reps)])[0],
+                               "hypercube_flux_kernel")
+    dev_ms = kernel_device_ms(device_events(lambda: [(flush.sum(), run_k())
+                                                     for _ in range(reps)])[0],
                               "hypercube_flux_kernel")
     b = flux_bound(rows, smax, X.element_size())
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     say(label, rows=rows, smax=smax, dtype=str(dtype).split(".")[-1],
         max_abs_err=f"{max_abs:.3e}", max_scaled_err=f"{scaled:.3e}",
-        tol=SCALED_TOL[dtype], ms=f"{ms:.4f}", device_ms=measured(dev_ms),
-        plain_ms=f"{plain_ms:.4f}", **bound_fields(b, dev_ms),
-        runs_ms=[round(x, 4) for x in (p1, k1, k2, p2)], card=repr(card))
-    return {"max_abs_err": max_abs, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+        tol=SCALED_TOL[dtype], ms=f"{ms:.4f}", device_ms_l2_flushed=measured(dev_ms),
+        device_ms_l2_warm=measured(warm_ms), plain_ms=f"{plain_ms:.4f}",
+        **bound_fields(b, dev_ms), runs_ms=[round(x, 4) for x in (p1, k1, k2, p2)],
+        card=repr(card))
+    return {"max_abs_err": max_abs, "ms": ms, "device_ms": dev_ms,
+            "device_ms_l2_warm": warm_ms, "plain_ms": plain_ms,
             "bound_ms": b.ms, "bound_by": b.by, "bound_ms_measured_peak": b.ms_measured,
             "library_ms": None}
 
 
 def phase_flux_kernel(card) -> dict:
     """3d: the flux kernel at the RK45 objective's shape (pop 2048 x 45
-    proteins, 16 states), float32 (the summary's entry) and float64, at
-    smax 1..6 in both dtypes, and at the JAX package's size table."""
+    proteins, 16 states), float32 (the summary's entry) and float64, with
+    the wrapper's host µs a call; at smax 0..10 in both dtypes; and at the
+    row counts of the JAX package's size table. The device times held
+    against the bound are taken with L2 flushed before each call."""
     rows = POP2 * 45
-    out = check_and_time_flux("3d flux main-path", rows, 4, torch.float32, card)
-    out["float64"] = check_and_time_flux("3d flux main-path", rows, 4, torch.float64, card)
-    for smax in range(1, 7):
+    flush = l2_flush_buffer()
+    out = check_and_time_flux("3d flux main-path", rows, 4, torch.float32, card, flush=flush)
+    out["float64"] = check_and_time_flux("3d flux main-path", rows, 4, torch.float64, card,
+                                         flush=flush)
+    for dtype in (torch.float32, torch.float64):
+        X, S, E = flux_inputs(rows, 4, dtype)
+        host = host_cost(lambda: hypercube_flux(X, S, E, 4))
+        say("3d flux host cost", rows=rows, smax=4, dtype=str(dtype).split(".")[-1],
+            calls=HOST_CALLS, **{k: f"{v:.2f}" for k, v in host.items()}, card=repr(card))
+        out.setdefault("host_us_per_call", {})[str(dtype).split(".")[-1]] = host
+    for smax in range(0, 11):
         for dtype in (torch.float32, torch.float64):
             err = check_and_time_flux("3d flux width", 10001, smax, dtype, card,
                                       quiet=True)["max_abs_err"]
             say("3d flux width", smax=smax, rows=10001, dtype=str(dtype).split(".")[-1],
                 max_abs_err=f"{err:.3e}")
     table = {}
-    for B, (jax_pallas, jax_xla) in JAX_V5E_FLUX_US.items():
-        t = check_and_time_flux("3d flux size", B, 4, torch.float32, card)
-        table[B] = {k: t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    for B in FLUX_SIZE_ROWS:
+        t = check_and_time_flux("3d flux size", B, 4, torch.float32, card, flush=flush)
+        table[B] = {k: t[k] for k in ("ms", "device_ms", "device_ms_l2_warm", "plain_ms",
+                                      "bound_ms")}
         say("3d flux size table", rows=B, kernel_us=f"{1e3 * t['ms']:.2f}",
-            kernel_device_us=measured(t["device_ms"], 1e3, 2),
-            plain_gather_us=f"{1e3 * t['plain_ms']:.2f}",
-            reference_tpu_v5e_pallas_us=jax_pallas, reference_tpu_v5e_xla_us=jax_xla,
-            note="the v5e figures are the JAX package's record, not this card's")
+            kernel_device_us_l2_flushed=measured(t["device_ms"], 1e3, 2),
+            kernel_device_us_l2_warm=measured(t["device_ms_l2_warm"], 1e3, 2),
+            plain_gather_us=f"{1e3 * t['plain_ms']:.2f}")
     out["size_table"] = table
     return {"name": "hypercube_flux", "route": "cuda",
             "source": "phoskintime_tpu_torch/csrc/hypercube_flux.cu",
@@ -718,9 +791,14 @@ def check_and_time_thomas(label, B, n, dtype, card, reps=20, quiet=False) -> dic
 
 def phase_thomas_kernel(card) -> dict:
     """3e: the Thomas kernel at the steady state's own shape (45 chains of
-    5, float64: the summary's entry) and float32, at a population's chains
+    5, float64: the summary's entry) beside one chain of 2 (the launch
+    floor), and float32, at a population's chains
     (8192 x 45 of 5) in both dtypes, and at n = 2..17."""
     out = check_and_time_thomas("3e thomas main-path", 45, 5, torch.float64, card)
+    # one chain of 2: the least work a launch can do, beside the 45 chains
+    out["one_chain"] = check_and_time_thomas("3e thomas one chain", 1, 2, torch.float64, card)
+    say("3e thomas launch floor", chains_45_device_ms=measured(out["device_ms"]),
+        one_chain_device_ms=measured(out["one_chain"]["device_ms"]), card=repr(card))
     out["float32"] = check_and_time_thomas("3e thomas main-path", 45, 5, torch.float32, card)
     out["population"] = {str(dtype).split(".")[-1]: check_and_time_thomas(
         "3e thomas population", 8192 * 45, 5, dtype, card)

@@ -19,25 +19,33 @@
 //   E <- E E,  hc <- 2 hc.
 //
 // What bounds it on this card. Per (pair, lane) the kernel reads w^2
-// floats of L and writes w^2 + 2w floats of tables: 84 floats, 336 bytes
-// at w = 6. Against that it runs about 8 w^3 (Horner) + 7 w^2 (series)
-// + s (w^3 + 2 w^2) (ladder) FP32 FMAs: about 2,000 + 288 s at w = 6,
-// 6 to 18 FMAs per byte as s runs from 0 to the bench plan's bound of 14.
-// The H100 SXM's published FP32 rate over its HBM bandwidth (67 TFLOP/s
-// over 3.35 TB/s) is 10 FMAs per byte, so the build sits near the balance
-// point, and register pressure (3 w^2 live floats) decides how many lanes
-// an SM keeps in flight to cover either limit.
+// words of L and writes w^2 + 2w words of tables: 84 floats, 336 bytes at
+// w = 6. Against that it runs about 8 w^3 (Horner) + 7 w^2 (series)
+// + s (w^3 + 2 w^2) (ladder) FMAs: at the model-0 chunk (w = 6, 92,160
+// lanes, 14 pairs, mean s 4.0) the bytes take 0.125 ms at 3.35 TB/s and
+// the FMAs 0.112 ms at 67 TFLOP/s. The two limits are as large, so the
+// kernel comes near either only if memory traffic runs while the SM
+// computes. Here it does not: a thread loads its lane's L and stores its
+// tables itself, 84 memory instructions a (pair, lane) in two bursts; the
+// warps of an SM start together and stay in step, so their bursts meet
+// and wait on the memory while the FMA pipes idle, and the FMA phases then
+// leave the memory idle (tools/phase_clocks.py --kernel tables: a third of
+// a warp's cycles in its load and store phases, 128 registers a thread,
+// 4 blocks an SM, and a device time near the sum of the two limits).
 //
-// What the design does about it. One thread per (pair, lane): the block
-// lives in registers for the whole build, so every byte of L is read once
-// and every table entry written once, and nothing in between touches
-// memory (the plain version moves the (w, w, lanes) carry through device
-// memory at every Horner term and ladder step). The lane is the minor axis
-// of L and of the tables, so each warp's loads and stores are coalesced.
-// Each thread runs its own s rather than the static worst case `ladder`,
-// which is the per-lane mask of _phi_math_pages; the tile-wide skip there
-// has no counterpart because a thread that is done simply stops. FP32 FMA
-// only: no tensor cores, no TF32.
+// The design. One thread per (pair, lane): the block lives in registers
+// for the whole build, so every byte of L is read once and every table
+// entry written once, and nothing in between touches memory (the plain
+// version moves the (w, w, lanes) carry through device memory at every
+// Horner term and ladder step). The lane is the minor axis of L and of the
+// tables, so each warp's loads and stores are coalesced. Each thread runs
+// its own s rather than the static worst case `ladder`, which is the
+// per-lane mask of _phi_math_pages; the tile-wide skip there has no
+// counterpart because a thread that is done simply stops. FP32 FMA only:
+// no tensor cores, no TF32. A persistent grid that moved each 128-lane
+// tile through shared memory by tensor-memory copies was tried: it took
+// the copies off the warps but was no faster, its block barriers waiting
+// on the warp whose lanes square the most (PERF.md has the runs).
 //
 // float64 (the float64 instance of the same template): twice the bytes,
 // and FP64 FMAs at half the FP32 rate (34 TFLOP/s on the H100 SXM), with

@@ -19,6 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = tuple(CSRC / f"{stem}.cu" for stem in (
@@ -104,3 +106,14 @@ def entry(source: Path, name: str, argtypes: list):
         err.restype = ctypes.c_char_p
         _ENTRIES[name] = (fn, err)
     return _ENTRIES[name]
+
+
+def launch_on(dev: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)``: a C launch entry called with ``dev``'s current
+    stream as a raw handle, in ``dev``'s context (not entered where ``dev``
+    is the current device already). Returns the entry's code."""
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(dev):
+        return fn(*args, stream)

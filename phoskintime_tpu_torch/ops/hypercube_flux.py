@@ -25,11 +25,10 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from phoskintime_tpu_torch.ops.cuda_build import CSRC, entry
+from phoskintime_tpu_torch.ops.cuda_build import CSRC, entry, launch_on
 
 SOURCE = CSRC / "hypercube_flux.cu"
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 _MAX_SITES = 10                 # rows of up to 1024 states: one thread block
 
 
@@ -99,9 +98,8 @@ def hypercube_flux(X: torch.Tensor, S: torch.Tensor, E: torch.Tensor, smax: int,
         return out
     name = "hypercube_flux_f32" if X.dtype == torch.float32 else "hypercube_flux_f64"
     fn, err = entry(SOURCE, name, _ARGTYPES)
-    with torch.cuda.device(X.device):
-        rc = fn(X.data_ptr(), S.data_ptr(), E.data_ptr(), out.data_ptr(), X.shape[0],
-                smax, smax, torch.cuda.current_stream(X.device).cuda_stream)
+    rc = launch_on(X.device, fn, X.data_ptr(), S.data_ptr(), E.data_ptr(), out.data_ptr(),
+                   X.shape[0], smax)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: " + err(rc).decode())
     hypercube_flux.launches += 1

@@ -28,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from phoskintime_tpu_torch.ops.cuda_build import CSRC, entry
+from phoskintime_tpu_torch.ops.cuda_build import CSRC, entry, launch_on
 
 # kernel (float32) series: 8 Taylor terms after scaling to radius 0.5
 _TAYLOR_TERMS = 8
@@ -202,10 +202,8 @@ def _launch(source, name: str, L, binv, h_u, ladder: int, argtypes=_ARGTYPES,
     p1 = torch.empty((U, w, B), **f)
     p2 = torch.empty((U, w, B), **f)
     fn, err = entry(source, f"{name}_{_ENTRY_SUFFIX[L.dtype]}", argtypes)
-    with torch.cuda.device(dev):          # launch in L's device context
-        rc = fn(L.data_ptr(), binv_d.data_ptr(), h_d.data_ptr(),
-                E.data_ptr(), p1.data_ptr(), p2.data_ptr(),
-                w, U, B, int(ladder), *extra, torch.cuda.current_stream(dev).cuda_stream)
+    rc = launch_on(dev, fn, L.data_ptr(), binv_d.data_ptr(), h_d.data_ptr(), E.data_ptr(),
+                   p1.data_ptr(), p2.data_ptr(), w, U, B, int(ladder), *extra)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: " + err(rc).decode())
     return E, p1, p2

@@ -75,6 +75,91 @@ def test_flux_rejects(bad):
         hypercube_flux(X, S, E, 3, use_kernel=True if bad == "kernel_on_cpu" else None)
 
 
+# --- the kernel's work map ---------------------------------------------------------
+
+# csrc/hypercube_flux.cu: threads a block
+FLUX_THREADS = 256
+
+
+def emulate_flux_kernel(X, S, E, smax, blocks, items):
+    """``csrc/hypercube_flux.cu``'s work map in numpy, float64: 4 rows a
+    thread and step below 4 states, ``items`` quads (the launcher takes 1
+    or 2) for rows of 4 to 128 states, 1 quad beyond. For each block and
+    step of its grid-stride loop, each thread's quads (or rows), the
+    neighbours it reads (its own registers for sites 0 and 1, the lane
+    q ^ 2^(j-2) of its warp, or the block's shared quads), and the terms in
+    the kernel's order. Checks that every state is written exactly once
+    and that a row fits a warp (4-128 states) or a block (256-1024)."""
+    rows, M = X.shape
+    T, Q = FLUX_THREADS, 4 if smax < 2 else (items if smax < 8 else 1)
+    if smax >= 2:
+        assert (32 if smax < 8 else T) % (M // 4) == 0
+    out = np.full(X.size, np.nan)
+    written = np.zeros(X.size, int)
+    flat = X.reshape(-1)
+    if smax < 2:
+        for blk in range(blocks):
+            for base in range(blk * T * Q, rows, blocks * T * Q):
+                for i in range(Q):
+                    for t in range(T):
+                        r = base + i * T + t
+                        if r >= rows:
+                            continue
+                        written[r * M:(r + 1) * M] += 1
+                        if smax == 0:
+                            out[r] = 0.0
+                        else:
+                            x0, x1, s, e = X[r, 0], X[r, 1], S[r, 0], E[r]
+                            out[2 * r] = (0.0 + e * x1) - s * x0
+                            out[2 * r + 1] = (0.0 + s * x0) - e * x1
+        assert (written == 1).all()
+        return out.reshape(rows, M)
+    quads, QR = rows * M // 4, M // 4
+    for blk in range(blocks):
+        for base in range(blk * T * Q, quads, blocks * T * Q):
+            for i in range(Q):
+                q = base + i * T + np.arange(T)             # the block's threads
+                live = q < quads
+                x = np.where(live[:, None], flat[np.minimum(q, quads - 1)[:, None] * 4
+                                                 + np.arange(4)], 0.0)
+                row = np.minimum(q, quads - 1) // QR
+                s = np.where(live[:, None], S[row], 0.0)
+                e = np.where(live, E[row], 0.0)
+                acc = np.zeros((T, 4))
+                for j in range(smax):
+                    if j < 2:
+                        xn = x[:, np.arange(4) ^ (1 << j)]
+                    else:
+                        d = 1 << (j - 2)
+                        partner = np.arange(T) ^ d
+                        if j < 7:                            # within the warp
+                            assert (partner // 32 == np.arange(T) // 32).all()
+                        xn = x[partner]
+                    for v in range(4):
+                        bit = (v >> j) & 1 if j < 2 else ((q % QR) >> (j - 2)) & 1
+                        a = np.where(bit, s[:, j], e)
+                        b = np.where(bit, e, s[:, j])
+                        acc[:, v] = (acc[:, v] + a * xn[:, v]) - b * x[:, v]
+                for t in np.flatnonzero(live):
+                    out[q[t] * 4:q[t] * 4 + 4] = acc[t]
+                    written[q[t] * 4:q[t] * 4 + 4] += 1
+    assert (written == 1).all()
+    return out.reshape(rows, M)
+
+
+@pytest.mark.parametrize("items", [1, 2])
+@pytest.mark.parametrize("smax, rows, blocks", [
+    (0, 1001, 1), (1, 1001, 2), (1, 3000, 1), (2, 1001, 3), (4, 1001, 2), (4, 37, 5),
+    (6, 301, 2), (7, 65, 1), (8, 9, 2), (10, 3, 1)])
+def test_flux_work_map_matches_reference(smax, rows, blocks, items):
+    """Rows that are no multiple of what a step covers, and grids of fewer
+    blocks than the work (the grid-stride loop) or more."""
+    X, S, E = flux_inputs(smax, B=rows, seed=11)
+    got = emulate_flux_kernel(X, S, E, smax, blocks, items)
+    want = hypercube_flux_reference(*(torch.as_tensor(v) for v in (X, S, E)), smax)
+    np.testing.assert_allclose(got, want.numpy(), rtol=RTOL_F64, atol=ATOL_F64)
+
+
 # --- the batched RHS --------------------------------------------------------------
 
 

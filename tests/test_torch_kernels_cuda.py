@@ -142,6 +142,38 @@ def test_nan_lane_stays_in_its_lane(cuda_device, w):
         assert bool(torch.isnan(d[..., 37]).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("w", range(2, 9))
+def test_kernel_many_blocks_matches_plain(cuda_device, w, dtype):
+    """14 pairs of 157 lane tiles (more blocks than the card holds at
+    once), lanes no multiple of the tile, squaring counts from 0 to the
+    ladder side by side, and NaN lanes (one mid-tile, the last lane) that
+    leave every other lane as it was."""
+    B = 20037
+    rng = np.random.default_rng(w)
+    L = torch.as_tensor(compartmental_blocks(rng, 3, w, B), dtype=dtype, device=cuda_device)
+    binv = np.asarray([0, 1, 2, 0, 1, 2, 0, 1, 2, 0, 1, 2, 0, 1])
+    h_u = 2.0 ** np.arange(-4, 10)
+    lad = max(ladder_len(w, h) for h in h_u)
+    before = phi_tables.launches
+    clean = phi_tables(L, binv, h_u, lad)
+    torch.cuda.synchronize()
+    assert phi_tables.launches == before + 1
+    tol = SCALED_ATOL_F32 if dtype == torch.float32 else SCALED_ATOL_F64
+    for g, r in zip(clean, phi_tables_reference(L, binv, h_u, lad)):
+        assert g.shape == r.shape and g.dtype == dtype
+        assert_scaled_close(g, r, tol)
+    bad = [1000, B - 1]
+    L[..., bad] = float("nan")
+    dirty = phi_tables(L, binv, h_u, lad)
+    torch.cuda.synchronize()
+    keep = torch.ones(B, dtype=torch.bool, device=cuda_device)
+    keep[bad] = False
+    for c, d in zip(clean, dirty):
+        assert torch.equal(c[..., keep], d[..., keep])
+        assert bool(torch.isnan(d[..., bad]).all())
+
+
 @pytest.mark.parametrize("bad, err", [
     (dict(dtype=torch.float16), NotImplementedError),
     (dict(w=18), NotImplementedError),
@@ -343,16 +375,36 @@ def flux_inputs(rng, rows, smax, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("smax", range(1, 7))
+@pytest.mark.parametrize("smax", range(0, 11))
 def test_hypercube_kernel_matches_plain(cuda_device, smax, dtype):
-    """1,001 rows (the last warp ragged), smax 1-5 by warp shuffles, 6
-    through shared memory as well."""
+    """1,001 rows (no multiple of the rows or quads a thread owns, the last
+    warp ragged): smax 0-1 a thread a row, 2-7 by registers and warp
+    shuffles, 8-10 through shared memory as well."""
     X, S, E = flux_inputs(np.random.default_rng(smax), 1001, smax, dtype, cuda_device)
     before = hypercube_flux.launches
     got = hypercube_flux(X, S, E, smax)
     torch.cuda.synchronize()
     assert hypercube_flux.launches == before + 1
     assert got.shape == X.shape and got.dtype == dtype
+    assert_scaled_close(got, hypercube_flux_reference(X, S, E, smax),
+                        SCALED_ATOL_F32 if dtype == torch.float32 else SCALED_ATOL_F64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+def test_hypercube_kernel_many_waves(cuda_device, offset, dtype):
+    """The RK45 shape and three rows more (more quads than one wave of
+    blocks takes, so the grid strides), with X and dX 16-byte aligned (the
+    vector loads) or one element off (the scalar route)."""
+    rows, smax = 92163, 4
+    X, S, E = flux_inputs(np.random.default_rng(4), rows, smax, dtype, cuda_device)
+    if offset:
+        X = torch.cat([X.new_zeros(offset), X.reshape(-1)])[offset:].view(rows, 1 << smax)
+        assert X.is_contiguous() and X.data_ptr() % 16
+    before = hypercube_flux.launches
+    got = hypercube_flux(X, S, E, smax)
+    torch.cuda.synchronize()
+    assert hypercube_flux.launches == before + 1
     assert_scaled_close(got, hypercube_flux_reference(X, S, E, smax),
                         SCALED_ATOL_F32 if dtype == torch.float32 else SCALED_ATOL_F64)
 
