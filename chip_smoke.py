@@ -112,6 +112,30 @@ The RK45 oracle path and the steady states:
    and the Fréchet pick (``n_evals`` covering both rounds, ``best_idx``
    within the Pareto set).
 
+Model 4 and the last oracle solvers:
+
+8a. the model-4 population objective (``build_demo_network(40, 12,
+   model=4, seed=0)``, float32, N = 45, w = 6) at pop 2048 in one chunk,
+   as ``benchmarks/model_rates.py``: no table or scan kernel launched, F
+   finite and within 1e-3 of the port's float64 objective on the CPU (64
+   members), the trajectory at the true parameters within 5e-3 of a
+   SciPy LSODA oracle of the saturating equations (the JAX package's gate
+   for its Rosenbrock path; fold changes printed beside), evals/s, one
+   call under the profiler, and the stage cut (unpack, block Jacobians,
+   the in-scan phi build and its share, sub-steps, loss; each the median
+   of three calls);
+8b. ESDIRK (``simulate_batched(solver="esdirk")``, rtol 1e-8, atol 1e-10,
+   float64) to t = 0.55 min, across the first kinase boundary, on the
+   model-2 bench network (d = 765) at pop 16 and on model 0 at pop 64:
+   the Jacobian through the flux kernel against the plain flux's (1e-12
+   scaled, two launches), the model-2 run launching the kernel 21 times a
+   loop iteration (every stage and the Jacobian) and never the plain
+   version, ys within rtol 1e-5 / atol 1e-7 of RK45 at rtol 1e-8 on the
+   CPU; steps, seconds, ms a step and each part's share of a step;
+8c. ``solver="expo"``: ``simulate`` of models 0 and 4 against the batched
+   paths and ``make_objective(solver="expo")`` at pop 64 against the
+   population objective, rel 1e-3 in float32; times.
+
 The line before the last is a JSON summary of each kernel (the float64
 instances and ``sq_chain`` included, each with the launches of its own main
 path); the last line is ``{"ok": true, "device": {...}}``. There is no CPU
@@ -133,7 +157,8 @@ import torch
 from phoskintime_tpu_torch.demo import GRID, RNA_GRID, build_demo_network
 from phoskintime_tpu_torch.network import expo, steadystate
 from phoskintime_tpu_torch.network.analysis import simulate_until_steady
-from phoskintime_tpu_torch.network.objective import (_auto_pop_chunk, make_objective,
+from phoskintime_tpu_torch.network.objective import (_auto_pop_chunk, _scorer,
+                                                     make_objective,
                                                      make_population_objective)
 from phoskintime_tpu_torch.network.optimize import run_global_fit
 from phoskintime_tpu_torch.network.params import unpack_params
@@ -143,7 +168,7 @@ from phoskintime_tpu_torch.network.system import GlobalSystem, default_params
 from phoskintime_tpu_torch.network.topology import build_topology
 from phoskintime_tpu_torch.ops import cuda_build
 from phoskintime_tpu_torch.ops import fma_peak
-from phoskintime_tpu_torch.ops.hypercube_flux import hypercube_flux
+from phoskintime_tpu_torch.ops.hypercube_flux import hypercube_flux, hypercube_flux_reference
 from phoskintime_tpu_torch.ops.nsga import das_dennis, make_device_ga_step, nsga3_survival
 from phoskintime_tpu_torch.ops.nsga_device import make_device_ga_blocks
 from phoskintime_tpu_torch.ops.tridiag import thomas_solve_batched, thomas_solve_reference
@@ -152,6 +177,7 @@ from phoskintime_tpu_torch.ops.phi_tables import (phi_tables, phi_tables_referen
                                                   phi_tables_wide, phi_vectors)
 from phoskintime_tpu_torch.ops.scan_kernel import (etd2rk_scan, etd2rk_scan_reference,
                                                    random_scan_problem, scan_launch_shape)
+from phoskintime_tpu_torch.ops.stiff import batched_jacobian
 
 POP, CHUNK, N_PROTEINS, N_KINASES = 8192, 2048, 40, 12
 POP2 = 2048               # model 2: one chunk, as benchmarks/model_rates.py
@@ -199,6 +225,30 @@ HOST_CALLS = 1000
 # package's isolated network (tests/test_network.py:225-236)
 ISOLATED = [("GA", "S1", "K"), ("GA", "S2", "K"), ("GB", "S1", "K"),
             ("GC", "S1", "K"), ("GC", "S2", "K"), ("GC", "S3", "K")]
+# 8: model 4's trajectory against LSODA, the JAX package's own gate for its
+# Rosenbrock path (tests/test_expo.py:104-115); ESDIRK and RK45 both at rtol
+# 1e-8 / atol 1e-10, ESDIRK within rtol 1e-5 / atol 1e-7 of RK45
+# (tests/test_coverage_gaps.py:249-260), at these members per mechanism;
+# the per-candidate expo objective's members
+ROSENBROCK_GATE = 5e-3
+ESDIRK_TOLS = dict(rtol=1e-8, atol=1e-10, max_steps=100_000)
+# 8b integrates the opening transient and across the first kinase
+# boundary (t = 0.5 min), so that every member changes bucket once; at rtol
+# 1e-8 this window is bounded by the third-order method's precision, not by
+# stiffness (RK45 takes fewer steps there), and its ~500 steps cost
+# ~60-90 ms each, host-bound; the whole horizon (to 960) is
+# tools/esdirk_steps.py's
+ESDIRK_T_END = 0.55
+ESDIRK_TIMES = np.linspace(0.0, ESDIRK_T_END, 6)
+ESDIRK_RTOL, ESDIRK_ATOL = 1e-5, 1e-7
+ESDIRK_POP = {2: 16, 0: 64}
+# flux launches of an ESDIRK loop iteration on model 2: the Jacobian's two
+# (the primal and every tangent column at once), 18 Newton RHS (six a stage,
+# three implicit stages) and the RHS after the step; one more before the loop
+ESDIRK_FLUX_PER_STEP = 21
+# calls a model-4 stage is timed over (8a's stage cut; the median is kept)
+STAGE_CALLS = 3
+EXPO_POP = 64
 STEADY = {0: steadystate.steady_state_distributive, 1: steadystate.steady_state_sequential,
           2: steadystate.steady_state_combinatorial}
 
@@ -502,7 +552,8 @@ def phase_wide_kernel(b2, thetas2, card) -> dict:
         lad = phi_mod.ladder_len(w, 2.0)
         one = lambda **kw: tuple(x[None] for x in phi_vectors(Lv[0], 2.0, lad, **kw))
         check_and_time(f"3b phi_vectors w={w}", Lv, [0], [2.0], lad, card,
-                       run_k=one, run_p=lambda: one(use_kernel=False))
+                       run_k=one, run_p=lambda: one(use_kernel=False),
+                       kernel="phi_tables_wide_kernel" if w > 8 else "phi_tables_kernel")
     return {"name": "phi_tables_wide", "route": "cuda",
             "source": "phoskintime_tpu_torch/csrc/phi_tables_wide.cu",
             "replaces": "phoskintime_tpu/ops/phi_pallas.py:406", **summary[17],
@@ -1739,6 +1790,324 @@ def phase_global_fit(b, card) -> dict:
             "global-fit-pop256-refine-pick": refine_launches}
 
 
+# --- 8: model 4 and the last oracle solvers ------------------------------------------
+
+
+def oracle_rhs_model4(b):
+    """dy/dt of the saturating mechanism (model 4), float64 numpy, written
+    out from the equations: mRNA as in model 0; translation C R / (1 + R)
+    and per-site phosphorylation S_j P0 / (1 + P0) saturate; sites return
+    to P0 at E and decay at Dp_j + D; P0 decays at D."""
+    topo, system = b["topo"], b["system"]
+    p = {k: np.asarray(v, float) for k, v in b["true"].items()}
+    Kmat, grid = np.asarray(system.Kmat, float), np.asarray(system.kin_grid, float)
+    msk = topo.site_mask().astype(float)
+    N, w = topo.N, topo.width
+    driven = topo.driver_map >= 0
+
+    def rhs(y, t):
+        Y = y.reshape(N, w)
+        R, P0 = Y[:, 0], Y[:, 1]
+        jb = min(max(int(np.searchsorted(grid, t, side="right") - 1), 0),
+                 Kmat.shape[1] - 1)
+        Kt = Kmat[:, jb] * p["c_k"]
+        S = np.einsum("nsk,k->ns", topo.W_pad, Kt) * msk
+        sites = Y[:, 2:] * msk
+        Pv = P0 + sites.sum(1)
+        Pv[driven] = Kt[topo.driver_map[driven]]
+        v = (topo.tf_mat @ Pv) / topo.tf_deg
+        u = v / (1.0 + np.abs(v))
+        act = p["A_i"] * (1.0 + p["tf_scale"] * u / (1.0 + u + 1e-6))
+        rep = p["A_i"] / (1.0 + p["tf_scale"] * np.abs(u))
+        fwd = S * (P0 / (1.0 + P0))[:, None]
+        back = p["E_i"][:, None] * sites
+        dY = np.zeros_like(Y)
+        dY[:, 0] = np.where(u >= 0.0, act, rep) - p["B_i"] * R
+        dY[:, 1] = (p["C_i"] * R / (1.0 + R) - p["D_i"] * P0 - fwd.sum(1) + back.sum(1))
+        dY[:, 2:] = (fwd - (p["Dp_i"] + p["D_i"][:, None]) * sites - back) * msk
+        return dY.reshape(-1)
+
+    return rhs
+
+
+def median_ms(fn, calls: int = STAGE_CALLS) -> tuple[float, float, float]:
+    """(median, least, most) device milliseconds of ``fn()`` over ``calls``
+    calls, each alone between CUDA events, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        start, stop = (torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True))
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times)), min(times), max(times)
+
+
+def stage_cut_model4(b4, thetas, objective, card) -> None:
+    """Where a model-4 chunk's time goes, each stage run on its own, the
+    median of ``STAGE_CALLS`` calls by CUDA events (the range beside it):
+    the softplus unpack, the block Jacobians and the in-scan phi builds of
+    every chunk of the plan (at y0), the whole batched simulate, the loss
+    (the objective's scorer on the simulated trajectories) and the whole
+    objective; sub-steps = simulate - Jacobians - phi builds, the one stage
+    taken by difference."""
+    system, grid = b4["system"], b4["grid"]
+    rhs = system.rhs
+    N, w = rhs.N, rhs.width
+    params_b = unpack_params(thetas, b4["slices"], b4["topo"])
+    P = thetas.shape[0]
+    seg_t0, seg_h, seg_jb = expo._plan(system, grid, 16.0)[:3]
+    _, c_h, c_jb, c_n = expo._chunk_plan(seg_t0, seg_h, seg_jb)
+    Y0 = torch.as_tensor(system.y0(), dtype=thetas.dtype, device="cuda")
+    Y0 = Y0[None].expand(P, N, w)
+
+    def jacobians():
+        return [rhs.jac_blocks_saturating(
+            Y0, rhs.site_rates(rhs.Kmat[:, int(jb)][None] * params_b["c_k"]), params_b)
+            .reshape(P * N, w, w).permute(1, 2, 0) for jb in c_jb]
+
+    Ls = jacobians()
+    hs = [torch.full((P * N,), float(h), dtype=thetas.dtype, device="cuda") for h in c_h]
+    ys, ok = expo.exponential_simulate_batched(system, params_b, grid)
+    score = _scorer(system, b4["loss_data"], b4["defaults"], b4["lambdas"], len(grid), 0,
+                    1e12, dense_loss=True)
+    timed = {"unpack": median_ms(lambda: unpack_params(thetas, b4["slices"], b4["topo"])),
+             "jacobians": median_ms(jacobians),
+             "phi_build": median_ms(lambda: [expo._phi_matrices_lanes(L, h)
+                                             for L, h in zip(Ls, hs)]),
+             "simulate": median_ms(lambda: expo.exponential_simulate_batched(
+                 system, params_b, grid)),
+             "loss": median_ms(lambda: score(params_b, ys, ok)),
+             "objective": median_ms(lambda: objective(thetas))}
+    ms = {k: v[0] for k, v in timed.items()}
+    ms["sub_steps"] = ms["simulate"] - ms["jacobians"] - ms["phi_build"]
+    say("8a model-4 stages", members=P, chunks=len(c_h), segments=int(c_n.sum()),
+        calls=STAGE_CALLS, **{k: f"{v:.3f}" for k, v in ms.items()}, unit="ms (median)",
+        **{f"{k}_range": f"{v[1]:.3f}-{v[2]:.3f}" for k, v in timed.items()},
+        phi_share=f"{ms['phi_build'] / ms['objective']:.3f}",
+        sub_step_share=f"{ms['sub_steps'] / ms['objective']:.3f}", card=repr(card))
+
+
+def phase_model4(card) -> tuple[dict, dict]:
+    """8a: the model-4 population objective at full width
+    (``build_demo_network(40, 12, model=4, seed=0)``, float32, N = 45, w =
+    6) at pop 2048 in one chunk, as ``benchmarks/model_rates.py``: no
+    table or scan kernel launched; F finite and within 1e-3 of the port's
+    float64 objective on the CPU on 64 members; the trajectory at the true
+    parameters within 5e-3 of SciPy LSODA (fold changes printed beside);
+    evals/s, one call profiled, the stage cut. Returns ({path: launches},
+    the bundle)."""
+    t0 = time.perf_counter()
+    b4 = build_demo_network(N_PROTEINS, N_KINASES, model=4, seed=0, dtype=torch.float32,
+                            device="cuda")
+    topo = b4["topo"]
+    thetas = population(b4, POP2)
+    say("8a setup", model=4, N=topo.N, w=topo.width, n_theta=len(b4["theta0"]),
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    objective = make_population_objective(*bundle_args(b4), pop_chunk=POP2)
+    objective(thetas)                      # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    F = objective(thetas)
+    torch.cuda.synchronize()
+    launches = counts()
+    if tuple(F.shape) != (POP2, 3) or not bool(torch.isfinite(F).all()):
+        raise AssertionError("8a: non-finite or misshapen objectives")
+    if launches != expect():
+        raise AssertionError(f"8a: model 4 launched {launches}; it runs no table or scan kernel")
+    s = b4["system"]
+    cpu = GlobalSystem(topo, s.kin_grid, s.Kmat, dtype=torch.float64, device="cpu")
+    Fc = make_population_objective(cpu, *bundle_args(b4)[1:])(thetas[:64].double().cpu())
+    rel = float(torch.max(torch.abs(F[:64].double().cpu() - Fc) / torch.abs(Fc)))
+    ms = cuda_ms(lambda: objective(thetas), 3)
+    say("8a model-4 main path", pop=POP2, chunk=POP2, F_shape=tuple(F.shape), finite=True,
+        launches=launches, vs_f64_cpu=f"{rel:.3e}", tol=F_RTOL,
+        evals_per_s=f"{POP2 / (ms / 1e3):.1f}", ms_per_pop=f"{ms:.3f}", card=repr(card))
+    if not rel <= F_RTOL:
+        raise AssertionError(f"8a: float32 on the card drifted from float64: {rel:.3e}")
+    say("8a model-4 profile", members=POP2, **profile_call(lambda: objective(thetas)))
+    stage_cut_model4(b4, thetas, objective, card)
+
+    from scipy.integrate import odeint
+    times = np.asarray(b4["grid"], float)
+    Y = odeint(oracle_rhs_model4(b4), s.y0().reshape(-1), times, rtol=1e-7, atol=1e-9,
+               mxstep=20000)
+    ys, ok = expo.exponential_simulate_batched(s, {k: np.asarray(v)[None]
+                                                   for k, v in b4["true"].items()}, times)
+    if not bool(ok[0]):
+        raise AssertionError("8a: the Rosenbrock path failed at the true parameters")
+    got = ys[0].double().cpu().numpy()
+    traj = float(np.max(np.abs(got - Y) / (np.abs(Y) + 1e-8)))
+    fc = rel_err(fold_changes_of(s, ys[0], times),
+                 fold_changes_np(Y.reshape(len(times), topo.N, topo.width), times,
+                                 topo.site_mask()))
+    say("8a model-4 accuracy", trajectory_max_rel_err=f"{traj:.3e}", gate=ROSENBROCK_GATE,
+        fold_change_max_rel_err=f"{fc:.3e}", dtype="float32",
+        oracle="LSODA rtol 1e-7 atol 1e-9")
+    if not traj < ROSENBROCK_GATE:
+        raise AssertionError(f"8a: the Rosenbrock path drifted from LSODA: {traj:.3e}")
+    return {"model4-pop2048": launches}, b4
+
+
+def esdirk_run(label, b64, thetas, card, want_flux: bool) -> tuple:
+    """One ``simulate_batched(solver="esdirk")`` on the card at float64
+    (rtol 1e-8, atol 1e-10) to ``ESDIRK_T_END``: its launches, the plain
+    flux's calls (none allowed), steps, seconds and ms a step; then the
+    step's parts timed alone at the run's shapes, each the median of single
+    calls between CUDA events (the ``torch.func`` Jacobian, the LU, one
+    RHS, one LU solve), and one short window under the profiler. Returns
+    (result, launches)."""
+    system = b64["system"]
+    params = unpack_params(thetas, b64["slices"], b64["topo"])
+    reset_counts()
+    hypercube_flux_reference.calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = simulate_batched(system, params, ESDIRK_TIMES, solver="esdirk", **ESDIRK_TOLS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = counts(), hypercube_flux_reference.calls
+    steps = res.n_steps.cpu().numpy()
+    if not bool(res.success.all()):
+        raise AssertionError(f"{label}: ESDIRK failed for {int((~res.success).sum())} members")
+    want = ESDIRK_FLUX_PER_STEP * int(steps.max()) + 1 if want_flux else 0
+    if plain or launches != expect(hypercube_flux=want):
+        raise AssertionError(f"{label}: launches {launches} (hypercube_flux: want {want}), "
+                             f"plain flux calls {plain}")
+    step_ms = 1e3 * wall / steps.max()
+    say(label, pop=len(thetas), d=b64["topo"].N * b64["topo"].width, t_end=ESDIRK_T_END,
+        steps_max=int(steps.max()), steps_median=f"{np.median(steps):.1f}",
+        seconds=f"{wall:.2f}", ms_per_step=f"{step_ms:.3f}", launches=launches,
+        plain_flux_calls=plain, card=repr(card))
+
+    rhs = system.rhs_batched(params)
+    P, d = res.ys.shape[0], res.ys.shape[2]
+    y, t = res.ys[:, -1].contiguous(), torch.zeros(P, dtype=torch.float64, device="cuda")
+    jb = torch.zeros(P, dtype=torch.long, device="cuda")
+    M = torch.eye(d, dtype=torch.float64, device="cuda") - 0.01 * batched_jacobian(rhs, t, y, jb)
+    lu, piv, _ = torch.linalg.lu_factor_ex(M)
+    timed = {"jacobian": median_ms(lambda: batched_jacobian(rhs, t, y, jb)),
+             "lu_factor": median_ms(lambda: torch.linalg.lu_factor_ex(M)),
+             "rhs": median_ms(lambda: rhs(t, y, jb), 9),
+             "lu_solve": median_ms(lambda: torch.linalg.lu_solve(lu, piv, y[:, :, None]), 9)}
+    part = {k: v[0] for k, v in timed.items()}
+    # a step: the Jacobian, one LU, 19 RHS (6 Newton iterations of 3 stages
+    # and the derivative after the step) and 18 LU solves
+    shares = {"jacobian": part["jacobian"], "lu_factor": part["lu_factor"],
+              "rhs_x19": 19 * part["rhs"], "lu_solve_x18": 18 * part["lu_solve"]}
+    say(f"{label} step parts", **{f"{k}_ms": f"{v:.3f}" for k, v in part.items()},
+        **{f"{k}_range": f"{v[1]:.3f}-{v[2]:.3f}" for k, v in timed.items()},
+        **{f"{k}_share": f"{v / step_ms:.3f}" for k, v in shares.items()},
+        rest_share=f"{1 - sum(shares.values()) / step_ms:.3f}", card=repr(card))
+    say(f"{label} profile", window="5 steps", **profile_call(lambda: simulate_batched(
+        system, params, ESDIRK_TIMES, solver="esdirk", rtol=1e-8, atol=1e-10,
+        max_steps=5)))
+    return res, launches
+
+
+def phase_esdirk(b, b2, thetas, thetas2, card) -> dict:
+    """8b, on the card: ESDIRK on the model-2 bench network at float64 (N =
+    45, w = 17, d = 765) at pop 16 and on model 0 at pop 64 (rtol 1e-8,
+    atol 1e-10) over the first ``ESDIRK_T_END`` minutes, across the first
+    kinase boundary; the model-2 run launches the flux kernel 21 times a
+    loop iteration (its Jacobian twice, through the kernel's forward-mode
+    and vmap rules) and never the plain version; the Jacobian by the kernel
+    against the one by the plain flux.
+    Each run's ys against tight RK45 (:func:`check_esdirk`). Returns
+    {path: launches}."""
+    b64, b2_64 = at_float64(b), at_float64(b2)
+    if not np.asarray(b64["system"].kin_grid)[1] < ESDIRK_T_END:
+        raise AssertionError("8b: the window ends before the first kinase boundary")
+    th2, th0 = thetas2[:ESDIRK_POP[2]].double(), thetas[:ESDIRK_POP[0]].double()
+    params = unpack_params(th2, b2_64["slices"], b2_64["topo"])
+    system = b2_64["system"]
+    d = system.topo.N * system.topo.width
+    y = torch.as_tensor(system.y0().reshape(1, -1), dtype=torch.float64,
+                        device="cuda").expand(len(th2), d) * 1.1
+    t = torch.zeros(len(th2), dtype=torch.float64, device="cuda")
+    jb = torch.full((len(th2),), 3, dtype=torch.long, device="cuda")
+    reset_counts()
+    hypercube_flux_reference.calls = 0
+    J = batched_jacobian(system.rhs_batched(params), t, y, jb)
+    torch.cuda.synchronize()
+    jac_launches, plain = counts()["hypercube_flux"], hypercube_flux_reference.calls
+    J_plain = batched_jacobian(system.rhs_batched(params, use_kernel=False), t, y, jb)
+    err, scaled = scaled_err(J, J_plain)
+    say("8b esdirk jacobian", model=2, pop=len(th2), d=d, flux_launches=jac_launches,
+        plain_flux_calls=plain, max_abs_err=f"{err:.3e}", scaled=f"{scaled:.3e}",
+        tol=SCALED_TOL[torch.float64], reference="the plain flux's Jacobian",
+        card=repr(card))
+    if plain or jac_launches != 2 or not scaled <= SCALED_TOL[torch.float64]:
+        raise AssertionError(f"8b: the Jacobian through the flux kernel ({jac_launches} "
+                             f"launches, {plain} plain calls) differs: {scaled:.3e}")
+    del J, J_plain
+    paths = {}
+    for model, bb, th in ((2, b2_64, th2), (0, b64, th0)):
+        label = f"8b esdirk model-{model}"
+        res, paths[f"esdirk-model{model}-pop{len(th)}"] = esdirk_run(
+            label, bb, th, card, want_flux=model == 2)
+        check_esdirk(label, bb, th, res.ys)
+    return paths
+
+
+def check_esdirk(label, b64, thetas, ys) -> None:
+    """8b's gate: ESDIRK's ys against RK45 at rtol 1e-8 / atol 1e-10 on the
+    same members (float64 on the CPU), within rtol 1e-5 / atol 1e-7."""
+    s = b64["system"]
+    cpu = GlobalSystem(s.topo, s.kin_grid, s.Kmat, dtype=torch.float64, device="cpu")
+    params = unpack_params(thetas.cpu(), b64["slices"], b64["topo"])
+    ref = simulate_batched(cpu, params, ESDIRK_TIMES, rtol=1e-8, atol=1e-10,
+                           max_steps=ESDIRK_TOLS["max_steps"])
+    want, got = ref.ys.numpy(), ys.cpu().numpy()
+    bad = np.abs(got - want) > ESDIRK_RTOL * np.abs(want) + ESDIRK_ATOL
+    worst = float(np.max(np.abs(got - want) / (ESDIRK_RTOL * np.abs(want) + ESDIRK_ATOL)))
+    say(f"{label} vs rk45", members=len(got), entries_off=int(bad.sum()),
+        worst_share_of_tol=f"{worst:.3f}", rtol=ESDIRK_RTOL, atol=ESDIRK_ATOL,
+        max_abs_err=f"{float(np.max(np.abs(got - want))):.3e}",
+        rk45_steps_max=int(ref.n_steps.max()),
+        reference="RK45 rtol 1e-8 atol 1e-10, float64, CPU")
+    if bad.any() or not bool(ref.success.all()):
+        raise AssertionError(f"{label}: ESDIRK drifted from RK45 at {int(bad.sum())} entries")
+
+
+def phase_expo(b, b4, thetas, card) -> None:
+    """8c: the per-candidate exponential integrator (``solver="expo"``):
+    ``simulate`` of models 0 and 4 at the true parameters against the
+    batched path (the ETD2RK tables, the Rosenbrock path), and
+    ``make_objective(solver="expo")`` at pop 64 on model 0 against the
+    population objective, rel 1e-3 in float32; times."""
+    for bb in (b, b4):
+        system, times = bb["system"], np.asarray(bb["grid"], float)
+        one = lambda: simulate(system, bb["true"], times, solver="expo")
+        batched = lambda: expo.exponential_simulate_batched(
+            system, {k: np.asarray(v)[None] for k, v in bb["true"].items()}, times)
+        got, want = one(), batched()
+        rel = float(torch.max(torch.abs(got.ys - want[0][0]) / (torch.abs(want[0][0]) + 1e-6)))
+        say("8c expo simulate", model=bb["topo"].model, max_rel_err=f"{rel:.3e}", tol=F_RTOL,
+            reference="exponential_simulate_batched", steps=int(got.n_steps),
+            ms=f"{cuda_ms(one, 1):.3f}", batched_ms=f"{cuda_ms(batched, 1):.3f}",
+            card=repr(card))
+        if not (bool(got.success) and rel <= F_RTOL):
+            raise AssertionError(f"8c: simulate(solver='expo') of model {bb['topo'].model} "
+                                 f"drifted: {rel:.3e}")
+    th = thetas[:EXPO_POP]
+    per_candidate = make_objective(*bundle_args(b), solver="expo")
+    population_obj = make_population_objective(*bundle_args(b))
+    F, Fp = per_candidate(th), population_obj(th)
+    rel = float(torch.max(torch.abs(F - Fp) / torch.abs(Fp)))
+    ms = cuda_ms(lambda: per_candidate(th), 1)
+    say("8c expo objective", model=0, pop=EXPO_POP, max_rel_err=f"{rel:.3e}", tol=F_RTOL,
+        reference="make_population_objective", evals_per_s=f"{EXPO_POP / (ms / 1e3):.1f}",
+        ms=f"{ms:.3f}", population_ms=f"{cuda_ms(lambda: population_obj(th), 1):.3f}",
+        card=repr(card))
+    if not (bool(torch.isfinite(F).all()) and rel <= F_RTOL):
+        raise AssertionError(f"8c: make_objective(solver='expo') drifted: {rel:.3e}")
+
+
 def population(b, pop: int) -> torch.Tensor:
     """theta0 plus seeded noise, as bench.py and benchmarks/model_rates.py."""
     rng = np.random.default_rng(0)
@@ -1783,6 +2152,10 @@ def main() -> int:
     finish_rk45_workers(pool, futures, F_rk45, {0: lsoda_fold_changes(b),
                                                  2: lsoda_fold_changes(b2)}, card)
     paths.update(phase_global_fit(b, card))
+    model4_paths, b4 = phase_model4(card)
+    paths.update(model4_paths)
+    paths.update(phase_esdirk(b, b2, thetas, thetas2, card))
+    phase_expo(b, b4, thetas, card)
     for group, group_paths in (([kernel, wide, scan, flux, thomas], paths),
                                (f64_entries, paths64), ([probe], probe_paths)):
         for entry in group:

@@ -3,7 +3,7 @@
 Counterpart of ``phoskintime_tpu/demo.py::build_demo_network``. The same
 numpy ``default_rng`` draws in the same order give the same topology,
 kinase input, true parameters and raw packing as the JAX package, for
-every mechanism the port runs (0, 1, 2). The synthetic observations are
+every mechanism (0, 1, 2 and 4). The synthetic observations are
 the fold changes at the true parameters, as the JAX package's
 ``simulate_and_measure`` makes them: RK45 (``rtol=1e-5``, ``atol=1e-7``,
 ``max_steps=5000``, ``dt_max=16``) at the bundle's dtype on the CPU, over

@@ -1,9 +1,11 @@
 """Exponential (ETD2RK) integrator for the global network model, batched
 over a population.
 
-Counterpart of ``phoskintime_tpu/network/expo.py::
-exponential_simulate_batched`` for the affine mechanisms 0, 1 and 2.
-Within one kinase bucket the RHS splits as dy = L y + g(y): L is
+Counterpart of ``phoskintime_tpu/network/expo.py``:
+:func:`exponential_simulate_batched` (the population path) and
+:func:`exponential_simulate` (the per-candidate path of ``solver="expo"``,
+with a leading population axis). For the affine mechanisms 0, 1 and 2,
+within one kinase bucket the RHS splits as dy = L y + g(y): L is
 block-diagonal per protein (width w = 2 + Smax, or 1 + 2^Smax for the
 combinatorial mechanism) and g is the synthesis drive in the R slot, the
 only coupling between proteins. Each segment of the static plan takes the
@@ -29,6 +31,14 @@ the tables, the state and the synthesis drive all keep the lane axis last.
 The unbucketed scan runs eagerly (:func:`_full_scan`, one launch per
 operation) or, with ``use_scan_kernel=True``, as one kernel
 (:func:`~phoskintime_tpu_torch.ops.scan_kernel.etd2rk_scan`).
+
+The saturating mechanism (4) has a state-dependent linear part, so no
+static table exists: it integrates by the exponential-Rosenbrock variant
+of the same step (:func:`_rosenbrock_simulate_batched`), the block
+Jacobian refreshed and the full E, Phi1, Phi2 matrices built
+(:func:`_phi_matrices_lanes`, plain PyTorch, as XLA builds them in the
+JAX package) at the entry of every chunk of equal-(h, bucket) segments
+(:func:`_chunk_plan`).
 """
 
 from __future__ import annotations
@@ -38,8 +48,10 @@ from functools import cached_property, lru_cache
 import numpy as np
 import torch
 
-from phoskintime_tpu_torch.network.rhs import check_model, synthesis_rate
-from phoskintime_tpu_torch.ops.phi_tables import ladder_len, phi_tables
+from phoskintime_tpu_torch.network.rhs import synthesis_rate
+from phoskintime_tpu_torch.ops.integrators import ODEResult
+from phoskintime_tpu_torch.ops.phi_tables import (_MAX_SQUARINGS, _mm_lanes, ladder_len,
+                                                  phi_tables)
 from phoskintime_tpu_torch.ops.scan_kernel import etd2rk_scan, prepare_scan_plan
 
 
@@ -415,12 +427,22 @@ def exponential_simulate_batched(system, params_b: dict, t_eval,
     in the JAX package) or False runs the eager scan; True runs the whole
     unbucketed scan as one :func:`etd2rk_scan`. The width-bucketed model-2
     path ignores it.
+
+    Model 4 takes the exponential-Rosenbrock path
+    (:func:`_rosenbrock_simulate_batched`) before any table or layout
+    choice, so ``use_kernel``, ``width_bucketing`` and ``use_scan_kernel``
+    do not apply to it, as in the JAX package.
     """
     if differentiable:
         raise NotImplementedError(
-            "differentiable=True is not ported yet (ROADMAP.md queue 1: "
+            "differentiable=True is not ported yet (ROADMAP.md queue 1 item 4, "
             "'Gradients and polish')")
-    check_model(system.topo.model)
+    if system.topo.model == 4:
+        params_b, y0 = _setup(system, params_b, y0)
+        P, d = params_b["c_k"].shape[0], y0.numel()
+        seg_t0, seg_h, seg_jb, out_idx = _plan(system, t_eval, substep)[:4]
+        return _rosenbrock_simulate_batched(system, params_b, y0.reshape(1, d).expand(P, d),
+                                            seg_t0, seg_h, seg_jb, out_idx)
     scan = ScanSetup(system, params_b, t_eval, substep, y0, use_kernel, width_bucketing)
     if use_scan_kernel and not scan.classes:
         ys = scan.run_kernel(use_kernel)
@@ -550,3 +572,222 @@ def _class_scan(system, params_b, y0, classes, tables, runs, out_pos, seg_uidx,
         parts.append(full.reshape(T, w, P, nc))
     ys_p = torch.cat(parts, dim=3)                                # (T, w, P, N) permuted
     return ys_p[..., inv].permute(2, 0, 3, 1).reshape(P, T, N * w)
+
+
+# ---------------------------------------------------------------------------
+# full phi matrices: the per-candidate path and model 4
+# ---------------------------------------------------------------------------
+
+# model 4's segments a chunk, one Jacobian and one phi build each (the JAX
+# package's default)
+_CHUNK = 8
+
+
+def _phi_matrices_lanes(L, h):
+    """E = expm(L h), Phi1 = h phi1(L h) and Phi2 = h^2 phi2(L h) as full
+    matrices, lane layout: L (w, w, B), h (B,) -> three (w, w, B).
+
+    Scaling, Taylor series (12 terms at radius 0.25 for float64, 8 at 0.5
+    for float32) and the doubling identities
+
+        E(2h) = E(h)^2,  Phi1(2h) = (I + E) Phi1,  Phi2(2h) = (I + E) Phi2 + h Phi1.
+
+    The squaring ladder runs to the largest squaring count of the finite
+    lanes (one non-finite lane does not set the others' trip count; it
+    never steps), each lane's count clipped to 24: the JAX package's
+    dynamic ladder. Its masked and static (``unroll``) ladders give the
+    same matrices wherever their trip count covers every lane's."""
+    w, B = L.shape[0], L.shape[-1]
+    taylor_terms, rad = (12, 0.25) if L.dtype == torch.float64 else (8, 0.5)
+    A = L * h
+    norm = torch.amax(torch.sum(torch.abs(A), dim=1), dim=0)
+    s = torch.ceil(torch.log2(torch.clamp(norm, min=1e-30) / rad))
+    s = torch.clamp(s, min=0.0, max=float(_MAX_SQUARINGS))
+    scale = torch.exp2(s)
+    A = A / scale
+    hs = h / scale
+
+    eye = torch.eye(w, dtype=L.dtype, device=L.device)[:, :, None]
+    E = eye.expand(w, w, B)
+    for k in range(taylor_terms, 0, -1):
+        E = eye + _mm_lanes(A / k, E)
+    term = F1 = eye.expand(w, w, B)
+    F2 = F1 / 2.0
+    for k in range(1, taylor_terms + 1):
+        term = _mm_lanes(term, A) / k                 # A^k / k!
+        F1 = F1 + term / (k + 1)
+        F2 = F2 + term / ((k + 1) * (k + 2))
+    Phi1 = F1 * hs
+    Phi2 = F2 * (hs * hs)
+
+    hc = hs
+    for i in range(int(torch.nan_to_num(s, nan=0.0).max()) if B else 0):
+        go = i < s
+        P2n = Phi2 + _mm_lanes(E, Phi2) + Phi1 * hc
+        P1n = Phi1 + _mm_lanes(E, Phi1)
+        E = torch.where(go, _mm_lanes(E, E), E)
+        Phi1 = torch.where(go, P1n, Phi1)
+        Phi2 = torch.where(go, P2n, Phi2)
+        hc = torch.where(go, 2.0 * hc, hc)
+    return E, Phi1, Phi2
+
+
+def _to_lanes(Y, w: int):
+    """(P, N*w) member states -> (w, P*N) slot planes, lanes member-major."""
+    return Y.reshape(-1, w).T
+
+
+def _from_lanes(yl, P: int):
+    """(w, P*N) -> (P, N*w)."""
+    return yl.T.reshape(P, -1)
+
+
+def _remainder_fn(system, params_b: dict, P: int):
+    """g(t, yl, jb, L) = rhs(yl) - L yl in lane layout: the part of the RHS
+    the frozen linear operator L (w, w, P*N) leaves, the whole RHS
+    evaluated for every member in bucket ``jb``."""
+    rhs = system.rhs
+    dev = rhs.Kmat.device
+
+    def g_of(t, yl, jb: int, L):
+        jbv = torch.full((P,), int(jb), dtype=torch.long, device=dev)
+        r = rhs.batched(t, _from_lanes(yl, P), jbv, params_b)
+        return _to_lanes(r, rhs.width) - _lanes_mv(L, yl)
+
+    return g_of
+
+
+def _select_outputs(states, out_idx, P: int, N: int, w: int):
+    """ys (P, T, N*w) from [y0] + one state per segment, at ``out_idx + 1``."""
+    sel = torch.stack(states)[torch.as_tensor(np.asarray(out_idx) + 1,
+                                              device=states[0].device)]
+    T = len(out_idx)
+    return sel.reshape(T, w, P, N).permute(2, 0, 3, 1).reshape(P, T, N * w)
+
+
+def _chunk_plan(seg_t0, seg_h, seg_jb):
+    """Chunks of at most ``_CHUNK`` consecutive segments sharing h and the
+    bucket (and contiguous in t): model 4 freezes its block Jacobian, and
+    so its phi matrices, for a chunk. Returns (c_t0, c_h, c_jb, c_n),
+    c_n the segments of each chunk. The JAX package also returns the map of
+    its padded chunk slots; the port keeps no padded slot, so the
+    segments' own ``out_idx`` serves."""
+    S = len(seg_t0)
+    c_t0, c_h, c_jb, c_n = [], [], [], []
+    i = 0
+    while i < S:
+        j = i + 1
+        while (j < S and j - i < _CHUNK and seg_jb[j] == seg_jb[i]
+               and seg_h[j] == seg_h[i]
+               and abs(seg_t0[j] - (seg_t0[j - 1] + seg_h[j - 1])) < 1e-9):
+            j += 1
+        c_t0.append(seg_t0[i])
+        c_h.append(seg_h[i])
+        c_jb.append(seg_jb[i])
+        c_n.append(j - i)
+        i = j
+    return (np.asarray(c_t0), np.asarray(c_h), np.asarray(c_jb, np.int32),
+            np.asarray(c_n, np.int32))
+
+
+def _rosenbrock_simulate_batched(system, params_b: dict, y0b, seg_t0, seg_h, seg_jb,
+                                 out_idx):
+    """Model 4: exponential Rosenbrock (exprb2 with the ETD2RK inner
+    stage). At each chunk's entry the block Jacobian at the current state
+    (:meth:`PaddedRHS.jac_blocks_saturating`, TF input frozen) is taken as
+    L and the full phi matrices are built once; every segment of the chunk
+    then steps with the remainder g = rhs - L y evaluated exactly.
+    ``params_b`` tensors with a leading P, y0b (P, N*w). Returns (ys (P, T,
+    N*w), success (P,))."""
+    rhs = system.rhs
+    N, w = rhs.N, rhs.width
+    P = y0b.shape[0]
+    f = dict(dtype=y0b.dtype, device=y0b.device)
+    g_of = _remainder_fn(system, params_b, P)
+    yl = _to_lanes(y0b, w)
+    states = [yl]
+    for t0, h, jb, n in zip(*_chunk_plan(seg_t0, seg_h, seg_jb)):
+        Kt = rhs.Kmat[:, int(jb)][None, :] * params_b["c_k"]          # (P, K)
+        Y = _from_lanes(yl, P).reshape(P, N, w)
+        L = rhs.jac_blocks_saturating(Y, rhs.site_rates(Kt), params_b)
+        L = L.reshape(P * N, w, w).permute(1, 2, 0)                    # (w, w, P*N)
+        Es, P1, P2 = _phi_matrices_lanes(L, torch.full((P * N,), float(h), **f))
+        P2h = P2 / float(h)
+        for k in range(int(n)):
+            t = float(t0) + k * float(h)
+            g_n = g_of(t, yl, jb, L)
+            a = _lanes_mv(Es, yl) + _lanes_mv(P1, g_n)
+            g_a = g_of(t + float(h), a, jb, L)
+            yl = a + _lanes_mv(P2h, g_a - g_n)
+            states.append(yl)
+    ys = _select_outputs(states, out_idx, P, N, w)
+    return ys, torch.isfinite(ys).all(dim=2).all(dim=1)
+
+
+def exponential_simulate(system, params_b: dict, t_eval, substep: float = 16.0,
+                         y0=None) -> ODEResult:
+    """The per-candidate exponential integrator of ``solver="expo"``, over
+    a population: every leaf of ``params_b`` has a leading axis P; ``y0``
+    None (the system's), one padded state or (P, N*w). Returns ys (P, T,
+    N*w), success (P,) and the segment count as each member's steps.
+
+    Counterpart of ``jax.vmap`` of the JAX package's
+    ``exponential_simulate``. Models 0-2: full E, Phi1, Phi2 matrices per
+    (bucket, h) pair (:func:`_phi_matrices_lanes`), the blocks the batched
+    path writes out, and per segment the ETD2RK step with the remainder g
+    = rhs - L y of the whole RHS. Model 4: the exponential-Rosenbrock path
+    of :func:`exponential_simulate_batched`."""
+    rhs = system.rhs
+    N, w = rhs.N, rhs.width
+    f = dict(dtype=rhs.Kmat.dtype, device=rhs.Kmat.device)
+    params_b = {k: torch.as_tensor(v, **f) for k, v in params_b.items()}
+    P = params_b["c_k"].shape[0]
+    y0b = torch.as_tensor(system.y0() if y0 is None else y0, **f)
+    y0b = y0b.reshape(-1, N * w).expand(P, N * w)
+    seg_t0, seg_h, seg_jb, out_idx, seg_uidx, u_jb, u_h = _plan(system, t_eval, substep)
+    S = len(seg_t0)
+    if system.topo.model == 4:
+        ys, success = _rosenbrock_simulate_batched(system, params_b, y0b, seg_t0, seg_h,
+                                                   seg_jb, out_idx)
+    else:
+        bucket_uniq, bucket_inv = np.unique(u_jb, return_inverse=True)
+        blocks = _block_linear_operators if system.topo.model == 2 else _linear_blocks_lanes
+        L_b = blocks(system, params_b, bucket_uniq)                   # (Bu, w, w, P*N)
+        tables = [_phi_matrices_lanes(L_b[int(b)], torch.full((P * N,), float(h), **f))
+                  for b, h in zip(bucket_inv, u_h)]
+        g_of = _remainder_fn(system, params_b, P)
+        yl = _to_lanes(y0b, w)
+        states = [yl]
+        for t0, h, jb, u in zip(seg_t0, seg_h, seg_jb, seg_uidx):
+            Es, P1, P2 = tables[int(u)]
+            L = L_b[int(bucket_inv[int(u)])]
+            g_n = g_of(float(t0), yl, jb, L)
+            a = _lanes_mv(Es, yl) + _lanes_mv(P1, g_n)
+            g_a = g_of(float(t0 + h), a, jb, L)
+            yl = a + _lanes_mv(P2 / float(h), g_a - g_n)
+            states.append(yl)
+        ys = _select_outputs(states, out_idx, P, N, w)
+        success = torch.isfinite(ys).all(dim=2).all(dim=1)
+    steps = torch.full((P,), S, dtype=torch.int32, device=f["device"])
+    return ODEResult(ys, success, steps, steps)
+
+
+def _jac_blocks_batched(system, params_b: dict, Yb, jb: int):
+    """(P, N, w, w) block Jacobians of the RHS at the states Yb (P, N, w),
+    the TF input frozen: w ``torch.func.jvp`` passes a member (column j
+    lights slot j of every protein at once, exact as the frozen-input RHS
+    is block-diagonal), vmapped over the members. The check on
+    :meth:`PaddedRHS.jac_blocks_saturating`, as in the JAX package."""
+    rhs = system.rhs
+    N, w = rhs.N, rhs.width
+    u0 = Yb.new_zeros(N)
+    basis = torch.eye(w, dtype=Yb.dtype, device=Yb.device)[:, None, :].expand(w, N, w)
+    basis = basis.reshape(w, N * w)
+
+    def one(Y, p):
+        def column(v):
+            return torch.func.jvp(lambda z: rhs(0.0, z, jb, p, u_override=u0),
+                                  (Y.reshape(-1),), (v,))[1].reshape(N, w)
+        return torch.func.vmap(column)(basis).permute(1, 2, 0)    # (N, w, w)
+
+    return torch.func.vmap(one)(Yb, params_b)

@@ -1,9 +1,10 @@
 """Population objectives: thetas (P, n) -> F (P, 3).
 
 Counterpart of ``phoskintime_tpu/network/objective.py``. One evaluation
-unpacks the softplus parameters, integrates with the batched ETD2RK path
-(:mod:`phoskintime_tpu_torch.network.expo`, :func:`make_population_objective`)
-or the RK45 oracle (:func:`make_objective`), and scores the three
+unpacks the softplus parameters, integrates with the batched exponential
+path (:mod:`phoskintime_tpu_torch.network.expo`,
+:func:`make_population_objective`) or an oracle solver
+(:func:`make_objective`), and scores the three
 modalities (protein, RNA, phospho) with a robust loss, each weight-sum
 normalized, plus a prior-adherence penalty added to all three. A member
 whose integration fails or whose losses are not finite gets ``fail_value``.
@@ -16,10 +17,10 @@ import math
 import numpy as np
 import torch
 
-from phoskintime_tpu_torch.network.expo import exponential_simulate_batched
+from phoskintime_tpu_torch.network.expo import (exponential_simulate,
+                                                exponential_simulate_batched)
 from phoskintime_tpu_torch.network.params import unpack_params
-from phoskintime_tpu_torch.network.simulate import (check_solver, extract_observables,
-                                                    simulate_batched)
+from phoskintime_tpu_torch.network.simulate import extract_observables, simulate_batched
 from phoskintime_tpu_torch.ops.losses import robust_loss
 
 EPS = 1e-9
@@ -89,6 +90,20 @@ def _auto_pop_chunk(n_proteins: int, lanes_target: int = 81920) -> int:
     The same policy as the JAX package; not yet tuned on the GPU."""
     return min(8192, max(256, 2 ** round(
         math.log2(max(1.0, lanes_target / max(1, n_proteins))))))
+
+
+# entries of ESDIRK's (P, d, d) Jacobians in one population chunk: 268 MB
+# at float64; the vmapped RHS of the d tangent columns holds tensors of the
+# same size. Sized for memory, not tuned.
+_ESDIRK_JACOBIAN_ENTRIES = 1 << 25
+
+
+def _esdirk_pop_chunk(n_proteins: int, d: int) -> int:
+    """ESDIRK's population chunk: the largest power of two P with P d^2 at
+    most ``_ESDIRK_JACOBIAN_ENTRIES``, at least 1 and at most
+    :func:`_auto_pop_chunk`."""
+    fit = max(1, _ESDIRK_JACOBIAN_ENTRIES // (d * d))
+    return min(_auto_pop_chunk(n_proteins), 1 << (fit.bit_length() - 1))
 
 
 def _scorer(system, loss_data, defaults, lambdas, n_times: int, loss_mode: int,
@@ -170,7 +185,8 @@ def make_population_objective(system, slices, loss_data, defaults, lambdas,
                               differentiable=False, pop_chunk="auto",
                               width_bucketing=None, use_scan_kernel=None):
     """Batched objective ``thetas (P, n) -> F (P, 3)`` on the system's
-    device and dtype, by the ETD2RK integrator.
+    device and dtype, by :func:`exponential_simulate_batched` (ETD2RK for
+    models 0-2, exponential Rosenbrock for model 4).
 
     ``pop_chunk``: see :func:`_in_chunks`. ``use_kernel`` goes to the
     propagator-table build (None: the
@@ -182,7 +198,7 @@ def make_population_objective(system, slices, loss_data, defaults, lambdas,
     ``differentiable=True`` is not ported yet and raises."""
     if differentiable:
         raise NotImplementedError(
-            "differentiable=True is not ported yet (ROADMAP.md queue 1: "
+            "differentiable=True is not ported yet (ROADMAP.md queue 1 item 4, "
             "'Gradients and polish')")
     t_eval = np.asarray(time_grid, float)
     score = _scorer(system, loss_data, defaults, lambdas, len(t_eval), loss_mode,
@@ -208,31 +224,40 @@ def make_population_objective(system, slices, loss_data, defaults, lambdas,
 
 def make_objective(system, slices, loss_data, defaults, lambdas, time_grid,
                    loss_mode=0, fail_value=1e12, rtol=1e-5, atol=1e-7,
-                   max_steps=5000, y0=None, solver="rk45", pop_chunk="auto",
-                   use_kernel=None):
-    """The RK45 oracle objective, batched: ``thetas (P, n) -> F (P, 3)``,
-    the counterpart of ``jax.vmap`` of the JAX package's ``make_objective``.
+                   max_steps=5000, y0=None, solver="rk45", substep=16.0,
+                   pop_chunk="auto", use_kernel=None):
+    """The oracle objective, batched: ``thetas (P, n) -> F (P, 3)``, the
+    counterpart of ``jax.vmap`` of the JAX package's ``make_objective``.
 
-    Each member unpacks its softplus parameters, integrates with
+    Each member unpacks its softplus parameters and integrates on its own:
+    ``solver="expo"`` by the per-candidate
+    :func:`~phoskintime_tpu_torch.network.expo.exponential_simulate`
+    (``substep``), any other name by
     :func:`~phoskintime_tpu_torch.network.simulate.simulate_batched`
-    (``rtol``, ``atol``, ``max_steps``; each member steps on its own) and is
-    scored by the gathers of :func:`modality_losses` plus the prior
-    penalty; ``fail_value`` where its integration failed or a loss is not
-    finite. ``pop_chunk`` as :func:`make_population_objective`;
+    (``"esdirk"`` or RK45; ``rtol``, ``atol``, ``max_steps``). It is scored
+    by the gathers of :func:`modality_losses` plus the prior penalty;
+    ``fail_value`` where its integration failed or a loss is not finite.
+    ``pop_chunk`` as :func:`make_population_objective`, except that
+    ``"auto"`` sizes ESDIRK's chunk by its Jacobians (:func:`_esdirk_pop_chunk`);
     ``use_kernel`` goes to the model-2 edge flux (False: its plain
-    version). Solvers other than ``"rk45"`` raise. After each call,
+    version). After each call,
     ``objective.n_steps`` holds the (P,) int32 step counts of its members."""
-    check_solver(solver)
     t_eval = np.asarray(time_grid, float)
     score = _scorer(system, loss_data, defaults, lambdas, len(t_eval), loss_mode,
                     fail_value, dense_loss=False)
     topo = system.topo
     steps = []
+    if solver == "esdirk" and isinstance(pop_chunk, str):
+        pop_chunk = _esdirk_pop_chunk(topo.N, topo.N * topo.width)
 
     def objective_chunk(thetas):
         params_b = unpack_params(thetas, slices, topo)
-        res = simulate_batched(system, params_b, t_eval, rtol=rtol, atol=atol,
-                               max_steps=max_steps, y0=y0, use_kernel=use_kernel)
+        if solver == "expo":
+            res = exponential_simulate(system, params_b, t_eval, substep=substep, y0=y0)
+        else:
+            res = simulate_batched(system, params_b, t_eval, rtol=rtol, atol=atol,
+                                   max_steps=max_steps, y0=y0, solver=solver,
+                                   use_kernel=use_kernel)
         steps.append(res.n_steps)
         return score(params_b, res.ys, res.success)
 

@@ -84,9 +84,10 @@ def run_global_fit(system, slices, loss_data, defaults, lambdas, time_grid,
                    gens_per_dispatch=1, gn_iters=0) -> GlobalFitResult:
     """End-to-end global fit on the system's device and dtype.
 
-    solver: "auto" and "expo" take the batched ETD2RK objective
-    (:func:`make_population_objective`), "rk45" the RK45 oracle
-    (:func:`make_objective`); the others raise as ``make_objective`` does.
+    solver: "auto" and "expo" take the batched exponential objective
+    (:func:`make_population_objective`: ETD2RK for models 0-2, exponential
+    Rosenbrock for model 4); any other name the oracle objective
+    (:func:`make_objective`: "esdirk", else RK45), as in the JAX package.
 
     device_variation (default True) runs tournament, SBX, PM and clone
     repair on the device beside the population objective, leaving only

@@ -1,16 +1,18 @@
-"""Right-hand side of the global network model, mechanisms 0, 1 and 2.
+"""Right-hand side of the global network model, mechanisms 0, 1, 2 and 4.
 
 Counterpart of ``phoskintime_tpu/network/rhs.py``: distributive (0),
-sequential (1) and combinatorial (2, the hypercube of phospho-states)
-phosphorylation with the rational soft-clipped synthesis rate, over the
-padded (N, width) state. The saturating mechanism (4) is ROADMAP queue 1
-item "Mechanism 4 on the objective" and raises ``NotImplementedError``.
+sequential (1), combinatorial (2, the hypercube of phospho-states) and
+saturating (4, Michaelis-Menten) phosphorylation with the rational
+soft-clipped synthesis rate, over the padded (N, width) state.
 
-Within one kinase bucket these mechanisms are affine in the state; the
+Within one kinase bucket mechanisms 0-2 are affine in the state; the
 only coupling between proteins is the TF input u, and with u frozen the
 linear part is block-diagonal (:meth:`PaddedRHS.linear_blocks` for
 models 0/1, ``network/expo.py::_block_linear_operators`` for model 2).
-That is the structure the exponential integrator uses.
+That is the structure the exponential integrator uses. Model 4's
+translation and forward fluxes saturate, so its block Jacobian depends on
+the state (:meth:`PaddedRHS.jac_blocks_saturating`), which the
+exponential-Rosenbrock path refreshes as it goes.
 """
 
 from __future__ import annotations
@@ -23,14 +25,10 @@ import torch
 from phoskintime_tpu_torch.config.numerics import DEFAULT_DEVICE, resolve_device
 from phoskintime_tpu_torch.ops.hypercube_flux import hypercube_flux
 
-_NOT_PORTED = ("model {} is not ported yet (ROADMAP.md queue 1: "
-               "'Mechanism 4 on the objective')")
-
-
 def check_model(model: int) -> None:
-    """Raise for a mechanism the port does not cover yet."""
-    if int(model) not in (0, 1, 2):
-        raise NotImplementedError(_NOT_PORTED.format(model))
+    """Raise for a mechanism id outside 0, 1, 2 and 4."""
+    if int(model) not in (0, 1, 2, 4):
+        raise ValueError(f"model {model} is not a mechanism (0, 1, 2 or 4)")
 
 
 @lru_cache(maxsize=None)
@@ -141,6 +139,8 @@ class PaddedRHS:
             return self._rhs_combinatorial(Y, S, synth, p, use_kernel)
         if self.model == 1:
             return self._rhs_sequential(Y, S, synth, p)
+        if self.model == 4:
+            return self._rhs_saturating(Y, S, synth, p)
         return self._rhs_distributive(Y, S, synth, p)
 
     def _rhs_distributive(self, Y, S, synth, p):
@@ -153,6 +153,22 @@ class PaddedRHS:
         d_sites = (Sm * P0[..., None]
                    - (E[..., None] + Dp + D[..., None]) * sites) * msk
         dP0 = C * R - (D + Sm.sum(-1)) * P0 + E * sites.sum(-1)
+        return torch.cat([dR[..., None], dP0[..., None], d_sites], dim=-1)
+
+    def _rhs_saturating(self, Y, S, synth, p):
+        """Model 4: translation C R / (1 + R) and per-site forward fluxes
+        S_j P0 / (1 + P0) saturate; back-steps at E, decay Dp_j + D."""
+        B, C, D, E, Dp = p["B_i"], p["C_i"], p["D_i"], p["E_i"], p["Dp_i"]
+        msk = self.site_mask
+        R, P0, sites = Y[..., 0], Y[..., 1], Y[..., 2:] * msk
+        Sm = S * msk
+        dR = synth - B * R
+        trans = (C * R) / (1.0 + R)
+        fflux = (Sm * P0[..., None]) / (1.0 + P0[..., None])
+        back = E[..., None] * sites
+        d_sites = (fflux - (Dp + D[..., None]) * sites - back) * msk
+        dP0 = (trans - D * P0 - torch.sum(fflux * msk, dim=-1)
+               + torch.sum(back * msk, dim=-1))
         return torch.cat([dR[..., None], dP0[..., None], d_sites], dim=-1)
 
     def _rhs_sequential(self, Y, S, synth, p):
@@ -238,4 +254,31 @@ class PaddedRHS:
         L[:, 3 + j[:-1], 2 + j[:-1]] = Sm[:, 1:]
         L[:, 2 + j[:-1], 3 + j[:-1]] = (E[:, None] * has_next * msk)[:, :-1]
         L[:, 2 + j, 2 + j] = -(k_next * has_next + E[:, None] + Dp + D[:, None]) * msk
+        return L
+
+    def jac_blocks_saturating(self, Y, S, p):
+        """(..., N, w, w) block Jacobian of the saturating mechanism with the
+        TF input frozen, at the states Y (..., N, w); S (..., N, Smax) and
+        the leaves of ``p`` share the leading axes. Entries (slots [R, P0,
+        s_1 .. s_Smax], m_j the site mask):
+
+          dR/dR = -B;  dP0/dR = C / (1 + R)^2;
+          dP0/dP0 = -D - sum_j S_j m_j / (1 + P0)^2;  dP0/ds_j = E m_j;
+          ds_j/dP0 = S_j m_j / (1 + P0)^2;  ds_j/ds_j = -(Dp_j + D + E) m_j.
+
+        Written in place, as :meth:`linear_blocks`, where the JAX package
+        contracts against model 0's one-hot placement tables."""
+        N, w = self.N, self.width
+        msk = self.site_mask
+        B, C, D, E, Dp = p["B_i"], p["C_i"], p["D_i"], p["E_i"], p["Dp_i"]
+        R, P0 = Y[..., 0], Y[..., 1]
+        dflux = S * msk / (1.0 + P0[..., None]) ** 2
+        j = torch.arange(self.Smax, device=Y.device)
+        L = Y.new_zeros((*Y.shape[:-2], N, w, w))
+        L[..., 0, 0] = -B
+        L[..., 1, 0] = C / (1.0 + R) ** 2
+        L[..., 1, 1] = -D - torch.sum(dflux, dim=-1)
+        L[..., 1, 2 + j] = E[..., None] * msk
+        L[..., 2 + j, 1] = dflux
+        L[..., 2 + j, 2 + j] = -(Dp + D[..., None] + E[..., None]) * msk
         return L

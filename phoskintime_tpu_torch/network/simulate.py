@@ -1,12 +1,16 @@
-"""Simulation by the RK45 oracle integrator, observables and fold changes.
+"""Simulation by the oracle integrators, observables and fold changes.
 
 Counterpart of ``phoskintime_tpu/network/simulate.py``: :func:`simulate`
 (one member, the JAX package's signature) and :func:`simulate_batched` (a
 population, the counterpart of ``jax.vmap`` of ``simulate``) integrate the
-padded system with :func:`~phoskintime_tpu_torch.ops.integrators.odeint_rk45`,
-the kinase grid as bucket boundaries; :func:`extract_observables` and
-:func:`fold_changes` read a trajectory. ``simulate_and_measure`` returns
-pandas frames and waits for the host layer (ROADMAP.md queue 1 item 8).
+padded system with the solver named, as the JAX package dispatches it:
+``"esdirk"`` :func:`~phoskintime_tpu_torch.ops.stiff.odeint_esdirk`,
+``"expo"`` :func:`~phoskintime_tpu_torch.network.expo.exponential_simulate`,
+any other name :func:`~phoskintime_tpu_torch.ops.integrators.odeint_rk45`
+(the default ``"rk45"``), the kinase grid as bucket boundaries;
+:func:`extract_observables` and :func:`fold_changes` read a trajectory.
+``simulate_and_measure`` returns pandas frames and waits for the host
+layer (ROADMAP.md queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -16,18 +20,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from phoskintime_tpu_torch.network.rhs import check_model
+from phoskintime_tpu_torch.network.expo import exponential_simulate
 from phoskintime_tpu_torch.ops.integrators import ODEResult, odeint_rk45
+from phoskintime_tpu_torch.ops.stiff import odeint_esdirk
 
 EPS = 1e-12
-
-
-def check_solver(solver: str) -> None:
-    """Raise for a solver the port does not run yet ("esdirk", "expo")."""
-    if solver != "rk45":
-        raise NotImplementedError(
-            f"solver={solver!r} is not ported yet (ROADMAP.md queue 1 item 3, "
-            "'Oracle integrators'); the port integrates with 'rk45'")
 
 
 class Observables(NamedTuple):
@@ -43,10 +40,9 @@ def simulate_batched(system, params_b: dict, t_eval, rtol=1e-5, atol=1e-7,
     of ``params_b`` has a leading axis P (tensors or numpy). ``y0``: None
     (the system's default), one padded state (N, width) or (N*width,) for
     every member, or (P, N*width). Returns ys (P, T, N*width) and per-member
-    success and step counts. ``use_kernel`` goes to the model-2 edge flux
-    (None: the kernel on a CUDA system)."""
-    check_solver(solver)
-    check_model(system.topo.model)
+    success and step counts. ``solver``: see the module doc; ``"expo"``
+    takes no tolerances (its plan's substep is 16). ``use_kernel`` goes to
+    the model-2 edge flux (None: the kernel on a CUDA system)."""
     rhs = system.rhs
     f = dict(dtype=rhs.Kmat.dtype, device=rhs.Kmat.device)
     params_b = {k: torch.as_tensor(v, **f) for k, v in params_b.items()}
@@ -54,9 +50,12 @@ def simulate_batched(system, params_b: dict, t_eval, rtol=1e-5, atol=1e-7,
     d = rhs.N * rhs.width
     y0 = torch.as_tensor(system.y0() if y0 is None else y0, **f)
     y0 = y0.reshape(-1, d).expand(P, d).contiguous()
-    return odeint_rk45(system.rhs_batched(params_b, use_kernel), y0, t_eval,
-                       boundaries=np.asarray(system.kin_grid, float),
-                       max_steps=max_steps, rtol=rtol, atol=atol, dt_max=dt_max)
+    if solver == "expo":
+        return exponential_simulate(system, params_b, t_eval, y0=y0)
+    odeint = odeint_esdirk if solver == "esdirk" else odeint_rk45
+    return odeint(system.rhs_batched(params_b, use_kernel), y0, t_eval,
+                  boundaries=np.asarray(system.kin_grid, float),
+                  max_steps=max_steps, rtol=rtol, atol=atol, dt_max=dt_max)
 
 
 def simulate(system, params: dict, t_eval, rtol=1e-5, atol=1e-7, max_steps=5000,
@@ -76,7 +75,6 @@ def extract_observables(system, Y_flat: torch.Tensor) -> Observables:
     sum over valid states, and site j's signal sums the states with bit
     j set."""
     topo = system.topo
-    check_model(topo.model)
     Y = Y_flat.reshape(*Y_flat.shape[:-1], topo.N, topo.width)
     rhs = system.rhs
     if topo.model == 2:

@@ -8,13 +8,24 @@ in ``phoskintime_tpu/ops/pallas_kernels.py``:
   ``hypercube_flux.launches``; on a CPU tensor, or with
   ``use_kernel=False``, it runs the plain version.
 * :func:`hypercube_flux_reference` — the plain PyTorch version, site by
-  site through the XOR neighbour map.
+  site through the XOR neighbour map; ``hypercube_flux_reference.calls``
+  counts its calls, so a run on the card can show it never took them.
 
 The JAX package keeps its Pallas kernel off every path (it lost to the
 XLA gather on its TPU). The port's model-2 RHS
 (:meth:`~phoskintime_tpu_torch.network.rhs.PaddedRHS.batched`) calls this
-entry on every evaluation, so on the card each RK45 stage launches the
-kernel once.
+entry on every evaluation, so on the card each RK45 or ESDIRK stage
+launches the kernel once.
+
+The flux is linear in X at fixed (S, E), and linear in (S, E) at fixed X,
+so its tangent is the flux of the tangents. Under ``torch.func``
+transforms (ESDIRK's Jacobian, ``jacfwd``) the kernel route runs through
+:class:`FluxKernel`, whose forward-mode rule launches the kernel on the
+tangent and whose ``vmap`` rule folds the batch into rows for one launch;
+the Jacobian never falls back to the plain version. The route is chosen
+by X alone: every transform the port applies is taken with respect to the
+state, so X is wrapped whenever S or E is, and a wrapped S or E beside a
+plain X has no data pointer for the direct launch, which then raises.
 """
 
 from __future__ import annotations
@@ -24,6 +35,7 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+from torch._C._functorch import is_functorch_wrapped_tensor
 
 from phoskintime_tpu_torch.ops.cuda_build import CSRC, entry, launch_on
 
@@ -59,7 +71,79 @@ def hypercube_flux_reference(X: torch.Tensor, S: torch.Tensor, E: torch.Tensor,
     dX = torch.zeros_like(X)
     for j in range(smax):
         dX = dX + inflow[:, j] - outflow[:, j]
+    hypercube_flux_reference.calls += 1
     return dX
+
+
+hypercube_flux_reference.calls = 0
+
+
+def _launch(X, S, E, smax: int) -> torch.Tensor:
+    """One launch of ``csrc/hypercube_flux.cu`` on plain CUDA tensors."""
+    if X.dtype not in (torch.float32, torch.float64) or smax > _MAX_SITES:
+        raise NotImplementedError(
+            f"the hypercube_flux kernel takes float32 or float64 with at most "
+            f"{_MAX_SITES} sites (one thread block a row); got {X.dtype}, smax {smax}")
+    if not (S.dtype == E.dtype == X.dtype and S.device == E.device == X.device):
+        raise ValueError("X, S and E must share a dtype and a device")
+    if not (X.is_contiguous() and S.is_contiguous() and E.is_contiguous()):
+        raise ValueError("X, S and E must be contiguous")
+    out = torch.empty_like(X)
+    if X.shape[0] == 0:
+        return out
+    name = "hypercube_flux_f32" if X.dtype == torch.float32 else "hypercube_flux_f64"
+    fn, err = entry(SOURCE, name, _ARGTYPES)
+    rc = launch_on(X.device, fn, X.data_ptr(), S.data_ptr(), E.data_ptr(), out.data_ptr(),
+                   X.shape[0], smax)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: " + err(rc).decode())
+    hypercube_flux.launches += 1
+    return out
+
+
+class FluxKernel(torch.autograd.Function):
+    """The flux through ``impl`` (the kernel's launch; the tests pass the
+    plain version) with the rules ``torch.func`` needs: the tangent of a
+    flux bilinear in X and (S, E) is impl(dX, S, E) + impl(X, dS, dE), and
+    a vmapped call folds its batch into rows for one call of ``impl``.
+    Tangents are not materialized: an input without one (S and E in the
+    Jacobian with respect to the state) costs no launch on zeros."""
+
+    @staticmethod
+    def forward(X, S, E, smax, impl):
+        return impl(X, S, E, smax)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        X, S, E, smax, impl = inputs
+        ctx.save_for_forward(X, S, E)
+        ctx.set_materialize_grads(False)
+        ctx.smax, ctx.impl = smax, impl
+
+    @staticmethod
+    def jvp(ctx, dX, dS, dE, _smax, _impl):
+        X, S, E = ctx.saved_tensors
+        out = None
+        if dX is not None:
+            out = FluxKernel.apply(dX, S, E, ctx.smax, ctx.impl)
+        if dS is not None or dE is not None:
+            dS = torch.zeros_like(S) if dS is None else dS
+            dE = torch.zeros_like(E) if dE is None else dE
+            d_rates = FluxKernel.apply(X, dS, dE, ctx.smax, ctx.impl)
+            out = d_rates if out is None else out + d_rates
+        return torch.zeros_like(X) if out is None else out
+
+    @staticmethod
+    def vmap(info, in_dims, X, S, E, smax, impl):
+        n = info.batch_size
+
+        def rows(x, dim):
+            x = x.unsqueeze(0).expand(n, *x.shape) if dim is None else x.movedim(dim, 0)
+            return x.reshape(-1, *x.shape[2:]).contiguous()
+
+        out = FluxKernel.apply(rows(X, in_dims[0]), rows(S, in_dims[1]),
+                               rows(E, in_dims[2]), smax, impl)
+        return out.reshape(n, -1, out.shape[-1]), 0
 
 
 def hypercube_flux(X: torch.Tensor, S: torch.Tensor, E: torch.Tensor, smax: int, *,
@@ -85,25 +169,9 @@ def hypercube_flux(X: torch.Tensor, S: torch.Tensor, E: torch.Tensor, smax: int,
         return hypercube_flux_reference(X, S, E, smax)
     if not X.is_cuda:
         raise ValueError("use_kernel=True needs a CUDA tensor")
-    if X.dtype not in (torch.float32, torch.float64) or smax > _MAX_SITES:
-        raise NotImplementedError(
-            f"the hypercube_flux kernel takes float32 or float64 with at most "
-            f"{_MAX_SITES} sites (one thread block a row); got {X.dtype}, smax {smax}")
-    if not (S.dtype == E.dtype == X.dtype and S.device == E.device == X.device):
-        raise ValueError("X, S and E must share a dtype and a device")
-    if not (X.is_contiguous() and S.is_contiguous() and E.is_contiguous()):
-        raise ValueError("X, S and E must be contiguous")
-    out = torch.empty_like(X)
-    if X.shape[0] == 0:
-        return out
-    name = "hypercube_flux_f32" if X.dtype == torch.float32 else "hypercube_flux_f64"
-    fn, err = entry(SOURCE, name, _ARGTYPES)
-    rc = launch_on(X.device, fn, X.data_ptr(), S.data_ptr(), E.data_ptr(), out.data_ptr(),
-                   X.shape[0], smax)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: " + err(rc).decode())
-    hypercube_flux.launches += 1
-    return out
+    if is_functorch_wrapped_tensor(X):
+        return FluxKernel.apply(X, S, E, smax, _launch)
+    return _launch(X, S, E, smax)
 
 
 hypercube_flux.launches = 0

@@ -214,9 +214,15 @@ def test_simulate_until_steady_matches_jax():
 
 @pytest.mark.parametrize("solver", ["esdirk", "expo"])
 def test_other_solvers_are_not_ported(solver):
+    """The other solver names run (they raised until ported): ``simulate``
+    of one member to t = 8 against the JAX package's, the same steps."""
     bj = jax_demo(n_proteins=6, n_kinases=3, seed=0, dtype=np.float64)
     bt = from_reference({k: bj[k] for k in KEYS + ("true",)}, device="cpu")
-    with pytest.raises(NotImplementedError, match="Oracle integrators"):
-        simulate(bt["system"], bt["true"], bj["grid"], solver=solver)
-    with pytest.raises(NotImplementedError, match="Oracle integrators"):
-        make_objective(*(bt[k] for k in KEYS), solver=solver)
+    t_eval = bj["grid"][:7]
+    got = simulate(bt["system"], bt["true"], t_eval, solver=solver)
+    want = jax_simulate(bj["system"], {k: jnp.asarray(v) for k, v in bj["true"].items()},
+                        jnp.asarray(t_eval), solver=solver)
+    assert bool(got.success) and int(got.n_steps) == int(want.n_steps)
+    np.testing.assert_allclose(got.ys.numpy(), np.asarray(want.ys), rtol=RTOL_RUN,
+                               atol=1e-14)
+    assert callable(make_objective(*(bt[k] for k in KEYS), solver=solver))

@@ -23,7 +23,9 @@ from phoskintime_tpu_torch.network.rhs import tf_inputs
 from phoskintime_tpu_torch.network.simulate import extract_observables, simulate_batched
 from phoskintime_tpu_torch.network.system import GlobalSystem
 from phoskintime_tpu_torch.network.topology import build_topology
-from phoskintime_tpu_torch.ops.hypercube_flux import hypercube_flux, hypercube_flux_reference
+from phoskintime_tpu_torch.ops.hypercube_flux import (FluxKernel, hypercube_flux,
+                                                        hypercube_flux_reference)
+from phoskintime_tpu_torch.ops.hypercube_flux import _launch as flux_launch
 from phoskintime_tpu_torch.ops.tridiag import thomas_solve_batched, thomas_solve_reference
 from phoskintime_tpu_torch.ops.phi_tables import (ladder_len, phi_tables,
                                                   phi_tables_reference,
@@ -652,6 +654,84 @@ def test_float64_objective_on_the_card_matches_cpu(cuda_device, model, kw):
     assert etd2rk_scan.launches == int(bool(kw.get("use_scan_kernel")))
     Fc = make_population_objective(cpu, *args, **kw)(thetas)
     np.testing.assert_allclose(F.cpu().numpy(), Fc.numpy(), rtol=1e-9)
+
+
+# --- model 4 and ESDIRK ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("smax", [1, 4, 7])
+def test_flux_kernel_rules_match_plain_jacfwd(cuda_device, smax, dtype):
+    """``jacfwd`` through the kernel (its forward-mode and vmap rules) in X,
+    by :func:`hypercube_flux`, and in (S, E), by the rules' class with the
+    launch, against ``jacfwd`` of the plain version, which it never calls:
+    two launches each, the primal and every tangent column at once (no
+    launch on the zero tangents of the other inputs); a vmapped call folds
+    its batch into rows for one launch."""
+    X, S, E = flux_inputs(np.random.default_rng(smax), 33, smax, dtype, cuda_device)
+    tol = SCALED_ATOL_F32 if dtype == torch.float32 else SCALED_ATOL_F64
+    hypercube_flux_reference.calls = 0
+    for argnums in (0, 1, 2):
+        fn = ((lambda x, s, e: hypercube_flux(x, s, e, smax)) if argnums == 0 else
+              (lambda x, s, e: FluxKernel.apply(x, s, e, smax, flux_launch)))
+        hypercube_flux.launches = 0
+        got = torch.func.jacfwd(fn, argnums=argnums)(X, S, E)
+        torch.cuda.synchronize()
+        assert hypercube_flux.launches == 2 and hypercube_flux_reference.calls == 0
+        want = torch.func.jacfwd(lambda x, s, e: hypercube_flux_reference(x, s, e, smax),
+                                 argnums=argnums)(X, S, E)
+        hypercube_flux_reference.calls = 0
+        assert_scaled_close(got, want, tol)
+    Xb = X[None] * torch.arange(1.0, 6.0, dtype=dtype, device=cuda_device)[:, None, None]
+    hypercube_flux.launches = 0
+    got = torch.func.vmap(lambda x: hypercube_flux(x, S, E, smax))(Xb)
+    assert hypercube_flux.launches == 1
+    assert_scaled_close(got[3], hypercube_flux_reference(Xb[3], S, E, smax), tol)
+
+
+def test_model4_float64_objective_on_the_card_matches_cpu(cuda_device):
+    """The exponential-Rosenbrock objective at float64 on the card against
+    the CPU's, and no table or scan kernel launched."""
+    b = build_demo_network(n_proteins=8, n_kinases=4, model=4, seed=0,
+                           dtype=torch.float64, device=cuda_device)
+    cpu = GlobalSystem(b["system"].topo, b["system"].kin_grid, b["system"].Kmat,
+                       dtype=torch.float64, device="cpu")
+    args = (b["slices"], b["loss_data"], b["defaults"], b["lambdas"], b["grid"])
+    rng = np.random.default_rng(0)
+    thetas = b["theta0"][None] + 0.05 * rng.normal(size=(4, len(b["theta0"])))
+    phi_tables.launches = phi_tables_wide.launches = etd2rk_scan.launches = 0
+    F = make_population_objective(b["system"], *args)(thetas)
+    torch.cuda.synchronize()
+    assert phi_tables.launches == phi_tables_wide.launches == etd2rk_scan.launches == 0
+    Fc = make_population_objective(cpu, *args)(thetas)
+    np.testing.assert_allclose(F.cpu().numpy(), Fc.numpy(), rtol=1e-9)
+
+
+def test_esdirk_model2_on_the_card_matches_cpu(cuda_device):
+    """ESDIRK on model 2 at float64 to t = 30: the card (the flux kernel in
+    every stage and, through its rules, in the Jacobian: 21 launches a
+    loop iteration and one before; never the plain version) against the
+    CPU (the plain flux), the same steps."""
+    b = build_demo_network(n_proteins=8, n_kinases=3, model=2, seed=1,
+                           dtype=torch.float64, device=cuda_device)
+    cpu = GlobalSystem(b["system"].topo, b["system"].kin_grid, b["system"].Kmat,
+                       dtype=torch.float64, device="cpu")
+    rng = np.random.default_rng(0)
+    pop = {k: np.asarray(v, float)[None] * rng.uniform(0.8, 1.2, (3,) + (1,) * np.ndim(v))
+           for k, v in b["true"].items()}
+    t_eval = b["grid"][b["grid"] <= 30.0]
+    hypercube_flux.launches = 0
+    hypercube_flux_reference.calls = 0
+    got = simulate_batched(b["system"], pop, t_eval, solver="esdirk")
+    torch.cuda.synchronize()
+    # a step: the Jacobian (2), 18 Newton RHS and the RHS after it; one before
+    assert hypercube_flux.launches == 21 * int(got.n_steps.max()) + 1
+    assert hypercube_flux_reference.calls == 0
+    want = simulate_batched(cpu, pop, t_eval, solver="esdirk")
+    print("ESDIRK steps, card / CPU:", got.n_steps.tolist(), want.n_steps.tolist())
+    assert bool(got.success.all())
+    np.testing.assert_array_equal(got.n_steps.cpu().numpy(), want.n_steps.numpy())
+    np.testing.assert_allclose(got.ys.cpu().numpy(), want.ys.numpy(), rtol=1e-9, atol=1e-14)
 
 
 # --- the FMA-peak probe ---------------------------------------------------------------

@@ -234,15 +234,13 @@ def test_simulate_batched_and_observables_match_jax(bundles):
 
 
 def test_unported_mechanisms_raise(bundles):
-    """Model 4 is still to port; model 2 now builds (its parity tests are
-    in test_torch_model2.py)."""
+    """Models 2 and 4 build (their parity tests are in test_torch_model2.py
+    and test_torch_model4.py); the differentiable path still raises."""
     _, bt = bundles
     topo = bt["topo"]
-    t2 = type(topo)(**{**topo.__dict__, "model": 2})
-    assert PaddedRHS(t2, bt["system"].Kmat, device="cpu").model == 2
-    t4 = type(topo)(**{**topo.__dict__, "model": 4})
-    with pytest.raises(NotImplementedError, match="Mechanism 4 on the objective"):
-        PaddedRHS(t4, bt["system"].Kmat, device="cpu")
+    for model in (2, 4):
+        tm = type(topo)(**{**topo.__dict__, "model": model})
+        assert PaddedRHS(tm, bt["system"].Kmat, device="cpu").model == model
     with pytest.raises(NotImplementedError, match="Gradients and polish"):
         expo.exponential_simulate_batched(bt["system"], {}, bt["grid"],
                                           differentiable=True)

@@ -100,10 +100,14 @@ def test_fit_routes_count_evaluations(route):
 
 
 def test_fit_solvers_the_port_lacks_raise(bundles):
-    _, bt = bundles
-    with pytest.raises(NotImplementedError, match="item 3"):
-        run_global_fit(*fit_args(bt), np.zeros(3), np.ones(3), pop=4, n_gen=1,
-                       solver="esdirk")
+    """``solver="esdirk"`` (it raised until ported) takes the ESDIRK oracle
+    objective with the fit's ``max_steps``: at 5 steps no member reaches
+    the last time point, so every evaluation scores ``fail_value``."""
+    bj, bt = bundles
+    res = run_global_fit(*fit_args(bt), bj["xl"], bj["xu"], pop=4, n_gen=1, seed=0,
+                         solver="esdirk", max_steps=5, device_variation=False,
+                         frechet_pick=False)
+    assert res.n_evals == 8 and np.all(res.F == 1e12)
 
 
 def test_fit_resumes_from_its_checkpoint(tmp_path):

@@ -1,6 +1,7 @@
 """The parts of the port's card tools that need no card:
-``tools/phase_clocks.py``'s stamped kernel sources and ptxas report, and
-``tools/kernel_ab.py``'s summary of an A/B's arms."""
+``tools/phase_clocks.py``'s stamped kernel sources and ptxas report,
+``tools/kernel_ab.py``'s summary of an A/B's arms, and the card default of
+``tools/esdirk_steps.py``."""
 
 from __future__ import annotations
 
@@ -65,3 +66,14 @@ def test_ab_spread_is_median_least_most_per_tree():
         "x": {"device_ms": (4.0, 3.0, 5.0), "host_us": (25.0, 20.0, 30.0)}}
     assert ab.spread(arms, "change", "flux") == {
         "x": {"device_ms": (1.5, 1.0, 2.0), "host_us": (10.0, 10.0, 10.0)}}
+
+
+def test_esdirk_steps_runs_on_the_card_unless_asked(monkeypatch):
+    """Without ``--device`` the tool takes the card, and where there is
+    none it raises before it builds anything, as the port's entry points."""
+    steps = tool("esdirk_steps")
+    monkeypatch.setattr(steps.torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(steps, "build_demo_network", lambda *a, **k: pytest.fail("built"))
+    monkeypatch.setattr("sys.argv", ["esdirk_steps.py", "--t-end", "0.01"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        steps.main()
