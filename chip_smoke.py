@@ -136,6 +136,33 @@ Model 4 and the last oracle solvers:
    paths and ``make_objective(solver="expo")`` at pop 64 against the
    population objective, rel 1e-3 in float32; times.
 
+Gradients and polish, on the bench network at float32 (the derivative
+passes take the plain tables with a static ladder and the eager scan, as
+the kernels carry no derivative; the production scoring launches the table
+kernel):
+
+9a. the differentiable objective on one chunk of 128 members: F against
+   the production objective (rtol 2e-4, atol 1e-6), a finite gradient, no
+   table or scan launch in the forward and reverse passes and one in the
+   production call; at float64 on the card the gradient against the CPU's
+   (8 members, 1e-9 scaled) and against central differences along 3
+   seeded directions (rel 1e-6); forward and forward+reverse ms, one step
+   under the profiler, peak memory;
+9b. ``polish_solutions`` on 32 members for 20 steps: no member worse than
+   its input under its own weights, every member inside [xl, xu], ms a
+   step, one table launch (the final scoring);
+9c. the LM finish from the true parameters perturbed by 2%, zero-residual
+   (``r_offset``): sum(r**2) against F.sum() (rel 2e-4 float32, 1e-9
+   float64), ms a forward-mode Jacobian (329 tangents in chunks of 256),
+   ``lm_refine_mixed`` (8 float32 iterations, no worse than the input,
+   then 6 at float64 on the card, ending below 1e-3 x the float32 sse),
+   ms an iteration, the largest relative parameter error (printed);
+9d. ``run_global_fit`` at pop 256 for 3 generations with
+   ``polish_steps=20`` and ``gn_iters=3``, and ``optimizer="gradient"`` at
+   pop 64 (100 steps): ``n_evals`` by the JAX package's bookkeeping, the
+   Pareto set the first front of every member (a polished member in it),
+   the table launches, each stage's seconds.
+
 The line before the last is a JSON summary of each kernel (the float64
 instances and ``sq_chain`` included, each with the launches of its own main
 path); the last line is ``{"ok": true, "device": {...}}``. There is no CPU
@@ -155,13 +182,16 @@ import numpy as np
 import torch
 
 from phoskintime_tpu_torch.demo import GRID, RNA_GRID, build_demo_network
-from phoskintime_tpu_torch.network import expo, steadystate
+from phoskintime_tpu_torch.network import expo, polish, steadystate
 from phoskintime_tpu_torch.network.analysis import simulate_until_steady
 from phoskintime_tpu_torch.network.objective import (_auto_pop_chunk, _scorer,
                                                      make_objective,
-                                                     make_population_objective)
+                                                     make_population_objective,
+                                                     make_residual_fn)
 from phoskintime_tpu_torch.network.optimize import run_global_fit
-from phoskintime_tpu_torch.network.params import unpack_params
+from phoskintime_tpu_torch.network.params import softplus, unpack_params
+from phoskintime_tpu_torch.network.polish import (forward_jacobian, lm_refine_mixed,
+                                                  polish_solutions, simplex_weights)
 from phoskintime_tpu_torch.network.simulate import (extract_observables, fold_changes,
                                                     simulate, simulate_batched)
 from phoskintime_tpu_torch.network.system import GlobalSystem, default_params
@@ -169,7 +199,8 @@ from phoskintime_tpu_torch.network.topology import build_topology
 from phoskintime_tpu_torch.ops import cuda_build
 from phoskintime_tpu_torch.ops import fma_peak
 from phoskintime_tpu_torch.ops.hypercube_flux import hypercube_flux, hypercube_flux_reference
-from phoskintime_tpu_torch.ops.nsga import das_dennis, make_device_ga_step, nsga3_survival
+from phoskintime_tpu_torch.ops.nsga import (das_dennis, fast_non_dominated_sort,
+                                            make_device_ga_step, nsga3_survival)
 from phoskintime_tpu_torch.ops.nsga_device import make_device_ga_blocks
 from phoskintime_tpu_torch.ops.tridiag import thomas_solve_batched, thomas_solve_reference
 from phoskintime_tpu_torch.ops import phi_tables as phi_mod
@@ -249,6 +280,23 @@ ESDIRK_FLUX_PER_STEP = 21
 # calls a model-4 stage is timed over (8a's stage cut; the median is kept)
 STAGE_CALLS = 3
 EXPO_POP = 64
+# 9: the gradient stage on the bench network. The differentiable objective
+# on polish's default chunk against the production one at the JAX package's
+# gate (tests/test_polish.py:43-57: rtol 2e-4, atol 1e-6); at float64 its
+# gradient against the CPU's (on GRAD_CPU_MEMBERS of the chunk's members,
+# scaled by the largest entry) and against central differences
+GRAD_CHUNK, GRAD_CPU_MEMBERS = 128, 8
+GRAD_F_RTOL, GRAD_F_ATOL, GRAD_F64_RTOL = 2e-4, 1e-6, 1e-9
+GRAD_FD_RTOL, GRAD_FD_EPS, GRAD_FD_DIRECTIONS = 1e-6, 1e-6, 3
+# the polish (9b), its slack as the JAX package's test (tests/test_polish.py:80)
+POLISH_POP, POLISH_STEPS, POLISH_SLACK = 32, 20, 1e-4
+# the LM finish (9c): sum(r**2) against F.sum() at each precision, the
+# iterations of each stage, the mixed finish against the float32 sse (the
+# JAX package's gate, tests/test_polish.py:383-389), tangents a Jacobian pass
+LM_SSE_RTOL = {torch.float32: 2e-4, torch.float64: 1e-9}
+LM_ITERS_LO, LM_ITERS_HI, LM_MIXED_GATE, JAC_CHUNK = 8, 6, 1e-3, 256
+# the fits of 9d: the GA then polish and LM; the gradient multistart
+GRADFIT_POP, GRADFIT_GENS, GRADFIT_GN_ITERS, GRADFIT_MULTISTART_POP = 256, 3, 3, 64
 STEADY = {0: steadystate.steady_state_distributive, 1: steadystate.steady_state_sequential,
           2: steadystate.steady_state_combinatorial}
 
@@ -1565,9 +1613,7 @@ def phase_fma_peak(card) -> tuple[dict, dict]:
 
 def at_float64(b) -> dict:
     """The bundle with its system at float64 on the card."""
-    s = b["system"]
-    return {**b, "system": GlobalSystem(s.topo, s.kin_grid, s.Kmat, dtype=torch.float64,
-                                        device="cuda")}
+    return {**b, "system": b["system"].astype(torch.float64)}
 
 
 def float64_path(label, b64, thetas, card, want, **kw) -> dict:
@@ -2108,6 +2154,281 @@ def phase_expo(b, b4, thetas, card) -> None:
         raise AssertionError(f"8c: make_objective(solver='expo') drifted: {rel:.3e}")
 
 
+# --- 9: gradients and polish ---------------------------------------------------------
+
+
+def phase_gradients(b, thetas, card) -> dict:
+    """9a: the differentiable objective on one chunk of GRAD_CHUNK members
+    (polish's default chunk): F against the production objective (rel 2e-4,
+    the JAX package's gate), a finite gradient, no table or scan launch in
+    the forward and reverse passes and one in the production call; at
+    float64 on the card the gradient against the CPU's (8 members, scaled
+    by its largest entry) and against central differences along 3 seeded
+    directions; forward and forward+reverse ms (median of 3, CUDA events),
+    one step under the profiler, peak memory. Returns {path: launches}."""
+    args = bundle_args(b)
+    th = thetas[:GRAD_CHUNK]
+    differentiable = make_population_objective(*args, differentiable=True)
+    production = make_population_objective(*args)
+
+    def scalar(objective, X):
+        return torch.sum(objective(X)) / 3.0
+
+    def value_and_grad(objective, X):
+        X = X.detach().requires_grad_(True)
+        s = scalar(objective, X)
+        return s, torch.autograd.grad(s, X)[0]
+
+    value_and_grad(differentiable, th)                 # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    X = th.detach().requires_grad_(True)
+    F_d = differentiable(X)
+    g, = torch.autograd.grad(F_d.sum(), X)
+    torch.cuda.synchronize()
+    derivative = counts()
+    reset_counts()
+    F_p = production(th)
+    torch.cuda.synchronize()
+    scoring = counts()
+    F_d = F_d.detach()
+    rel = float(torch.max(torch.abs(F_d - F_p) / torch.abs(F_p)))
+    close = bool(torch.all(torch.abs(F_d - F_p) <= GRAD_F_ATOL + GRAD_F_RTOL * torch.abs(F_p)))
+    fwd = median_ms(lambda: differentiable(th.detach().requires_grad_(True)))
+    step = median_ms(lambda: value_and_grad(differentiable, th))
+    torch.cuda.reset_peak_memory_stats()
+    value_and_grad(differentiable, th)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say("9a gradients", members=GRAD_CHUNK, vs_production=f"{rel:.3e}", tol=GRAD_F_RTOL,
+        grad_finite=bool(torch.isfinite(g).all()), derivative_launches=derivative,
+        scoring_launches=scoring, forward_ms=f"{fwd[0]:.3f}",
+        forward_ms_range=f"{fwd[1]:.3f}-{fwd[2]:.3f}", forward_reverse_ms=f"{step[0]:.3f}",
+        forward_reverse_ms_range=f"{step[1]:.3f}-{step[2]:.3f}", peak_gib=f"{peak:.3f}",
+        card=repr(card))
+    say("9a profile", members=GRAD_CHUNK,
+        **profile_call(lambda: value_and_grad(differentiable, th)))
+    if not (close and bool(torch.isfinite(g).all())):
+        raise AssertionError(f"9a: the differentiable objective drifted ({rel:.3e}) "
+                             "or its gradient is not finite")
+    if derivative != expect() or scoring != expect(phi_tables=1):
+        raise AssertionError(f"9a: launches {derivative} in the derivative passes, "
+                             f"{scoring} in the production call")
+
+    # float64 on the card: against the CPU and against central differences
+    b64 = at_float64(b)
+    s = b64["system"]
+    cpu = GlobalSystem(s.topo, s.kin_grid, s.Kmat, dtype=torch.float64, device="cpu")
+    diff64 = make_population_objective(*bundle_args(b64), differentiable=True)
+    X64 = th.double()
+    _, g64 = value_and_grad(diff64, X64)
+    _, g_cpu = value_and_grad(make_population_objective(cpu, *bundle_args(b64)[1:],
+                                                        differentiable=True),
+                              X64[:GRAD_CPU_MEMBERS].cpu())
+    vs_cpu = float(torch.max(torch.abs(g64[:GRAD_CPU_MEMBERS].cpu() - g_cpu))
+                   / torch.max(torch.abs(g_cpu)))
+    rng = np.random.default_rng(9)
+    fd_errs = []
+    with torch.no_grad():
+        for _ in range(GRAD_FD_DIRECTIONS):
+            d = torch.as_tensor(rng.normal(size=tuple(X64.shape)), dtype=torch.float64,
+                                device="cuda")
+            d /= torch.linalg.norm(d)
+            fd = (float(scalar(diff64, X64 + GRAD_FD_EPS * d))
+                  - float(scalar(diff64, X64 - GRAD_FD_EPS * d))) / (2 * GRAD_FD_EPS)
+            fd_errs.append(abs(float(torch.sum(g64 * d)) - fd) / abs(fd))
+    say("9a float64 gradients", members=GRAD_CHUNK, vs_cpu=f"{vs_cpu:.3e}",
+        cpu_members=GRAD_CPU_MEMBERS, tol=GRAD_F64_RTOL,
+        vs_central_differences=[f"{e:.3e}" for e in fd_errs], fd_tol=GRAD_FD_RTOL,
+        eps=GRAD_FD_EPS, card=repr(card))
+    if not (vs_cpu <= GRAD_F64_RTOL and max(fd_errs) <= GRAD_FD_RTOL):
+        raise AssertionError(f"9a: the float64 gradient drifted: {vs_cpu:.3e} from the CPU, "
+                             f"{max(fd_errs):.3e} from central differences")
+    return {"gradient-9a-derivative": derivative, "gradient-9a-production": scoring}
+
+
+def phase_polish(b, thetas, card) -> dict:
+    """9b: polish_solutions on POLISH_POP members for POLISH_STEPS steps,
+    each along its own simplex_weights direction: no member worse than its
+    input (the JAX package's slack), every member inside [xl, xu]; ms a
+    step; the table launches of the whole call, all of them the final
+    production scoring. Returns {path: launches}."""
+    args = bundle_args(b)
+    X0 = thetas[:POLISH_POP].cpu().numpy().astype(float)
+    F0 = make_population_objective(*args)(X0).cpu().numpy().astype(float)
+    W = simplex_weights(F0)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    X, F = polish_solutions(*args, X0, b["xl"], b["xu"], weights=W, steps=POLISH_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    s0, s1 = (F0 * W).sum(axis=1), (F * W).sum(axis=1)
+    inside = bool(np.all(X >= b["xl"] - 1e-6) and np.all(X <= b["xu"] + 1e-6))
+    say("9b polish", members=POLISH_POP, steps=POLISH_STEPS,
+        ms_per_step=f"{1e3 * wall / POLISH_STEPS:.3f}", seconds=f"{wall:.2f}", launches=launches,
+        score_ratio_mean=f"{float(np.mean(s1 / s0)):.4f}",
+        score_ratio_max=f"{float(np.max(s1 / s0)):.6f}", slack=POLISH_SLACK, inside=inside,
+        card=repr(card))
+    if not (np.all(s1 <= s0 * (1 + POLISH_SLACK) + 1e-6) and inside):
+        raise AssertionError("9b: a polished member got worse or left the box")
+    if launches != expect(phi_tables=1):
+        raise AssertionError(f"9b: launches {launches}; want the final scoring's one")
+    return {"polish-pop32": launches}
+
+
+def phase_lm(b, card) -> dict:
+    """9c: the LM finish from the demo's true parameters (clipped to the
+    box), perturbed by 2%, in the zero-residual form (r_offset = r(theta*)
+    at each precision, tests/test_polish.py:318-389): sum(r**2) against
+    F.sum() at float32 (rel 2e-4) and float64 (1e-9); the forward-mode
+    Jacobian's ms (n tangents in chunks of JAC_CHUNK, median of 3);
+    lm_refine_mixed (LM_ITERS_LO float32 iterations, then LM_ITERS_HI at
+    float64 on the card), whose float32 stage (read by a spy on
+    lm_refine) must end no worse than its input, and whose end below
+    LM_MIXED_GATE x the float32 sse; ms an iteration; the largest relative
+    error of the physical parameters against the true ones (printed, not
+    gated). Returns {path: launches}."""
+    b64 = at_float64(b)
+    xl, xu = b["xl"], b["xu"]
+    th_star = np.clip(np.asarray(b["theta_true"], float), xl, xu)
+    rng = np.random.default_rng(3)
+    th0 = np.clip(th_star + 0.02 * rng.standard_normal(th_star.size) * (1 + np.abs(th_star)),
+                  xl, xu)
+    residuals, offsets, sse_rel = {}, {}, {}
+    for bb in (b, b64):
+        dt = bb["system"].dtype
+        res = residuals[dt] = make_residual_fn(*bundle_args(bb))
+        with torch.no_grad():
+            offsets[dt] = res(torch.as_tensor(th_star, device="cuda")).cpu().double().numpy()
+            r = res(torch.as_tensor(th0, device="cuda"))
+            F = make_population_objective(*bundle_args(bb), differentiable=True)(th0[None])
+        sse_rel[dt] = abs(float(torch.sum(r.double() ** 2)) / float(F.double().sum()) - 1.0)
+    res32 = residuals[torch.float32]
+    th0_t = torch.as_tensor(th0, dtype=torch.float32, device="cuda")
+    jac = median_ms(lambda: forward_jacobian(res32, th0_t, JAC_CHUNK))
+    say("9c residuals", n=th0.size, M=offsets[torch.float32].size,
+        sse_vs_F_f32=f"{sse_rel[torch.float32]:.3e}", tol_f32=LM_SSE_RTOL[torch.float32],
+        sse_vs_F_f64=f"{sse_rel[torch.float64]:.3e}", tol_f64=LM_SSE_RTOL[torch.float64],
+        jacobian_ms=f"{jac[0]:.3f}", jacobian_ms_range=f"{jac[1]:.3f}-{jac[2]:.3f}",
+        jac_chunk=JAC_CHUNK, card=repr(card))
+    if any(sse_rel[dt] > LM_SSE_RTOL[dt] for dt in sse_rel):
+        raise AssertionError(f"9c: sum(r**2) drifted from F.sum(): {sse_rel}")
+
+    stages = []
+    real = polish.lm_refine
+
+    def spy(system, *a, **kw):
+        t0 = time.perf_counter()
+        out = real(system, *a, **kw)
+        torch.cuda.synchronize()
+        stages.append((system.dtype, kw["iters"], out[1], time.perf_counter() - t0))
+        return out
+
+    r0 = offsets[torch.float32]
+    with torch.no_grad():
+        sse_in = float(np.sum((res32(th0_t).cpu().double().numpy() - r0) ** 2))
+    reset_counts()
+    polish.lm_refine = spy
+    try:
+        th, sse = lm_refine_mixed(*bundle_args(b), th0, xl, xu, iters_lo=LM_ITERS_LO,
+                                  iters_hi=LM_ITERS_HI, r_offset_lo=r0,
+                                  r_offset_hi=offsets[torch.float64], jac_chunk=JAC_CHUNK)
+    finally:
+        polish.lm_refine = real
+    launches = counts()
+    (_, n32, sse32, sec32), (_, n64, _, sec64) = stages
+    phys_star = softplus(torch.as_tensor(th_star))
+    par_err = float(torch.max(torch.abs(softplus(torch.as_tensor(th)) - phys_star) / phys_star))
+    say("9c lm", sse_in=f"{sse_in:.6e}", sse_f32=f"{sse32:.6e}", sse_mixed=f"{sse:.6e}",
+        gate=f"{LM_MIXED_GATE} x sse_f32", ms_per_iteration_f32=f"{1e3 * sec32 / n32:.1f}",
+        ms_per_iteration_f64=f"{1e3 * sec64 / n64:.1f}", iterations=(n32, n64),
+        max_rel_param_err=f"{par_err:.3e}", north_star=1e-6, launches=launches,
+        card=repr(card))
+    if not (sse32 <= sse_in and sse < LM_MIXED_GATE * sse32):
+        raise AssertionError(f"9c: the LM finish missed: in {sse_in:.3e}, float32 {sse32:.3e}, "
+                             f"mixed {sse:.3e}")
+    if launches != expect():
+        raise AssertionError(f"9c: the LM finish launched {launches}")
+    return {"lm-finish": launches}
+
+
+def phase_gradient_fits(b, card) -> dict:
+    """9d: run_global_fit on the bench network with the gradient options:
+    pop 256 for 3 generations, then polish_steps=20 and gn_iters=3; then
+    optimizer="gradient" at pop 64 with polish_steps=20 (JAX's minimum of
+    100 steps). Gates: n_evals by the JAX package's bookkeeping, the
+    Pareto set the first front of every member with at least one polished
+    member in it, the table launches (the GA's evaluations and one a
+    production scoring). Prints each stage's seconds. Returns {path:
+    launches}."""
+    args = bundle_args(b)
+    marks = []
+
+    class Clock:
+        """A logger that stamps the fit's own messages with the host clock."""
+        def info(self, msg):
+            marks.append((str(msg).split(" ")[0], time.perf_counter()))
+
+    def cb(gen, X, F):
+        torch.cuda.synchronize()
+        marks.append(("gen", time.perf_counter()))
+        return False
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_global_fit(*args, b["xl"], b["xu"], pop=GRADFIT_POP, n_gen=GRADFIT_GENS, seed=0,
+                         ftol=0.0, frechet_pick=False, polish_steps=POLISH_STEPS,
+                         gn_iters=GRADFIT_GN_ITERS, callback=cb, logger=Clock())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    t_ga = max(t for k, t in marks if k == "gen")
+    t_polish = next(t for k, t in marks if k == "[Polish]")
+    t_gn = next(t for k, t in marks if k == "[GN]")
+    n_pol = len(res.X) - GRADFIT_POP - 1
+    want = (GRADFIT_POP * (1 + GRADFIT_GENS) + 3 * POLISH_STEPS * n_pol
+            + 30 * GRADFIT_GN_ITERS)
+    front = fast_non_dominated_sort(res.F)[0]
+    in_front = int(np.sum(front >= GRADFIT_POP))
+    say("9d fit polish lm", pop=GRADFIT_POP, generations=GRADFIT_GENS, polished=n_pol,
+        n_evals=res.n_evals, want=want, pareto=len(res.pareto_F),
+        polished_or_lm_in_front=in_front, launches=launches,
+        ga_s=f"{t_ga - t0:.2f}", polish_s=f"{t_polish - t_ga:.2f}",
+        lm_s=f"{t_gn - t_polish:.2f}", wall_s=f"{wall:.2f}", card=repr(card))
+    if not (res.n_evals == want and in_front >= 1 and n_pol >= 1
+            and np.array_equal(res.pareto_F, res.F[front]) and np.isfinite(res.F).all()):
+        raise AssertionError("9d: the polish and LM bookkeeping or merge went wrong")
+    if launches != expect(phi_tables=1 + GRADFIT_GENS + 2):
+        raise AssertionError(f"9d: launches {launches}")
+    paths = {"fit-pop256-polish-lm": launches}
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_global_fit(*args, b["xl"], b["xu"], pop=GRADFIT_MULTISTART_POP, seed=0,
+                         optimizer="gradient", polish_steps=POLISH_STEPS, frechet_pick=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    steps = max(100, POLISH_STEPS)
+    front = fast_non_dominated_sort(res.F)[0]
+    say("9d gradient multistart", pop=GRADFIT_MULTISTART_POP, steps=steps,
+        n_evals=res.n_evals, want=GRADFIT_MULTISTART_POP * 3 * steps,
+        pareto=len(res.pareto_F), best_sum=f"{float(res.F.sum(axis=1).min()):.6g}",
+        launches=launches, seconds=f"{wall:.2f}",
+        ms_per_step=f"{1e3 * wall / steps:.1f}", card=repr(card))
+    if not (res.n_evals == GRADFIT_MULTISTART_POP * 3 * steps
+            and np.array_equal(res.pareto_F, res.F[front]) and np.isfinite(res.F).all()):
+        raise AssertionError("9d: the gradient multistart's bookkeeping went wrong")
+    if launches != expect(phi_tables=1):
+        raise AssertionError(f"9d: the multistart launched {launches}")
+    paths["fit-gradient-pop64"] = launches
+    return paths
+
+
 def population(b, pop: int) -> torch.Tensor:
     """theta0 plus seeded noise, as bench.py and benchmarks/model_rates.py."""
     rng = np.random.default_rng(0)
@@ -2156,6 +2477,10 @@ def main() -> int:
     paths.update(model4_paths)
     paths.update(phase_esdirk(b, b2, thetas, thetas2, card))
     phase_expo(b, b4, thetas, card)
+    paths.update(phase_gradients(b, thetas, card))
+    paths.update(phase_polish(b, thetas, card))
+    paths.update(phase_lm(b, card))
+    paths.update(phase_gradient_fits(b, card))
     for group, group_paths in (([kernel, wide, scan, flux, thomas], paths),
                                (f64_entries, paths64), ([probe], probe_paths)):
         for entry in group:

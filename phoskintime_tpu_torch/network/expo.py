@@ -338,8 +338,9 @@ class ScanSetup:
     """The scan of one :func:`exponential_simulate_batched` call, assembled
     once: the parameters and y0 at the system's dtype and device, the
     static segment plan, the width classes and their tables
-    (:func:`phi_tables`, ``use_kernel`` routing it). Both routes read these
-    same inputs and return ys (P, T, N*w):
+    (:func:`phi_tables`, ``use_kernel`` routing it; ``differentiable``: the
+    plain version with its static ladder, asked for by name). Both routes
+    read these same inputs and return ys (P, T, N*w):
 
     * :meth:`run_eager` — the run-structured scan (:func:`_class_scan` where
       model 2 runs width-bucketed, else :func:`_full_scan`);
@@ -349,13 +350,15 @@ class ScanSetup:
 
     def __init__(self, system, params_b: dict, t_eval, substep: float = 16.0,
                  y0=None, use_kernel: bool | None = None,
-                 width_bucketing: bool | None = None):
+                 width_bucketing: bool | None = None, differentiable: bool = False):
         self.system = system
         self.params_b, self.y0 = _setup(system, params_b, y0)
         (_, self.seg_h, self.seg_jb, self.out_idx, self.seg_uidx, _,
          self.u_h) = _plan(system, t_eval, substep)
         self.classes = width_classes(system.topo, width_bucketing)
-        self.tables = [phi_tables(*args, use_kernel=use_kernel) for args in
+        route = (dict(use_kernel=False, static_ladder=True) if differentiable
+                 else dict(use_kernel=use_kernel))
+        self.tables = [phi_tables(*args, **route) for args in
                        table_inputs(system, self.params_b, t_eval, substep,
                                     width_bucketing)]
 
@@ -432,18 +435,27 @@ def exponential_simulate_batched(system, params_b: dict, t_eval,
     (:func:`_rosenbrock_simulate_batched`) before any table or layout
     choice, so ``use_kernel``, ``width_bucketing`` and ``use_scan_kernel``
     do not apply to it, as in the JAX package.
+
+    ``differentiable=True``: a route that ``torch.autograd`` and
+    ``torch.func`` can differentiate, on the CPU and on the card alike, as
+    the JAX package's: the tables by the plain version with its static
+    ladder and the eager scan (the kernels carry no derivative, so
+    ``use_kernel=True`` and ``use_scan_kernel=True`` raise), and for
+    model 4 the static masked ladder of its phi builds. No host read
+    depends on the parameters.
     """
-    if differentiable:
-        raise NotImplementedError(
-            "differentiable=True is not ported yet (ROADMAP.md queue 1 item 4, "
-            "'Gradients and polish')")
+    if differentiable and (use_kernel or use_scan_kernel):
+        raise ValueError("differentiable=True takes the plain tables and the eager scan; "
+                         "the kernels carry no derivative (use_kernel=True or "
+                         "use_scan_kernel=True)")
     if system.topo.model == 4:
         params_b, y0 = _setup(system, params_b, y0)
         P, d = params_b["c_k"].shape[0], y0.numel()
         seg_t0, seg_h, seg_jb, out_idx = _plan(system, t_eval, substep)[:4]
         return _rosenbrock_simulate_batched(system, params_b, y0.reshape(1, d).expand(P, d),
-                                            seg_t0, seg_h, seg_jb, out_idx)
-    scan = ScanSetup(system, params_b, t_eval, substep, y0, use_kernel, width_bucketing)
+                                            seg_t0, seg_h, seg_jb, out_idx, differentiable)
+    scan = ScanSetup(system, params_b, t_eval, substep, y0, use_kernel, width_bucketing,
+                     differentiable)
     if use_scan_kernel and not scan.classes:
         ys = scan.run_kernel(use_kernel)
     else:
@@ -583,7 +595,7 @@ def _class_scan(system, params_b, y0, classes, tables, runs, out_pos, seg_uidx,
 _CHUNK = 8
 
 
-def _phi_matrices_lanes(L, h):
+def _phi_matrices_lanes(L, h, unroll: int | None = None):
     """E = expm(L h), Phi1 = h phi1(L h) and Phi2 = h^2 phi2(L h) as full
     matrices, lane layout: L (w, w, B), h (B,) -> three (w, w, B).
 
@@ -595,14 +607,16 @@ def _phi_matrices_lanes(L, h):
     The squaring ladder runs to the largest squaring count of the finite
     lanes (one non-finite lane does not set the others' trip count; it
     never steps), each lane's count clipped to 24: the JAX package's
-    dynamic ladder. Its masked and static (``unroll``) ladders give the
-    same matrices wherever their trip count covers every lane's."""
+    dynamic ladder. ``unroll=k`` runs exactly k masked doublings, each
+    lane's count clipped at k, with no host read (the differentiable
+    route takes k = 24, the JAX package's masked ladder): the same
+    matrices wherever k covers every lane's count."""
     w, B = L.shape[0], L.shape[-1]
     taylor_terms, rad = (12, 0.25) if L.dtype == torch.float64 else (8, 0.5)
     A = L * h
     norm = torch.amax(torch.sum(torch.abs(A), dim=1), dim=0)
     s = torch.ceil(torch.log2(torch.clamp(norm, min=1e-30) / rad))
-    s = torch.clamp(s, min=0.0, max=float(_MAX_SQUARINGS))
+    s = torch.clamp(s, min=0.0, max=float(_MAX_SQUARINGS if unroll is None else unroll))
     scale = torch.exp2(s)
     A = A / scale
     hs = h / scale
@@ -621,7 +635,9 @@ def _phi_matrices_lanes(L, h):
     Phi2 = F2 * (hs * hs)
 
     hc = hs
-    for i in range(int(torch.nan_to_num(s, nan=0.0).max()) if B else 0):
+    trips = unroll if unroll is not None else (
+        int(torch.nan_to_num(s, nan=0.0).max()) if B else 0)
+    for i in range(trips):
         go = i < s
         P2n = Phi2 + _mm_lanes(E, Phi2) + Phi1 * hc
         P1n = Phi1 + _mm_lanes(E, Phi1)
@@ -691,14 +707,15 @@ def _chunk_plan(seg_t0, seg_h, seg_jb):
 
 
 def _rosenbrock_simulate_batched(system, params_b: dict, y0b, seg_t0, seg_h, seg_jb,
-                                 out_idx):
+                                 out_idx, differentiable: bool = False):
     """Model 4: exponential Rosenbrock (exprb2 with the ETD2RK inner
     stage). At each chunk's entry the block Jacobian at the current state
     (:meth:`PaddedRHS.jac_blocks_saturating`, TF input frozen) is taken as
     L and the full phi matrices are built once; every segment of the chunk
     then steps with the remainder g = rhs - L y evaluated exactly.
     ``params_b`` tensors with a leading P, y0b (P, N*w). Returns (ys (P, T,
-    N*w), success (P,))."""
+    N*w), success (P,)). ``differentiable``: the phi builds take the
+    static masked ladder (no host read)."""
     rhs = system.rhs
     N, w = rhs.N, rhs.width
     P = y0b.shape[0]
@@ -711,7 +728,8 @@ def _rosenbrock_simulate_batched(system, params_b: dict, y0b, seg_t0, seg_h, seg
         Y = _from_lanes(yl, P).reshape(P, N, w)
         L = rhs.jac_blocks_saturating(Y, rhs.site_rates(Kt), params_b)
         L = L.reshape(P * N, w, w).permute(1, 2, 0)                    # (w, w, P*N)
-        Es, P1, P2 = _phi_matrices_lanes(L, torch.full((P * N,), float(h), **f))
+        Es, P1, P2 = _phi_matrices_lanes(L, torch.full((P * N,), float(h), **f),
+                                         unroll=_MAX_SQUARINGS if differentiable else None)
         P2h = P2 / float(h)
         for k in range(int(n)):
             t = float(t0) + k * float(h)

@@ -157,15 +157,18 @@ def _scorer(system, loss_data, defaults, lambdas, n_times: int, loss_mode: int,
     return score
 
 
-def _in_chunks(objective_chunk, pop_chunk, n_proteins: int, f: dict):
+def _in_chunks(objective_chunk, pop_chunk, n_proteins: int, f: dict,
+               differentiable: bool = False):
     """``objective_pop(thetas)``: ``objective_chunk`` over chunks of at most
     ``pop_chunk`` members, the last chunk padded with copies of the last
     row whose results are dropped; ``"auto"`` sizes it by
-    :func:`_auto_pop_chunk`, None never chunks."""
+    :func:`_auto_pop_chunk`, None never chunks. It runs under
+    ``torch.no_grad`` unless ``differentiable``; then it keeps the caller's
+    grad mode, and the cast, the padding and the chunks keep ``thetas`` in
+    the graph."""
     if isinstance(pop_chunk, str):               # "auto"
         pop_chunk = _auto_pop_chunk(n_proteins)
 
-    @torch.no_grad()
     def objective_pop(thetas):
         thetas = torch.as_tensor(thetas, **f)
         P = thetas.shape[0]
@@ -176,7 +179,7 @@ def _in_chunks(objective_chunk, pop_chunk, n_proteins: int, f: dict):
             thetas = torch.cat([thetas, thetas[-1:].expand(pad, -1)], dim=0)
         return torch.cat([objective_chunk(c) for c in thetas.split(pop_chunk)])[:P]
 
-    return objective_pop
+    return objective_pop if differentiable else torch.no_grad()(objective_pop)
 
 
 def make_population_objective(system, slices, loss_data, defaults, lambdas,
@@ -195,11 +198,12 @@ def make_population_objective(system, slices, loss_data, defaults, lambdas,
     tables for the combinatorial mechanism at w >= 9), and so does
     ``use_scan_kernel`` (None: the eager scan; True: the whole unbucketed
     scan as one kernel).
-    ``differentiable=True`` is not ported yet and raises."""
-    if differentiable:
-        raise NotImplementedError(
-            "differentiable=True is not ported yet (ROADMAP.md queue 1 item 4, "
-            "'Gradients and polish')")
+
+    ``differentiable=True``: an objective ``torch.autograd`` differentiates
+    (the gradient polish), whose integrator takes the plain tables with a
+    static ladder and the eager scan
+    (:func:`exponential_simulate_batched`); it records the graph, where
+    the default objective runs under ``torch.no_grad``."""
     t_eval = np.asarray(time_grid, float)
     score = _scorer(system, loss_data, defaults, lambdas, len(t_eval), loss_mode,
                     fail_value, dense_loss=True)
@@ -209,13 +213,13 @@ def make_population_objective(system, slices, loss_data, defaults, lambdas,
         params_b = unpack_params(thetas, slices, topo)
         ys, success = exponential_simulate_batched(
             system, params_b, t_eval, substep=substep, y0=y0,
-            use_kernel=use_kernel, width_bucketing=width_bucketing,
-            use_scan_kernel=use_scan_kernel)
+            use_kernel=use_kernel, differentiable=differentiable,
+            width_bucketing=width_bucketing, use_scan_kernel=use_scan_kernel)
         return score(params_b, ys, success)
 
     objective_pop = _in_chunks(objective_chunk, pop_chunk, topo.N,
                                dict(dtype=system.rhs.Kmat.dtype,
-                                    device=system.rhs.Kmat.device))
+                                    device=system.rhs.Kmat.device), differentiable)
     # population-native: run_global_fit may run variation (and survival) on
     # the device around it
     objective_pop._is_population = True
@@ -277,3 +281,59 @@ def evaluate_population(objective, thetas):
     """Evaluate a (P, n) population on one device. The JAX package's mesh
     sharding is ROADMAP.md queue 1 item 1b, "Population sharding"."""
     return objective(thetas)
+
+
+def make_residual_fn(system, slices, loss_data, defaults, lambdas, time_grid, *,
+                     y0=None, substep=16.0):
+    """Per-observation weighted residual vector for least-squares refinement:
+    ``residuals(theta (n,)) -> (M,)`` on the system's device and dtype, with
+    ``sum(residuals(theta)**2) == objective(theta).sum()`` for the
+    squared-loss objective (loss_mode 0). Each data row is
+    ``sqrt(lambda_mod * norm_mod * w_i) * (obs_i - pred_fc_i)`` (rows in the
+    observation table's order: protein, RNA, phospho) and each prior row
+    ``sqrt(3 * lambda_prior / cnt) * rel_dev_k`` (the prior penalty is added
+    to all three objectives). It integrates by the differentiable route of
+    :func:`exponential_simulate_batched` with the plain tables asked for by
+    name, and reads nothing on the host, so ``torch.func.jvp`` and
+    ``torch.func.vmap`` trace it (the LM Jacobian). Counterpart of the JAX
+    package's ``make_residual_fn``; no ``fail_value``: a failed integration
+    gives non-finite rows."""
+    rhs = system.rhs
+    f = dict(dtype=rhs.Kmat.dtype, device=rhs.Kmat.device)
+    ld = loss_data
+    t_eval = np.asarray(time_grid, float)
+    defaults_t = {k: torch.as_tensor(np.asarray(defaults[k], float), **f) for k in PRIOR_KEYS}
+    cnt = max(1, sum(defaults_t[k].numel() for k in PRIOR_KEYS))
+    prior_scale = math.sqrt(3.0 * lambdas["prior"] / cnt)
+    topo = system.topo
+
+    def rows(key_idx, base_idx, obs, w, lam):
+        idx = tuple(torch.as_tensor(np.asarray(a, np.int64), device=f["device"])
+                    for a in key_idx)
+        scale = lam / max(1e-6, float(np.sum(w)))
+        return (idx, (base_idx,) + idx[1:], torch.tensor(np.asarray(obs, float), **f),
+                torch.sqrt(scale * torch.tensor(np.asarray(w, float), **f)))
+
+    tables = (rows((ld.t_prot, ld.p_prot), ld.prot_base_idx, ld.obs_prot, ld.w_prot,
+                   lambdas["protein"]),
+              rows((ld.t_rna, ld.p_rna), ld.rna_base_idx, ld.obs_rna, ld.w_rna,
+                   lambdas["rna"]),
+              rows((ld.t_pho, ld.p_pho, ld.s_pho), ld.pho_base_idx, ld.obs_pho, ld.w_pho,
+                   lambdas["phospho"]))
+
+    def residuals(theta):
+        theta = torch.as_tensor(theta, **f)
+        params_b = unpack_params(theta[None], slices, topo)
+        ys, _ = exponential_simulate_batched(system, params_b, t_eval, substep=substep,
+                                             y0=y0, use_kernel=False, differentiable=True)
+        obs = extract_observables(system, ys[0])
+        out = []
+        for sig, (key, base_key, o, sw) in zip((obs.TOT, obs.R, obs.PHO), tables):
+            pred_fc = torch.clamp(sig[key], min=EPS) / torch.clamp(sig[base_key], min=EPS)
+            out.append(sw * (o - pred_fc))
+        for k in PRIOR_KEYS:
+            dev = (params_b[k][0] - defaults_t[k]) / (defaults_t[k] + 1e-6)
+            out.append(prior_scale * dev.reshape(-1))
+        return torch.cat(out)
+
+    return residuals

@@ -8,14 +8,17 @@ device, either with host survival around device variation (the default,
 with :func:`~phoskintime_tpu_torch.ops.nsga.make_device_ga_step`) or with
 the whole generation on the device (``gens_per_dispatch > 1``;
 :func:`~phoskintime_tpu_torch.ops.nsga_device.run_unsga3_device`);
-optional bound-zoom refinement rounds; and the pick of the Pareto member
-whose simulated fold changes lie closest, by discrete Fréchet distance,
-to the data.
+or a gradient-only multistart (``optimizer="gradient"``); optional
+bound-zoom refinement rounds; the exact-gradient Adam polish of the Pareto
+set (``polish_steps > 0``) and the Levenberg-Marquardt finish of its
+best-by-sum member (``gn_iters > 0``), both from
+:mod:`~phoskintime_tpu_torch.network.polish`; and the pick of the Pareto
+member whose simulated fold changes lie closest, by discrete Fréchet
+distance, to the data.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: ``optimizer="optuna"`` (queue 1 item 7),
-``optimizer="gradient"``, ``polish_steps > 0`` and ``gn_iters > 0`` (item
-4), a ``mesh`` (item 1b, population sharding).
+ROADMAP.md item: ``optimizer="optuna"`` (queue 1 item 7) and a ``mesh``
+(item 1b, population sharding).
 
 The pick reads the observation tables by column (``np.asarray(df[col])``
 for ``protein``, ``psite``, ``time`` and ``fc``), so a pandas DataFrame and
@@ -35,10 +38,13 @@ from phoskintime_tpu_torch.network.expo import exponential_simulate_batched
 from phoskintime_tpu_torch.network.objective import (evaluate_population, make_objective,
                                                      make_population_objective)
 from phoskintime_tpu_torch.network.params import unpack_params
+from phoskintime_tpu_torch.network.polish import (gradient_multistart, lm_refine,
+                                                  polish_solutions, simplex_weights)
 from phoskintime_tpu_torch.network.simulate import (Observables, extract_observables,
                                                     fold_changes)
 from phoskintime_tpu_torch.ops.frechet import frechet_distance
-from phoskintime_tpu_torch.ops.nsga import lhs_sampling, make_device_ga_step, run_unsga3
+from phoskintime_tpu_torch.ops.nsga import (MOOResult, fast_non_dominated_sort, lhs_sampling,
+                                            make_device_ga_step, run_unsga3)
 from phoskintime_tpu_torch.ops.nsga_device import make_device_ga_blocks, run_unsga3_device
 from phoskintime_tpu_torch.parallel.checkpoint import GACheckpointer
 
@@ -101,16 +107,24 @@ def run_global_fit(system, slices, loss_data, defaults, lambdas, time_grid,
     its whole state there every ``checkpoint_every`` generations, and a run
     started on a file that holds one continues from it to ``n_gen``.
 
-    ``n_trials``, ``polish_lr``, ``rtol``/``atol``/``max_steps`` (expo) are
-    accepted for the JAX package's signature and read only where they
-    apply."""
+    optimizer="gradient": no evolutionary search, but
+    :func:`gradient_multistart` of ``pop`` starts for ``max(100,
+    polish_steps or 300)`` Adam steps at ``polish_lr``, counted as 3
+    evaluations a member and step. polish_steps > 0 (another optimizer)
+    polishes the Pareto set after the search and any refinement
+    (:func:`polish_solutions`, each member along its own
+    :func:`simplex_weights` direction) and merges the polished members
+    back by non-dominated sorting (3 evaluations a member and step).
+    gn_iters > 0 (loss_mode 0 only) finishes the best-by-sum Pareto member
+    with that many :func:`lm_refine` iterations (counted as 30 evaluations
+    each) and merges it likewise.
+
+    ``n_trials``, ``rtol``/``atol``/``max_steps`` (expo) are accepted for
+    the JAX package's signature and read only where they apply."""
     if mesh is not None:
         raise _not_ported("population sharding (mesh=...)", "1b, 'Population sharding'")
     if optimizer == "optuna":
         raise _not_ported("optimizer='optuna' (MOTPE, ops/tpe.py)", "7")
-    if optimizer == "gradient" or polish_steps > 0 or gn_iters > 0:
-        raise _not_ported("the gradient multistart, polish_steps > 0 and gn_iters > 0",
-                          "4, 'Gradients and polish'")
     if solver == "auto":
         solver = "expo"
     args = (system, slices, loss_data, defaults, lambdas, time_grid)
@@ -139,7 +153,13 @@ def run_global_fit(system, slices, loss_data, defaults, lambdas, time_grid,
 
     population = getattr(objective, "_is_population", False)
     device_step = ga_prebuilt = None
-    if population and gens_per_dispatch > 1:
+    if optimizer == "gradient":
+        steps = max(100, polish_steps or 300)
+        Xg, Fg = gradient_multistart(*args, xl, xu, pop=pop, steps=steps, lr=polish_lr,
+                                     loss_mode=loss_mode, y0=y0, seed=seed)
+        pf = fast_non_dominated_sort(Fg)[0]
+        res = MOOResult(Xg, Fg, Xg[pf], Fg[pf], [], 0, pop * 3 * steps)
+    elif population and gens_per_dispatch > 1:
         ga_prebuilt = make_device_ga_blocks(objective, len(np.asarray(xl)), pop, dtype=dtype,
                                             device=device, gens_per_block=gens_per_dispatch)
         res = run_unsga3_device(
@@ -183,6 +203,25 @@ def run_global_fit(system, slices, loss_data, defaults, lambdas, time_grid,
         # n_evals covers the whole fit, not just the last round
         res = dataclasses.replace(cur, n_evals=total_evals)
 
+    # ---- exact-gradient polish of the Pareto set ---------------------------
+    if polish_steps > 0 and optimizer != "gradient" and len(res.pareto_X):
+        pX, pF = polish_solutions(*args, res.pareto_X, xl, xu,
+                                  weights=simplex_weights(res.pareto_F), steps=polish_steps,
+                                  lr=polish_lr, loss_mode=loss_mode, y0=y0)
+        if logger is not None:
+            logger.info(f"[Polish] ideal {res.pareto_F.min(axis=0)} -> {pF.min(axis=0)} "
+                        f"({polish_steps} Adam steps)")
+        res = _merged(res, pX, pF, 3 * polish_steps * len(pX))
+
+    # ---- the LM (Gauss-Newton) finish of the best-by-sum member ------------
+    if gn_iters > 0 and len(res.pareto_X) and loss_mode == 0:
+        bi = int(np.argmin(res.pareto_F.sum(axis=1)))
+        th_gn, sse = lm_refine(*args, res.pareto_X[bi], xl, xu, iters=gn_iters, y0=y0,
+                               logger=logger)
+        res = _merged(res, th_gn[None], evaluate(th_gn[None]), gn_iters * 30)
+        if logger is not None:
+            logger.info(f"[GN] best-by-sum sse -> {sse:.6g}")
+
     # ---- Frechet-distance solution picking --------------------------------
     best_idx, scores = 0, np.zeros(len(res.pareto_X))
     if frechet_pick and df_prot is not None and t_points is not None:
@@ -191,6 +230,16 @@ def run_global_fit(system, slices, loss_data, defaults, lambdas, time_grid,
 
     return GlobalFitResult(res.X, res.F, res.pareto_X, res.pareto_F, best_idx, scores,
                            res.history, res.n_evals, pop_history)
+
+
+def _merged(res, X_new, F_new, n_evals: int):
+    """``res`` with the members (X_new, F_new) appended and its Pareto set
+    re-sorted over all of them; ``n_evals`` more evaluations."""
+    X_all = np.vstack([res.X, X_new])
+    F_all = np.vstack([res.F, np.asarray(F_new, float)])
+    pf = fast_non_dominated_sort(F_all)[0]
+    return dataclasses.replace(res, X=X_all, F=F_all, pareto_X=X_all[pf], pareto_F=F_all[pf],
+                               n_evals=res.n_evals + n_evals)
 
 
 # ---------------------------------------------------------------------------

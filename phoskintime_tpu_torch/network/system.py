@@ -80,6 +80,18 @@ class GlobalSystem:
         """Bucketed RHS of one member for the integrator: (t, y_flat, jb) -> dy."""
         return lambda t, y, jb: self.rhs(t, y, jb, params)
 
+    def astype(self, dtype: torch.dtype) -> "GlobalSystem":
+        """The same topology, grid, Kmat and y0 at another working dtype on
+        the same device; ``self`` where the dtype is already ``dtype``. The
+        host inputs are float64, so the cast is lossless upward: the
+        float64 system is the exact model whose float32 tensors the
+        production system rounds. Used by the mixed-precision LM finish
+        (:func:`phoskintime_tpu_torch.network.polish.lm_refine_mixed`)."""
+        if dtype == self.dtype:
+            return self
+        return GlobalSystem(self.topo, self.kin_grid, self.Kmat, custom_y0=self.custom_y0,
+                            dtype=dtype, device=self.device)
+
     def rhs_batched(self, params_b, use_kernel: bool | None = None):
         """Bucketed RHS of a population for the batched integrator:
         (t (P,), y (P, N*width), jb (P,)) -> dy (P, N*width); ``use_kernel``

@@ -83,23 +83,34 @@ def _mv_lanes(M, v):
     return torch.sum(M * v[None, :, :], dim=1)
 
 
-def phi_vectors_lanes(L: torch.Tensor, h: float,
-                      max_squarings: int = _MAX_SQUARINGS):
-    """E = expm(L h) and column 0 of h phi1(L h) and h^2 phi2(L h), one h
-    for all lanes. L (w, w, B) -> E (w, w, B), p1 (w, B), p2 (w, B).
+def phi_vectors_lanes(L: torch.Tensor, h, max_squarings=_MAX_SQUARINGS,
+                      unroll: int | None = None):
+    """E = expm(L h) and column 0 of h phi1(L h) and h^2 phi2(L h).
+    L (w, w, B) -> E (w, w, B), p1 (w, B), p2 (w, B); ``h`` one float for
+    all lanes or a (B,) tensor, one a lane.
 
     Scaling and squaring with a per-lane squaring count s clipped to
-    ``max_squarings``; the series follows the JAX package's dtype policy:
-    8 terms at radius 0.5 for float32, 12 terms at radius 0.25 for float64.
+    ``max_squarings`` (an int, or a (B,) tensor of each lane's bound); the
+    series follows the JAX package's dtype policy: 8 terms at radius 0.5
+    for float32, 12 terms at radius 0.25 for float64.
+
+    The ladder runs to the largest count of the finite lanes, read on the
+    host. ``unroll=k`` instead runs exactly k masked doublings with each
+    lane's count clipped at k as well, and reads nothing on the host, so
+    ``torch.func`` transforms can trace it: the same values wherever k
+    covers every lane's need (the JAX package's ``unroll`` ladder).
     """
     w, B = L.shape[0], L.shape[-1]
     f64 = L.dtype == torch.float64
     terms, rad = (12, 0.25) if f64 else (_TAYLOR_TERMS, _RADIUS)
-    h = torch.tensor(h, dtype=L.dtype, device=L.device)
+    h = torch.as_tensor(h, dtype=L.dtype, device=L.device)
     A = L * h
     norm = torch.amax(torch.sum(torch.abs(A), dim=1), dim=0)
     s = torch.ceil(torch.log2(torch.clamp(norm, min=1e-30) / rad))
-    s = torch.clamp(s, min=0.0, max=float(max_squarings))
+    s = torch.minimum(torch.clamp(s, min=0.0),
+                      torch.as_tensor(max_squarings, dtype=L.dtype, device=L.device))
+    if unroll is not None:
+        s = torch.clamp(s, max=float(unroll))
     scale = torch.exp2(s)
     A = A / scale
     hs = h / scale
@@ -123,7 +134,9 @@ def phi_vectors_lanes(L: torch.Tensor, h: float,
     # lanes past their own s keep their values. A non-finite lane (s NaN)
     # never steps and does not set the trip count of the others.
     hc = hs
-    for i in range(int(torch.nan_to_num(s, nan=0.0).max()) if B else 0):
+    trips = unroll if unroll is not None else (
+        int(torch.nan_to_num(s, nan=0.0).max()) if B else 0)
+    for i in range(trips):
         go = i < s
         p2n = p2 + _mv_lanes(E, p2) + p1 * hc
         p1n = p1 + _mv_lanes(E, p1)
@@ -134,11 +147,32 @@ def phi_vectors_lanes(L: torch.Tensor, h: float,
     return E, p1, p2
 
 
-def phi_tables_reference(L: torch.Tensor, binv, h_u, ladder: int):
+def phi_tables_reference(L: torch.Tensor, binv, h_u, ladder: int,
+                         static_ladder: bool = False):
     """Plain version of :func:`phi_tables`: the tables pair by pair, with
-    each lane's squaring count clipped to ``ladder`` as the kernel does."""
+    each lane's squaring count clipped to ``ladder`` as the kernel does.
+
+    ``static_ladder=True``: each pair's lanes take ``ladder_len(w, h)``
+    as their bound and all pairs run as one batch of lanes through the
+    masked ladder of the largest bound (``phi_vectors_lanes(unroll=...)``),
+    with no host read, as the JAX package's differentiable build bounds
+    them; the same values where that bounds each lane's need, in one pass
+    where the dynamic ladder takes one a pair."""
+    w = L.shape[1]
+    binv, h_u = np.asarray(binv), np.asarray(h_u, float)
+    if static_ladder:
+        U, B = len(h_u), L.shape[-1]
+        lanes = L[torch.as_tensor(binv, device=L.device)]            # (U, w, w, B)
+        lanes = lanes.permute(1, 2, 0, 3).reshape(w, w, U * B)
+        bounds = [ladder_len(w, h) for h in h_u]
+        E, p1, p2 = phi_vectors_lanes(lanes, np.repeat(h_u, B),
+                                      max_squarings=np.repeat(bounds, B),
+                                      unroll=max(bounds))
+        return (E.reshape(w, w, U, B).permute(2, 0, 1, 3).contiguous(),
+                p1.reshape(w, U, B).permute(1, 0, 2).contiguous(),
+                p2.reshape(w, U, B).permute(1, 0, 2).contiguous())
     outs = [phi_vectors_lanes(L[int(b)], float(h), max_squarings=ladder)
-            for b, h in zip(np.asarray(binv), np.asarray(h_u))]
+            for b, h in zip(binv, h_u)]
     return tuple(torch.stack(x) for x in zip(*outs))
 
 
@@ -210,7 +244,7 @@ def _launch(source, name: str, L, binv, h_u, ladder: int, argtypes=_ARGTYPES,
 
 
 def phi_tables(L: torch.Tensor, binv, h_u, ladder: int, *,
-               use_kernel: bool | None = None):
+               use_kernel: bool | None = None, static_ladder: bool = False):
     """Tables for all (bucket, h) pairs.
 
     Args:
@@ -220,15 +254,19 @@ def phi_tables(L: torch.Tensor, binv, h_u, ladder: int, *,
       ladder: bound on each lane's squaring count (the max of
         :func:`ladder_len` over the pairs).
       use_kernel: None routes by device (a kernel on CUDA, the plain
-        version on the CPU); False forces the plain version (comparisons
-        only).
+        version on the CPU); False forces the plain version (comparisons,
+        and the differentiable route: the kernels carry no derivative).
+      static_ladder: the plain version's static ladder (see
+        :func:`phi_tables_reference`); it needs ``use_kernel=False``.
     Returns E (U, w, w, B), p1 (U, w, B), p2 (U, w, B).
     """
     binv, h_u = _check(L, binv, h_u)
+    if static_ladder and use_kernel is not False:
+        raise ValueError("static_ladder=True is the plain version's; pass use_kernel=False")
     if use_kernel is None:
         use_kernel = L.is_cuda
     if not use_kernel:
-        return phi_tables_reference(L, binv, h_u, ladder)
+        return phi_tables_reference(L, binv, h_u, ladder, static_ladder)
     if not L.is_cuda:
         raise ValueError("use_kernel=True needs a CUDA tensor")
     w = L.shape[1]

@@ -18,7 +18,9 @@ import torch
 from phoskintime_tpu_torch.demo import build_demo_network
 from phoskintime_tpu_torch.network import steadystate
 from phoskintime_tpu_torch.network.expo import width_classes
-from phoskintime_tpu_torch.network.objective import make_objective, make_population_objective
+from phoskintime_tpu_torch.network.objective import (make_objective, make_population_objective,
+                                                     make_residual_fn)
+from phoskintime_tpu_torch.network.polish import forward_jacobian, polish_solutions
 from phoskintime_tpu_torch.network.rhs import tf_inputs
 from phoskintime_tpu_torch.network.simulate import extract_observables, simulate_batched
 from phoskintime_tpu_torch.network.system import GlobalSystem
@@ -807,3 +809,73 @@ def test_global_fit_on_the_card(cuda_device, gens_per_dispatch):
                          df_pho=b["df_pho"], t_points=(b["grid"],) * 3)
     assert res.n_evals == 64 * 4 and np.isfinite(res.pareto_F).all()
     assert 0 <= res.best_idx < len(res.pareto_X)
+
+
+# --- the gradient stage -----------------------------------------------------------------
+
+
+def _table_launches():
+    return phi_tables.launches + phi_tables_wide.launches + etd2rk_scan.launches
+
+
+@pytest.mark.parametrize("model", [0, 2, 4])
+def test_differentiable_objective_on_the_card_matches_cpu(cuda_device, model):
+    """The differentiable objective at float64 on the card, and its
+    gradient, against the CPU's (rel 1e-9); the forward and reverse passes
+    launch no table or scan kernel."""
+    b = build_demo_network(n_proteins=8, n_kinases=4, model=model, seed=0,
+                           dtype=torch.float64, device=cuda_device)
+    cpu = GlobalSystem(b["system"].topo, b["system"].kin_grid, b["system"].Kmat,
+                       dtype=torch.float64, device="cpu")
+    args = (b["slices"], b["loss_data"], b["defaults"], b["lambdas"], b["grid"])
+    rng = np.random.default_rng(0)
+    thetas = b["theta0"][None] + 0.05 * rng.normal(size=(4, len(b["theta0"])))
+
+    def value_and_grad(system):
+        X = torch.as_tensor(thetas, device=system.device).requires_grad_(True)
+        F = make_population_objective(system, *args, differentiable=True)(X)
+        g, = torch.autograd.grad(F.sum(), X)
+        return F.detach().cpu().numpy(), g.cpu().numpy()
+
+    before = _table_launches()
+    F, g = value_and_grad(b["system"])
+    torch.cuda.synchronize()
+    assert _table_launches() == before
+    Fc, gc = value_and_grad(cpu)
+    np.testing.assert_allclose(F, Fc, rtol=1e-9)
+    assert np.isfinite(g).all()
+    assert np.max(np.abs(g - gc)) <= 1e-9 * np.max(np.abs(gc))
+    th = thetas[0]
+    J = forward_jacobian(make_residual_fn(b["system"], *args),
+                         torch.as_tensor(th, device=cuda_device), chunk=32)
+    assert _table_launches() == before
+    Jc = forward_jacobian(make_residual_fn(cpu, *args), torch.as_tensor(th), chunk=32)
+    assert float(torch.max(torch.abs(J.cpu() - Jc))) <= 1e-9 * float(torch.max(torch.abs(Jc)))
+
+
+def test_polish_launches_tables_only_to_score(cuda_device):
+    """polish_solutions at float32 on the card: no table launch in its
+    Adam steps, one in the production scoring of its one chunk; no member
+    worse than its input, every member inside the box."""
+    b = build_demo_network(n_proteins=8, n_kinases=4, seed=0, dtype=torch.float32,
+                           device=cuda_device)
+    args = (b["system"], b["slices"], b["loss_data"], b["defaults"], b["lambdas"], b["grid"])
+    rng = np.random.default_rng(1)
+    X0 = b["theta0"][None] + 0.3 * rng.normal(size=(6, len(b["theta0"])))
+    X0 = np.clip(X0, b["xl"], b["xu"])
+    F0 = make_population_objective(*args)(X0).cpu().numpy()
+    phi_tables.launches = phi_tables_wide.launches = etd2rk_scan.launches = 0
+    X, F = polish_solutions(*args, X0, b["xl"], b["xu"], steps=4)
+    torch.cuda.synchronize()
+    assert (phi_tables.launches, phi_tables_wide.launches, etd2rk_scan.launches) == (1, 0, 0)
+    assert np.all(F.sum(axis=1) <= F0.sum(axis=1) * (1 + 1e-4) + 1e-6)
+    assert np.all(X >= b["xl"] - 1e-6) and np.all(X <= b["xu"] + 1e-6)
+
+
+def test_astype_keeps_the_device(cuda_device):
+    b = build_demo_network(n_proteins=6, n_kinases=3, seed=0, dtype=torch.float32,
+                           device=cuda_device)
+    s64 = b["system"].astype(torch.float64)
+    assert s64.device == b["system"].device and s64.rhs.Kmat.is_cuda
+    assert s64.rhs.Kmat.dtype == torch.float64 and s64.topo is b["system"].topo
+    assert b["system"].astype(torch.float32) is b["system"]

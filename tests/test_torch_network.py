@@ -235,15 +235,13 @@ def test_simulate_batched_and_observables_match_jax(bundles):
 
 def test_unported_mechanisms_raise(bundles):
     """Models 2 and 4 build (their parity tests are in test_torch_model2.py
-    and test_torch_model4.py); the differentiable path still raises."""
+    and test_torch_model4.py; the differentiable path's in
+    test_torch_polish.py)."""
     _, bt = bundles
     topo = bt["topo"]
     for model in (2, 4):
         tm = type(topo)(**{**topo.__dict__, "model": model})
         assert PaddedRHS(tm, bt["system"].Kmat, device="cpu").model == model
-    with pytest.raises(NotImplementedError, match="Gradients and polish"):
-        expo.exponential_simulate_batched(bt["system"], {}, bt["grid"],
-                                          differentiable=True)
 
 
 # --- losses ----------------------------------------------------------------

@@ -113,12 +113,6 @@ def test_auto_pop_chunk():
         assert _auto_pop_chunk(n) == jax_chunk(n)
 
 
-def test_differentiable_not_ported(bundles):
-    _, bt = bundles
-    with pytest.raises(NotImplementedError, match="Gradients and polish"):
-        make_population_objective(*(bt[k] for k in KEYS), differentiable=True)
-
-
 def test_demo_bundle_matches_jax():
     """The default float32 bundle: same draws, same structure, observations
     from RK45 at float32 on both sides."""

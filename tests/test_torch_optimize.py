@@ -127,11 +127,8 @@ def test_fit_resumes_from_its_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("kw, item", [
     (dict(optimizer="optuna"), "item 7"),
-    (dict(optimizer="gradient"), "item 4"),
-    (dict(polish_steps=5), "item 4"),
-    (dict(gn_iters=3), "item 4"),
     (dict(mesh=object()), "item 1b"),
-], ids=["optuna", "gradient", "polish", "gn_iters", "mesh"])
+], ids=["optuna", "mesh"])
 def test_routes_not_ported_raise(bundles, kw, item):
     _, bt = bundles
     with pytest.raises(NotImplementedError, match=item):

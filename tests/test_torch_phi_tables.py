@@ -63,7 +63,7 @@ def test_package_imports_without_jax():
     for new in ("ops.hypercube_flux", "ops.tridiag", "ops.integrators",
                 "network.analysis", "network.steadystate", "ops.fma_peak", "ops.nsga",
                 "ops.nsga_device", "ops.frechet", "native", "parallel.checkpoint",
-                "network.optimize", "network.bounds", "network.weights"):
+                "network.optimize", "network.bounds", "network.weights", "network.polish"):
         assert f"phoskintime_tpu_torch.{new}" in mods, new
     code = ("import importlib, sys; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
