@@ -163,6 +163,45 @@ kernel):
    Pareto set the first front of every member (a polished member in it),
    the table launches, each stage's seconds.
 
+The per-gene stack (``fit/``, ``models/``, ``ops/linear.py``, ``ops/lm.py``,
+``ops/morris.py``; plain PyTorch, no hand-written kernel: its launches are
+recorded as 0 for every kernel and asserted so):
+
+10a. for each mechanism (distmod, succmod, randmod) and n = 1..5 sites,
+   4,096 seeded parameter vectors in the default box through
+   ``solve_ode_batched`` on the card: float64 within max(1e-12, 8 2^s eps)
+   (scaled) of the port's float64 CPU result, float32 within 1e-3, NaN
+   lanes in the same
+   places; the port's ``expm`` and ``torch.linalg.matrix_exp`` timed on
+   the same batch, whether each synchronizes (``set_sync_debug_mode``)
+   and its device-to-host copies; both again at the stage-2 batch of
+   randmod n = 5 (a Jacobian pass). s is the batch's largest squaring
+   count: each squaring can double a rounding difference. The CPU references come from worker processes and are checked after
+   10b's float32 cohorts;
+10b. for each mechanism and n = 1..5, 8 noise-free synthetic genes (the
+   JAX package's ``synth_gene`` recipe) through ``normest_batch`` at the
+   defaults (10 lambdas, the default weight library, 48 starts, 80 LM
+   iterations, regularisation on), float32 in this process and float64
+   in two worker processes on the card at the same time (the cohorts are
+   host-bound; randmod at n = 5, the one device-bound cohort, runs first
+   here and last in its worker): each stage's host ms, lanes, chunks and
+   ms an iteration, peak memory, the LM loops under
+   ``set_sync_debug_mode("error")``; at n = 5 (float32, alone on the card)
+   each stage profiled at 1 and 3 iterations (device events an iteration,
+   idle share); the float64 card fits of n = 2 against the port's float64
+   CPU fit of one of its genes, made in worker processes (the same lambda
+   and weight, score, error and params within 1e-6);
+10c. the JAX package's recovery gate (distmod, n = 2, seed 5, no
+   regularisation, 24 starts, 120 iterations): float64 error < 1e-8 and
+   params within rtol 5e-2; float32 printed and held to rtol 5e-2;
+10d. ``run_model_pipeline`` on a column-dict cohort (distmod, one gene a
+   site count 1..5, knockouts on) on its default device, then
+   ``process_gene`` with Morris (200 x 40) and 8 bootstraps: seconds, Morris
+   solves a second.
+
+``python3 chip_smoke.py --pergene-only`` runs phase 1 and phase 10 alone
+(no kernel build, no JSON lines).
+
 The line before the last is a JSON summary of each kernel (the float64
 instances and ``sq_chain`` included, each with the launches of its own main
 path); the last line is ``{"ok": true, "device": {...}}``. There is no CPU
@@ -171,6 +210,7 @@ fallback.
 
 from __future__ import annotations
 
+import importlib
 import json
 import re
 import subprocess
@@ -182,6 +222,11 @@ import numpy as np
 import torch
 
 from phoskintime_tpu_torch.demo import GRID, RNA_GRID, build_demo_network
+from phoskintime_tpu_torch.fit import pipeline as pipeline_mod
+from phoskintime_tpu_torch.fit.normest import normest, normest_batch
+from phoskintime_tpu_torch.fit.pipeline import process_gene, run_model_pipeline
+from phoskintime_tpu_torch.models.kinetics import (_BUILDERS, initial_condition, n_params,
+                                                   solve_ode, solve_ode_batched, state_dim)
 from phoskintime_tpu_torch.network import expo, polish, steadystate
 from phoskintime_tpu_torch.network.analysis import simulate_until_steady
 from phoskintime_tpu_torch.network.objective import (_auto_pop_chunk, _scorer,
@@ -199,6 +244,7 @@ from phoskintime_tpu_torch.network.topology import build_topology
 from phoskintime_tpu_torch.ops import cuda_build
 from phoskintime_tpu_torch.ops import fma_peak
 from phoskintime_tpu_torch.ops.hypercube_flux import hypercube_flux, hypercube_flux_reference
+from phoskintime_tpu_torch.ops.linear import affine_augment, expm
 from phoskintime_tpu_torch.ops.nsga import (das_dennis, fast_non_dominated_sort,
                                             make_device_ga_step, nsga3_survival)
 from phoskintime_tpu_torch.ops.nsga_device import make_device_ga_blocks
@@ -297,6 +343,26 @@ LM_SSE_RTOL = {torch.float32: 2e-4, torch.float64: 1e-9}
 LM_ITERS_LO, LM_ITERS_HI, LM_MIXED_GATE, JAC_CHUNK = 8, 6, 1e-3, 256
 # the fits of 9d: the GA then polish and LM; the gradient multistart
 GRADFIT_POP, GRADFIT_GENS, GRADFIT_GN_ITERS, GRADFIT_MULTISTART_POP = 256, 3, 3, 64
+# 10: the per-gene stack. The protein time grid and the default box (all
+# bounds (0, 20)); the three mechanisms at n = 1..5 sites; PG_GENES genes a
+# cohort at normest's defaults (PG_LM_ITERS is its lm_iters); PG_SOLVES
+# parameter vectors a solve check (10a) against the CPU, scaled by the
+# largest entry; the float64 card fits against the CPU's on PG_CPU_GENES
+# genes at n = PG_CPU_SITES (rtol: the JAX package's batch-vs-single gate,
+# tests/test_normest.py:155-156); the recovery gate of tests/test_normest.py:42-50
+# the module (fit/__init__ re-exports the function under its name)
+normest_mod = importlib.import_module("phoskintime_tpu_torch.fit.normest")
+PG_TIMES = np.array([0.0, 0.5, 0.75, 1.0, 2.0, 4.0, 8.0, 16.0, 30.0, 60.0, 120.0, 240.0,
+                     480.0, 960.0])
+PG_BOUNDS = {k: (0.0, 20.0) for k in ("A", "B", "C", "D", "S(i)", "D(i)")}
+PG_MODELS, PG_SITES, PG_GENES, PG_LM_ITERS = ("distmod", "succmod", "randmod"), (1, 2, 3, 4, 5), 8, 80
+PG_SOLVES, PG_F64_SCALED, PG_F32_SCALED, PG_MAXNORM_F64 = 4096, 1e-12, 1e-3, 5.371920351148152
+PG_CPU_SITES, PG_CPU_GENES, PG_CPU_RTOL, PG_CPU_THREADS = 2, 1, 1e-6, 1
+# worker processes of phase 10: two run the float64 cohorts on the card,
+# three the CPU references, one thread each
+PG_WORKERS = 5
+PG_RECOVERY_ERROR, PG_RECOVERY_RTOL, PG_BOOTSTRAPS = 1e-8, 5e-2, 8
+PG_DEVICE = "cuda"
 STEADY = {0: steadystate.steady_state_distributive, 1: steadystate.steady_state_sequential,
           2: steadystate.steady_state_combinatorial}
 
@@ -2429,6 +2495,453 @@ def phase_gradient_fits(b, card) -> dict:
     return paths
 
 
+# --- 10: the per-gene stack --------------------------------------------------------
+
+
+def pergene_gene(model: str, n: int, seed: int) -> tuple:
+    """Noise-free synthetic data of one gene from known parameters, by the
+    JAX package's recipe (tests/test_normest.py:21-37): (true, y0, pr_data,
+    p_data, r_data), made on the CPU at float64."""
+    rng = np.random.default_rng(seed)
+    true = rng.uniform(0.3, 2.5, n_params(model, n))
+    y0 = initial_condition(n, model, device="cpu").numpy()
+    _, fit = solve_ode(true, y0, n, PG_TIMES, model, device="cpu")
+    fit = fit.numpy()
+    T = len(PG_TIMES)
+    return true, y0, fit[T - 5:2 * T - 5], fit[2 * T - 5:].reshape(n, T), fit[:T - 5]
+
+
+def pergene_cohort(model: str, n: int) -> tuple:
+    """normest_batch's positional arguments for PG_GENES synthetic genes."""
+    data = [pergene_gene(model, n, 100 * n + g) for g in range(PG_GENES)]
+    return ([f"G{n}_{g}" for g in range(PG_GENES)], np.stack([d[2] for d in data]),
+            np.stack([d[3] for d in data]), np.stack([d[4] for d in data]), data[0][1], n,
+            PG_TIMES, PG_BOUNDS)
+
+
+def pergene_cpu_job(model: str) -> dict:
+    """The float64 CPU reference of 10b (a worker process): normest_batch
+    of the first PG_CPU_GENES genes of the n = PG_CPU_SITES cohort at the
+    defaults. A gene's fit does not depend on its cohort-mates, so these
+    equal the card's fits of the same genes."""
+    torch.set_num_threads(PG_CPU_THREADS)
+    t0 = time.perf_counter()
+    genes, pr, p, r, *rest = pergene_cohort(model, PG_CPU_SITES)
+    k = PG_CPU_GENES
+    out = normest_batch(genes[:k], pr[:k], p[:k], r[:k], *rest, model=model, device="cpu")
+    return {"fits": out, "seconds": time.perf_counter() - t0}
+
+
+def pergene_solve_job(P, model: str, n: int) -> np.ndarray:
+    """10a's float64 CPU reference (a worker process): the solves of P."""
+    torch.set_num_threads(PG_CPU_THREADS)
+    y0 = initial_condition(n, model, device="cpu").numpy()
+    return solve_ode_batched(P, y0, n, PG_TIMES, model, device="cpu")[0].numpy()
+
+
+def sync_events(fn) -> tuple:
+    """(synchronizes, device-to-host copies): ``fn()`` under
+    set_sync_debug_mode("error"), then its profiled device-to-host copies."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+        syncs = False
+    except RuntimeError:
+        syncs = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    events, _ = device_events(fn)
+    return syncs, sum("DtoH" in name for name, _, _ in events)
+
+
+def pergene_draws() -> dict:
+    """10a's seeded parameter vectors, {(model, n): (PG_SOLVES, n_params)}."""
+    rng = np.random.default_rng(10)
+    return {(m, n): rng.uniform(0.0, 20.0, (PG_SOLVES, n_params(m, n)))
+            for m in PG_MODELS for n in PG_SITES}
+
+
+def phase_pergene_solves(draws, card) -> tuple:
+    """10a, on the card: for each model and n = 1..5, PG_SOLVES seeded
+    parameter vectors in the default box (``draws``) through
+    solve_ode_batched at float64 and float32; the port's expm and
+    torch.linalg.matrix_exp timed on the solve's batch of augmented
+    matrices (float32), and whether each synchronizes; then both at the
+    stage-2 batch of randmod n = 5 (a Jacobian pass: lanes x T x
+    (n_params + 1) matrices). Returns ({path: launches}, {(model, n):
+    ({dtype: sol on the host}, log fields)}) for :func:`check_pergene_solves`."""
+    reset_counts()
+    out = {}
+    dts = torch.diff(torch.as_tensor(PG_TIMES, dtype=torch.float32, device=PG_DEVICE),
+                     prepend=torch.zeros(1, device=PG_DEVICE))
+    for (model, n), P in draws.items():
+        y0 = initial_condition(n, model, device="cpu").numpy()
+        got = {dt: solve_ode_batched(P, y0, n, PG_TIMES, model, device=PG_DEVICE,
+                                     dtype=dt)[0].double().cpu()
+               for dt in (torch.float64, torch.float32)}
+        M, b = _BUILDERS[model](torch.as_tensor(P, dtype=torch.float32, device=PG_DEVICE), n)
+        A = affine_augment(M, b)[:, None] * dts[:, None, None]
+        out[(model, n)] = got, dict(w=A.shape[-1], matrices=A.shape[0] * A.shape[1],
+                                    expm_ms=f"{cuda_ms(lambda: expm(A), 3):.3f}",
+                                    matrix_exp_ms=f"{cuda_ms(lambda: torch.linalg.matrix_exp(A), 3):.3f}")
+    expm_sync = sync_events(lambda: expm(A))
+    mexp_sync = sync_events(lambda: torch.linalg.matrix_exp(A))
+    say("10a synchronizes", batch=tuple(A.shape), expm=expm_sync[0], expm_dtoh=expm_sync[1],
+        matrix_exp=mexp_sync[0], matrix_exp_dtoh=mexp_sync[1])
+    # the stage-2 batch of randmod at n = 5: 384 lanes x T x (n_params + 1)
+    model, n = "randmod", 5
+    rows = PG_GENES * 48 * (n_params(model, n) + 1)
+    lanes = torch.as_tensor(np.random.default_rng(11).uniform(0.0, 20.0,
+                                                              (rows, n_params(model, n))),
+                            dtype=torch.float32, device=PG_DEVICE)
+    A = affine_augment(*_BUILDERS[model](lanes, n))[:, None] * dts[:, None, None]
+    ms_expm = cuda_ms(lambda: expm(A), 3)
+    ms_mexp = cuda_ms(lambda: torch.linalg.matrix_exp(A), 3)
+    _, diff = scaled_err(expm(A), torch.linalg.matrix_exp(A))
+    say("10a stage-2 batch", model=model, n=n, matrices=rows * len(PG_TIMES),
+        w=A.shape[-1], dtype="float32", expm_ms=f"{ms_expm:.3f}",
+        matrix_exp_ms=f"{ms_mexp:.3f}", scaled_diff=f"{diff:.3e}", card=repr(card))
+    del A, lanes
+    launches = counts()
+    if launches != expect():
+        raise AssertionError(f"10a: the per-gene solves launched {launches}")
+    return {"pergene-10a-solves": launches}, out
+
+
+def check_pergene_solves(draws, solves, refs) -> None:
+    """10a's check: the card's solves against the port's float64 CPU
+    result (``refs``, futures of worker processes): float64 within
+    max(1e-12, 8 2^s eps) (scaled; s the batch's largest squaring count),
+    float32 within 1e-3, NaN lanes in the same places."""
+    worst32 = 0.0
+    for (model, n), (got, fields) in solves.items():
+        want = torch.as_tensor(refs[(model, n)].result())
+        # each squaring can double a rounding difference of the Pade step
+        # (tests/test_torch_kinetics.py): the float64 gate after the batch's
+        # largest squaring count s is max(1e-12, 8 2^s eps)
+        M, b = _BUILDERS[model](torch.as_tensor(draws[(model, n)]), n)
+        norm = (float(torch.max(affine_augment(M, b).abs().sum(-2).amax(-1)))
+                * float(np.max(np.diff(PG_TIMES))))
+        s_max = max(0, int(np.floor(np.log2(norm / PG_MAXNORM_F64))))
+        gate = max(PG_F64_SCALED, 8 * 2.0 ** s_max * np.finfo(float).eps)
+        errs = {}
+        for dt, sol in got.items():
+            if not torch.equal(torch.isnan(sol), torch.isnan(want)):
+                raise AssertionError(f"10a {model} n={n} {dt}: NaN lanes differ")
+            fin = torch.isfinite(want)
+            errs[dt] = float(torch.max(torch.abs(sol[fin] - want[fin]))
+                             / torch.max(torch.abs(want[fin])))
+        say("10a solves", model=model, n=n, lanes=PG_SOLVES, squarings_max=s_max,
+            vs_cpu_f64=f"{errs[torch.float64]:.3e}", tol_f64=f"{gate:.3e}",
+            vs_cpu_f32=f"{errs[torch.float32]:.3e}", tol_f32=PG_F32_SCALED,
+            nan_lanes=int(torch.isnan(want).any(dim=(1, 2)).sum()), **fields)
+        if errs[torch.float64] > gate:
+            raise AssertionError(f"10a {model} n={n}: float64 {errs[torch.float64]:.3e} "
+                                 f"from the CPU after {s_max} squarings (gate {gate:.3e})")
+        worst32 = max(worst32, errs[torch.float32])
+    if not worst32 <= PG_F32_SCALED:
+        raise AssertionError(f"10a: the card's float32 solves drifted from the CPU: {worst32:.3e}")
+
+
+class StageSpy:
+    """Wraps normest's lane batches: the host seconds of each stage (each
+    ends in its one host read), and the LM iterations run under
+    set_sync_debug_mode("error"), so that a host read inside the loop
+    fails the run."""
+
+    def __init__(self):
+        self.stages, self.calls = [], []
+        self.real_run, self.real_loop = normest_mod._Lanes.run, normest_mod.lm_loop
+
+    def __enter__(self):
+        spy = self
+
+        def run(lanes, *args, hessian):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = spy.real_run(lanes, *args, hessian=hessian)
+            spy.stages.append((len(args[0]), -(-len(args[0]) // lanes.chunk),
+                               time.perf_counter() - t0))
+            spy.calls.append((lanes, args, hessian))
+            return out
+
+        def strict_loop(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return spy.real_loop(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        normest_mod._Lanes.run, normest_mod.lm_loop = run, strict_loop
+        return self
+
+    def __exit__(self, *exc):
+        normest_mod._Lanes.run, normest_mod.lm_loop = self.real_run, self.real_loop
+
+
+def lm_iteration_profile(lanes, args, hessian) -> dict:
+    """Device events an LM iteration (the difference of a 3- and a
+    1-iteration run of one stage's lanes, each under the profiler) and the
+    3-iteration run's busy, wall and idle share."""
+    real = lanes.lm_iters
+    try:
+        prof = {}
+        for k in (1, 3):
+            lanes.lm_iters = k
+            prof[k] = profile_call(lambda: lanes.run(*args, hessian=hessian))
+    finally:
+        lanes.lm_iters = real
+    return {"events_per_iteration": (prof[3]["device_events"] - prof[1]["device_events"]) // 2,
+            "profile_3_iterations": prof[3]}
+
+
+def pergene_cohort_fit(model: str, n: int, dt) -> tuple:
+    """One 10b cohort through normest_batch at the defaults on the card:
+    ({field: value} for its log line, the fits, the spy's stage calls)."""
+    args = pergene_cohort(model, n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with StageSpy() as spy:
+        fits = normest_batch(*args, model=model, device=PG_DEVICE, dtype=dt)
+    wall = time.perf_counter() - t0
+    errs = [f.error for f in fits.values()]
+    if not np.all(np.isfinite(errs)) or len(spy.stages) != 2:
+        raise AssertionError(f"10b {model} n={n} {dt}: a fit failed")
+    (l1, c1, s1), (l2, c2, s2) = spy.stages
+    fields = dict(model=model, n=n, dtype=str(dt).split(".")[-1], genes=PG_GENES,
+                  n_params=n_params(model, n), w=state_dim(model, n) + 1,
+                  stage1_lanes=l1, stage1_chunks=c1, stage1_ms=f"{1e3 * s1:.1f}",
+                  stage1_ms_per_iteration=f"{1e3 * s1 / c1 / PG_LM_ITERS:.2f}",
+                  stage2_lanes=l2, stage2_chunks=c2, stage2_ms=f"{1e3 * s2:.1f}",
+                  stage2_ms_per_iteration=f"{1e3 * s2 / c2 / PG_LM_ITERS:.2f}",
+                  wall_s=f"{wall:.2f}",
+                  peak_gib=f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f}",
+                  max_error=f"{max(errs):.3e}", median_error=f"{np.median(errs):.3e}")
+    return fields, fits, spy.calls
+
+
+def pergene_float64_job(models: tuple) -> tuple:
+    """10b's float64 cohorts of ``models`` on the card, in a worker process
+    beside the main process's float32 ones (each cohort but randmod's
+    widest is host-bound), the widest site count last: the main process
+    runs its own widest cohort first, so that the two device-bound runs do
+    not overlap. Returns ([log fields], {model: fits at n = PG_CPU_SITES},
+    {path: launches})."""
+    torch.set_num_threads(1)
+    order = [(m, n) for m in models for n in PG_SITES]
+    reset_counts()
+    lines, fits_at = [], {}
+    for model, n in order:
+        fields, fits, _ = pergene_cohort_fit(model, n, torch.float64)
+        lines.append(fields)
+        if n == PG_CPU_SITES:
+            fits_at[model] = fits
+    return lines, fits_at, counts()
+
+
+def phase_pergene_cohort(f64_jobs, card, after_f32=None) -> tuple[dict, dict]:
+    """10b: for each model and n = 1..5, a cohort of PG_GENES noise-free
+    synthetic genes through normest_batch at the defaults (10 lambdas, the
+    default weight library, 48 starts, 80 LM iterations, regularisation
+    on): float32 here, float64 in worker processes on the card at the same
+    time (``f64_jobs``): per stage the host ms, lanes and chunks, ms an LM
+    iteration, peak memory; every LM loop under set_sync_debug_mode("error").
+    randmod at n = 5, the one device-bound cohort, runs first here and last
+    in its worker. Then, alone on the card, one stage-1 and one stage-2
+    batch of each model at n = 5 (float32) profiled at 1 and 3 iterations
+    (device events an iteration, idle share). Returns ({path: launches}, {model: the
+    float64 card fits at n = PG_CPU_SITES})."""
+    reset_counts()
+    widest = {}
+    order = [(m, n) for m in PG_MODELS for n in PG_SITES]
+    order.remove((PG_MODELS[-1], PG_SITES[-1]))
+    for model, n in [(PG_MODELS[-1], PG_SITES[-1])] + order:
+        fields, _, calls = pergene_cohort_fit(model, n, torch.float32)
+        say("10b cohort", **fields, process="main, beside the float64 workers")
+        if n == PG_SITES[-1]:
+            widest[model] = calls
+    launches = counts()
+    if after_f32 is not None:
+        after_f32()
+    f64_fits, f64_launches = {}, expect()
+    for job in f64_jobs:
+        lines, fits, job_launches = job.result()
+        f64_fits.update(fits)
+        f64_launches = {k: f64_launches[k] + v for k, v in job_launches.items()}
+        for fields in lines:
+            say("10b cohort", **fields, process="worker, beside the float32 cohorts")
+    for model, calls in widest.items():
+        for stage, call in zip(("stage1", "stage2"), calls):
+            say("10b lm profile", model=model, n=PG_SITES[-1], stage=stage, dtype="float32",
+                lanes=len(call[1][0]), **lm_iteration_profile(*call))
+    if launches != expect() or f64_launches != expect():
+        raise AssertionError(f"10b: the per-gene cohorts launched {launches}, {f64_launches}")
+    return {"pergene-10b-cohort-f32": launches, "pergene-10b-cohort-f64": f64_launches}, f64_fits
+
+
+def rel_to(got, want) -> float:
+    """max |got - want| / |want|, where a zero of ``want`` must be met
+    exactly."""
+    got, want = np.asarray(got, float), np.asarray(want, float)
+    diff = np.abs(got - want)
+    if np.any(diff[want == 0] != 0):
+        return float("inf")
+    nz = want != 0
+    return float(np.max(diff[nz] / np.abs(want[nz]), initial=0.0))
+
+
+def check_pergene_cpu(futures, f64_fits, card) -> None:
+    """10b's float64 card fits against the port's float64 CPU fits of the
+    same genes: lambda and weight name equal, score and error within rel
+    1e-6, params within rtol 1e-6 (the JAX package's batch-vs-single gate,
+    tests/test_normest.py:155-156)."""
+    for model, fut in futures.items():
+        ref = fut.result()
+        worst = 0.0
+        for gene, want in ref["fits"].items():
+            got = f64_fits[model][gene]
+            if (got.lambda_reg, got.weight_name) != (want.lambda_reg, want.weight_name):
+                raise AssertionError(f"10b {model} {gene}: lambda/weight differ from the CPU")
+            worst = max(worst, rel_to(got.score, want.score), rel_to(got.error, want.error),
+                        rel_to(got.params, want.params))
+        say("10b card vs cpu", model=model, n=PG_CPU_SITES, genes=len(ref["fits"]),
+            dtype="float64", max_rel=f"{worst:.3e}", tol=PG_CPU_RTOL,
+            cpu_seconds=f"{ref['seconds']:.1f}", card=repr(card))
+        if not worst <= PG_CPU_RTOL:
+            raise AssertionError(f"10b {model}: the card's float64 fits differ from the CPU's "
+                                 f"by {worst:.3e}")
+
+
+def phase_pergene_recovery(card) -> dict:
+    """10c: the JAX package's recovery gate (tests/test_normest.py:42-50):
+    distmod, n = 2, seed 5, no regularisation, 24 starts, 120 iterations:
+    float64 error < 1e-8 and params within rtol 5e-2 of the truth; float32
+    printed and held to rtol 5e-2. Returns {path: launches}."""
+    true, y0, pr, p, r = pergene_gene("distmod", 2, 5)
+    reset_counts()
+    for dt in (torch.float64, torch.float32):
+        t0 = time.perf_counter()
+        res = normest("GENEA", pr, p, r, y0, 2, PG_TIMES, PG_BOUNDS, model="distmod",
+                      use_regularization=False, n_starts=24, lm_iters=120, device=PG_DEVICE,
+                      dtype=dt)
+        par = float(np.max(np.abs(res.params - true) / true))
+        say("10c recovery", dtype=str(dt).split(".")[-1], error=f"{res.error:.3e}",
+            error_gate=PG_RECOVERY_ERROR if dt == torch.float64 else "printed",
+            max_rel_param_err=f"{par:.3e}", param_rtol=PG_RECOVERY_RTOL,
+            seconds=f"{time.perf_counter() - t0:.2f}", card=repr(card))
+        if par > PG_RECOVERY_RTOL or (dt == torch.float64 and not res.error < PG_RECOVERY_ERROR):
+            raise AssertionError(f"10c: recovery missed at {dt}: error {res.error:.3e}, "
+                                 f"params {par:.3e}")
+    launches = counts()
+    if launches != expect():
+        raise AssertionError(f"10c: launched {launches}")
+    return {"pergene-10c-recovery": launches}
+
+
+def phase_pergene_pipeline(card) -> dict:
+    """10d: run_model_pipeline on a column-dict cohort (distmod, one gene at
+    each n = 1..5, knockouts on), then process_gene for one gene with
+    Morris (the function's defaults: 200 trajectories x 40 levels) and 8
+    bootstraps: seconds of each, Morris solves a second. Returns {path:
+    launches}."""
+    cols = {"prot": ([], [], []), "pho": ([], [], [], []), "rna": ([], [], [])}
+    for n in PG_SITES:
+        _, _, pr, p, r = pergene_gene("distmod", n, 500 + n)
+        name = f"P{n}"
+        for t, v in zip(PG_TIMES, pr):
+            for col, x in zip(cols["prot"], (name, t, v)):
+                col.append(x)
+        for j in range(n):
+            for t, v in zip(PG_TIMES, p[j]):
+                for col, x in zip(cols["pho"], (name, f"S{j + 1}", t, v)):
+                    col.append(x)
+        for t, v in zip(PG_TIMES[5:], r):
+            for col, x in zip(cols["rna"], (name, t, v)):
+                col.append(x)
+    df_p = dict(zip(("protein", "time", "fc"), map(np.asarray, cols["prot"])))
+    df_ph = dict(zip(("protein", "psite", "time", "fc"), map(np.asarray, cols["pho"])))
+    df_r = dict(zip(("protein", "time", "fc"), map(np.asarray, cols["rna"])))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_model_pipeline(df_p, df_ph, df_r, time_points=PG_TIMES,
+                             rna_time_points=PG_TIMES[5:], bounds=PG_BOUNDS, model="distmod")
+    wall = time.perf_counter() - t0
+    if len(out) != len(PG_SITES) or not all(
+            o.knockout_solutions is not None and np.isfinite(o.knockout_solutions).all()
+            and np.isfinite(o.result.error) for o in out.values()):
+        raise AssertionError("10d: the pipeline's outputs are incomplete or not finite")
+    say("10d run_model_pipeline", genes=len(out), sites=PG_SITES, seconds=f"{wall:.2f}",
+        knockouts=sum(len(o.knockout_labels) for o in out.values()),
+        max_error=f"{max(o.result.error for o in out.values()):.3e}", card=repr(card))
+
+    gene = "P3"
+    _, _, pr, p, r = pergene_gene("distmod", 3, 503)
+    morris = []
+    real = pipeline_mod.sensitivity_analysis
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = real(*a, **kw)
+        morris.append(time.perf_counter() - t1)
+        return res
+
+    pipeline_mod.sensitivity_analysis = timed
+    try:
+        t0 = time.perf_counter()
+        res = process_gene(gene, pr, p, r, 3, PG_TIMES, PG_BOUNDS, model="distmod",
+                           bootstraps=PG_BOOTSTRAPS, run_sensitivity=True)
+        wall = time.perf_counter() - t0
+    finally:
+        pipeline_mod.sensitivity_analysis = real
+    sens = res.sensitivity
+    rows = len(sens.samples)
+    if not (res.result.boot_params.shape == (PG_BOOTSTRAPS, n_params("distmod", 3))
+            and np.isfinite(sens.Y).all() and np.isfinite(sens.morris.mu_star).all()):
+        raise AssertionError("10d: process_gene's bootstrap or Morris output is wrong")
+    say("10d process_gene", gene=gene, bootstraps=PG_BOOTSTRAPS, morris_rows=rows,
+        seconds=f"{wall:.2f}", morris_seconds=f"{morris[0]:.3f}",
+        morris_solves_per_s=f"{rows / morris[0]:.1f}",
+        top_mu_star=sens.param_names[int(np.argmax(sens.morris.mu_star))], card=repr(card))
+    launches = counts()
+    if launches != expect():
+        raise AssertionError(f"10d: launched {launches}")
+    return {"pergene-10d-pipeline": launches}
+
+
+def phase_pergene(card) -> dict:
+    """10: the per-gene stack. Spawned worker processes, started together,
+    run 10b's float64 cohorts on the card (randmod in one, distmod and
+    succmod in another) and make 10a's float64 CPU references and 10b's
+    float64 CPU fits, beside the main process's work; 10a is checked after
+    the float32 cohorts."""
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    t0 = time.perf_counter()
+    draws = pergene_draws()
+    pool = ProcessPoolExecutor(max_workers=PG_WORKERS, mp_context=get_context("spawn"))
+    try:
+        f64_jobs = [pool.submit(pergene_float64_job, models)
+                    for models in (("randmod",), ("distmod", "succmod"))]
+        refs = {key: pool.submit(pergene_solve_job, P, *key) for key, P in draws.items()}
+        futures = {m: pool.submit(pergene_cpu_job, m) for m in PG_MODELS}
+        paths, solves = phase_pergene_solves(draws, card)
+        cohort_paths, f64_fits = phase_pergene_cohort(
+            f64_jobs, card, after_f32=lambda: check_pergene_solves(draws, solves, refs))
+        paths.update(cohort_paths)
+        check_pergene_cpu(futures, f64_fits, card)
+    finally:
+        pool.shutdown(cancel_futures=True)
+    paths.update(phase_pergene_recovery(card))
+    paths.update(phase_pergene_pipeline(card))
+    say("10 per-gene", seconds=f"{time.perf_counter() - t0:.1f}", card=repr(card))
+    return paths
+
+
 def population(b, pop: int) -> torch.Tensor:
     """theta0 plus seeded noise, as bench.py and benchmarks/model_rates.py."""
     rng = np.random.default_rng(0)
@@ -2439,6 +2952,10 @@ def population(b, pop: int) -> torch.Tensor:
 
 def main() -> int:
     card = phase_device()
+    if "--pergene-only" in sys.argv[1:]:
+        phase_pergene(card)
+        say("done", seconds=f"{time.perf_counter() - T_START:.1f}", card=repr(card))
+        return 0
     phase_build()
     probe, probe_paths = phase_fma_peak(card)
     t0 = time.perf_counter()
@@ -2481,6 +2998,7 @@ def main() -> int:
     paths.update(phase_polish(b, thetas, card))
     paths.update(phase_lm(b, card))
     paths.update(phase_gradient_fits(b, card))
+    paths.update(phase_pergene(card))
     for group, group_paths in (([kernel, wide, scan, flux, thomas], paths),
                                (f64_entries, paths64), ([probe], probe_paths)):
         for entry in group:

@@ -8,6 +8,9 @@ equivalent, so one set of inputs can drive both packages:
 * a ``GlobalSystem`` -> :class:`~phoskintime_tpu_torch.network.system.GlobalSystem`
   with the same ``kin_grid``, ``Kmat`` and ``custom_y0``;
 * a ``LossData`` -> :class:`~phoskintime_tpu_torch.network.lossdata.LossData`;
+* a per-gene ``NormestResult`` -> :class:`~phoskintime_tpu_torch.fit.normest.NormestResult`
+  (numpy fields, the CI dict carried over), so that a JAX fit can feed
+  the port's ``process_gene(precomputed=...)``;
 * a dict (a parameter dict, ``slices``, a demo bundle) -> a dict of the
   converted values;
 * an array (a ``theta`` vector, a parameter leaf) -> a numpy array.
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from phoskintime_tpu_torch.config.numerics import DEFAULT_DEVICE, torch_dtype
+from phoskintime_tpu_torch.fit.normest import NormestResult
 from phoskintime_tpu_torch.network.lossdata import LossData
 from phoskintime_tpu_torch.network.system import GlobalSystem
 from phoskintime_tpu_torch.network.topology import NetworkTopology
@@ -57,6 +61,8 @@ def from_reference(obj, *, dtype: torch.dtype | None = None, device=DEFAULT_DEVI
     if hasattr(obj, "_fields") and "p_prot" in obj._fields:
         return LossData(*(v if isinstance(v, int) else np.asarray(v)
                           for v in obj))
+    if hasattr(obj, "_fields") and "popt_raw" in obj._fields:
+        return NormestResult(*(from_reference(v) for v in obj))
     if isinstance(obj, Mapping):
         return {k: from_reference(v, dtype=dtype, device=device)
                 for k, v in obj.items()}

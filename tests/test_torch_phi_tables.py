@@ -54,7 +54,8 @@ def assert_scaled_close(got, want, atol):
 
 def test_package_imports_without_jax():
     """Every module of the port, and chip_smoke.py, in a fresh interpreter:
-    none loads JAX or the JAX package, and none turns on TF32 matmuls."""
+    none loads JAX, the JAX package or pandas (the card's machine has no
+    pandas), and none turns on TF32 matmuls."""
     root = Path(__file__).resolve().parent.parent
     mods = sorted(".".join(p.relative_to(root).with_suffix("").parts)
                   for p in (root / "phoskintime_tpu_torch").rglob("*.py"))
@@ -63,12 +64,16 @@ def test_package_imports_without_jax():
     for new in ("ops.hypercube_flux", "ops.tridiag", "ops.integrators",
                 "network.analysis", "network.steadystate", "ops.fma_peak", "ops.nsga",
                 "ops.nsga_device", "ops.frechet", "native", "parallel.checkpoint",
-                "network.optimize", "network.bounds", "network.weights", "network.polish"):
+                "network.optimize", "network.bounds", "network.weights", "network.polish",
+                "config.labels", "ops.linear", "models", "models.kinetics", "models.weights",
+                "models.knockout", "ops.lm", "fit", "fit.score", "fit.ci", "fit.normest",
+                "ops.morris", "fit.sensitivity", "fit.pipeline"):
         assert f"phoskintime_tpu_torch.{new}" in mods, new
     code = ("import importlib, sys; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-            "or m == 'phoskintime_tpu' or m.startswith('phoskintime_tpu.')]; "
+            "or m == 'phoskintime_tpu' or m.startswith('phoskintime_tpu.') "
+            "or m == 'pandas' or m.startswith('pandas.')]; "
             "import torch; tf32 = torch.backends.cuda.matmul.allow_tf32; "
             "print(bad, tf32); sys.exit(1 if bad or tf32 else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
