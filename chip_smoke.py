@@ -178,7 +178,8 @@ recorded as 0 for every kernel and asserted so):
    randmod n = 5 (a Jacobian pass). s is the batch's largest squaring
    count: each squaring can double a rounding difference. The CPU references come from worker processes and are checked after
    10b's float32 cohorts;
-10b. for each mechanism and n = 1..5, 8 noise-free synthetic genes (the
+10b. for each mechanism and n = 1, 2 and 5 (3 and 4 cut since phase 11
+   came in), 8 noise-free synthetic genes (the
    JAX package's ``synth_gene`` recipe) through ``normest_batch`` at the
    defaults (10 lambdas, the default weight library, 48 starts, 80 LM
    iterations, regularisation on), float32 in this process and float64
@@ -199,8 +200,37 @@ recorded as 0 for every kernel and asserted so):
    ``process_gene`` with Morris (200 x 40) and 8 bootstraps: seconds, Morris
    solves a second.
 
+kinopt, tfopt and the network sensitivity (plain PyTorch but for the flux
+kernel on the sensitivity path; the CPU references in two spawned worker
+processes):
+
+11a. kinopt on the bench generator's problem (30 sites, 5 kinases of 4
+   source rows) and at 1,000 sites, 100 kinases, 3 kinases a site (n =
+   3,400): ``run_local`` (48 starts, 800 steps), DE (pop 100, 200
+   generations), NSGA-II on the host and all-device (pop 100, 50
+   generations, blocks of 10), float32: ms a step or generation, device
+   events a step or generation and the idle share (profiled at k and 0
+   units), loss, feasible, peak memory, the host NSGA-II's host share; no
+   kernel launched. Float64 on the card against the CPU: ``run_local``'s
+   loss within 1e-9 relative, one ``de_generation`` on the same draws
+   within 1e-12; ``kkt_check`` at the float64 optimum primal feasible, its
+   stationarity residual printed;
+11b. tfopt at 500 genes, 100 TFs, 4 regulators a gene, 0-6 psites a TF
+   (pop 400): ``run_local``, then optimizers 0 (host and all-device), 1
+   (SMS-EMOA) and 2 (AGE-MOEA) for 20 generations: seconds a generation,
+   loss, the pick's feasibility, the host share of a host generation;
+11c. ``run_sensitivity_analysis`` on the model-2 bench network (N = 45, w
+   = 17), 2 trajectories in one batch, float32, over the bundle's grid:
+   the flux kernel launched 7 times an RK45 iteration plus 2, solves a
+   second, the idle share of a run to t = 4 (profiled); the demo
+   network at N = 10, model 2, float64 over t <= 30: Morris mu, mu* and
+   sigma on the card within 1e-9 of the CPU's, relative to the index or,
+   where larger, to the parameter's mu* (the size of the elementary
+   effects whose rounding they carry).
+
 ``python3 chip_smoke.py --pergene-only`` runs phase 1 and phase 10 alone
-(no kernel build, no JSON lines).
+(no kernel build, no JSON lines); ``--sensitivity-kinopt-only`` runs
+phases 1, 2 and 11 (no JSON lines).
 
 The line before the last is a JSON summary of each kernel (the float64
 instances and ``sq_chain`` included, each with the launches of its own main
@@ -225,6 +255,12 @@ from phoskintime_tpu_torch.demo import GRID, RNA_GRID, build_demo_network
 from phoskintime_tpu_torch.fit import pipeline as pipeline_mod
 from phoskintime_tpu_torch.fit.normest import normest, normest_batch
 from phoskintime_tpu_torch.fit.pipeline import process_gene, run_model_pipeline
+from phoskintime_tpu_torch.kinopt import kkt_check as kinopt_kkt_check
+from phoskintime_tpu_torch.kinopt import optimize as kinopt_opt
+from phoskintime_tpu_torch.kinopt.model import build_problem as kinopt_build_problem
+from phoskintime_tpu_torch.kinopt.model import kinopt_loss
+from phoskintime_tpu_torch.kinopt.optimize import run_evolutionary as kinopt_run_evolutionary
+from phoskintime_tpu_torch.kinopt.optimize import run_local as kinopt_run_local
 from phoskintime_tpu_torch.models.kinetics import (_BUILDERS, initial_condition, n_params,
                                                    solve_ode, solve_ode_batched, state_dim)
 from phoskintime_tpu_torch.network import expo, polish, steadystate
@@ -239,10 +275,13 @@ from phoskintime_tpu_torch.network.polish import (forward_jacobian, lm_refine_mi
                                                   polish_solutions, simplex_weights)
 from phoskintime_tpu_torch.network.simulate import (extract_observables, fold_changes,
                                                     simulate, simulate_batched)
+from phoskintime_tpu_torch.network import sensitivity as sens_mod
+from phoskintime_tpu_torch.network.sensitivity import run_sensitivity_analysis
 from phoskintime_tpu_torch.network.system import GlobalSystem, default_params
 from phoskintime_tpu_torch.network.topology import build_topology
-from phoskintime_tpu_torch.ops import cuda_build
+from phoskintime_tpu_torch.ops import constrained, cuda_build
 from phoskintime_tpu_torch.ops import fma_peak
+from phoskintime_tpu_torch.ops.de_jit import DEDraws, de_draws, de_generation, de_init_draws
 from phoskintime_tpu_torch.ops.hypercube_flux import hypercube_flux, hypercube_flux_reference
 from phoskintime_tpu_torch.ops.linear import affine_augment, expm
 from phoskintime_tpu_torch.ops.nsga import (das_dennis, fast_non_dominated_sort,
@@ -255,6 +294,10 @@ from phoskintime_tpu_torch.ops.phi_tables import (phi_tables, phi_tables_referen
 from phoskintime_tpu_torch.ops.scan_kernel import (etd2rk_scan, etd2rk_scan_reference,
                                                    random_scan_problem, scan_launch_shape)
 from phoskintime_tpu_torch.ops.stiff import batched_jacobian
+from phoskintime_tpu_torch.tfopt import optimize as tfopt_opt
+from phoskintime_tpu_torch.tfopt.model import TfoptProblem
+from phoskintime_tpu_torch.tfopt.optimize import run_evolutionary as tfopt_run_evolutionary
+from phoskintime_tpu_torch.tfopt.optimize import run_local as tfopt_run_local
 
 POP, CHUNK, N_PROTEINS, N_KINASES = 8192, 2048, 40, 12
 POP2 = 2048               # model 2: one chunk, as benchmarks/model_rates.py
@@ -356,6 +399,10 @@ PG_TIMES = np.array([0.0, 0.5, 0.75, 1.0, 2.0, 4.0, 8.0, 16.0, 30.0, 60.0, 120.0
                      480.0, 960.0])
 PG_BOUNDS = {k: (0.0, 20.0) for k in ("A", "B", "C", "D", "S(i)", "D(i)")}
 PG_MODELS, PG_SITES, PG_GENES, PG_LM_ITERS = ("distmod", "succmod", "randmod"), (1, 2, 3, 4, 5), 8, 80
+# 10b's cohorts: the narrowest, the one checked against the CPU and the
+# widest (the device-bound randmod); 3 and 4 were cut to keep the script's
+# time as phase 11 grew it
+PG_COHORT_SITES = (1, 2, 5)
 PG_SOLVES, PG_F64_SCALED, PG_F32_SCALED, PG_MAXNORM_F64 = 4096, 1e-12, 1e-3, 5.371920351148152
 PG_CPU_SITES, PG_CPU_GENES, PG_CPU_RTOL, PG_CPU_THREADS = 2, 1, 1e-6, 1
 # worker processes of phase 10: two run the float64 cohorts on the card,
@@ -366,6 +413,22 @@ PG_DEVICE = "cuda"
 STEADY = {0: steadystate.steady_state_distributive, 1: steadystate.steady_state_sequential,
           2: steadystate.steady_state_combinatorial}
 
+
+# phase 11: kinopt problems (sites, kinases, source rows a kinase, kinases a
+# site): the bench generator's size and the same recipe at 1,000 sites
+# (n = 3,400 parameters); tfopt (genes, TFs, regulators a gene, most psites
+# a TF); the fits' budgets (the reference's tfopt budget is 1,000
+# generations); float64 card-vs-CPU gates
+KINOPT_PROBLEMS = {"bench": (30, 5, 4, 2), "scaled": (1000, 100, 4, 3)}
+KINOPT_LOCAL = dict(n_starts=48, steps=800)
+KINOPT_F64_RTOL = 1e-9
+DE_F64_ATOL = 1e-12
+TFOPT_PROBLEM = (500, 100, 4, 6)
+TFOPT_LOCAL = dict(n_starts=48, steps=800)
+TFOPT_GENS = 20
+SENS_TIMES_F64 = np.array([0.0, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0, 30.0])
+SENS_TIMES_PROFILE = np.array([0.0, 0.5, 1.0, 2.0, 4.0])
+SENS_F64_RTOL = 1e-9
 
 T_START = time.perf_counter()
 
@@ -2730,7 +2793,7 @@ def pergene_float64_job(models: tuple) -> tuple:
     not overlap. Returns ([log fields], {model: fits at n = PG_CPU_SITES},
     {path: launches})."""
     torch.set_num_threads(1)
-    order = [(m, n) for m in models for n in PG_SITES]
+    order = [(m, n) for m in models for n in PG_COHORT_SITES]
     reset_counts()
     lines, fits_at = [], {}
     for model, n in order:
@@ -2742,7 +2805,7 @@ def pergene_float64_job(models: tuple) -> tuple:
 
 
 def phase_pergene_cohort(f64_jobs, card, after_f32=None) -> tuple[dict, dict]:
-    """10b: for each model and n = 1..5, a cohort of PG_GENES noise-free
+    """10b: for each model and n in PG_COHORT_SITES, a cohort of PG_GENES noise-free
     synthetic genes through normest_batch at the defaults (10 lambdas, the
     default weight library, 48 starts, 80 LM iterations, regularisation
     on): float32 here, float64 in worker processes on the card at the same
@@ -2755,12 +2818,12 @@ def phase_pergene_cohort(f64_jobs, card, after_f32=None) -> tuple[dict, dict]:
     float64 card fits at n = PG_CPU_SITES})."""
     reset_counts()
     widest = {}
-    order = [(m, n) for m in PG_MODELS for n in PG_SITES]
-    order.remove((PG_MODELS[-1], PG_SITES[-1]))
-    for model, n in [(PG_MODELS[-1], PG_SITES[-1])] + order:
+    order = [(m, n) for m in PG_MODELS for n in PG_COHORT_SITES]
+    order.remove((PG_MODELS[-1], PG_COHORT_SITES[-1]))
+    for model, n in [(PG_MODELS[-1], PG_COHORT_SITES[-1])] + order:
         fields, _, calls = pergene_cohort_fit(model, n, torch.float32)
         say("10b cohort", **fields, process="main, beside the float64 workers")
-        if n == PG_SITES[-1]:
+        if n == PG_COHORT_SITES[-1]:
             widest[model] = calls
     launches = counts()
     if after_f32 is not None:
@@ -2774,7 +2837,8 @@ def phase_pergene_cohort(f64_jobs, card, after_f32=None) -> tuple[dict, dict]:
             say("10b cohort", **fields, process="worker, beside the float32 cohorts")
     for model, calls in widest.items():
         for stage, call in zip(("stage1", "stage2"), calls):
-            say("10b lm profile", model=model, n=PG_SITES[-1], stage=stage, dtype="float32",
+            say("10b lm profile", model=model, n=PG_COHORT_SITES[-1], stage=stage,
+                dtype="float32",
                 lanes=len(call[1][0]), **lm_iteration_profile(*call))
     if launches != expect() or f64_launches != expect():
         raise AssertionError(f"10b: the per-gene cohorts launched {launches}, {f64_launches}")
@@ -2942,6 +3006,343 @@ def phase_pergene(card) -> dict:
     return paths
 
 
+def kinopt_synthetic(n_sites: int, n_kinases: int, rows: int, per_site: int, seed: int = 0):
+    """``benchmarks/bench_suite.py:250-256``'s kinopt generator: ``rows``
+    source rows a kinase, ``per_site`` kinases a site (consecutive, mod
+    n_kinases), Dirichlet betas, each site the mean of its kinases'
+    signals (so alpha = 1 / per_site fits exactly), T = 14."""
+    rng = np.random.default_rng(seed)
+    K_array = rng.uniform(0.5, 2.0, (rows * n_kinases, 14))
+    kinase_rows = [list(range(rows * j, rows * j + rows)) for j in range(n_kinases)]
+    site_kinases = [[(j + k) % n_kinases for k in range(per_site)] for j in range(n_sites)]
+    beta = rng.dirichlet(np.ones(rows), n_kinases)
+    sig = np.stack([beta[j] @ K_array[kinase_rows[j]] for j in range(n_kinases)])
+    P_obs = np.stack([np.mean(sig[s], axis=0) for s in site_kinases])
+    return kinopt_build_problem(P_obs, site_kinases, kinase_rows, K_array)
+
+
+def tfopt_synthetic(n_genes: int, n_tf: int, n_reg: int, max_ps: int, seed: int = 0):
+    """``tests/test_kinopt_tfopt.py:110-133``'s tfopt generator scaled:
+    ``n_reg`` distinct regulators a gene, 0..``max_ps`` psites a TF,
+    Dirichlet weights, mRNA from the model at the true weights, T = 9 (the
+    reference's mRNA grid)."""
+    T = 9
+    rng = np.random.default_rng(seed)
+    protein = rng.uniform(0.5, 2.0, (n_tf, T))
+    num_psites = rng.integers(0, max_ps + 1, n_tf).astype(np.int32)
+    psites = rng.uniform(0.2, 1.5, (n_tf, max_ps, T))
+    psites *= (np.arange(max_ps)[None, :] < num_psites[:, None])[..., None]
+    regulators = np.stack([rng.choice(n_tf, n_reg, replace=False)
+                           for _ in range(n_genes)]).astype(np.int32)
+    beta = np.zeros((n_tf, 1 + max_ps))
+    for f in range(n_tf):
+        beta[f, :1 + num_psites[f]] = rng.dirichlet(np.ones(1 + num_psites[f]))
+    alpha = rng.dirichlet(np.ones(n_reg), n_genes)
+    effect = beta[:, :1] * protein + np.einsum("fk,fkt->ft", beta[:, 1:], psites)
+    mRNA = np.einsum("gr,grt->gt", alpha, effect[regulators])
+    return TfoptProblem(mRNA, regulators, protein, psites, num_psites)
+
+
+class TimedCalls:
+    """Wraps the first argument (the evaluate callable) of ``module.name``
+    so that the host clock inside it adds up: what a host route spends
+    evaluating on the device (its calls return numpy, so each ends in a
+    read), against the whole generation."""
+
+    def __init__(self, module, name: str | None):
+        self.module, self.name, self.seconds, self.calls = module, name, 0.0, 0
+        self.real = getattr(module, name) if name else None
+
+    def __enter__(self):
+        if self.name is None:
+            return self
+
+        def wrapped(evaluate, *a, **kw):
+            def timed(X):
+                t0 = time.perf_counter()
+                out = evaluate(X)
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+                return out
+            return self.real(timed, *a, **kw)
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        if self.name is not None:
+            setattr(self.module, self.name, self.real)
+
+
+def per_unit_events(run, n: int) -> dict:
+    """Device events a unit (an Adam step or a generation) and the idle
+    share: ``run(k)`` makes k units after a fixed set-up, profiled at k = 0
+    and k = n; the events a unit are the difference over n, the idle share
+    the k = n call's."""
+    base, _ = device_events(lambda: run(0))
+    events, wall_ms = device_events(lambda: run(n))
+    s = summarize_events(events, wall_ms)
+    return {"events_per_unit": f"{(len(events) - len(base)) / n:.1f}",
+            "idle_share": s.get("idle_share", "not measured")}
+
+
+def timed_run(fn):
+    """(result, seconds, peak GiB) of ``fn()`` on the card, ended by a
+    synchronize."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def kinopt_local_cpu_job(problem: tuple, kw: dict):
+    """run_local of a kinopt problem at float64 on the CPU (a worker
+    process), the card's float64 reference."""
+    torch.set_num_threads(1)
+    res = kinopt_run_local(kinopt_synthetic(*problem), device="cpu", **kw)
+    return res.loss, res.all_losses, res.alpha, res.beta
+
+
+def sensitivity_cpu_job(hb: dict, theta, kw: dict):
+    """run_sensitivity_analysis at float64 on the CPU (a worker process)."""
+    torch.set_num_threads(1)
+    system = GlobalSystem(hb["topo"], hb["kin_grid"], hb["Kmat"], dtype=torch.float64,
+                          device="cpu")
+    out = run_sensitivity_analysis(system, hb["slices"], theta, SENS_TIMES_F64, **kw)
+    return out.morris, out.Y
+
+
+def rel_over(d_abs, denom) -> float:
+    """The largest ``d_abs / denom``: 0 where both are 0 (a parameter of no
+    effect on either side), inf where only the denominator is."""
+    safe = np.where(denom > 0, denom, 1.0)
+    return float(np.max(np.where(denom > 0, d_abs / safe, np.where(d_abs > 0, np.inf, 0.0))))
+
+
+def phase_kinopt(card, pool) -> dict:
+    """11a: kinopt on the bench problem and on the scaled one: run_local
+    (48 starts, 800 steps), DE (pop 100, 200 generations), NSGA-II on the
+    host and all-device (pop 100, 50 generations, blocks of 10): ms a step
+    or generation, device events a unit and idle share, loss, feasible,
+    peak memory; no hand-written kernel launched. Float64 on the card
+    against the CPU: run_local's loss (1e-9 relative), one de_generation on
+    the same draws (1e-12); kkt_check at the local optimum. Returns {path:
+    launches}."""
+    ref = pool.submit(kinopt_local_cpu_job, KINOPT_PROBLEMS["bench"], KINOPT_LOCAL)
+    paths = {}
+    for label, spec in KINOPT_PROBLEMS.items():
+        prob = kinopt_synthetic(*spec)
+        n = prob.n_alpha + prob.n_beta
+        say("11a kinopt", problem=label, sites=prob.n_gp, kinases=prob.n_k,
+            n_params=n, card=repr(card))
+        reset_counts()
+        res, sec, peak = timed_run(lambda: kinopt_run_local(prob, **KINOPT_LOCAL))
+        gm, km = torch.as_tensor(prob.gp_mask, device="cuda"), torch.as_tensor(
+            prob.k_mask, device="cuda")
+        A0 = torch.as_tensor(np.stack([prob.gp_mask / prob.gp_mask.sum(1, keepdims=True)]
+                                      * KINOPT_LOCAL["n_starts"]), dtype=torch.float32,
+                             device="cuda")
+        B0 = torch.as_tensor(np.stack([prob.k_mask / prob.k_mask.sum(1, keepdims=True)]
+                                      * KINOPT_LOCAL["n_starts"]), dtype=torch.float32,
+                             device="cuda")
+        ev = per_unit_events(lambda k: constrained.projected_adam(
+            lambda x: kinopt_loss(prob, x[0], x[1]), (A0, B0),
+            lambda x: (constrained.project_sum_box(x[0], prob.lb, prob.ub, gm),
+                       constrained.project_sum_box(x[1], prob.lb, prob.ub, km)), steps=k), 3)
+        if not (np.isfinite(res.loss) and res.feasible):
+            raise AssertionError(f"11a {label}: run_local loss {res.loss}, "
+                                 f"feasible {res.feasible}")
+        say("11a run_local", problem=label, starts=KINOPT_LOCAL["n_starts"],
+            steps=KINOPT_LOCAL["steps"], ms_per_step=f"{1e3 * sec / KINOPT_LOCAL['steps']:.3f}",
+            device_events_per_step=ev["events_per_unit"], idle_share=ev["idle_share"],
+            loss=f"{res.loss:.6e}", feasible=res.feasible, peak_gib=f"{peak:.3f}",
+            seconds=f"{sec:.2f}", card=repr(card))
+        for method, gpd, n_gen in (("DE", 1, 200), ("NSGA-II", 1, 50), ("NSGA-II", 10, 50)):
+            route = "DE" if method == "DE" else ("NSGA-II device" if gpd > 1
+                                                else "NSGA-II host")
+            run = lambda k: kinopt_run_evolutionary(prob, method=method, pop_size=100,
+                                                    n_gen=k, seed=0, gens_per_dispatch=gpd)
+            host_route = route == "NSGA-II host"
+            with TimedCalls(kinopt_opt, "run_nsga2" if host_route else None) as timer:
+                res, sec, peak = timed_run(lambda: run(n_gen))
+            if not np.isfinite(res.loss) or (method == "DE" and not res.feasible):
+                raise AssertionError(f"11a {label} {route}: loss {res.loss}, "
+                                     f"feasible {res.feasible}")
+            ev = per_unit_events(run, gpd if gpd > 1 else 3)
+            host = {"host_share": f"{1 - timer.seconds / sec:.3f}"} if host_route else {}
+            say("11a evolutionary", problem=label, route=route, pop=100, gens=n_gen,
+                ms_per_gen=f"{1e3 * sec / n_gen:.3f}",
+                device_events_per_gen=ev["events_per_unit"], idle_share=ev["idle_share"],
+                **host, loss=f"{res.loss:.6e}", feasible=res.feasible,
+                peak_gib=f"{peak:.3f}", card=repr(card))
+        launches = counts()
+        if launches != expect():
+            raise AssertionError(f"11a {label}: launched {launches}")
+        paths[f"kinopt-{label}"] = launches
+
+    # float64 on the card against the CPU
+    prob = kinopt_synthetic(*KINOPT_PROBLEMS["bench"])
+    res64 = kinopt_run_local(prob, dtype=torch.float64, **KINOPT_LOCAL)
+    loss_cpu, losses_cpu, _, _ = ref.result()
+    rel = abs(res64.loss - loss_cpu) / abs(loss_cpu)
+    rel_all = float(np.max(np.abs(res64.all_losses - losses_cpu) / np.abs(losses_cpu)))
+    if rel > KINOPT_F64_RTOL:
+        raise AssertionError(f"11a: float64 run_local on the card vs the CPU: {rel:.3e}")
+    flat_c, flat_g = (kinopt_opt._Flat(prob, torch.device(d)) for d in ("cpu", "cuda"))
+    n = prob.n_alpha + prob.n_beta
+    gen = torch.Generator().manual_seed(11)
+    xl, xu = torch.full((n,), prob.lb, dtype=torch.float64), torch.full((n,), prob.ub,
+                                                                        dtype=torch.float64)
+    X = flat_c.repair(xl + de_init_draws(gen, 100, n, torch.float64) * (xu - xl))
+    f = kinopt_loss(prob, *flat_c.padded(X))
+    draws = de_draws(gen, 100, n)
+    want = de_generation(X, f, draws, lambda Z: kinopt_loss(prob, *flat_c.padded(Z)), xl, xu,
+                         repair_fn=flat_c.repair)
+    g = lambda t: t.cuda()
+    got = de_generation(g(X), g(f), DEDraws(*map(g, draws)),
+                        lambda Z: kinopt_loss(prob, *flat_g.padded(Z)), g(xl), g(xu),
+                        repair_fn=flat_g.repair)
+    de_err = max(float(torch.max(torch.abs(a.cpu() - b))) for a, b in zip(got, want))
+    if de_err > DE_F64_ATOL:
+        raise AssertionError(f"11a: de_generation float64 card vs CPU: {de_err:.3e}")
+    rep = kinopt_kkt_check(prob, res64.alpha, res64.beta,
+                           lambda a, b: kinopt_loss(prob, a, b))
+    if not rep.primal_feasible:
+        raise AssertionError(f"11a: KKT primal infeasible ({rep.max_violation:.3e})")
+    say("11a float64", run_local_rel_err=f"{rel:.3e}", per_start_max_rel_err=f"{rel_all:.3e}",
+        gate=KINOPT_F64_RTOL, de_generation_max_abs_err=f"{de_err:.3e}", de_gate=DE_F64_ATOL,
+        kkt_primal_feasible=rep.primal_feasible, kkt_max_violation=f"{rep.max_violation:.3e}",
+        kkt_stationarity_residual=f"{rep.stationarity_residual:.3e}",
+        kkt_active_box=rep.n_active_box, card=repr(card))
+    return paths
+
+
+def phase_tfopt(card) -> dict:
+    """11b: tfopt on the scaled generator (500 genes, 100 TFs, 4 regulators
+    a gene, 0-6 psites a TF; pop = min(2n, 400)): run_local, then
+    optimizers 0 (host and all-device, blocks of 10), 1 and 2 for 20
+    generations each: seconds a generation, loss, the pick's feasibility,
+    the host share of a generation on the host routes; no hand-written
+    kernel launched. Returns {path: launches}."""
+    prob = tfopt_synthetic(*TFOPT_PROBLEM)
+    n = prob.n_alpha + prob.n_beta
+    pop = min(2 * n, 400)
+    say("11b tfopt", genes=prob.n_genes, tfs=prob.n_TF, n_params=n, pop=pop, card=repr(card))
+    reset_counts()
+    res, sec, peak = timed_run(lambda: tfopt_run_local(prob, **TFOPT_LOCAL))
+    if not np.isfinite(res.loss):
+        raise AssertionError(f"11b: run_local loss {res.loss}")
+    say("11b run_local", starts=TFOPT_LOCAL["n_starts"], steps=TFOPT_LOCAL["steps"],
+        ms_per_step=f"{1e3 * sec / TFOPT_LOCAL['steps']:.3f}", loss=f"{res.loss:.6e}",
+        feasible=res.feasible, peak_gib=f"{peak:.3f}", seconds=f"{sec:.2f}", card=repr(card))
+    for opt, gpd, host_fn in ((0, 1, "run_unsga3"), (0, 10, None), (1, 1, "run_smsemoa"),
+                              (2, 1, "run_agemoea")):
+        with TimedCalls(tfopt_opt, host_fn) as timer:
+            res, sec, peak = timed_run(lambda: tfopt_run_evolutionary(
+                prob, optimizer=opt, n_gen=TFOPT_GENS, seed=0, gens_per_dispatch=gpd))
+        if not np.isfinite(res.loss):
+            raise AssertionError(f"11b: optimizer {opt} loss {res.loss}")
+        host = {"host_share": f"{1 - timer.seconds / sec:.3f}"} if host_fn else {}
+        say("11b evolutionary", optimizer=opt, route="device" if gpd > 1 else "host",
+            gens=TFOPT_GENS, s_per_gen=f"{sec / TFOPT_GENS:.4f}", **host,
+            loss=f"{res.loss:.6e}", pick_feasible=res.feasible, peak_gib=f"{peak:.3f}",
+            card=repr(card))
+    launches = counts()
+    if launches != expect():
+        raise AssertionError(f"11b: launched {launches}")
+    return {"tfopt": launches}
+
+
+def phase_sensitivity(b2, card, pool) -> dict:
+    """11c: run_sensitivity_analysis on the model-2 bench network (N = 45, w
+    = 17), 2 trajectories (2 (d + 1) solves) in one batch at float32 over
+    the bundle's grid: solves a second, RK45 iterations, the flux launches
+    (7 an iteration plus 2), the idle share of a profiled run to t = 4;
+    then the demo network at N = 10, model 2, float64: Morris mu,
+    mu*, sigma on the card against the CPU's (1e-9, relative to the index
+    or to the parameter's mu*, the larger). Returns {path: launches}."""
+    b10 = build_demo_network(10, 4, model=2, seed=0, dtype=torch.float64, device="cpu")
+    hb10 = host_bundle(b10)
+    kw10 = dict(n_trajectories=3, seed=0)
+    ref = pool.submit(sensitivity_cpu_job, hb10, b10["theta_true"], kw10)
+    d = len(b2["theta_true"])
+    steps = []
+    real = sens_mod.simulate_batched
+
+    def spy(*a, **kw):
+        res = real(*a, **kw)
+        steps.append(int(res.n_steps.max()))
+        return res
+
+    sens_mod.simulate_batched = spy
+    try:
+        reset_counts()
+        out, sec, peak = timed_run(lambda: run_sensitivity_analysis(
+            b2["system"], b2["slices"], b2["theta_true"], b2["grid"], n_trajectories=2,
+            batch_size=2 * (d + 1)))
+        launches = counts()
+    finally:
+        sens_mod.simulate_batched = real
+    if launches != expect(hypercube_flux=7 * steps[0] + 2) or len(steps) != 1:
+        raise AssertionError(f"11c: launched {launches} over {steps} iterations")
+    if not (np.isfinite(out.Y).all() and np.isfinite(out.morris.mu_star).all()):
+        raise AssertionError("11c: the Morris outputs are not finite")
+    short = profile_call(lambda: run_sensitivity_analysis(
+        b2["system"], b2["slices"], b2["theta_true"], SENS_TIMES_PROFILE, n_trajectories=2,
+        batch_size=2 * (d + 1)), "hypercube")
+    say("11c sensitivity", N=b2["topo"].N, w=b2["topo"].width, d=d, solves=len(out.Y),
+        seconds=f"{sec:.2f}", solves_per_s=f"{len(out.Y) / sec:.1f}", rk45_iterations=steps[0],
+        hypercube_flux_launches=launches["hypercube_flux"],
+        ms_per_iteration=f"{1e3 * sec / steps[0]:.3f}", peak_gib=f"{peak:.3f}",
+        profiled_to_t4_idle_share=short.get("idle_share"),
+        profiled_to_t4_device_events=short["device_events"],
+        flux_device_us=short.get("hypercube_device_us"), card=repr(card))
+    system64 = GlobalSystem(hb10["topo"], hb10["kin_grid"], hb10["Kmat"],
+                            dtype=torch.float64, device="cuda")
+    got = run_sensitivity_analysis(system64, hb10["slices"], b10["theta_true"],
+                                   SENS_TIMES_F64, **kw10)
+    want, Y_cpu = ref.result()
+    errs, own = {}, {}
+    for k in ("mu", "mu_star", "sigma"):
+        a, w = getattr(got.morris, k), getattr(want, k)
+        d_abs = np.abs(a - w)
+        # gated: relative to the index or, where larger, to the size of the
+        # parameter's elementary effects (mu*), which carry the rounding of
+        # Y: sigma of effects that agree to 1% is a difference of nearly
+        # equal numbers, its own relative error 1e2 that of the effects
+        errs[k] = rel_over(d_abs, np.maximum(np.abs(w), want.mu_star))
+        # printed: relative to the index alone, floored at 1e-3 of the largest
+        own[k] = rel_over(d_abs, np.maximum(np.abs(w), 1e-3 * np.abs(w).max()))
+    say("11c float64", N=10, d=len(b10["theta_true"]), solves=len(Y_cpu),
+        Y_max_rel_err=f"{float(np.max(np.abs(got.Y - Y_cpu) / np.abs(Y_cpu))):.3e}",
+        **{f"{k}_err": f"{v:.3e}" for k, v in errs.items()}, gate=SENS_F64_RTOL,
+        **{f"{k}_own_rel_err": f"{v:.3e}" for k, v in own.items()}, card=repr(card))
+    for k, v in errs.items():
+        if not v <= SENS_F64_RTOL:
+            raise AssertionError(f"11c: float64 Morris {k} card vs CPU: {v:.3e}")
+    return {"sensitivity-model2": launches}
+
+
+def phase_sensitivity_kinopt(card, b2) -> dict:
+    """11: kinopt (11a), tfopt (11b) and the network sensitivity (11c); the
+    CPU references in spawned worker processes beside them."""
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    t0 = time.perf_counter()
+    pool = ProcessPoolExecutor(max_workers=2, mp_context=get_context("spawn"))
+    try:
+        paths = phase_kinopt(card, pool)
+        paths.update(phase_tfopt(card))
+        paths.update(phase_sensitivity(b2, card, pool))
+    finally:
+        pool.shutdown(cancel_futures=True)
+    say("11 kinopt/tfopt/sensitivity", seconds=f"{time.perf_counter() - t0:.1f}",
+        card=repr(card))
+    return paths
+
+
 def population(b, pop: int) -> torch.Tensor:
     """theta0 plus seeded noise, as bench.py and benchmarks/model_rates.py."""
     rng = np.random.default_rng(0)
@@ -2954,6 +3355,13 @@ def main() -> int:
     card = phase_device()
     if "--pergene-only" in sys.argv[1:]:
         phase_pergene(card)
+        say("done", seconds=f"{time.perf_counter() - T_START:.1f}", card=repr(card))
+        return 0
+    if "--sensitivity-kinopt-only" in sys.argv[1:]:
+        phase_build()
+        b2 = build_demo_network(N_PROTEINS, N_KINASES, model=2, seed=0, dtype=torch.float32,
+                                device="cuda")
+        phase_sensitivity_kinopt(card, b2)
         say("done", seconds=f"{time.perf_counter() - T_START:.1f}", card=repr(card))
         return 0
     phase_build()
@@ -2999,6 +3407,7 @@ def main() -> int:
     paths.update(phase_lm(b, card))
     paths.update(phase_gradient_fits(b, card))
     paths.update(phase_pergene(card))
+    paths.update(phase_sensitivity_kinopt(card, b2))
     for group, group_paths in (([kernel, wide, scan, flux, thomas], paths),
                                (f64_entries, paths64), ([probe], probe_paths)):
         for entry in group:

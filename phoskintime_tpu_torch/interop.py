@@ -11,6 +11,8 @@ equivalent, so one set of inputs can drive both packages:
 * a per-gene ``NormestResult`` -> :class:`~phoskintime_tpu_torch.fit.normest.NormestResult`
   (numpy fields, the CI dict carried over), so that a JAX fit can feed
   the port's ``process_gene(precomputed=...)``;
+* a kinopt or tfopt problem: :func:`kinopt_problem_from_reference`,
+  :func:`tfopt_problem_from_reference` (their fields are numpy already);
 * a dict (a parameter dict, ``slices``, a demo bundle) -> a dict of the
   converted values;
 * an array (a ``theta`` vector, a parameter leaf) -> a numpy array.
@@ -25,9 +27,11 @@ import torch
 
 from phoskintime_tpu_torch.config.numerics import DEFAULT_DEVICE, torch_dtype
 from phoskintime_tpu_torch.fit.normest import NormestResult
+from phoskintime_tpu_torch.kinopt.model import KinoptProblem
 from phoskintime_tpu_torch.network.lossdata import LossData
 from phoskintime_tpu_torch.network.system import GlobalSystem
 from phoskintime_tpu_torch.network.topology import NetworkTopology
+from phoskintime_tpu_torch.tfopt.model import TfoptProblem
 
 
 def _topology(t) -> NetworkTopology:
@@ -69,3 +73,25 @@ def from_reference(obj, *, dtype: torch.dtype | None = None, device=DEFAULT_DEVI
     if obj is None or isinstance(obj, (slice, str, int, float, bool)):
         return obj
     return np.asarray(obj)
+
+
+def _listed(v):
+    return None if v is None else list(v)
+
+
+def kinopt_problem_from_reference(p) -> KinoptProblem:
+    """The port's :class:`KinoptProblem` of the JAX package's."""
+    return KinoptProblem(
+        np.asarray(p.P_obs, float), np.asarray(p.K_array, float),
+        np.asarray(p.gp_kin_idx, np.int32), np.asarray(p.gp_mask, bool),
+        np.asarray(p.k_row_idx, np.int32), np.asarray(p.k_mask, bool),
+        _listed(p.gp_names), _listed(p.kinase_names), float(p.lb), float(p.ub))
+
+
+def tfopt_problem_from_reference(p) -> TfoptProblem:
+    """The port's :class:`TfoptProblem` of the JAX package's."""
+    return TfoptProblem(
+        np.asarray(p.mRNA_mat, float), np.asarray(p.regulators, np.int32),
+        np.asarray(p.protein_mat, float), np.asarray(p.psite_tensor, float),
+        np.asarray(p.num_psites, np.int32), _listed(p.gene_ids), _listed(p.tf_ids),
+        _listed(p.psite_labels), float(p.lb), float(p.ub))

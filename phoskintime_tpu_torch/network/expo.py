@@ -747,7 +747,9 @@ def exponential_simulate(system, params_b: dict, t_eval, substep: float = 16.0,
     """The per-candidate exponential integrator of ``solver="expo"``, over
     a population: every leaf of ``params_b`` has a leading axis P; ``y0``
     None (the system's), one padded state or (P, N*w). Returns ys (P, T,
-    N*w), success (P,) and the segment count as each member's steps.
+    N*w), success (P,) and each member's steps: the segment count for
+    models 0-2, the number of output times for model 4 (as the JAX package
+    reports them).
 
     Counterpart of ``jax.vmap`` of the JAX package's
     ``exponential_simulate``. Models 0-2: full E, Phi1, Phi2 matrices per
@@ -767,6 +769,7 @@ def exponential_simulate(system, params_b: dict, t_eval, substep: float = 16.0,
     if system.topo.model == 4:
         ys, success = _rosenbrock_simulate_batched(system, params_b, y0b, seg_t0, seg_h,
                                                    seg_jb, out_idx)
+        S = ys.shape[1]
     else:
         bucket_uniq, bucket_inv = np.unique(u_jb, return_inverse=True)
         blocks = _block_linear_operators if system.topo.model == 2 else _linear_blocks_lanes

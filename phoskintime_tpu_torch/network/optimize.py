@@ -17,7 +17,7 @@ member whose simulated fold changes lie closest, by discrete Fréchet
 distance, to the data.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: ``optimizer="optuna"`` (queue 1 item 7) and a ``mesh``
+ROADMAP.md item: ``optimizer="optuna"`` (queue 1 item 7.5) and a ``mesh``
 (item 1b, population sharding).
 
 The pick reads the observation tables by column (``np.asarray(df[col])``
@@ -40,8 +40,7 @@ from phoskintime_tpu_torch.network.objective import (evaluate_population, make_o
 from phoskintime_tpu_torch.network.params import unpack_params
 from phoskintime_tpu_torch.network.polish import (gradient_multistart, lm_refine,
                                                   polish_solutions, simplex_weights)
-from phoskintime_tpu_torch.network.simulate import (Observables, extract_observables,
-                                                    fold_changes)
+from phoskintime_tpu_torch.network.simulate import extract_observables, fold_changes
 from phoskintime_tpu_torch.ops.frechet import frechet_distance
 from phoskintime_tpu_torch.ops.nsga import (MOOResult, fast_non_dominated_sort, lhs_sampling,
                                             make_device_ga_step, run_unsga3)
@@ -124,7 +123,7 @@ def run_global_fit(system, slices, loss_data, defaults, lambdas, time_grid,
     if mesh is not None:
         raise _not_ported("population sharding (mesh=...)", "1b, 'Population sharding'")
     if optimizer == "optuna":
-        raise _not_ported("optimizer='optuna' (MOTPE, ops/tpe.py)", "7")
+        raise _not_ported("optimizer='optuna' (MOTPE, ops/tpe.py)", "7.5")
     if solver == "auto":
         solver = "expo"
     args = (system, slices, loss_data, defaults, lambdas, time_grid)
@@ -293,9 +292,7 @@ def pick_solution_frechet(system, slices, pareto_X, df_prot, df_rna, df_pho,
 
     params_b = unpack_params(torch.as_tensor(np.asarray(pareto_X, float), **f), slices, topo)
     ys, _ = exponential_simulate_batched(system, params_b, times)
-    obs = extract_observables(system, ys)                      # (P, T, ...)
-    fc_r, fc_p, fc_ph = (x.transpose(0, 1) for x in fold_changes(
-        Observables(*(x.transpose(0, 1) for x in obs)), times))  # time-major, and back
+    fc_r, fc_p, fc_ph = fold_changes(extract_observables(system, ys), times)  # (P, T, ...)
 
     t_idx = {float(t): i for i, t in enumerate(times)}
 

@@ -86,13 +86,17 @@ def extract_observables(system, Y_flat: torch.Tensor) -> Observables:
 
 
 def fold_changes(obs: Observables, times, t0_prot=0.0, t0_rna=4.0, t0_pho=0.0):
-    """Fold changes of one trajectory (T leading) against the baseline
-    time points: returns (fc_rna, fc_protein, fc_phospho)."""
+    """Fold changes against the baseline time points: returns (fc_rna,
+    fc_protein, fc_phospho). The baseline is taken on the time axis (the
+    second from last of R and TOT, the third from last of PHO), so any
+    leading axes (a population) carry through; one trajectory has T
+    leading, as in the JAX package."""
     times = np.asarray(times, float)
     base = lambda t0: int(np.argmin(np.abs(times - t0)))
 
-    def fc(sig, b):
-        return torch.clamp(sig, min=EPS) / torch.clamp(sig[b][None], min=EPS)
+    def fc(sig, b, axis):
+        ref = sig.select(axis, b).unsqueeze(axis)
+        return torch.clamp(sig, min=EPS) / torch.clamp(ref, min=EPS)
 
-    return (fc(obs.R, base(t0_rna)), fc(obs.TOT, base(t0_prot)),
-            fc(obs.PHO, base(t0_pho)))
+    return (fc(obs.R, base(t0_rna), -2), fc(obs.TOT, base(t0_prot), -2),
+            fc(obs.PHO, base(t0_pho), -3))

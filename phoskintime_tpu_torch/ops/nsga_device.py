@@ -1,16 +1,15 @@
-"""U-NSGA-III with the whole generation on the device: variation,
-evaluation and survival.
+"""U-NSGA-III and NSGA-II with the whole generation on the device:
+variation, evaluation and survival.
 
-Counterpart of ``phoskintime_tpu/ops/nsga_device.py`` (its U-NSGA-III
-part; ``device_crowding``, ``device_nsga2_survival`` and
-``run_nsga2_device`` serve kinopt and wait for ROADMAP.md queue 1 item 7).
-The host GA (:mod:`phoskintime_tpu_torch.ops.nsga`) keeps survival on the
-host and pays a round trip a generation. Here tournament, SBX, polynomial
-mutation, clone repair, the population objective, non-dominated ranking,
-NSGA-III normalisation and association and the niching survival all run
-on the device, ``gens_per_block`` generations a block in a Python loop:
-X, F, rank, niche and nd stay on the device, and the host reads only the
-(gens, n_obj) ideal and mean history at the end of a block.
+Counterpart of ``phoskintime_tpu/ops/nsga_device.py``. The host GA
+(:mod:`phoskintime_tpu_torch.ops.nsga`) keeps survival on the host and
+pays a round trip a generation. Here tournament, SBX, polynomial
+mutation, clone repair, the population objective, non-dominated ranking
+and the survival (NSGA-III normalisation, association and niching, or
+NSGA-II crowding, :func:`run_nsga2_device` for kinopt) all run on the
+device, ``gens_per_block`` generations a block in a Python loop: the
+population stays on the device, and the host reads only the (gens,
+n_obj) ideal and mean history at the end of a block.
 
 Each random function comes in two parts, so that a test can hand in the
 JAX package's own draws: a function of explicit draws (:func:`variation`,
@@ -276,6 +275,129 @@ def device_survival(X_all, F_all, n_survive: int, unit_refs, draws: SurvivalDraw
     order = torch.argsort(torch.where(keep_all, rank, torch.full_like(rank, Q + 1)), stable=True)
     idx = order[:n_survive]
     return X_all[idx], F_all[idx], rank[idx], niche[idx], nd[idx]
+
+
+def device_crowding(F, rank):
+    """NSGA-II crowding distance on the device, fronts given by ``rank``:
+    the host's :func:`~phoskintime_tpu_torch.ops.nsga.crowding_distance`
+    applied to every front at once. Per objective the members are sorted by
+    (rank, f_j) (two stable sorts, as ``jnp.lexsort``); boundary members of
+    a front get inf, interior ones add (next - prev) / (front max - min),
+    the spans by ``scatter_reduce``."""
+    Q, m = F.shape
+    rank = rank.long()
+    crowd = torch.zeros(Q, dtype=F.dtype, device=F.device)
+    inf = torch.full((), float("inf"), dtype=F.dtype, device=F.device)
+    edge = torch.zeros(1, dtype=torch.bool, device=F.device)
+    for j in range(m):
+        fj = F[:, j]
+        by_f = torch.argsort(fj, stable=True)
+        order = by_f[torch.argsort(rank[by_f], stable=True)]     # rank, then f_j
+        r_s, f_s = rank[order], fj[order]
+        fmin = _segment_min(fj, rank, Q, float("inf"))
+        fmax = torch.full((Q,), -float("inf"), dtype=F.dtype, device=F.device).scatter_reduce(
+            0, rank, fj, "amax", include_self=True)
+        span_s = (fmax - fmin)[r_s]
+        prev_same = torch.cat([edge, r_s[1:] == r_s[:-1]])
+        next_same = torch.cat([r_s[:-1] == r_s[1:], edge])
+        gap = torch.roll(f_s, -1) - torch.roll(f_s, 1)
+        pos = span_s > 0
+        contrib = torch.where(pos, gap / torch.where(pos, span_s, torch.ones_like(span_s)),
+                              torch.zeros_like(gap))
+        crowd = crowd.index_add(0, order, torch.where(prev_same & next_same, contrib, inf))
+    return crowd
+
+
+def device_nsga2_survival(X_all, F_all, n_survive: int):
+    """NSGA-II environmental selection on the device, (rank ascending,
+    crowding descending): the host :func:`~phoskintime_tpu_torch.ops.nsga.nsga2_survival`'s
+    semantics, deterministic; members equal in both keys keep their order.
+    Returns (X, F, rank, crowd) of the survivors."""
+    rank = device_nd_ranks(F_all)
+    crowd = device_crowding(F_all, rank)
+    by_crowd = torch.argsort(-crowd, stable=True)
+    order = by_crowd[torch.argsort(rank[by_crowd], stable=True)]   # rank, then -crowd
+    idx = order[:n_survive]
+    return X_all[idx], F_all[idx], rank[idx], crowd[idx]
+
+
+def run_nsga2_device(pop_objective, xl, xu, *, pop_size: int = 100,
+                     n_gen: int = 100, seed: int = 42,
+                     sbx_prob=0.9, sbx_eta=15.0, pm_eta=20.0,
+                     constraint_fn=None, repair_fn=None,
+                     x0: np.ndarray | None = None,
+                     gens_per_block: int = 10,
+                     callback=None, mesh=None, device=DEFAULT_DEVICE,
+                     dtype=None) -> MOOResult:
+    """NSGA-II with the whole generation loop on ``device`` (default: the
+    card; raises where there is none), at ``dtype`` (default: the device's
+    working dtype): the drop-in for :func:`nsga.run_nsga2` on a population
+    objective (P, n) -> (P, n_obj) on the device.
+
+    ``repair_fn`` / ``constraint_fn`` run on the device ((P, n) -> (P, n) /
+    (P, n_con)); violations are penalised feasibility-first (1e6 x the
+    total), as on the host. Each block of ``gens_per_block`` generations
+    draws from a ``torch.Generator`` seeded from the host rng (the JAX
+    package's ``PRNGKey`` a block); the host reads the block's ideal and
+    mean history once. Whole blocks run, so the generation count rounds up
+    to a multiple of the block, as in the JAX package. ``mesh`` is not
+    ported (it raises)."""
+    if mesh is not None:
+        raise NotImplementedError("population sharding (mesh=...) is not ported yet "
+                                  "(ROADMAP.md queue 1 item 1b, 'Population sharding')")
+    device = resolve_device(device)
+    dtype = dtype or working_dtype(device)
+    f = dict(dtype=dtype, device=device)
+    rng = np.random.default_rng(seed)
+    xl = np.asarray(xl, float)
+    xu = np.asarray(xu, float)
+    n_var = len(xl)
+    bl, bu = torch.as_tensor(xl, **f), torch.as_tensor(xu, **f)
+
+    def eval_all(Xb):
+        F = pop_objective(Xb)
+        if constraint_fn is not None:
+            G = constraint_fn(Xb)
+            F = F + 1e6 * torch.clamp(G, min=0.0).sum(dim=1)[:, None]
+        return F
+
+    @torch.no_grad()
+    def block(X, F, rank, crowd, gen):
+        ideals, means = [], []
+        for _ in range(gens_per_block):
+            off = variation(X, rank, -crowd, variation_draws(gen, pop_size, n_var, dtype, device),
+                            bl, bu, sbx_prob=sbx_prob, sbx_eta=sbx_eta, pm_eta=pm_eta)
+            if repair_fn is not None:
+                off = repair_fn(off)
+            X, F, rank, crowd = device_nsga2_survival(
+                torch.cat([X, off]), torch.cat([F, eval_all(off)]), pop_size)
+            ideals.append(torch.amin(F, dim=0))
+            means.append(torch.mean(F, dim=0))
+        return X, F, rank, crowd, torch.stack(ideals), torch.stack(means)
+
+    X0 = lhs_sampling(pop_size, xl, xu, rng) if x0 is None else np.array(x0)
+    with torch.no_grad():
+        X0 = torch.as_tensor(X0, **f)
+        if repair_fn is not None:
+            X0 = repair_fn(X0)
+        carry = device_nsga2_survival(X0, eval_all(X0), pop_size)
+    n_evals = pop_size
+    history: list = []
+    gen = 0
+    while gen < n_gen:
+        gen_t = torch.Generator(device=device).manual_seed(int(rng.integers(2 ** 31 - 1)))
+        *carry, ideals, means = block(*carry, gen_t)
+        ideals, means = _host(ideals), _host(means)          # the block's one read
+        for g in range(gens_per_block):
+            gen += 1
+            n_evals += pop_size
+            history.append((gen, ideals[g].copy(), means[g].copy()))
+        if callback is not None:
+            callback(gen, _host(carry[0]), _host(carry[1]))
+
+    X, F = _host(carry[0]), _host(carry[1])
+    pf = fast_non_dominated_sort(F)[0]
+    return MOOResult(X, F, X[pf], F[pf], history, gen, n_evals)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 
 Counterpart of ``phoskintime_tpu/parallel/checkpoint.py`` (its GA part:
 the MOTPE sampler's ``save_sampler``/``load_sampler`` wait for
-``ops/tpe.py``, ROADMAP.md queue 1 item 7). One atomic pickle holds the
+``ops/tpe.py``, ROADMAP.md queue 1 item 7.5). One atomic pickle holds the
 generation, the population (X, F) and, from the port's GA loops, the whole
 loop state: ranks, niches, the host rng's state, the device loop's
 ``torch.Generator`` state and the histories, so that a resumed run

@@ -22,6 +22,7 @@ from phoskintime_tpu_torch.network.objective import (make_objective, make_popula
                                                      make_residual_fn)
 from phoskintime_tpu_torch.network.polish import forward_jacobian, polish_solutions
 from phoskintime_tpu_torch.network.rhs import tf_inputs
+from phoskintime_tpu_torch.network.sensitivity import run_sensitivity_analysis
 from phoskintime_tpu_torch.network.simulate import extract_observables, simulate_batched
 from phoskintime_tpu_torch.network.system import GlobalSystem
 from phoskintime_tpu_torch.network.topology import build_topology
@@ -518,6 +519,26 @@ def test_rk45_path_goes_through_the_flux_kernel(cuda_device):
     Fp = make_objective(*args, pop_chunk=None, use_kernel=False)(thetas)
     assert F.shape == (4, 3) and bool(torch.isfinite(F).all())
     assert float(torch.max(torch.abs(F - Fp) / torch.abs(Fp))) <= 1e-3
+
+
+def test_sensitivity_path_goes_through_the_flux_kernel(cuda_device):
+    """The network Morris analysis of a model-2 system at float32 launches
+    the flux kernel (every RK45 stage of each batch), and its Y and Morris
+    indices match the run with the plain flux at rel 1e-3."""
+    b = build_demo_network(n_proteins=8, n_kinases=3, model=2, seed=1,
+                           dtype=torch.float32, device=cuda_device)
+    kw = dict(n_trajectories=2, seed=0, batch_size=64)
+    times = np.array([0.0, 1.0, 4.0, 16.0, 30.0])
+    hypercube_flux.launches = 0
+    got = run_sensitivity_analysis(b["system"], b["slices"], b["theta_true"], times, **kw)
+    assert hypercube_flux.launches > 0
+    plain = run_sensitivity_analysis(b["system"], b["slices"], b["theta_true"], times,
+                                     use_kernel=False, **kw)
+    assert np.isfinite(got.Y).all()
+    assert np.max(np.abs(got.Y - plain.Y) / np.abs(plain.Y)) <= 1e-3
+    for k in ("mu", "mu_star", "sigma"):
+        a, p = getattr(got.morris, k), getattr(plain.morris, k)
+        assert np.max(np.abs(a - p)) <= 1e-3 * np.max(np.abs(p)), k
 
 
 def test_steady_state_sequential_launches_thomas_once(cuda_device):

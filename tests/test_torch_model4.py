@@ -24,6 +24,7 @@ from phoskintime_tpu.network.objective import make_objective as jax_make_objecti
 from phoskintime_tpu.network.objective import \
     make_population_objective as jax_population_objective
 from phoskintime_tpu.network.optimize import run_global_fit as jax_fit
+from phoskintime_tpu.network.params import unpack_params as jax_unpack
 from phoskintime_tpu.network.simulate import simulate as jax_simulate
 from phoskintime_tpu_torch.demo import build_demo_network
 from phoskintime_tpu_torch.interop import from_reference
@@ -179,13 +180,16 @@ def test_rosenbrock_batched_matches_jax(sat):
 @pytest.mark.parametrize("model", [0, 1, 2, 4])
 def test_exponential_simulate_matches_jax(model):
     """``solver="expo"`` per candidate: the port's population axis against
-    ``jax.vmap`` of JAX's ``exponential_simulate``; ``simulate`` of one
-    member (the population's first) against its row."""
+    ``jax.vmap`` of JAX's ``exponential_simulate``, step counts included
+    (segments for models 0-2, output times for model 4); ``simulate`` of
+    one member (the population's first) against its row."""
     sj, st, p = make_system(model)
     pop = population(p, 3, seed=model)
     want = jax.jit(jax.vmap(lambda q: jexpo.exponential_simulate(sj, q, GRID)))(jx(pop))
     got = expo.exponential_simulate(st, pop, GRID)
     assert bool(got.success.all()) and bool(np.all(want.success))
+    np.testing.assert_array_equal(got.n_steps.numpy(), np.asarray(want.n_steps))
+    np.testing.assert_array_equal(got.n_accepted.numpy(), np.asarray(want.n_accepted))
     np.testing.assert_allclose(got.ys.numpy(), np.asarray(want.ys), rtol=RTOL_RUN,
                                atol=1e-14)
     one = simulate(st, {k: v[0] for k, v in pop.items()}, GRID, solver="expo")
@@ -231,7 +235,8 @@ def test_model4_population_objective_matches_jax(demo4):
 
 def test_expo_objective_matches_jax(demo4):
     """``make_objective(solver="expo", substep=8)`` against ``jax.vmap`` of
-    JAX's per-candidate objective."""
+    JAX's per-candidate objective; its members' step counts against those
+    of JAX's ``exponential_simulate`` on the same unpacked parameters."""
     bj, bt = demo4
     thetas = thetas_for(bj, 3, seed=4)
     f_j = jax_make_objective(*(bj[k] for k in KEYS), solver="expo", substep=8.0)
@@ -239,7 +244,11 @@ def test_expo_objective_matches_jax(demo4):
     f_t = make_objective(*(bt[k] for k in KEYS), solver="expo", substep=8.0)
     got = f_t(thetas)
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL_RUN)
-    assert f_t.n_steps.shape == (3,) and int(f_t.n_steps[0]) > 0
+    steps_j = jax.jit(jax.vmap(lambda th: jexpo.exponential_simulate(
+        bj["system"], jax_unpack(th, bj["slices"], bj["topo"]), bj["grid"],
+        substep=8.0).n_steps))(jnp.asarray(thetas))
+    assert f_t.n_steps.shape == (3,)
+    np.testing.assert_array_equal(f_t.n_steps.numpy(), np.asarray(steps_j))
 
 
 def test_model4_rk45_objective_and_steady_run_match_jax(demo4):

@@ -7,6 +7,7 @@ plain version on the card in ``test_torch_kernels_cuda.py``.
 Inputs are made with numpy from a seed and fed to both packages.
 """
 
+import re
 import subprocess
 import sys
 from fractions import Fraction
@@ -67,7 +68,10 @@ def test_package_imports_without_jax():
                 "network.optimize", "network.bounds", "network.weights", "network.polish",
                 "config.labels", "ops.linear", "models", "models.kinetics", "models.weights",
                 "models.knockout", "ops.lm", "fit", "fit.score", "fit.ci", "fit.normest",
-                "ops.morris", "fit.sensitivity", "fit.pipeline"):
+                "ops.morris", "fit.sensitivity", "fit.pipeline", "ops.indicators",
+                "ops.sobol", "network.sensitivity", "ops.constrained", "ops.de_jit",
+                "kinopt", "kinopt.model", "kinopt.optimize", "kinopt.kkt", "kinopt.data",
+                "tfopt", "tfopt.model", "tfopt.optimize", "tfopt.data"):
         assert f"phoskintime_tpu_torch.{new}" in mods, new
     code = ("import importlib, sys; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
@@ -79,6 +83,11 @@ def test_package_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stdout + out.stderr
+    # nor inside a function: no source line of the port imports pandas or JAX
+    lazy = re.compile(r"^\s*(import|from)\s+(pandas|jax|phoskintime_tpu)(\.|\s|$)")
+    for path in [*(root / "phoskintime_tpu_torch").rglob("*.py"), root / "chip_smoke.py"]:
+        bad = [ln for ln in path.read_text().splitlines() if lazy.match(ln)]
+        assert not bad, (path, bad)
 
 
 @pytest.mark.parametrize("w", [3, 6])
