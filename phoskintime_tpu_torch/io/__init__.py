@@ -1,0 +1,17 @@
+"""Host-side IO without pandas: the CSV reader and column tables, data
+loading and scaling, raw-data preprocessing. The result exports
+(``io/export.py``) are not ported yet (ROADMAP.md queue 1 item 8b)."""
+
+from phoskintime_tpu_torch.io.load import (  # noqa: F401
+    explode_kinase_sets,
+    load_data,
+    process_and_scale_raw_data,
+    read_table,
+)
+from phoskintime_tpu_torch.io.preprocess import (  # noqa: F401
+    format_site,
+    process_collecttri,
+    process_msgauss,
+    process_msgauss_std,
+    run_cleanup,
+)

@@ -7,18 +7,18 @@ protein-level rows, or pseudo-site counts from ``kinase_to_psites``), and
 build the padded :class:`~phoskintime_tpu_torch.kinopt.model.KinoptProblem`.
 
 The tables are read by column: a mapping of column name to a 1-D array
-(what :func:`read_csv` returns), or a pandas frame where the caller has
-one; no module of the port imports pandas. A missing value is None or NaN.
+(what :func:`~phoskintime_tpu_torch.io.utils.read_csv` returns), or a
+pandas frame where the caller has one; no module of the port imports
+pandas. A missing value is None or NaN.
 """
 
 from __future__ import annotations
 
-import csv
 import logging
-import math
 
 import numpy as np
 
+from phoskintime_tpu_torch.io.utils import is_missing, parse_kinase_set, read_csv
 from phoskintime_tpu_torch.kinopt.model import KinoptProblem, build_problem
 
 logger = logging.getLogger("phoskintime_tpu_torch")
@@ -33,34 +33,6 @@ KINASE_TO_PSITES = {
 }
 
 
-def parse_kinase_set(cell, upper: bool = False) -> list[str]:
-    """Parse a '{K1, K2}' kinase-set cell into a list of kinase names (the
-    port's copy of ``phoskintime_tpu/io/utils.py::parse_kinase_set``)."""
-    out = []
-    for k in str(cell).strip("{}").split(","):
-        k = k.strip()
-        if k:
-            out.append(k.upper() if upper else k)
-    return out
-
-
-def read_csv(path) -> dict:
-    """A CSV file as {column: 1-D array}: a column whose every non-empty
-    cell reads as a number becomes float64 (an empty cell NaN), any other an
-    object array of strings (an empty cell None), as pandas would type it."""
-    with open(path, newline="") as fh:
-        rows = list(csv.reader(fh))
-    header, body = rows[0], rows[1:]
-    out = {}
-    for j, name in enumerate(header):
-        vals = [r[j] if j < len(r) else "" for r in body]
-        try:
-            out[name] = np.array([float(v) if v.strip() else np.nan for v in vals])
-        except ValueError:
-            out[name] = np.array([v if v.strip() else None for v in vals], dtype=object)
-    return out
-
-
 def _col(table, name) -> np.ndarray:
     return np.asarray(table[name])
 
@@ -69,13 +41,9 @@ def _n_rows(table) -> int:
     return len(_col(table, next(iter(table.columns if hasattr(table, "columns") else table))))
 
 
-def _is_na(v) -> bool:
-    return v is None or (isinstance(v, float) and math.isnan(v))
-
-
 def _has_site(psites) -> np.ndarray:
     """A non-missing, non-blank site label per row."""
-    return np.array([not _is_na(v) and str(v).strip() != "" for v in psites], bool)
+    return np.array([not is_missing(v) and str(v).strip() != "" for v in psites], bool)
 
 
 def _minmax_rows(M: np.ndarray) -> np.ndarray:

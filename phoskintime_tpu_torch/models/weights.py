@@ -3,8 +3,8 @@
 Counterpart of ``phoskintime_tpu/models/weights.py`` (numpy only, copied):
 17 named weighting schemes over the stacked target vector [rna(9),
 protein(14), sites(14*n)], an "early emphasis" kernel, and the MS-Gaussian
-measurement-std weights (``uncertainties_from_data``) when the caller passes
-them.
+measurement-std weights (``uncertainties_from_data``), read from the
+input1_wstd table by :func:`get_protein_weights` or passed in.
 
 As in the JAX package, the time-index schemes tile ``num_psites + 1``
 blocks (protein and each site), so every scheme has the target's length;
@@ -15,6 +15,8 @@ LM as per-residual sigmas.
 from __future__ import annotations
 
 import numpy as np
+
+from phoskintime_tpu_torch.io.utils import is_missing
 
 N_RNA = 9  # RNA timepoints precede the protein/site blocks in the target
 
@@ -129,11 +131,48 @@ def _uniform_filter1d(x: np.ndarray, size: int) -> np.ndarray:
 
 
 def get_protein_weights(gene: str, input1_wstd, input2) -> np.ndarray:
-    """The MS-Gaussian std weights of one gene, read from the input
-    tables: not ported yet (they are pandas frames of the input files;
-    ROADMAP.md queue 1 item 8, "The host layer"). Pass the weights to
-    ``normest(ms_gauss_weights=...)`` directly instead."""
-    raise NotImplementedError(
-        "get_protein_weights reads the input files' pandas frames, which the port "
-        "does not load yet (ROADMAP.md queue 1 item 8, the host layer); pass "
-        "ms_gauss_weights as an array")
+    """The MS-Gaussian std weights of one gene: its protein row, then its
+    sites in input2's order, each x1_std..x14_std, flattened.
+
+    ``input1_wstd`` ({GeneID, Psite, x1_std..x14_std}) and ``input2``
+    ({GeneID, Psite, ...}) are column tables (or frames); an empty or
+    missing Psite is a protein row. The protein row is input1_wstd's own
+    (exactly one), else input2's protein rows' stds. Raises where the gene
+    has no input2 row, a site has no std row or there is no protein row."""
+    std_cols = [f"x{i}_std" for i in range(1, 15)]
+    i1 = {str(c).strip(): np.asarray(v) for c, v in _columns(input1_wstd).items()}
+    i2 = {str(c).strip(): np.asarray(v) for c, v in _columns(input2).items()}
+    site = lambda v: None if is_missing(v) or v == "" else v
+    i1_site = [site(v) for v in i1["Psite"]]
+    stds = np.stack([np.asarray(i1[c], float) for c in std_cols], axis=1)
+    by_key: dict = {}
+    for r, key in enumerate(zip(i1["GeneID"], i1_site)):
+        by_key.setdefault(key, []).append(r)
+    gene_sites = [site(s) for g, s in zip(i2["GeneID"], i2["Psite"]) if g == gene]
+    if not gene_sites:
+        raise ValueError(f"No entries for GeneID {gene} in input2")
+
+    # input2's rows joined to every matching std row (a left join)
+    merged = [(s, stds[r] if r is not None else np.full(14, np.nan))
+              for s in gene_sites for r in by_key.get((gene, s), [None])]
+    if any(np.isnan(v).any() for _, v in merged):
+        missing = [s for s, v in merged if np.isnan(v).any()]
+        raise ValueError(f"Missing (GeneID, Psite) std rows for {gene}: {missing}")
+
+    own = by_key.get((gene, None), [])
+    if len(own) > 1:
+        raise ValueError(f"{gene}: {len(own)} duplicate protein-level std rows in "
+                         f"input1_wstd — expected exactly one")
+    prot = [stds[own[0]]] if own else [v for s, v in merged if s is None]
+    if not prot:
+        # one block short would misalign 'uncertainties_from_data' against
+        # every other sigma
+        raise ValueError(f"{gene}: no protein-level (empty-Psite) std row found in "
+                         f"input1_wstd — the fit vector needs protein + site blocks")
+    phos = [v for s, v in merged if s is not None]
+    return np.concatenate([np.reshape(prot, -1), np.reshape(phos, -1)])
+
+
+def _columns(table) -> dict:
+    """A column table or a frame as {name: column}."""
+    return {c: table[c] for c in (table.columns if hasattr(table, "columns") else table)}

@@ -16,9 +16,11 @@ best-by-sum member (``gn_iters > 0``), both from
 member whose simulated fold changes lie closest, by discrete Fréchet
 distance, to the data.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: ``optimizer="optuna"`` (queue 1 item 7.5) and a ``mesh``
-(item 1b, population sharding).
+``optimizer="optuna"`` runs the port's MOTPE
+(:class:`~phoskintime_tpu_torch.ops.tpe.MOTPESampler`): batches of 16 asked
+on the host, scored by the batched objective on the device and told back.
+A ``mesh`` (population sharding) is not ported yet and raises
+``NotImplementedError`` naming ROADMAP.md queue 1 item 1b.
 
 The pick reads the observation tables by column (``np.asarray(df[col])``
 for ``protein``, ``psite``, ``time`` and ``fc``), so a pandas DataFrame and
@@ -45,7 +47,9 @@ from phoskintime_tpu_torch.ops.frechet import frechet_distance
 from phoskintime_tpu_torch.ops.nsga import (MOOResult, fast_non_dominated_sort, lhs_sampling,
                                             make_device_ga_step, run_unsga3)
 from phoskintime_tpu_torch.ops.nsga_device import make_device_ga_blocks, run_unsga3_device
-from phoskintime_tpu_torch.parallel.checkpoint import GACheckpointer
+from phoskintime_tpu_torch.ops.tpe import MOTPESampler
+from phoskintime_tpu_torch.parallel.checkpoint import (GACheckpointer, load_sampler,
+                                                       save_sampler)
 
 
 def _not_ported(what: str, item: str):
@@ -106,6 +110,12 @@ def run_global_fit(system, slices, loss_data, defaults, lambdas, time_grid,
     its whole state there every ``checkpoint_every`` generations, and a run
     started on a file that holds one continues from it to ``n_gen``.
 
+    optimizer="optuna": MOTPE over ``n_trials`` trials in batches of 16,
+    each batch one call of the batched objective; with ``checkpoint_path``
+    the sampler is stored in ``checkpoint_path + ".tpe"`` every
+    ``16 * checkpoint_every`` trials, and a run started where that file
+    exists continues from its history. Every trial counts as an evaluation.
+
     optimizer="gradient": no evolutionary search, but
     :func:`gradient_multistart` of ``pop`` starts for ``max(100,
     polish_steps or 300)`` Adam steps at ``polish_lr``, counted as 3
@@ -122,8 +132,6 @@ def run_global_fit(system, slices, loss_data, defaults, lambdas, time_grid,
     the JAX package's signature and read only where they apply."""
     if mesh is not None:
         raise _not_ported("population sharding (mesh=...)", "1b, 'Population sharding'")
-    if optimizer == "optuna":
-        raise _not_ported("optimizer='optuna' (MOTPE, ops/tpe.py)", "7.5")
     if solver == "auto":
         solver = "expo"
     args = (system, slices, loss_data, defaults, lambdas, time_grid)
@@ -158,6 +166,9 @@ def run_global_fit(system, slices, loss_data, defaults, lambdas, time_grid,
                                      loss_mode=loss_mode, y0=y0, seed=seed)
         pf = fast_non_dominated_sort(Fg)[0]
         res = MOOResult(Xg, Fg, Xg[pf], Fg[pf], [], 0, pop * 3 * steps)
+    elif optimizer == "optuna":
+        res = _run_motpe_fit(evaluate, xl, xu, n_trials, seed, checkpoint_path,
+                             checkpoint_every)
     elif population and gens_per_dispatch > 1:
         ga_prebuilt = make_device_ga_blocks(objective, len(np.asarray(xl)), pop, dtype=dtype,
                                             device=device, gens_per_block=gens_per_dispatch)
@@ -229,6 +240,30 @@ def run_global_fit(system, slices, loss_data, defaults, lambdas, time_grid,
 
     return GlobalFitResult(res.X, res.F, res.pareto_X, res.pareto_F, best_idx, scores,
                            res.history, res.n_evals, pop_history)
+
+
+MOTPE_BATCH = 16
+
+
+def _run_motpe_fit(evaluate, xl, xu, n_trials, seed, checkpoint_path,
+                   checkpoint_every) -> MOOResult:
+    """MOTPE: ask a batch, score it on the device, tell it; X and F of
+    every finite trial, their Pareto set, no generation history."""
+    sampler = MOTPESampler(xl, xu, seed=seed)
+    path = None if checkpoint_path is None else checkpoint_path + ".tpe"
+    if path is not None:
+        load_sampler(path, sampler)
+    done = len(sampler.X)
+    while done < n_trials:
+        bsz = min(MOTPE_BATCH, n_trials - done)
+        Xb = sampler.ask_batch(bsz)
+        sampler.tell_batch(Xb, evaluate(Xb))
+        done += bsz
+        if path is not None and done % (MOTPE_BATCH * checkpoint_every) < MOTPE_BATCH:
+            save_sampler(path, sampler)
+    pX, pF = sampler.pareto
+    X_all, F_all = np.asarray(sampler.X), np.asarray(sampler.F)
+    return MOOResult(X_all, F_all, pX, pF, [], 0, len(X_all))
 
 
 def _merged(res, X_new, F_new, n_evals: int):

@@ -8,9 +8,9 @@ padded system with the solver named, as the JAX package dispatches it:
 ``"expo"`` :func:`~phoskintime_tpu_torch.network.expo.exponential_simulate`,
 any other name :func:`~phoskintime_tpu_torch.ops.integrators.odeint_rk45`
 (the default ``"rk45"``), the kinase grid as bucket boundaries;
-:func:`extract_observables` and :func:`fold_changes` read a trajectory.
-``simulate_and_measure`` returns pandas frames and waits for the host
-layer (ROADMAP.md queue 1 item 8).
+:func:`extract_observables` and :func:`fold_changes` read a trajectory;
+:func:`simulate_and_measure` returns one member's fold changes as the
+three observation tables (column dicts) on the modality grids.
 """
 
 from __future__ import annotations
@@ -100,3 +100,36 @@ def fold_changes(obs: Observables, times, t0_prot=0.0, t0_rna=4.0, t0_pho=0.0):
 
     return (fc(obs.R, base(t0_rna), -2), fc(obs.TOT, base(t0_prot), -2),
             fc(obs.PHO, base(t0_pho), -3))
+
+
+def simulate_and_measure(system, params, t_points_p, t_points_r, t_points_pho,
+                         rtol=1e-5, atol=1e-7, max_steps=5000, y0=None):
+    """One member's predicted fold changes as three tables (protein {protein,
+    time, pred_fc}, RNA the same, phospho {protein, psite, time, pred_fc}),
+    gene-major, then site, then time, each on its modality's grid: one
+    RK45 solve on the system's device over the union of the grids."""
+    grids = [np.asarray(t, float) for t in (t_points_p, t_points_r, t_points_pho)]
+    times = np.unique(np.concatenate(grids))
+    res = simulate(system, params, times, rtol=rtol, atol=atol, max_steps=max_steps, y0=y0)
+    fc_r, fc_p, fc_pho = (x.to("cpu", torch.float64).numpy() for x in
+                          fold_changes(extract_observables(system, res.ys), times))
+    on_p, on_r, on_pho = (np.isin(times, g) for g in grids)
+    topo = system.topo
+    prot = {"protein": [], "time": [], "pred_fc": []}
+    rna = {"protein": [], "time": [], "pred_fc": []}
+    pho = {"protein": [], "psite": [], "time": [], "pred_fc": []}
+    for i, gene in enumerate(topo.proteins):
+        for table, fc, on in ((prot, fc_p, on_p), (rna, fc_r, on_r)):
+            table["protein"] += [gene] * int(on.sum())
+            table["time"].append(times[on])
+            table["pred_fc"].append(fc[on, i])
+        for j, psite in enumerate(topo.sites[i]):
+            pho["protein"] += [gene] * int(on_pho.sum())
+            pho["psite"] += [psite] * int(on_pho.sum())
+            pho["time"].append(times[on_pho])
+            pho["pred_fc"].append(fc_pho[on_pho, i, j])
+
+    def columns(table):
+        return {k: np.concatenate(v + [np.zeros(0)]) if k in ("time", "pred_fc")
+                else np.asarray(v, dtype=object) for k, v in table.items()}
+    return columns(prot), columns(rna), columns(pho)

@@ -17,16 +17,21 @@ package, so that the RHS vanishes at these states. Each function computes
 in float64 on ``device`` (the card by default: the H100 has native FP64)
 and returns host numpy (N, width).
 
-The data-driven initial state (``build_y0_from_data``) reads pandas frames
-and waits for the host layer (ROADMAP.md queue 1 item 8).
+:func:`build_y0_from_data` makes the data-driven initial state from the
+observation tables (column dicts or frames): RNA the first observed value,
+the total protein its value at t = 0, and the phospho mass at most 30% of
+it, the unphosphorylated form the rest.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from phoskintime_tpu_torch.config.numerics import DEFAULT_DEVICE, resolve_device
+from phoskintime_tpu_torch.io.utils import as_numbers, is_missing
 from phoskintime_tpu_torch.ops.tridiag import thomas_solve_batched
 
 # every rate of the oracle: E (dephospho), D (decay), Dp (phospho-state
@@ -43,6 +48,79 @@ def _mrna(N: int, TF_inputs, tf_scale: float, f: dict) -> torch.Tensor:
     u = u / (1.0 + torch.abs(u))
     synth = torch.where(u >= 0, 1.0 + tf_scale * u, 1.0 / (1.0 + tf_scale * torch.abs(u)))
     return torch.clamp(synth, min=0.0)
+
+
+def _observed(table, key_cols):
+    """(keys, time, fc) of the rows of a table whose time and fc are
+    numbers and whose keys are present; None for no table."""
+    if table is None or len(table["time"]) == 0:
+        return None
+    time, fc = as_numbers(table["time"]), as_numbers(table["fc"])
+    keys = list(zip(*(list(table[c]) for c in key_cols)))
+    ok = ~np.isnan(time) & ~np.isnan(fc) & np.asarray(
+        [not any(is_missing(k) for k in key) for key in keys], bool)
+    rows = np.flatnonzero(ok)
+    return [keys[r] for r in rows], time[rows], fc[rows]
+
+
+def _mean_at(table, key_cols, t0, tol=1e-8) -> dict:
+    """{key: mean fc of its rows at time t0 (within tol)}, each key the
+    text of its columns (a tuple for several)."""
+    obs = _observed(table, key_cols)
+    if obs is None:
+        return {}
+    keys, time, fc = obs
+    groups: dict = {}
+    for key, t, v in zip(keys, time, fc):
+        if abs(t - float(t0)) <= tol:
+            k = tuple(str(x) for x in key)
+            groups.setdefault(k if len(k) > 1 else k[0], []).append(v)
+    return {k: math.fsum(vs) / len(vs) for k, vs in groups.items()}
+
+
+def _first_observed(table) -> dict:
+    """{protein: fc} of each protein's row at its earliest time, the first
+    such row in the table's order where replicates tie."""
+    obs = _observed(table, ["protein"])
+    if obs is None:
+        return {}
+    keys, time, fc = obs
+    best: dict = {}
+    for (p,), t, v in zip(keys, time, fc):
+        if p not in best or t < best[p][0]:
+            best[p] = (t, v)
+    return {p: v for p, (_, v) in best.items()}
+
+
+def build_y0_from_data(topo, df_prot, df_rna, df_pho, *, t_init=0.0, t0_pho=0.0,
+                       eps=1e-9, max_pho_frac=0.3) -> np.ndarray:
+    """The padded (N, width) initial state from the data, float64 numpy.
+
+    Per protein: R0 its first RNA fold change (1 without one), P_tot the
+    mean protein fold change at ``t_init`` (1 without one), each site's
+    mass its mean phospho fold change at ``t0_pho`` scaled so that the
+    sites together hold at most ``max_pho_frac`` of P_tot, and the
+    unphosphorylated form (P0, or model 2's state 0) the rest; every
+    present slot at least ``eps``."""
+    prot0 = _mean_at(df_prot, ["protein"], t_init)
+    rna0 = _first_observed(df_rna)
+    pho0 = _mean_at(df_pho, ["protein", "psite"], t0_pho)
+    Y = np.zeros((topo.N, topo.width))
+    for i, gene in enumerate(topo.proteins):
+        total = max(float(prot0.get(gene, 1.0)), eps)
+        Y[i, 0] = max(float(rna0.get(gene, 1.0)), eps)
+        raw = np.asarray([float(pho0.get((gene, s), 0.0)) for s in topo.sites[i]])
+        mass = np.zeros_like(raw)
+        if raw.sum() > 0:
+            mass = np.maximum(raw * min(max_pho_frac, max_pho_frac / raw.sum()) * total, 0.0)
+        Y[i, 1] = max(total - mass.sum(), eps)
+        for j, m in enumerate(mass):
+            if topo.model == 2:
+                if m > 0:   # the state with only site j set
+                    Y[i, 1 + (1 << j)] = max(m, eps)
+            else:
+                Y[i, 2 + j] = max(m, eps)
+    return Y
 
 
 def _float64_on(device) -> dict:

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from collections.abc import Sequence
+from collections.abc import Mapping, Sequence
 
 import numpy as np
 
@@ -84,6 +84,15 @@ def _unique(values) -> list:
     return list(dict.fromkeys(values))
 
 
+def _rows(edges, cols) -> list[tuple]:
+    """Edges as tuples, from tuples or from a column table's ``cols``."""
+    if edges is None:
+        return []
+    if isinstance(edges, Mapping):
+        return list(zip(*(list(edges[c]) for c in cols)))
+    return [tuple(r) for r in edges]
+
+
 def build_topology(interactions: Sequence[tuple[str, str | None, str]],
                    tf_interactions: Sequence[tuple[str, str]] | None = None,
                    kin_beta_map: dict | None = None,
@@ -95,9 +104,12 @@ def build_topology(interactions: Sequence[tuple[str, str | None, str]],
     """Build a :class:`NetworkTopology` from interaction tuples.
 
     Args:
-      interactions: ``(protein, psite, kinase)`` kinase-substrate edges; a
+      interactions: ``(protein, psite, kinase)`` kinase-substrate edges,
+        or a column table with those columns (what
+        :func:`~phoskintime_tpu_torch.io.load.load_data` returns); a
         ``None`` psite is a missing value and names no site.
-      tf_interactions: ``(tf, target)`` regulator edges (optional).
+      tf_interactions: ``(tf, target)`` regulator edges, or a column table
+        {tf, target} (optional).
       kin_beta_map / tf_beta_map: optional priors used to pick the best
         proxy kinase for orphan TFs.
       kin_alpha: optional {(protein, psite, kinase): alpha} edge weights
@@ -107,8 +119,8 @@ def build_topology(interactions: Sequence[tuple[str, str | None, str]],
       model: mechanism id (0/1/2/4); model 2 uses bitmask states.
       max_sites_cap: optional clamp on sites per protein.
     """
-    interactions = [tuple(r) for r in interactions]
-    tf_rows = [tuple(r) for r in (tf_interactions or [])]
+    interactions = _rows(interactions, ("protein", "psite", "kinase"))
+    tf_rows = _rows(tf_interactions, ("tf", "target"))
 
     with_sites = set(p for p, _, _ in interactions)
     prots = set(with_sites)

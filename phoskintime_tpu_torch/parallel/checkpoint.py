@@ -1,12 +1,13 @@
 """Checkpoint and resume for long optimisation runs.
 
-Counterpart of ``phoskintime_tpu/parallel/checkpoint.py`` (its GA part:
-the MOTPE sampler's ``save_sampler``/``load_sampler`` wait for
-``ops/tpe.py``, ROADMAP.md queue 1 item 7.5). One atomic pickle holds the
-generation, the population (X, F) and, from the port's GA loops, the whole
-loop state: ranks, niches, the host rng's state, the device loop's
-``torch.Generator`` state and the histories, so that a resumed run
-continues the stream the interrupted one was drawing from.
+Counterpart of ``phoskintime_tpu/parallel/checkpoint.py``. One atomic
+pickle holds the generation, the population (X, F) and, from the port's GA
+loops, the whole loop state: ranks, niches, the host rng's state, the
+device loop's ``torch.Generator`` state and the histories, so that a
+resumed run continues the stream the interrupted one was drawing from.
+:func:`save_sampler` and :func:`load_sampler` store a
+:class:`~phoskintime_tpu_torch.ops.tpe.MOTPESampler`'s ask/tell history and
+rng state the same way (the MOTPE fit and the hyperparameter scan).
 """
 
 from __future__ import annotations
@@ -67,3 +68,17 @@ class GACheckpointer:
         if gen % self.every == 0:
             save_checkpoint(self.path, {"gen": gen, "X": np.asarray(X),
                                         "F": np.asarray(F), "loop": loop})
+
+
+def save_sampler(path: str, sampler) -> str:
+    """Store a MOTPE sampler's state (its told history and rng)."""
+    return save_checkpoint(path, sampler.state_dict())
+
+
+def load_sampler(path: str, sampler):
+    """Load a stored state into ``sampler``; a missing file leaves it as
+    it is. Returns the sampler."""
+    st = load_checkpoint(path)
+    if st is not None:
+        sampler.load_state_dict(st)
+    return sampler

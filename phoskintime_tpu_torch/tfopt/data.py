@@ -5,7 +5,7 @@ grid) with the TF protein and psite series (14-point grid), build the
 regulator map from the TF network, keep only genes with >= 1 regulator and
 the TFs that regulate a kept gene, and pad the psite series into a (n_TF,
 n_psite_max, T) tensor. The tables are read by column (a column dict, as
-:func:`~phoskintime_tpu_torch.kinopt.data.read_csv` returns, or a pandas
+:func:`~phoskintime_tpu_torch.io.utils.read_csv` returns, or a pandas
 frame where the caller has one).
 """
 
@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from phoskintime_tpu_torch.kinopt.data import _col, _has_site, _n_rows, read_csv
+from phoskintime_tpu_torch.io.utils import read_csv
+from phoskintime_tpu_torch.kinopt.data import _col, _has_site, _n_rows
 from phoskintime_tpu_torch.tfopt.model import TfoptProblem
 
 PROT_COLS = [f"x{i}" for i in range(1, 15)]

@@ -900,3 +900,58 @@ def test_astype_keeps_the_device(cuda_device):
     assert s64.device == b["system"].device and s64.rhs.Kmat.is_cuda
     assert s64.rhs.Kmat.dtype == torch.float64 and s64.topo is b["system"].topo
     assert b["system"].astype(torch.float32) is b["system"]
+
+
+# --- MOTPE and the hyperparameter scan ---------------------------------------------------
+
+
+def test_motpe_float64_on_the_card_matches_cpu(cuda_device):
+    """run_global_fit(optimizer="optuna") at float64 on the card and on the
+    CPU: the same trials (X bit for bit), F within 1e-9, one table launch
+    a batch of 16."""
+    from phoskintime_tpu_torch.network.optimize import run_global_fit
+
+    b = build_demo_network(n_proteins=8, n_kinases=4, seed=0, dtype=torch.float64,
+                           device=cuda_device)
+    cpu = GlobalSystem(b["system"].topo, b["system"].kin_grid, b["system"].Kmat,
+                       dtype=torch.float64, device="cpu")
+    args = (b["slices"], b["loss_data"], b["defaults"], b["lambdas"], b["grid"],
+            b["xl"], b["xu"])
+    kw = dict(optimizer="optuna", n_trials=48, seed=0, frechet_pick=False)
+    phi_tables.launches = 0
+    got = run_global_fit(b["system"], *args, **kw)
+    torch.cuda.synchronize()
+    assert phi_tables.launches == 3
+    want = run_global_fit(cpu, *args, **kw)
+    np.testing.assert_array_equal(got.X, want.X)
+    np.testing.assert_allclose(got.F, want.F, rtol=1e-9)
+
+
+def test_hyperparameter_scan_on_the_card(cuda_device):
+    """The expo scan at float32 on the card: one table launch an
+    evaluation of every trial, pruning bookkeeping as on the CPU."""
+    from phoskintime_tpu_torch.network import scan
+
+    b = build_demo_network(n_proteins=8, n_kinases=4, seed=0, dtype=torch.float32,
+                           device=cuda_device)
+    launches = []
+    real = scan.run_unsga3_device
+
+    def spy(*a, **kw):
+        before = phi_tables.launches
+        res = real(*a, **kw)
+        torch.cuda.synchronize()
+        launches.append((phi_tables.launches - before, res.n_gen))
+        return res
+
+    scan.run_unsga3_device = spy
+    try:
+        _, trials = scan.run_hyperparameter_scan(
+            b["system"], b["slices"], b["loss_data"], b["defaults"], b["grid"], b["xl"],
+            b["xu"], n_outer=4, inner_gens=6, inner_pop=16, seed=0, gen_step=2,
+            n_startup_prune=2, prune_factor=0.0)
+    finally:
+        scan.run_unsga3_device = real
+    assert [n for n, _ in launches] == [g + 1 for _, g in launches]
+    assert [t.n_gen for t in trials] == [g for _, g in launches]
+    assert all(np.isfinite(t.score) for t in trials)

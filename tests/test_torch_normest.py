@@ -84,8 +84,22 @@ def test_weight_schemes_exact(ms, custom):
 
 
 def test_protein_weights_raise_naming_the_host_layer():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        weights.get_protein_weights("G", None, None)
+    """The host layer is in: get_protein_weights reads the std table (the
+    protein row, then input2's sites) as the JAX package does, and raises
+    as it does for a gene input2 lacks (the full parity:
+    tests/test_torch_io.py)."""
+    import pandas as pd
+
+    i1 = pd.DataFrame({"GeneID": ["G", "G"], "Psite": [np.nan, "S_1"],
+                       **{f"x{i}_std": [0.1 * i, 0.2 * i] for i in range(1, 15)}})
+    i2 = pd.DataFrame({"GeneID": ["G"], "Psite": ["S_1"]})
+    cols = lambda df: {c: df[c].to_numpy(object if c in ("GeneID", "Psite") else float)
+                       for c in df.columns}
+    got = weights.get_protein_weights("G", cols(i1), cols(i2))
+    np.testing.assert_array_equal(got, jax_weights.get_protein_weights("G", i1, i2))
+    assert got.shape == (28,)
+    with pytest.raises(ValueError, match="No entries"):
+        weights.get_protein_weights("H", cols(i1), cols(i2))
 
 
 @pytest.mark.parametrize("model,n,seed,kw", [

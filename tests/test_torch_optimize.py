@@ -126,10 +126,12 @@ def test_fit_resumes_from_its_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(optimizer="optuna"), "item 7"),
+    (dict(optimizer="optuna", mesh=object()), "item 1b"),
     (dict(mesh=object()), "item 1b"),
 ], ids=["optuna", "mesh"])
 def test_routes_not_ported_raise(bundles, kw, item):
+    """MOTPE runs (tests/test_torch_hyperscan.py); a mesh, on its route as
+    on the GA's, still raises naming its item."""
     _, bt = bundles
     with pytest.raises(NotImplementedError, match=item):
         run_global_fit(*fit_args(bt), np.zeros(3), np.ones(3), pop=4, n_gen=1, **kw)

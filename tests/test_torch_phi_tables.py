@@ -71,7 +71,9 @@ def test_package_imports_without_jax():
                 "ops.morris", "fit.sensitivity", "fit.pipeline", "ops.indicators",
                 "ops.sobol", "network.sensitivity", "ops.constrained", "ops.de_jit",
                 "kinopt", "kinopt.model", "kinopt.optimize", "kinopt.kkt", "kinopt.data",
-                "tfopt", "tfopt.model", "tfopt.optimize", "tfopt.data"):
+                "tfopt", "tfopt.model", "tfopt.optimize", "tfopt.data", "ops.tpe",
+                "network.scan", "config", "config.loader", "config.logconf", "io",
+                "io.utils", "io.load", "io.preprocess"):
         assert f"phoskintime_tpu_torch.{new}" in mods, new
     code = ("import importlib, sys; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
