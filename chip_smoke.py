@@ -207,7 +207,7 @@ processes):
 
 11a. kinopt on the bench generator's problem (30 sites, 5 kinases of 4
    source rows) and at 1,000 sites, 100 kinases, 3 kinases a site (n =
-   3,400): ``run_local`` (48 starts, 400 steps), DE (pop 100, 100
+   3,400): ``run_local`` (48 starts, 200 steps), DE (pop 100, 50
    generations), NSGA-II on the host and all-device (pop 100, 50
    generations, blocks of 10), float32: ms a step or generation, device
    events a step or generation and the idle share (profiled at k and 0
@@ -260,10 +260,44 @@ objective call launches ``phi_tables``:
    card against the CPU's float64, rel 1e-3, both in worker processes
    started after 12c's float32 run and read after 12b.
 
+The entry points (``python -m phoskintime_tpu_torch``), on the bench
+network written as input files:
+
+13a. in subprocesses: ``python -m phoskintime_tpu_torch --help`` (exit 0,
+   every subcommand) and an import of the CLI, the runner and the
+   exporters that loads no JAX, JAX package, pandas or matplotlib;
+13b. ``global-model`` through ``cli.main`` in this process at the
+   reference's pop 300, 5 generations (cut from 1,000), 1 Morris
+   trajectory (cut from 100), no polish: ``phi_tables`` launched once an
+   objective call (a chunk of 2048) plus once for the Fréchet pick and once
+   for the trajectory export, no other kernel; the written file set
+   (``RUNNER_FILES``, the one the CPU tests hold); the written front's F
+   against a float64 re-evaluation of its X on the card (rel 1e-3); the
+   written trajectories at the pick against a float64
+   ``simulate_and_measure`` on the card run to the config's
+   ``ode_max_steps`` and succeeding (1e-3 of each column's largest value,
+   at the times the runner's float32 solve reached before RK45's
+   5,000-step cap; the rows left out printed); the pick's solve ended or
+   stopped at that cap, failing no other way; a row a protein in
+   ``steady_state_check.csv``; finite Morris arrays; the seconds of each
+   runner stage; every RK45 solve graphed (``simulate_batched`` replays
+   a CUDA graph on the card), and the graphed loop bit for bit against
+   the eager one at the pick over 200 passes, ms a pass of each (the
+   graphed one's capture included);
+13c. ``mechanisms`` (models 0 1 2 4, pop 48, 3 generations, cut from 25)
+   through ``cli.main`` in a spawned worker beside 13b, which reads its own
+   counts: ``phi_tables`` and ``phi_tables_wide`` once a width class an
+   objective call and for each Fréchet pick, ``hypercube_flux`` 7 times an
+   iteration plus 2 in model 2's RK45 simulation of its pick; each
+   mechanism's pick solve printed with its success, and none failing but
+   by the 5,000-step cap (the JAX package ranks such a pick on its
+   truncated predictions too); four rows with finite AIC and BIC and
+   Akaike weights summing to 1 (1e-6).
+
 ``python3 chip_smoke.py --pergene-only`` runs phase 1 and phase 10 alone
 (no kernel build, no JSON lines); ``--sensitivity-kinopt-only`` runs
-phases 1, 2 and 11, ``--hyperscan-only`` phases 1, 2 and 12 (no JSON
-lines).
+phases 1, 2 and 11, ``--hyperscan-only`` phases 1, 2 and 12,
+``--runner-only`` phases 1, 2 and 13 (no JSON lines).
 
 The line before the last is a JSON summary of each kernel (the float64
 instances and ``sq_chain`` included, each with the launches of its own main
@@ -275,6 +309,7 @@ from __future__ import annotations
 
 import importlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -301,7 +336,9 @@ from phoskintime_tpu_torch.models.kinetics import (_BUILDERS, initial_condition,
                                                    solve_ode, solve_ode_batched, state_dim)
 from phoskintime_tpu_torch.network import expo, polish, steadystate
 from phoskintime_tpu_torch.network import optimize as optimize_mod
+from phoskintime_tpu_torch.network import runner as runner_mod
 from phoskintime_tpu_torch.network import scan as scan_mod
+from phoskintime_tpu_torch.network import simulate as sim_mod
 from phoskintime_tpu_torch.network.analysis import simulate_until_steady
 from phoskintime_tpu_torch.network.bounds import calculate_bio_bounds
 from phoskintime_tpu_torch.network.kinase_input import build_kinase_matrix
@@ -468,14 +505,15 @@ STEADY = {0: steadystate.steady_state_distributive, 1: steadystate.steady_state_
 # a TF); the fits' budgets (the reference's tfopt budget is 1,000
 # generations); float64 card-vs-CPU gates
 KINOPT_PROBLEMS = {"bench": (30, 5, 4, 2), "scaled": (1000, 100, 4, 3)}
-# run_local's depth: 400 steps (800 before phase 12 came in, cut to keep
-# the script's time; a step's cost does not change with the count)
-KINOPT_LOCAL = dict(n_starts=48, steps=400)
-DE_GENS = 100             # 200 before phase 12 came in
+# run_local's depth: 200 steps (800 before phase 12 came in, 400 before
+# phase 13, cut to keep the script's time; a step's cost does not change
+# with the count)
+KINOPT_LOCAL = dict(n_starts=48, steps=200)
+DE_GENS = 50              # 200 before phase 12 came in, 100 before phase 13
 KINOPT_F64_RTOL = 1e-9
 DE_F64_ATOL = 1e-12
 TFOPT_PROBLEM = (500, 100, 4, 6)
-TFOPT_LOCAL = dict(n_starts=48, steps=400)
+TFOPT_LOCAL = dict(n_starts=48, steps=200)
 TFOPT_GENS = 20
 SENS_TIMES_F64 = np.array([0.0, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0, 30.0])
 SENS_TIMES_PROFILE = np.array([0.0, 0.5, 1.0, 2.0, 4.0])
@@ -507,6 +545,41 @@ scan_inner_pop = 64
 scaling_method = "raw"
 use_initial_condition_from_data = true
 """
+
+# phase 13: the entry points on the bench inputs. global-model at the
+# reference's pop 300 with 5 generations (cut from 1,000), 1 Morris
+# trajectory (cut from 100) and no polish; mechanisms at its default pop
+# 48 with 3 generations (cut from 25)
+RUNNER_CONFIG = """pop = 300
+n_gen = 5
+sensitivity_trajectories = 1
+polish_steps = 0
+
+[ode.inputs]
+protein_excel = "input1.csv"
+"""
+MECH_GENS = 3
+#: the files global-model writes (the CPU tests hold the same set); the
+#: cascades are the bench network's first two kinases
+RUNNER_FILES = frozenset({
+    "S_rates_picked.csv", "convergence_history.csv", "influence/cascade_K00.csv",
+    "influence/cascade_K01.csv", "influence/influence_sweep.csv",
+    "kinase_activity_kinase_activity.csv", "lambda_scan.csv", "lambda_scan_recommended.json",
+    "lambda_scan_unique_picks.csv", "mechanistic_discovery_report_1_refractory_period.csv",
+    "mechanistic_discovery_report_2_kinetic_lag.csv",
+    "mechanistic_discovery_report_3_saturation.csv",
+    "mechanistic_discovery_report_4_feedback_gain.csv",
+    "param_correlations_param_correlations.csv",
+    "param_distributions_param_distributions.csv", "parameters_parameters.csv",
+    "pareto_F.npy", "pareto_X.npy", "pareto_objectives.csv", "pareto_solutions.csv",
+    "pareto_trajectories_summary.csv", "pareto_trajectories_traj_phospho.csv",
+    "pareto_trajectories_traj_protein.csv", "pareto_trajectories_traj_rna.csv",
+    "pymoo_optimization_result.pkl", "residuals_residuals.csv", "sensitivity.npz",
+    "steady_state_check.csv", "trajectories_obs_phospho.csv", "trajectories_obs_protein.csv",
+    "trajectories_obs_rna.csv", "trajectories_pred_phospho.csv",
+    "trajectories_pred_protein.csv", "trajectories_pred_rna.csv"})
+TRAJ_RTOL = 1e-3          # trajectories at the pick vs float64, of each column's largest
+GRAPH_CHECK_STEPS = 200   # the graphed RK45 loop vs the eager one, bit for bit
 
 T_START = time.perf_counter()
 
@@ -3201,7 +3274,7 @@ def rel_over(d_abs, denom) -> float:
 
 def phase_kinopt(card, pool) -> dict:
     """11a: kinopt on the bench problem and on the scaled one: run_local
-    (48 starts, 400 steps), DE (pop 100, 100 generations), NSGA-II on the
+    (48 starts, 200 steps), DE (pop 100, 50 generations), NSGA-II on the
     host and all-device (pop 100, 50 generations, blocks of 10): ms a step
     or generation, device events a unit and idle share, loss, feasible,
     peak memory; no hand-written kernel launched. Float64 on the card
@@ -3812,6 +3885,304 @@ def phase_hyperscan_motpe(card, b) -> dict:
     return paths
 
 
+# --- 13: the entry points ---------------------------------------------------------------
+
+
+def phase_entry_subprocess(card) -> None:
+    """13a: ``python -m phoskintime_tpu_torch --help`` and an import of the
+    CLI, the runner and the exporters, each in a fresh interpreter."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    helped = subprocess.run([sys.executable, "-m", "phoskintime_tpu_torch", "--help"],
+                            capture_output=True, text=True, timeout=120, cwd=root)
+    commands = ("prep", "tfopt", "kinopt", "model", "global-model", "mechanisms",
+                "fitanalysis", "diagram", "all", "clean")
+    missing = [c for c in commands if c not in helped.stdout]
+    code = ("import sys, phoskintime_tpu_torch.cli, phoskintime_tpu_torch.network.runner, "
+            "phoskintime_tpu_torch.io.export; print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'pandas', 'matplotlib', 'phoskintime_tpu')))")
+    imported = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                              timeout=120, cwd=root)
+    say("13a entry points", help_rc=helped.returncode, missing_commands=missing,
+        import_rc=imported.returncode, foreign_modules=imported.stdout.strip(),
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    if helped.returncode or missing or imported.returncode or imported.stdout.strip() != "[]":
+        raise AssertionError(f"13a: {helped.stderr[-2000:]} {imported.stderr[-2000:]}")
+
+
+def tables_per_call(topo) -> tuple[int, int]:
+    """(phi_tables, phi_tables_wide) launches of one population-objective
+    chunk or one batched ETD2RK simulation: one a width class (the
+    classes of ``expo.width_classes``, or the full width), none for model
+    4 (its exponential-Rosenbrock path builds no table)."""
+    if topo.model == 4:
+        return 0, 0
+    widths = [wc for wc, _ in expo.width_classes(topo)] or [topo.width]
+    narrow = sum(w <= 8 for w in widths)
+    return narrow, len(widths) - narrow
+
+
+class Solve(NamedTuple):
+    """One RK45 ``simulate_batched`` call the entry points made: the model,
+    the output times, the loop's iterations (the slowest member's steps),
+    whether every member succeeded, the passes a graph replay held (0: the
+    eager loop) and, for a one-member call, its trajectory (T, d) on the
+    host."""
+    model: int
+    times: np.ndarray
+    steps: int
+    success: bool
+    graphed: int
+    ys: np.ndarray | None
+
+    def row(self) -> tuple:
+        return self.model, self.steps, self.success, self.graphed
+
+
+class EntrySpy:
+    """Records, while the entry points run, every population-objective call
+    (the topology and the members) and every RK45 ``simulate_batched``
+    call reached through ``simulate`` (:class:`Solve`)."""
+
+    def __init__(self):
+        self.calls, self.solves, self.passes = [], [], []
+        self.real = (optimize_mod.make_population_objective, sim_mod.simulate_batched,
+                     sim_mod.odeint_rk45)
+
+    def __enter__(self):
+        make, batched, odeint = self.real
+
+        def make_spy(system, *a, **kw):
+            objective = make(system, *a, **kw)
+
+            def counted(thetas):
+                self.calls.append((system.topo, int(thetas.shape[0])))
+                return objective(thetas)
+            return counted
+
+        def odeint_spy(*a, graph_steps=0, **kw):
+            self.passes.append(graph_steps)
+            return odeint(*a, graph_steps=graph_steps, **kw)
+
+        def batched_spy(system, params_b, t_eval, *a, **kw):
+            n = len(self.passes)
+            res = batched(system, params_b, t_eval, *a, **kw)
+            if len(self.passes) > n:            # RK45, not ETD2RK or ESDIRK
+                ys = res.ys[0].cpu().numpy() if res.ys.shape[0] == 1 else None
+                self.solves.append(Solve(system.topo.model, np.asarray(t_eval, float),
+                                         int(res.n_steps.max()), bool(res.success.all()),
+                                         self.passes[-1], ys))
+            return res
+        optimize_mod.make_population_objective = make_spy
+        sim_mod.simulate_batched, sim_mod.odeint_rk45 = batched_spy, odeint_spy
+        return self
+
+    def __exit__(self, *exc):
+        (optimize_mod.make_population_objective, sim_mod.simulate_batched,
+         sim_mod.odeint_rk45) = self.real
+
+    def predicted(self, picks) -> dict:
+        """The launch counts the code predicts: the tables once a width
+        class a chunk of each objective call and of each topology's picks
+        (``picks``: [topo], one batched ETD2RK simulation each), the flux 7
+        times an iteration plus 2 in each model-2 RK45 simulation."""
+        phi = wide = 0
+        for topo, members in self.calls:
+            n, w = tables_per_call(topo)
+            chunks = -(-members // _auto_pop_chunk(topo.N))
+            phi, wide = phi + n * chunks, wide + w * chunks
+        for topo in picks:
+            n, w = tables_per_call(topo)
+            phi, wide = phi + n, wide + w
+        flux = sum(7 * s.steps + 2 for s in self.solves if s.model == 2)
+        return expect(phi_tables=phi, phi_tables_wide=wide, hypercube_flux=flux)
+
+
+def capped_or_succeeded(steps: int, success: bool, max_steps: int = 5000) -> bool:
+    """RK45 reached its end, or stopped at the step cap that the JAX
+    package's ``simulate_and_measure`` sets by default (the trajectory past
+    there is the zero state, as the JAX package writes it), and did not
+    fail otherwise."""
+    return success or steps == max_steps
+
+
+def mechanisms_job(root: str) -> dict:
+    """13c, in a spawned worker: ``mechanisms`` through ``cli.main`` on the
+    card with this process's counts set to 0 just before and read just
+    after; the predicted counts, the selection table and the seconds."""
+    from phoskintime_tpu_torch import cli
+
+    out_dir = f"{root}/mechanisms"
+    reset_counts()
+    t0 = time.perf_counter()
+    with EntrySpy() as spy:
+        sel = cli.main(["mechanisms", "--config", f"{root}/config.toml", "--out-dir", out_dir,
+                        "--n-gen", str(MECH_GENS), "--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    picks = list({id(t): t for t, _ in spy.calls}.values())      # one pick a model
+    return dict(launches=launches, predicted=spy.predicted(picks), seconds=seconds,
+                calls=[(t.model, m) for t, m in spy.calls],
+                solves=[s.row() for s in spy.solves],
+                table={k: np.asarray(v).tolist() for k, v in sel.table.items()},
+                files=sorted(os.listdir(out_dir)))
+
+
+def phase_global_model(b, root, card) -> dict:
+    """13b: global-model through cli.main on the card, in this process.
+    Returns {path: launches}."""
+    import pickle
+
+    from phoskintime_tpu_torch import cli
+    from phoskintime_tpu_torch.io.utils import read_csv
+
+    out_dir = root / "global"
+    reset_counts()
+    t0 = time.perf_counter()
+    with EntrySpy() as spy:
+        out = cli.main(["global-model", "--config", str(root / "config.toml"), "--out-dir",
+                        str(out_dir), "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    p = out["problem"]
+    want = spy.predicted([p.topo, p.topo])          # the Fréchet pick and the export
+    files = {str(f.relative_to(out_dir)) for f in out_dir.rglob("*") if f.is_file()}
+    say("13b global-model", N=p.topo.N, n_theta=len(p.theta0), pop=p.cfg.pop,
+        generations=p.cfg.n_gen, objective_calls=len(spy.calls), launches=launches,
+        predicted=want, files=len(files), wall_s=f"{wall:.1f}", card=repr(card))
+    say("13b stage seconds", **{k: f"{v:.2f}" for k, v in out["seconds"].items()},
+        rk45=[s.row() for s in spy.solves])
+    if launches != want:
+        raise AssertionError(f"13b: launches {launches}, predicted {want}")
+    if files != RUNNER_FILES:
+        raise AssertionError(f"13b: files {sorted(files ^ RUNNER_FILES)} differ")
+
+    # the written front against a float64 re-evaluation on the card
+    p64 = runner_mod.prepare(p.cfg, device="cuda", dtype=torch.float64)
+    X, F = np.load(out_dir / "pareto_X.npy"), np.load(out_dir / "pareto_F.npy")
+    F64 = make_population_objective(p64.system, p64.slices, p64.loss_data, p64.defaults,
+                                    p.lambdas, p64.grid, y0=p64.y0)(
+        torch.as_tensor(X, dtype=torch.float64, device="cuda")).cpu().numpy()
+    f_err = float(np.max(np.abs(F - F64) / np.abs(F64)))
+
+    # the written trajectories at the pick against float64 on the card, run
+    # to the config's step cap; compared at the times the runner's float32
+    # solve reached (past RK45's 5,000-step cap it writes the zero state's
+    # fold changes, as the JAX runner does)
+    with open(out_dir / "pymoo_optimization_result.pkl", "rb") as fh:
+        res = pickle.load(fh)
+    theta = res["pareto_X"][res["best_idx"]]
+    times = np.unique(np.concatenate([p.tp_p, p.tp_r]))
+    export = next(s for s in spy.solves if np.array_equal(s.times, times))
+    reached = times[(times <= 0) | (export.ys != 0).any(axis=1)]
+    t0 = time.perf_counter()
+    with EntrySpy() as ref_spy:
+        pred64 = simulate_and_measure(p64.system, runner_mod.best_params(p64, theta), p.tp_p,
+                                      p.tp_r, p.tp_p, y0=p64.y0, max_steps=p.cfg.ode_max_steps)
+    traj_s = time.perf_counter() - t0
+    ref = ref_spy.solves[0]
+    traj, compared, left_out = {}, {}, {}
+    for name, want_t in zip(("protein", "rna", "phospho"), pred64):
+        got_t = read_csv(out_dir / f"trajectories_pred_{name}.csv")
+        on = np.isin(np.asarray(want_t["time"], float), reached)
+        w = np.asarray(want_t["pred_fc"], float)[on]
+        g = np.asarray(got_t["pred_fc"], float)[on]
+        traj[name] = float(np.max(np.abs(g - w)) / np.max(np.abs(w)))
+        compared[name], left_out[name] = int(on.sum()), int((~on).sum())
+    ss = read_csv(out_dir / "steady_state_check.csv")
+    sens = np.load(out_dir / "sensitivity.npz")
+    finite = all(np.isfinite(sens[k]).all() for k in ("mu", "mu_star", "sigma"))
+
+    # the graphed RK45 loop the card takes, bit for bit against the eager one
+    params = runner_mod.best_params(p, theta)
+    full = sim_mod.RK45_GRAPH_STEPS
+    runs, loop_ms = [], []
+    try:
+        for g in (0, full):
+            sim_mod.RK45_GRAPH_STEPS = g
+            t1 = time.perf_counter()
+            runs.append(simulate(p.system, params, times, y0=p.y0, max_steps=GRAPH_CHECK_STEPS))
+            torch.cuda.synchronize()
+            loop_ms.append(1e3 * (time.perf_counter() - t1) / max(int(runs[-1].n_steps), 1))
+    finally:
+        sim_mod.RK45_GRAPH_STEPS = full
+    same = all(torch.equal(a, b_) for a, b_ in zip(*runs))
+    graphed = all(s.graphed == full for s in spy.solves)
+    say("13b checks", F_vs_float64_max_rel_err=f"{f_err:.3e}", tol=FIT_F_RTOL,
+        pick_rk45_steps=export.steps, pick_rk45_success=export.success,
+        float64_max_steps=p.cfg.ode_max_steps, float64_steps=ref.steps,
+        float64_success=ref.success, times_reached=f"{len(reached)}/{len(times)}",
+        trajectories_vs_float64_scaled_err={k: f"{v:.3e}" for k, v in traj.items()},
+        rows_compared=compared, rows_left_out=left_out,
+        traj_tol=TRAJ_RTOL, float64_pick_s=f"{traj_s:.2f}",
+        steady_state_rows=len(ss["protein"]), N=p.topo.N, morris_finite=finite,
+        converged=sum(v == "True" for v in ss["converged"]), rk45_all_graphed=graphed,
+        graph_vs_eager_equal=same, graph_check_steps=int(runs[0].n_steps),
+        ms_per_pass_eager=f"{loop_ms[0]:.3f}", ms_per_pass_graph=f"{loop_ms[1]:.3f}")
+    if not (f_err <= FIT_F_RTOL and ref.success and capped_or_succeeded(export.steps,
+                                                                          export.success)
+            and all(compared.values()) and max(traj.values()) <= TRAJ_RTOL
+            and len(ss["protein"]) == p.topo.N and finite and graphed and same):
+        raise AssertionError("13b: a check failed (see the line above)")
+    return {"runner-global-model": launches}
+
+
+def check_mechanisms(job: dict, card) -> dict:
+    """13c's checks on the worker's result. Returns {path: launches}."""
+    table = job["table"]
+    w = np.asarray(table["akaike_weight"], float)
+    finite = all(np.isfinite(table[k]).all() for k in ("aic", "bic"))
+    # each mechanism's RK45 pick: (model, steps, success, graph passes); a
+    # pick stopped at the 5,000-step cap is ranked on its truncated
+    # predictions, as the JAX package ranks it
+    picks = {model: (steps, ok) for model, steps, ok, _ in job["solves"]}
+    say("13c mechanisms", models=table["model"], mechanisms=table["mechanism"],
+        aic=[f"{v:.1f}" for v in table["aic"]], akaike_weights=[f"{v:.4g}" for v in w],
+        launches=job["launches"], predicted=job["predicted"],
+        objective_calls=len(job["calls"]), rk45=job["solves"],
+        pick_success={m: ok for m, (_, ok) in picks.items()},
+        picks_at_step_cap=[m for m, (steps, ok) in picks.items() if not ok and steps == 5000],
+        files=job["files"], seconds=f"{job['seconds']:.1f}", card=repr(card))
+    if sorted(picks) != sorted(table["model"]) or len(job["solves"]) != len(picks) or not all(
+            capped_or_succeeded(*v) for v in picks.values()):
+        raise AssertionError(f"13c: an RK45 pick failed: {job['solves']}")
+    if job["launches"] != job["predicted"] or not all(
+            job["launches"][k] for k in ("phi_tables", "phi_tables_wide", "hypercube_flux")):
+        raise AssertionError(f"13c: launches {job['launches']}, predicted {job['predicted']}")
+    if len(table["model"]) != 4 or not finite or abs(w.sum() - 1.0) > 1e-6:
+        raise AssertionError("13c: the selection table is not four finite rows")
+    return {"mechanisms-select": job["launches"]}
+
+
+def phase_entry_points(card, b) -> dict:
+    """13: the bench bundle written as input files; 13c's worker started,
+    13a and 13b here, then 13c's result read. Returns {path: launches}."""
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="phoskintime_runner_") as tmp:
+        root = Path(tmp)
+        write_reference_inputs(b, root)
+        (root / "config.toml").write_text(CONFIG_TOML + RUNNER_CONFIG)
+        pool = ProcessPoolExecutor(max_workers=1, mp_context=get_context("spawn"))
+        try:
+            mech = pool.submit(mechanisms_job, str(root))
+            phase_entry_subprocess(card)
+            paths = phase_global_model(b, root, card)
+            paths.update(check_mechanisms(mech.result(), card))
+        finally:
+            pool.shutdown(cancel_futures=True)
+    say("13 entry points", seconds=f"{time.perf_counter() - t0:.1f}", card=repr(card))
+    return paths
+
+
 def population(b, pop: int) -> torch.Tensor:
     """theta0 plus seeded noise, as bench.py and benchmarks/model_rates.py."""
     rng = np.random.default_rng(0)
@@ -3831,6 +4202,13 @@ def main() -> int:
         b = build_demo_network(N_PROTEINS, N_KINASES, seed=0, dtype=torch.float32,
                                device="cuda")
         phase_hyperscan_motpe(card, b)
+        say("done", seconds=f"{time.perf_counter() - T_START:.1f}", card=repr(card))
+        return 0
+    if "--runner-only" in sys.argv[1:]:
+        phase_build()
+        b = build_demo_network(N_PROTEINS, N_KINASES, seed=0, dtype=torch.float32,
+                               device="cuda")
+        phase_entry_points(card, b)
         say("done", seconds=f"{time.perf_counter() - T_START:.1f}", card=repr(card))
         return 0
     if "--sensitivity-kinopt-only" in sys.argv[1:]:
@@ -3885,6 +4263,7 @@ def main() -> int:
     paths.update(phase_pergene(card))
     paths.update(phase_sensitivity_kinopt(card, b2))
     paths.update(phase_hyperscan_motpe(card, b))
+    paths.update(phase_entry_points(card, b))
     for group, group_paths in (([kernel, wide, scan, flux, thomas], paths),
                                (f64_entries, paths64), ([probe], probe_paths)):
         for entry in group:

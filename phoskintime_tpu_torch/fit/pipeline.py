@@ -8,15 +8,19 @@ steady-state initial condition, :func:`normest` (or a cohort fit made by
 The input tables are read by column (``frame["protein"]``, ``["psite"]``,
 ``["time"]``, ``["fc"]``) through ``np.asarray``, so a pandas DataFrame and
 a dict of column arrays serve alike; the port does not import pandas.
-Figures and the Excel/HTML export are not ported yet (ROADMAP.md queue 1
-item 8, "The host layer"): an ``out_dir`` raises ``NotImplementedError``,
-and the port's ``run_model_pipeline`` defaults to ``out_dir=None`` (the JAX
+With an ``out_dir``, :func:`run_model_pipeline` writes the results table
+(``model_results.xlsx`` as ``model_results_results.csv``). The per-gene
+figures and the HTML report are not ported yet (ROADMAP.md queue 1 item
+8d): ``make_plots`` defaults to ``False`` (the JAX package's to ``True``),
+and ``make_plots=True`` with an ``out_dir`` raises ``NotImplementedError``.
+The port's ``run_model_pipeline`` defaults to ``out_dir=None`` (the JAX
 package's to ``"results"``).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -30,8 +34,8 @@ from phoskintime_tpu_torch.models.knockout import knockout_label, knockout_mask_
 
 logger = logging.getLogger("phoskintime_tpu_torch")
 
-_HOST_LAYER = ("figures and the Excel/HTML export are not ported yet (ROADMAP.md queue 1 "
-               "item 8, the host layer): pass out_dir=None")
+_FIGURES = ("the per-gene figures and the HTML report are not ported yet (ROADMAP.md "
+            "queue 1 item 8d, figures and HTML): pass make_plots=False")
 
 
 @dataclass
@@ -58,7 +62,7 @@ def process_gene(gene: str,
                  run_sensitivity: bool = False,
                  sensitivity_kw: dict | None = None,
                  normest_kw: dict | None = None,
-                 make_plots: bool = True,
+                 make_plots: bool = False,
                  ms_gauss_weights: np.ndarray | None = None,
                  precomputed: NormestResult | None = None,
                  *,
@@ -66,10 +70,11 @@ def process_gene(gene: str,
                  dtype=None) -> GeneOutput:
     """Fit one gene end to end (or post-process a cohort-batched fit) on
     ``device`` (default: the card; raises where there is none) at
-    ``dtype`` (default: float32 on the card, float64 on the CPU). An
-    ``out_dir`` raises ``NotImplementedError`` (figures are not ported)."""
-    if out_dir is not None:
-        raise NotImplementedError(_HOST_LAYER)
+    ``dtype`` (default: float32 on the card, float64 on the CPU). The
+    figures (``make_plots`` with an ``out_dir``) raise
+    ``NotImplementedError``: they wait for item 8d."""
+    if make_plots and out_dir is not None:
+        raise NotImplementedError(_FIGURES)
     device = resolve_device(device)
     dtype = dtype or working_dtype(device)
     init_cond = initial_condition(num_psites, model, device=device, dtype=dtype).cpu().numpy()
@@ -147,10 +152,12 @@ def run_model_pipeline(df_prot, df_pho, df_rna, *, time_points,
     With ``batch_genes`` (default), genes are grouped by site count and each
     group fits as one batched LM (:func:`normest_batch`); knockouts and
     sensitivity then run per gene. Bootstrapping or ``ms_gauss_weights``
-    force the per-gene path. An ``out_dir`` raises ``NotImplementedError``
-    (the export and report are not ported)."""
-    if out_dir is not None:
-        raise NotImplementedError(_HOST_LAYER)
+    force the per-gene path. With an ``out_dir``, the results table is
+    written there (:func:`~phoskintime_tpu_torch.io.export.export_gene_results`);
+    ``make_plots=True`` with an ``out_dir`` raises (item 8d), and the HTML
+    report waits for item 8d."""
+    if gene_kw.get("make_plots") and out_dir is not None:
+        raise NotImplementedError(_FIGURES)
     device = resolve_device(device)
     dtype = dtype or working_dtype(device)
     common = sorted(set(_column(df_prot, "protein").tolist())
@@ -195,8 +202,15 @@ def run_model_pipeline(df_prot, df_pho, df_rna, *, time_points,
     outputs: dict[str, GeneOutput] = {}
     for gene, (pr, p, r, n) in gene_data.items():
         outputs[gene] = process_gene(gene, pr, p, r, n, time_points, bounds,
-                                     model=model, precomputed=precomputed.get(gene),
+                                     model=model, out_dir=out_dir,
+                                     precomputed=precomputed.get(gene),
                                      device=device, dtype=dtype, **gene_kw)
         logger.info(f"[{gene}] done: error={outputs[gene].result.error:.4g} "
                     f"score={outputs[gene].result.score:.4g}")
+
+    if out_dir is not None and outputs:
+        from phoskintime_tpu_torch.io.export import export_gene_results
+
+        export_gene_results(os.path.join(str(out_dir), "model_results.xlsx"),
+                            {g: o.result for g, o in outputs.items()})
     return outputs

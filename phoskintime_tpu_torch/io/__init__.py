@@ -1,6 +1,7 @@
 """Host-side IO without pandas: the CSV reader and column tables, data
-loading and scaling, raw-data preprocessing. The result exports
-(``io/export.py``) are not ported yet (ROADMAP.md queue 1 item 8b)."""
+loading and scaling, raw-data preprocessing, and the result tables
+(``io/export.py``, imported from there: its figure writers wait for
+ROADMAP.md queue 1 item 8d)."""
 
 from phoskintime_tpu_torch.io.load import (  # noqa: F401
     explode_kinase_sets,

@@ -4,21 +4,23 @@ Counterpart of ``phoskintime_tpu/kinopt/kkt.py``, its numerical part:
 after optimization, verify primal feasibility of the sum-to-one
 constraints, estimate the Lagrange multipliers and stationarity residuals
 from the loss gradient (``torch.autograd``), and count the active box
-constraints. The reporting suite (``kkt_suite``, its figures, the LaTeX
-tables and the CSV files) belongs to the host layer and raises here.
+constraints; :func:`kkt_suite` writes the report's tables (JSON, CSV and
+LaTeX). Its two figures are not ported yet (ROADMAP.md queue 1 item 8d):
+their functions raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from phoskintime_tpu_torch.config.numerics import DEFAULT_DEVICE, resolve_device
-
-_HOST_LAYER = ("the KKT report's figures, LaTeX and CSV files are not ported yet "
-               "(ROADMAP.md queue 1 item 8, the host layer): use kkt_check")
+from phoskintime_tpu_torch.io.export import figures_pending, sort_desc
+from phoskintime_tpu_torch.io.utils import take, write_csv
 
 
 class KKTReport(NamedTuple):
@@ -86,19 +88,112 @@ def kkt_check(prob, alpha_pad: np.ndarray, beta_pad: np.ndarray,
 
 
 def _latex_table(summary: dict, caption: str) -> str:
-    raise NotImplementedError(_HOST_LAYER)
+    """A two-column Metric/Value LaTeX table."""
+    lines = ["\\begin{table}[H]", "\\centering",
+             "\\begin{tabular}{|l|c|}\\hline",
+             "Metric & Value \\\\ \\hline"]
+    for k, v in summary.items():
+        lines.append(f"{k} & {v} \\\\ \\hline")
+    lines += ["\\end{tabular}", f"\\caption{{{caption}}}", "\\end{table}"]
+    return "\n".join(lines) + "\n"
 
 
-def plot_constraint_violations(alpha_viol, beta_viol, out_dir,
-                               name="constraint_violations.png"):
-    raise NotImplementedError(_HOST_LAYER)
-
-
-def plot_sensitivity_analysis(sens_df, out_dir, name="sensitivity.png"):
-    raise NotImplementedError(_HOST_LAYER)
+plot_constraint_violations = figures_pending
+plot_sensitivity_analysis = figures_pending
 
 
 def kkt_suite(prob, result, out_dir, *, loss_type: str = "base",
               include_reg: bool = False, tol: float = 1e-5,
-              high_thresh: float = 0.75, logger=None) -> dict:
-    raise NotImplementedError(_HOST_LAYER)
+              high_thresh: float = 0.75, logger=None, device=DEFAULT_DEVICE) -> dict:
+    """The post-optimization KKT report of a kinopt fit, written to
+    ``out_dir``: ``kkt_summary.tex`` (residual, sensitivity and
+    stationarity tables), ``active_constraints.csv``,
+    ``lagrange_multipliers.csv``, ``high_sensitivity_sites.csv`` and
+    ``kkt_report.json``. The loss gradient is taken on ``device``; the
+    figures ``constraint_violations.png`` and ``sensitivity.png`` wait for
+    item 8d. Returns {"report", "paths", "sensitivity"}."""
+    from phoskintime_tpu_torch.kinopt.model import kinopt_loss, predict
+
+    os.makedirs(out_dir, exist_ok=True)
+    alpha = np.asarray(result.alpha, float)
+    beta = np.asarray(result.beta, float)
+    rep = kkt_check(prob, alpha, beta,
+                    lambda a, b: kinopt_loss(prob, a, b, loss_type, include_reg),
+                    tol=tol, device=device)
+
+    names = prob.gp_names or [(f"G{i}", f"S{i}") for i in range(prob.n_gp)]
+    kn = prob.kinase_names or [f"K{j}" for j in range(prob.n_k)]
+    genes = [g for g, _ in names]
+    psites = [s for _, s in names]
+
+    f = dict(dtype=torch.float64)
+    est = predict(prob, torch.as_tensor(alpha, **f), torch.as_tensor(beta, **f)).numpy()
+    obs = np.asarray(prob.P_obs, float)
+    residuals = obs - est
+    grads = np.gradient(residuals, axis=1)
+    residuals_summary = {
+        "Max Residual": round(float(residuals.max()), 2),
+        "Min Residual": round(float(residuals.min()), 2),
+        "Mean Residual": round(float(residuals.mean()), 2),
+        "Max Gradient": round(float(grads.max()), 2),
+        "Min Gradient": round(float(grads.min()), 2),
+        "Mean Gradient": round(float(grads.mean()), 2),
+    }
+    sensitivity_summary = {
+        "Max Sensitivity": round(float(obs.max()), 2),
+        "Min Sensitivity": round(float(obs.min()), 2),
+        "Mean Sensitivity": round(float(obs.mean()), 2),
+    }
+    stationarity_summary = {
+        "Primal feasible": rep.primal_feasible,
+        "Max constraint violation": f"{rep.max_violation:.3e}",
+        "Stationarity residual": f"{rep.stationarity_residual:.3e}",
+        "Active box constraints": rep.n_active_box,
+    }
+    sens = {"GeneID": np.asarray(genes, dtype=object), "Psite": np.asarray(psites, dtype=object),
+            "Sensitivity Mean": obs.mean(axis=1), "Max Sensitivity": obs.max(axis=1),
+            "Min Sensitivity": obs.min(axis=1)}
+
+    def bound_of(v):
+        return "lb" if abs(v - prob.lb) < tol else "ub" if abs(v - prob.ub) < tol else None
+
+    act_rows = [("alpha", g, s, kn[prob.gp_kin_idx[i, c]], float(alpha[i, c]),
+                 bound_of(alpha[i, c]))
+                for i, (g, s) in enumerate(names) for c in range(prob.gp_mask.shape[1])
+                if prob.gp_mask[i, c] and bound_of(alpha[i, c])]
+    act_rows += [("beta", k, f"P{c + 1}", "", float(beta[j, c]), bound_of(beta[j, c]))
+                 for j, k in enumerate(kn) for c in range(prob.k_mask.shape[1])
+                 if prob.k_mask[j, c] and bound_of(beta[j, c])]
+    act = {c: np.asarray([r[k] for r in act_rows], float if c == "value" else object)
+           for k, c in enumerate(["block", "group", "member", "kinase", "value", "bound"])}
+
+    mult = np.concatenate([rep.lagrange_alpha, rep.lagrange_beta])
+    lam = take({"constraint": np.asarray([f"sum_alpha[{g}_{s}]" for g, s in names]
+                                         + [f"sum_beta[{k}]" for k in kn], dtype=object),
+                "multiplier": mult}, sort_desc(np.abs(mult)))
+
+    high_idx = np.where((obs >= high_thresh).any(axis=1))[0]
+    high = {"Gene": np.asarray([genes[i] for i in high_idx], dtype=object),
+            "Psite": np.asarray([psites[i] for i in high_idx], dtype=object),
+            "Max value": obs[high_idx].max(axis=1) if len(high_idx) else np.zeros(0)}
+
+    paths = {"tex": os.path.join(out_dir, "kkt_summary.tex")}
+    with open(paths["tex"], "w") as fh:
+        fh.write(_latex_table(residuals_summary, "Residual Summary")
+                 + _latex_table(sensitivity_summary, "Sensitivity Summary")
+                 + _latex_table(stationarity_summary, "KKT Stationarity Summary"))
+    for fname, table in [("active_constraints.csv", act), ("lagrange_multipliers.csv", lam),
+                         ("high_sensitivity_sites.csv", high)]:
+        paths[fname.split(".")[0]] = write_csv(os.path.join(out_dir, fname), table)
+    paths["json"] = os.path.join(out_dir, "kkt_report.json")
+    with open(paths["json"], "w") as fh:
+        json.dump({"primal_feasible": bool(rep.primal_feasible),
+                   "max_violation": float(rep.max_violation),
+                   "stationarity_residual": float(rep.stationarity_residual),
+                   "n_active_box": int(rep.n_active_box),
+                   "residuals": residuals_summary,
+                   "sensitivity": sensitivity_summary}, fh, indent=1)
+    if logger is not None:
+        for k, v in {**residuals_summary, **stationarity_summary}.items():
+            logger.info(f"[KKT] {k}: {v}")
+    return {"report": rep, "paths": paths, "sensitivity": sens}

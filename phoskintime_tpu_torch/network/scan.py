@@ -18,9 +18,9 @@ block of ``gen_step`` generations between reports, on the system's device:
 the table kernel on the card); ``"rk45"``, the RK45 objective through the
 host GA loop (:func:`~phoskintime_tpu_torch.ops.nsga.run_unsga3`).
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: a ``mesh`` (queue 1 item 1b) and ``out_dir``, the
-results table and plots (item 8b, with ``io/export.py``).
+``out_dir`` writes the per-trial results table (:func:`scan_report`); its
+three plots wait for ROADMAP.md queue 1 item 8d. A ``mesh`` raises
+``NotImplementedError`` naming item 1b.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from phoskintime_tpu_torch.io.export import TableWriter, rows_to_table
 from phoskintime_tpu_torch.network.objective import make_objective, make_population_objective
 from phoskintime_tpu_torch.network.optimize import make_batched_evaluate
 from phoskintime_tpu_torch.ops.nsga import run_unsga3
@@ -88,6 +89,26 @@ def _load_state(path, sampler) -> list[ScanTrial]:
             for t in state]
 
 
+def scan_report(trials: list[ScanTrial], out_dir: str) -> dict:
+    """The scan's results table ``scan_results.xlsx`` (sheet Trials, as
+    ``scan_results_trials.csv``): a row a trial with its state, score,
+    generations, lambdas and the three objectives of its best member.
+    The history, importance and parallel-coordinate plots wait for item
+    8d. Returns {"table": paths}."""
+    os.makedirs(out_dir, exist_ok=True)
+    rows = []
+    for i, t in enumerate(trials):
+        row = {"trial": i, "state": t.state, "score": t.score, "n_gen": t.n_gen}
+        row.update({f"lambda_{k}": t.lambdas[k] for k in KEYS})
+        if t.components is not None:
+            row.update({"mse_prot": t.components[0], "mse_rna": t.components[1],
+                        "mse_phos": t.components[2]})
+        rows.append(row)
+    w = TableWriter(os.path.join(out_dir, "scan_results.xlsx"))
+    w.add("Trials", rows_to_table(rows))
+    return {"table": w.save()}
+
+
 def run_hyperparameter_scan(system, slices, loss_data, defaults, time_grid,
                             xl, xu, *, n_outer=20, inner_gens=15,
                             inner_pop=64, seed=42, loss_mode=0, mesh=None,
@@ -105,13 +126,11 @@ def run_hyperparameter_scan(system, slices, loss_data, defaults, time_grid,
     stops the trial; a pruned trial tells the sampler its last score.
     ``checkpoint_path``: a JSON file of the trials (the sampler in
     ``checkpoint_path + ".sampler"``), written after every trial; a scan
-    started where it exists continues from its trials to ``n_outer``."""
+    started where it exists continues from its trials to ``n_outer``.
+    ``out_dir``: the results table there (:func:`scan_report`)."""
     if mesh is not None:
         raise NotImplementedError("population sharding (mesh=...) is not ported yet "
                                   "(ROADMAP.md queue 1 item 1b)")
-    if out_dir is not None:
-        raise NotImplementedError("the scan's results table and plots (out_dir=...) are "
-                                  "not ported yet (ROADMAP.md queue 1 item 8b, io/export.py)")
     if lambda_ranges is None:
         lambda_ranges = {"protein": (0.1, 10.0), "rna": (0.1, 10.0),
                          "phospho": (0.1, 10.0), "prior": (0.01, 1.0)}
@@ -175,4 +194,6 @@ def run_hyperparameter_scan(system, slices, loss_data, defaults, time_grid,
 
     done = [t for t in trials if t.state == "complete"] or trials
     best = min(done, key=lambda t: t.score)
+    if out_dir:
+        scan_report(trials, out_dir)
     return best.lambdas, trials

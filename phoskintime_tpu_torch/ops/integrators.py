@@ -9,7 +9,9 @@ the new bucket after a crossed boundary, cubic Hermite dense output at
 The JAX package writes one member's integration as a ``lax.while_loop``
 and ``vmap``s it over a population. Here the population axis P leads every
 tensor and the loop runs on the host, ending when no member is active
-(one device-to-host read per step). It reproduces the vmapped loop step
+(one device-to-host read per step), or on the card as replays of a CUDA
+graph of ``graph_steps`` passes (one read a replay; a pass in which no
+member is active changes nothing). It reproduces the vmapped loop step
 for step:
 
 * the loop condition is evaluated per member at the top of each pass; the
@@ -93,6 +95,97 @@ def _initial_dt(rhs, t0, y0, f0, jb, rtol, atol, dt_min, dt_max):
     return torch.clamp(torch.minimum(100.0 * h0, h1), dt_min, dt_max)
 
 
+def _rk45_step(rhs_b, c, active, t_eval, t_end, bnds, last, rtol, atol, dt_min, dt_max):
+    """One pass of the loop over every member: the Dormand-Prince step,
+    the PI controller, the dense output and the bucket advance, each part
+    of an inactive member's carry kept. Returns the new carry."""
+    t, y, fy, dt, jb = c["t"], c["y"], c["fy"], c["dt"], c["jb"]
+    # clamp the step to the next input discontinuity and to t_end; the
+    # dt_min floor applies to the controller's free step only
+    nb = bnds[torch.clamp(jb + 1, max=last)]
+    limit = torch.minimum(nb, t_end)
+    dt_free = torch.clamp(dt, min=dt_min)
+    hit = dt_free >= (limit - t)
+    h = torch.where(hit, limit - t, dt_free)
+    t_new = torch.where(hit, limit, t + h)
+    hc = h[:, None]
+
+    k = [fy]
+    for i in range(1, 7):
+        ti = t + _C[i] * h
+        yi = y + hc * sum(_A[i][j] * k[j] for j in range(i))
+        k.append(rhs_b(ti, yi, jb))
+    y_new = y + hc * sum(_B5[i] * k[i] for i in range(7))
+    err_vec = hc * sum(_E[i] * k[i] for i in range(7))
+
+    scale = atol + rtol * torch.maximum(torch.abs(y), torch.abs(y_new))
+    err = torch.sqrt(_mean_sq(err_vec / scale) + 1e-300)
+    finite = torch.isfinite(y_new).all(dim=1) & torch.isfinite(err)
+    accept = (err <= 1.0) & finite
+
+    # PI step-size controller
+    err_c = torch.clamp(err, min=1e-10)
+    factor = _SAFETY * err_c ** (-_ALPHA) * c["err_prev"] ** _BETA
+    factor = torch.clamp(factor, _MIN_FACTOR, _MAX_FACTOR)
+    factor = torch.where(accept, factor, torch.clamp(factor, max=1.0))
+    factor = torch.where(finite, factor, _MIN_FACTOR)
+    dt_next = torch.clamp(h * factor, dt_min, dt_max)
+
+    # dense output for the t_eval inside (t, t_new] of accepted steps of
+    # active members (the vmapped loop's select folded into the mask)
+    mask = ((t_eval[None] > t[:, None]) & (t_eval[None] <= t_new[:, None])
+            & (accept & active)[:, None])
+    ys = torch.where(mask[..., None], _hermite(t_eval, t, t_new, y, y_new, fy, k[6]), c["ys"])
+
+    # bucket advance and FSAL: k[6] is rhs(t_new, y_new) in the old
+    # bucket; crossing a boundary takes a fresh derivative in the new one
+    crossed = accept & hit & (nb <= t_end)
+    jb_next = torch.where(crossed, jb + 1, jb)
+    f_fresh = rhs_b(t_new, y_new, jb_next)
+    acc1 = accept[:, None]
+    f_next = torch.where(acc1, torch.where(crossed[:, None], f_fresh, k[6]), fy)
+    failed_next = ~finite & (h <= dt_min * 1.0000001)
+
+    # frozen members keep their whole carry
+    act1 = active[:, None]
+    return dict(t=torch.where(active, torch.where(accept, t_new, t), t),
+                y=torch.where(act1 & acc1, y_new, y),
+                fy=torch.where(act1, f_next, fy),
+                dt=torch.where(active, dt_next, dt),
+                jb=torch.where(active, jb_next, jb),
+                ys=ys,
+                err_prev=torch.where(active & accept, err_c, c["err_prev"]),
+                n_steps=c["n_steps"] + active.to(torch.int32),
+                n_acc=c["n_acc"] + (active & accept).to(torch.int32),
+                failed=torch.where(active, failed_next, c["failed"]))
+
+
+def _run_graphed(step, active_of, carry: dict, passes: int) -> dict:
+    """The loop as replays of one CUDA graph of ``passes`` loop passes over
+    static carry buffers, the active flags read once a replay. A warm-up
+    on copies of the carry, on a side stream, precedes the capture (the
+    allocator's and cuBLAS's first calls cannot be captured)."""
+    static = {n: v.clone() for n, v in carry.items()}
+    side = torch.cuda.Stream(device=static["y"].device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        scratch = {n: v.clone() for n, v in static.items()}
+        for _ in range(2):
+            scratch = step(scratch, active_of(scratch))
+    torch.cuda.current_stream().wait_stream(side)
+    del scratch
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cur = static
+        for _ in range(passes):
+            cur = step(cur, active_of(cur))
+        for n, v in cur.items():
+            static[n].copy_(v)
+    while bool(active_of(static).any()):
+        graph.replay()
+    return static
+
+
 def odeint_rk45(
     rhs: Callable,
     y0: torch.Tensor,
@@ -104,6 +197,7 @@ def odeint_rk45(
     dt0: float | None = None,
     dt_min: float = 1e-6,
     dt_max: float = 1.0,
+    graph_steps: int = 0,
 ) -> ODEResult:
     """Integrate ``dy/dt = rhs(...)`` for every member from t = 0, with dense
     output at ``t_eval``.
@@ -119,6 +213,14 @@ def odeint_rk45(
         no step straddles one.
       max_steps / rtol / atol / dt0 / dt_min / dt_max: solver controls, as
         the JAX package's.
+      graph_steps: on the card, run the loop as replays of a CUDA graph of
+        this many loop passes, reading the active flags once a replay (0,
+        the default: one pass and one read at a time). The results and
+        step counts are the same: a pass with no active member changes no
+        member. ``rhs`` must then be capturable: device tensors and
+        operations only, no host read, and no kernel that counts its
+        launches on the host (those would count the capture, not the
+        replays).
     """
     P = y0.shape[0]
     f = dict(dtype=y0.dtype, device=y0.device)
@@ -139,73 +241,30 @@ def odeint_rk45(
     fy = rhs_b(t, y, jb)
     dt = (_initial_dt(rhs_b, t, y, fy, jb, rtol, atol, dt_min, dt_max)
           if dt0 is None else torch.full((P,), float(dt0), **f))
-    ys = torch.where((t_eval <= 0.0)[None, :, None], y[:, None, :], 0.0)
-    err_prev = torch.full((P,), 1e-4, **f)
     n_steps = torch.zeros(P, dtype=torch.int32, device=y0.device)
-    n_acc = torch.zeros_like(n_steps)
-    failed = torch.zeros(P, dtype=torch.bool, device=y0.device)
+    carry = dict(t=t, y=y, fy=fy, dt=dt, jb=jb,
+                 ys=torch.where((t_eval <= 0.0)[None, :, None], y[:, None, :], 0.0),
+                 err_prev=torch.full((P,), 1e-4, **f), n_steps=n_steps,
+                 n_acc=torch.zeros_like(n_steps),
+                 failed=torch.zeros(P, dtype=torch.bool, device=y0.device))
 
-    while True:
-        active = (t < t_end) & (n_steps < max_steps) & ~failed
-        if not bool(active.any()):
-            break
-        # clamp the step to the next input discontinuity and to t_end; the
-        # dt_min floor applies to the controller's free step only
-        nb = bnds[torch.clamp(jb + 1, max=last)]
-        limit = torch.minimum(nb, t_end)
-        dt_free = torch.clamp(dt, min=dt_min)
-        hit = dt_free >= (limit - t)
-        h = torch.where(hit, limit - t, dt_free)
-        t_new = torch.where(hit, limit, t + h)
-        hc = h[:, None]
+    def active_of(c):
+        return (c["t"] < t_end) & (c["n_steps"] < max_steps) & ~c["failed"]
 
-        k = [fy]
-        for i in range(1, 7):
-            ti = t + _C[i] * h
-            yi = y + hc * sum(_A[i][j] * k[j] for j in range(i))
-            k.append(rhs_b(ti, yi, jb))
-        y_new = y + hc * sum(_B5[i] * k[i] for i in range(7))
-        err_vec = hc * sum(_E[i] * k[i] for i in range(7))
+    def step(c, active):
+        return _rk45_step(rhs_b, c, active, t_eval, t_end, bnds, last, rtol, atol, dt_min,
+                          dt_max)
 
-        scale = atol + rtol * torch.maximum(torch.abs(y), torch.abs(y_new))
-        err = torch.sqrt(_mean_sq(err_vec / scale) + 1e-300)
-        finite = torch.isfinite(y_new).all(dim=1) & torch.isfinite(err)
-        accept = (err <= 1.0) & finite
-
-        # PI step-size controller
-        err_c = torch.clamp(err, min=1e-10)
-        factor = _SAFETY * err_c ** (-_ALPHA) * err_prev ** _BETA
-        factor = torch.clamp(factor, _MIN_FACTOR, _MAX_FACTOR)
-        factor = torch.where(accept, factor, torch.clamp(factor, max=1.0))
-        factor = torch.where(finite, factor, _MIN_FACTOR)
-        dt_next = torch.clamp(h * factor, dt_min, dt_max)
-
-        # dense output for the t_eval inside (t, t_new] of accepted steps of
-        # active members (the vmapped loop's select folded into the mask)
-        mask = ((t_eval[None] > t[:, None]) & (t_eval[None] <= t_new[:, None])
-                & (accept & active)[:, None])
-        ys = torch.where(mask[..., None], _hermite(t_eval, t, t_new, y, y_new, fy, k[6]), ys)
-
-        # bucket advance and FSAL: k[6] is rhs(t_new, y_new) in the old
-        # bucket; crossing a boundary takes a fresh derivative in the new one
-        crossed = accept & hit & (nb <= t_end)
-        jb_next = torch.where(crossed, jb + 1, jb)
-        f_fresh = rhs_b(t_new, y_new, jb_next)
-        acc1 = accept[:, None]
-        f_next = torch.where(acc1, torch.where(crossed[:, None], f_fresh, k[6]), fy)
-        failed_next = ~finite & (h <= dt_min * 1.0000001)
-
-        # frozen members keep their whole carry
-        act1 = active[:, None]
-        t = torch.where(active, torch.where(accept, t_new, t), t)
-        y = torch.where(act1 & acc1, y_new, y)
-        fy = torch.where(act1, f_next, fy)
-        dt = torch.where(active, dt_next, dt)
-        jb = torch.where(active, jb_next, jb)
-        err_prev = torch.where(active & accept, err_c, err_prev)
-        n_steps = n_steps + active.to(torch.int32)
-        n_acc = n_acc + (active & accept).to(torch.int32)
-        failed = torch.where(active, failed_next, failed)
+    if graph_steps and y0.is_cuda:
+        carry = _run_graphed(step, active_of, carry, graph_steps)
+    else:
+        while True:
+            active = active_of(carry)
+            if not bool(active.any()):
+                break
+            carry = step(carry, active)
+    t, ys, failed = carry["t"], carry["ys"], carry["failed"]
+    n_steps, n_acc = carry["n_steps"], carry["n_acc"]
 
     success = (t >= t_end) & ~failed & torch.isfinite(ys).flatten(1).all(dim=1)
     return ODEResult(ys, success, n_steps, n_acc)

@@ -234,7 +234,8 @@ def test_expo_scan_objective_matches_jax(problem):
         np.testing.assert_allclose(got.numpy(), want, rtol=RTOL_F64)
 
 
-@pytest.mark.parametrize("kw, item", [({"mesh": object()}, "1b"), ({"out_dir": "x"}, "8b")])
+@pytest.mark.parametrize("kw, item", [({"mesh": object()}, "1b"),
+                                      ({"mesh": object(), "solver": "rk45"}, "1b")])
 def test_scan_raises_for_unported(problem, kw, item):
     _, targs = problem
     with pytest.raises(NotImplementedError, match=item):

@@ -955,3 +955,61 @@ def test_hyperparameter_scan_on_the_card(cuda_device):
     assert [n for n, _ in launches] == [g + 1 for _, g in launches]
     assert [t.n_gen for t in trials] == [g for _, g in launches]
     assert all(np.isfinite(t.score) for t in trials)
+
+
+@pytest.mark.parametrize("model,use_kernel", [(0, None), (1, None), (2, None), (2, False),
+                                              (4, None)])
+def test_graphed_rk45_matches_the_eager_loop(cuda_device, monkeypatch, model, use_kernel):
+    """``simulate_batched`` on the card replays a CUDA graph of
+    ``RK45_GRAPH_STEPS`` loop passes wherever the RHS counts no kernel
+    launch, and gives the eager loop's trajectories, flags and step counts
+    bit for bit; model 2 through the flux kernel keeps the eager loop, so
+    its launches stay 7 an iteration plus 2."""
+    from phoskintime_tpu_torch.network import simulate as sim_mod
+    from phoskintime_tpu_torch.network.params import unpack_params
+
+    b = build_demo_network(10, 4, model=model, seed=0, dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(1)
+    X = torch.as_tensor(rng.uniform(b["xl"], b["xu"], (3, len(b["xl"]))),
+                        dtype=torch.float32, device="cuda")
+    params_b = unpack_params(X, b["slices"], b["topo"])
+    odeint, passes, full = sim_mod.odeint_rk45, [], sim_mod.RK45_GRAPH_STEPS
+
+    def spy(*a, graph_steps=0, **kw):
+        passes.append(graph_steps)
+        return odeint(*a, graph_steps=graph_steps, **kw)
+    monkeypatch.setattr(sim_mod, "odeint_rk45", spy)
+    runs, launches = [], []
+    for graph_steps in (full, 0):
+        monkeypatch.setattr(sim_mod, "RK45_GRAPH_STEPS", graph_steps)
+        hypercube_flux.launches = 0
+        runs.append(simulate_batched(b["system"], params_b, b["grid"], max_steps=300,
+                                     use_kernel=use_kernel))
+        torch.cuda.synchronize()
+        launches.append(hypercube_flux.launches)
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+    counted = model == 2 and use_kernel is None
+    assert passes == [0 if counted else full, 0]
+    steps = int(runs[0].n_steps.max())
+    assert launches == ([7 * steps + 2] * 2 if counted else [0, 0])
+
+
+def test_global_model_on_the_card(cuda_device, tmp_path):
+    """``python -m phoskintime_tpu_torch global-model`` at the tests' tiny
+    config on the card (its default device): ``phi_tables`` launched, the
+    runner's tables written."""
+    from torch_project import write_project
+
+    from phoskintime_tpu_torch import cli
+
+    write_project(tmp_path)
+    phi_tables.launches = 0
+    out = cli.main(["global-model", "--config", str(tmp_path / "config.toml"), "--out-dir",
+                    str(tmp_path / "out")])
+    torch.cuda.synchronize()
+    assert phi_tables.launches > 0
+    assert out["system"].device.type == "cuda"
+    for name in ("steady_state_check.csv", "sensitivity.npz", "pareto_F.npy",
+                 "influence/influence_sweep.csv", "lambda_scan.csv"):
+        assert (tmp_path / "out" / name).exists(), name

@@ -55,12 +55,15 @@ def assert_scaled_close(got, want, atol):
 
 def test_package_imports_without_jax():
     """Every module of the port, and chip_smoke.py, in a fresh interpreter:
-    none loads JAX, the JAX package or pandas (the card's machine has no
-    pandas), and none turns on TF32 matmuls."""
+    none loads JAX, the JAX package, pandas or matplotlib (the card's
+    machine has neither of the last two), and none turns on TF32 matmuls.
+    ``__main__`` runs the command line when imported, so it is read, not
+    imported."""
     root = Path(__file__).resolve().parent.parent
     mods = sorted(".".join(p.relative_to(root).with_suffix("").parts)
                   for p in (root / "phoskintime_tpu_torch").rglob("*.py"))
-    mods = [m.removesuffix(".__init__") for m in mods] + ["chip_smoke"]
+    mods = [m.removesuffix(".__init__") for m in mods
+            if m != "phoskintime_tpu_torch.__main__"] + ["chip_smoke"]
     assert "phoskintime_tpu_torch.network.expo" in mods and len(mods) > 15
     for new in ("ops.hypercube_flux", "ops.tridiag", "ops.integrators",
                 "network.analysis", "network.steadystate", "ops.fma_peak", "ops.nsga",
@@ -73,20 +76,24 @@ def test_package_imports_without_jax():
                 "kinopt", "kinopt.model", "kinopt.optimize", "kinopt.kkt", "kinopt.data",
                 "tfopt", "tfopt.model", "tfopt.optimize", "tfopt.data", "ops.tpe",
                 "network.scan", "config", "config.loader", "config.logconf", "io",
-                "io.utils", "io.load", "io.preprocess"):
+                "io.utils", "io.load", "io.preprocess", "cli", "network.runner", "io.export",
+                "analysis", "analysis.postfit", "analysis.insights", "analysis.influence",
+                "analysis.mechanisms", "analysis.network_tools", "parallel.profile"):
         assert f"phoskintime_tpu_torch.{new}" in mods, new
     code = ("import importlib, sys; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'phoskintime_tpu' or m.startswith('phoskintime_tpu.') "
-            "or m == 'pandas' or m.startswith('pandas.')]; "
+            "or m == 'pandas' or m.startswith('pandas.') "
+            "or m == 'matplotlib' or m.startswith('matplotlib.')]; "
             "import torch; tf32 = torch.backends.cuda.matmul.allow_tf32; "
             "print(bad, tf32); sys.exit(1 if bad or tf32 else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stdout + out.stderr
-    # nor inside a function: no source line of the port imports pandas or JAX
-    lazy = re.compile(r"^\s*(import|from)\s+(pandas|jax|phoskintime_tpu)(\.|\s|$)")
+    # nor inside a function: no source line of the port imports pandas,
+    # matplotlib or JAX
+    lazy = re.compile(r"^\s*(import|from)\s+(pandas|matplotlib|jax|phoskintime_tpu)(\.|\s|$)")
     for path in [*(root / "phoskintime_tpu_torch").rglob("*.py"), root / "chip_smoke.py"]:
         bad = [ln for ln in path.read_text().splitlines() if lazy.match(ln)]
         assert not bad, (path, bad)

@@ -173,11 +173,13 @@ def test_run_model_pipeline_frames_and_columns_match_jax():
 def test_out_dir_and_default_device_raise():
     frames = tidy_frames([(7, "GC", 1)])
     kw = dict(time_points=TIME_POINTS, rna_time_points=TIME_POINTS[5:], bounds=BOUNDS)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        run_model_pipeline(*frames, out_dir="results", device="cpu", **kw)
+    # the figures wait for item 8d: make_plots with an out_dir raises
+    with pytest.raises(NotImplementedError, match="item 8d"):
+        run_model_pipeline(*frames, out_dir="results", make_plots=True, device="cpu", **kw)
     _, _, pr, p, r = synth_gene("distmod", 1, 7)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        process_gene("GC", pr, p, r, 1, TIME_POINTS, BOUNDS, out_dir="results", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8d"):
+        process_gene("GC", pr, p, r, 1, TIME_POINTS, BOUNDS, out_dir="results",
+                     make_plots=True, device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")
     with pytest.raises(RuntimeError, match="no CUDA device"):
