@@ -264,14 +264,23 @@ The entry points (``python -m phoskintime_tpu_torch``), on the bench
 network written as input files:
 
 13a. in subprocesses: ``python -m phoskintime_tpu_torch --help`` (exit 0,
-   every subcommand) and an import of the CLI, the runner and the
-   exporters that loads no JAX, JAX package, pandas or matplotlib;
+   every subcommand) and an import of the CLI, the runner, the exporters,
+   the influence analysis and the report layer that loads no JAX, JAX
+   package, pandas, matplotlib, plotly or streamlit;
 13b. ``global-model`` through ``cli.main`` in this process at the
    reference's pop 300, 5 generations (cut from 1,000), 1 Morris
    trajectory (cut from 100), no polish: ``phi_tables`` launched once an
-   objective call (a chunk of 2048) plus once for the Fréchet pick and once
-   for the trajectory export, no other kernel; the written file set
-   (``RUNNER_FILES``, the one the CPU tests hold); the written front's F
+   objective call (a chunk of 2048) plus once for the Fréchet pick, once
+   for the trajectory export and once for the global knockout explorer
+   (its K + 1 scenarios one batched ETD2RK call), no other kernel; the
+   written file set (``RUNNER_FILES``, the one the CPU tests hold: the
+   tables, ``pareto_interactive.html``, ``report.html`` and
+   ``influence/{influence_network,global_knockouts,live_explorer}.html``);
+   the knockout explorer's float32 fold changes against the same call at
+   float64 on the CPU (rel 1e-3, |fc| floored at 1e-6);
+   ``live_explorer.html`` equal to the page written from a CPU copy of the
+   system (its payload is host data); the seconds of each HTML writer;
+   the written front's F
    against a float64 re-evaluation of its X on the card (rel 1e-3); the
    written trajectories at the pick against a float64
    ``simulate_and_measure`` on the card run to the config's
@@ -292,7 +301,9 @@ network written as input files:
    mechanism's pick solve printed with its success, and none failing but
    by the 5,000-step cap (the JAX package ranks such a pick on its
    truncated predictions too); four rows with finite AIC and BIC and
-   Akaike weights summing to 1 (1e-6).
+   Akaike weights summing to 1 (1e-6); ``mechanism_selection.html``
+   written, naming the best mechanism and holding the written
+   ModelSelection table as ``table_html`` renders it.
 
 ``python3 chip_smoke.py --pergene-only`` runs phase 1 and phase 10 alone
 (no kernel build, no JSON lines); ``--sensitivity-kinopt-only`` runs
@@ -319,6 +330,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from phoskintime_tpu_torch.analysis import influence as influence_mod
 from phoskintime_tpu_torch.config.loader import PhosKinConfig
 from phoskintime_tpu_torch.demo import GRID, RNA_GRID, build_demo_network
 from phoskintime_tpu_torch.fit import pipeline as pipeline_mod
@@ -376,6 +388,9 @@ from phoskintime_tpu_torch.ops.phi_tables import (phi_tables, phi_tables_referen
 from phoskintime_tpu_torch.ops.scan_kernel import (etd2rk_scan, etd2rk_scan_reference,
                                                    random_scan_problem, scan_launch_shape)
 from phoskintime_tpu_torch.ops.stiff import batched_jacobian
+from phoskintime_tpu_torch.report import html as html_mod
+from phoskintime_tpu_torch.report import interactive as interactive_mod
+from phoskintime_tpu_torch.report import live_model as live_model_mod
 from phoskintime_tpu_torch.ops.tpe import MOTPESampler
 from phoskintime_tpu_torch.tfopt import optimize as tfopt_opt
 from phoskintime_tpu_torch.tfopt.model import TfoptProblem
@@ -563,7 +578,9 @@ MECH_GENS = 3
 #: cascades are the bench network's first two kinases
 RUNNER_FILES = frozenset({
     "S_rates_picked.csv", "convergence_history.csv", "influence/cascade_K00.csv",
-    "influence/cascade_K01.csv", "influence/influence_sweep.csv",
+    "influence/cascade_K01.csv", "influence/global_knockouts.html",
+    "influence/influence_network.html", "influence/influence_sweep.csv",
+    "influence/live_explorer.html", "pareto_interactive.html", "report.html",
     "kinase_activity_kinase_activity.csv", "lambda_scan.csv", "lambda_scan_recommended.json",
     "lambda_scan_unique_picks.csv", "mechanistic_discovery_report_1_refractory_period.csv",
     "mechanistic_discovery_report_2_kinetic_lag.csv",
@@ -579,6 +596,7 @@ RUNNER_FILES = frozenset({
     "trajectories_obs_rna.csv", "trajectories_pred_phospho.csv",
     "trajectories_pred_protein.csv", "trajectories_pred_rna.csv"})
 TRAJ_RTOL = 1e-3          # trajectories at the pick vs float64, of each column's largest
+KO_FC_RTOL = 1e-3         # the knockout explorer's fold changes vs float64 (PERF.md §2)
 GRAPH_CHECK_STEPS = 200   # the graphed RK45 loop vs the eager one, bit for bit
 
 T_START = time.perf_counter()
@@ -3901,8 +3919,10 @@ def phase_entry_subprocess(card) -> None:
                 "fitanalysis", "diagram", "all", "clean")
     missing = [c for c in commands if c not in helped.stdout]
     code = ("import sys, phoskintime_tpu_torch.cli, phoskintime_tpu_torch.network.runner, "
-            "phoskintime_tpu_torch.io.export; print(sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'pandas', 'matplotlib', 'phoskintime_tpu')))")
+            "phoskintime_tpu_torch.io.export, phoskintime_tpu_torch.analysis.influence, "
+            "phoskintime_tpu_torch.report; print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'pandas', 'matplotlib', 'plotly', 'streamlit', "
+            "'phoskintime_tpu')))")
     imported = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                               timeout=120, cwd=root)
     say("13a entry points", help_rc=helped.returncode, missing_commands=missing,
@@ -4000,6 +4020,47 @@ class EntrySpy:
         return expect(phi_tables=phi, phi_tables_wide=wide, hypercube_flux=flux)
 
 
+class WriterSpy:
+    """Times, while the runner writes, each HTML writer (ended by a
+    synchronize of the card) and keeps what the knockout explorer's
+    scenarios returned (its fold changes, on the host)."""
+
+    TIMED = ((interactive_mod, "pareto_explorer_from_frames"),
+             (influence_mod, "write_influence_html"),
+             (influence_mod, "export_global_knockout_explorer"),
+             (live_model_mod, "write_live_model_explorer"),
+             (html_mod, "create_report"))
+
+    def __init__(self):
+        self.seconds, self.scenarios = {}, []
+        self.real = [getattr(m, n) for m, n in self.TIMED] + [influence_mod.knockout_scenarios]
+
+    def __enter__(self):
+        def timing(name, fn):
+            def timed_call(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+                return out
+            return timed_call
+
+        def scenarios(*a, **kw):
+            out = self.real[-1](*a, **kw)
+            self.scenarios.append(out)
+            return out
+        for (m, n), fn in zip(self.TIMED, self.real):
+            setattr(m, n, timing(n, fn))
+        influence_mod.knockout_scenarios = scenarios
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), fn in zip(self.TIMED, self.real):
+            setattr(m, n, fn)
+        influence_mod.knockout_scenarios = self.real[-1]
+
+
 def capped_or_succeeded(steps: int, success: bool, max_steps: int = 5000) -> bool:
     """RK45 reached its end, or stopped at the step cap that the JAX
     package's ``simulate_and_measure`` sets by default (the trajectory past
@@ -4042,14 +4103,15 @@ def phase_global_model(b, root, card) -> dict:
     out_dir = root / "global"
     reset_counts()
     t0 = time.perf_counter()
-    with EntrySpy() as spy:
+    with EntrySpy() as spy, WriterSpy() as writers:
         out = cli.main(["global-model", "--config", str(root / "config.toml"), "--out-dir",
                         str(out_dir), "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts()
     p = out["problem"]
-    want = spy.predicted([p.topo, p.topo])          # the Fréchet pick and the export
+    # the Fréchet pick, the trajectory export and the knockout explorer
+    want = spy.predicted([p.topo, p.topo, p.topo])
     files = {str(f.relative_to(out_dir)) for f in out_dir.rglob("*") if f.is_file()}
     say("13b global-model", N=p.topo.N, n_theta=len(p.theta0), pop=p.cfg.pop,
         generations=p.cfg.n_gen, objective_calls=len(spy.calls), launches=launches,
@@ -4060,6 +4122,7 @@ def phase_global_model(b, root, card) -> dict:
         raise AssertionError(f"13b: launches {launches}, predicted {want}")
     if files != RUNNER_FILES:
         raise AssertionError(f"13b: files {sorted(files ^ RUNNER_FILES)} differ")
+    check_runner_html(p, out, out_dir, writers, card)
 
     # the written front against a float64 re-evaluation on the card
     p64 = runner_mod.prepare(p.cfg, device="cuda", dtype=torch.float64)
@@ -4131,8 +4194,54 @@ def phase_global_model(b, root, card) -> dict:
     return {"runner-global-model": launches}
 
 
-def check_mechanisms(job: dict, card) -> dict:
-    """13c's checks on the worker's result. Returns {path: launches}."""
+def check_runner_html(p, out: dict, out_dir, writers: WriterSpy, card) -> None:
+    """13b's HTML: the knockout explorer's one scenario call, its float32
+    fold changes from the card against the same call at float64 on the
+    CPU, ``live_explorer.html`` against the page written from a CPU copy of
+    the system, the Pareto explorer's front, each writer's seconds."""
+    import tempfile
+
+    from phoskintime_tpu_torch.io.export import host
+
+    params = {k: host(v) for k, v in out["params_best"].items()}
+    sys_kw = dict(custom_y0=p.system.custom_y0, device="cpu")
+    t0 = time.perf_counter()
+    ko64 = influence_mod.knockout_scenarios(
+        GlobalSystem(p.topo, p.system.kin_grid, p.Kmat, dtype=torch.float64, **sys_kw), params)
+    cpu_s = time.perf_counter() - t0
+    ko = writers.scenarios[0] if len(writers.scenarios) == 1 else None
+    fc_err = (rel_err([ko["est"], ko["ko_est"]], [ko64["est"], ko64["ko_est"]])
+              if ko is not None else float("nan"))
+    with tempfile.TemporaryDirectory() as tmp:
+        live_model_mod.write_live_model_explorer(
+            f"{tmp}/live.html", GlobalSystem(p.topo, p.system.kin_grid, p.Kmat,
+                                             dtype=torch.float32, **sys_kw),
+            params, title="live global-model explorer", df_prot=p.df_prot, df_rna=p.df_rna,
+            df_pho=p.df_pho)
+        with open(f"{tmp}/live.html") as fh:
+            live_cpu = fh.read()
+    live = (out_dir / "influence" / "live_explorer.html").read_text()
+    pareto = (out_dir / "pareto_interactive.html").read_text()
+    front = json.loads(re.search(r"window\.__PARETODATA__ = (\{.*?\});</script>", pareto,
+                                 re.DOTALL).group(1))["F"]
+    F = np.load(out_dir / "pareto_F.npy")
+    say("13b html", knockout_calls=len(writers.scenarios), K=p.topo.K,
+        curves=None if ko is None else len(ko["curve_names"]),
+        ko_fc_vs_float64_max_rel_err=f"{fc_err:.3e}", tol=KO_FC_RTOL,
+        float64_cpu_s=f"{cpu_s:.2f}", live_page_equal_cpu_copy=live == live_cpu,
+        live_page_bytes=len(live), pareto_members=len(front),
+        report_bytes=(out_dir / "report.html").stat().st_size,
+        writer_seconds={k: f"{v:.3f}" for k, v in writers.seconds.items()}, card=repr(card))
+    if not (ko is not None and ko["ko_est"].shape[0] == p.topo.K and fc_err <= KO_FC_RTOL
+            and live == live_cpu and len(front) == len(F)
+            and np.array_equal(front, np.round(np.nan_to_num(F), 4))
+            and set(writers.seconds) == {n for _, n in WriterSpy.TIMED}):
+        raise AssertionError("13b: an HTML check failed (see the line above)")
+
+
+def check_mechanisms(job: dict, card, out_dir: str) -> dict:
+    """13c's checks on the worker's result and its files in ``out_dir``.
+    Returns {path: launches}."""
     table = job["table"]
     w = np.asarray(table["akaike_weight"], float)
     finite = all(np.isfinite(table[k]).all() for k in ("aic", "bic"))
@@ -4155,6 +4264,17 @@ def check_mechanisms(job: dict, card) -> dict:
         raise AssertionError(f"13c: launches {job['launches']}, predicted {job['predicted']}")
     if len(table["model"]) != 4 or not finite or abs(w.sum() - 1.0) > 1e-6:
         raise AssertionError("13c: the selection table is not four finite rows")
+    # the HTML summary holds the written table as table_html renders it
+    from phoskintime_tpu_torch.io.utils import read_csv
+
+    written = read_csv(f"{out_dir}/mechanism_selection_modelselection.csv")
+    page = open(f"{out_dir}/mechanism_selection.html").read()
+    rendered = html_mod.table_html(written, float_format=lambda v: f"{v:.4g}")
+    best = f"Best mechanism by AIC: <b>{table['mechanism'][0]}</b>"
+    say("13c html", page_bytes=len(page), table_in_page=rendered in page,
+        best_named=best in page, written_rows=len(written["model"]))
+    if rendered not in page or best not in page or written["model"].tolist() != table["model"]:
+        raise AssertionError("13c: mechanism_selection.html does not hold the written table")
     return {"mechanisms-select": job["launches"]}
 
 
@@ -4176,7 +4296,7 @@ def phase_entry_points(card, b) -> dict:
             mech = pool.submit(mechanisms_job, str(root))
             phase_entry_subprocess(card)
             paths = phase_global_model(b, root, card)
-            paths.update(check_mechanisms(mech.result(), card))
+            paths.update(check_mechanisms(mech.result(), card, f"{root}/mechanisms"))
         finally:
             pool.shutdown(cancel_futures=True)
     say("13 entry points", seconds=f"{time.perf_counter() - t0:.1f}", card=repr(card))

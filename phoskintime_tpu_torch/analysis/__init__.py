@@ -3,16 +3,21 @@ knockouts, accumulator detection, functional-influence sweeps, mechanistic
 discovery (refractory period, lag, saturation, feedback gain), post-fit
 indicators and the kinopt/tfopt network readouts.
 
-Counterpart of ``phoskintime_tpu/analysis``, tables only; ``thermal.py``,
-``fitpanels.py``, the rest of ``network_tools.py`` and every figure or HTML
-writer wait for ROADMAP.md queue 1 item 8d.
+Counterpart of ``phoskintime_tpu/analysis`` with the HTML writers of its
+influence and mechanism modules (the time-slider network, the global
+knockout explorer, ``mechanism_selection.html``); ``thermal.py``,
+``fitpanels.py``, the rest of ``network_tools.py`` and every figure wait
+for ROADMAP.md queue 1 item 8d-figures.
 """
 
 from phoskintime_tpu_torch.analysis.influence import (  # noqa: F401
     cascade_from_seed,
+    export_global_knockout_explorer,
     export_influence_sweep,
     influence_edges_sweep,
+    knockout_scenarios,
     state_sweep,
+    write_influence_html,
 )
 from phoskintime_tpu_torch.analysis.insights import (  # noqa: F401
     feedback_gain,

@@ -9,8 +9,11 @@ column dicts. Systems are float32 by default, as in the JAX package
 (``dtype`` changes it), on ``device`` (default: the card).
 
 With ``out_dir``, :func:`fit_all_mechanisms` writes the selection table and
-each model's protein trajectories (``mechanism_selection_*.csv``); the
-overlay plots and the HTML summary are not ported yet (ROADMAP.md item 8d).
+each model's protein trajectories (``mechanism_selection_*.csv``) and the
+HTML summary ``mechanism_selection.html``, which links the overlay plots
+``overlay_protein.png`` and ``overlay_rna.png`` as the JAX package's does;
+the plots themselves are not ported yet (ROADMAP.md queue 1 item
+8d-figures).
 """
 
 from __future__ import annotations
@@ -232,16 +235,50 @@ def fit_all_mechanisms(df_kin, df_tf, df_prot, df_rna, df_pho, tp, *,
     w = np.exp(-0.5 * d)
     table["akaike_weight"] = w / w.sum()
     best = int(table["model"][0])
-    paths = _write_selection_artifacts(table, trajs, out_dir) if out_dir else None
+    paths = (_write_selection_artifacts(table, trajs, (df_prot, df_rna, df_pho), out_dir)
+             if out_dir else None)
     return MechanismSelection(table, fits, trajs, best, paths)
 
 
-def _write_selection_artifacts(table, trajs, out_dir):
-    """``mechanism_selection.xlsx`` as CSVs: the ModelSelection table and
-    each model's protein trajectories (``fit_<mechanism>``)."""
+def _write_selection_artifacts(table, trajs, obs_dfs, out_dir):
+    """``mechanism_selection.xlsx`` as CSVs (the ModelSelection table and
+    each model's protein trajectories, ``fit_<mechanism>``) and the HTML
+    summary ``mechanism_selection.html``: the best mechanism by AIC, the
+    table, the overlay plots' links. ``obs_dfs`` (protein, rna, phospho
+    observations) feeds the overlay plots, which are not ported yet
+    (ROADMAP.md queue 1 item 8d-figures). Returns {"table", "html"}."""
+    import html as _html
+
+    from phoskintime_tpu_torch.report.html import table_html
+
     os.makedirs(out_dir, exist_ok=True)
     w = TableWriter(os.path.join(out_dir, "mechanism_selection.xlsx"))
     w.add("ModelSelection", table)
     for model, (dfp, _, _) in trajs.items():
         w.add(f"fit_{MECHANISMS[model][:12]}", dfp)
-    return {"table": w.save()}
+    paths = {"table": w.save()}
+
+    rows_html = table_html(table, float_format=lambda v: f"{v:.4g}")
+    runner_up = table["delta_aic"][1] if len(table["delta_aic"]) > 1 else 0
+    html_doc = f"""<!DOCTYPE html><html><head><meta charset="utf-8">
+<title>Mechanism model selection</title>
+<style>body{{font-family:sans-serif;margin:2em}}table{{border-collapse:collapse}}
+td,th{{border:1px solid #ccc;padding:4px 8px}}</style></head><body>
+<h1>Mechanism model selection</h1>
+<p>Best mechanism by AIC: <b>{_html.escape(str(table['mechanism'][0]))}</b>
+ (&Delta;AIC of runner-up:
+ {runner_up:.1f};
+ Akaike weight {table['akaike_weight'][0]:.3f})</p>
+{rows_html}
+<h2>Overlays</h2>
+<p><img src="overlay_protein.png" width="640"></p>
+<p><img src="overlay_rna.png" width="640"></p>
+<h2>Explorers</h2>
+<p>Generate interactive knockout / influence explorers for the winning
+mechanism with <code>report.interactive.knockout_explorer</code> and
+<code>analysis.influence</code> (CLI: <code>fitanalysis</code>).</p>
+</body></html>"""
+    paths["html"] = os.path.join(out_dir, "mechanism_selection.html")
+    with open(paths["html"], "w") as f:
+        f.write(html_doc)
+    return paths

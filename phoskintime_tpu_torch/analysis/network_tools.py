@@ -6,7 +6,7 @@ network_tools.py`` that the result workbooks carry
 dicts in the JAX package's row orders. The prediction is linear in each
 edge's contribution C[i, a, t], so a knockout is the prediction less one
 slice. The module's other tools (subnetworks, curve clustering and the
-figures) are not ported yet (ROADMAP.md queue 1 item 8d).
+figures) are not ported yet (ROADMAP.md queue 1 item 8d-figures).
 """
 
 from __future__ import annotations

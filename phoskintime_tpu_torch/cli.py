@@ -9,9 +9,10 @@ stage run in this process. Every command that computes takes ``--device
 ``--device cpu``. The command modules are imported inside the commands.
 
 ``fitanalysis`` and ``diagram`` write figures only and raise
-``NotImplementedError`` until ROADMAP.md queue 1 item 8d; ``kinopt`` and
-``tfopt`` leave out their fit-analysis panels for the same reason (the KKT
-report's tables are written). ``clean`` removes ``__pycache__`` folders and
+``NotImplementedError`` until ROADMAP.md queue 1 item 8d-figures;
+``kinopt`` and ``tfopt`` leave out their fit-analysis panels for the same
+reason (the KKT report's tables are written). ``global-model``,
+``mechanisms`` and ``model`` write their HTML pages. ``clean`` removes ``__pycache__`` folders and
 the port's kernel build folder ``phoskintime_tpu_torch/_build/``, where the
 JAX package removes its XLA cache.
 """
@@ -31,7 +32,7 @@ from phoskintime_tpu_torch.config.logconf import setup_logger
 logger = setup_logger()
 
 PENDING_FIGURES = ("{} draws figures only, which are not ported yet (ROADMAP.md queue 1 "
-                   "item 8d, figures and HTML)")
+                   "item 8d-figures)")
 
 
 def _add_common(p):

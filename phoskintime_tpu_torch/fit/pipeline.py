@@ -9,10 +9,11 @@ The input tables are read by column (``frame["protein"]``, ``["psite"]``,
 ``["time"]``, ``["fc"]``) through ``np.asarray``, so a pandas DataFrame and
 a dict of column arrays serve alike; the port does not import pandas.
 With an ``out_dir``, :func:`run_model_pipeline` writes the results table
-(``model_results.xlsx`` as ``model_results_results.csv``). The per-gene
-figures and the HTML report are not ported yet (ROADMAP.md queue 1 item
-8d): ``make_plots`` defaults to ``False`` (the JAX package's to ``True``),
-and ``make_plots=True`` with an ``out_dir`` raises ``NotImplementedError``.
+(``model_results.xlsx`` as ``model_results_results.csv``) and
+``report.html``. The per-gene figures are not ported yet (ROADMAP.md queue
+1 item 8d-figures), so the report holds the title alone: ``make_plots``
+defaults to ``False`` (the JAX package's to ``True``), and
+``make_plots=True`` with an ``out_dir`` raises ``NotImplementedError``.
 The port's ``run_model_pipeline`` defaults to ``out_dir=None`` (the JAX
 package's to ``"results"``).
 """
@@ -34,8 +35,8 @@ from phoskintime_tpu_torch.models.knockout import knockout_label, knockout_mask_
 
 logger = logging.getLogger("phoskintime_tpu_torch")
 
-_FIGURES = ("the per-gene figures and the HTML report are not ported yet (ROADMAP.md "
-            "queue 1 item 8d, figures and HTML): pass make_plots=False")
+_FIGURES = ("the per-gene figures are not ported yet (ROADMAP.md queue 1 item "
+            "8d-figures): pass make_plots=False")
 
 
 @dataclass
@@ -72,7 +73,7 @@ def process_gene(gene: str,
     ``device`` (default: the card; raises where there is none) at
     ``dtype`` (default: float32 on the card, float64 on the CPU). The
     figures (``make_plots`` with an ``out_dir``) raise
-    ``NotImplementedError``: they wait for item 8d."""
+    ``NotImplementedError``: they wait for item 8d-figures."""
     if make_plots and out_dir is not None:
         raise NotImplementedError(_FIGURES)
     device = resolve_device(device)
@@ -152,10 +153,10 @@ def run_model_pipeline(df_prot, df_pho, df_rna, *, time_points,
     With ``batch_genes`` (default), genes are grouped by site count and each
     group fits as one batched LM (:func:`normest_batch`); knockouts and
     sensitivity then run per gene. Bootstrapping or ``ms_gauss_weights``
-    force the per-gene path. With an ``out_dir``, the results table is
-    written there (:func:`~phoskintime_tpu_torch.io.export.export_gene_results`);
-    ``make_plots=True`` with an ``out_dir`` raises (item 8d), and the HTML
-    report waits for item 8d."""
+    force the per-gene path. With an ``out_dir``, the results table
+    (:func:`~phoskintime_tpu_torch.io.export.export_gene_results`) and
+    ``report.html`` are written there; ``make_plots=True`` with an
+    ``out_dir`` raises (item 8d-figures)."""
     if gene_kw.get("make_plots") and out_dir is not None:
         raise NotImplementedError(_FIGURES)
     device = resolve_device(device)
@@ -210,7 +211,9 @@ def run_model_pipeline(df_prot, df_pho, df_rna, *, time_points,
 
     if out_dir is not None and outputs:
         from phoskintime_tpu_torch.io.export import export_gene_results
+        from phoskintime_tpu_torch.report.html import create_report
 
         export_gene_results(os.path.join(str(out_dir), "model_results.xlsx"),
                             {g: o.result for g, o in outputs.items()})
+        create_report(str(out_dir), title=f"phoskintime-tpu {model} results")
     return outputs

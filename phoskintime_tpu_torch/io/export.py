@@ -13,7 +13,8 @@ The figure, PDF and video writers of the JAX module (``plot_s_rates_report``,
 ``plot_gof_solutions``, ``create_convergence_video``,
 ``save_gene_timeseries_plots``, ``save_all_gene_timeseries`` and the
 correlation heatmap) raise ``NotImplementedError`` naming ROADMAP.md item
-8d; a function that writes tables beside a figure writes its tables alone.
+8d-figures; a function that writes tables beside a figure writes its
+tables alone. The HTML writers are in :mod:`phoskintime_tpu_torch.report`.
 """
 
 from __future__ import annotations
@@ -31,12 +32,12 @@ from phoskintime_tpu_torch.io.utils import merge_obs_est, take, write_csv
 
 logger = setup_logger()
 
-PENDING_FIGURES = ("figures, PDF, video and HTML output are not ported yet "
-                   "(ROADMAP.md queue 1 item 8d, figures and HTML)")
+PENDING_FIGURES = ("figures, PDF and video output are not ported yet "
+                   "(ROADMAP.md queue 1 item 8d-figures)")
 
 
 def figures_pending(*_args, **_kwargs):
-    """Every figure writer of the port until item 8d: raises."""
+    """Every figure writer of the port until item 8d-figures: raises."""
     raise NotImplementedError(PENDING_FIGURES)
 
 
@@ -212,7 +213,7 @@ def export_param_distributions(path, pareto_X, slices, topo):
 def export_param_correlations(path, pareto_X, slices, topo, heatmap_path=None):
     """The correlation matrix of the physical parameters over the Pareto
     set (a row per parameter, its label in ``param``). The heatmap waits
-    for item 8d: a ``heatmap_path`` raises."""
+    for item 8d-figures: a ``heatmap_path`` raises."""
     if heatmap_path is not None:
         figures_pending()
     phys = _softplus(host(pareto_X))
@@ -366,7 +367,7 @@ plot_gof_solutions = figures_pending
 def process_convergence_history(history, output_dir):
     """The per-generation least objectives as ``convergence_history.csv``
     (gen, min_prot_mse, min_rna_mse, min_phos_mse); returns the table, or
-    None without a history. Its log-scale plot waits for item 8d."""
+    None without a history. Its log-scale plot waits for item 8d-figures."""
     if not history:
         logger.info("[Export] no convergence history; skipping")
         return None

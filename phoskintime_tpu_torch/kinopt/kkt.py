@@ -5,7 +5,7 @@ after optimization, verify primal feasibility of the sum-to-one
 constraints, estimate the Lagrange multipliers and stationarity residuals
 from the loss gradient (``torch.autograd``), and count the active box
 constraints; :func:`kkt_suite` writes the report's tables (JSON, CSV and
-LaTeX). Its two figures are not ported yet (ROADMAP.md queue 1 item 8d):
+LaTeX). Its two figures are not ported yet (ROADMAP.md queue 1 item 8d-figures):
 their functions raise ``NotImplementedError``.
 """
 
@@ -111,7 +111,7 @@ def kkt_suite(prob, result, out_dir, *, loss_type: str = "base",
     ``lagrange_multipliers.csv``, ``high_sensitivity_sites.csv`` and
     ``kkt_report.json``. The loss gradient is taken on ``device``; the
     figures ``constraint_violations.png`` and ``sensitivity.png`` wait for
-    item 8d. Returns {"report", "paths", "sensitivity"}."""
+    item 8d-figures. Returns {"report", "paths", "sensitivity"}."""
     from phoskintime_tpu_torch.kinopt.model import kinopt_loss, predict
 
     os.makedirs(out_dir, exist_ok=True)

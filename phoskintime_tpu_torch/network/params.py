@@ -72,8 +72,10 @@ def unpack_params(thetas: torch.Tensor, slices: dict, topo) -> dict:
     dp_flat = torch.cat([dp_flat, dp_flat.new_zeros((dp_flat.shape[0], 1))], 1)
     dp_pad = (dp_flat[:, torch.as_tensor(gather, device=dev)]
               * torch.as_tensor(valid, dtype=dt, device=dev))
-    out = {k: softplus(thetas[:, slices[k]])
-           for k in ("c_k", "A_i", "B_i", "C_i", "D_i", "E_i")}
+    # the JAX package's key order: writers that walk the dict (the live
+    # explorer's payload) emit it as it stands
+    out = {k: softplus(thetas[:, slices[k]]) for k in ("c_k", "A_i", "B_i", "C_i", "D_i")}
     out["Dp_i"] = dp_pad
+    out["E_i"] = softplus(thetas[:, slices["E_i"]])
     out["tf_scale"] = softplus(thetas[:, slices["tf_scale"]])[:, 0]
     return out

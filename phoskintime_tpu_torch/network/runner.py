@@ -12,18 +12,23 @@ can be called on their own:
 2. :func:`fit` (steps 6-7): the optional loss-weight scan, then
    :func:`~phoskintime_tpu_torch.network.optimize.run_global_fit` with the
    Fréchet pick.
-3. :func:`write_outputs` (steps 8-10): the fit's pickle and arrays, every
+3. :func:`write_outputs` (steps 8-11): the fit's pickle and arrays, every
    table export at the pick, the lambda scan over the front, the top
-   members' trajectories, the convergence history, the Morris sensitivity,
-   the 7-day steady-state check, the influence sweep and the mechanistic
-   discovery tables.
+   members' trajectories and the Pareto explorer
+   (``pareto_interactive.html``), the convergence history, the Morris
+   sensitivity, the 7-day steady-state check, the influence sweep with its
+   time-slider network, the global knockout explorer (one batched ETD2RK
+   simulation of every kinase knockout and the wild type), the live
+   re-simulating explorer, the mechanistic discovery tables and
+   ``report.html``.
 
 Each stage is timed by :func:`~phoskintime_tpu_torch.parallel.profile.timed`
 (ended by a synchronize of the card). The pickle holds numpy arrays, so a
-JAX user can read it. The figures, PDF, video and HTML of steps 8, 10 and 11
-(``pareto_3d.png``, ``report.html``, the explorers, the dashboard bundle,
-...) are not ported yet (ROADMAP.md queue 1 item 8d). A ``mesh`` raises
-(item 1b).
+JAX user can read it. The figures, PDF and video of steps 8 and 11
+(``pareto_3d.png``, ``S_rates_report.pdf``, the GOF panels, the per-gene
+time series, ...) and the dashboard bundle are not ported yet (ROADMAP.md
+queue 1 item 8d-figures), so ``report.html`` holds the title alone. A
+``mesh`` raises (item 1b).
 """
 
 from __future__ import annotations
@@ -183,18 +188,23 @@ def best_params(problem: Problem, theta) -> dict:
 
 
 def write_outputs(problem: Problem, res, out_dir: str) -> dict:
-    """Steps 8-10 from a fit result with ``X``, ``F``, ``pareto_X``,
+    """Steps 8-11 from a fit result with ``X``, ``F``, ``pareto_X``,
     ``pareto_F``, ``best_idx`` and ``history`` (numpy): the files of the
-    JAX runner but its figures and HTML. Returns {"params_best",
-    "predictions", "sensitivity", "steady_state", "kinase_dominance",
-    "seconds"}: the seconds of the exports, the sensitivity, the steady
-    state and the analyses (:func:`timed`)."""
-    from phoskintime_tpu_torch.analysis.influence import export_influence_sweep
+    JAX runner but its figures and dashboard bundle, in its order. Returns
+    {"params_best", "predictions", "sensitivity", "steady_state",
+    "kinase_dominance", "seconds"}: the seconds of the exports, the
+    sensitivity, the steady state and the analyses (:func:`timed`)."""
+    from phoskintime_tpu_torch.analysis.influence import (export_global_knockout_explorer,
+                                                          export_influence_sweep)
     from phoskintime_tpu_torch.analysis.insights import run_mechanistic_discovery
     from phoskintime_tpu_torch.io import export as ex
+    from phoskintime_tpu_torch.io.load import read_table
     from phoskintime_tpu_torch.network.analysis import kinase_dominance, simulate_until_steady
     from phoskintime_tpu_torch.network.sensitivity import run_sensitivity_analysis
     from phoskintime_tpu_torch.network.simulate import simulate_and_measure
+    from phoskintime_tpu_torch.report.html import create_report
+    from phoskintime_tpu_torch.report.interactive import pareto_explorer_from_frames
+    from phoskintime_tpu_torch.report.live_model import write_live_model_explorer
 
     cfg, p = problem.cfg, problem
     topo, system, y0 = p.topo, p.system, p.y0
@@ -235,6 +245,11 @@ def write_outputs(problem: Problem, res, out_dir: str) -> dict:
             top_idx = np.concatenate([[res.best_idx], top_idx[:-1]])
         ex.export_pareto_trajectories(system, p.slices, pareto_X, (p.tp_p, p.tp_r, p.tp_p),
                                       at("pareto_trajectories.xlsx"), top_idx=top_idx)
+        trajs = [read_table(at("pareto_trajectories.xlsx"), sheet_name=f"traj_{m}")
+                 for m in ("protein", "rna", "phospho")]
+        if all(t is not None for t in trajs):
+            pareto_explorer_from_frames(at("pareto_interactive.html"), pareto_F, res.best_idx,
+                                        *trajs, p.df_prot, p.df_rna, p.df_pho)
         ex.process_convergence_history(res.history, out_dir)
 
     # ---- 9. sensitivity ----------------------------------------------------
@@ -249,19 +264,27 @@ def write_outputs(problem: Problem, res, out_dir: str) -> dict:
             np.savez(at("sensitivity.npz"), mu=sens.morris.mu, mu_star=sens.morris.mu_star,
                      sigma=sens.morris.sigma)
 
-    # ---- 10. steady-state check (7 days), influence, discovery -------------
+    # ---- 10. steady-state check (7 days), influence, explorers, discovery --
     with timed("steady_state", logger, system.device, seconds):
         ss = simulate_until_steady(system, params_best, y0=y0)
         dom = kinase_dominance(system, params_best)
+    with timed("analyses", logger, system.device, seconds):
+        export_influence_sweep(system, params_best, at("influence"),
+                               seeds=list(topo.kinases[:2]))
+        export_global_knockout_explorer(system, params_best,
+                                        at(os.path.join("influence", "global_knockouts.html")))
+        write_live_model_explorer(at(os.path.join("influence", "live_explorer.html")), system,
+                                  params_best, title="live global-model explorer",
+                                  df_prot=p.df_prot, df_rna=p.df_rna, df_pho=p.df_pho)
         write_csv(at("steady_state_check.csv"),
                   {"protein": np.asarray(topo.proteins, dtype=object),
                    "converged": np.asarray(ss.converged, bool),
                    "final_rate": np.asarray(ss.final_rate, float),
                    "ss_value": np.asarray(ss.ss_value, float)})
-    with timed("analyses", logger, system.device, seconds):
-        export_influence_sweep(system, params_best, at("influence"),
-                               seeds=list(topo.kinases[:2]))
         run_mechanistic_discovery(system, params_best, p.df_tf, out_dir=out_dir)
+
+        # ---- 11. the report (the figures wait for item 8d-figures) ----------
+        create_report(out_dir, title="phoskintime-tpu global model")
     return dict(params_best=params_best, predictions=(dfp_fit, dfr_fit, dfph_fit),
                 sensitivity=sens, steady_state=ss, kinase_dominance=dom, seconds=seconds)
 

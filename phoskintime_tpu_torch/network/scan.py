@@ -19,7 +19,7 @@ the table kernel on the card); ``"rk45"``, the RK45 objective through the
 host GA loop (:func:`~phoskintime_tpu_torch.ops.nsga.run_unsga3`).
 
 ``out_dir`` writes the per-trial results table (:func:`scan_report`); its
-three plots wait for ROADMAP.md queue 1 item 8d. A ``mesh`` raises
+three plots wait for ROADMAP.md queue 1 item 8d-figures. A ``mesh`` raises
 ``NotImplementedError`` naming item 1b.
 """
 
@@ -94,7 +94,7 @@ def scan_report(trials: list[ScanTrial], out_dir: str) -> dict:
     ``scan_results_trials.csv``): a row a trial with its state, score,
     generations, lambdas and the three objectives of its best member.
     The history, importance and parallel-coordinate plots wait for item
-    8d. Returns {"table": paths}."""
+    8d-figures. Returns {"table": paths}."""
     os.makedirs(out_dir, exist_ok=True)
     rows = []
     for i, t in enumerate(trials):

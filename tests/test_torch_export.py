@@ -6,9 +6,11 @@ files. Every file is compared after parsing, both sides read by the port's
 exact reader: the same file names, the same columns in order, the same
 rows, numbers within 1e-12 relative for the table exporters and 1e-9 (of
 each column's largest magnitude) for computed outputs, text equal. JSON,
-``.npy``, ``.npz`` and pickles are compared by value, LaTeX by text.
-Figures are not ported yet (ROADMAP.md item 8d): the JAX side's PNG files
-are left out of the comparison, and the port's figure writers must raise.
+``.npy``, ``.npz`` and pickles are compared by value, LaTeX by text, HTML
+by :func:`assert_same_html` (the page byte for byte, its embedded JSON by
+value). Figures are not ported yet (ROADMAP.md item 8d-figures): the JAX
+side's PNG, PDF and video files are left out of the comparison, and the
+port's figure writers must raise.
 
 The 7-protein project of input files and a config comes from
 ``tests/torch_project.py``, which imports no JAX (the card's tests use it).
@@ -17,6 +19,7 @@ The 7-protein project of input files and a config comes from
 import json
 import os
 import pickle
+import re
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -44,7 +47,15 @@ TP = np.array([0.0, 0.5, 0.75, 1.0, 2.0, 4.0, 8.0, 16.0, 30.0, 60.0, 120.0, 240.
 TR = np.array([4.0, 8.0, 15.0, 30.0, 60.0, 120.0, 240.0, 480.0, 960.0])
 RTOL_TABLE = 1e-12      # exporters: the same numbers, written and parsed
 RTOL_COMPUTED = 1e-9    # computed outputs (simulations, fits), float64
-FIGURE_SUFFIXES = (".png", ".pdf", ".gif", ".mp4", ".html")
+FIGURE_SUFFIXES = (".png", ".pdf", ".gif", ".mp4")
+#: the HTML writers' own rounding unit (``report/interactive.py``'s
+#: ``_round(a, nd=4)``): a value the two packages compute alike to 1e-12 can
+#: round to two neighbouring last digits
+ATOL_HTML = 1e-4
+#: an embedded JSON payload: ``window.__NAME__ = {...};`` up to its script's end
+PAYLOAD = re.compile(r"(window\.__\w+__ = )(\{.*?\});</script>", re.DOTALL)
+#: the report's time stamp
+GENERATED = re.compile(r"<p>Generated \d{4}-\d\d-\d\d \d\d:\d\d</p>")
 
 # ---------------------------------------------------------------------------
 # file comparison
@@ -84,6 +95,42 @@ def assert_same_value(got, want, rtol, name):
         assert_close(got, want, rtol, name)
 
 
+def split_html(text: str) -> tuple[str, list]:
+    """A page as (its text with every embedded JSON payload and the time
+    stamp replaced by a marker, the payloads parsed)."""
+    payloads = [json.loads(m.group(2)) for m in PAYLOAD.finditer(text)]
+    return GENERATED.sub("<p>Generated</p>", PAYLOAD.sub(r"\1@;</script>", text)), payloads
+
+
+def assert_same_json(got, want, atol: float, name: str):
+    """Parsed JSON: the same structure, keys in order, strings, booleans
+    and nulls equal, numbers within ``atol``."""
+    if isinstance(want, dict):
+        assert list(got) == list(want), name
+        for k in want:
+            assert_same_json(got[k], want[k], atol, f"{name}.{k}")
+    elif isinstance(want, list):
+        assert isinstance(got, list) and len(got) == len(want), name
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_same_json(g, w, atol, f"{name}[{i}]")
+    elif isinstance(want, (int, float)) and not isinstance(want, bool):
+        assert isinstance(got, (int, float)) and not isinstance(got, bool), name
+        assert abs(got - want) <= atol or got == want, (name, got, want)
+    else:
+        assert got == want, (name, got, want)
+
+
+def assert_same_html(got: str, want: str, name: str, atol: float = ATOL_HTML):
+    """Two pages: equal byte for byte outside their embedded JSON payloads
+    and the report's time stamp, the payloads equal by
+    :func:`assert_same_json` at ``atol``."""
+    (g_text, g_json), (w_text, w_json) = split_html(got), split_html(want)
+    assert g_text == w_text, name
+    assert len(g_json) == len(w_json), name
+    for i, (g, w) in enumerate(zip(g_json, w_json)):
+        assert_same_json(g, w, atol, f"{name}:payload{i}")
+
+
 def assert_same_csv(got_path, want_path, rtol, atols=None):
     got, want = read_csv(got_path), read_csv(want_path)
     assert list(got) == list(want), (got_path, list(got), list(want))
@@ -97,11 +144,11 @@ def assert_same_csv(got_path, want_path, rtol, atols=None):
 
 
 def assert_same_files(got_dir: Path, want_dir: Path, rtol: float, pending=(), rtols=None,
-                      atols=None):
+                      atols=None, pages=None):
     """Every file JAX wrote but its figures (and ``pending``) was written by
     the port, and nothing else; each the same after parsing, at ``rtol``
     or at ``rtols[name]``, a CSV column at ``atols[name][column]`` where
-    given."""
+    given, an HTML page by ``pages[name](got, want)`` where given."""
     want = {f for f in written(want_dir) if not f.endswith(FIGURE_SUFFIXES)} - set(pending)
     got = written(got_dir)
     assert want and got == want, (sorted(got - want), sorted(want - got))
@@ -122,6 +169,9 @@ def assert_same_files(got_dir: Path, want_dir: Path, rtol: float, pending=(), rt
         elif f.endswith(".pkl"):
             with open(g, "rb") as fg, open(w, "rb") as fw:
                 assert_same_value(pickle.load(fg), pickle.load(fw), tol, f)
+        elif f.endswith(".html"):
+            (pages or {}).get(f, lambda a, b: assert_same_html(a, b, f))(g.read_text(),
+                                                                      w.read_text())
         else:
             assert g.read_text() == w.read_text(), f
 
@@ -390,8 +440,9 @@ def test_scan_report_matches_jax(tmp_path):
 
 
 def test_run_model_pipeline_out_dir_matches_jax(tmp_path):
-    """``run_model_pipeline(out_dir=...)`` writes JAX's results table
-    (``make_plots=False`` in both; JAX's HTML report left out, item 8d)."""
+    """``run_model_pipeline(out_dir=...)`` writes JAX's results table and
+    ``report.html`` (``make_plots=False`` in both, so the report holds the
+    title alone)."""
     from test_torch_pipeline import BOUNDS, SMALL, TIME_POINTS, tidy_frames
 
     from phoskintime_tpu.fit.pipeline import run_model_pipeline as jax_pipeline
@@ -403,8 +454,8 @@ def test_run_model_pipeline_out_dir_matches_jax(tmp_path):
     dj, dp = tmp_path / "jax", tmp_path / "port"
     jax_pipeline(*frames, out_dir=str(dj), make_plots=False, **kw)
     run_model_pipeline(*frames, out_dir=str(dp), device="cpu", **kw)
-    assert_same_files(dp, dj, RTOL_COMPUTED, pending={"report.html"})
-    assert written(dp) == {"model_results_results.csv"}
+    assert_same_files(dp, dj, RTOL_COMPUTED)
+    assert written(dp) == {"model_results_results.csv", "report.html"}
     assert read_csv(dp / "model_results_results.csv")["gene"].tolist() == ["GC"]
 
 

@@ -227,6 +227,38 @@ def test_model2_objective_goes_through_both_kernels(cuda_device):
     assert float(torch.max(torch.abs(F - Fp) / torch.abs(Fp))) <= 1e-3
 
 
+@pytest.mark.parametrize("model", [0, 2])
+def test_knockout_explorer_goes_through_the_tables(cuda_device, model, monkeypatch, tmp_path):
+    """The global knockout explorer's one batched ETD2RK call launches the
+    table kernels once a width class (the full width where the mechanism
+    has no classes); its float32 fold changes agree with the plain route's
+    within 1e-3 relative (|fc| floored at 1e-6), and the page is written."""
+    from functools import partial
+
+    from phoskintime_tpu_torch.analysis import influence
+    from phoskintime_tpu_torch.network import expo
+
+    b = build_demo_network(n_proteins=12, n_kinases=5, model=model, seed=0,
+                           dtype=torch.float32, device=cuda_device)
+    widths = [wc for wc, _ in width_classes(b["topo"])] or [b["topo"].width]
+    phi_tables.launches = phi_tables_wide.launches = 0
+    path = influence.export_global_knockout_explorer(b["system"], b["true"],
+                                                     str(tmp_path / "ko.html"))
+    assert (phi_tables.launches, phi_tables_wide.launches) == (
+        sum(w <= 8 for w in widths), sum(w > 8 for w in widths))
+    assert "global-model knockout explorer" in Path(path).read_text()
+    ko = influence.knockout_scenarios(b["system"], b["true"])
+    monkeypatch.setattr(expo, "exponential_simulate_batched",
+                        partial(expo.exponential_simulate_batched, use_kernel=False))
+    phi_tables.launches = phi_tables_wide.launches = 0
+    plain = influence.knockout_scenarios(b["system"], b["true"])
+    assert phi_tables.launches == phi_tables_wide.launches == 0
+    for k in ("est", "ko_est"):
+        assert np.isfinite(ko[k]).all(), k
+        err = np.max(np.abs(ko[k] - plain[k]) / np.maximum(np.abs(plain[k]), 1e-6))
+        assert err <= 1e-3, (k, err)
+
+
 # --- the whole-scan kernel --------------------------------------------------------
 
 

@@ -78,22 +78,26 @@ def test_package_imports_without_jax():
                 "network.scan", "config", "config.loader", "config.logconf", "io",
                 "io.utils", "io.load", "io.preprocess", "cli", "network.runner", "io.export",
                 "analysis", "analysis.postfit", "analysis.insights", "analysis.influence",
-                "analysis.mechanisms", "analysis.network_tools", "parallel.profile"):
+                "analysis.mechanisms", "analysis.network_tools", "parallel.profile",
+                "report", "report.html", "report.interactive", "report.live_constants",
+                "report.live_model", "report.live", "report.latexit"):
         assert f"phoskintime_tpu_torch.{new}" in mods, new
     code = ("import importlib, sys; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'phoskintime_tpu' or m.startswith('phoskintime_tpu.') "
             "or m == 'pandas' or m.startswith('pandas.') "
-            "or m == 'matplotlib' or m.startswith('matplotlib.')]; "
+            "or m == 'matplotlib' or m.startswith('matplotlib.') "
+            "or m.split('.')[0] in ('plotly', 'streamlit')]; "
             "import torch; tf32 = torch.backends.cuda.matmul.allow_tf32; "
             "print(bad, tf32); sys.exit(1 if bad or tf32 else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stdout + out.stderr
     # nor inside a function: no source line of the port imports pandas,
-    # matplotlib or JAX
-    lazy = re.compile(r"^\s*(import|from)\s+(pandas|matplotlib|jax|phoskintime_tpu)(\.|\s|$)")
+    # matplotlib, plotly, streamlit or JAX
+    lazy = re.compile(r"^\s*(import|from)\s+(pandas|matplotlib|plotly|streamlit|jax|"
+                      r"phoskintime_tpu)(\.|\s|$)")
     for path in [*(root / "phoskintime_tpu_torch").rglob("*.py"), root / "chip_smoke.py"]:
         bad = [ln for ln in path.read_text().splitlines() if lazy.match(ln)]
         assert not bad, (path, bad)

@@ -9,9 +9,10 @@ CPU.
   1e-9 (of each column's largest magnitude).
 * ``global-model`` end to end through ``cli.main`` on a 7-protein project
   (pop 16, 2 generations, 2 Morris trajectories): its file set equals the
-  JAX CLI's at the same config less ``PENDING_8D``, the figures and HTML
-  that wait for ROADMAP.md item 8d. The GA's float32 trajectory is not
-  compared: two float32 GAs part on near-ties.
+  JAX CLI's at the same config less ``PENDING_8D``, the figures, PDF,
+  video and dashboard bundle that wait for ROADMAP.md item 8d-figures. The
+  GA's float32 trajectory is not compared: two float32 GAs part on
+  near-ties.
 * The CLI: the parser's subcommands, destinations and defaults against
   JAX's ``build_parser()`` (``--device`` aside), ``prep``, ``kinopt`` and
   ``tfopt --mode local``, ``model``, ``clean``, the commands that raise.
@@ -23,6 +24,7 @@ import pickle
 import shutil
 import subprocess
 import sys
+from functools import partial
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -33,6 +35,7 @@ import pytest
 import torch
 from test_torch_export import RTOL_COMPUTED, assert_same_files, written
 from test_torch_io import columns_of, write_raw
+from test_torch_report import assert_same_knockout_page
 from torch_project import write_project
 
 import phoskintime_tpu.cli as jcli
@@ -62,12 +65,10 @@ ROOT = Path(__file__).resolve().parent.parent
 RTOL_MORRIS = 1e-8      # as tests/test_torch_sensitivity.py, scaled by the largest index
 
 #: what the JAX ``global-model`` writes and the port does not yet: its
-#: figures, PDF, video, HTML and the dashboard bundle (ROADMAP.md item 8d)
+#: figures, PDF, video and the dashboard bundle (ROADMAP.md item 8d-figures)
 PENDING_8D = ("S_rates_report.pdf", "convergence.png", "convergence_plot.png",
               "dashboard_bundle.pkl", "optimization_history.*", "param_correlations.png",
-              "pareto_3d.png", "pareto_interactive.html", "pareto_parallel.png", "report.html",
-              "influence/global_knockouts.html", "influence/influence_network.html",
-              "influence/live_explorer.html", "gene_timeseries/*", "gof_solutions/*")
+              "pareto_3d.png", "pareto_parallel.png", "gene_timeseries/*", "gof_solutions/*")
 
 
 def pending(name: str) -> bool:
@@ -117,11 +118,18 @@ def jax_prepare(cfg, dtype):
                            bio_bounds=bio_bounds, theta0=theta0, slices=slices, xl=xl, xu=xu)
 
 
-def jax_write_outputs(cfg, j, res, out_dir):
+def jax_write_outputs(cfg, j, res, out_dir, seen=None):
     """``phoskintime_tpu/network/runner.py:143-290`` at the system's dtype,
-    without the figure, HTML and video writers (item 8d)."""
-    from phoskintime_tpu.analysis.influence import export_influence_sweep
+    without the figure, PDF, video and dashboard writers (item
+    8d-figures). ``seen`` receives what the knockout explorer's writer was
+    given."""
+    from phoskintime_tpu.analysis.influence import (export_global_knockout_explorer,
+                                                    export_influence_sweep)
     from phoskintime_tpu.analysis.insights import run_mechanistic_discovery
+    from phoskintime_tpu.io.load import read_table
+    from phoskintime_tpu.report import interactive
+    from phoskintime_tpu.report.html import create_report
+    from phoskintime_tpu.report.live_model import write_live_model_explorer
 
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, f"{cfg.optimizer}_optimization_result.pkl"), "wb") as fh:
@@ -152,6 +160,10 @@ def jax_write_outputs(cfg, j, res, out_dir):
         top_idx = np.concatenate([[res.best_idx], top_idx[:-1]])
     jex.export_pareto_trajectories(system, j.slices, res.pareto_X, (j.tp_p, j.tp_r, j.tp_p),
                                    at("pareto_trajectories.xlsx"), top_idx=top_idx)
+    trajs = [read_table(at("pareto_trajectories.xlsx"), sheet_name=f"traj_{m}")
+             for m in ("protein", "rna", "phospho")]
+    interactive.pareto_explorer_from_frames(at("pareto_interactive.html"), res.pareto_F,
+                                            res.best_idx, *trajs, j.df_prot, j.df_rna, j.df_pho)
     jex.process_convergence_history(res.history, out_dir)
     sens = jax_sensitivity(system, j.slices, theta_best, j.grid,
                            perturbation=cfg.sensitivity_perturbation,
@@ -162,10 +174,30 @@ def jax_write_outputs(cfg, j, res, out_dir):
              sigma=sens.morris.sigma)
     ss = jana.simulate_until_steady(system, params_best, y0=y0)
     export_influence_sweep(system, params_best, at("influence"), seeds=list(topo.kinases[:2]))
+    real = interactive.write_interactive_explorer
+
+    def spy(path, **kw):
+        (seen if seen is not None else {}).update(kw)
+        return real(path, **kw)
+    interactive.write_interactive_explorer = spy
+    try:
+        export_global_knockout_explorer(system, params_best,
+                                        at(os.path.join("influence", "global_knockouts.html")))
+    finally:
+        interactive.write_interactive_explorer = real
+    write_live_model_explorer(at(os.path.join("influence", "live_explorer.html")), system,
+                              params_best, title="live global-model explorer",
+                              df_prot=j.df_prot, df_rna=j.df_rna, df_pho=j.df_pho)
     pd.DataFrame({"protein": topo.proteins, "converged": ss.converged,
                   "final_rate": ss.final_rate, "ss_value": ss.ss_value}
                  ).to_csv(at("steady_state_check.csv"), index=False)
     run_mechanistic_discovery(system, params_best, j.df_tf, out_dir=out_dir)
+    # the report embeds every PNG of the folder: the one figure written
+    # above (the convergence plot, item 8d-figures) goes first, as the port
+    # writes none
+    for png in Path(out_dir).rglob("*.png"):
+        png.unlink()
+    create_report(out_dir, title="phoskintime-tpu global model")
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +301,10 @@ def test_write_outputs_matches_jax(tmp_path, project):
     pop 16, 2 generations, over a [0.05, 0.3] box for every rate, so that
     the 7-day RK45 check stays short on this CPU): every file the port
     writes equals JAX's at 1e-9 of each column's largest magnitude, and
-    the port writes every file JAX does but its figures. The Morris arrays
+    the port writes every file JAX does but its figures. The HTML pages are
+    JAX's outside their JSON, whose numbers agree within 1e-4 (the
+    writers' rounding unit), the knockout explorer's as
+    ``tests/test_torch_report.py`` holds it. The Morris arrays
     are held at 1e-8 of their largest magnitude, the tolerance of
     ``tests/test_torch_sensitivity.py``: an elementary effect divides the
     RK45 runs' last-bit differences by its small step (7.5e-9 of sigma's
@@ -289,7 +324,8 @@ def test_write_outputs_matches_jax(tmp_path, project):
                   pop=16, n_gen=2, seed=0, y0=j.y0, frechet_pick=True, df_prot=j.df_prot,
                   df_rna=j.df_rna, df_pho=j.df_pho, t_points=(j.tp_p, j.tp_r, j.tp_p))
     dj, dp = tmp_path / "jax", tmp_path / "port"
-    jax_write_outputs(jcfg, j, res, str(dj))
+    seen = {}
+    jax_write_outputs(jcfg, j, res, str(dj), seen)
     p = runner.prepare(cfg, device="cpu", dtype=torch.float64)
     out = runner.write_outputs(p, res, str(dp))
     ss = read_csv(dj / "steady_state_check.csv")
@@ -297,7 +333,11 @@ def test_write_outputs_matches_jax(tmp_path, project):
         [[0.0], np.logspace(np.log10(0.5), np.log10(jana.MINUTES_7_DAYS), 120)]))
     rate_atol = RTOL_COMPUTED * np.abs(ss["ss_value"]).max() / (times[-1] - times[-2])
     assert_same_files(dp, dj, RTOL_COMPUTED, rtols={"sensitivity.npz": RTOL_MORRIS},
-                      atols={"steady_state_check.csv": {"final_rate": rate_atol}})
+                      atols={"steady_state_check.csv": {"final_rate": rate_atol}},
+                      pages={"influence/global_knockouts.html": partial(
+                          assert_same_knockout_page, seen=seen)})
+    assert {"pareto_interactive.html", "report.html", "influence/global_knockouts.html",
+            "influence/influence_network.html", "influence/live_explorer.html"} <= written(dp)
     assert set(out["seconds"]) == {"exports", "sensitivity", "steady_state", "analyses"}
 
 
@@ -425,9 +465,9 @@ def test_kinopt_command_writes_the_kkt_report(tmp_path, project):
 
 
 def test_model_command_matches_jax(tmp_path, project):
-    """``model`` writes JAX's ``model_results`` sheet (one gene; the JAX
-    command in its own process beside the port's, its per-gene figures
-    off and its HTML report left out: item 8d)."""
+    """``model`` writes JAX's ``model_results`` sheet and ``report.html``
+    (one gene; the JAX command in its own process beside the port's, its
+    per-gene figures off: item 8d-figures)."""
     dj, dp = tmp_path / "jax", tmp_path / "port"
     for d in (dj, dp):
         shutil.copytree(project, d)
@@ -436,15 +476,20 @@ def test_model_command_matches_jax(tmp_path, project):
         in_dir(dp, cli.main, ["model", "--genes", "GA", "--device", "cpu"])
     finally:
         finish(proc)
-    assert written(dp / "results") == {"model_results_results.csv"}
+    assert written(dp / "results") == {"model_results_results.csv", "report.html"}
     assert_same_csv_only(dp / "results", dj / "results")
 
 
 def assert_same_csv_only(got_dir, want_dir):
-    from test_torch_export import assert_same_csv
+    """Each file the port wrote against JAX's of that name: CSV by value,
+    HTML by page (``assert_same_html``)."""
+    from test_torch_export import assert_same_csv, assert_same_html
 
     for f in written(got_dir):
-        assert_same_csv(got_dir / f, want_dir / f, RTOL_COMPUTED)
+        if f.endswith(".html"):
+            assert_same_html((got_dir / f).read_text(), (want_dir / f).read_text(), f)
+        else:
+            assert_same_csv(got_dir / f, want_dir / f, RTOL_COMPUTED)
 
 
 def test_clean_removes_pycache(tmp_path, monkeypatch):
