@@ -5,9 +5,10 @@ indicators and the kinopt/tfopt network readouts.
 
 Counterpart of ``phoskintime_tpu/analysis`` with the HTML writers of its
 influence and mechanism modules (the time-slider network, the global
-knockout explorer, ``mechanism_selection.html``); ``thermal.py``,
-``fitpanels.py``, the rest of ``network_tools.py`` and every figure wait
-for ROADMAP.md queue 1 item 8d-figures.
+knockout explorer, ``mechanism_selection.html``) and the mechanism
+overlays; ``thermal.py``, ``fitpanels.py``, the rest of
+``network_tools.py`` and their figures wait for ROADMAP.md queue 1 item
+8d-figures, part 2.
 """
 
 from phoskintime_tpu_torch.analysis.influence import (  # noqa: F401

@@ -20,8 +20,8 @@ import os
 import numpy as np
 import torch
 
-from phoskintime_tpu_torch.io.export import host, sort_desc
-from phoskintime_tpu_torch.io.utils import take, write_csv
+from phoskintime_tpu_torch.io.export import sort_desc
+from phoskintime_tpu_torch.io.utils import host, take, write_csv
 
 EDGE_COLUMNS = ["time", "kind", "src", "dst", "site", "weight"]
 

@@ -16,8 +16,8 @@ import os
 
 import numpy as np
 
-from phoskintime_tpu_torch.io.export import TableWriter, host, sort_desc
-from phoskintime_tpu_torch.io.utils import take
+from phoskintime_tpu_torch.io.export import TableWriter, sort_desc
+from phoskintime_tpu_torch.io.utils import host, take
 
 
 def refractory_period(topo, params) -> dict:

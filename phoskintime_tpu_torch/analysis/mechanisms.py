@@ -9,11 +9,10 @@ column dicts. Systems are float32 by default, as in the JAX package
 (``dtype`` changes it), on ``device`` (default: the card).
 
 With ``out_dir``, :func:`fit_all_mechanisms` writes the selection table and
-each model's protein trajectories (``mechanism_selection_*.csv``) and the
-HTML summary ``mechanism_selection.html``, which links the overlay plots
-``overlay_protein.png`` and ``overlay_rna.png`` as the JAX package's does;
-the plots themselves are not ported yet (ROADMAP.md queue 1 item
-8d-figures).
+each model's protein trajectories (``mechanism_selection_*.csv``), the
+overlay plots ``overlay_protein.png`` and ``overlay_rna.png`` (drawn by
+:mod:`phoskintime_tpu_torch.report.draw`) and the HTML summary
+``mechanism_selection.html``, which shows them.
 """
 
 from __future__ import annotations
@@ -27,7 +26,7 @@ import torch
 
 from phoskintime_tpu_torch.config.numerics import DEFAULT_DEVICE, numpy_dtype
 from phoskintime_tpu_torch.io.export import TableWriter, rows_to_table, sort_asc, sort_desc
-from phoskintime_tpu_torch.io.utils import merge_obs_est, take
+from phoskintime_tpu_torch.io.utils import merge_obs_est, n_rows, take
 from phoskintime_tpu_torch.network.kinase_input import build_kinase_matrix
 from phoskintime_tpu_torch.network.objective import make_objective
 from phoskintime_tpu_torch.network.params import init_raw_params, unpack_params
@@ -242,11 +241,13 @@ def fit_all_mechanisms(df_kin, df_tf, df_prot, df_rna, df_pho, tp, *,
 
 def _write_selection_artifacts(table, trajs, obs_dfs, out_dir):
     """``mechanism_selection.xlsx`` as CSVs (the ModelSelection table and
-    each model's protein trajectories, ``fit_<mechanism>``) and the HTML
-    summary ``mechanism_selection.html``: the best mechanism by AIC, the
-    table, the overlay plots' links. ``obs_dfs`` (protein, rna, phospho
-    observations) feeds the overlay plots, which are not ported yet
-    (ROADMAP.md queue 1 item 8d-figures). Returns {"table", "html"}."""
+    each model's protein trajectories, ``fit_<mechanism>``), the overlay
+    plots ``overlay_protein.png`` and ``overlay_rna.png`` (the first six
+    proteins' observations (``obs_dfs``: protein, rna, phospho) against
+    each model's predictions, on a symlog time axis) and the HTML summary
+    ``mechanism_selection.html``: the best mechanism by AIC, the table, the
+    overlays. Returns {"table", "overlay_protein", "overlay_rna", "html"}
+    (an overlay only where its modality has rows)."""
     import html as _html
 
     from phoskintime_tpu_torch.report.html import table_html
@@ -257,6 +258,7 @@ def _write_selection_artifacts(table, trajs, obs_dfs, out_dir):
     for model, (dfp, _, _) in trajs.items():
         w.add(f"fit_{MECHANISMS[model][:12]}", dfp)
     paths = {"table": w.save()}
+    paths.update(_write_overlays(trajs, obs_dfs, out_dir))
 
     rows_html = table_html(table, float_format=lambda v: f"{v:.4g}")
     runner_up = table["delta_aic"][1] if len(table["delta_aic"]) > 1 else 0
@@ -281,4 +283,42 @@ mechanism with <code>report.interactive.knockout_explorer</code> and
     paths["html"] = os.path.join(out_dir, "mechanism_selection.html")
     with open(paths["html"], "w") as f:
         f.write(html_doc)
+    return paths
+
+
+def _write_overlays(trajs, obs_dfs, out_dir) -> dict:
+    """The protein and RNA overlays: a panel a protein (the first six in
+    order of appearance), the observations as black dots and each model's
+    predicted fold change in its colour; unused panels off."""
+    from phoskintime_tpu_torch.report.draw import subplots
+
+    colors = {0: "tab:blue", 1: "tab:orange", 2: "tab:green", 4: "tab:red"}
+    df_prot, df_rna, _ = obs_dfs
+    paths = {}
+    for mod_name, obs, idx in [("protein", df_prot, 0), ("rna", df_rna, 1)]:
+        if obs is None or not n_rows(obs):
+            continue
+        names = np.asarray(obs["protein"], dtype=object)
+        prots = list(dict.fromkeys(names))[:6]
+        ncol = min(3, len(prots))
+        nrow = int(np.ceil(len(prots) / ncol))
+        fig, axes = subplots(nrow, ncol, figsize=(4 * ncol, 3 * nrow), squeeze=False)
+        for ax, prot in zip(axes.ravel(), prots):
+            o = take(obs, names == prot)
+            ax.plot(o["time"], o["fc"], "ko", ms=4, label="observed")
+            for model, pred in trajs.items():
+                p = pred[idx]
+                pi = take(p, np.asarray(p["protein"], dtype=object) == prot)
+                ax.plot(pi["time"], pi["pred_fc"], color=colors.get(model, "gray"), lw=1.5,
+                        label=MECHANISMS[model])
+            ax.set_title(prot, fontsize=9)
+            ax.set_xscale("symlog")
+        axes.ravel()[0].legend(fontsize=7)
+        for ax in axes.ravel()[len(prots):]:
+            ax.axis("off")
+        fig.suptitle(f"Mechanism overlay — {mod_name} fold change")
+        fig.tight_layout()
+        path = os.path.join(out_dir, f"overlay_{mod_name}.png")
+        fig.savefig(path, dpi=150)
+        paths[f"overlay_{mod_name}"] = path
     return paths

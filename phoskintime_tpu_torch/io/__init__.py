@@ -1,7 +1,7 @@
 """Host-side IO without pandas: the CSV reader and column tables, data
-loading and scaling, raw-data preprocessing, and the result tables
-(``io/export.py``, imported from there: its figure writers wait for
-ROADMAP.md queue 1 item 8d-figures)."""
+loading and scaling, raw-data preprocessing, and the result writers
+(``io/export.py``, imported from there: the tables, and the figures, PDF
+and animation drawn by :mod:`phoskintime_tpu_torch.report.draw`)."""
 
 from phoskintime_tpu_torch.io.load import (  # noqa: F401
     explode_kinase_sets,

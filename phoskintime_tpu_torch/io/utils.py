@@ -15,6 +15,7 @@ import os
 import shutil
 
 import numpy as np
+import torch
 
 #: the cells pandas' ``read_csv`` reads as missing by default
 NA_STRINGS = frozenset({
@@ -68,6 +69,13 @@ def _cell(v) -> str:
     if isinstance(v, (float, np.floating)):
         return repr(float(v))
     return str(v)
+
+
+def host(x) -> np.ndarray:
+    """A tensor or array as a float64 numpy array on the host."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float64).numpy()
+    return np.asarray(x, float)
 
 
 def n_rows(table: dict) -> int:

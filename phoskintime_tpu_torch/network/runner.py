@@ -19,16 +19,17 @@ can be called on their own:
    sensitivity, the 7-day steady-state check, the influence sweep with its
    time-slider network, the global knockout explorer (one batched ETD2RK
    simulation of every kinase knockout and the wild type), the live
-   re-simulating explorer, the mechanistic discovery tables and
-   ``report.html``.
+   re-simulating explorer, the mechanistic discovery tables, the figures
+   (the correlation heatmap, the GOF panels, ``S_rates_report.pdf``, the
+   convergence plot, the population animation ``optimization_history.gif``,
+   the per-gene time series, ``pareto_3d.png``, ``convergence.png``,
+   ``pareto_parallel.png``), the dashboard bundle and ``report.html``,
+   which embeds every PNG.
 
 Each stage is timed by :func:`~phoskintime_tpu_torch.parallel.profile.timed`
-(ended by a synchronize of the card). The pickle holds numpy arrays, so a
-JAX user can read it. The figures, PDF and video of steps 8 and 11
-(``pareto_3d.png``, ``S_rates_report.pdf``, the GOF panels, the per-gene
-time series, ...) and the dashboard bundle are not ported yet (ROADMAP.md
-queue 1 item 8d-figures), so ``report.html`` holds the title alone. A
-``mesh`` raises (item 1b).
+(ended by a synchronize of the card); the figure writers' seconds add up
+under ``figures``. The pickles hold numpy arrays, so a JAX user can read
+the fit's. A ``mesh`` raises (item 1b).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ import torch
 
 from phoskintime_tpu_torch.config.logconf import setup_logger
 from phoskintime_tpu_torch.config.numerics import DEFAULT_DEVICE, numpy_dtype, resolve_device
-from phoskintime_tpu_torch.io.utils import take, write_csv
+from phoskintime_tpu_torch.io.utils import host, take, write_csv
 from phoskintime_tpu_torch.parallel.profile import timed
 
 logger = setup_logger()
@@ -189,11 +190,14 @@ def best_params(problem: Problem, theta) -> dict:
 
 def write_outputs(problem: Problem, res, out_dir: str) -> dict:
     """Steps 8-11 from a fit result with ``X``, ``F``, ``pareto_X``,
-    ``pareto_F``, ``best_idx`` and ``history`` (numpy): the files of the
-    JAX runner but its figures and dashboard bundle, in its order. Returns
-    {"params_best", "predictions", "sensitivity", "steady_state",
-    "kinase_dominance", "seconds"}: the seconds of the exports, the
-    sensitivity, the steady state and the analyses (:func:`timed`)."""
+    ``pareto_F``, ``best_idx``, ``history`` (numpy) and, where the fit
+    collected them, ``pop_history`` snapshots (the animation): the files of
+    the JAX runner, its figures in its order. Returns {"params_best",
+    "predictions", "sensitivity", "steady_state", "kinase_dominance",
+    "seconds"}: the seconds of the exports (the correlation heatmap, drawn
+    at most 200 parameters, with its table), the figures (with the
+    dashboard bundle), the sensitivity, the steady state and the analyses
+    (:func:`timed`)."""
     from phoskintime_tpu_torch.analysis.influence import (export_global_knockout_explorer,
                                                           export_influence_sweep)
     from phoskintime_tpu_torch.analysis.insights import run_mechanistic_discovery
@@ -202,6 +206,8 @@ def write_outputs(problem: Problem, res, out_dir: str) -> dict:
     from phoskintime_tpu_torch.network.analysis import kinase_dominance, simulate_until_steady
     from phoskintime_tpu_torch.network.sensitivity import run_sensitivity_analysis
     from phoskintime_tpu_torch.network.simulate import simulate_and_measure
+    from phoskintime_tpu_torch.report import plotter
+    from phoskintime_tpu_torch.report.dashboard import save_dashboard_bundle
     from phoskintime_tpu_torch.report.html import create_report
     from phoskintime_tpu_torch.report.interactive import pareto_explorer_from_frames
     from phoskintime_tpu_torch.report.live_model import write_live_model_explorer
@@ -224,7 +230,7 @@ def write_outputs(problem: Problem, res, out_dir: str) -> dict:
         # ---- 8. best-solution exports -------------------------------------
         theta_best = pareto_X[res.best_idx]
         params_best = best_params(p, theta_best)
-        params_np = {k: ex.host(v) for k, v in params_best.items()}
+        params_np = {k: host(v) for k, v in params_best.items()}
         dfp_fit, dfr_fit, dfph_fit = simulate_and_measure(system, params_best, p.tp_p,
                                                           p.tp_r, p.tp_p, y0=y0)
         ex.export_pareto(at("pareto.xlsx"), pareto_X, pareto_F)
@@ -236,7 +242,8 @@ def write_outputs(problem: Problem, res, out_dir: str) -> dict:
         ex.export_residuals(at("residuals.xlsx"), p.df_prot, dfp_fit, ["protein"])
         ex.export_param_distributions(at("param_distributions.xlsx"), pareto_X, p.slices,
                                       topo)
-        ex.export_param_correlations(at("param_correlations.xlsx"), pareto_X, p.slices, topo)
+        ex.export_param_correlations(at("param_correlations.xlsx"), pareto_X, p.slices, topo,
+                                     heatmap_path=at("param_correlations.png"))
         ex.export_S_rates(system, params_np, out_dir)
         ex.scan_prior_reg(out_dir)
         n_top = min(3, len(pareto_X))
@@ -250,7 +257,18 @@ def write_outputs(problem: Problem, res, out_dir: str) -> dict:
         if all(t is not None for t in trajs):
             pareto_explorer_from_frames(at("pareto_interactive.html"), pareto_F, res.best_idx,
                                         *trajs, p.df_prot, p.df_rna, p.df_pho)
+
+    # ---- 8. the figures, in the JAX runner's order ---------------------------
+    with timed("figures", logger, system.device, seconds):
+        if all(t is not None for t in trajs):
+            ex.plot_gof_solutions(*trajs, p.df_prot, p.df_rna, p.df_pho, at("gof_solutions"))
+        if topo.total_sites:
+            ex.plot_s_rates_report(at("S_rates_picked.csv"), at("S_rates_report.pdf"))
         ex.process_convergence_history(res.history, out_dir)
+        if getattr(res, "pop_history", None):
+            ex.create_convergence_video(res.pop_history, pareto_F, out_dir)
+        ex.save_all_gene_timeseries(p.df_prot, dfp_fit, p.df_rna, dfr_fit, p.df_pho, dfph_fit,
+                                    at("gene_timeseries"))
 
     # ---- 9. sensitivity ----------------------------------------------------
     sens = None
@@ -283,7 +301,19 @@ def write_outputs(problem: Problem, res, out_dir: str) -> dict:
                    "ss_value": np.asarray(ss.ss_value, float)})
         run_mechanistic_discovery(system, params_best, p.df_tf, out_dir=out_dir)
 
-        # ---- 11. the report (the figures wait for item 8d-figures) ----------
+    # ---- 11. figures, the dashboard bundle and the report ------------------
+    with timed("figures", logger, system.device, seconds):
+        plotter.plot_pareto_3d(pareto_F, at("pareto_3d.png"), best_idx=res.best_idx)
+        plotter.plot_convergence(res.history, at("convergence.png"))
+        plotter.plot_parallel_coords_pareto(pareto_F, at("pareto_parallel.png"))
+        save_dashboard_bundle(
+            at("dashboard_bundle.pkl"), pareto_X=pareto_X, pareto_F=pareto_F,
+            best_idx=res.best_idx, df_prot=p.df_prot, df_rna=p.df_rna, df_pho=p.df_pho,
+            pred_prot=dfp_fit, pred_rna=dfr_fit, pred_pho=dfph_fit, params=params_best,
+            topo_summary={"N": topo.N, "K": topo.K, "total_sites": topo.total_sites,
+                          "orphans_rewired": len(topo.proxy_map), "model": topo.model},
+            history=res.history)
+    with timed("analyses", logger, system.device, seconds):
         create_report(out_dir, title="phoskintime-tpu global model")
     return dict(params_best=params_best, predictions=(dfp_fit, dfr_fit, dfph_fit),
                 sensitivity=sens, steady_state=ss, kinase_dominance=dom, seconds=seconds)
@@ -295,7 +325,7 @@ def main(cfg, mesh=None, out_dir=None, weighting=None, device=DEFAULT_DEVICE,
     (default: the card; raises where there is none) into ``out_dir``
     (default: the config's ``output_dir`` under its root). Returns the
     result bundle with ``seconds``, each stage's wall clock: prepare, fit,
-    exports, sensitivity, steady_state, analyses."""
+    exports, figures, sensitivity, steady_state, analyses."""
     if mesh is not None:
         raise NotImplementedError("population sharding (mesh=...) is not ported yet "
                                   "(ROADMAP.md queue 1 item 1b)")

@@ -50,11 +50,11 @@ def timed(label: str, logger=None, device=None, into: dict | None = None):
     """Wall-clock seconds of the block, ended by a synchronize of
     ``device`` (a CUDA device) or, with none given, of the card where CUDA
     is in use; logged (or printed) as ``[timing] <label>: <s>s`` and, with
-    ``into``, stored as ``into[label]``."""
+    ``into``, added to ``into[label]`` (so that blocks of one label sum)."""
     t0 = time.perf_counter()
     yield
     _synchronize(device)
     seconds = time.perf_counter() - t0
     if into is not None:
-        into[label] = seconds
+        into[label] = into.get(label, 0.0) + seconds
     (logger.info if logger else print)(f"[timing] {label}: {seconds:.3f}s")

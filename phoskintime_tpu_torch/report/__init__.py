@@ -1,16 +1,22 @@
-"""Reporting layer, the half that draws no figure: the HTML report and its
-table writer, the interactive explorers (fits and knockouts, the Pareto
-front, the live re-simulating model), the live fit monitor and the LaTeX
-emitters.
+"""Reporting layer: the HTML report and its table writer, the interactive
+explorers (fits and knockouts, the Pareto front, the live re-simulating
+model), the live fit monitor, the LaTeX emitters, the drawing layer
+(``draw``: PNG, PDF and GIF without matplotlib), the global model's
+figures (``plotter``) and the dashboard (``dashboard``).
 
-Counterpart of ``phoskintime_tpu/report`` less its figure half: the
-matplotlib plot suite (``plotter``), the reaction diagrams (``diagram``,
-``schematic``), the kinopt/tfopt apps (``apps``) and the dashboard
-(``dashboard``) are not ported yet (ROADMAP.md queue 1 item 8d-figures),
-and every name of theirs that the JAX package's ``report`` exports raises
-``NotImplementedError`` here.
+Counterpart of ``phoskintime_tpu/report``. Part 2 of ROADMAP.md queue 1
+item 8d-figures still owes the per-gene ``Plotter`` (it raises when
+built), the reaction diagrams (``diagram``, ``schematic``) and the
+kinopt/tfopt apps (``apps``): every name of theirs that the JAX package's
+``report`` exports raises ``NotImplementedError`` here.
 """
 
+from phoskintime_tpu_torch.report.dashboard import (  # noqa: F401
+    load_dashboard_bundle,
+    render_dashboard,
+    run_dashboard,
+    save_dashboard_bundle,
+)
 from phoskintime_tpu_torch.report.html import create_report, table_html  # noqa: F401
 from phoskintime_tpu_torch.report.interactive import (  # noqa: F401
     pareto_explorer_from_frames,
@@ -24,17 +30,22 @@ from phoskintime_tpu_torch.report.latexit import (  # noqa: F401
 )
 from phoskintime_tpu_torch.report.live import LiveMonitor  # noqa: F401
 from phoskintime_tpu_torch.report.live_model import write_live_model_explorer  # noqa: F401
+from phoskintime_tpu_torch.report.plotter import (  # noqa: F401
+    Plotter,
+    plot_convergence,
+    plot_parallel_coords_pareto,
+    plot_pareto_3d,
+)
 
-#: the figure half's modules and the names the JAX package's ``report`` exports from them
-FIGURE_HALF = frozenset({
-    "plotter", "diagram", "schematic", "apps", "dashboard", "illustrate", "render_kinopt_app",
-    "render_tfopt_app", "Plotter", "plot_convergence", "plot_parallel_coords_pareto",
-    "plot_pareto_3d"})
+#: the modules part 2 of item 8d-figures owes and the names the JAX
+#: package's ``report`` exports from them
+FIGURE_PART2 = frozenset({"diagram", "schematic", "apps", "illustrate", "render_kinopt_app",
+                          "render_tfopt_app"})
 
 
 def __getattr__(name: str):
-    if name in FIGURE_HALF:
+    if name in FIGURE_PART2:
         raise NotImplementedError(
-            f"report.{name} draws figures, which are not ported yet (ROADMAP.md queue 1 "
-            "item 8d-figures)")
+            f"report.{name} draws figures that are not ported yet (ROADMAP.md queue 1 "
+            "item 8d-figures, part 2)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -19,8 +19,7 @@ import os
 
 import numpy as np
 
-from phoskintime_tpu_torch.io.export import host
-from phoskintime_tpu_torch.io.utils import is_missing, n_rows
+from phoskintime_tpu_torch.io.utils import host, is_missing, n_rows
 
 _CSS = """
 body { font-family: -apple-system, 'Segoe UI', Roboto, sans-serif;

@@ -23,7 +23,7 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from phoskintime_tpu_torch.io.export import host as host_array
+from phoskintime_tpu_torch.io.utils import host as host_array
 
 _PAGE = """<!doctype html>
 <html><head><title>phoskintime-tpu live fit</title>

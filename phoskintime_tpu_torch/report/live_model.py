@@ -25,8 +25,7 @@ import os
 
 import numpy as np
 
-from phoskintime_tpu_torch.io.export import host
-from phoskintime_tpu_torch.io.utils import is_missing, n_rows
+from phoskintime_tpu_torch.io.utils import host, is_missing, n_rows
 from phoskintime_tpu_torch.report import live_constants as _lmc
 
 

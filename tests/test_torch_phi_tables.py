@@ -55,8 +55,9 @@ def assert_scaled_close(got, want, atol):
 
 def test_package_imports_without_jax():
     """Every module of the port, and chip_smoke.py, in a fresh interpreter:
-    none loads JAX, the JAX package, pandas or matplotlib (the card's
-    machine has neither of the last two), and none turns on TF32 matmuls.
+    none loads JAX, the JAX package, pandas, matplotlib or PIL (the card's
+    machine has none of the last three: the port draws its figures with
+    its own ``report/draw``), and none turns on TF32 matmuls.
     ``__main__`` runs the command line when imported, so it is read, not
     imported."""
     root = Path(__file__).resolve().parent.parent
@@ -80,7 +81,10 @@ def test_package_imports_without_jax():
                 "analysis", "analysis.postfit", "analysis.insights", "analysis.influence",
                 "analysis.mechanisms", "analysis.network_tools", "parallel.profile",
                 "report", "report.html", "report.interactive", "report.live_constants",
-                "report.live_model", "report.live", "report.latexit"):
+                "report.live_model", "report.live", "report.latexit", "report.draw",
+                "report.draw.figure", "report.draw.raster", "report.draw.png",
+                "report.draw.pdf", "report.draw.gif", "report.draw.font",
+                "report.draw.colors", "report.plotter", "report.dashboard"):
         assert f"phoskintime_tpu_torch.{new}" in mods, new
     code = ("import importlib, sys; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
@@ -88,15 +92,15 @@ def test_package_imports_without_jax():
             "or m == 'phoskintime_tpu' or m.startswith('phoskintime_tpu.') "
             "or m == 'pandas' or m.startswith('pandas.') "
             "or m == 'matplotlib' or m.startswith('matplotlib.') "
-            "or m.split('.')[0] in ('plotly', 'streamlit')]; "
+            "or m.split('.')[0] in ('PIL', 'plotly', 'streamlit')]; "
             "import torch; tf32 = torch.backends.cuda.matmul.allow_tf32; "
             "print(bad, tf32); sys.exit(1 if bad or tf32 else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stdout + out.stderr
     # nor inside a function: no source line of the port imports pandas,
-    # matplotlib, plotly, streamlit or JAX
-    lazy = re.compile(r"^\s*(import|from)\s+(pandas|matplotlib|plotly|streamlit|jax|"
+    # matplotlib, PIL, plotly, streamlit or JAX
+    lazy = re.compile(r"^\s*(import|from)\s+(pandas|matplotlib|PIL|plotly|streamlit|jax|"
                       r"phoskintime_tpu)(\.|\s|$)")
     for path in [*(root / "phoskintime_tpu_torch").rglob("*.py"), root / "chip_smoke.py"]:
         bad = [ln for ln in path.read_text().splitlines() if lazy.match(ln)]

@@ -24,6 +24,7 @@ import pytest
 import torch
 from test_torch_export import ATOL_HTML, assert_same_html, assert_same_json, split_html
 from test_torch_io import columns_of
+from torch_figures import assert_same_records, capture_jax, capture_port
 
 import phoskintime_tpu.analysis.influence as jinfl
 import phoskintime_tpu.report.interactive as jinter
@@ -360,17 +361,21 @@ def selection_table(rng, rows: int) -> dict:
 @pytest.mark.parametrize("rows", [1, 4])
 def test_mechanism_selection_html_matches_jax(tmp_path, bundles, rows):
     """``mechanism_selection.html`` from the same table: JAX's bytes; the
-    selection sheets as JAX's."""
+    selection sheets as JAX's; the two overlays (``overlay_protein.png``,
+    ``overlay_rna.png``) drawing what JAX's draw (``tests/torch_figures.py``)."""
     bj, bp = bundles
     table = selection_table(np.random.default_rng(rows), rows)
     jtrajs = {int(m): tuple(bj[k].rename(columns={"fc": "pred_fc"})
                             for k in ("df_prot", "df_rna", "df_pho")) for m in table["model"]}
     trajs = {m: tuple(columns_of(t) for t in v) for m, v in jtrajs.items()}
-    jpaths = jax_selection(frame(table), jtrajs, (bj["df_prot"], bj["df_rna"], bj["df_pho"]),
-                           str(tmp_path / "j"))
-    paths = _write_selection_artifacts(table, trajs, (bp["df_prot"], bp["df_rna"],
-                                                      bp["df_pho"]), str(tmp_path / "p"))
-    assert set(paths) == {"table", "html"}
+    with capture_jax() as want:
+        jpaths = jax_selection(frame(table), jtrajs,
+                               (bj["df_prot"], bj["df_rna"], bj["df_pho"]), str(tmp_path / "j"))
+    with capture_port() as got:
+        paths = _write_selection_artifacts(table, trajs, (bp["df_prot"], bp["df_rna"],
+                                                          bp["df_pho"]), str(tmp_path / "p"))
+    assert list(paths) == list(jpaths) == ["table", "overlay_protein", "overlay_rna", "html"]
+    assert_same_records(got, want, tmp_path / "p", tmp_path / "j")
     assert text(paths["html"]) == text(jpaths["html"])
     assert [p.rsplit("/", 1)[1] for p in paths["table"]] == [
         p.rsplit("/", 1)[1] for p in jpaths["table"]]
@@ -426,17 +431,21 @@ def test_live_monitor_serves_state():
 
 
 def test_report_package_exports_the_html_half():
-    """``report`` exports the writers this slice ports; the figure half's
-    names raise naming item 8d."""
+    """``report`` exports the writers the port has (the HTML half and the
+    global model's figures and dashboard); the names part 2 of item
+    8d-figures owes raise naming it, and the per-gene ``Plotter`` raises
+    when built."""
     for name in ("create_report", "table_html", "write_interactive_explorer",
                  "write_pareto_explorer", "pareto_explorer_from_frames",
                  "write_live_model_explorer", "LiveMonitor", "dataframe_to_latex",
-                 "figure_to_latex", "write_latex_report"):
+                 "figure_to_latex", "write_latex_report", "plot_pareto_3d", "plot_convergence",
+                 "plot_parallel_coords_pareto", "save_dashboard_bundle", "render_dashboard"):
         assert callable(getattr(report, name)), name
-    for name in ("plotter", "diagram", "schematic", "apps", "dashboard", "illustrate",
-                 "Plotter", "plot_pareto_3d", "render_kinopt_app"):
+    for name in ("diagram", "schematic", "apps", "illustrate", "render_kinopt_app"):
         with pytest.raises(NotImplementedError, match="item 8d"):
             getattr(report, name)
+    with pytest.raises(NotImplementedError, match="item 8d"):
+        report.Plotter("GA", "out")
     with pytest.raises(AttributeError):
         report.nothing_here        # noqa: B018
 

@@ -4,21 +4,23 @@ CPU.
 
 * ``prepare`` (the runner's steps 1-5) against JAX's steps called one by
   one, float32 as both runners build the system: equal.
-* ``write_outputs`` (steps 8-10) fed JAX's own fit result on a float64
+* ``write_outputs`` (steps 8-11) fed JAX's own fit result on a float64
   system in both packages: every file the port writes against JAX's at
-  1e-9 (of each column's largest magnitude).
+  1e-9 (of each column's largest magnitude), the dashboard bundle's
+  DataFrames column by column against the port's dicts, ``report.html``
+  with its embedded images masked, and what every figure, PDF page and
+  animation frame draws (``tests/torch_figures.py``) against JAX's.
 * ``global-model`` end to end through ``cli.main`` on a 7-protein project
   (pop 16, 2 generations, 2 Morris trajectories): its file set equals the
-  JAX CLI's at the same config less ``PENDING_8D``, the figures, PDF,
-  video and dashboard bundle that wait for ROADMAP.md item 8d-figures. The
-  GA's float32 trajectory is not compared: two float32 GAs part on
+  JAX CLI's at the same config, figures included
+  (``optimization_history.gif`` on both sides: there is no ffmpeg here).
+  The GA's float32 trajectory is not compared: two float32 GAs part on
   near-ties.
 * The CLI: the parser's subcommands, destinations and defaults against
   JAX's ``build_parser()`` (``--device`` aside), ``prep``, ``kinopt`` and
   ``tfopt --mode local``, ``model``, ``clean``, the commands that raise.
 """
 
-import fnmatch
 import os
 import pickle
 import shutil
@@ -36,6 +38,7 @@ import torch
 from test_torch_export import RTOL_COMPUTED, assert_same_files, written
 from test_torch_io import columns_of, write_raw
 from test_torch_report import assert_same_knockout_page
+from torch_figures import assert_same_records, capture_jax, capture_port
 from torch_project import write_project
 
 import phoskintime_tpu.cli as jcli
@@ -63,16 +66,6 @@ from phoskintime_tpu_torch.network import runner
 torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parent.parent
 RTOL_MORRIS = 1e-8      # as tests/test_torch_sensitivity.py, scaled by the largest index
-
-#: what the JAX ``global-model`` writes and the port does not yet: its
-#: figures, PDF, video and the dashboard bundle (ROADMAP.md item 8d-figures)
-PENDING_8D = ("S_rates_report.pdf", "convergence.png", "convergence_plot.png",
-              "dashboard_bundle.pkl", "optimization_history.*", "param_correlations.png",
-              "pareto_3d.png", "pareto_parallel.png", "gene_timeseries/*", "gof_solutions/*")
-
-
-def pending(name: str) -> bool:
-    return any(fnmatch.fnmatch(name, pat) for pat in PENDING_8D)
 
 
 # ---------------------------------------------------------------------------
@@ -119,15 +112,14 @@ def jax_prepare(cfg, dtype):
 
 
 def jax_write_outputs(cfg, j, res, out_dir, seen=None):
-    """``phoskintime_tpu/network/runner.py:143-290`` at the system's dtype,
-    without the figure, PDF, video and dashboard writers (item
-    8d-figures). ``seen`` receives what the knockout explorer's writer was
-    given."""
+    """``phoskintime_tpu/network/runner.py:143-318`` at the system's dtype.
+    ``seen`` receives what the knockout explorer's writer was given."""
     from phoskintime_tpu.analysis.influence import (export_global_knockout_explorer,
                                                     export_influence_sweep)
     from phoskintime_tpu.analysis.insights import run_mechanistic_discovery
     from phoskintime_tpu.io.load import read_table
-    from phoskintime_tpu.report import interactive
+    from phoskintime_tpu.report import interactive, plotter
+    from phoskintime_tpu.report.dashboard import save_dashboard_bundle
     from phoskintime_tpu.report.html import create_report
     from phoskintime_tpu.report.live_model import write_live_model_explorer
 
@@ -152,7 +144,8 @@ def jax_write_outputs(cfg, j, res, out_dir, seen=None):
     jex.export_residuals(at("residuals.xlsx"), j.df_prot, dfp_fit, ["protein"])
     jex.export_param_distributions(at("param_distributions.xlsx"), res.pareto_X, j.slices,
                                    topo)
-    jex.export_param_correlations(at("param_correlations.xlsx"), res.pareto_X, j.slices, topo)
+    jex.export_param_correlations(at("param_correlations.xlsx"), res.pareto_X, j.slices, topo,
+                                  heatmap_path=at("param_correlations.png"))
     jex.export_S_rates(system, params_best, out_dir)
     jex.scan_prior_reg(out_dir)
     top_idx = np.argsort(res.pareto_F.sum(axis=1))[:min(3, len(res.pareto_X))]
@@ -162,9 +155,16 @@ def jax_write_outputs(cfg, j, res, out_dir, seen=None):
                                    at("pareto_trajectories.xlsx"), top_idx=top_idx)
     trajs = [read_table(at("pareto_trajectories.xlsx"), sheet_name=f"traj_{m}")
              for m in ("protein", "rna", "phospho")]
+    jex.plot_gof_solutions(*trajs, j.df_prot, j.df_rna, j.df_pho, at("gof_solutions"))
     interactive.pareto_explorer_from_frames(at("pareto_interactive.html"), res.pareto_F,
                                             res.best_idx, *trajs, j.df_prot, j.df_rna, j.df_pho)
+    if topo.total_sites:
+        jex.plot_s_rates_report(at("S_rates_picked.csv"), at("S_rates_report.pdf"))
     jex.process_convergence_history(res.history, out_dir)
+    if getattr(res, "pop_history", None):
+        jex.create_convergence_video(res.pop_history, res.pareto_F, out_dir)
+    jex.save_all_gene_timeseries(j.df_prot, dfp_fit, j.df_rna, dfr_fit, j.df_pho, dfph_fit,
+                                 at("gene_timeseries"))
     sens = jax_sensitivity(system, j.slices, theta_best, j.grid,
                            perturbation=cfg.sensitivity_perturbation,
                            n_trajectories=cfg.sensitivity_trajectories,
@@ -192,11 +192,17 @@ def jax_write_outputs(cfg, j, res, out_dir, seen=None):
                   "final_rate": ss.final_rate, "ss_value": ss.ss_value}
                  ).to_csv(at("steady_state_check.csv"), index=False)
     run_mechanistic_discovery(system, params_best, j.df_tf, out_dir=out_dir)
-    # the report embeds every PNG of the folder: the one figure written
-    # above (the convergence plot, item 8d-figures) goes first, as the port
-    # writes none
-    for png in Path(out_dir).rglob("*.png"):
-        png.unlink()
+    plotter.plot_pareto_3d(res.pareto_F, at("pareto_3d.png"), best_idx=res.best_idx)
+    plotter.plot_convergence(res.history, at("convergence.png"))
+    plotter.plot_parallel_coords_pareto(res.pareto_F, at("pareto_parallel.png"))
+    save_dashboard_bundle(
+        at("dashboard_bundle.pkl"), pareto_X=res.pareto_X, pareto_F=res.pareto_F,
+        best_idx=res.best_idx, df_prot=j.df_prot, df_rna=j.df_rna, df_pho=j.df_pho,
+        pred_prot=dfp_fit, pred_rna=dfr_fit, pred_pho=dfph_fit,
+        params={k: np.asarray(v) for k, v in params_best.items()},
+        topo_summary={"N": topo.N, "K": topo.K, "total_sites": topo.total_sites,
+                      "orphans_rewired": len(topo.proxy_map), "model": topo.model},
+        history=res.history)
     create_report(out_dir, title="phoskintime-tpu global model")
 
 
@@ -297,14 +303,17 @@ def test_prepare_matches_jax_steps(project):
 
 
 def test_write_outputs_matches_jax(tmp_path, project):
-    """Steps 8-10 fed JAX's own fit result (``run_global_fit`` at float64,
+    """Steps 8-11 fed JAX's own fit result (``run_global_fit`` at float64,
     pop 16, 2 generations, over a [0.05, 0.3] box for every rate, so that
     the 7-day RK45 check stays short on this CPU): every file the port
     writes equals JAX's at 1e-9 of each column's largest magnitude, and
-    the port writes every file JAX does but its figures. The HTML pages are
-    JAX's outside their JSON, whose numbers agree within 1e-4 (the
-    writers' rounding unit), the knockout explorer's as
-    ``tests/test_torch_report.py`` holds it. The Morris arrays
+    the port writes every file JAX does. The HTML pages are JAX's outside
+    their JSON, whose numbers agree within 1e-4 (the writers' rounding
+    unit), and their embedded images, the knockout explorer's as
+    ``tests/test_torch_report.py`` holds it; the dashboard bundle's
+    DataFrames column by column against the port's dicts; every figure,
+    PDF page and animation frame as ``tests/test_torch_figures.py`` holds
+    them. The Morris arrays
     are held at 1e-8 of their largest magnitude, the tolerance of
     ``tests/test_torch_sensitivity.py``: an elementary effect divides the
     RK45 runs' last-bit differences by its small step (7.5e-9 of sigma's
@@ -325,9 +334,13 @@ def test_write_outputs_matches_jax(tmp_path, project):
                   df_rna=j.df_rna, df_pho=j.df_pho, t_points=(j.tp_p, j.tp_r, j.tp_p))
     dj, dp = tmp_path / "jax", tmp_path / "port"
     seen = {}
-    jax_write_outputs(jcfg, j, res, str(dj), seen)
+    with capture_jax() as want:
+        jax_write_outputs(jcfg, j, res, str(dj), seen)
     p = runner.prepare(cfg, device="cpu", dtype=torch.float64)
-    out = runner.write_outputs(p, res, str(dp))
+    with capture_port() as got:
+        out = runner.write_outputs(p, res, str(dp))
+    assert_same_records(got, want, dp, dj)
+    assert written(dp) == written(dj)
     ss = read_csv(dj / "steady_state_check.csv")
     times = np.unique(np.concatenate(            # simulate_until_steady's grid
         [[0.0], np.logspace(np.log10(0.5), np.log10(jana.MINUTES_7_DAYS), 120)]))
@@ -338,18 +351,36 @@ def test_write_outputs_matches_jax(tmp_path, project):
                           assert_same_knockout_page, seen=seen)})
     assert {"pareto_interactive.html", "report.html", "influence/global_knockouts.html",
             "influence/influence_network.html", "influence/live_explorer.html"} <= written(dp)
-    assert set(out["seconds"]) == {"exports", "sensitivity", "steady_state", "analyses"}
+    assert set(out["seconds"]) == {"exports", "figures", "sensitivity", "steady_state",
+                                   "analyses"}
+    assert {"S_rates_report.pdf", "optimization_history.gif", "dashboard_bundle.pkl",
+            "param_correlations.png"} <= written(dp)
+    assert any(f.startswith("gof_solutions/gof_sol") for f in written(dp))
 
 
 def test_global_model_writes_jax_files(global_runs):
     """The port's ``global-model`` writes every file of the JAX CLI's at
-    the same config except ``PENDING_8D``, and no other."""
-    jax_files = written(global_runs.jax)
-    want = {f for f in jax_files if not pending(f)}
-    got = written(global_runs.port)
+    the same config, figures, PDF, animation and dashboard bundle
+    included, and no other; the GOF figures are each run's own top
+    solutions (the two float32 GAs' fronts differ), one a solution of its
+    trajectory summary."""
+    def gof(d):
+        return {f for f in written(d) if f.startswith("gof_solutions/")}
+
+    def top_ids(d):
+        ids = read_csv(d / "pareto_trajectories_summary.csv")["sol_id"]
+        return {f"gof_solutions/gof_sol{int(i)}.png" for i in ids}
+    want = written(global_runs.jax) - gof(global_runs.jax)
+    got = written(global_runs.port) - gof(global_runs.port)
     assert got == want, (sorted(got - want), sorted(want - got))
-    for pat in PENDING_8D:
-        assert any(fnmatch.fnmatch(f, pat) for f in jax_files), pat
+    assert gof(global_runs.port) == top_ids(global_runs.port)
+    assert gof(global_runs.jax) == top_ids(global_runs.jax)
+    got = written(global_runs.port)
+    for name in ("S_rates_report.pdf", "convergence.png", "convergence_plot.png",
+                 "dashboard_bundle.pkl", "optimization_history.gif", "param_correlations.png",
+                 "pareto_3d.png", "pareto_parallel.png", "gene_timeseries/ts_GA.png",
+                 "gof_solutions/"):
+        assert any(f.startswith(name) for f in got), name
 
 
 def test_global_model_outputs(global_runs):
@@ -357,8 +388,8 @@ def test_global_model_outputs(global_runs):
     finite Morris arrays, the written front's F equal to a re-evaluation of
     its X, and a pickle of numpy arrays."""
     out, d = global_runs.out, global_runs.port
-    assert set(out["seconds"]) == {"prepare", "fit", "exports", "sensitivity", "steady_state",
-                                   "analyses"}
+    assert set(out["seconds"]) == {"prepare", "fit", "exports", "figures", "sensitivity",
+                                   "steady_state", "analyses"}
     ss = read_csv(d / "steady_state_check.csv")
     assert ss["protein"].tolist() == out["topo"].proteins
     sens = np.load(d / "sensitivity.npz")
@@ -377,16 +408,17 @@ def test_global_model_outputs(global_runs):
 
 
 def test_chip_smoke_expects_the_cpu_file_set(global_runs):
-    """``chip_smoke.py``'s phase-13 file set is this run's, with the bench
-    network's first two kinases in the cascade names."""
+    """``chip_smoke.py``'s phase-13 file set, derived from the run as the
+    script derives it on the card, is this run's (the cascades of the first
+    two kinases, a time-series figure a protein, a GOF figure a top
+    solution, the figures)."""
     import chip_smoke
 
     kin = global_runs.out["topo"].kinases[:2]
-    got = {f for f in written(global_runs.port) if not f.startswith("influence/cascade_")}
-    want = {f for f in chip_smoke.RUNNER_FILES if not f.startswith("influence/cascade_")}
-    assert got == want
-    assert {f"influence/cascade_{k}.csv" for k in kin} <= written(global_runs.port)
-    assert sum(f.startswith("influence/cascade_") for f in chip_smoke.RUNNER_FILES) == 2
+    got = written(global_runs.port)
+    assert got == chip_smoke.runner_files(global_runs.port, kin)
+    assert {f"influence/cascade_{k}.csv" for k in kin} <= got
+    assert {f"gene_timeseries/ts_{p}.png" for p in global_runs.out["topo"].proteins} <= got
 
 
 def test_mesh_raises():
