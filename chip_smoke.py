@@ -103,7 +103,8 @@ The RK45 oracle path and the steady states:
 7. the global fit: ``run_global_fit`` on the north-star network
    (``build_demo_network(150, 24, seed=1)``, float32, N = 150, 1,103
    parameters) at pop 10,000, by the all-device loop (``gens_per_dispatch=5``,
-   two blocks) and by the default route (device variation, host survival)
+   one block; two before phase 14 came in) and by the default route (device
+   variation, host survival)
    for 1 generation (2 before phase 12 came in): launches, evals/s,
    seconds a generation, the ideal
    point never rising, the survivors' F against a re-evaluation of their X
@@ -267,7 +268,8 @@ network written as input files:
    every subcommand) and an import of the CLI, the runner, the exporters,
    the influence analysis and the report layer (its drawing layer, the
    plotter and the dashboard included) that loads no JAX, JAX package,
-   pandas, matplotlib, PIL, plotly or streamlit;
+   pandas, matplotlib, PIL, plotly, streamlit, sklearn or seaborn (the
+   fit panels, the embeddings and the diagram imported too);
 13b. ``global-model`` through ``cli.main`` in this process at the
    reference's pop 300, 5 generations (cut from 1,000), 1 Morris
    trajectory (cut from 100), no polish: ``phi_tables`` launched once an
@@ -318,10 +320,35 @@ network written as input files:
    written, naming the best mechanism and holding the written
    ModelSelection table as ``table_html`` renders it.
 
+The fit commands' figures (``report/plotter.py``, ``report/diagram.py``,
+``analysis/fitpanels.py``, ``analysis/embed.py``, the readout, KKT and scan
+figures; drawn on the host, no kernel):
+
+14. on the bench inputs of phases 12-13 (the same files, config.toml with
+   the weight fits' sections), each through ``cli.main`` on the card with
+   the counts set to 0 just before and read just after: ``model`` on two
+   genes of 1 and 2 sites (two one-gene cohorts), ``model`` on a gene of
+   3 sites with ``--bootstraps 8 --sensitivity`` (every figure
+   ``process_gene`` draws: the diagram, fit, GOF, KLD, state grid, phase
+   space, CI bars, PCA, parallel coordinates, knockouts, Morris,
+   perturbation cloud), ``kinopt`` and ``tfopt --mode local`` (their
+   fit-analysis panels with t-SNE, the readout figures, the KKT report),
+   ``fitanalysis --which kinopt|tfopt`` from the CSV sheets they wrote:
+   no kernel launched by any; each command's written files equal to the
+   set derived from its run (``model_files``, ``weight_fit_files``,
+   ``panel_files``, which the CPU tests hold against the CPU's runs);
+   every PNG through the script's own decoder; each model folder's
+   ``report.html`` embedding each of its PNGs; each figure writer's calls
+   and seconds and each command's seconds. 12b's scan writes its report
+   (``scan_results_trials.csv`` and the history, importance and
+   parallel-coordinate plots, each PNG decoded) with its launches as
+   before.
+
 ``python3 chip_smoke.py --pergene-only`` runs phase 1 and phase 10 alone
 (no kernel build, no JSON lines); ``--sensitivity-kinopt-only`` runs
 phases 1, 2 and 11, ``--hyperscan-only`` phases 1, 2 and 12,
-``--runner-only`` phases 1, 2 and 13 (no JSON lines).
+``--runner-only`` phases 1, 2 and 13, ``--fitfigures-only`` phases 1, 2
+and 14 (no JSON lines).
 
 The line before the last is a JSON summary of each kernel (the float64
 instances and ``sq_chain`` included, each with the launches of its own main
@@ -444,6 +471,9 @@ F64_SCAN_RTOL, F64_SCAN_ATOL, F64_OBJECTIVE_RTOL = 1e-10, 1e-12, 1e-9
 # the global fit (7): the north-star network and population (bench.py:407-412)
 NORTHSTAR = dict(n_proteins=150, n_kinases=24, seed=1)
 NORTHSTAR_POP = 10_000
+# the all-device route's generations: one block of 5 (two blocks before
+# phase 14 came in, cut to keep the script's time)
+NORTHSTAR_GENS = 5
 FIT_F_RTOL = 1e-3         # survivors' F against a re-evaluation of their X
 # the new kernels against their plain versions, scaled by the largest entry:
 # float32 as the table kernels; float64 rounding only
@@ -2088,7 +2118,7 @@ def fit_route(label, ns, card, n_gen, n_chunks, **kw) -> tuple:
 def phase_global_fit(b, card) -> dict:
     """7: run_global_fit at full width on the north-star network
     (``build_demo_network(150, 24, seed=1)``, float32, bench.py:407-412) at
-    pop 10,000: the all-device loop (gens_per_dispatch=5, two blocks), then
+    pop 10,000: the all-device loop (gens_per_dispatch=5, one block), then
     the default route (device variation, host survival) for 1 generation;
     then one generation of each route profiled; then, on the bench network,
     pop 256 for 5 generations with one refinement round and the Fréchet
@@ -2098,7 +2128,7 @@ def phase_global_fit(b, card) -> dict:
     n_chunks = -(-NORTHSTAR_POP // _auto_pop_chunk(ns["topo"].N))
     say("7 setup", N=ns["topo"].N, K=ns["topo"].K, n_theta=len(ns["theta0"]),
         chunks=n_chunks, seconds=f"{time.perf_counter() - t0:.2f}")
-    dev, dev_launches = fit_route("7 global fit all-device", ns, card, 10, n_chunks,
+    dev, dev_launches = fit_route("7 global fit all-device", ns, card, NORTHSTAR_GENS, n_chunks,
                                   gens_per_dispatch=5)
     host, host_launches = fit_route("7 global fit default", ns, card, 1, n_chunks)
 
@@ -3675,8 +3705,10 @@ def phase_hyperscan(p, root, card) -> dict:
     Returns {path: launches}."""
     cfg = p["cfg"]
     ck = str(root / "scan" / "scan_state.json")
+    report_dir = root / "scan_report"
     kw = dict(inner_gens=cfg.scan_inner_gens, inner_pop=cfg.scan_inner_pop, seed=cfg.seed,
-              loss_mode=cfg.loss, gen_step=HYPERSCAN_GEN_STEP, checkpoint_path=ck)
+              loss_mode=cfg.loss, gen_step=HYPERSCAN_GEN_STEP, checkpoint_path=ck,
+              out_dir=str(report_dir))
     args = (*problem_args(p), p["grid"], p["xl"], p["xu"])
     reset_counts()
     t0 = time.perf_counter()
@@ -3717,6 +3749,15 @@ def phase_hyperscan(p, root, card) -> dict:
     if len(resumed) != HYPERSCAN_RESUME or len(spy2.trials) != HYPERSCAN_RESUME - len(trials) \
             or not kept:
         raise AssertionError("12b: the resume did not load 20 trials and run 2")
+    done = sum(t.state == "complete" for t in resumed)
+    want_files = {"scan_results_trials.csv", "optimization_history.png"}
+    want_files |= {"param_importance.png"} if done >= 3 else set()
+    want_files |= {"parallel_coordinates.png"} if done >= 2 else set()
+    got_files = set(os.listdir(report_dir))
+    sizes = {f: png_check(report_dir / f) for f in sorted(got_files) if f.endswith(".png")}
+    say("12b scan report", files=sorted(got_files), png_sizes=sizes, completed=done)
+    if got_files != want_files:
+        raise AssertionError(f"12b: scan_report wrote {sorted(got_files)}")
     return {f"hyperscan-{cfg.scan_trials}x{cfg.scan_inner_gens}x{cfg.scan_inner_pop}": launches}
 
 
@@ -3939,9 +3980,12 @@ def phase_entry_subprocess(card) -> None:
     code = ("import sys, phoskintime_tpu_torch.cli, phoskintime_tpu_torch.network.runner, "
             "phoskintime_tpu_torch.io.export, phoskintime_tpu_torch.analysis.influence, "
             "phoskintime_tpu_torch.report, phoskintime_tpu_torch.report.draw, "
-            "phoskintime_tpu_torch.report.plotter, phoskintime_tpu_torch.report.dashboard; "
+            "phoskintime_tpu_torch.report.plotter, phoskintime_tpu_torch.report.dashboard, "
+            "phoskintime_tpu_torch.report.diagram, phoskintime_tpu_torch.analysis.fitpanels, "
+            "phoskintime_tpu_torch.analysis.embed; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'pandas', "
-            "'matplotlib', 'PIL', 'plotly', 'streamlit', 'phoskintime_tpu')))")
+            "'matplotlib', 'PIL', 'plotly', 'streamlit', 'sklearn', 'seaborn', "
+            "'phoskintime_tpu')))")
     imported = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                               timeout=120, cwd=root)
     say("13a entry points", help_rc=helped.returncode, missing_commands=missing,
@@ -4518,6 +4562,287 @@ def phase_entry_points(card, b) -> dict:
     return paths
 
 
+# --- 14: the fit commands' figures ---------------------------------------------------------
+
+# phase 14: the commands that write the fit figures, on the bench inputs of
+# phases 12-13 (the same files and config, with the weight fits' sections):
+# ``model`` on three genes of different site counts, two of them as one
+# cohort and one with bootstraps and Morris sensitivity (every writer
+# process_gene calls); ``kinopt`` and ``tfopt --mode local`` with their
+# fit-analysis panels and the KKT report; ``fitanalysis --which kinopt|tfopt``
+# re-rendering the panels from the CSV sheets those runs wrote
+FITFIG_CONFIG = """
+[paths]
+data_dir = "."
+
+[kinopt]
+loss_type = "base"
+scaling_method = "none"
+
+[tfopt]
+loss_type = 5
+
+[ode.inputs]
+protein_excel = "input1.csv"
+"""
+FITFIG_BOOTSTRAPS = 8
+#: the writers timed in phase 14 (module, function or class.method)
+FITFIG_WRITERS = (
+    ("report.diagram", "illustrate"),
+    *(("report.plotter", f"Plotter.{m}") for m in (
+        "plot_model_fit", "plot_gof", "plot_kld", "plot_time_state_grid", "plot_phase_space",
+        "plot_params_bar", "plot_pca", "plot_parallel", "plot_knockouts", "plot_morris",
+        "plot_perturbation_cloud")),
+    *(("analysis.fitpanels", n) for n in (
+        "goodness_of_fit_plot", "kld_plot", "pca_tsne_plots", "param_distribution_panels",
+        "residual_panels", "sankey_html", "important_connections", "alpha_strips_per_mrna",
+        "beta_bars_per_tf")),
+    ("analysis.network_tools", "plot_signal_readout"),
+    ("kinopt.kkt", "plot_constraint_violations"),
+    ("kinopt.kkt", "plot_sensitivity_analysis"),
+    ("report.html", "create_report"),
+)
+KINOPT_SHEETS = ("observed", "estimated", "alpha_values", "beta_values", "residuals",
+                 "kinase_load", "edge_load", "target_fragility", "knockout_effects")
+TFOPT_SHEETS = ("observed", "estimated", "alpha_values", "beta_values", "tf_load", "edge_load",
+                "gene_fragility", "knockout_effects")
+KKT_FILES = ("kkt_summary.tex", "active_constraints.csv", "lagrange_multipliers.csv",
+             "high_sensitivity_sites.csv", "kkt_report.json", "constraint_violations.png",
+             "sensitivity.png")
+PANEL_FILES = ("Goodness_of_Fit.png", "kld.png", "PCA.png", "distribution_parameters.png",
+               "boxplot_parameters.png", "cdf_parameters.png", "violin_parameters.png",
+               "time_residuals.png", "variance_residuals.png", "error_trends.png",
+               "residual_profiles.png", "network_sankey.html", "important_connections.png",
+               "important_connections.csv")
+TFOPT_DETAIL = 12          # fitpanels' max_detail: the mRNAs and TFs drawn one a figure
+
+
+def gene_files(out) -> set:
+    """The figures ``process_gene`` writes for one gene (a ``GeneOutput``),
+    under the JAX pipeline's conditions, relative to the model's out_dir."""
+    g = out.gene
+    names = ["diagram", "model_fit", "gof", "kld", "state_grid", "phase"]
+    res = out.result
+    if res.ci is not None:
+        names.append("params_ci")
+    if res.boot_params is not None and len(res.boot_params) >= 3:
+        names += ["pca", "parallel"]
+    if out.knockout_solutions is not None:
+        names.append("knockouts")
+    if out.sensitivity is not None:
+        names += ["morris", "perturb_0"]
+    return {f"{g}/{g}_{n}.png" for n in names}
+
+
+def model_files(outputs: dict) -> set:
+    """The files ``model`` writes into its out_dir for {gene: GeneOutput}."""
+    files = {"model_results_results.csv", "report.html"}
+    for out in outputs.values():
+        files |= gene_files(out)
+    return files
+
+
+def _sheet(data_dir, which: str, slug: str) -> dict:
+    from phoskintime_tpu_torch.io.utils import read_csv
+
+    return read_csv(f"{data_dir}/{which}_results_{slug}.csv")
+
+
+def panel_files(data_dir, which: str) -> set:
+    """The panels ``fit_analysis_from_workbook`` writes from the sheets in
+    ``data_dir``: the fixed set, t-SNE from 8 profile rows, and for tfopt
+    one alpha strip a mRNA and one beta figure a TF (the first 12 of
+    each)."""
+    est = _sheet(data_dir, which, "estimated")
+    files = set(PANEL_FILES)
+    if len(next(iter(est.values()))) >= 8:
+        files.add("tSNE.png")
+    if which == "tfopt":
+        alpha, beta = _sheet(data_dir, which, "alpha_values"), _sheet(data_dir, which,
+                                                                     "beta_values")
+        mrna = list(dict.fromkeys(str(v) for v in alpha["mRNA"]))[:TFOPT_DETAIL]
+        tfs = list(dict.fromkeys(str(v) for v in beta["TF"]))[:TFOPT_DETAIL]
+        files |= {f"alpha_distribution_{g}.png" for g in mrna}
+        files |= {f"TF_{t}_beta_group.png" for t in tfs}
+    return files
+
+
+def weight_fit_files(data_dir, which: str) -> set:
+    """The files ``kinopt``/``tfopt`` write into the data folder with
+    ``fit_analysis`` on: the result sheets, the panels and the readout
+    figures in ``<which>_fitanalysis/`` and, for kinopt, the KKT report in
+    ``kinopt_kkt/``."""
+    sheets = KINOPT_SHEETS if which == "kinopt" else TFOPT_SHEETS
+    files = {f"{which}_results_{s}.csv" for s in sheets}
+    folder = f"{which}_fitanalysis"
+    files |= {f"{folder}/{f}" for f in panel_files(data_dir, which)}
+    load = _sheet(data_dir, which, "kinase_load" if which == "kinopt" else "tf_load")
+    if len(next(iter(load.values()), ())):
+        files |= {f"{folder}/{which}_{n}.png" for n in ("control_load_top", "breadth_vs_load")}
+    ko = _sheet(data_dir, which, "knockout_effects")
+    if len(ko.get("delta_auc_abs", ())):
+        files |= {f"{folder}/{which}_{n}.png" for n in (
+            "knockout_distribution", "knockout_top_activating", "knockout_top_suppressing")}
+    if which == "kinopt":
+        files |= {f"kinopt_kkt/{f}" for f in KKT_FILES}
+    return files
+
+
+class FigureClock:
+    """Times each of :data:`FITFIG_WRITERS` while the commands run (the
+    calls and the seconds, summed), and keeps the GeneOutput of every
+    ``process_gene`` call."""
+
+    def __init__(self):
+        self.seconds, self.calls, self.genes = {}, {}, {}
+        self.patched = []
+
+    def __enter__(self):
+        def timing(name, fn):
+            def timed_call(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+                self.calls[name] = self.calls.get(name, 0) + 1
+                return out
+            return timed_call
+
+        for mod_name, attr in FITFIG_WRITERS:
+            mod = importlib.import_module(f"phoskintime_tpu_torch.{mod_name}")
+            owner, name = (getattr(mod, attr.split(".")[0]), attr.split(".")[1]) \
+                if "." in attr else (mod, attr)
+            real = getattr(owner, name)
+            self.patched.append((owner, name, real))
+            setattr(owner, name, timing(attr, real))
+        real_gene = pipeline_mod.process_gene
+
+        def gene(*a, **kw):
+            out = real_gene(*a, **kw)
+            self.genes[out.gene] = out
+            return out
+        self.patched.append((pipeline_mod, "process_gene", real_gene))
+        pipeline_mod.process_gene = gene
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in reversed(self.patched):
+            setattr(owner, name, real)
+
+
+def pick_genes(b) -> list:
+    """Three proteins of the bench network with different site counts
+    (1-5), the fewest sites first."""
+    topo = b["topo"]
+    by_count = {}
+    for p, sites in zip(topo.proteins, topo.sites):
+        if 1 <= len(sites) <= 5:
+            by_count.setdefault(len(sites), p)
+    counts = sorted(by_count)
+    if len(counts) < 3:
+        raise AssertionError(f"14: the bench network has site counts {counts} only")
+    return [by_count[n] for n in counts[:3]], counts[:3]
+
+
+def run_command(argv, root) -> tuple[dict, float]:
+    """``cli.main(argv)`` with the counts set to 0 just before; (counts,
+    seconds)."""
+    from phoskintime_tpu_torch import cli
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli.main(argv)
+    torch.cuda.synchronize()
+    return counts(), time.perf_counter() - t0
+
+
+def written_under(root) -> set:
+    from pathlib import Path
+
+    root = Path(root)
+    return {str(p.relative_to(root)) for p in root.rglob("*") if p.is_file()}
+
+
+def phase_fit_figures(card, b) -> None:
+    """14: ``model``, ``kinopt``, ``tfopt`` and ``fitanalysis`` through
+    ``cli.main`` on the card on the bench inputs: no kernel launched on the
+    per-gene and weight-fit paths; each command's written file set equal
+    to the one derived from its run (as the CPU tests derive it); every
+    PNG through the script's own decoder; ``report.html`` embedding each
+    gene's PNGs; each writer's calls and seconds."""
+    import tempfile
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    genes, n_sites = pick_genes(b)
+    with tempfile.TemporaryDirectory(prefix="phoskintime_fitfig_") as tmp:
+        root = Path(tmp)
+        write_reference_inputs(b, root)
+        (root / "kinopt_results_alpha_values.csv").unlink()     # kinopt writes its own
+        (root / "config.toml").write_text(CONFIG_TOML + FITFIG_CONFIG)
+        cfg = str(root / "config.toml")
+        before = written_under(root)
+        launches, seconds, files = {}, {}, {}
+        with FigureClock() as clock:
+            for key, argv in (
+                    ("model-cohort", ["model", "--genes", *genes[:2], "--out-dir",
+                                      str(root / "model_cohort")]),
+                    ("model-boot-sens", ["model", "--genes", genes[2], "--bootstraps",
+                                         str(FITFIG_BOOTSTRAPS), "--sensitivity", "--out-dir",
+                                         str(root / "model_boot")]),
+                    ("kinopt", ["kinopt", "--mode", "local"]),
+                    ("tfopt", ["tfopt", "--mode", "local"])):
+                launches[key], seconds[key] = run_command([*argv, "--config", cfg], root)
+            after_fits = written_under(root)
+            for which in ("kinopt", "tfopt"):
+                key = f"fitanalysis-{which}"
+                launches[key], seconds[key] = run_command(
+                    ["fitanalysis", "--which", which, "--config", cfg, "--out-dir",
+                     str(root / f"rerendered_{which}")], root)
+        new = after_fits - before
+        cohort = {g: clock.genes[g] for g in genes[:2]}
+        files["model-cohort"] = ({f"model_cohort/{f}" for f in model_files(cohort)},
+                                 {f for f in new if f.startswith("model_cohort/")})
+        files["model-boot-sens"] = ({f"model_boot/{f}" for f in model_files(
+            {genes[2]: clock.genes[genes[2]]})}, {f for f in new if f.startswith("model_boot/")})
+        fits = {f for f in new if not f.startswith(("model_cohort/", "model_boot/"))}
+        for which in ("kinopt", "tfopt"):
+            files[which] = (weight_fit_files(root, which),
+                            {f for f in fits if f.startswith(f"{which}_")})
+            files[f"fitanalysis-{which}"] = (
+                {f"rerendered_{which}/{f}" for f in panel_files(root, which)},
+                {f for f in written_under(root) if f.startswith(f"rerendered_{which}/")})
+        pngs = sorted(root.rglob("*.png"))
+        sizes = [png_check(p) for p in pngs]
+        reports = {}
+        for d in ("model_cohort", "model_boot"):
+            page = (root / d / "report.html").read_text()
+            shown = {f.name for f in (root / d).rglob("*.png")}
+            reports[d] = (page.count("<img"), len(shown),
+                          all(f"<figcaption>{n}</figcaption>" in page for n in shown))
+    boot = clock.genes[genes[2]]
+    writer_s = {k: f"{v:.3f}" for k, v in sorted(clock.seconds.items())}
+    total = time.perf_counter() - t0
+    say("14 fit figures", genes=genes, sites=n_sites, bootstraps=FITFIG_BOOTSTRAPS,
+        boot_params=None if boot.result.boot_params is None else len(boot.result.boot_params),
+        sensitivity=boot.sensitivity is not None, launches=launches,
+        files={k: len(got) for k, (_, got) in files.items()},
+        missing={k: sorted(want - got) for k, (want, got) in files.items() if want - got},
+        extra={k: sorted(got - want) for k, (want, got) in files.items() if got - want},
+        pngs=len(pngs), png_px_min=min(sizes) if sizes else None, reports=reports,
+        command_s={k: f"{v:.2f}" for k, v in seconds.items()}, writer_s=writer_s,
+        writer_calls=clock.calls, seconds=f"{total:.1f}", card=repr(card))
+    if any(n != expect() for n in launches.values()):
+        raise AssertionError(f"14: a per-gene or weight-fit path launched a kernel: {launches}")
+    if any(want != got for want, got in files.values()):
+        raise AssertionError("14: a command's written files differ from its run's")
+    if not pngs or any(not (n_img == n_png and all_in) for n_img, n_png, all_in
+                       in reports.values()):
+        raise AssertionError(f"14: report.html does not embed each gene's PNGs: {reports}")
+    if boot.sensitivity is None or boot.result.boot_params is None:
+        raise AssertionError("14: the bootstrap and sensitivity gene ran without them")
+
+
 def population(b, pop: int) -> torch.Tensor:
     """theta0 plus seeded noise, as bench.py and benchmarks/model_rates.py."""
     rng = np.random.default_rng(0)
@@ -4544,6 +4869,13 @@ def main() -> int:
         b = build_demo_network(N_PROTEINS, N_KINASES, seed=0, dtype=torch.float32,
                                device="cuda")
         phase_entry_points(card, b)
+        say("done", seconds=f"{time.perf_counter() - T_START:.1f}", card=repr(card))
+        return 0
+    if "--fitfigures-only" in sys.argv[1:]:
+        phase_build()
+        b = build_demo_network(N_PROTEINS, N_KINASES, seed=0, dtype=torch.float32,
+                               device="cuda")
+        phase_fit_figures(card, b)
         say("done", seconds=f"{time.perf_counter() - T_START:.1f}", card=repr(card))
         return 0
     if "--sensitivity-kinopt-only" in sys.argv[1:]:
@@ -4599,6 +4931,7 @@ def main() -> int:
     paths.update(phase_sensitivity_kinopt(card, b2))
     paths.update(phase_hyperscan_motpe(card, b))
     paths.update(phase_entry_points(card, b))
+    phase_fit_figures(card, b)
     for group, group_paths in (([kernel, wide, scan, flux, thomas], paths),
                                (f64_entries, paths64), ([probe], probe_paths)):
         for entry in group:

@@ -5,10 +5,10 @@ indicators and the kinopt/tfopt network readouts.
 
 Counterpart of ``phoskintime_tpu/analysis`` with the HTML writers of its
 influence and mechanism modules (the time-slider network, the global
-knockout explorer, ``mechanism_selection.html``) and the mechanism
-overlays; ``thermal.py``, ``fitpanels.py``, the rest of
-``network_tools.py`` and their figures wait for ROADMAP.md queue 1 item
-8d-figures, part 2.
+knockout explorer, ``mechanism_selection.html``), the mechanism overlays,
+the kinopt/tfopt fit panels (``fitpanels``), the readout figures and the
+port's own PCA and t-SNE (``embed``); ``thermal.py`` and the rest of
+``network_tools.py`` wait for ROADMAP.md queue 1 item 8d-figures, part 3.
 """
 
 from phoskintime_tpu_torch.analysis.influence import (  # noqa: F401
@@ -34,8 +34,15 @@ from phoskintime_tpu_torch.analysis.mechanisms import (  # noqa: F401
     fit_all_mechanisms,
     knockout_scan_global,
 )
+from phoskintime_tpu_torch.analysis.fitpanels import (  # noqa: F401
+    fit_analysis_from_workbook,
+    kinopt_fit_analysis,
+    tfopt_fit_analysis,
+)
+from phoskintime_tpu_torch.analysis import network_tools as _network_tools
 from phoskintime_tpu_torch.analysis.network_tools import (  # noqa: F401
     kinopt_signal_readout,
+    plot_signal_readout,
     tfopt_signal_readout,
 )
 from phoskintime_tpu_torch.analysis.postfit import (  # noqa: F401
@@ -43,3 +50,15 @@ from phoskintime_tpu_torch.analysis.postfit import (  # noqa: F401
     optimization_performance,
     residual_summary,
 )
+
+#: the names the JAX package's ``analysis`` exports that part 3 of item
+#: 8d-figures ports: thermal.py's and the rest of network_tools.py's
+FIGURE_PART3 = frozenset({"compare_thermal_standard", "folded_fraction", "thermalize",
+                          *_network_tools.PENDING})
+
+
+def __getattr__(name: str):
+    if name in FIGURE_PART3:
+        raise NotImplementedError(f"analysis.{name} is not ported yet (ROADMAP.md queue 1 item "
+                                  "8d-figures, part 3)")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

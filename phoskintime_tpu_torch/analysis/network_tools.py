@@ -1,12 +1,16 @@
-"""Time-resolved network readouts of the kinopt and tfopt fits.
+"""Time-resolved network readouts of the kinopt and tfopt fits and their
+figures.
 
 Counterpart of the two readouts of ``phoskintime_tpu/analysis/
 network_tools.py`` that the result workbooks carry
 (:func:`kinopt_signal_readout`, :func:`tfopt_signal_readout`), on column
-dicts in the JAX package's row orders. The prediction is linear in each
-edge's contribution C[i, a, t], so a knockout is the prediction less one
-slice. The module's other tools (subnetworks, curve clustering and the
-figures) are not ported yet (ROADMAP.md queue 1 item 8d-figures).
+dicts in the JAX package's row orders, and of :func:`plot_signal_readout`,
+their figures, drawn by the port's own drawing layer. The prediction is
+linear in each edge's contribution C[i, a, t], so a knockout is the
+prediction less one slice. The module's other tools (the readout tables
+from workbooks, subnetworks, curve clustering and their five figures)
+raise ``NotImplementedError`` naming ROADMAP.md queue 1 item 8d-figures,
+part 3.
 """
 
 from __future__ import annotations
@@ -15,6 +19,20 @@ import numpy as np
 
 from phoskintime_tpu_torch.io.export import rows_to_table, sort_desc
 from phoskintime_tpu_torch.io.utils import take
+
+PART3 = ("network_tools.{} is not ported yet (ROADMAP.md queue 1 item 8d-figures, "
+         "part 3)")
+#: the JAX module's tools that part 3 ports
+PENDING = ("kinopt_network_readout", "tfopt_network_readout", "export_subnetwork",
+           "curve_similarity_matrix", "cluster_curves", "temporal_sensitivity_heatmap",
+           "analyze_tf_kin_counts", "map_priors", "plot_identity_band", "plot_breadth_vs_load",
+           "plot_network_dag")
+
+
+def __getattr__(name: str):
+    if name in PENDING:
+        raise NotImplementedError(PART3.format(name))
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _auc(t: np.ndarray, Y: np.ndarray) -> np.ndarray:
@@ -166,3 +184,79 @@ def tfopt_signal_readout(prob, alpha_pad, beta_pad, times=None) -> dict:
     return {"tf_load": tf_load, "edge_load": rows_to_table(edge_rows),
             "gene_fragility": take(frag, sort_desc(frag["dominant_share"])),
             "knockout_effects": ko}
+
+
+def _nth(values, n: int, largest: bool) -> np.ndarray:
+    """pandas' ``nlargest``/``nsmallest(n)`` row order: by value (NaN
+    dropped), ties in row order."""
+    v = np.asarray(values, float)
+    idx = [i for i in range(len(v)) if not np.isnan(v[i])]
+    return np.asarray(sorted(idx, key=lambda i: (-v[i] if largest else v[i], i))[:n], int)
+
+
+def plot_signal_readout(tables: dict, out_dir: str, *, which: str = "kinopt") -> list:
+    """The readout's figures: the top-25 control-load bars, breadth against
+    load (the top fifth labelled), the knockout-effect histogram and the
+    20 strongest activating and suppressing edges."""
+    import os
+
+    from phoskintime_tpu_torch.report.draw import subplots
+
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    load = tables.get("kinase_load") if which == "kinopt" else tables.get("tf_load")
+    actor = "kinase" if which == "kinopt" else "tf"
+    tgt_col = "n_sites" if which == "kinopt" else "n_genes"
+
+    def save(fig, name):
+        fig.tight_layout()
+        p = os.path.join(out_dir, f"{which}_{name}.png")
+        fig.savefig(p, dpi=140)
+        paths.append(p)
+
+    if load is not None and len(load[actor]):
+        top = take(load, np.arange(min(25, len(load[actor]))))
+        top = take(top, np.arange(len(top[actor]))[::-1])
+        fig, ax = subplots(figsize=(6.4, 0.28 * len(top[actor]) + 1.2))
+        ax.barh([str(v) for v in top[actor]], top["total_load_auc_abs"], color="tab:blue")
+        ax.set_xlabel("total routed activity (AUC)")
+        ax.set_title(f"{actor.capitalize()} control load")
+        save(fig, "control_load_top")
+
+        fig, ax = subplots(figsize=(5.6, 4.3))
+        total = np.asarray(load["total_load_auc_abs"], float)
+        ax.scatter(load[tgt_col], total, s=22, alpha=0.85)
+        thr = float(np.quantile(total, 0.8))
+        for k in np.flatnonzero(total > thr):
+            ax.annotate(load[actor][k], (float(load[tgt_col][k]), total[k]), fontsize=7,
+                        xytext=(3, 3), textcoords="offset points")
+        ax.set_xlabel("number of targets")
+        ax.set_ylabel("control load")
+        ax.set_title(f"{actor.capitalize()} breadth vs control load")
+        ax.grid(alpha=0.25, lw=0.6)
+        save(fig, "breadth_vs_load")
+
+    ko = tables.get("knockout_effects")
+    if ko is not None and len(ko.get("delta_auc_abs", ())):
+        key = "knocked_kinase" if which == "kinopt" else "knocked_tf"
+        delta = np.asarray(ko["delta_auc_abs"], float)
+        fig, ax = subplots(figsize=(5.6, 3.6))
+        ax.hist(delta, bins=45, density=True, alpha=0.85)
+        ax.axvline(0.0, lw=1.0, color="k")
+        ax.set_xlabel("change in reconstructed signal")
+        ax.set_ylabel("density")
+        ax.set_title("Knockout effect distribution")
+        ax.grid(alpha=0.25, lw=0.6)
+        save(fig, "knockout_distribution")
+
+        lab = [str(g) + (f" {p}" if "psite" in ko else "") + " ← " + str(k)
+               for g, p, k in zip(ko["gene"], ko.get("psite", ko["gene"]), ko[key])]
+        for name, largest in (("activating", True), ("suppressing", False)):
+            sel = _nth(delta, 20, largest)[::-1]
+            fig, ax = subplots(figsize=(6.6, 0.28 * len(sel) + 1.2))
+            ax.barh([lab[i] for i in sel], delta[sel],
+                    color="tab:green" if name == "activating" else "tab:red")
+            ax.set_xlabel("change in reconstructed signal")
+            ax.set_title(f"Strongest {name} edges")
+            save(fig, f"knockout_top_{name}")
+    return paths

@@ -8,13 +8,15 @@ stage run in this process. Every command that computes takes ``--device
 ``JAX_PLATFORMS``), and raises where there is no card unless it is given
 ``--device cpu``. The command modules are imported inside the commands.
 
-``fitanalysis`` and ``diagram`` write figures only and raise
-``NotImplementedError`` until ROADMAP.md queue 1 item 8d-figures;
-``kinopt`` and ``tfopt`` leave out their fit-analysis panels for the same
-reason (the KKT report's tables are written). ``global-model``,
-``mechanisms`` and ``model`` write their HTML pages. ``clean`` removes ``__pycache__`` folders and
-the port's kernel build folder ``phoskintime_tpu_torch/_build/``, where the
-JAX package removes its XLA cache.
+``kinopt`` and ``tfopt`` write their fit-analysis folders and ``kinopt``
+its KKT report (``fit_analysis``, default on); ``fitanalysis``
+re-renders those panels from a saved workbook's CSV sheets; ``model``
+writes each gene's figures; ``global-model``, ``mechanisms`` and
+``model`` write their HTML pages. ``diagram`` raises
+``NotImplementedError`` until ROADMAP.md queue 1 item 8d-figures, part 3.
+``clean`` removes ``__pycache__`` folders and the port's kernel build
+folder ``phoskintime_tpu_torch/_build/``, where the JAX package removes
+its XLA cache.
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ from phoskintime_tpu_torch.config.logconf import setup_logger
 
 logger = setup_logger()
 
-PENDING_FIGURES = ("{} draws figures only, which are not ported yet (ROADMAP.md queue 1 "
-                   "item 8d-figures)")
+PENDING_FIGURES = ("{} draws figures that are not ported yet (ROADMAP.md queue 1 item "
+                   "8d-figures, part 3)")
 
 
 def _add_common(p):
@@ -104,7 +106,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("fitanalysis",
                        help="post-fit dashboards from a saved kinopt/tfopt results "
-                            "workbook (figures: not ported yet)")
+                            "workbook")
     p.add_argument("--which", choices=["kinopt", "tfopt"], required=True)
     p.add_argument("--mode", choices=["local", "evol"], default="local")
     p.add_argument("--file", default=None)
@@ -209,6 +211,12 @@ def cmd_tfopt(args):
         res = run_local(prob, loss_type=loss_type, device=args.device)
     out = os.path.join(data_dir, sec.get("out_file", "tfopt_results.xlsx"))
     export_tfopt_results(out, prob, res)
+    if bool(sec.get("fit_analysis", True)):
+        from phoskintime_tpu_torch.analysis.fitpanels import tfopt_fit_analysis
+
+        adir = os.path.join(os.path.dirname(out), "tfopt_fitanalysis")
+        tfopt_fit_analysis(prob, res, adir)
+        logger.info(f"[tfopt:{args.mode}] fit-analysis panels -> {adir}")
     logger.info(f"[tfopt:{args.mode}] loss={res.loss:.6g} -> {out}")
 
 
@@ -239,6 +247,11 @@ def cmd_kinopt(args):
     out = os.path.join(data_dir, sec.get("out_file", "kinopt_results.xlsx"))
     export_kinopt_results(out, prob, res, meta)
     if bool(sec.get("fit_analysis", True)):
+        from phoskintime_tpu_torch.analysis.fitpanels import kinopt_fit_analysis
+
+        adir = os.path.join(os.path.dirname(out), "kinopt_fitanalysis")
+        kinopt_fit_analysis(prob, res, adir, meta)
+        logger.info(f"[kinopt:{args.mode}] fit-analysis panels -> {adir}")
         from phoskintime_tpu_torch.kinopt.kkt import kkt_suite
 
         kdir = os.path.join(os.path.dirname(out), "kinopt_kkt")
@@ -308,7 +321,18 @@ def cmd_mechanisms(args):
 
 
 def cmd_fitanalysis(args):
-    raise NotImplementedError(PENDING_FIGURES.format("fitanalysis"))
+    """The kinopt or tfopt panels re-rendered from a saved results
+    workbook's CSV sheets (``--file``, default the config's ``out_file``)
+    into ``--out-dir`` (default ``<which>_fitanalysis`` beside it)."""
+    from phoskintime_tpu_torch.analysis.fitpanels import fit_analysis_from_workbook
+
+    sec = load(args.mode, args.which, args.config)
+    data_dir = os.path.join(sec["_root"], sec["_paths"].get("data_dir", "data"))
+    path = args.file or os.path.join(data_dir, sec.get("out_file", f"{args.which}_results.xlsx"))
+    out_dir = args.out_dir or os.path.join(os.path.dirname(path), f"{args.which}_fitanalysis")
+    out = fit_analysis_from_workbook(path, out_dir, args.which)
+    logger.info(f"[fitanalysis:{args.which}] {len(out)} panel groups -> {out_dir}")
+    return out
 
 
 def cmd_diagram(args):

@@ -3,19 +3,19 @@
 Counterpart of ``phoskintime_tpu/fit/pipeline.py``: per gene, the
 steady-state initial condition, :func:`normest` (or a cohort fit made by
 :func:`normest_batch`), the wild-type against every knockout combination
-(one batch axis of the exact solve) and, optionally, Morris sensitivity.
+(one batch axis of the exact solve), optionally Morris sensitivity, and
+with ``make_plots`` (the default) and an ``out_dir`` the gene's figures in
+``<out_dir>/<gene>/``: the mechanism diagram and the :class:`Plotter`
+figures the JAX pipeline draws, under its conditions.
 
 The input tables are read by column (``frame["protein"]``, ``["psite"]``,
 ``["time"]``, ``["fc"]``) through ``np.asarray``, so a pandas DataFrame and
 a dict of column arrays serve alike; the port does not import pandas.
-With an ``out_dir``, :func:`run_model_pipeline` writes the results table
-(``model_results.xlsx`` as ``model_results_results.csv``) and
-``report.html``. The per-gene figures are not ported yet (ROADMAP.md queue
-1 item 8d-figures), so the report holds the title alone: ``make_plots``
-defaults to ``False`` (the JAX package's to ``True``), and
-``make_plots=True`` with an ``out_dir`` raises ``NotImplementedError``.
-The port's ``run_model_pipeline`` defaults to ``out_dir=None`` (the JAX
-package's to ``"results"``).
+With an ``out_dir``, :func:`run_model_pipeline` writes the genes'
+figures, the results table (``model_results.xlsx`` as
+``model_results_results.csv``) and ``report.html``, which embeds every
+gene's PNGs. The port's ``run_model_pipeline`` defaults to
+``out_dir=None`` (the JAX package's to ``"results"``).
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from phoskintime_tpu_torch.config.labels import get_param_names
+from phoskintime_tpu_torch.config.labels import generate_labels, get_param_names
 from phoskintime_tpu_torch.config.numerics import DEFAULT_DEVICE, resolve_device, working_dtype
 from phoskintime_tpu_torch.fit.normest import NormestResult, normest, normest_batch
 from phoskintime_tpu_torch.fit.sensitivity import sensitivity_analysis
@@ -34,9 +34,6 @@ from phoskintime_tpu_torch.models.kinetics import initial_condition, solve_ode_b
 from phoskintime_tpu_torch.models.knockout import knockout_label, knockout_mask_matrix
 
 logger = logging.getLogger("phoskintime_tpu_torch")
-
-_FIGURES = ("the per-gene figures are not ported yet (ROADMAP.md queue 1 item "
-            "8d-figures): pass make_plots=False")
 
 
 @dataclass
@@ -63,7 +60,7 @@ def process_gene(gene: str,
                  run_sensitivity: bool = False,
                  sensitivity_kw: dict | None = None,
                  normest_kw: dict | None = None,
-                 make_plots: bool = False,
+                 make_plots: bool = True,
                  ms_gauss_weights: np.ndarray | None = None,
                  precomputed: NormestResult | None = None,
                  *,
@@ -71,11 +68,9 @@ def process_gene(gene: str,
                  dtype=None) -> GeneOutput:
     """Fit one gene end to end (or post-process a cohort-batched fit) on
     ``device`` (default: the card; raises where there is none) at
-    ``dtype`` (default: float32 on the card, float64 on the CPU). The
-    figures (``make_plots`` with an ``out_dir``) raise
-    ``NotImplementedError``: they wait for item 8d-figures."""
-    if make_plots and out_dir is not None:
-        raise NotImplementedError(_FIGURES)
+    ``dtype`` (default: float32 on the card, float64 on the CPU); with
+    ``make_plots`` and an ``out_dir``, its figures in ``<out_dir>/<gene>``
+    (drawn on the host), their paths in ``GeneOutput.figures``."""
     device = resolve_device(device)
     dtype = dtype or working_dtype(device)
     init_cond = initial_condition(num_psites, model, device=device, dtype=dtype).cpu().numpy()
@@ -110,7 +105,50 @@ def process_gene(gene: str,
             res.params, init_cond, num_psites, time_points, target,
             model=model, param_names=get_param_names(model, num_psites),
             device=device, dtype=dtype, **kw)
+
+    # ---- figures -----------------------------------------------------------
+    if make_plots and out_dir is not None:
+        out.figures = gene_figures(out, gene, num_psites, time_points, target, model,
+                                   os.path.join(str(out_dir), gene))
     return out
+
+
+def gene_figures(out: GeneOutput, gene: str, num_psites: int, time_points, target,
+                 model: str, gdir: str) -> list[str]:
+    """The gene's figures in ``gdir``, as the JAX pipeline draws them: the
+    diagram, the fit, goodness of fit, KL divergence, the state grid and
+    the phase space; the CI bars with CIs; PCA and parallel coordinates
+    of at least 3 bootstrap fits; the first 8 knockouts; Morris and the
+    perturbation cloud with a sensitivity run. Returns the paths."""
+    from phoskintime_tpu_torch.report.diagram import illustrate
+    from phoskintime_tpu_torch.report.plotter import Plotter
+
+    res = out.result
+    pl = Plotter(gene, gdir)
+    labels = generate_labels(model, num_psites)
+    figs = [
+        illustrate(gene, num_psites, model, gdir),
+        pl.plot_model_fit(time_points, res.sol, target, state_labels=labels),
+        pl.plot_gof(target, res.fit),
+        pl.plot_kld(target, res.fit),
+        pl.plot_time_state_grid(time_points, res.sol, labels),
+        pl.plot_phase_space(res.sol),
+    ]
+    names = get_param_names(model, num_psites)
+    if res.ci is not None:
+        figs.append(pl.plot_params_bar(res.ci, names))
+    if res.boot_params is not None and len(res.boot_params) >= 3:
+        phys = np.exp(res.boot_params) if model == "randmod" else res.boot_params
+        figs.append(pl.plot_pca(phys))
+        figs.append(pl.plot_parallel(phys, names))
+    if out.knockout_solutions is not None:
+        figs.append(pl.plot_knockouts(time_points, res.sol, out.knockout_solutions[:8],
+                                      out.knockout_labels[:8]))
+    if out.sensitivity is not None:
+        figs.append(pl.plot_morris(out.sensitivity.morris, out.sensitivity.param_names))
+        figs.append(pl.plot_perturbation_cloud(time_points, out.sensitivity.top_solutions,
+                                               res.sol))
+    return [f for f in figs if f]
 
 
 def _column(frame, name) -> np.ndarray:
@@ -154,11 +192,9 @@ def run_model_pipeline(df_prot, df_pho, df_rna, *, time_points,
     group fits as one batched LM (:func:`normest_batch`); knockouts and
     sensitivity then run per gene. Bootstrapping or ``ms_gauss_weights``
     force the per-gene path. With an ``out_dir``, the results table
-    (:func:`~phoskintime_tpu_torch.io.export.export_gene_results`) and
-    ``report.html`` are written there; ``make_plots=True`` with an
-    ``out_dir`` raises (item 8d-figures)."""
-    if gene_kw.get("make_plots") and out_dir is not None:
-        raise NotImplementedError(_FIGURES)
+    (:func:`~phoskintime_tpu_torch.io.export.export_gene_results`), the
+    genes' figures (unless ``make_plots=False``) and ``report.html`` are
+    written there."""
     device = resolve_device(device)
     dtype = dtype or working_dtype(device)
     common = sorted(set(_column(df_prot, "protein").tolist())

@@ -35,15 +35,6 @@ from phoskintime_tpu_torch.io.utils import (as_numbers, host, is_missing, merge_
 
 logger = setup_logger()
 
-PENDING_FIGURES = ("this figure is not ported yet (ROADMAP.md queue 1 item 8d-figures, "
-                   "part 2)")
-
-
-def figures_pending(*_args, **_kwargs):
-    """A figure writer that part 2 of item 8d-figures ports: raises."""
-    raise NotImplementedError(PENDING_FIGURES)
-
-
 class TableWriter:
     """Multi-sheet writer: every sheet a CSV file beside the workbook's
     path (``<stem>_<slug>.csv``)."""

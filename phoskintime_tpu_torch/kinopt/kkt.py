@@ -5,8 +5,8 @@ after optimization, verify primal feasibility of the sum-to-one
 constraints, estimate the Lagrange multipliers and stationarity residuals
 from the loss gradient (``torch.autograd``), and count the active box
 constraints; :func:`kkt_suite` writes the report's tables (JSON, CSV and
-LaTeX). Its two figures are not ported yet (ROADMAP.md queue 1 item 8d-figures):
-their functions raise ``NotImplementedError``.
+LaTeX) and its two figures (the constraint violations and the
+sensitivities), drawn by the port's own drawing layer.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from phoskintime_tpu_torch.config.numerics import DEFAULT_DEVICE, resolve_device
-from phoskintime_tpu_torch.io.export import figures_pending, sort_desc
+from phoskintime_tpu_torch.io.export import sort_asc, sort_desc
 from phoskintime_tpu_torch.io.utils import take, write_csv
 
 
@@ -98,8 +98,65 @@ def _latex_table(summary: dict, caption: str) -> str:
     return "\n".join(lines) + "\n"
 
 
-plot_constraint_violations = figures_pending
-plot_sensitivity_analysis = figures_pending
+def plot_constraint_violations(alpha_viol: dict, beta_viol: dict, out_dir,
+                               name="constraint_violations.png"):
+    """Each protein's |group sum - 1| as stacked bars, alpha under beta, the
+    five largest totals in red. ``alpha_viol``: {(gene, psite) or gene:
+    violation} (summed over a gene's sites); ``beta_viol``: {kinase:
+    violation}; the proteins of either, sorted, in order of their total."""
+    from phoskintime_tpu_torch.analysis.fitpanels import group_sum
+    from phoskintime_tpu_torch.report.draw import subplots
+
+    keys = [k[0] if isinstance(k, tuple) else k for k in alpha_viol]
+    genes, a_sum = group_sum(keys, np.abs(np.asarray(list(alpha_viol.values()), float)))
+    a = dict(zip(genes, a_sum))
+    b = {k: abs(float(v)) for k, v in beta_viol.items()}
+    idx = sorted(set(a) | set(b))
+    av = np.asarray([a.get(g, 0.0) for g in idx])
+    bv = np.asarray([b.get(g, 0.0) for g in idx])
+    order = sort_asc(av + bv)
+    idx, av, bv = [idx[i] for i in order], av[order], bv[order]
+    top = set(idx[-5:])
+
+    fig, ax = subplots(figsize=(8, 8))
+    ax.bar(idx, av, color=["red" if g in top else "dodgerblue" for g in idx], label=r"$\alpha$")
+    ax.bar(idx, bv, bottom=av, color=["red" if g in top else "lightgreen" for g in idx],
+           label=r"$\beta$")
+    ax.set_xlabel("Proteins")
+    ax.set_ylabel("Constraint Violations")
+    ax.tick_params(axis="x", rotation=45)
+    ax.legend()
+    fig.tight_layout()
+    path = os.path.join(out_dir, name)
+    fig.savefig(path, dpi=150)
+    return path
+
+
+def plot_sensitivity_analysis(sens: dict, out_dir, name="sensitivity.png"):
+    """Each protein's mean of its sites' min, mean and max sensitivity as
+    stacked horizontal bars, in order of the mean. ``sens``: the table
+    :func:`kkt_suite` returns (GeneID, Sensitivity Mean, Max Sensitivity,
+    Min Sensitivity)."""
+    from phoskintime_tpu_torch.analysis.fitpanels import group_sum
+    from phoskintime_tpu_torch.report.draw import subplots
+
+    keys = [str(g) for g in sens["GeneID"]]
+    genes, mean = group_sum(keys, sens["Sensitivity Mean"], mean=True)
+    _, hi = group_sum(keys, sens["Max Sensitivity"], mean=True)
+    _, lo = group_sum(keys, sens["Min Sensitivity"], mean=True)
+    order = sort_asc(mean)
+    genes, mean, hi, lo = [genes[i] for i in order], mean[order], hi[order], lo[order]
+    fig, ax = subplots(figsize=(8, 8))
+    ax.barh(genes, lo, color="lightgreen", label="Min")
+    ax.barh(genes, mean, left=lo, color="dodgerblue", label="Mean")
+    ax.barh(genes, hi, left=lo + mean, color="coral", label="Max")
+    ax.set_xlabel("Sensitivity")
+    ax.set_ylabel("Proteins")
+    ax.legend()
+    fig.tight_layout()
+    path = os.path.join(out_dir, name)
+    fig.savefig(path, dpi=150)
+    return path
 
 
 def kkt_suite(prob, result, out_dir, *, loss_type: str = "base",
@@ -109,9 +166,9 @@ def kkt_suite(prob, result, out_dir, *, loss_type: str = "base",
     ``out_dir``: ``kkt_summary.tex`` (residual, sensitivity and
     stationarity tables), ``active_constraints.csv``,
     ``lagrange_multipliers.csv``, ``high_sensitivity_sites.csv`` and
-    ``kkt_report.json``. The loss gradient is taken on ``device``; the
-    figures ``constraint_violations.png`` and ``sensitivity.png`` wait for
-    item 8d-figures. Returns {"report", "paths", "sensitivity"}."""
+    ``kkt_report.json``, and the figures ``constraint_violations.png`` and
+    ``sensitivity.png``. The loss gradient is taken on ``device``. Returns
+    {"report", "paths", "sensitivity"}."""
     from phoskintime_tpu_torch.kinopt.model import kinopt_loss, predict
 
     os.makedirs(out_dir, exist_ok=True)
@@ -177,7 +234,12 @@ def kkt_suite(prob, result, out_dir, *, loss_type: str = "base",
             "Psite": np.asarray([psites[i] for i in high_idx], dtype=object),
             "Max value": obs[high_idx].max(axis=1) if len(high_idx) else np.zeros(0)}
 
-    paths = {"tex": os.path.join(out_dir, "kkt_summary.tex")}
+    a_viol = {name: float(v) for name, v in zip(map(tuple, names),
+                                                rep.group_sums_alpha - 1.0)}
+    b_viol = {k: float(rep.group_sums_beta[j] - 1.0) for j, k in enumerate(kn)}
+    paths = {"violations_png": plot_constraint_violations(a_viol, b_viol, out_dir),
+             "sensitivity_png": plot_sensitivity_analysis(sens, out_dir),
+             "tex": os.path.join(out_dir, "kkt_summary.tex")}
     with open(paths["tex"], "w") as fh:
         fh.write(_latex_table(residuals_summary, "Residual Summary")
                  + _latex_table(sensitivity_summary, "Sensitivity Summary")

@@ -18,9 +18,10 @@ block of ``gen_step`` generations between reports, on the system's device:
 the table kernel on the card); ``"rk45"``, the RK45 objective through the
 host GA loop (:func:`~phoskintime_tpu_torch.ops.nsga.run_unsga3`).
 
-``out_dir`` writes the per-trial results table (:func:`scan_report`); its
-three plots wait for ROADMAP.md queue 1 item 8d-figures. A ``mesh`` raises
-``NotImplementedError`` naming item 1b.
+``out_dir`` writes the per-trial results table and its three plots (the
+history, the lambdas' importance, the parallel coordinates:
+:func:`scan_report`). A ``mesh`` raises ``NotImplementedError`` naming
+item 1b.
 """
 
 from __future__ import annotations
@@ -92,9 +93,18 @@ def _load_state(path, sampler) -> list[ScanTrial]:
 def scan_report(trials: list[ScanTrial], out_dir: str) -> dict:
     """The scan's results table ``scan_results.xlsx`` (sheet Trials, as
     ``scan_results_trials.csv``): a row a trial with its state, score,
-    generations, lambdas and the three objectives of its best member.
-    The history, importance and parallel-coordinate plots wait for item
-    8d-figures. Returns {"table": paths}."""
+    generations, lambdas and the three objectives of its best member; and
+    its plots: ``optimization_history.png`` (each trial's score, pruned in
+    red, the running best of the completed), ``param_importance.png``
+    (|Spearman r| of each log10 lambda with the score over the completed
+    trials, from 3 of them) and ``parallel_coordinates.png`` (the
+    completed trials' log10 lambdas and score scaled to [0, 1], the best
+    in green, from 2). Returns {"table", "history"[, "importance",
+    "parallel"]: paths}."""
+    from scipy.stats import rankdata
+
+    from phoskintime_tpu_torch.report.draw import subplots
+
     os.makedirs(out_dir, exist_ok=True)
     rows = []
     for i, t in enumerate(trials):
@@ -106,7 +116,56 @@ def scan_report(trials: list[ScanTrial], out_dir: str) -> dict:
         rows.append(row)
     w = TableWriter(os.path.join(out_dir, "scan_results.xlsx"))
     w.add("Trials", rows_to_table(rows))
-    return {"table": w.save()}
+    paths = {"table": w.save()}
+
+    def save(fig, key, name):
+        fig.tight_layout()
+        paths[key] = os.path.join(out_dir, name)
+        fig.savefig(paths[key], dpi=150)
+
+    score = np.asarray([t.score for t in trials], float)
+    done = np.asarray([t.state == "complete" for t in trials], bool)
+    idx = np.arange(len(trials))
+    fig, ax = subplots(figsize=(7, 4))
+    ax.scatter(idx, score, c=["tab:red" if t.state == "pruned" else "tab:blue" for t in trials],
+               s=28, label="trial")
+    if done.any():
+        ax.plot(idx[done], np.minimum.accumulate(score[done]), color="tab:green",
+                label="best so far")
+    ax.set_xlabel("trial")
+    ax.set_ylabel("weighted score")
+    ax.set_yscale("log")
+    ax.legend()
+    save(fig, "history", "optimization_history.png")
+
+    lams = {k: np.asarray([t.lambdas[k] for t in trials], float)[done] for k in KEYS}
+    if done.sum() >= 3:
+        imp = {}
+        ranks_s = rankdata(score[done])
+        for k in KEYS:
+            c = np.corrcoef(rankdata(np.log10(lams[k])), ranks_s)[0, 1]
+            imp[k] = abs(float(c)) if np.isfinite(c) else 0.0
+        fig, ax = subplots(figsize=(6, 3.5))
+        ks = sorted(imp, key=imp.get)
+        ax.barh(ks, [imp[k] for k in ks], color="tab:blue")
+        ax.set_xlabel("|Spearman corr| with score")
+        ax.set_title("Hyperparameter importance")
+        save(fig, "importance", "param_importance.png")
+
+    if done.sum() >= 2:
+        M = np.column_stack([np.log10(lams[k]) for k in KEYS] + [np.log10(score[done])])
+        lo, hi = M.min(axis=0), M.max(axis=0)
+        Mn = (M - lo) / np.maximum(hi - lo, 1e-12)
+        best_i = int(score[done].argmin())
+        fig, ax = subplots(figsize=(7, 4))
+        for r in range(len(Mn)):
+            ax.plot(range(M.shape[1]), Mn[r], color="tab:green" if r == best_i else "tab:blue",
+                    alpha=1.0 if r == best_i else 0.35, lw=2.0 if r == best_i else 1.0)
+        ax.set_xticks(range(M.shape[1]))
+        ax.set_xticklabels(list(KEYS) + ["score"], rotation=20)
+        ax.set_ylabel("normalized log10")
+        save(fig, "parallel", "parallel_coordinates.png")
+    return paths
 
 
 def run_hyperparameter_scan(system, slices, loss_data, defaults, time_grid,

@@ -8,7 +8,7 @@ extras); its tables are column dicts (:mod:`phoskintime_tpu_torch.io.utils`)
 where the JAX bundle holds DataFrames, so the port's
 :func:`render_dashboard` reads it and the JAX package's dashboard does not.
 The viewer is the static page; the JAX package's Streamlit route is not
-ported yet (ROADMAP.md queue 1 item 8d-figures, part 2).
+ported (Streamlit is on neither machine: ROADMAP.md section 3).
 """
 
 from __future__ import annotations
@@ -97,6 +97,6 @@ def run_dashboard(bundle_path: str, out_dir: str = "dashboard") -> str:
     """The dashboard of a saved bundle as the static page (the Streamlit
     viewer is not ported yet); returns its path."""
     path = render_dashboard(bundle_path, out_dir)
-    print(f"wrote static dashboard: {path} (the Streamlit viewer is not ported yet: "
-          "ROADMAP.md queue 1 item 8d-figures, part 2)")
+    print(f"wrote static dashboard: {path} (the Streamlit viewer is not ported: "
+          "ROADMAP.md section 3)")
     return path

@@ -11,13 +11,17 @@ pixels, :mod:`pdf` the vector pages, :mod:`gif` the animations;
 
 from phoskintime_tpu_torch.report.draw.colors import (  # noqa: F401
     TAB10,
+    TAB20,
+    cmap_color,
     colormap,
     lighten,
+    to_hex,
     to_rgba,
 )
 from phoskintime_tpu_torch.report.draw.figure import (  # noqa: F401
     Axes,
     Axes3D,
+    Circle,
     Figure,
     FuncAnimation,
     PdfPages,

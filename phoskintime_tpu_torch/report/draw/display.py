@@ -43,8 +43,9 @@ class Fill:
 
 @dataclass
 class Marks:
-    """One marker at each of ``centers`` (n, 2): ``shape`` "o" (a disc), "s"
-    (a square) or "*" (a five-pointed star), ``size`` points across."""
+    """One marker at each of ``centers`` (n, 2): ``shape`` "o" (a disc) or
+    another of :data:`MARKERS` (a polygon, :func:`marker_polygon`), ``size``
+    points across."""
     centers: np.ndarray
     shape: str
     size: float
@@ -61,19 +62,52 @@ class Picture:
     clip: tuple | None = None
 
 
-MARKERS = ("o", "s", "*")
+#: the markers: a disc, a square, a star, triangles up, down, left and
+#: right, a diamond, a plus and a cross (filled), a hexagon, and the
+#: vertical and horizontal line markers (drawn 1 point thick)
+MARKERS = ("o", "s", "*", "^", "v", "<", ">", "D", "P", "X", "h", "|", "_")
+
+
+def _polar(n: int, r: float, phase: float) -> np.ndarray:
+    ang = phase + np.arange(n) * 2 * np.pi / n
+    return np.column_stack([r * np.cos(ang), r * np.sin(ang)])
 
 
 def marker_polygon(shape: str, size: float) -> np.ndarray:
-    """The outline of a square or star marker ``size`` across, centred on
-    the origin, y down."""
+    """The outline of a marker ``size`` across, centred on the origin, y
+    down (a disc as a 24-gon)."""
     r = size / 2.0
+    if shape == "o":
+        return _polar(24, r, 0.0)
     if shape == "s":
         return np.array([[-r, -r], [r, -r], [r, r], [-r, r]])
     if shape == "*":
         ang = -np.pi / 2 + np.arange(10) * np.pi / 5
         rad = np.where(np.arange(10) % 2 == 0, r, r * STAR_INNER)
         return np.column_stack([rad * np.cos(ang), rad * np.sin(ang)])
+    if shape in "^v<>":
+        tri = np.array([[0.0, -r], [r, r], [-r, r]])
+        turn = {"^": 0, ">": 1, "v": 2, "<": 3}[shape]
+        for _ in range(turn):
+            tri = np.column_stack([-tri[:, 1], tri[:, 0]])
+        return tri
+    if shape == "D":
+        d = r * 0.71
+        return np.array([[0.0, -d], [d, 0.0], [0.0, d], [-d, 0.0]])
+    if shape == "h":
+        return _polar(6, r, -np.pi / 2)
+    if shape in "PX":
+        a, b = r / 3, r
+        plus = np.array([[-a, -b], [a, -b], [a, -a], [b, -a], [b, a], [a, a], [a, b], [-a, b],
+                         [-a, a], [-b, a], [-b, -a], [-a, -a]])
+        if shape == "P":
+            return plus
+        c, s = np.cos(np.pi / 4), np.sin(np.pi / 4)
+        return np.column_stack([plus[:, 0] * c - plus[:, 1] * s, plus[:, 0] * s + plus[:, 1] * c])
+    if shape in "|_":
+        h = 0.5
+        bar = np.array([[-h, -r], [h, -r], [h, r], [-h, r]])
+        return bar if shape == "|" else bar[:, ::-1]
     raise ValueError(f"unsupported marker {shape!r}; have {MARKERS}")
 
 

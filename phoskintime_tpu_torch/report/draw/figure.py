@@ -6,12 +6,21 @@ matplotlib's defaults (font sizes, line widths, the tab10 colour cycle,
 JAX counterpart does:
 
 * :func:`subplots` / :class:`Figure` (``add_subplot``, ``suptitle``,
-  ``colorbar``, ``tight_layout``, ``savefig`` to PNG);
-* :class:`Axes`: ``plot`` (line styles ``-`` and ``--``, markers ``o``,
-  ``s``, ``*``), ``semilogy``, ``scatter``, ``barh``, ``imshow`` (nearest,
-  ``aspect`` "auto" or "equal"), titles, labels, scales (linear, log,
-  symlog), limits, explicit ticks and tick labels, ``grid``, ``legend``,
-  ``axis("off")``;
+  ``colorbar`` of an image, a colour-mapped scatter or filled contours,
+  ``tight_layout``, ``savefig`` to PNG);
+* :class:`Axes`: ``plot`` (line styles ``-`` and ``--``, the markers of
+  :data:`~phoskintime_tpu_torch.report.draw.display.MARKERS`, marker edge
+  and face colours), ``semilogy``, ``step`` (``where="post"``),
+  ``axvline``, ``scatter`` (one colour, a colour a point or values through
+  a colormap; edge colours), ``bar`` and ``barh`` (numbers or categories,
+  a base, edge colours, a legend label), ``hist``, ``errorbar``,
+  ``fill_between``, ``text`` and ``annotate`` (offset points, an arrow),
+  ``add_patch`` (:class:`Circle`), ``boxplot`` and ``violinplot``
+  (matplotlib's statistics: :func:`boxplot_stats`, :func:`violin_stats`),
+  ``contourf`` (matplotlib's levels), ``imshow`` (nearest, ``aspect``
+  "auto" or "equal"), titles, labels, scales (linear, log, symlog),
+  limits, explicit ticks and tick labels, ``tick_params``, ``set_aspect``,
+  ``grid``, ``legend`` (best, a corner, or below the axes), ``axis("off")``;
 * :class:`Axes3D`: ``scatter`` with limits and ``view_init`` (an
   orthographic view);
 * :class:`PdfPages` (several pages to one PDF) and :class:`FuncAnimation`
@@ -20,11 +29,12 @@ JAX counterpart does:
 :meth:`Figure.record` gives what a figure draws as plain data (the record
 the CPU tests hold against matplotlib's figures): the size, dpi and
 suptitle; for each axes in order (a colorbar marked) its title, labels,
-scales, limits where set, explicit ticks and tick labels, grid, whether it
-is off, its legend texts, and each line, scatter, bar and image with its
-data, colour and label; a 3-D axes' view angles. The pixels are the port's
-own (:mod:`raster`, :mod:`pdf`, :mod:`font`); only the record follows
-matplotlib's.
+scales, limits where set, explicit or categorical ticks and their labels
+and style, grid, whether it is off, its legend texts, and each line,
+scatter, bar, patch, text, collection (fills, segments, filled contours)
+and image with its data, colours and label; a 3-D axes' view angles. The
+pixels are the port's own (:mod:`raster`, :mod:`pdf`, :mod:`font`); only
+the record follows matplotlib's.
 """
 
 from __future__ import annotations
@@ -35,7 +45,8 @@ import numpy as np
 
 from phoskintime_tpu_torch.report.draw import font, scale as sc
 from phoskintime_tpu_torch.report.draw.colors import TAB10, map_values, to_rgba
-from phoskintime_tpu_torch.report.draw.display import Fill, Marks, Picture, Stroke, bounds
+from phoskintime_tpu_torch.report.draw.display import (MARKERS, Fill, Marks, Picture, Stroke,
+                                                       bounds, marker_polygon)
 from phoskintime_tpu_torch.report.draw.gif import write_gif
 from phoskintime_tpu_torch.report.draw.pdf import PdfDocument
 from phoskintime_tpu_torch.report.draw.png import write_png
@@ -55,7 +66,6 @@ CBAR_FRACTION, CBAR_PAD, CBAR_ASPECT = 0.15, 0.05, 20.0
 LEGEND_ALPHA, LEGEND_EDGE = 0.8, (0.8, 0.8, 0.8, 1.0)
 BLACK = (0.0, 0.0, 0.0, 1.0)
 LINE_STYLES = {"-": None, "--": DASH, "None": None, "": None, " ": None}
-MARKERS = ("o", "s", "*")
 
 
 def _arr(v) -> np.ndarray:
@@ -128,7 +138,8 @@ def text_op(text: str, x: float, y: float, size: float, ha: str = "left",
 class Line:
     zorder = 2
 
-    def __init__(self, x, y, color, ls, marker, lw, ms, alpha, label):
+    def __init__(self, x, y, color, ls, marker, lw, ms, alpha, label, drawstyle="default",
+                 mec=None, mfc=None, vertical=False):
         self.x, self.y = _arr(x), _arr(y)
         if len(self.x) != len(self.y):
             raise ValueError(f"x and y differ in length: {len(self.x)} and {len(self.y)}")
@@ -136,47 +147,253 @@ class Line:
             raise ValueError(f"unsupported line style {ls!r}")
         if marker not in MARKERS + ("None",):
             raise ValueError(f"unsupported marker {marker!r}; have {MARKERS}")
+        if drawstyle not in ("default", "steps-post"):
+            raise ValueError(f"unsupported drawstyle {drawstyle!r}")
         self.color, self.ls, self.marker = to_rgba(color), ls, marker
         self.lw, self.ms, self.alpha, self.label = float(lw), float(ms), alpha, _label(label)
+        self.drawstyle = drawstyle
+        self.mec = self.color if mec is None else to_rgba(mec)
+        self.mfc = self.color if mfc is None else to_rgba(mfc)
+        self.vertical = vertical          # axvline: y spans the axes, in axes fractions
 
     def record(self) -> dict:
         return {"x": self.x, "y": self.y, "color": self.color, "ls": self.ls,
                 "marker": self.marker, "lw": self.lw, "ms": self.ms, "alpha": self.alpha,
-                "label": self.label}
+                "label": self.label, "drawstyle": self.drawstyle,
+                "markeredgecolor": self.mec, "markerfacecolor": self.mfc}
 
 
 class Scatter:
+    """Markers at ``offsets`` in one colour or one a point (``colors`` (1
+    or n, 4)); ``mapped`` (cmap, vmin, vmax) where the colours come from
+    values through a colormap (what a colorbar of it shows); ``edgecolors``
+    (1 or n, 4), empty for none."""
     zorder = 1
 
-    def __init__(self, offsets, sizes, color, alpha, marker, label):
+    def __init__(self, offsets, sizes, colors, alpha, marker, label, edgecolors=None,
+                 linewidths=(1.0,), mapped=None, zorder=None, edged=False):
         if marker not in MARKERS:
             raise ValueError(f"unsupported marker {marker!r}; have {MARKERS}")
         self.offsets = np.asarray(offsets, float)
         self.sizes = np.broadcast_to(np.asarray(sizes, float).ravel(),
                                      (max(len(self.offsets), 1),)).copy()
-        self.color, self.alpha = to_rgba(color, alpha), alpha
-        self.marker, self.label = marker, _label(label)
+        self.colors = np.atleast_2d(np.asarray(colors, float))
+        self.edgecolors = (self.colors if edgecolors is None
+                           else np.asarray(edgecolors, float).reshape(-1, 4))
+        self.linewidths = np.asarray(linewidths, float).ravel()
+        self.alpha, self.marker, self.label = alpha, marker, _label(label)
+        self.cmap, self.vmin, self.vmax = mapped if mapped is not None else (None, None, None)
+        self.edged = edged
+        if zorder is not None:
+            self.zorder = zorder
+
+    @property
+    def color(self) -> tuple:
+        return tuple(float(v) for v in self.colors[0])
+
+    def color_of(self, k: int) -> tuple:
+        return tuple(float(v) for v in self.colors[k % len(self.colors)])
 
     def record(self) -> dict:
         return {"offsets": self.offsets, "sizes": self.sizes[: len(self.offsets)],
-                "color": self.color, "alpha": self.alpha, "marker": self.marker,
+                "colors": self.colors, "edgecolors": self.edgecolors,
+                "linewidths": self.linewidths, "alpha": self.alpha, "marker": self.marker,
                 "label": self.label}
 
 
-class Bars:
-    """Horizontal bars (``barh``): bar i spans x in [0, width_i] and y in
-    [y0_i, y0_i + height]."""
+class Rect:
+    """One bar (``bar``, ``barh``, ``hist``): x in [x, x + width], y in [y,
+    y + height]; ``base`` the axis and value its sticky edge is on."""
+    zorder = 1
+
+    def __init__(self, x, y, width, height, color, edgecolor=None, alpha=None, lw=1.0,
+                 label=None, base=("y", 0.0)):
+        self.x, self.y, self.width, self.height = (float(v) for v in (x, y, width, height))
+        self.alpha = alpha
+        self.facecolor = to_rgba(color, alpha)
+        self.edgecolor = to_rgba("none" if edgecolor is None else edgecolor, alpha)
+        self.lw, self.label, self.base = float(lw), _label(label), base
+
+    def get_y(self) -> float:
+        return self.y
+
+    def get_width(self) -> float:
+        return self.width
+
+    def get_height(self) -> float:
+        return self.height
+
+    def set_color(self, color) -> None:
+        """The face and the edge, as matplotlib's ``Patch.set_color``."""
+        self.facecolor = self.edgecolor = to_rgba(color, self.alpha)
+
+    def record(self) -> dict:
+        return {"x": self.x, "y": self.y, "width": self.width, "height": self.height,
+                "color": self.facecolor, "edgecolor": self.edgecolor}
+
+
+class BarContainer(list):
+    """The bars of one ``bar``/``barh`` call; its ``label`` is the legend's."""
+
+    def __init__(self, rects, label=None):
+        super().__init__(rects)
+        self.label = _label(label)
+
+
+class Circle:
+    """A circle patch in data coordinates (``add_patch``); ``color`` sets
+    the face and the edge, ``ec`` the edge alone."""
+    zorder = 1
+    lw = 1.0
+
+    def __init__(self, center, radius, color=None, ec=None, zorder=None):
+        self.center, self.radius = tuple(float(v) for v in center), float(radius)
+        face = color if color is not None else "C0"
+        edge = ec if ec is not None else (color if color is not None else "black")
+        self.facecolor, self.edgecolor = to_rgba(face), to_rgba(edge)
+        self.label = None
+        if zorder is not None:
+            self.zorder = zorder
+
+    def outline(self, n: int = 64) -> np.ndarray:
+        a = np.linspace(0.0, 2 * np.pi, n, endpoint=False)
+        return np.column_stack([self.center[0] + self.radius * np.cos(a),
+                                self.center[1] + self.radius * np.sin(a)])
+
+    def record(self) -> dict:
+        return {"kind": "circle", "center": self.center, "radius": self.radius,
+                "color": self.facecolor, "edgecolor": self.edgecolor}
+
+
+class PathPatch:
+    """A closed polygon patch (a boxplot's box): the vertices as given and
+    the first again, as matplotlib closes a path."""
     zorder = 1
     label = None
 
-    def __init__(self, y, width, height, color):
-        self.y0 = _arr(y) - height / 2
-        self.width = _arr(width)
-        self.height, self.color = float(height), to_rgba(color)
+    def __init__(self, xs, ys, facecolor, edgecolor, lw=1.0):
+        pts = np.column_stack([_arr(xs), _arr(ys)])
+        self.vertices = np.vstack([pts, pts[:1]])
+        self.facecolor, self.edgecolor, self.lw = to_rgba(facecolor), to_rgba(edgecolor), lw
 
-    def record(self) -> list[dict]:
-        return [{"y": y0, "height": self.height, "width": w, "color": self.color}
-                for y0, w in zip(self.y0, self.width)]
+    def outline(self) -> np.ndarray:
+        return self.vertices[:-1]
+
+    def record(self) -> dict:
+        return {"kind": "path", "vertices": self.vertices, "color": self.facecolor,
+                "edgecolor": self.edgecolor}
+
+
+class Text:
+    """A text (``text``) or an annotation (``annotate``): ``text`` at
+    ``xytext`` in ``coords`` ("data", or "offset points" from ``xy``),
+    with an arrow from there to ``xy`` where ``arrow`` holds its
+    arrowprops."""
+    zorder = 3
+    label = None
+
+    def __init__(self, text, xy, xytext=None, coords="data", arrow=None, ha="left",
+                 va="baseline", color="black", size=None, weight="normal"):
+        self.text = str(text)
+        self.xy = tuple(float(v) for v in xy)
+        self.xytext = self.xy if xytext is None else tuple(float(v) for v in xytext)
+        if coords not in ("data", "offset points"):
+            raise ValueError(f"unsupported text coordinates {coords!r}")
+        self.coords, self.arrow = coords, arrow
+        if arrow is not None and arrow.get("arrowstyle", "-|>") not in ("-|>", "->", "-"):
+            raise ValueError(f"unsupported arrow style {arrow.get('arrowstyle')!r}")
+        self.ha, self.va, self.color = ha, va, to_rgba(color)
+        self.size, self.weight = float(size or FONT), str(weight)
+
+    def record(self) -> dict:
+        arrow = None if self.arrow is None else {
+            "style": self.arrow.get("arrowstyle", "-|>"), "lw": float(self.arrow.get("lw", 1.0)),
+            "color": to_rgba(self.arrow.get("color", "black"))}
+        return {"text": self.text, "xy": self.xy, "xytext": self.xytext, "coords": self.coords,
+                "arrow": arrow, "ha": self.ha, "va": self.va, "color": self.color,
+                "size": self.size, "weight": self.weight}
+
+
+class Poly:
+    """Filled polygons (``fill_between``, a violin's body): the vertices of
+    each as matplotlib's path holds them (closed by the first again)."""
+    zorder = 1
+
+    def __init__(self, polys, facecolor, edgecolor=None, alpha=None, label=None):
+        self.polys = [np.asarray(p, float) for p in polys]
+        self.alpha = alpha
+        self.facecolors = np.asarray([to_rgba(facecolor, alpha)], float)
+        self.edgecolors = (np.zeros((0, 4)) if edgecolor is None
+                           else np.asarray([to_rgba(edgecolor, alpha)], float))
+        self.label = _label(label)
+
+    def set_facecolor(self, color) -> None:
+        self.facecolors = np.asarray([to_rgba(color, self.alpha)], float)
+
+    def record(self) -> dict:
+        return {"kind": "poly", "vertices": np.vstack(self.polys), "facecolors": self.facecolors,
+                "edgecolors": self.edgecolors}
+
+
+class Segments:
+    """Line segments of one colour (``errorbar``'s bars, a violin's lines)."""
+    zorder = 2
+    label = None
+
+    def __init__(self, segments, color, lw):
+        self.segments = np.asarray(segments, float).reshape(-1, 2, 2)
+        self.colors = np.asarray([to_rgba(color)], float)
+        self.linewidths = np.asarray([lw], float)
+
+    def record(self) -> dict:
+        return {"kind": "lines", "segments": self.segments, "colors": self.colors,
+                "linewidths": self.linewidths}
+
+
+class Contour:
+    """Filled contours of Z on a regular grid (X, Y): the bands between
+    ``levels`` coloured at their middles through ``cmap`` over (levels[0],
+    levels[-1]), as matplotlib's ``contourf`` colours its layers."""
+    zorder = 1
+    label = None
+
+    def __init__(self, X, Y, Z, levels, cmap, alpha):
+        self.X, self.Y, self.Z = (np.asarray(a, float) for a in (X, Y, Z))
+        self.levels = np.asarray(levels, float)
+        self.cmap, self.alpha = cmap, alpha
+        self.vmin, self.vmax = float(self.levels[0]), float(self.levels[-1])
+        map_values(np.zeros(1), cmap, 0.0, 1.0)         # an unknown colormap raises here
+
+    def layer_colors(self) -> np.ndarray:
+        layers = 0.5 * (self.levels[:-1] + self.levels[1:])
+        rgba = map_values(layers, self.cmap, self.vmin, self.vmax)
+        rgba[:, 3] = 1.0 if self.alpha is None else self.alpha
+        return rgba
+
+    def rgba(self, n: int = 160) -> np.ndarray:
+        """The bands on an n x n grid over the data's range, row 0 at the
+        top (bilinear in Z; cells outside every band transparent)."""
+        xs = np.linspace(self.X.min(), self.X.max(), n)
+        ys = np.linspace(self.Y.max(), self.Y.min(), n)
+        gx, gy = self.X[0], self.Y[:, 0]
+        fi = np.interp(ys, gy, np.arange(len(gy), dtype=float))
+        fj = np.interp(xs, gx, np.arange(len(gx), dtype=float))
+        i0 = np.clip(np.floor(fi).astype(int), 0, len(gy) - 2)
+        j0 = np.clip(np.floor(fj).astype(int), 0, len(gx) - 2)
+        ti, tj = (fi - i0)[:, None], (fj - j0)[None, :]
+        Z = self.Z
+        z = ((1 - ti) * (1 - tj) * Z[i0][:, j0] + (1 - ti) * tj * Z[i0][:, j0 + 1]
+             + ti * (1 - tj) * Z[i0 + 1][:, j0] + ti * tj * Z[i0 + 1][:, j0 + 1])
+        band = np.searchsorted(self.levels, z, side="right") - 1
+        band = np.where(z == self.levels[-1], len(self.levels) - 2, band)
+        inside = (band >= 0) & (band < len(self.levels) - 1)
+        out = np.zeros((n, n, 4))
+        out[inside] = self.layer_colors()[band[inside]]
+        return np.clip(out * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+    def record(self) -> dict:
+        return {"kind": "contourf", "levels": self.levels, "cmap": self.cmap,
+                "alpha": self.alpha, "clim": (self.vmin, self.vmax)}
 
 
 class Image:
@@ -202,17 +419,93 @@ class Image:
         return {"array": self.array, "cmap": self.cmap, "vmin": self.vmin, "vmax": self.vmax}
 
 
+COLLECTIONS = (Poly, Segments, Contour)
+
+
 class _Axis:
     """One axis' settings: label, scale, explicit limits, ticks and tick
-    labels, grid."""
+    labels, the categories of a categorical axis, grid."""
 
     def __init__(self, tick_ha: str):
         self.label, self.label_size = "", FONT
         self.scale = "linear"
         self.lim = None
         self.ticks = self.ticklabels = None
+        self.categories: dict | None = None
         self.tick_rotation, self.tick_ha, self.tick_size = 0.0, tick_ha, FONT
-        self.grid, self.grid_alpha = False, None
+        self.grid, self.grid_alpha, self.grid_w = False, None, GRID_W
+
+
+def _is_text(values) -> bool:
+    v = np.asarray(values, dtype=object).ravel()
+    return bool(len(v)) and all(isinstance(x, str) for x in v)
+
+
+def _fill_vertices(t, f1, f2) -> np.ndarray:
+    """The polygon ``fill_between(t, f1, f2)`` fills, as matplotlib's path
+    holds it: (t0, f2_0), each (t, f1), (tn, f2_n), each (t, f2) backwards,
+    and the first again."""
+    t, f1, f2 = (np.broadcast_to(_arr(v), (len(_arr(t)),)) for v in (t, f1, f2))
+    start, end = np.array([[t[0], f2[0]]]), np.array([[t[-1], f2[-1]]])
+    return np.vstack([start, np.column_stack([t, f1]), end,
+                      np.column_stack([t, f2])[::-1], start])
+
+
+def gaussian_kde_1d(data, points) -> np.ndarray:
+    """matplotlib's ``mlab.GaussianKDE(data).evaluate(points)`` in one
+    dimension (Scott's bandwidth), the same operations in the same order:
+    the density a violin is drawn from."""
+    dataset = np.atleast_2d(np.asarray(data, float))
+    points = np.atleast_2d(np.asarray(points, float))
+    n, m = dataset.shape[1], points.shape[1]
+    factor = np.power(n, -1.0 / 5)
+    data_cov = np.atleast_2d(np.cov(dataset, rowvar=1, bias=False))
+    covariance = data_cov * factor ** 2
+    inv_cov = np.linalg.inv(data_cov) / factor ** 2
+    norm_factor = np.sqrt(np.linalg.det(2 * np.pi * covariance)) * n
+    result = np.zeros(m)
+    if m >= n:
+        for i in range(n):
+            diff = dataset[:, i, np.newaxis] - points
+            tdiff = np.dot(inv_cov, diff)
+            result = result + np.exp(-(np.sum(diff * tdiff, axis=0) / 2.0))
+    else:
+        for i in range(m):
+            diff = dataset - points[:, i, np.newaxis]
+            tdiff = np.dot(inv_cov, diff)
+            result[i] = np.sum(np.exp(-(np.sum(diff * tdiff, axis=0) / 2.0)), axis=0)
+    return result / norm_factor
+
+
+def violin_stats(data, points: int = 100) -> dict:
+    """matplotlib's ``cbook.violin_stats`` of one sample with the violin's
+    KDE: coords, vals (the density there), mean, median, min, max."""
+    x = np.asarray(data, float).ravel()
+    lo, hi = np.min(x), np.max(x)
+    coords = np.linspace(lo, hi, points)
+    vals = ((x[0] == coords).astype(float) if np.all(x[0] == x)
+            else gaussian_kde_1d(x, coords))
+    return {"coords": coords, "vals": vals, "mean": np.mean(x), "median": np.median(x),
+            "min": lo, "max": hi}
+
+
+def boxplot_stats(data, whis: float = 1.5) -> dict:
+    """matplotlib's ``cbook.boxplot_stats`` of one sample: quartiles by
+    linear percentiles, whiskers at the furthest data within ``whis`` IQR
+    of the box, the fliers beyond them."""
+    x = np.asarray(data, float).ravel()
+    if not len(x):
+        return {k: np.nan for k in ("mean", "med", "q1", "q3", "iqr", "whislo",
+                                    "whishi")} | {"fliers": np.array([])}
+    q1, med, q3 = np.percentile(x, [25, 50, 75])
+    iqr = q3 - q1
+    loval, hival = q1 - whis * iqr, q3 + whis * iqr
+    hi = x[x <= hival]
+    whishi = q3 if len(hi) == 0 or np.max(hi) < q3 else np.max(hi)
+    lo = x[x >= loval]
+    whislo = q1 if len(lo) == 0 or np.min(lo) > q1 else np.min(lo)
+    return {"mean": np.mean(x), "med": med, "q1": q1, "q3": q3, "iqr": iqr, "whislo": whislo,
+            "whishi": whishi, "fliers": np.concatenate([x[x < whislo], x[x > whishi]])}
 
 
 # ---------------------------------------------------------------------------
@@ -234,6 +527,7 @@ class Axes:
 
     def clear(self) -> None:
         self.children: list = []
+        self.containers: list = []
         self.title, self.title_size = "", TITLE
         self.dims = {n: _Axis("right" if n == "y" else "center") for n in self.names}
         self.off = False
@@ -247,8 +541,28 @@ class Axes:
         self._cycle[kind] += 1
         return c
 
+    def _add(self, artist):
+        self.children.append(artist)
+        return artist
+
+    def _positions(self, name: str, values) -> np.ndarray:
+        """Values on axis ``name``: numbers as they are, strings as the
+        categories' positions 0, 1, ... in order of first appearance (the
+        axis then ticks and labels each, as matplotlib's category axis)."""
+        if not _is_text(values):
+            return _arr(values)
+        a = self.dims[name]
+        if a.categories is None:
+            a.categories = {}
+        for v in np.asarray(values, dtype=object).ravel():
+            a.categories.setdefault(str(v), float(len(a.categories)))
+        a.ticks = np.asarray(list(a.categories.values()), float)
+        a.ticklabels = list(a.categories)
+        return np.asarray([a.categories[str(v)] for v in np.asarray(values, dtype=object).ravel()],
+                          float)
+
     def plot(self, *args, color=None, lw=LINE_W, ls=None, marker=None, ms=MARKER_SIZE,
-             alpha=None, label=None):
+             alpha=None, label=None, mec=None, mfc=None, drawstyle="default"):
         """``plot([x,] y[, fmt], ...)``: one line; ``fmt`` as matplotlib's
         (a colour letter, a marker, a line style: "ko", "k--", "o")."""
         fmt = None
@@ -270,27 +584,250 @@ class Axes:
         if ls is None:
             ls = "None" if f_marker is not None else "-"
         line = Line(x, y, color, ls, marker if marker is not None else "None", lw, ms, alpha,
-                    label)
-        self.children.append(line)
-        return [line]
+                    label, drawstyle, mec, mfc)
+        return [self._add(line)]
 
     def semilogy(self, *args, **kw):
         self.set_yscale("log")
         return self.plot(*args, **kw)
 
-    def scatter(self, x, y, s=None, c=None, color=None, alpha=None, marker="o", label=None):
-        color = c if c is not None else color
-        if color is None:
-            color = self._next_color("patches")
-        coll = Scatter(np.column_stack([_arr(x), _arr(y)]), SCATTER_S if s is None else s,
-                       color, alpha, marker, label)
-        self.children.append(coll)
-        return coll
+    def step(self, x, y, *args, where: str = "pre", **kw):
+        """A step line; ``where="post"``: each value held until the next x."""
+        if where != "post":
+            raise ValueError(f"step draws where='post' only, not {where!r}")
+        return self.plot(x, y, *args, drawstyle="steps-post", **kw)
 
-    def barh(self, y, width, height: float = BAR_HEIGHT, color=None):
-        bars = Bars(y, width, height, color if color is not None else self._next_color("patches"))
-        self.children.append(bars)
-        return bars
+    def axvline(self, x: float = 0.0, color=None, lw=LINE_W, ls="-", label=None):
+        """A vertical line at ``x`` across the axes' height."""
+        line = Line([x, x], [0.0, 1.0], color if color is not None else "C0", ls, "None", lw,
+                    MARKER_SIZE, None, label, vertical=True)
+        return self._add(line)
+
+    def scatter(self, x, y, s=None, c=None, color=None, alpha=None, marker="o", label=None,
+                cmap=None, edgecolor=None, linewidth=None, zorder=None):
+        """Markers at (x, y): ``c`` a colour, colours one a point, or values
+        mapped through ``cmap`` over their range; ``edgecolor`` (default:
+        the face) and ``linewidth`` the outline."""
+        offsets = np.column_stack([_arr(x), _arr(y)])
+        colors, mapped = self._scatter_colors(c if c is not None else color, len(offsets),
+                                              alpha, cmap)
+        edges = None if edgecolor is None else [to_rgba(edgecolor, alpha)]
+        coll = Scatter(offsets, SCATTER_S if s is None else s, colors, alpha, marker, label,
+                       edgecolors=edges, linewidths=[1.0 if linewidth is None else linewidth],
+                       mapped=mapped, zorder=zorder, edged=edgecolor is not None)
+        return self._add(coll)
+
+    def _scatter_colors(self, c, n, alpha, cmap):
+        if c is None:
+            return [to_rgba(self._next_color("patches"), alpha)], None
+        if isinstance(c, str) or (isinstance(c, tuple) and len(c) in (3, 4)
+                                  and all(isinstance(v, float) for v in c)):
+            return [to_rgba(c, alpha)], None
+        vals = np.asarray(c, dtype=object).ravel()
+        if len(vals) == n and not any(isinstance(v, str) for v in vals):
+            v = np.asarray(vals, float)
+            lo, hi = float(np.nanmin(v)), float(np.nanmax(v))
+            name = cmap or "viridis"
+            rgba = map_values(v, name, lo, hi)
+            rgba[:, 3] = 1.0 if alpha is None else alpha
+            return rgba, (name, lo, hi)
+        return [to_rgba(v, alpha) for v in vals], None
+
+    def bar(self, x, height, width=BAR_HEIGHT, bottom=None, align: str = "center", color=None,
+            edgecolor=None, linewidth=None, alpha=None, label=None):
+        """Vertical bars (matplotlib's ``bar``): bar i spans [x_i - width/2,
+        x_i + width/2] ("center") or [x_i, x_i + width] ("edge") and
+        [bottom_i, bottom_i + height_i]; ``x`` numbers or categories."""
+        xs = self._positions("x", x)
+        return self._bars("x", xs, height, width, bottom, align, color, edgecolor, linewidth,
+                          alpha, label)
+
+    def barh(self, y, width, height=BAR_HEIGHT, left=None, align: str = "center", color=None,
+             edgecolor=None, linewidth=None, alpha=None, label=None):
+        """Horizontal bars (``barh``): bar i spans [left_i, left_i +
+        width_i] and [y_i - height/2, y_i + height/2]; ``y`` numbers or
+        categories."""
+        ys = self._positions("y", y)
+        return self._bars("y", ys, width, height, left, align, color, edgecolor, linewidth,
+                          alpha, label)
+
+    def _bars(self, axis, pos, length, thick, base, align, color, edgecolor, linewidth, alpha,
+              label):
+        if align not in ("center", "edge"):
+            raise ValueError(f"unsupported bar alignment {align!r}")
+        pos, length, thick, base = np.broadcast_arrays(
+            pos, _arr(length), _arr(thick), _arr(0.0 if base is None else base))
+        start = pos - thick / 2 if align == "center" else pos
+        if color is None:
+            colors = [self._next_color("patches")] * len(pos)
+        elif isinstance(color, str) or (isinstance(color, tuple) and len(color) in (3, 4)
+                                        and all(isinstance(v, float) for v in color)):
+            colors = [color] * len(pos)
+        else:
+            colors = list(color)
+        lw = 1.0 if linewidth is None else float(linewidth)
+        rects = []
+        for k in range(len(pos)):
+            c = colors[k % len(colors)]
+            if axis == "x":
+                r = Rect(start[k], base[k], thick[k], length[k], c, edgecolor, alpha, lw,
+                         base=("y", base[k]))
+            else:
+                r = Rect(base[k], start[k], length[k], thick[k], c, edgecolor, alpha, lw,
+                         base=("x", base[k]))
+            rects.append(self._add(r))
+        container = BarContainer(rects, label)
+        self.containers.append(container)
+        return container
+
+    def hist(self, x, bins=10, density: bool = False, alpha=None, color=None, label=None):
+        """A histogram (``np.histogram``) as bars from each bin's left edge
+        to its right; ``label`` on the first bar. Returns (n, edges,
+        bars)."""
+        n, edges = np.histogram(_arr(x), bins, density=density)
+        totwidth = np.diff(edges)
+        centers = edges[:-1] + (0.0 + 0.5 * totwidth)
+        c = color if color is not None else self._next_color("patches")
+        rects = [self._add(Rect(xc - w / 2, 0.0, w, h, c, None, alpha, 1.0,
+                                label=label if k == 0 else None))
+                 for k, (xc, w, h) in enumerate(zip(centers, totwidth, n))]
+        return n, edges, BarContainer(rects)
+
+    def errorbar(self, x, y, yerr=None, xerr=None, fmt: str = "", ecolor=None,
+                 capsize: float = 0.0, lw=None, ms=MARKER_SIZE):
+        """Error bars as matplotlib draws them: the data line (none for
+        ``fmt="none"``), each error as a segment in ``ecolor`` and, with a
+        ``capsize``, a cap marker at each end (x errors first)."""
+        x, y = _arr(x), _arr(y)
+        width = LINE_W if lw is None else lw
+        if fmt.lower() != "none":
+            base = self.plot(x, y, fmt, lw=width, ms=ms)[0].color
+        else:
+            base = to_rgba("C0")
+        ecolor = base if ecolor is None else to_rgba(ecolor)
+        caps = []
+        for axis, err in (("x", xerr), ("y", yerr)):
+            if err is None:
+                continue
+            e = np.asarray(err, float)
+            lo, hi = (e[0], e[1]) if e.ndim == 2 else (e, e)
+            dep = x if axis == "x" else y
+            low, high = dep + (-1.0) * lo, dep + 1.0 * hi
+            if axis == "x":
+                segs = [[[a, b], [c, b]] for a, b, c in zip(low, y, high)]
+            else:
+                segs = [[[a, b], [a, c]] for a, b, c in zip(x, low, high)]
+            self._add(Segments(segs, ecolor, width))
+            if capsize > 0:
+                marker = "|" if axis == "x" else "_"
+                for ends in (low, high):
+                    cx, cy = (ends, y) if axis == "x" else (x, ends)
+                    caps.append(Line(cx, cy, base, "None", marker, width, 2.0 * capsize, None,
+                                     None, mec=ecolor))
+        for cap in caps:
+            self._add(cap)
+        return caps
+
+    def fill_between(self, x, y1, y2=0.0, color=None, alpha=None):
+        """The region between y1 and y2 over x; ``color`` (default: the next
+        of the cycle, the face alone) sets the face and the edge."""
+        face = color if color is not None else self._next_color("patches")
+        return self._add(Poly([_fill_vertices(x, y1, y2)], face, color, alpha))
+
+    def _fill_betweenx(self, y, x1, x2, facecolor, alpha):
+        poly = Poly([_fill_vertices(y, x1, x2)[:, ::-1]], facecolor, None, alpha)
+        return self._add(poly)
+
+    def text(self, x, y, s, ha: str = "left", va: str = "baseline", fontsize=None,
+             color="black", fontweight: str = "normal"):
+        return self._add(Text(s, (x, y), None, "data", None, ha, va, color, fontsize, fontweight))
+
+    def annotate(self, text, xy, xytext=None, textcoords=None, arrowprops=None, fontsize=None,
+                 fontweight: str = "normal", color="black"):
+        """A text at ``xy`` or at ``xytext`` (in ``textcoords``: "data" or
+        "offset points"), with an arrow to ``xy`` where ``arrowprops`` is
+        given."""
+        return self._add(Text(text, xy, xytext, textcoords or "data", arrowprops, "left",
+                              "baseline", color, fontsize, fontweight))
+
+    def add_patch(self, patch):
+        return self._add(patch)
+
+    def boxplot(self, X, tick_labels=None, patch_artist: bool = False) -> dict:
+        """Box plots of each sample of ``X`` at 1, 2, ... as matplotlib's
+        ``boxplot(patch_artist=True)`` draws them (:func:`boxplot_stats`;
+        the boxes as patches); ticks at the positions labelled
+        ``tick_labels``."""
+        if not patch_artist:
+            raise ValueError("boxplot draws its boxes as patches (patch_artist=True) only")
+        stats = [boxplot_stats(x) for x in X]
+        positions = np.arange(1, len(stats) + 1)
+        width = float(np.clip(0.15 * np.ptp(positions), 0.15, 0.5))
+        cap = 0.5 * width
+        out = {k: [] for k in ("whiskers", "caps", "boxes", "medians", "fliers")}
+        for pos, st in zip(positions, stats):
+            box_l, box_r = pos - width * 0.5, pos + width * 0.5
+            box_x = [box_l, box_r, box_r, box_l, box_l]
+            box_y = [st["q1"], st["q1"], st["q3"], st["q3"], st["q1"]]
+            out["boxes"].append(self._add(PathPatch(box_x, box_y, "C0", "black")))
+            for ys in ([st["q1"], st["whislo"]], [st["q3"], st["whishi"]]):
+                out["whiskers"].append(self.plot([pos, pos], ys, color="black", lw=1.0)[0])
+            for v in (st["whislo"], st["whishi"]):
+                out["caps"].append(self.plot([pos - cap * 0.5, pos + cap * 0.5], np.full(2, v),
+                                             color="black", lw=1.0)[0])
+            out["medians"].append(self.plot([box_l, box_r], [st["med"], st["med"]], color="C1",
+                                            lw=1.0)[0])
+            out["fliers"].append(self.plot(np.full(len(st["fliers"]), pos, dtype=np.float64),
+                                           st["fliers"], color="black", ls="None", marker="o",
+                                           lw=1.0, mec="black", mfc="none")[0])
+        labels = tick_labels if tick_labels is not None else list(positions)
+        self.set_xticks(positions)
+        self.set_xticklabels([str(v) for v in labels])
+        return out
+
+    def violinplot(self, dataset, showmedians: bool = False) -> dict:
+        """Violins of each sample at 1, 2, ... as matplotlib's
+        ``violinplot`` draws them at its default width 0.5
+        (:func:`violin_stats`): each body the KDE scaled to the half width,
+        the extrema, the bars between them and, with ``showmedians``, the
+        medians as segments in the next line colour."""
+        stats = [violin_stats(d) for d in dataset]
+        positions = np.arange(1, len(stats) + 1)
+        w = np.full(len(stats), 0.5)
+        ends = [[-0.25], [0.25]] * w + positions
+        color = self._next_color("lines")
+        bodies = []
+        for st, pos, wd in zip(stats, positions, w):
+            vals = np.array(st["vals"])
+            vals = 0.5 * wd * vals / vals.max()
+            bodies.append(self._fill_betweenx(st["coords"], -vals + pos, vals + pos, color, 0.3))
+        out = {"bodies": bodies}
+
+        def hlines(ys):
+            return self._add(Segments([[[a, y], [b, y]] for y, a, b in zip(ys, *ends)], color,
+                                      LINE_W))
+        out["cmaxes"] = hlines([st["max"] for st in stats])
+        out["cmins"] = hlines([st["min"] for st in stats])
+        out["cbars"] = self._add(Segments(
+            [[[p, st["min"]], [p, st["max"]]] for p, st in zip(positions, stats)], color, LINE_W))
+        if showmedians:
+            out["cmedians"] = hlines([st["median"] for st in stats])
+        return out
+
+    def contourf(self, X, Y, Z, levels: int = 10, cmap: str = "viridis", alpha=None):
+        """Filled contours of Z on the grid (X, Y) (``np.meshgrid``) at
+        matplotlib's levels for ``levels`` bands (``MaxNLocator(levels +
+        1)`` over Z's range, trimmed to it)."""
+        Z = np.asarray(Z, float)
+        zmin, zmax = float(Z.min()), float(Z.max())
+        lev = sc.maxn_ticks(zmin, zmax, int(levels) + 1, 1)
+        under = np.nonzero(lev < zmin)[0]
+        i0 = under[-1] if len(under) else 0
+        over = np.nonzero(lev > zmax)[0]
+        i1 = over[0] + 1 if len(over) else len(lev)
+        if i1 - i0 < 3:
+            i0, i1 = 0, len(lev)
+        return self._add(Contour(X, Y, Z, lev[i0:i1], cmap, alpha))
 
     def imshow(self, X, cmap: str = "viridis", vmin=None, vmax=None, aspect: str = "equal",
                interpolation: str | None = None):
@@ -299,10 +836,8 @@ class Axes:
         cells square."""
         if interpolation not in (None, "nearest"):
             raise ValueError(f"imshow draws nearest cells only, not {interpolation!r}")
-        if aspect not in ("auto", "equal"):
-            raise ValueError(f"unsupported aspect {aspect!r}")
         im = Image(X, cmap or "viridis", vmin, vmax)
-        self.aspect = aspect
+        self.set_aspect(aspect)
         self.children.append(im)
         return im
 
@@ -334,6 +869,11 @@ class Axes:
     def set_ylim(self, lo, hi):
         self._set_lim("y", lo, hi)
 
+    def set_aspect(self, aspect: str):
+        if aspect not in ("auto", "equal"):
+            raise ValueError(f"unsupported aspect {aspect!r}")
+        self.aspect = aspect
+
     def _set_ticks(self, name, ticks):
         self.dims[name].ticks = _arr(ticks)
 
@@ -359,17 +899,31 @@ class Axes:
     def set_yticklabels(self, labels, rotation=None, ha=None, fontsize=None):
         self._set_ticklabels("y", labels, rotation, ha, fontsize)
 
-    def grid(self, visible: bool = True, axis: str = "both", alpha=None):
+    def tick_params(self, axis: str = "both", rotation=None):
+        for name in (("x", "y") if axis == "both" else (axis,)):
+            if rotation is not None:
+                self.dims[name].tick_rotation = float(rotation)
+
+    def grid(self, visible: bool = True, axis: str = "both", alpha=None, lw=None):
         for name in (("x", "y") if axis == "both" else (axis,)):
             self.dims[name].grid = bool(visible)
             if alpha is not None:
                 self.dims[name].grid_alpha = float(alpha)
+            if lw is not None:
+                self.dims[name].grid_w = float(lw)
 
-    def legend(self, ncol: int = 1, fontsize=None):
-        self.legend_kw = {"ncol": int(ncol), "fontsize": float(fontsize or FONT)}
+    def legend(self, ncol: int = 1, fontsize=None, loc=None, bbox_to_anchor=None):
+        """A legend of the labelled artists; ``loc`` "best" (the default) or
+        "upper center" (at ``bbox_to_anchor``, in axes fractions, when
+        given)."""
+        self.legend_kw = {"ncol": int(ncol), "fontsize": float(fontsize or FONT),
+                          "loc": loc or "best", "anchor": bbox_to_anchor}
 
     def get_legend_entries(self) -> list:
-        return [ch for ch in self.children if ch.label is not None]
+        """The labelled artists in matplotlib's order: the children, then
+        the bar containers."""
+        return ([ch for ch in self.children if ch.label is not None]
+                + [c for c in self.containers if c.label is not None and len(c)])
 
     def axis(self, state: str):
         if state != "off":
@@ -377,10 +931,12 @@ class Axes:
         self.off = True
 
     # ---- record ------------------------------------------------------------
+    def _legend_texts(self) -> list[str]:
+        return [e.label for e in self.get_legend_entries()]
+
     def record(self) -> dict:
         rec = {"kind": self.kind, "title": self.title, "off": self.off,
-               "legend": None if self.legend_kw is None
-               else [ch.label for ch in self.get_legend_entries()]}
+               "legend": None if self.legend_kw is None else self._legend_texts()}
         for n, a in self.dims.items():
             rec[f"{n}label"] = a.label
             rec[f"{n}lim"] = a.lim
@@ -389,7 +945,7 @@ class Axes:
                 rec[f"{n}scale"] = a.scale
                 rec[f"{n}ticks"] = a.ticks
                 rec[f"{n}ticklabels"] = a.ticklabels
-                rec[f"{n}tickstyle"] = (None if a.ticklabels is None
+                rec[f"{n}tickstyle"] = (None if not a.ticklabels
                                         else (a.tick_rotation, a.tick_ha))
             alpha = self.dims["x"].grid_alpha
             rec["grid"] = {"x": self.dims["x"].grid, "y": self.dims["y"].grid,
@@ -398,8 +954,16 @@ class Axes:
             rec["view"] = (self.elev, self.azim)
         rec["lines"] = [ch.record() for ch in self.children if isinstance(ch, Line)]
         rec["scatters"] = [ch.record() for ch in self.children if isinstance(ch, Scatter)]
-        rec["bars"] = [b for ch in self.children if isinstance(ch, Bars) for b in ch.record()]
+        rec["bars"] = [ch.record() for ch in self.children if isinstance(ch, Rect)]
+        rec["patches"] = [ch.record() for ch in self.children
+                          if isinstance(ch, (Circle, PathPatch))]
+        rec["texts"] = [ch.record() for ch in self.children if isinstance(ch, Text)]
+        rec["collections"] = [ch.record() for ch in self.children
+                              if isinstance(ch, COLLECTIONS)]
         rec["images"] = [ch.record() for ch in self.children if isinstance(ch, Image)]
+        if self.kind == "3d":                  # a 3-D scatter's edges are shaded when drawn
+            for r in rec["scatters"]:
+                r["edgecolors"] = None
         return rec
 
     # ---- view --------------------------------------------------------------
@@ -409,15 +973,27 @@ class Axes:
         k = self.names.index(name)
         for ch in self.children:
             if isinstance(ch, Line):
-                vals.append((ch.x, ch.y)[k])
+                if not (ch.vertical and name == "y"):
+                    vals.append((ch.x, ch.y)[k])
             elif isinstance(ch, Scatter):
                 vals.append(ch.offsets[:, k])
-            elif isinstance(ch, Bars):
-                if name == "x":
-                    vals += [ch.width, [0.0]]
-                    sticky.append(0.0)
-                else:
-                    vals += [ch.y0, ch.y0 + ch.height]
+            elif isinstance(ch, Rect):
+                lo = (ch.x, ch.y)[k]
+                vals += [[lo, lo + (ch.width, ch.height)[k]]]
+                if ch.base[0] == name:
+                    sticky.append(ch.base[1])
+            elif isinstance(ch, Circle):
+                vals.append([ch.center[k] - ch.radius, ch.center[k] + ch.radius])
+            elif isinstance(ch, PathPatch):
+                vals.append(ch.vertices[:, k])
+            elif isinstance(ch, Poly):
+                vals += [p[:, k] for p in ch.polys]
+            elif isinstance(ch, Segments):
+                vals.append(ch.segments[:, :, k].ravel())
+            elif isinstance(ch, Contour):
+                g = (ch.X, ch.Y)[k]
+                vals.append([g.min(), g.max()])
+                sticky += [float(g.min()), float(g.max())]
             elif isinstance(ch, Image):
                 n = ch.array.shape[1 - k]
                 vals.append([-0.5, n - 0.5])
@@ -486,12 +1062,12 @@ class Axes:
         return left, right, top, bottom
 
     def _plot_box(self, box):
-        """The box the data fill: less a colorbar's room, shrunk to square
-        cells for an equal-aspect image."""
+        """The box the data fill: less a colorbar's room, shrunk to equal
+        data units on both axes for ``aspect`` "equal"."""
         x0, y0, w, h = box
         if self.colorbar is not None:
             w *= 1.0 - CBAR_FRACTION - CBAR_PAD
-        if self.aspect == "equal" and any(isinstance(ch, Image) for ch in self.children):
+        if self.aspect == "equal" and self.children:
             (xl, xh), (yl, yh) = self.view("x"), self.view("y")
             ratio = abs(yh - yl) / abs(xh - xl)
             if h / w > ratio:
@@ -530,9 +1106,9 @@ class Axes:
                 lines = ([np.array([[tx(v), y0], [tx(v), y0 + h]]) for v, _ in ticks]
                          if name == "x" else
                          [np.array([[x0, ty(v)], [x0 + w, ty(v)]]) for v, _ in ticks])
-                ops.append(Stroke(lines, color, GRID_W, clip=clip))
+                ops.append(Stroke(lines, color, a.grid_w, clip=clip))
         for ch in sorted(self.children, key=lambda c: c.zorder):
-            self._draw_artist(ch, tx, ty, clip, ops)
+            self._draw_artist(ch, tx, ty, clip, pbox, ops)
         if not self.off:
             self._draw_frame(pbox, tx, ty, xt, yt, ops)
         if self.title:
@@ -545,13 +1121,26 @@ class Axes:
 
     @staticmethod
     def _screen(ch, tx, ty) -> np.ndarray:
-        if isinstance(ch, Line):
+        if isinstance(ch, Line) and not ch.vertical:
             return np.column_stack([tx(ch.x), ty(ch.y)])
         if isinstance(ch, Scatter):
             return np.column_stack([tx(ch.offsets[:, 0]), ty(ch.offsets[:, 1])])
+        if isinstance(ch, Rect):
+            return np.array([[tx(ch.x), ty(ch.y)], [tx(ch.x + ch.width), ty(ch.y + ch.height)]])
         return np.zeros((0, 2))
 
-    def _draw_artist(self, ch, tx, ty, clip, ops) -> None:
+    @staticmethod
+    def _marks(pts, marker, size, face, edge, lw, clip, ops) -> None:
+        """Markers at ``pts``: filled in ``face`` unless it is transparent,
+        outlined in ``edge`` where given."""
+        if face[3] > 0:
+            ops.append(Marks(pts, marker, size, face, clip))
+        if edge is not None and edge[3] > 0 and (face[3] == 0 or edge != face):
+            poly = marker_polygon(marker, size)
+            ops.append(Stroke([np.vstack([poly, poly[:1]]) + p for p in pts], edge, lw,
+                              clip=clip))
+
+    def _draw_artist(self, ch, tx, ty, clip, box, ops) -> None:
         if isinstance(ch, Image):
             n_rows, n_cols = ch.array.shape
             xa, xb = tx(-0.5), tx(n_cols - 0.5)
@@ -562,20 +1151,56 @@ class Axes:
             if ya > yb:
                 rgba, (ya, yb) = rgba[::-1], (yb, ya)
             ops.append(Picture(rgba, (float(xa), float(ya), float(xb), float(yb)), clip))
-        elif isinstance(ch, Bars):
-            polys = []
-            for y0, wd in zip(ch.y0, ch.width):
-                xa, xb = tx(np.array([0.0, wd]))
-                ya, yb = ty(np.array([y0, y0 + ch.height]))
-                polys.append(np.array([[xa, ya], [xb, ya], [xb, yb], [xa, yb]]))
-            ops.append(Fill(polys, ch.color, clip))
+        elif isinstance(ch, Contour):
+            rect = (float(tx(ch.X.min())), float(ty(ch.Y.max())), float(tx(ch.X.max())),
+                    float(ty(ch.Y.min())))
+            ops.append(Picture(ch.rgba(), rect, clip))
+        elif isinstance(ch, Rect):
+            xa, xb = tx(np.array([ch.x, ch.x + ch.width]))
+            ya, yb = ty(np.array([ch.y, ch.y + ch.height]))
+            quad = np.array([[xa, ya], [xb, ya], [xb, yb], [xa, yb]])
+            if not np.isfinite(quad).all():        # a NaN or infinite bar is not drawn
+                return
+            if ch.facecolor[3] > 0:
+                ops.append(Fill([quad], ch.facecolor, clip))
+            if ch.edgecolor[3] > 0:
+                ops.append(Stroke([np.vstack([quad, quad[:1]])], ch.edgecolor, ch.lw, clip=clip))
+        elif isinstance(ch, (Circle, PathPatch)):
+            pts = ch.outline()
+            poly = np.column_stack([tx(pts[:, 0]), ty(pts[:, 1])])
+            ops.append(Fill([poly], ch.facecolor, clip))
+            ops.append(Stroke([np.vstack([poly, poly[:1]])], ch.edgecolor, ch.lw, clip=clip))
+        elif isinstance(ch, Poly):
+            polys = [np.column_stack([tx(p[:, 0]), ty(p[:, 1])]) for p in ch.polys]
+            polys = [p for p in polys if np.isfinite(p).all()]
+            if not polys:
+                return
+            ops.append(Fill(polys, tuple(ch.facecolors[0]), clip))
+            if len(ch.edgecolors):
+                ops.append(Stroke(polys, tuple(ch.edgecolors[0]), 1.0, clip=clip))
+        elif isinstance(ch, Segments):
+            lines = [np.column_stack([tx(s[:, 0]), ty(s[:, 1])]) for s in ch.segments]
+            ops.append(Stroke(lines, tuple(ch.colors[0]), float(ch.linewidths[0]), clip=clip))
+        elif isinstance(ch, Text):
+            self._draw_text(ch, tx, ty, ops)
         elif isinstance(ch, Scatter):
             pts = self._screen(ch, tx, ty)
-            for size in np.unique(ch.sizes[: len(pts)]):
-                on = ch.sizes[: len(pts)] == size
-                ops.append(Marks(pts[on], ch.marker, math.sqrt(size), ch.color, clip))
+            sizes = ch.sizes[: len(pts)]
+            lw = float(ch.linewidths[0])
+            keys = [(sizes[k], ch.color_of(k)) for k in range(len(pts))]
+            for size, face in dict.fromkeys(keys):
+                on = np.asarray([key == (size, face) for key in keys])
+                edge = tuple(ch.edgecolors[0]) if ch.edged else None
+                self._marks(pts[on], ch.marker, math.sqrt(size), face, edge, lw, clip, ops)
         elif isinstance(ch, Line):
-            pts = self._screen(ch, tx, ty)
+            if ch.vertical:
+                xv = float(tx(ch.x[0]))
+                pts = np.array([[xv, box[1]], [xv, box[1] + box[3]]])
+            else:
+                pts = self._screen(ch, tx, ty)
+            if ch.drawstyle == "steps-post" and len(pts) > 1:
+                mid = np.column_stack([pts[1:, 0], pts[:-1, 1]])
+                pts = np.vstack([np.column_stack([pts[:-1], mid]).reshape(-1, 2), pts[-1:]])
             color = to_rgba(ch.color, ch.alpha) if ch.alpha is not None else ch.color
             ok = np.isfinite(pts).all(axis=1)
             if ch.ls not in ("None", "", " "):
@@ -584,7 +1209,37 @@ class Axes:
                     d * ch.lw for d in LINE_STYLES[ch.ls])
                 ops.append(Stroke(pieces, color, ch.lw, dash, clip))
             if ch.marker != "None":
-                ops.append(Marks(pts[ok], ch.marker, ch.ms, color, clip))
+                alpha = ch.alpha if ch.alpha is not None else None
+                face, edge = (to_rgba(c, alpha) if alpha is not None and c[3] > 0 else c
+                              for c in (ch.mfc, ch.mec))
+                mpts = self._screen(ch, tx, ty)
+                mpts = mpts[np.isfinite(mpts).all(axis=1)]
+                self._marks(mpts, ch.marker, ch.ms, face, edge, 1.0, clip, ops)
+
+    def _draw_text(self, t, tx, ty, ops) -> None:
+        px, py = float(tx(t.xy[0])), float(ty(t.xy[1]))
+        if t.coords == "offset points":
+            qx, qy = px + t.xytext[0], py - t.xytext[1]
+        else:
+            qx, qy = float(tx(t.xytext[0])), float(ty(t.xytext[1]))
+        if t.arrow is not None:
+            color = to_rgba(t.arrow.get("color", "black"))
+            lw = float(t.arrow.get("lw", 1.0))
+            d = np.array([px - qx, py - qy])
+            length = float(np.hypot(*d))
+            if length > 4.0:
+                u = d / length
+                a, b = np.array([qx, qy]) + 2.0 * u, np.array([px, py]) - 2.0 * u
+                head = 4.0 * lw + 2.0
+                ops.append(Stroke([np.array([a, b - u * head * 0.5])], color, lw))
+                if t.arrow.get("arrowstyle", "-|>") != "-":
+                    nrm = np.array([-u[1], u[0]]) * head * 0.35
+                    ops.append(Fill([np.array([b, b - u * head + nrm, b - u * head - nrm])],
+                                    color))
+        rgb = t.color
+        ops.append(text_op(t.text, qx, qy, t.size, t.ha, t.va, 0.0, rgb))
+        if t.weight == "bold" and t.text:
+            ops.append(text_op(t.text, qx + 0.3, qy, t.size, t.ha, t.va, 0.0, rgb))
 
     def _draw_frame(self, box, tx, ty, xt, yt, ops) -> None:
         x0, y0, w, h = box
@@ -658,10 +1313,32 @@ def _parse_fmt(fmt: str | None):
     return color, marker, ls
 
 
+def _legend_handle(e, cx, yc, handle, size, ops) -> None:
+    """The legend's sample of entry ``e`` at (cx, yc), ``handle`` wide."""
+    if isinstance(e, Line):
+        color = to_rgba(e.color, e.alpha) if e.alpha is not None else e.color
+        if e.ls not in ("None", "", " "):
+            dash = None if LINE_STYLES[e.ls] is None else tuple(d * e.lw for d in LINE_STYLES[e.ls])
+            ops.append(Stroke([np.array([[cx, yc], [cx + handle, yc]])], color, e.lw, dash))
+        if e.marker != "None":
+            ops.append(Marks(np.array([[cx + handle / 2, yc]]), e.marker, e.ms, color))
+    elif isinstance(e, Scatter):
+        ops.append(Marks(np.array([[cx + handle / 2, yc]]), e.marker,
+                         math.sqrt(e.sizes[0]), e.color))
+    else:
+        face = (e[0].facecolor if isinstance(e, BarContainer)
+                else tuple(e.facecolors[0]) if isinstance(e, Poly) else e.facecolor)
+        h = 0.35 * size
+        ops.append(Fill([np.array([[cx, yc - h], [cx + handle, yc - h], [cx + handle, yc + h],
+                                   [cx, yc + h]])], face))
+
+
 def draw_legend(entries, box, screens, kw, ops) -> None:
-    """A legend box of ``entries`` (artists with labels) in the corner of
-    ``box`` that covers the fewest of the data's screen points (upper
-    right first, as matplotlib's "best" prefers)."""
+    """A legend box of ``entries`` (artists with labels): for "upper
+    center" its upper centre at ``kw["anchor"]`` (axes fractions; the
+    axes' top without one), for "best" in the corner of ``box`` that
+    covers the fewest of the data's screen points (upper right first, as
+    matplotlib's "best" prefers)."""
     size, ncol = kw["fontsize"], max(1, kw["ncol"])
     pad, handle, gap, row_h = 0.4 * size, 2.0 * size, 0.8 * size, 1.25 * size
     nrow = math.ceil(len(entries) / ncol)
@@ -671,15 +1348,22 @@ def draw_legend(entries, box, screens, kw, ops) -> None:
     bh = 2 * pad + nrow * row_h
     x0, y0, w, h = box
     inset = 0.5 * size
-    corners = [(x0 + w - inset - bw, y0 + inset), (x0 + inset, y0 + inset),
-               (x0 + inset, y0 + h - inset - bh), (x0 + w - inset - bw, y0 + h - inset - bh)]
-    pts = np.vstack([s for s in screens if len(s)] or [np.zeros((0, 2))])
+    loc, anchor = kw.get("loc", "best"), kw.get("anchor")
+    if loc == "upper center":
+        ax_, ay_ = (0.5, 1.0) if anchor is None else anchor
+        lx, ly = x0 + ax_ * w - bw / 2, y0 + (1.0 - ay_) * h + (inset if anchor is None else 0.0)
+    elif loc == "best":
+        corners = [(x0 + w - inset - bw, y0 + inset), (x0 + inset, y0 + inset),
+                   (x0 + inset, y0 + h - inset - bh), (x0 + w - inset - bw, y0 + h - inset - bh)]
+        pts = np.vstack([s for s in screens if len(s)] or [np.zeros((0, 2))])
 
-    def badness(c):
-        inside = ((pts[:, 0] >= c[0]) & (pts[:, 0] <= c[0] + bw)
-                  & (pts[:, 1] >= c[1]) & (pts[:, 1] <= c[1] + bh))
-        return int(inside.sum())
-    lx, ly = min(corners, key=badness)
+        def badness(c):
+            inside = ((pts[:, 0] >= c[0]) & (pts[:, 0] <= c[0] + bw)
+                      & (pts[:, 1] >= c[1]) & (pts[:, 1] <= c[1] + bh))
+            return int(inside.sum())
+        lx, ly = min(corners, key=badness)
+    else:
+        raise ValueError(f"unsupported legend location {loc!r}")
     rect = np.array([[lx, ly], [lx + bw, ly], [lx + bw, ly + bh], [lx, ly + bh]])
     ops.append(Fill([rect], (1.0, 1.0, 1.0, LEGEND_ALPHA)))
     ops.append(Stroke([np.vstack([rect, rect[:1]])], LEGEND_EDGE, SPINE_W))
@@ -687,18 +1371,7 @@ def draw_legend(entries, box, screens, kw, ops) -> None:
     for col, cw in zip(cols, col_w):
         for r, e in enumerate(col):
             yc = ly + pad + (r + 0.5) * row_h
-            if isinstance(e, Line):
-                color = to_rgba(e.color, e.alpha) if e.alpha is not None else e.color
-                if e.ls not in ("None", "", " "):
-                    dash = None if LINE_STYLES[e.ls] is None else tuple(
-                        d * e.lw for d in LINE_STYLES[e.ls])
-                    ops.append(Stroke([np.array([[cx, yc], [cx + handle, yc]])], color, e.lw,
-                                      dash))
-                if e.marker != "None":
-                    ops.append(Marks(np.array([[cx + handle / 2, yc]]), e.marker, e.ms, color))
-            elif isinstance(e, Scatter):
-                ops.append(Marks(np.array([[cx + handle / 2, yc]]), e.marker,
-                                 math.sqrt(e.sizes[0]), e.color))
+            _legend_handle(e, cx, yc, handle, size, ops)
             ops.append(text_op(e.label, cx + handle + gap, yc, size, "left", "center"))
         cx += cw + size
 
@@ -786,7 +1459,8 @@ class Axes3D(Axes):
         if color is None:
             color = self._next_color("patches")
         coll = Scatter(np.column_stack([_arr(xs), _arr(ys), _arr(zs)]),
-                       SCATTER_S if s is None else s, color, alpha, marker, label)
+                       SCATTER_S if s is None else s, [to_rgba(color, alpha)], alpha, marker,
+                       label)
         self.children.append(coll)
         return coll
 
@@ -948,8 +1622,12 @@ class Figure:
         if y is not None:
             self.suptitle_y = float(y)
 
-    def colorbar(self, image: Image, ax: Axes, label: str = "", shrink: float = 1.0):
-        cb = Colorbar(image, ax, label, float(shrink))
+    def colorbar(self, mappable, ax: Axes, label: str = "", shrink: float = 1.0):
+        """A colorbar beside ``ax`` of an image, a colour-mapped scatter or
+        filled contours (what has ``cmap``, ``vmin`` and ``vmax``)."""
+        if getattr(mappable, "cmap", None) is None:
+            raise ValueError("a colorbar needs a colour-mapped artist")
+        cb = Colorbar(mappable, ax, label, float(shrink))
         ax.colorbar = cb
         self.axes.append(cb)
         return cb

@@ -6,10 +6,14 @@ descenders to -4; most glyphs are 8 units wide and advance 10. A cap
 height of 12 units is 0.73 of the font size (a sans-serif's proportion),
 so a unit is ``size * 0.73 / 12`` points. The font covers printable ASCII
 and the characters the figure writers print beyond it (``—``, ``²``,
-``χ``, ``≤``, ``≥``); any other character raises.
+``χ``, ``≤``, ``≥``, ``α``, ``β``, ``λ``, ``Σ``, ``ŷ``, ``₀``, ``→``,
+``←``); any other character raises.
 
-Text may carry superscripts as ``^{...}`` runs (the log axes' ``10^{3}``);
-:func:`runs` splits them out.
+Text may carry superscripts as ``^{...}`` runs (the log axes' ``10^{3}``)
+and subscripts as ``_{...}`` runs; :func:`runs` splits them out. A label
+written in matplotlib's mathtext (``$\\alpha$``, ``$R=\\frac{\\lambda}{m}
+\\sum_j p_j^2$``) is drawn through :func:`plain`, which spells the few
+commands the writers use in the font's characters.
 """
 
 from __future__ import annotations
@@ -127,6 +131,14 @@ _GLYPHS = {
     "χ": (9, "0,8 1,8 6,-4 7,-4 | 0,-4 7,8"),
     "≤": "8,11 0,8 8,5 | 0,2 8,2",
     "≥": "0,11 8,8 0,5 | 0,2 8,2",
+    "α": (10, "8,8 6,2 4,0 2,0 0,2 0,6 2,8 4,8 6,6 8,0"),
+    "β": (9, "0,-4 0,10 2,12 5,12 7,10 7,8 5,6 2,6 | 5,6 8,4 8,2 6,0 3,0 0,2"),
+    "λ": (9, "0,12 2,12 8,0 | 4,7 0,0"),
+    "Σ": "8,12 0,12 4,6 0,0 8,0",
+    "ŷ": (9, "0,8 3.5,0 | 7,8 2,-4 0,-4 | 1.5,10 3.5,12 5.5,10"),
+    "₀": (6, "2,-2 4,-2 5,-1 5,3 4,4 2,4 1,3 1,-1 2,-2"),
+    "→": (11, "0,5 9,5 | 6,8 9,5 6,2"),
+    "←": (11, "9,5 0,5 | 3,8 0,5 3,2"),
 }
 
 
@@ -141,7 +153,10 @@ def _parse(spec) -> tuple[float, list[np.ndarray]]:
 
 
 GLYPHS = {ch: _parse(spec) for ch, spec in _GLYPHS.items()}
-_SUPER = re.compile(r"\^\{([^}]*)\}")
+_SCRIPT = re.compile(r"([\^_])\{([^}]*)\}")
+SUB_RISE = -0.2                       # a subscript's rise (of the size)
+_MATH_NAMES = {r"\alpha": "α", r"\beta": "β", r"\lambda": "λ", r"\sum": "Σ",
+               r"\chi": "χ", r"\leq": "≤", r"\geq": "≥"}
 
 
 def glyph(ch: str) -> tuple[float, list[np.ndarray]]:
@@ -150,14 +165,37 @@ def glyph(ch: str) -> tuple[float, list[np.ndarray]]:
     return GLYPHS[ch]
 
 
+def _math(expr: str) -> str:
+    """One mathtext expression (between ``$``) in the font's characters,
+    its sub- and superscripts as ``_{...}`` and ``^{...}`` runs."""
+    expr = re.sub(r"\\mathrm\{([^{}]*)\}", r"\1", expr)
+    expr = re.sub(r"\\hat\s*\{?y\}?", "ŷ", expr)
+    for name, ch in sorted(_MATH_NAMES.items(), key=lambda kv: -len(kv[0])):
+        expr = expr.replace(name, ch)
+    expr = re.sub(r"\\frac\{([^{}]*)\}\{([^{}]*)\}", r"\1/\2", expr)
+    expr = expr.replace(" ", "")
+    return re.sub(r"([\^_])([^{])", r"\1{\2}", expr)
+
+
+def plain(text: str) -> str:
+    """``text`` with each ``$...$`` mathtext span spelled by :func:`_math`;
+    text without a pair of ``$`` as it is."""
+    parts = text.split("$")
+    if len(parts) < 3:
+        return text
+    return "".join(_math(p) if k % 2 else p for k, p in enumerate(parts))
+
+
 def runs(text: str) -> list[tuple[str, float, float]]:
-    """``text`` as (text, scale, rise) runs: ``^{...}`` a superscript run,
-    the rest at scale 1 on the baseline."""
+    """``text`` (mathtext spelled by :func:`plain`) as (text, scale, rise)
+    runs: ``^{...}`` a superscript run, ``_{...}`` a subscript run, the
+    rest at scale 1 on the baseline."""
+    text = plain(text)
     out, pos = [], 0
-    for m in _SUPER.finditer(text):
+    for m in _SCRIPT.finditer(text):
         if m.start() > pos:
             out.append((text[pos:m.start()], 1.0, 0.0))
-        out.append((m.group(1), SUPER_SCALE, SUPER_RISE))
+        out.append((m.group(2), SUPER_SCALE, SUPER_RISE if m.group(1) == "^" else SUB_RISE))
         pos = m.end()
     if pos < len(text) or not out:
         out.append((text[pos:], 1.0, 0.0))

@@ -20,6 +20,7 @@ SCALES = ("linear", "log", "symlog")
 MARGIN = 0.05
 LINSCALE = 1.0 / (1.0 - 1.0 / 10.0)     # matplotlib's linscale_adj at linscale 1, base 10
 STEPS = (1.0, 2.0, 2.5, 5.0, 10.0)
+MAXN_STEPS = (1.0, 1.5, 2.0, 2.5, 3.0, 4.0, 5.0, 6.0, 8.0, 10.0)
 
 
 def check(scale: str) -> str:
@@ -148,3 +149,50 @@ def _symlog_ticks(lo: float, hi: float, n: int) -> list[tuple[float, str]]:
     inside = [c for c in cands if lo - 1e-12 <= c[0] <= hi + 1e-12]
     stride = max(1, math.ceil(len(inside) / max(n, 1)))
     return inside[::stride]
+
+
+def _nonsingular(vmin: float, vmax: float, expander: float, tiny: float) -> tuple[float, float]:
+    """matplotlib's ``transforms.nonsingular`` (increasing)."""
+    if not (np.isfinite(vmin) and np.isfinite(vmax)):
+        return -expander, expander
+    vmin, vmax = sorted((float(vmin), float(vmax)))
+    maxabs = max(abs(vmin), abs(vmax))
+    if maxabs < (1e6 / tiny) * np.finfo(float).tiny:
+        return -expander, expander
+    if vmax - vmin <= maxabs * tiny:
+        if vmax == 0 and vmin == 0:
+            return -expander, expander
+        return vmin - expander * abs(vmin), vmax + expander * abs(vmax)
+    return vmin, vmax
+
+
+def maxn_ticks(vmin: float, vmax: float, nbins: int, min_n_ticks: int = 2) -> np.ndarray:
+    """matplotlib's ``MaxNLocator(nbins, min_n_ticks=...).tick_values``
+    with its default steps (1, 1.5, 2, 2.5, 3, 4, 5, 6, 8, 10): the values
+    that filled contours take as their levels."""
+    vmin, vmax = _nonsingular(vmin, vmax, 1e-13, 1e-14)
+    dv = abs(vmax - vmin)
+    meanv = (vmax + vmin) / 2
+    offset = 0 if abs(meanv) / dv < 100 else math.copysign(
+        10 ** (math.log10(abs(meanv)) // 1), meanv)
+    scale = 10 ** (math.log10(dv / nbins) // 1)
+    _vmin, _vmax = vmin - offset, vmax - offset
+    base = np.asarray(MAXN_STEPS)
+    steps = np.concatenate([0.1 * base[:-1], base, [10 * base[1]]]) * scale
+    raw_step = (_vmax - _vmin) / nbins
+    large = steps >= raw_step
+    istep = int(np.nonzero(large)[0][0]) if large.any() else len(steps) - 1
+    ticks = np.zeros(0)
+    for step in steps[:istep + 1][::-1]:
+        best_vmin = (_vmin // step) * step
+        tol = 1e-10
+        if offset:
+            tol = min(0.4999, max(1e-10, 10 ** (np.log10(abs(offset) / step) - 12)))
+        d, m = divmod(_vmin - best_vmin, step)
+        low = d + 1 if abs(m / step - 1) < tol else d
+        d, m = divmod(_vmax - best_vmin, step)
+        high = d if abs(m / step) < tol else d + 1
+        ticks = np.arange(low, high + 1) * step + best_vmin
+        if ((ticks <= _vmax) & (ticks >= _vmin)).sum() >= min_n_ticks:
+            break
+    return ticks + offset

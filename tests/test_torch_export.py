@@ -31,6 +31,7 @@ import torch
 from phoskintime_tpu.io import export as jex
 from phoskintime_tpu.network.system import GlobalSystem as JaxSystem
 from phoskintime_tpu.network.topology import build_topology as jax_topology
+from torch_figures import assert_same_records, capture_jax, capture_port
 from torch_project import SITES, TF_EDGES, write_project
 
 from phoskintime_tpu_torch.io import export as ex
@@ -395,19 +396,21 @@ def test_weight_workbooks_match_jax(tmp_path, weight_problems, which):
 
 def test_kkt_suite_matches_jax(tmp_path, weight_problems):
     """``kkt_suite``'s JSON, CSVs and LaTeX against JAX's (the gradient by
-    autograd against JAX's: 1e-9); its figures raise."""
+    autograd against JAX's: 1e-9), and its two figures by record."""
     from phoskintime_tpu.kinopt.kkt import kkt_suite as jax_kkt_suite
     from phoskintime_tpu_torch.kinopt import kkt
 
     w = weight_problems
     dj, dp = tmp_path / "jax", tmp_path / "port"
-    jax_kkt_suite(w.kin[0][0], w.kres, str(dj))
-    out = kkt.kkt_suite(w.kin[1][0], w.kres, str(dp), device="cpu")
+    with capture_jax() as want:
+        jout = jax_kkt_suite(w.kin[0][0], w.kres, str(dj))
+    with capture_port() as got:
+        out = kkt.kkt_suite(w.kin[1][0], w.kres, str(dp), device="cpu")
     assert_same_files(dp, dj, RTOL_COMPUTED)
+    assert_same_records(got, want, dp, dj, scaled=RTOL_COMPUTED)
     assert out["report"].n_active_box >= 1
-    for fn in (kkt.plot_constraint_violations, kkt.plot_sensitivity_analysis):
-        with pytest.raises(NotImplementedError, match="item 8d"):
-            fn(None, None, str(dp))
+    assert sorted(out["paths"]) == sorted(jout["paths"])
+    assert {"constraint_violations.png", "sensitivity.png"} <= written(dp)
 
 
 # ---------------------------------------------------------------------------
@@ -433,9 +436,10 @@ def test_scan_report_matches_jax(tmp_path):
 
 
 def test_run_model_pipeline_out_dir_matches_jax(tmp_path):
-    """``run_model_pipeline(out_dir=...)`` writes JAX's results table and
-    ``report.html`` (``make_plots=False`` in both, so the report holds the
-    title alone)."""
+    """``run_model_pipeline(out_dir=...)`` writes JAX's results table, the
+    gene's figures (the same files, each drawing the same within 1e-9 of
+    each array's largest magnitude or of 1) and ``report.html`` embedding
+    them (its images masked)."""
     from test_torch_pipeline import BOUNDS, SMALL, TIME_POINTS, tidy_frames
 
     from phoskintime_tpu.fit.pipeline import run_model_pipeline as jax_pipeline
@@ -445,11 +449,21 @@ def test_run_model_pipeline_out_dir_matches_jax(tmp_path):
     kw = dict(time_points=TIME_POINTS, rna_time_points=TIME_POINTS[5:], bounds=BOUNDS,
               model="distmod", normest_kw=SMALL)
     dj, dp = tmp_path / "jax", tmp_path / "port"
-    jax_pipeline(*frames, out_dir=str(dj), make_plots=False, **kw)
-    run_model_pipeline(*frames, out_dir=str(dp), device="cpu", **kw)
+    with capture_jax() as want:
+        jax_pipeline(*frames, out_dir=str(dj), **kw)
+    with capture_port() as got:
+        outputs = run_model_pipeline(*frames, out_dir=str(dp), device="cpu", **kw)
     assert_same_files(dp, dj, RTOL_COMPUTED)
-    assert written(dp) == {"model_results_results.csv", "report.html"}
+    assert_same_records(got, want, dp, dj, scaled=RTOL_COMPUTED)
+    assert written(dp) == written(dj)
+    assert {"model_results_results.csv", "report.html", "GC/GC_diagram.png"} <= written(dp)
+    import chip_smoke
+
+    assert written(dp) == chip_smoke.model_files(outputs)      # phase 14's derivation
     assert read_csv(dp / "model_results_results.csv")["gene"].tolist() == ["GC"]
+    make_plots = tmp_path / "no_figures"
+    run_model_pipeline(*frames, out_dir=str(make_plots), make_plots=False, device="cpu", **kw)
+    assert written(make_plots) == {"model_results_results.csv", "report.html"}
 
 
 def test_process_convergence_history_without_history(tmp_path):

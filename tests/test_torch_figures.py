@@ -102,11 +102,12 @@ def test_colours_equal_matplotlibs():
 def test_font_covers_the_writers_text():
     from phoskintime_tpu_torch.report.draw import font
 
-    for ch in [chr(c) for c in range(32, 127)] + list("—²χ≤≥"):
+    for ch in [chr(c) for c in range(32, 127)] + list("—²χ≤≥αβλΣŷ₀→←"):
         assert ch in font.GLYPHS, ch
     assert font.text_width("R²=0.5 — χ²", 10) > 0
+    assert font.text_width(r"$\beta$ → β₀ ← $\frac{1}{n}\sum_i(y_i-\hat y_i)^2$", 10) > 0
     with pytest.raises(ValueError, match="no glyph"):
-        font.text_width("α", 10)
+        font.text_width("ж", 10)
 
 
 def test_rasteriser_puts_artists_on_their_pixels(tmp_path):
@@ -206,13 +207,6 @@ def test_parallel_coords_matches_jax(tmp_path, front):
     F[:, 2] = 1.5                       # a constant objective: span 1
     run_both(tmp_path, lambda d: jp.plot_parallel_coords_pareto(F, str(d / "p.png")),
              lambda d: plotter.plot_parallel_coords_pareto(F, str(d / "p.png")))
-
-
-def test_plotter_class_raises():
-    from phoskintime_tpu_torch.report import plotter
-
-    with pytest.raises(NotImplementedError, match="item 8d-figures"):
-        plotter.Plotter("GA", "out")
 
 
 # ---------------------------------------------------------------------------
@@ -488,7 +482,7 @@ def test_run_dashboard_writes_the_static_page(tmp_path, front, capsys):
                                            pareto_F=front.F, best_idx=0)
     out = dashboard.run_dashboard(path, str(tmp_path / "dash"))
     assert out == str(tmp_path / "dash" / "dashboard.html")
-    assert "item 8d-figures" in capsys.readouterr().out
+    assert "the Streamlit viewer is not ported" in capsys.readouterr().out
     assert sorted(p.name for p in (tmp_path / "dash").iterdir()) == [
         "dashboard.html", "pareto_3d.png", "pareto_parallel.png"]
 

@@ -55,9 +55,10 @@ def assert_scaled_close(got, want, atol):
 
 def test_package_imports_without_jax():
     """Every module of the port, and chip_smoke.py, in a fresh interpreter:
-    none loads JAX, the JAX package, pandas, matplotlib or PIL (the card's
-    machine has none of the last three: the port draws its figures with
-    its own ``report/draw``), and none turns on TF32 matmuls.
+    none loads JAX, the JAX package, pandas, matplotlib, PIL, sklearn or
+    seaborn (the card's machine has none of the last five: the port draws
+    its figures with its own ``report/draw`` and computes its embeddings in
+    ``analysis/embed``), and none turns on TF32 matmuls.
     ``__main__`` runs the command line when imported, so it is read, not
     imported."""
     root = Path(__file__).resolve().parent.parent
@@ -84,7 +85,8 @@ def test_package_imports_without_jax():
                 "report.live_model", "report.live", "report.latexit", "report.draw",
                 "report.draw.figure", "report.draw.raster", "report.draw.png",
                 "report.draw.pdf", "report.draw.gif", "report.draw.font",
-                "report.draw.colors", "report.plotter", "report.dashboard"):
+                "report.draw.colors", "report.plotter", "report.dashboard",
+                "report.diagram", "analysis.fitpanels", "analysis.embed"):
         assert f"phoskintime_tpu_torch.{new}" in mods, new
     code = ("import importlib, sys; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
@@ -92,16 +94,16 @@ def test_package_imports_without_jax():
             "or m == 'phoskintime_tpu' or m.startswith('phoskintime_tpu.') "
             "or m == 'pandas' or m.startswith('pandas.') "
             "or m == 'matplotlib' or m.startswith('matplotlib.') "
-            "or m.split('.')[0] in ('PIL', 'plotly', 'streamlit')]; "
+            "or m.split('.')[0] in ('PIL', 'plotly', 'streamlit', 'sklearn', 'seaborn')]; "
             "import torch; tf32 = torch.backends.cuda.matmul.allow_tf32; "
             "print(bad, tf32); sys.exit(1 if bad or tf32 else 0)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stdout + out.stderr
     # nor inside a function: no source line of the port imports pandas,
-    # matplotlib, PIL, plotly, streamlit or JAX
-    lazy = re.compile(r"^\s*(import|from)\s+(pandas|matplotlib|PIL|plotly|streamlit|jax|"
-                      r"phoskintime_tpu)(\.|\s|$)")
+    # matplotlib, PIL, plotly, streamlit, sklearn, seaborn or JAX
+    lazy = re.compile(r"^\s*(import|from)\s+(pandas|matplotlib|PIL|plotly|streamlit|sklearn|"
+                      r"seaborn|jax|phoskintime_tpu)(\.|\s|$)")
     for path in [*(root / "phoskintime_tpu_torch").rglob("*.py"), root / "chip_smoke.py"]:
         bad = [ln for ln in path.read_text().splitlines() if lazy.match(ln)]
         assert not bad, (path, bad)

@@ -10,6 +10,8 @@ effects divide differences of Y by the step, which amplifies the solves'
 state: a knocked-out state decays to ~1e-40); the fits as in ``test_torch_normest.py`` (rtol 1e-8).
 """
 
+from pathlib import Path
+
 import numpy as np
 import pandas as pd
 import pytest
@@ -170,16 +172,21 @@ def test_run_model_pipeline_frames_and_columns_match_jax():
         assert_gene_close(cols[g], want[g])
 
 
-def test_out_dir_and_default_device_raise():
+def test_out_dir_and_default_device_raise(tmp_path):
+    """With an ``out_dir`` the figures are written by default (JAX's
+    default) and ``make_plots=False`` leaves them out; the default device
+    raises without a card."""
     frames = tidy_frames([(7, "GC", 1)])
     kw = dict(time_points=TIME_POINTS, rna_time_points=TIME_POINTS[5:], bounds=BOUNDS)
-    # the figures wait for item 8d: make_plots with an out_dir raises
-    with pytest.raises(NotImplementedError, match="item 8d"):
-        run_model_pipeline(*frames, out_dir="results", make_plots=True, device="cpu", **kw)
     _, _, pr, p, r = synth_gene("distmod", 1, 7)
-    with pytest.raises(NotImplementedError, match="item 8d"):
-        process_gene("GC", pr, p, r, 1, TIME_POINTS, BOUNDS, out_dir="results",
-                     make_plots=True, device="cpu")
+    out = process_gene("GC", pr, p, r, 1, TIME_POINTS, BOUNDS, out_dir=str(tmp_path / "on"),
+                       normest_kw=SMALL, device="cpu")
+    assert out.figures and all(Path(f).parent == tmp_path / "on" / "GC" for f in out.figures)
+    assert sorted(f.name for f in (tmp_path / "on" / "GC").iterdir()) == sorted(
+        Path(f).name for f in out.figures)
+    off = process_gene("GC", pr, p, r, 1, TIME_POINTS, BOUNDS, out_dir=str(tmp_path / "off"),
+                       make_plots=False, normest_kw=SMALL, device="cpu")
+    assert off.figures == [] and not (tmp_path / "off").exists()
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -431,21 +431,19 @@ def test_live_monitor_serves_state():
 
 
 def test_report_package_exports_the_html_half():
-    """``report`` exports the writers the port has (the HTML half and the
-    global model's figures and dashboard); the names part 2 of item
-    8d-figures owes raise naming it, and the per-gene ``Plotter`` raises
-    when built."""
+    """``report`` exports the writers the port has (the HTML half, the
+    per-gene and global model's figures, the diagram and the dashboard);
+    the names part 3 of item 8d-figures owes raise naming it."""
     for name in ("create_report", "table_html", "write_interactive_explorer",
                  "write_pareto_explorer", "pareto_explorer_from_frames",
                  "write_live_model_explorer", "LiveMonitor", "dataframe_to_latex",
                  "figure_to_latex", "write_latex_report", "plot_pareto_3d", "plot_convergence",
-                 "plot_parallel_coords_pareto", "save_dashboard_bundle", "render_dashboard"):
+                 "plot_parallel_coords_pareto", "save_dashboard_bundle", "render_dashboard",
+                 "Plotter", "illustrate"):
         assert callable(getattr(report, name)), name
-    for name in ("diagram", "schematic", "apps", "illustrate", "render_kinopt_app"):
-        with pytest.raises(NotImplementedError, match="item 8d"):
+    for name in ("schematic", "apps", "render_kinopt_app", "render_tfopt_app"):
+        with pytest.raises(NotImplementedError, match="item 8d-figures, part 3"):
             getattr(report, name)
-    with pytest.raises(NotImplementedError, match="item 8d"):
-        report.Plotter("GA", "out")
     with pytest.raises(AttributeError):
         report.nothing_here        # noqa: B018
 

@@ -18,7 +18,8 @@ CPU.
   near-ties.
 * The CLI: the parser's subcommands, destinations and defaults against
   JAX's ``build_parser()`` (``--device`` aside), ``prep``, ``kinopt`` and
-  ``tfopt --mode local``, ``model``, ``clean``, the commands that raise.
+  ``tfopt --mode local``, ``model`` with its figures, ``clean``, the
+  command that raises (``diagram``).
 """
 
 import os
@@ -224,20 +225,32 @@ def in_dir(path, fn, *a):
         os.chdir(cwd)
 
 
-# the per-gene figures of JAX's ``model`` are off: they wait for item 8d
-JAX_CLI = ("import functools, sys, jax; jax.config.update('jax_platforms', 'cpu'); "
-           "jax.config.update('jax_enable_x64', True); "
-           "import phoskintime_tpu.fit.pipeline as jp; "
-           "jp.process_gene = functools.partial(jp.process_gene, make_plots=False); "
-           "from phoskintime_tpu.cli import main; main(sys.argv[1:])")
+# the JAX CLI; with FIGURE_RECORDS set, what its figures draw is pickled there
+JAX_CLI = """import contextlib, os, pickle, sys, jax
+jax.config.update('jax_platforms', 'cpu')
+jax.config.update('jax_enable_x64', True)
+from phoskintime_tpu.cli import main
+out = os.environ.get('FIGURE_RECORDS')
+if out:
+    from torch_figures import capture_jax
+with (capture_jax() if out else contextlib.nullcontext({})) as records:
+    main(sys.argv[1:])
+if out:
+    with open(out, 'wb') as fh:
+        pickle.dump(records, fh)
+"""
 
 
-def start_jax_cli(cwd, *argv):
+def start_jax_cli(cwd, *argv, records=None):
     """The JAX CLI in a process of its own (as the test suite configures
     JAX: the CPU, x64, no persistent cache), so that it runs beside the
-    port's command in this process; ``model`` without its figures."""
+    port's command in this process; ``records``: a path where the records
+    of its figures are pickled."""
     env = {**os.environ, "JAX_PLATFORMS": "cpu", "PHOSKINTIME_DISABLE_COMPILE_CACHE": "1",
-           "PYTHONPATH": str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+           "PYTHONPATH": os.pathsep.join([str(ROOT), str(ROOT / "tests"),
+                                          os.environ.get("PYTHONPATH", "")])}
+    if records is not None:
+        env["FIGURE_RECORDS"] = str(records)
     return subprocess.Popen([sys.executable, "-c", JAX_CLI, *argv], cwd=cwd, env=env,
                             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
 
@@ -484,7 +497,8 @@ def test_weight_fit_commands_match_jax(tmp_path, project, which):
 
 def test_kinopt_command_writes_the_kkt_report(tmp_path, project):
     """With ``fit_analysis`` on, ``kinopt`` writes the KKT report's tables
-    (its panels wait for item 8d)."""
+    and its two figures (the fit-analysis panels beside them:
+    ``tests/test_torch_figure_commands.py``)."""
     shutil.copytree(project, tmp_path, dirs_exist_ok=True)
     cfg = (tmp_path / "config.toml").read_text()
     (tmp_path / "config.toml").write_text(cfg.replace(
@@ -493,31 +507,49 @@ def test_kinopt_command_writes_the_kkt_report(tmp_path, project):
     assert {f for f in written(tmp_path) if f.startswith("data/kinopt_kkt/")} == {
         f"data/kinopt_kkt/{n}" for n in ("kkt_summary.tex", "active_constraints.csv",
                                          "lagrange_multipliers.csv",
-                                         "high_sensitivity_sites.csv", "kkt_report.json")}
+                                         "high_sensitivity_sites.csv", "kkt_report.json",
+                                         "constraint_violations.png", "sensitivity.png")}
 
 
 def test_model_command_matches_jax(tmp_path, project):
-    """``model`` writes JAX's ``model_results`` sheet and ``report.html``
-    (one gene; the JAX command in its own process beside the port's, its
-    per-gene figures off: item 8d-figures)."""
+    """``model`` writes JAX's ``model_results`` sheet, the gene's figures
+    (the same files, each drawing the same within 1e-9 of each array's
+    largest magnitude or of 1: the two fits agree to rounding) and
+    ``report.html`` embedding them (one gene; the JAX command in its own
+    process beside the port's)."""
     dj, dp = tmp_path / "jax", tmp_path / "port"
     for d in (dj, dp):
         shutil.copytree(project, d)
-    proc = start_jax_cli(dj, "model", "--genes", "GA")
+    proc = start_jax_cli(dj, "model", "--genes", "GA", records=tmp_path / "records.pkl")
     try:
-        in_dir(dp, cli.main, ["model", "--genes", "GA", "--device", "cpu"])
+        with capture_port() as got:
+            in_dir(dp, cli.main, ["model", "--genes", "GA", "--device", "cpu"])
     finally:
         finish(proc)
-    assert written(dp / "results") == {"model_results_results.csv", "report.html"}
+    files = written(dp / "results")
+    assert files == written(dj / "results")
+    assert {"model_results_results.csv", "report.html", "GA/GA_diagram.png",
+            "GA/GA_model_fit.png", "GA/GA_knockouts.png"} <= files
+    with open(tmp_path / "records.pkl", "rb") as fh:
+        want = pickle.load(fh)
+    absolute = {k if os.path.isabs(k) else str(dj / k): v for k, v in want.items()}
+    assert_same_records({k if os.path.isabs(k) else str(dp / k): v for k, v in got.items()},
+                        absolute, dp, dj, scaled=1e-9)
     assert_same_csv_only(dp / "results", dj / "results")
+    page = (dp / "results" / "report.html").read_text()
+    assert all(f"<figcaption>{Path(f).name}</figcaption>" in page
+               for f in files if f.endswith(".png"))
 
 
 def assert_same_csv_only(got_dir, want_dir):
-    """Each file the port wrote against JAX's of that name: CSV by value,
-    HTML by page (``assert_same_html``)."""
-    from test_torch_export import assert_same_csv, assert_same_html
+    """Each file the port wrote but its figures against JAX's of that
+    name: CSV by value, HTML by page (``assert_same_html``, the embedded
+    images masked)."""
+    from test_torch_export import FIGURE_SUFFIXES, assert_same_csv, assert_same_html
 
     for f in written(got_dir):
+        if f.endswith(FIGURE_SUFFIXES):
+            continue
         if f.endswith(".html"):
             assert_same_html((got_dir / f).read_text(), (want_dir / f).read_text(), f)
         else:
@@ -542,9 +574,9 @@ def test_clean_removes_pycache(tmp_path, monkeypatch):
     assert written(tmp_path) == {"a/keep.py"}
 
 
-@pytest.mark.parametrize("argv", [["fitanalysis", "--which", "kinopt"], ["diagram"]])
+@pytest.mark.parametrize("argv", [["diagram"]])
 def test_figure_commands_raise(argv):
-    with pytest.raises(NotImplementedError, match="item 8d"):
+    with pytest.raises(NotImplementedError, match="item 8d-figures, part 3"):
         cli.main(argv)
 
 

@@ -7,9 +7,16 @@ function called once a frame after the file is written). :func:`capture_port`
 records the port's figures through :meth:`Figure.record` the same way. Both
 give {path: [record, ...]} (one record a PNG, a page, a frame) in the
 structure :meth:`phoskintime_tpu_torch.report.draw.figure.Figure.record`
-documents, and :func:`assert_same_record` holds two records equal: strings
+documents: lines (with their drawstyle and marker colours), scatters (each
+point's colour and edge), bars (rectangles), patches (circles, closed
+paths), texts and annotations, collections (fills, segments, filled
+contours' levels) and images, with the axes' ticks (explicit or
+categorical). :func:`assert_same_record` holds two records equal: strings
 exactly except the numbers printed in them (rtol 1e-9), colours exactly,
-data at rtol 1e-9.
+data at rtol 1e-9 (with ``scaled``, also within that share of each array's
+largest magnitude or of 1, for the figures of two fits);
+:func:`without_points` blanks a figure's scatter points (a t-SNE the two
+packages compute by different methods).
 
 It also reads the port's files without the port: the PDF's cross-reference
 table and page count, a matplotlib PDF's page count.
@@ -29,15 +36,20 @@ import matplotlib.colors as mcolors  # noqa: E402
 import numpy as np  # noqa: E402
 from matplotlib.animation import Animation  # noqa: E402
 from matplotlib.backends.backend_pdf import PdfPages as MplPdfPages  # noqa: E402
-from matplotlib.collections import PathCollection  # noqa: E402
+from matplotlib.category import StrCategoryLocator  # noqa: E402
+from matplotlib.collections import LineCollection, PathCollection, PolyCollection  # noqa: E402
+from matplotlib.contour import ContourSet  # noqa: E402
 from matplotlib.figure import Figure as MplFigure  # noqa: E402
+from matplotlib.markers import MarkerStyle  # noqa: E402
+from matplotlib.patches import Circle, PathPatch, Rectangle  # noqa: E402
+from matplotlib.text import Annotation  # noqa: E402
 from matplotlib.ticker import FixedFormatter, FixedLocator, FuncFormatter  # noqa: E402
 
 from phoskintime_tpu_torch.report.draw import figure as port_figure  # noqa: E402
 
 RTOL = 1e-9
-#: a marker's path vertex count in matplotlib
-MARKER_OF_VERTICES = {26: "o", 11: "*", 5: "s"}
+#: the markers the port draws, told apart by their paths as a scatter holds them
+SCATTER_MARKERS = ("o", "s", "*", "^", "v", "<", ">", "D", "P", "X", "h")
 NUMBER = re.compile(r"[-+]?(?:\d+\.?\d*|\.\d+)(?:[eE][-+]?\d+)?")
 
 
@@ -52,6 +64,83 @@ def _label(artist) -> str | None:
 
 def _marker(m) -> str:
     return "None" if m in (None, "None", "", " ") else str(m)
+
+
+def _scatter_marker(collection) -> str:
+    """The marker whose path (scaled as a scatter scales it) is the
+    collection's."""
+    got = collection.get_paths()[0].vertices
+    for m in SCATTER_MARKERS:
+        ms = MarkerStyle(m)
+        want = ms.get_path().transformed(ms.get_transform()).vertices
+        if want.shape == got.shape and np.allclose(want, got):
+            return m
+    raise AssertionError(f"unknown scatter marker with {len(got)} vertices")
+
+
+def _rgba_rows(colors) -> np.ndarray:
+    return np.asarray(mcolors.to_rgba_array(colors), float).reshape(-1, 4)
+
+
+def _text_record(t) -> dict:
+    ann = isinstance(t, Annotation)
+    props = getattr(t, "arrowprops", None) if ann else None
+    arrow = None if props is None else {
+        "style": props.get("arrowstyle", "-|>"), "lw": float(props.get("lw", 1.0)),
+        "color": mcolors.to_rgba(props.get("color", "black"))}
+    xy = tuple(float(v) for v in (t.xy if ann else t.get_position()))
+    return {"text": t.get_text(), "xy": xy,
+            "xytext": tuple(float(v) for v in t.xyann) if ann else xy,
+            "coords": t.anncoords if ann else "data", "arrow": arrow, "ha": t.get_ha(),
+            "va": t.get_va(), "color": mcolors.to_rgba(t.get_color()),
+            "size": float(t.get_fontsize()), "weight": str(t.get_fontweight())}
+
+
+def _collection_record(c) -> dict:
+    if isinstance(c, ContourSet):
+        return {"kind": "contourf", "levels": np.asarray(c.levels, float),
+                "cmap": c.get_cmap().name, "alpha": c.get_alpha(),
+                "clim": tuple(float(v) for v in c.get_clim())}
+    if isinstance(c, LineCollection):
+        return {"kind": "lines", "segments": np.asarray(c.get_segments(), float),
+                "colors": _rgba_rows(c.get_edgecolor()),
+                "linewidths": np.asarray(c.get_linewidths(), float)}
+    if isinstance(c, PolyCollection):
+        return {"kind": "poly",
+                "vertices": np.vstack([p.vertices for p in c.get_paths()]).astype(float),
+                "facecolors": _rgba_rows(c.get_facecolor()),
+                "edgecolors": _rgba_rows(c.get_edgecolor())}
+    raise AssertionError(f"unrecorded collection {type(c).__name__}")
+
+
+def _patch_record(p) -> dict:
+    if isinstance(p, Circle):
+        return {"kind": "circle", "center": tuple(float(v) for v in p.get_center()),
+                "radius": float(p.get_radius()), "color": tuple(p.get_facecolor()),
+                "edgecolor": tuple(p.get_edgecolor())}
+    if isinstance(p, PathPatch):
+        return {"kind": "path", "vertices": np.asarray(p.get_path().vertices, float),
+                "color": tuple(p.get_facecolor()), "edgecolor": tuple(p.get_edgecolor())}
+    raise AssertionError(f"unrecorded patch {type(p).__name__}")
+
+
+def _ticks_record(axis) -> tuple:
+    """(ticks, labels, style) where the axis' ticks are fixed (explicit or
+    categories), else None each."""
+    loc, fmt = axis.get_major_locator(), axis.get_major_formatter()
+    if isinstance(loc, StrCategoryLocator):
+        mapping = axis.units._mapping
+        ticks = np.asarray(list(mapping.values()), float)
+        labels = [str(k) for k in mapping]
+    elif isinstance(loc, FixedLocator):
+        ticks = np.asarray(loc.locs, float)
+        labels = ([t.get_text() for t in axis.get_ticklabels()]
+                  if isinstance(fmt, (FuncFormatter, FixedFormatter)) else None)
+    else:
+        return None, None, None
+    shown = axis.get_ticklabels()
+    style = (None if not labels else (float(shown[0].get_rotation()), shown[0].get_ha()))
+    return ticks, labels, style
 
 
 def _axes_record(ax) -> dict:
@@ -72,14 +161,7 @@ def _axes_record(ax) -> dict:
         for n in "xy":
             axis = getattr(ax, f"{n}axis")
             rec[f"{n}scale"] = axis.get_scale()
-            loc, fmt = axis.get_major_locator(), axis.get_major_formatter()
-            fixed = isinstance(loc, FixedLocator)
-            rec[f"{n}ticks"] = np.asarray(loc.locs, float) if fixed else None
-            labels = axis.get_ticklabels() if fixed and isinstance(
-                fmt, (FuncFormatter, FixedFormatter)) else None
-            rec[f"{n}ticklabels"] = None if labels is None else [t.get_text() for t in labels]
-            rec[f"{n}tickstyle"] = (None if not labels
-                                    else (float(labels[0].get_rotation()), labels[0].get_ha()))
+            rec[f"{n}ticks"], rec[f"{n}ticklabels"], rec[f"{n}tickstyle"] = _ticks_record(axis)
         kx, ky = ax.xaxis._major_tick_kw, ax.yaxis._major_tick_kw
         alpha = kx.get("grid_alpha", ky.get("grid_alpha"))
         rec["grid"] = {"x": bool(kx.get("gridOn", False)), "y": bool(ky.get("gridOn", False)),
@@ -89,7 +171,10 @@ def _axes_record(ax) -> dict:
                      "color": mcolors.to_rgba(ln.get_color()), "ls": ln.get_linestyle(),
                      "marker": _marker(ln.get_marker()), "lw": float(ln.get_linewidth()),
                      "ms": float(ln.get_markersize()), "alpha": ln.get_alpha(),
-                     "label": _label(ln)} for ln in ax.get_lines()]
+                     "label": _label(ln), "drawstyle": ln.get_drawstyle(),
+                     "markeredgecolor": mcolors.to_rgba(ln.get_markeredgecolor()),
+                     "markerfacecolor": mcolors.to_rgba(ln.get_markerfacecolor())}
+                    for ln in ax.get_lines()]
     scatters = []
     for c in ax.collections:
         if not isinstance(c, PathCollection):
@@ -99,13 +184,20 @@ def _axes_record(ax) -> dict:
         scatters.append({
             "offsets": offsets,
             "sizes": np.broadcast_to(np.asarray(c.get_sizes(), float), (len(offsets),)),
-            "color": tuple(float(v) for v in c._facecolors[0]), "alpha": c.get_alpha(),
-            "marker": MARKER_OF_VERTICES[len(c.get_paths()[0].vertices)],
-            "label": _label(c)})
+            "colors": _rgba_rows(c._facecolors),
+            "edgecolors": None if is3d else _rgba_rows(c.get_edgecolor()),
+            "linewidths": np.asarray(c.get_linewidths(), float), "alpha": c.get_alpha(),
+            "marker": _scatter_marker(c), "label": _label(c)})
     rec["scatters"] = scatters
-    rec["bars"] = [{"y": float(p.get_y()), "height": float(p.get_height()),
-                    "width": float(p.get_width()),
-                    "color": tuple(float(v) for v in p.get_facecolor())} for p in ax.patches]
+    rec["bars"] = [{"x": float(p.get_x()), "y": float(p.get_y()),
+                    "width": float(p.get_width()), "height": float(p.get_height()),
+                    "color": tuple(float(v) for v in p.get_facecolor()),
+                    "edgecolor": tuple(float(v) for v in p.get_edgecolor())}
+                   for p in ax.patches if isinstance(p, Rectangle)]
+    rec["patches"] = [_patch_record(p) for p in ax.patches if not isinstance(p, Rectangle)]
+    rec["texts"] = [_text_record(t) for t in ax.texts]
+    rec["collections"] = [_collection_record(c) for c in ax.collections
+                          if not isinstance(c, PathCollection)]
     rec["images"] = [{"array": np.ma.filled(np.ma.asarray(im.get_array(), float), np.nan),
                       "cmap": im.get_cmap().name, "vmin": float(im.get_clim()[0]),
                       "vmax": float(im.get_clim()[1])} for im in ax.images]
@@ -204,13 +296,19 @@ def _numeric(v) -> bool:
         v, (bool, np.bool_))
 
 
-def assert_same_record(got, want, where: str = "") -> None:
-    """``got`` (the port's record) equal to ``want`` (matplotlib's)."""
+def assert_same_record(got, want, where: str = "", scaled: float = 0.0) -> None:
+    """``got`` (the port's record) equal to ``want`` (matplotlib's);
+    ``scaled``: the data also within that share of each array's largest
+    magnitude, or of 1 where that is smaller (for figures of two fits that
+    agree to rounding, whose values are of order 1)."""
     if isinstance(want, dict):
         assert isinstance(got, dict), where
         assert set(got) == set(want), (where, sorted(set(got) ^ set(want)))
         for k in want:
-            assert_same_record(got[k], want[k], f"{where}.{k}")
+            assert_same_record(got[k], want[k], f"{where}.{k}", scaled)
+    elif where.endswith("colors") and want is not None:
+        g, w = np.asarray(got, float), np.asarray(want, float)
+        assert g.shape == w.shape and np.array_equal(g, w), (where, got, want)
     elif where.endswith("color"):
         assert tuple(float(v) for v in got) == tuple(float(v) for v in want), (where, got, want)
     elif isinstance(want, str):
@@ -222,14 +320,29 @@ def assert_same_record(got, want, where: str = "") -> None:
                             and len(want)):
         g, w = np.asarray(got, float), np.asarray(want, float)
         assert g.shape == w.shape, (where, g.shape, w.shape)
-        np.testing.assert_allclose(g, w, rtol=RTOL, atol=0, equal_nan=True, err_msg=where)
+        finite = w[np.isfinite(w)]
+        atol = scaled * max(float(np.abs(finite).max(initial=0.0)), 1.0) if scaled else 0.0
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=atol, equal_nan=True, err_msg=where)
     else:
         assert isinstance(got, (list, tuple)) and len(got) == len(want), (where, got, want)
         for i, (a, b) in enumerate(zip(got, want)):
-            assert_same_record(a, b, f"{where}[{i}]")
+            assert_same_record(a, b, f"{where}[{i}]", scaled)
 
 
-def assert_same_records(got: dict, want: dict, root_got, root_want) -> None:
+def without_points(records: dict, suffix: str) -> dict:
+    """The captures with the scatter points of each file ending in
+    ``suffix`` blanked (an embedding the two packages compute differently:
+    t-SNE)."""
+    for path, recs in records.items():
+        if str(path).endswith(suffix):
+            for rec in recs:
+                for ax in rec["axes"]:
+                    for sc in ax.get("scatters", ()):
+                        sc["offsets"] = None
+    return records
+
+
+def assert_same_records(got: dict, want: dict, root_got, root_want, scaled: float = 0.0) -> None:
     """The two captures' files (relative to their roots) and each file's
     records in order."""
     rel_g = {os.path.relpath(k, root_got): v for k, v in got.items()}
@@ -238,7 +351,7 @@ def assert_same_records(got: dict, want: dict, root_got, root_want) -> None:
     for name, recs in rel_w.items():
         assert len(rel_g[name]) == len(recs), (name, len(rel_g[name]), len(recs))
         for i, (g, w) in enumerate(zip(rel_g[name], recs)):
-            assert_same_record(g, w, f"{name}[{i}]")
+            assert_same_record(g, w, f"{name}[{i}]", scaled)
 
 
 # ---------------------------------------------------------------------------
