@@ -128,7 +128,7 @@ Model 4 and the last oracle solvers:
    of three calls);
 8b. ESDIRK (``simulate_batched(solver="esdirk")``, rtol 1e-8, atol 1e-10,
    float64) to t = 0.55 min, across the first kinase boundary, on the
-   model-2 bench network (d = 765) at pop 16 and on model 0 at pop 64:
+   model-2 bench network (d = 765) at pop 16 and on model 0 at pop 32:
    the Jacobian through the flux kernel against the plain flux's (1e-12
    scaled, two launches), the model-2 run launching the kernel 21 times a
    loop iteration (every stage and the Jacobian) and never the plain
@@ -150,7 +150,7 @@ kernel):
    (8 members, 1e-9 scaled) and against central differences along 3
    seeded directions (rel 1e-6); forward and forward+reverse ms, one step
    under the profiler, peak memory;
-9b. ``polish_solutions`` on 32 members for 20 steps: no member worse than
+9b. ``polish_solutions`` on 32 members for 10 steps: no member worse than
    its input under its own weights, every member inside [xl, xu], ms a
    step, one table launch (the final scoring);
 9c. the LM finish from the true parameters perturbed by 2%, zero-residual
@@ -160,8 +160,8 @@ kernel):
    then 6 at float64 on the card, ending below 1e-3 x the float32 sse),
    ms an iteration, the largest relative parameter error (printed);
 9d. ``run_global_fit`` at pop 256 for 2 generations with
-   ``polish_steps=20`` and ``gn_iters=3``, and ``optimizer="gradient"`` at
-   pop 64 (100 steps): ``n_evals`` by the JAX package's bookkeeping, the
+   ``polish_steps=10`` and ``gn_iters=2``, and ``optimizer="gradient"`` at
+   pop 32 (100 steps): ``n_evals`` by the JAX package's bookkeeping, the
    Pareto set the first front of every member (a polished member in it),
    the table launches, each stage's seconds.
 
@@ -344,11 +344,41 @@ figures; drawn on the host, no kernel):
    parallel-coordinate plots, each PNG decoded) with its launches as
    before.
 
+Part 3 of the report layer (``analysis/thermal.py``, ``report/apps.py``,
+``report/schematic.py``, ``analysis/network_tools.py``; the float64 CPU
+references of 15a and 15b in two spawned workers started before phase 13):
+
+15a. ``compare_thermal_standard`` on the model-0 bench network at its true
+   parameters (Tm seeded in [36, 44] C): float32 on the card, each
+   temperature's RK45 steps and whether it stopped at the 5,000-step cap
+   (read by a spy on ``simulate_batched``), float64 on the card against
+   the CPU's within 1e-9 of the largest fold change, the float32 result's
+   distance from it, ``thermal_comparison.png`` decoded at its size; no
+   launch;
+15b. the thermal system at 39 C through the batched ETD2RK path at
+   float32 on the card: model 0 against a float64 RK45 solve on the card
+   (rtol 1e-8, atol 1e-10), model 2 (bucketed, w = 17) against the port's
+   float64 ETD2RK on the CPU, each within 1e-3 (fold changes, as 5 and
+   5b); the ``phi_tables`` / ``phi_tables_wide`` launches one a width
+   class, predicted and asserted (in the kernels line's paths);
+15c. ``render_kinopt_app`` and ``render_tfopt_app`` on phase 11's local fits
+   (the bench kinopt problem, the 500-gene tfopt one): the written files,
+   each PNG decoded, the knockout preview (one batched ``predict`` on the
+   card, float64) against the CPU's within 1e-12; no launch;
+15d. ``diagram --alpha-file`` through ``cli.main`` on a kinopt workbook that
+   ``io/export.py`` writes from 15c's fit: seven PNGs at 300 dpi, each
+   decoded, each figure's seconds; no launch;
+15e. ``curve_similarity_matrix`` over the bench network's 45 protein curves
+   (990 pairs in one batched Fréchet DP on the card, float64) against the
+   CPU's within 1e-12, ``cluster_curves`` and ``export_subnetwork`` around
+   the busiest protein; no launch.
+
 ``python3 chip_smoke.py --pergene-only`` runs phase 1 and phase 10 alone
 (no kernel build, no JSON lines); ``--sensitivity-kinopt-only`` runs
 phases 1, 2 and 11, ``--hyperscan-only`` phases 1, 2 and 12,
 ``--runner-only`` phases 1, 2 and 13, ``--fitfigures-only`` phases 1, 2
-and 14 (no JSON lines).
+and 14, ``--part3-only`` phases 1, 2 and 15 (15c at the phase-11 problems'
+exact weights, in place of phase 11's fits; no JSON lines).
 
 The line before the last is a JSON summary of each kernel (the float64
 instances and ``sq_chain`` included, each with the launches of its own main
@@ -505,7 +535,7 @@ ESDIRK_TOLS = dict(rtol=1e-8, atol=1e-10, max_steps=100_000)
 ESDIRK_T_END = 0.55
 ESDIRK_TIMES = np.linspace(0.0, ESDIRK_T_END, 6)
 ESDIRK_RTOL, ESDIRK_ATOL = 1e-5, 1e-7
-ESDIRK_POP = {2: 16, 0: 64}
+ESDIRK_POP = {2: 16, 0: 32}              # model 0 at 64 before phase 15 came in
 # flux launches of an ESDIRK loop iteration on model 2: the Jacobian's two
 # (the primal and every tangent column at once), 18 Newton RHS (six a stage,
 # three implicit stages) and the RHS after the step; one more before the loop
@@ -522,14 +552,16 @@ GRAD_CHUNK, GRAD_CPU_MEMBERS = 128, 8
 GRAD_F_RTOL, GRAD_F_ATOL, GRAD_F64_RTOL = 2e-4, 1e-6, 1e-9
 GRAD_FD_RTOL, GRAD_FD_EPS, GRAD_FD_DIRECTIONS = 1e-6, 1e-6, 3
 # the polish (9b), its slack as the JAX package's test (tests/test_polish.py:80)
-POLISH_POP, POLISH_STEPS, POLISH_SLACK = 32, 20, 1e-4
+# (POLISH_STEPS was 20 before phase 15 came in)
+POLISH_POP, POLISH_STEPS, POLISH_SLACK = 32, 10, 1e-4
 # the LM finish (9c): sum(r**2) against F.sum() at each precision, the
 # iterations of each stage, the mixed finish against the float32 sse (the
 # JAX package's gate, tests/test_polish.py:383-389), tangents a Jacobian pass
 LM_SSE_RTOL = {torch.float32: 2e-4, torch.float64: 1e-9}
 LM_ITERS_LO, LM_ITERS_HI, LM_MIXED_GATE, JAC_CHUNK = 8, 6, 1e-3, 256
 # the fits of 9d: the GA then polish and LM; the gradient multistart
-GRADFIT_POP, GRADFIT_GENS, GRADFIT_GN_ITERS, GRADFIT_MULTISTART_POP = 256, 2, 3, 64
+# (gn_iters 3 and the multistart's pop 64 before phase 15 came in)
+GRADFIT_POP, GRADFIT_GENS, GRADFIT_GN_ITERS, GRADFIT_MULTISTART_POP = 256, 2, 2, 32
 # 10: the per-gene stack. The protein time grid and the default box (all
 # bounds (0, 20)); the three mechanisms at n = 1..5 sites; PG_GENES genes a
 # cohort at normest's defaults (PG_LM_ITERS is its lm_iters); PG_SOLVES
@@ -2403,7 +2435,7 @@ def esdirk_run(label, b64, thetas, card, want_flux: bool) -> tuple:
 
 def phase_esdirk(b, b2, thetas, thetas2, card) -> dict:
     """8b, on the card: ESDIRK on the model-2 bench network at float64 (N =
-    45, w = 17, d = 765) at pop 16 and on model 0 at pop 64 (rtol 1e-8,
+    45, w = 17, d = 765) at pop 16 and on model 0 at pop 32 (rtol 1e-8,
     atol 1e-10) over the first ``ESDIRK_T_END`` minutes, across the first
     kinase boundary; the model-2 run launches the flux kernel 21 times a
     loop iteration (its Jacobian twice, through the kernel's forward-mode
@@ -2702,8 +2734,9 @@ def phase_lm(b, card) -> dict:
 
 def phase_gradient_fits(b, card) -> dict:
     """9d: run_global_fit on the bench network with the gradient options:
-    pop 256 for 2 generations, then polish_steps=20 and gn_iters=3; then
-    optimizer="gradient" at pop 64 with polish_steps=20 (JAX's minimum of
+    pop 256 for 2 generations, then POLISH_STEPS of polish and
+    GRADFIT_GN_ITERS; then optimizer="gradient" at GRADFIT_MULTISTART_POP
+    with POLISH_STEPS (JAX's minimum of
     100 steps). Gates: n_evals by the JAX package's bookkeeping, the
     Pareto set the first front of every member with at least one polished
     member in it, the table launches (the GA's evaluations and one a
@@ -3338,7 +3371,7 @@ def rel_over(d_abs, denom) -> float:
     return float(np.max(np.where(denom > 0, d_abs / safe, np.where(d_abs > 0, np.inf, 0.0))))
 
 
-def phase_kinopt(card, pool) -> dict:
+def phase_kinopt(card, pool, fits=None) -> dict:
     """11a: kinopt on the bench problem and on the scaled one: run_local
     (48 starts, 200 steps), DE (pop 100, 50 generations), NSGA-II on the
     host and all-device (pop 100, 50 generations, blocks of 10): ms a step
@@ -3356,6 +3389,8 @@ def phase_kinopt(card, pool) -> dict:
             n_params=n, card=repr(card))
         reset_counts()
         res, sec, peak = timed_run(lambda: kinopt_run_local(prob, **KINOPT_LOCAL))
+        if fits is not None and label == "bench":
+            fits["kinopt"] = (prob, res)             # phase 15c's app renders this fit
         gm, km = torch.as_tensor(prob.gp_mask, device="cuda"), torch.as_tensor(
             prob.k_mask, device="cuda")
         A0 = torch.as_tensor(np.stack([prob.gp_mask / prob.gp_mask.sum(1, keepdims=True)]
@@ -3436,7 +3471,7 @@ def phase_kinopt(card, pool) -> dict:
     return paths
 
 
-def phase_tfopt(card) -> dict:
+def phase_tfopt(card, fits=None) -> dict:
     """11b: tfopt on the scaled generator (500 genes, 100 TFs, 4 regulators
     a gene, 0-6 psites a TF; pop = min(2n, 400)): run_local, then
     optimizers 0 (host and all-device, blocks of 10), 1 and 2 for 20
@@ -3451,6 +3486,8 @@ def phase_tfopt(card) -> dict:
     res, sec, peak = timed_run(lambda: tfopt_run_local(prob, **TFOPT_LOCAL))
     if not np.isfinite(res.loss):
         raise AssertionError(f"11b: run_local loss {res.loss}")
+    if fits is not None:
+        fits["tfopt"] = (prob, res)                  # phase 15c's app renders this fit
     say("11b run_local", starts=TFOPT_LOCAL["n_starts"], steps=TFOPT_LOCAL["steps"],
         ms_per_step=f"{1e3 * sec / TFOPT_LOCAL['steps']:.3f}", loss=f"{res.loss:.6e}",
         feasible=res.feasible, peak_gib=f"{peak:.3f}", seconds=f"{sec:.2f}", card=repr(card))
@@ -3542,17 +3579,19 @@ def phase_sensitivity(b2, card, pool) -> dict:
     return {"sensitivity-model2": launches}
 
 
-def phase_sensitivity_kinopt(card, b2) -> dict:
+def phase_sensitivity_kinopt(card, b2, fits=None) -> dict:
     """11: kinopt (11a), tfopt (11b) and the network sensitivity (11c); the
-    CPU references in spawned worker processes beside them."""
+    CPU references in spawned worker processes beside them. ``fits``, where
+    given, receives the bench kinopt and the tfopt local fits as {which:
+    (problem, result)}."""
     from concurrent.futures import ProcessPoolExecutor
     from multiprocessing import get_context
 
     t0 = time.perf_counter()
     pool = ProcessPoolExecutor(max_workers=1, mp_context=get_context("spawn"))
     try:
-        paths = phase_kinopt(card, pool)
-        paths.update(phase_tfopt(card))
+        paths = phase_kinopt(card, pool, fits)
+        paths.update(phase_tfopt(card, fits))
         paths.update(phase_sensitivity(b2, card, pool))
     finally:
         pool.shutdown(cancel_futures=True)
@@ -4843,6 +4882,364 @@ def phase_fit_figures(card, b) -> None:
         raise AssertionError("14: the bootstrap and sensitivity gene ran without them")
 
 
+# --- 15: part 3 of the report layer: the thermal variant, the apps, the schematics, the
+# network tools ---------------------------------------------------------------------------
+
+THERMAL_TM_SEED = 17        # the melting temperatures: uniform in [36, 44] C, seeded
+THERMAL_F64_GATE = 1e-9     # 15a: float64 on the card vs the CPU, of the largest fold change
+THERMAL_T = 39.0            # 15b: the JAX package's test's temperature (just below Tm)
+THERMAL_EXPO_GATE = 1e-3    # 15b: ETD2RK float32 vs float64, as the JAX test and phase 5b
+# 15b's model-0 reference: RK45 at phase 8b's reference tolerances (RK45's defaults, rtol
+# 1e-5, are 8e-3 from a tight solve of the thermal system at 39 C on the CPU)
+THERMAL_RK45_TOLS = dict(rtol=1e-8, atol=1e-10, max_steps=200_000)
+APP_KO_RTOL = 1e-12         # 15c: the knockout preview on the card vs the CPU, float64
+FRECHET_GATE = 1e-12        # 15e: the similarity matrix on the card vs the CPU, float64
+APP_FILES = ("identity_band.png", "breadth_load.png", "network_dag.png")
+SCHEMATICS = ("kinopt_diagram", "kinopt_constraints", "tfopt_diagram", "tfopt_constraints",
+              "global_diagram", "global_constraints", "fitted_network")
+
+
+def melting_temperatures(n: int) -> np.ndarray:
+    return np.random.default_rng(THERMAL_TM_SEED).uniform(36.0, 44.0, n)
+
+
+def thermal_tables(out: dict) -> dict:
+    """{label: [protein, RNA, phospho pred_fc]} of compare_thermal_standard's
+    result, float64 numpy."""
+    return {lab: [np.asarray(t["pred_fc"], float) for t in tables]
+            for lab, tables in out.items()}
+
+
+def part3_cpu_job(job: str, hb: dict) -> tuple:
+    """One of phase 15's float64 references on the CPU, in a worker process:
+    ``"thermal"`` 15a's compare_thermal_standard tables on the model-0
+    bench network, ``"expo"`` 15b's model-2 thermal ETD2RK fold changes at
+    THERMAL_T. Returns (result, seconds)."""
+    from phoskintime_tpu_torch.analysis.thermal import compare_thermal_standard, thermalize
+
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    system = GlobalSystem(hb["topo"], hb["kin_grid"], hb["Kmat"], dtype=torch.float64,
+                          device="cpu")
+    Tm = melting_temperatures(hb["topo"].N)
+    if job == "thermal":
+        out = thermal_tables(compare_thermal_standard(system, hb["true"], Tm))
+    else:
+        sys_T, p_T = thermalize(system, hb["true"], THERMAL_T, Tm)
+        out = port_fold_changes(sys_T, p_T, np.asarray(hb["grid"], float))
+    return out, time.perf_counter() - t0
+
+
+def start_part3_references(b, b2):
+    """Starts the two :func:`part3_cpu_job` runs, each in its own spawned
+    worker (they run beside the phases before 15); returns (pool, {job:
+    future})."""
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    pool = ProcessPoolExecutor(max_workers=2, mp_context=get_context("spawn"))
+    return pool, {job: pool.submit(part3_cpu_job, job, host_bundle(bb))
+                  for job, bb in (("thermal", b), ("expo", b2))}
+
+
+def max_scaled(got: list, want: list) -> float:
+    """The largest |got - want| over the arrays, of the largest |want|."""
+    scale = max(float(np.max(np.abs(w), initial=0.0)) for w in want) or 1.0
+    return max(float(np.max(np.abs(g - w), initial=0.0)) for g, w in zip(got, want)) / scale
+
+
+def flat_tables(tables: dict) -> list:
+    return [a for lab in tables for a in tables[lab]]
+
+
+def phase_thermal(b, card, cpu) -> dict:
+    """15a: compare_thermal_standard on the model-0 bench network at its true
+    parameters (seeded Tm): float32 on the card with each temperature's RK45
+    steps and whether it stopped at the 5,000-step cap (a spy on
+    simulate_batched), float64 on the card against the CPU's (the worker's)
+    within THERMAL_F64_GATE of the largest fold change, the float32 result's
+    distance from it, the figure decoded at its size. No launch."""
+    import tempfile
+
+    from phoskintime_tpu_torch.analysis.thermal import (DEFAULT_TEMPERATURES,
+                                                        compare_thermal_standard)
+
+    system, topo = b["system"], b["topo"]
+    Tm = melting_temperatures(topo.N)
+    reset_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="phoskintime_thermal_") as tmp, \
+            EntrySpy() as spy:
+        out32 = compare_thermal_standard(system, b["true"], Tm, out_dir=tmp)
+        torch.cuda.synchronize()
+        sec32 = time.perf_counter() - t0
+        size = png_check(os.path.join(tmp, "thermal_comparison.png"))
+    t1 = time.perf_counter()
+    out64 = compare_thermal_standard(system.astype(torch.float64), b["true"], Tm)
+    torch.cuda.synchronize()
+    sec64 = time.perf_counter() - t1
+    launches = counts()
+    f32, f64 = thermal_tables(out32), thermal_tables(out64)
+    err64 = max_scaled(flat_tables(f64), flat_tables(cpu["thermal"][0]))
+    err32 = max_scaled(flat_tables(f32), flat_tables(f64))
+    solves = spy.solves
+    labels = [lab for lab, _ in DEFAULT_TEMPERATURES]
+    n_prot = min(topo.N, 6)
+    want_size = (int(4 * len(labels) * 110), int(2.2 * n_prot * 110))
+    say("15a thermal", N=topo.N, temperatures=labels,
+        steps={lab: s.steps for lab, s in zip(labels, solves)},
+        at_cap={lab: s.steps >= 5000 for lab, s in zip(labels, solves)},
+        success={lab: s.success for lab, s in zip(labels, solves)},
+        f64_card_vs_cpu=f"{err64:.3e}", gate=THERMAL_F64_GATE, f32_vs_f64=f"{err32:.3e}",
+        figure_px=size, figure_px_want=want_size, f32_s=f"{sec32:.2f}",
+        f64_s=f"{sec64:.2f}", cpu_s=f"{cpu['thermal'][1]:.2f}", launches=launches,
+        card=repr(card))
+    if len(solves) != len(labels) or not all(capped_or_succeeded(s.steps, s.success)
+                                             for s in solves):
+        raise AssertionError(f"15a: a thermal RK45 solve failed: {[s.row() for s in solves]}")
+    if not err64 <= THERMAL_F64_GATE:
+        raise AssertionError(f"15a: float64 on the card vs the CPU: {err64:.3e}")
+    if size != want_size or launches != expect():
+        raise AssertionError(f"15a: figure {size} (want {want_size}), launches {launches}")
+    return {"thermal-rk45": launches}
+
+
+def phase_thermal_expo(b, b2, card, cpu) -> dict:
+    """15b: the thermal system at THERMAL_T through the batched ETD2RK path
+    (the table kernels) at float32 on the card, the JAX package's test at
+    full width: model 0 against a float64 RK45 solve of the thermal system
+    on the card (THERMAL_RK45_TOLS), model 2 (bucketed) against the
+    port's float64 ETD2RK on the CPU (the worker's, as phase 5b); the
+    table launches predicted from the width classes and asserted."""
+    from phoskintime_tpu_torch.analysis.thermal import thermalize
+
+    paths = {}
+    for bb in (b, b2):
+        system, topo = bb["system"], bb["topo"]
+        times = np.asarray(bb["grid"], float)
+        sys_T, p_T = thermalize(system, bb["true"], THERMAL_T, melting_temperatures(topo.N))
+        phi, wide = tables_per_call(topo)
+        want = expect(phi_tables=phi, phi_tables_wide=wide)
+        reset_counts()
+        t0 = time.perf_counter()
+        got = port_fold_changes(sys_T, p_T, times)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = counts()
+        if topo.model == 0:
+            sys64 = sys_T.astype(torch.float64)
+            res = simulate(sys64, p_T, times, **THERMAL_RK45_TOLS)
+            ref, ref_name = fold_changes_of(sys64, res.ys, times), "RK45 1e-8 float64 card"
+            extra = {"rk45_steps": int(res.n_steps), "rk45_success": bool(res.success)}
+        else:
+            ref, ref_name, extra = cpu["expo"][0], "ETD2RK float64 CPU", {
+                "cpu_s": f"{cpu['expo'][1]:.2f}"}
+        err = rel_err(got, ref)
+        say("15b thermal etd2rk", model=topo.model, N=topo.N, w=topo.width, T=THERMAL_T,
+            max_rel_err=f"{err:.3e}", gate=THERMAL_EXPO_GATE, reference=ref_name,
+            launches=launches, predicted=want, seconds=f"{sec:.2f}", **extra, card=repr(card))
+        if not err < THERMAL_EXPO_GATE:
+            raise AssertionError(f"15b model {topo.model}: {err:.3e} from {ref_name}")
+        if launches != want:
+            raise AssertionError(f"15b model {topo.model}: launches {launches}, want {want}")
+        paths[f"thermal-model{topo.model}-etd2rk"] = launches
+    return paths
+
+
+def exact_fits():
+    """The phase-11 problems at their generators' exact weights (alpha = 1 /
+    per_site, the Dirichlet betas), for a run without phase 11's fits."""
+    from types import SimpleNamespace
+
+    kp = kinopt_synthetic(*KINOPT_PROBLEMS["bench"])
+    ka = kp.gp_mask / kp.gp_mask.sum(1, keepdims=True)
+    kb = kp.k_mask / kp.k_mask.sum(1, keepdims=True)
+    tp = tfopt_synthetic(*TFOPT_PROBLEM)
+    ta = tp.alpha_mask / tp.alpha_mask.sum(1, keepdims=True)
+    tb = tp.beta_mask / tp.beta_mask.sum(1, keepdims=True)
+    return {"kinopt": (kp, SimpleNamespace(alpha=ka, beta=kb)),
+            "tfopt": (tp, SimpleNamespace(alpha=ta, beta=tb))}
+
+
+def phase_apps(fits, root, card) -> dict:
+    """15c: render_kinopt_app and render_tfopt_app on phase 11's local fits
+    (their bench kinopt problem and the 500-gene tfopt one): the written
+    files, every PNG decoded, the knockout preview (one batched predict on
+    the card, float64, read by a spy) against the CPU's within APP_KO_RTOL;
+    no launch. Returns {which: seconds}."""
+    from phoskintime_tpu_torch.report import apps as apps_mod
+
+    previews = {}
+    real = {w: getattr(apps_mod, f"{w}_knockout_predictions") for w in ("kinopt", "tfopt")}
+
+    def spy(which):
+        def preview(prob, alpha, beta, device="cuda"):
+            out = real[which](prob, alpha, beta, device)
+            previews[which] = (prob, alpha, beta, out)
+            return out
+        return preview
+    seconds = {}
+    reset_counts()
+    for which in ("kinopt", "tfopt"):
+        setattr(apps_mod, f"{which}_knockout_predictions", spy(which))
+    try:
+        for which, render in (("kinopt", apps_mod.render_kinopt_app),
+                              ("tfopt", apps_mod.render_tfopt_app)):
+            prob, res = fits[which]
+            t0 = time.perf_counter()
+            render(prob, res, str(root / f"{which}_app"))
+            seconds[which] = time.perf_counter() - t0
+    finally:
+        for which in real:
+            setattr(apps_mod, f"{which}_knockout_predictions", real[which])
+    launches = counts()
+    files, errs, sizes = {}, {}, []
+    for which in ("kinopt", "tfopt"):
+        d = root / f"{which}_app"
+        files[which] = written_under(d)
+        want = set(APP_FILES) | {f"{which}_interactive.html", f"{which}_app.html"}
+        if files[which] != want:
+            raise AssertionError(f"15c {which}: wrote {sorted(files[which])}, want {sorted(want)}")
+        sizes += [png_check(d / f) for f in APP_FILES]
+        prob, alpha, beta, card_ko = previews[which]
+        cpu_ko = real[which](prob, alpha, beta, "cpu")
+        errs[which] = max_scaled([card_ko], [cpu_ko])
+    prob_k, prob_t = fits["kinopt"][0], fits["tfopt"][0]
+    say("15c apps", kinopt_sites=prob_k.n_gp, kinopt_kinases=prob_k.n_k,
+        tfopt_genes=prob_t.n_genes, tfopt_tfs=prob_t.n_TF,
+        knockouts={w: list(previews[w][3].shape) for w in previews},
+        ko_card_vs_cpu={w: f"{e:.3e}" for w, e in errs.items()}, gate=APP_KO_RTOL,
+        pngs=len(sizes), png_px_min=min(sizes), seconds={w: f"{s:.2f}" for w, s in
+                                                         seconds.items()},
+        launches=launches, card=repr(card))
+    if any(e > APP_KO_RTOL for e in errs.values()):
+        raise AssertionError(f"15c: the knockout preview on the card vs the CPU: {errs}")
+    if launches != expect():
+        raise AssertionError(f"15c: the apps launched {launches}")
+    return seconds
+
+
+def phase_diagram(fits, root, card) -> None:
+    """15d: ``diagram --alpha-file`` through ``cli.main`` on a kinopt workbook
+    that io/export writes from 15c's kinopt fit: the six schematics and the
+    fitted network, each PNG decoded, the seconds of each figure at 300 dpi;
+    no launch."""
+    from phoskintime_tpu_torch.io.export import export_kinopt_results
+    from phoskintime_tpu_torch.report import schematic as schematic_mod
+
+    prob, res = fits["kinopt"]
+    book = root / "kinopt_results.xlsx"
+    export_kinopt_results(book, prob, res)
+    (root / "config.toml").write_text("[paths]\n")
+    real = schematic_mod.Diagram.render
+    seconds = {}
+
+    def timed(self, outfile, *a, **kw):
+        t0 = time.perf_counter()
+        out = real(self, outfile, *a, **kw)
+        seconds[os.path.basename(str(outfile))] = time.perf_counter() - t0
+        return out
+    schematic_mod.Diagram.render = timed
+    try:
+        launches, total = run_command(["diagram", "--config", str(root / "config.toml"),
+                                       "--alpha-file", str(book), "--out-dir",
+                                       str(root / "diagrams")], root)
+    finally:
+        schematic_mod.Diagram.render = real
+    files = written_under(root / "diagrams")
+    want = {f"{n}.png" for n in SCHEMATICS}
+    sizes = {f: png_check(root / "diagrams" / f) for f in sorted(files)}
+    say("15d diagram", files=len(files), px=sizes, dpi=300,
+        seconds={f: f"{s:.2f}" for f, s in seconds.items()}, command_s=f"{total:.2f}",
+        launches=launches, card=repr(card))
+    if files != want:
+        raise AssertionError(f"15d: wrote {sorted(files)}, want {sorted(want)}")
+    if launches != expect():
+        raise AssertionError(f"15d: diagram launched {launches}")
+
+
+def phase_network_tools(b, card) -> None:
+    """15e: curve_similarity_matrix over the bench network's protein curves
+    (normalized time, fold change; all pairs in one batched Fréchet DP on
+    the card, float64) against the CPU's within FRECHET_GATE of the largest
+    distance; cluster_curves (3 clusters) and export_subnetwork around the
+    busiest protein (one hop). No launch."""
+    from phoskintime_tpu_torch.analysis import network_tools as nt
+    from phoskintime_tpu_torch.ops import frechet
+
+    topo, prot = b["topo"], b["df_prot"]
+    names = np.asarray(prot["protein"], dtype=object)
+    t, fc = np.asarray(prot["time"], float), np.asarray(prot["fc"], float)
+    curves = {p: np.column_stack([t[names == p] / t.max(), fc[names == p]])
+              for p in topo.proteins if (names == p).any()}
+    calls = []
+    real = frechet.frechet_distance
+
+    def counted(a, b_):
+        calls.append(tuple(a.shape))
+        return real(a, b_)
+    reset_counts()
+    frechet.frechet_distance = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim = nt.curve_similarity_matrix(curves)
+        sec = time.perf_counter() - t0
+    finally:
+        frechet.frechet_distance = real
+    cpu_sim = nt.curve_similarity_matrix(curves, device="cpu")
+    _, D = nt.similarity_matrix(sim)
+    _, D_cpu = nt.similarity_matrix(cpu_sim)
+    err = max_scaled([D], [D_cpu])
+    clusters = nt.cluster_curves(sim, n_clusters=3)
+    degree = (np.count_nonzero(topo.W_pad, axis=(1, 2)) + np.count_nonzero(topo.tf_mat, axis=0)
+              + np.count_nonzero(topo.tf_mat, axis=1))
+    center = topo.proteins[int(np.argmax(degree))]
+    edges, nodes = nt.export_subnetwork(topo, center, radius=1)
+    launches = counts()
+    n = len(curves)
+    say("15e network tools", curves=n, pairs=n * (n - 1) // 2, dp_calls=len(calls),
+        batch=calls[0][0] if calls else 0, T=next(iter(curves.values())).shape[0],
+        card_vs_cpu=f"{err:.3e}", gate=FRECHET_GATE, ms=f"{1e3 * sec:.1f}",
+        cluster_sizes=np.bincount(clusters["cluster"]).tolist(), center=center,
+        subnetwork_edges=len(edges["kind"]), subnetwork_nodes=len(nodes), launches=launches,
+        card=repr(card))
+    if not err <= FRECHET_GATE:
+        raise AssertionError(f"15e: the similarity matrix on the card vs the CPU: {err:.3e}")
+    if calls != [(n * (n - 1) // 2, *next(iter(curves.values())).shape)]:
+        raise AssertionError(f"15e: the pairs took {len(calls)} DP calls: {calls}")
+    if launches != expect() or not len(edges["kind"]):
+        raise AssertionError(f"15e: launches {launches}, {len(edges['kind'])} edges")
+
+
+def phase_part3(card, b, b2, fits, references) -> dict:
+    """15: the thermal variant (15a, 15b), the apps (15c), ``diagram``
+    (15d) and the network tools (15e). ``references``: the (pool, future)
+    of :func:`start_part3_references`, read after 15c-15e. Returns {path:
+    launches}."""
+    import tempfile
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    pool, futures = references
+    try:
+        paths = {}
+        with tempfile.TemporaryDirectory(prefix="phoskintime_part3_") as tmp:
+            phase_apps(fits, Path(tmp), card)
+            phase_diagram(fits, Path(tmp), card)
+        phase_network_tools(b, card)
+        t1 = time.perf_counter()
+        cpu = {job: f.result() for job, f in futures.items()}
+        say("15 references", waited_s=f"{time.perf_counter() - t1:.1f}",
+            cpu_s={job: f"{sec:.1f}" for job, (_, sec) in cpu.items()})
+        paths.update(phase_thermal(b, card, cpu))
+        paths.update(phase_thermal_expo(b, b2, card, cpu))
+    finally:
+        pool.shutdown(cancel_futures=True)
+    say("15 report part 3", seconds=f"{time.perf_counter() - t0:.1f}", card=repr(card))
+    return paths
+
+
 def population(b, pop: int) -> torch.Tensor:
     """theta0 plus seeded noise, as bench.py and benchmarks/model_rates.py."""
     rng = np.random.default_rng(0)
@@ -4877,6 +5274,14 @@ def main() -> int:
                                device="cuda")
         phase_fit_figures(card, b)
         say("done", seconds=f"{time.perf_counter() - T_START:.1f}", card=repr(card))
+        return 0
+    if "--part3-only" in sys.argv[1:]:
+        phase_build()
+        b, b2 = (build_demo_network(N_PROTEINS, N_KINASES, model=m, seed=0, dtype=torch.float32,
+                                    device="cuda") for m in (0, 2))
+        paths = phase_part3(card, b, b2, exact_fits(), start_part3_references(b, b2))
+        say("done", seconds=f"{time.perf_counter() - T_START:.1f}", card=repr(card),
+            launches_by_path=paths)
         return 0
     if "--sensitivity-kinopt-only" in sys.argv[1:]:
         phase_build()
@@ -4928,10 +5333,17 @@ def main() -> int:
     paths.update(phase_lm(b, card))
     paths.update(phase_gradient_fits(b, card))
     paths.update(phase_pergene(card))
-    paths.update(phase_sensitivity_kinopt(card, b2))
+    fits = {}
+    paths.update(phase_sensitivity_kinopt(card, b2, fits))
     paths.update(phase_hyperscan_motpe(card, b))
-    paths.update(phase_entry_points(card, b))
-    phase_fit_figures(card, b)
+    references = start_part3_references(b, b2)
+    try:
+        paths.update(phase_entry_points(card, b))
+        phase_fit_figures(card, b)
+    except BaseException:
+        references[0].shutdown(cancel_futures=True)
+        raise
+    paths.update(phase_part3(card, b, b2, fits, references))
     for group, group_paths in (([kernel, wide, scan, flux, thomas], paths),
                                (f64_entries, paths64), ([probe], probe_paths)):
         for entry in group:

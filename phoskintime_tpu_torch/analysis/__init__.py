@@ -1,14 +1,14 @@
 """Analyses of fitted models: mechanism comparison and selection, global
 knockouts, accumulator detection, functional-influence sweeps, mechanistic
 discovery (refractory period, lag, saturation, feedback gain), post-fit
-indicators and the kinopt/tfopt network readouts.
+indicators, the kinopt/tfopt network readouts and tools (subnetworks,
+curve similarity and clustering, their figures) and the thermal variant.
 
 Counterpart of ``phoskintime_tpu/analysis`` with the HTML writers of its
 influence and mechanism modules (the time-slider network, the global
 knockout explorer, ``mechanism_selection.html``), the mechanism overlays,
 the kinopt/tfopt fit panels (``fitpanels``), the readout figures and the
-port's own PCA and t-SNE (``embed``); ``thermal.py`` and the rest of
-``network_tools.py`` wait for ROADMAP.md queue 1 item 8d-figures, part 3.
+port's own PCA and t-SNE (``embed``).
 """
 
 from phoskintime_tpu_torch.analysis.influence import (  # noqa: F401
@@ -39,10 +39,20 @@ from phoskintime_tpu_torch.analysis.fitpanels import (  # noqa: F401
     kinopt_fit_analysis,
     tfopt_fit_analysis,
 )
-from phoskintime_tpu_torch.analysis import network_tools as _network_tools
 from phoskintime_tpu_torch.analysis.network_tools import (  # noqa: F401
+    analyze_tf_kin_counts,
+    cluster_curves,
+    curve_similarity_matrix,
+    export_subnetwork,
+    kinopt_network_readout,
     kinopt_signal_readout,
+    map_priors,
+    plot_breadth_vs_load,
+    plot_identity_band,
+    plot_network_dag,
     plot_signal_readout,
+    temporal_sensitivity_heatmap,
+    tfopt_network_readout,
     tfopt_signal_readout,
 )
 from phoskintime_tpu_torch.analysis.postfit import (  # noqa: F401
@@ -50,15 +60,8 @@ from phoskintime_tpu_torch.analysis.postfit import (  # noqa: F401
     optimization_performance,
     residual_summary,
 )
-
-#: the names the JAX package's ``analysis`` exports that part 3 of item
-#: 8d-figures ports: thermal.py's and the rest of network_tools.py's
-FIGURE_PART3 = frozenset({"compare_thermal_standard", "folded_fraction", "thermalize",
-                          *_network_tools.PENDING})
-
-
-def __getattr__(name: str):
-    if name in FIGURE_PART3:
-        raise NotImplementedError(f"analysis.{name} is not ported yet (ROADMAP.md queue 1 item "
-                                  "8d-figures, part 3)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+from phoskintime_tpu_torch.analysis.thermal import (  # noqa: F401
+    compare_thermal_standard,
+    folded_fraction,
+    thermalize,
+)

@@ -12,8 +12,9 @@ stage run in this process. Every command that computes takes ``--device
 its KKT report (``fit_analysis``, default on); ``fitanalysis``
 re-renders those panels from a saved workbook's CSV sheets; ``model``
 writes each gene's figures; ``global-model``, ``mechanisms`` and
-``model`` write their HTML pages. ``diagram`` raises
-``NotImplementedError`` until ROADMAP.md queue 1 item 8d-figures, part 3.
+``model`` write their HTML pages; ``diagram`` draws the six
+optimization-network schematics and, from a kinopt workbook's CSV sheets
+(``--alpha-file``), the fitted network.
 ``clean`` removes ``__pycache__`` folders and the port's kernel build
 folder ``phoskintime_tpu_torch/_build/``, where the JAX package removes
 its XLA cache.
@@ -32,10 +33,6 @@ from phoskintime_tpu_torch.config.loader import PhosKinConfig, load
 from phoskintime_tpu_torch.config.logconf import setup_logger
 
 logger = setup_logger()
-
-PENDING_FIGURES = ("{} draws figures that are not ported yet (ROADMAP.md queue 1 item "
-                   "8d-figures, part 3)")
-
 
 def _add_common(p):
     p.add_argument("--config", default=None, help="path to config.toml")
@@ -113,10 +110,13 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common(p)
 
     p = sub.add_parser("diagram",
-                       help="the optimization-network schematics (figures: not ported yet)")
+                       help="the optimization-network schematics; with --alpha-file also the "
+                            "fitted network")
     p.add_argument("--kin-psites", type=int, default=1)
     p.add_argument("--tf-psites", type=int, default=1)
-    p.add_argument("--alpha-file", default=None)
+    p.add_argument("--alpha-file", default=None,
+                   help="kinopt results workbook: the fitted network from its Alpha/Beta "
+                        "sheets (read through their CSV files)")
     p.add_argument("--top-edges", type=int, default=60)
     _add_common(p)
 
@@ -336,7 +336,39 @@ def cmd_fitanalysis(args):
 
 
 def cmd_diagram(args):
-    raise NotImplementedError(PENDING_FIGURES.format("diagram"))
+    """The six kinopt/tfopt/global schematics (plain and with constraints)
+    into ``--out-dir`` (default ``<out_dir>/diagrams``) and, with
+    ``--alpha-file``, the fitted network of that kinopt workbook's Alpha
+    and Beta Values sheets. Returns {name: path}."""
+    from phoskintime_tpu_torch.io.load import read_table
+    from phoskintime_tpu_torch.io.utils import is_missing, n_rows
+    from phoskintime_tpu_torch.report.schematic import (fitted_network_schematic,
+                                                        render_all_schematics)
+
+    sec = load("local", "kinopt", args.config)
+    out_dir = args.out_dir or os.path.join(sec["_root"], sec["_paths"].get("out_dir", "results"),
+                                           "diagrams")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = render_all_schematics(out_dir, kin_psites=args.kin_psites,
+                                  tf_psites=args.tf_psites)
+    if args.alpha_file:
+        alpha = read_table(args.alpha_file, sheet_name="Alpha Values")
+        beta = read_table(args.alpha_file, sheet_name="Beta Values")
+        if alpha is None or "Alpha" not in alpha:
+            raise FileNotFoundError(
+                f"sheet 'Alpha Values' of {args.alpha_file} not found "
+                "(pass the workbook path, not an individual sheet CSV)")
+        if beta is not None and "Beta" in beta:
+            # an empty Psite is a global beta; a per-kinase sheet has no Psite column
+            sites = beta.get("Psite", [None] * n_rows(beta))
+            beta["Psite"] = np.asarray(["" if is_missing(v) else v for v in sites], dtype=object)
+        else:
+            beta = None
+        paths["fitted_network"] = fitted_network_schematic(
+            alpha, beta, os.path.join(out_dir, "fitted_network.png"), top_edges=args.top_edges,
+            logger=logger)
+    logger.info(f"[diagram] {len(paths)} figures -> {out_dir}")
+    return paths
 
 
 def cmd_all(args):

@@ -2,16 +2,15 @@
 explorers (fits and knockouts, the Pareto front, the live re-simulating
 model), the live fit monitor, the LaTeX emitters, the drawing layer
 (``draw``: PNG, PDF and GIF without matplotlib), the per-gene and global
-model's figures (``plotter``), the mechanism diagram (``diagram``) and the
-dashboard (``dashboard``).
+model's figures (``plotter``), the mechanism diagram (``diagram``), the
+dashboard (``dashboard``), the optimization-network schematics
+(``schematic``) and the kinopt/tfopt result-explorer apps (``apps``).
 
-Counterpart of ``phoskintime_tpu/report``. Part 3 of ROADMAP.md queue 1
-item 8d-figures still owes the optimization-network schematics
-(``schematic``) and the kinopt/tfopt apps (``apps``): every name of theirs
-that the JAX package's ``report`` exports raises ``NotImplementedError``
-here.
+Counterpart of ``phoskintime_tpu/report``.
 """
 
+from phoskintime_tpu_torch.report import apps, schematic  # noqa: F401
+from phoskintime_tpu_torch.report.apps import render_kinopt_app, render_tfopt_app  # noqa: F401
 from phoskintime_tpu_torch.report.dashboard import (  # noqa: F401
     load_dashboard_bundle,
     render_dashboard,
@@ -38,15 +37,3 @@ from phoskintime_tpu_torch.report.plotter import (  # noqa: F401
     plot_parallel_coords_pareto,
     plot_pareto_3d,
 )
-
-#: the modules part 3 of item 8d-figures owes and the names the JAX
-#: package's ``report`` exports from them
-FIGURE_PART3 = frozenset({"schematic", "apps", "render_kinopt_app", "render_tfopt_app"})
-
-
-def __getattr__(name: str):
-    if name in FIGURE_PART3:
-        raise NotImplementedError(
-            f"report.{name} draws figures that are not ported yet (ROADMAP.md queue 1 "
-            "item 8d-figures, part 3)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

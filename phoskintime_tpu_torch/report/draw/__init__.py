@@ -22,8 +22,11 @@ from phoskintime_tpu_torch.report.draw.figure import (  # noqa: F401
     Axes,
     Axes3D,
     Circle,
+    FancyBboxPatch,
     Figure,
     FuncAnimation,
+    Path,
+    PathPatch,
     PdfPages,
     subplots,
 )

@@ -14,11 +14,15 @@ JAX counterpart does:
   ``axvline``, ``scatter`` (one colour, a colour a point or values through
   a colormap; edge colours), ``bar`` and ``barh`` (numbers or categories,
   a base, edge colours, a legend label), ``hist``, ``errorbar``,
-  ``fill_between``, ``text`` and ``annotate`` (offset points, an arrow),
-  ``add_patch`` (:class:`Circle`), ``boxplot`` and ``violinplot``
+  ``fill_between`` (with a legend label), ``text`` (on a rounded box) and
+  ``annotate`` (offset points, an arrow, alignment, draw order, alpha),
+  multi-line texts, ``add_patch`` (:class:`Circle`, :class:`PathPatch` of
+  a :class:`Path` with quadratic Bezier pieces, dashed or solid,
+  :class:`FancyBboxPatch` in the round style), ``boxplot`` and ``violinplot``
   (matplotlib's statistics: :func:`boxplot_stats`, :func:`violin_stats`),
   ``contourf`` (matplotlib's levels), ``imshow`` (nearest, ``aspect``
-  "auto" or "equal"), titles, labels, scales (linear, log, symlog),
+  "auto" or "equal", ``origin`` "upper" or "lower"), titles, labels,
+  scales (linear, log, symlog),
   limits, explicit ticks and tick labels, ``tick_params``, ``set_aspect``,
   ``grid``, ``legend`` (best, a corner, or below the axes), ``axis("off")``;
 * :class:`Axes3D`: ``scatter`` with limits and ``view_init`` (an
@@ -32,7 +36,8 @@ suptitle; for each axes in order (a colorbar marked) its title, labels,
 scales, limits where set, explicit or categorical ticks and their labels
 and style, grid, whether it is off, its legend texts, and each line,
 scatter, bar, patch, text, collection (fills, segments, filled contours)
-and image with its data, colours and label; a 3-D axes' view angles. The
+and image with its data, colours, label and draw order; a 3-D axes' view
+angles. The
 pixels are the port's own (:mod:`raster`, :mod:`pdf`, :mod:`font`); only
 the record follows matplotlib's.
 """
@@ -91,11 +96,23 @@ def _rot(pts: np.ndarray, deg: float) -> np.ndarray:
     return np.column_stack([pts[:, 0] * c - pts[:, 1] * s, pts[:, 0] * s + pts[:, 1] * c])
 
 
+LINE_SPACING = 1.2                    # matplotlib's, of a line's height
+
+
+def line_pitch(size: float) -> float:
+    """The distance between two lines' baselines of a multi-line text."""
+    return LINE_SPACING * (font.ascent(size) + font.descent(size))
+
+
 def _text_box(text: str, size: float, rotation: float) -> tuple[np.ndarray, np.ndarray]:
-    """The rotated text box's corners' bounds: (min xy, max xy), y up."""
-    w = font.text_width(text, size)
-    corners = np.array([[0, -font.descent(size)], [w, -font.descent(size)],
-                        [w, font.ascent(size)], [0, font.ascent(size)]], float)
+    """The rotated text box's corners' bounds: (min xy, max xy), y up, the
+    first line's baseline at 0 (each line of a multi-line text a
+    :func:`line_pitch` below the one before)."""
+    lines = text.split("\n")
+    w = max(font.text_width(t, size) for t in lines)
+    low = -font.descent(size) - (len(lines) - 1) * line_pitch(size)
+    corners = np.array([[0, low], [w, low], [w, font.ascent(size)], [0, font.ascent(size)]],
+                       float)
     r = _rot(corners, rotation)
     return r.min(axis=0), r.max(axis=0)
 
@@ -109,26 +126,51 @@ def text_extent(text: str, size: float, rotation: float = 0.0) -> tuple[float, f
     return float(hi[0] - lo[0]), float(hi[1] - lo[1])
 
 
+_HA_SHARE = {"left": 0.0, "center": 0.5, "right": 1.0}
+
+
+def _offsets(lo, hi, ha: str, va: str) -> tuple[float, float]:
+    ox = {"left": -lo[0], "center": -(lo[0] + hi[0]) / 2, "right": -hi[0]}[ha]
+    oy = {"top": -hi[1], "center": -(lo[1] + hi[1]) / 2, "bottom": -lo[1],
+          "baseline": 0.0}[va]
+    return ox, oy
+
+
+def text_rect(text: str, x: float, y: float, size: float, ha: str = "left",
+              va: str = "baseline") -> tuple[float, float, float, float]:
+    """The (x0, y0, x1, y1) display box (y down) of an unrotated text that
+    :func:`text_op` anchors at (x, y)."""
+    lo, hi = _text_box(text, size, 0.0)
+    ox, oy = _offsets(lo, hi, ha, va)
+    return x + lo[0] + ox, y - (hi[1] + oy), x + hi[0] + ox, y - (lo[1] + oy)
+
+
 def text_op(text: str, x: float, y: float, size: float, ha: str = "left",
             va: str = "baseline", rotation: float = 0.0, color=BLACK) -> Stroke | None:
     """``text`` as a stroked path anchored at (x, y) (display points, y
     down): the rotated text's box aligned by ``ha`` (left, center, right)
-    and ``va`` (top, center, bottom, or the unrotated baseline)."""
+    and ``va`` (top, center, bottom, or the unrotated first baseline); the
+    lines of a multi-line text each aligned within the box by ``ha``."""
     if not text:
         return None
     lo, hi = _text_box(text, size, rotation)
-    ox = {"left": -lo[0], "center": -(lo[0] + hi[0]) / 2, "right": -hi[0]}[ha]
-    oy = {"top": -hi[1], "center": -(lo[1] + hi[1]) / 2, "bottom": -lo[1],
-          "baseline": 0.0}[va]
-    lines = []
-    for p in font.text_strokes(text, size):
-        r = _rot(p, rotation)
-        lines.append(np.column_stack([x + r[:, 0] + ox, y - (r[:, 1] + oy)]))
-    placed = font.layout(text, size)
-    origins = _rot(np.array([[gx, gy] for _, gx, gy, _ in placed]), rotation)
-    glyphs = tuple((ch, x + o[0] + ox, y - (o[1] + oy), gs)
-                   for (ch, _, _, gs), o in zip(placed, origins))
-    return Stroke(lines, color, size * font.STROKE, glyphs=(glyphs, rotation))
+    ox, oy = _offsets(lo, hi, ha, va)
+    rows = text.split("\n")
+    width = max(font.text_width(t, size) for t in rows)
+    strokes, glyphs = [], []
+    for k, row in enumerate(rows):
+        shift = np.array([(width - font.text_width(row, size)) * _HA_SHARE[ha],
+                          -k * line_pitch(size)])
+        for p in font.text_strokes(row, size):
+            r = _rot(p + shift, rotation)
+            strokes.append(np.column_stack([x + r[:, 0] + ox, y - (r[:, 1] + oy)]))
+        placed = font.layout(row, size)
+        if not placed:
+            continue
+        origins = _rot(np.array([[gx, gy] for _, gx, gy, _ in placed]) + shift, rotation)
+        glyphs += [(ch, x + o[0] + ox, y - (o[1] + oy), gs)
+                   for (ch, _, _, gs), o in zip(placed, origins)]
+    return Stroke(strokes, color, size * font.STROKE, glyphs=(tuple(glyphs), rotation))
 
 
 # ---------------------------------------------------------------------------
@@ -139,7 +181,7 @@ class Line:
     zorder = 2
 
     def __init__(self, x, y, color, ls, marker, lw, ms, alpha, label, drawstyle="default",
-                 mec=None, mfc=None, vertical=False):
+                 mec=None, mfc=None, vertical=False, zorder=None):
         self.x, self.y = _arr(x), _arr(y)
         if len(self.x) != len(self.y):
             raise ValueError(f"x and y differ in length: {len(self.x)} and {len(self.y)}")
@@ -155,12 +197,15 @@ class Line:
         self.mec = self.color if mec is None else to_rgba(mec)
         self.mfc = self.color if mfc is None else to_rgba(mfc)
         self.vertical = vertical          # axvline: y spans the axes, in axes fractions
+        if zorder is not None:
+            self.zorder = float(zorder)
 
     def record(self) -> dict:
         return {"x": self.x, "y": self.y, "color": self.color, "ls": self.ls,
                 "marker": self.marker, "lw": self.lw, "ms": self.ms, "alpha": self.alpha,
                 "label": self.label, "drawstyle": self.drawstyle,
-                "markeredgecolor": self.mec, "markerfacecolor": self.mfc}
+                "markeredgecolor": self.mec, "markerfacecolor": self.mfc,
+                "zorder": float(self.zorder)}
 
 
 class Scatter:
@@ -198,7 +243,7 @@ class Scatter:
         return {"offsets": self.offsets, "sizes": self.sizes[: len(self.offsets)],
                 "colors": self.colors, "edgecolors": self.edgecolors,
                 "linewidths": self.linewidths, "alpha": self.alpha, "marker": self.marker,
-                "label": self.label}
+                "label": self.label, "zorder": float(self.zorder)}
 
 
 class Rect:
@@ -240,20 +285,59 @@ class BarContainer(list):
         self.label = _label(label)
 
 
-class Circle:
-    """A circle patch in data coordinates (``add_patch``); ``color`` sets
-    the face and the edge, ``ec`` the edge alone."""
-    zorder = 1
-    lw = 1.0
+def _boxstyle(spec: str) -> tuple[str, float]:
+    """A box style as matplotlib's string spells it: ``"round,pad=0.1"`` ->
+    ("round", 0.1); the round style alone, its pad 0.3 by default."""
+    name, *args = [v.strip() for v in str(spec).split(",")]
+    if name != "round":
+        raise ValueError(f"unsupported box style {spec!r}")
+    kw = dict(a.split("=") for a in args)
+    if set(kw) - {"pad"}:
+        raise ValueError(f"unsupported box style argument in {spec!r}")
+    return name, float(kw.get("pad", 0.3))
 
-    def __init__(self, center, radius, color=None, ec=None, zorder=None):
-        self.center, self.radius = tuple(float(v) for v in center), float(radius)
-        face = color if color is not None else "C0"
-        edge = ec if ec is not None else (color if color is not None else "black")
-        self.facecolor, self.edgecolor = to_rgba(face), to_rgba(edge)
-        self.label = None
+
+def round_box(x, y, w, h, r, n: int = 8) -> np.ndarray:
+    """The outline of the rectangle (x, y, w, h) with corners rounded by
+    radius ``r`` (quarter circles of ``n`` segments), anticlockwise."""
+    r = max(0.0, min(r, w / 2, h / 2))
+    out = []
+    for cx, cy, a0 in ((x + w - r, y + r, -90.0), (x + w - r, y + h - r, 0.0),
+                       (x + r, y + h - r, 90.0), (x + r, y + r, 180.0)):
+        a = np.radians(a0 + np.linspace(0.0, 90.0, n + 1))
+        out.append(np.column_stack([cx + r * np.cos(a), cy + r * np.sin(a)]))
+    return np.vstack(out)
+
+
+class Patch:
+    """What the patches share: face and edge colours, the edge's width and
+    style, the draw order."""
+    zorder = 1
+    label = None
+    closed = True
+
+    def _style(self, facecolor, edgecolor, lw, ls, zorder) -> None:
+        if ls not in ("-", "--"):
+            raise ValueError(f"unsupported patch line style {ls!r}")
+        self.facecolor, self.edgecolor = to_rgba(facecolor), to_rgba(edgecolor)
+        self.lw, self.ls = float(lw), ls
         if zorder is not None:
-            self.zorder = zorder
+            self.zorder = float(zorder)
+
+    def _style_record(self) -> dict:
+        return {"color": self.facecolor, "edgecolor": self.edgecolor, "lw": self.lw,
+                "ls": self.ls, "zorder": float(self.zorder)}
+
+
+class Circle(Patch):
+    """A circle patch in data coordinates (``add_patch``); ``color`` sets
+    the face and the edge, ``fc`` the face and ``ec`` the edge alone."""
+
+    def __init__(self, center, radius, color=None, ec=None, zorder=None, fc=None, lw=1.0):
+        self.center, self.radius = tuple(float(v) for v in center), float(radius)
+        face = fc if fc is not None else (color if color is not None else "C0")
+        edge = ec if ec is not None else (color if color is not None else "black")
+        self._style(face, edge, lw, "-", zorder)
 
     def outline(self, n: int = 64) -> np.ndarray:
         a = np.linspace(0.0, 2 * np.pi, n, endpoint=False)
@@ -262,38 +346,102 @@ class Circle:
 
     def record(self) -> dict:
         return {"kind": "circle", "center": self.center, "radius": self.radius,
-                "color": self.facecolor, "edgecolor": self.edgecolor}
+                **self._style_record()}
 
 
-class PathPatch:
-    """A closed polygon patch (a boxplot's box): the vertices as given and
-    the first again, as matplotlib closes a path."""
-    zorder = 1
-    label = None
+class Path:
+    """A path as matplotlib's ``Path`` holds it: vertices (n, 2) and codes
+    (MOVETO, LINETO, CURVE3 for a quadratic Bezier's control point and end,
+    CLOSEPOLY)."""
+    MOVETO, LINETO, CURVE3, CLOSEPOLY = 1, 2, 3, 79
 
-    def __init__(self, xs, ys, facecolor, edgecolor, lw=1.0):
-        pts = np.column_stack([_arr(xs), _arr(ys)])
-        self.vertices = np.vstack([pts, pts[:1]])
-        self.facecolor, self.edgecolor, self.lw = to_rgba(facecolor), to_rgba(edgecolor), lw
+    def __init__(self, vertices, codes):
+        self.vertices = np.asarray(vertices, float).reshape(-1, 2)
+        self.codes = np.asarray(codes, np.uint8)
+        if len(self.codes) != len(self.vertices) or self.codes[0] != self.MOVETO:
+            raise ValueError("a path starts with MOVETO and has a code a vertex")
+        if not set(self.codes.tolist()) <= {self.MOVETO, self.LINETO, self.CURVE3,
+                                            self.CLOSEPOLY}:
+            raise ValueError(f"unsupported path codes {sorted(set(self.codes.tolist()))}")
+
+    @classmethod
+    def closed(cls, pts) -> "Path":
+        """The polygon ``pts`` closed as matplotlib's ``Path._create_closed``
+        closes it: the first vertex again, coded CLOSEPOLY."""
+        pts = np.asarray(pts, float)
+        return cls(np.vstack([pts, pts[:1]]),
+                   [cls.MOVETO] + [cls.LINETO] * (len(pts) - 1) + [cls.CLOSEPOLY])
+
+    def polyline(self, n: int = 24) -> np.ndarray:
+        """The path as points: each quadratic Bezier sampled at ``n``
+        segments (a single subpath)."""
+        out = [self.vertices[:1]]
+        k = 1
+        while k < len(self.codes):
+            code = self.codes[k]
+            if code == self.CURVE3:
+                p0, c, p1 = out[-1][-1], self.vertices[k], self.vertices[k + 1]
+                t = np.linspace(0.0, 1.0, n + 1)[1:, None]
+                out.append((1 - t) ** 2 * p0 + 2 * (1 - t) * t * c + t ** 2 * p1)
+                k += 2
+                continue
+            out.append(self.vertices[:1] if code == self.CLOSEPOLY else self.vertices[k:k + 1])
+            k += 1
+        return np.vstack(out)
+
+
+class PathPatch(Patch):
+    """A patch along a :class:`Path` (``PathPatch(path, fc=..., ec=...)``):
+    filled where the path is closed and the face is not transparent,
+    stroked along it (``linestyle`` "-" or "--")."""
+
+    def __init__(self, path: Path, fc="C0", ec="black", lw=1.0, linestyle="-", zorder=None):
+        self.path = path
+        self.closed = bool(path.codes[-1] == Path.CLOSEPOLY)
+        self._style(fc, ec, lw, linestyle, zorder)
 
     def outline(self) -> np.ndarray:
-        return self.vertices[:-1]
+        pts = self.path.polyline()
+        return pts[:-1] if self.closed else pts
 
     def record(self) -> dict:
-        return {"kind": "path", "vertices": self.vertices, "color": self.facecolor,
-                "edgecolor": self.edgecolor}
+        return {"kind": "path", "vertices": self.path.vertices,
+                "codes": self.path.codes.astype(float), **self._style_record()}
+
+
+class FancyBboxPatch(Patch):
+    """A box (x, y, width, height) drawn with ``boxstyle`` "round,pad=p":
+    padded by p on every side and its corners rounded by p (matplotlib's
+    round style at mutation scale 1), in data coordinates."""
+
+    def __init__(self, xy, width, height, boxstyle="round,pad=0.3", fc="C0", ec="black",
+                 lw=1.0, zorder=None):
+        self.bounds = (float(xy[0]), float(xy[1]), float(width), float(height))
+        self.style, self.pad = _boxstyle(boxstyle)
+        self._style(fc, ec, lw, "-", zorder)
+
+    def outline(self) -> np.ndarray:
+        x, y, w, h = self.bounds
+        p = self.pad
+        return round_box(x - p, y - p, w + 2 * p, h + 2 * p, p)
+
+    def record(self) -> dict:
+        return {"kind": "fancybox", "bounds": self.bounds, "style": self.style,
+                "pad": self.pad, **self._style_record()}
 
 
 class Text:
     """A text (``text``) or an annotation (``annotate``): ``text`` at
     ``xytext`` in ``coords`` ("data", or "offset points" from ``xy``),
     with an arrow from there to ``xy`` where ``arrow`` holds its
-    arrowprops."""
+    arrowprops; ``bbox`` a dict of a box behind it (``boxstyle``
+    "round,pad=p" in font sizes, ``fc``, ``ec``, ``alpha``)."""
     zorder = 3
     label = None
 
     def __init__(self, text, xy, xytext=None, coords="data", arrow=None, ha="left",
-                 va="baseline", color="black", size=None, weight="normal"):
+                 va="baseline", color="black", size=None, weight="normal", alpha=None,
+                 zorder=None, bbox=None):
         self.text = str(text)
         self.xy = tuple(float(v) for v in xy)
         self.xytext = self.xy if xytext is None else tuple(float(v) for v in xytext)
@@ -304,6 +452,16 @@ class Text:
             raise ValueError(f"unsupported arrow style {arrow.get('arrowstyle')!r}")
         self.ha, self.va, self.color = ha, va, to_rgba(color)
         self.size, self.weight = float(size or FONT), str(weight)
+        self.alpha = None if alpha is None else float(alpha)
+        if zorder is not None:
+            self.zorder = float(zorder)
+        self.bbox = None
+        if bbox is not None:
+            style, pad = _boxstyle(bbox.get("boxstyle", "round,pad=0.3"))
+            a = bbox.get("alpha")
+            self.bbox = {"style": style, "pad": pad,
+                         "color": to_rgba(bbox.get("fc", "white"), a),
+                         "edgecolor": to_rgba(bbox.get("ec", "black"), a)}
 
     def record(self) -> dict:
         arrow = None if self.arrow is None else {
@@ -311,7 +469,8 @@ class Text:
             "color": to_rgba(self.arrow.get("color", "black"))}
         return {"text": self.text, "xy": self.xy, "xytext": self.xytext, "coords": self.coords,
                 "arrow": arrow, "ha": self.ha, "va": self.va, "color": self.color,
-                "size": self.size, "weight": self.weight}
+                "size": self.size, "weight": self.weight, "alpha": self.alpha,
+                "zorder": float(self.zorder), "bbox": self.bbox}
 
 
 class Poly:
@@ -400,7 +559,10 @@ class Image:
     zorder = 0
     label = None
 
-    def __init__(self, array, cmap, vmin, vmax):
+    def __init__(self, array, cmap, vmin, vmax, origin="upper"):
+        if origin not in ("upper", "lower"):
+            raise ValueError(f"unsupported image origin {origin!r}")
+        self.origin = origin
         a = np.asarray(array, float)
         if a.ndim != 2:
             raise ValueError(f"imshow draws a 2-D array, got shape {a.shape}")
@@ -416,7 +578,8 @@ class Image:
         return np.clip(rgba * 255.0 + 0.5, 0, 255).astype(np.uint8)
 
     def record(self) -> dict:
-        return {"array": self.array, "cmap": self.cmap, "vmin": self.vmin, "vmax": self.vmax}
+        return {"array": self.array, "cmap": self.cmap, "vmin": self.vmin, "vmax": self.vmax,
+                "origin": self.origin}
 
 
 COLLECTIONS = (Poly, Segments, Contour)
@@ -522,6 +685,7 @@ class Axes:
     def __init__(self, figure, spec):
         self.figure, self.spec = figure, spec
         self.share: list = [self]
+        self.share_x: list = [self]
         self.colorbar = None
         self.clear()
 
@@ -562,7 +726,7 @@ class Axes:
                           float)
 
     def plot(self, *args, color=None, lw=LINE_W, ls=None, marker=None, ms=MARKER_SIZE,
-             alpha=None, label=None, mec=None, mfc=None, drawstyle="default"):
+             alpha=None, label=None, mec=None, mfc=None, drawstyle="default", zorder=None):
         """``plot([x,] y[, fmt], ...)``: one line; ``fmt`` as matplotlib's
         (a colour letter, a marker, a line style: "ko", "k--", "o")."""
         fmt = None
@@ -584,7 +748,7 @@ class Axes:
         if ls is None:
             ls = "None" if f_marker is not None else "-"
         line = Line(x, y, color, ls, marker if marker is not None else "None", lw, ms, alpha,
-                    label, drawstyle, mec, mfc)
+                    label, drawstyle, mec, mfc, zorder=zorder)
         return [self._add(line)]
 
     def semilogy(self, *args, **kw):
@@ -604,17 +768,21 @@ class Axes:
         return self._add(line)
 
     def scatter(self, x, y, s=None, c=None, color=None, alpha=None, marker="o", label=None,
-                cmap=None, edgecolor=None, linewidth=None, zorder=None):
+                cmap=None, edgecolor=None, linewidth=None, zorder=None, lw=None):
         """Markers at (x, y): ``c`` a colour, colours one a point, or values
         mapped through ``cmap`` over their range; ``edgecolor`` (default:
-        the face) and ``linewidth`` the outline."""
+        the face; "none": no outline) and ``linewidth`` (or ``lw``) the
+        outline."""
         offsets = np.column_stack([_arr(x), _arr(y)])
         colors, mapped = self._scatter_colors(c if c is not None else color, len(offsets),
                                               alpha, cmap)
-        edges = None if edgecolor is None else [to_rgba(edgecolor, alpha)]
+        none = isinstance(edgecolor, str) and edgecolor.lower() == "none"
+        edges = (None if edgecolor is None else np.zeros((0, 4)) if none
+                 else [to_rgba(edgecolor, alpha)])
+        width = linewidth if linewidth is not None else lw
         coll = Scatter(offsets, SCATTER_S if s is None else s, colors, alpha, marker, label,
-                       edgecolors=edges, linewidths=[1.0 if linewidth is None else linewidth],
-                       mapped=mapped, zorder=zorder, edged=edgecolor is not None)
+                       edgecolors=edges, linewidths=[1.0 if width is None else width],
+                       mapped=mapped, zorder=zorder, edged=edgecolor is not None and not none)
         return self._add(coll)
 
     def _scatter_colors(self, c, n, alpha, cmap):
@@ -701,7 +869,7 @@ class Axes:
         x, y = _arr(x), _arr(y)
         width = LINE_W if lw is None else lw
         if fmt.lower() != "none":
-            base = self.plot(x, y, fmt, lw=width, ms=ms)[0].color
+            base = self.plot(x, y, fmt, lw=width, ms=ms, zorder=2.1)[0].color
         else:
             base = to_rgba("C0")
         ecolor = base if ecolor is None else to_rgba(ecolor)
@@ -728,27 +896,32 @@ class Axes:
             self._add(cap)
         return caps
 
-    def fill_between(self, x, y1, y2=0.0, color=None, alpha=None):
+    def fill_between(self, x, y1, y2=0.0, color=None, alpha=None, label=None):
         """The region between y1 and y2 over x; ``color`` (default: the next
-        of the cycle, the face alone) sets the face and the edge."""
+        of the cycle, the face alone) sets the face and the edge; ``label``
+        its legend entry."""
         face = color if color is not None else self._next_color("patches")
-        return self._add(Poly([_fill_vertices(x, y1, y2)], face, color, alpha))
+        return self._add(Poly([_fill_vertices(x, y1, y2)], face, color, alpha, label))
 
     def _fill_betweenx(self, y, x1, x2, facecolor, alpha):
         poly = Poly([_fill_vertices(y, x1, x2)[:, ::-1]], facecolor, None, alpha)
         return self._add(poly)
 
     def text(self, x, y, s, ha: str = "left", va: str = "baseline", fontsize=None,
-             color="black", fontweight: str = "normal"):
-        return self._add(Text(s, (x, y), None, "data", None, ha, va, color, fontsize, fontweight))
+             color="black", fontweight: str = "normal", zorder=None, bbox=None, alpha=None):
+        """A text at (x, y), on a box where ``bbox`` (boxstyle, fc, ec,
+        alpha) is given."""
+        return self._add(Text(s, (x, y), None, "data", None, ha, va, color, fontsize, fontweight,
+                              alpha, zorder, bbox))
 
     def annotate(self, text, xy, xytext=None, textcoords=None, arrowprops=None, fontsize=None,
-                 fontweight: str = "normal", color="black"):
+                 fontweight: str = "normal", color="black", ha: str = "left",
+                 va: str = "baseline", zorder=None, alpha=None):
         """A text at ``xy`` or at ``xytext`` (in ``textcoords``: "data" or
-        "offset points"), with an arrow to ``xy`` where ``arrowprops`` is
-        given."""
-        return self._add(Text(text, xy, xytext, textcoords or "data", arrowprops, "left",
-                              "baseline", color, fontsize, fontweight))
+        "offset points"), with an arrow to ``xy`` where ``arrowprops``
+        (arrowstyle, color, lw) is given."""
+        return self._add(Text(text, xy, xytext, textcoords or "data", arrowprops, ha, va, color,
+                              fontsize, fontweight, alpha, zorder))
 
     def add_patch(self, patch):
         return self._add(patch)
@@ -769,14 +942,15 @@ class Axes:
             box_l, box_r = pos - width * 0.5, pos + width * 0.5
             box_x = [box_l, box_r, box_r, box_l, box_l]
             box_y = [st["q1"], st["q1"], st["q3"], st["q3"], st["q1"]]
-            out["boxes"].append(self._add(PathPatch(box_x, box_y, "C0", "black")))
+            box = Path.closed(np.column_stack([box_x, box_y]))
+            out["boxes"].append(self._add(PathPatch(box, "C0", "black", zorder=2)))
             for ys in ([st["q1"], st["whislo"]], [st["q3"], st["whishi"]]):
                 out["whiskers"].append(self.plot([pos, pos], ys, color="black", lw=1.0)[0])
             for v in (st["whislo"], st["whishi"]):
                 out["caps"].append(self.plot([pos - cap * 0.5, pos + cap * 0.5], np.full(2, v),
                                              color="black", lw=1.0)[0])
             out["medians"].append(self.plot([box_l, box_r], [st["med"], st["med"]], color="C1",
-                                            lw=1.0)[0])
+                                            lw=1.0, zorder=2.1)[0])
             out["fliers"].append(self.plot(np.full(len(st["fliers"]), pos, dtype=np.float64),
                                            st["fliers"], color="black", ls="None", marker="o",
                                            lw=1.0, mec="black", mfc="none")[0])
@@ -830,13 +1004,13 @@ class Axes:
         return self._add(Contour(X, Y, Z, lev[i0:i1], cmap, alpha))
 
     def imshow(self, X, cmap: str = "viridis", vmin=None, vmax=None, aspect: str = "equal",
-               interpolation: str | None = None):
+               interpolation: str | None = None, origin: str = "upper"):
         """The array's cells as coloured squares (nearest), row 0 at the
-        top, the axes limited to its cells; ``aspect`` "equal" keeps the
-        cells square."""
+        top (``origin="lower"``: at the bottom), the axes limited to its
+        cells; ``aspect`` "equal" keeps the cells square."""
         if interpolation not in (None, "nearest"):
             raise ValueError(f"imshow draws nearest cells only, not {interpolation!r}")
-        im = Image(X, cmap or "viridis", vmin, vmax)
+        im = Image(X, cmap or "viridis", vmin, vmax, origin)
         self.set_aspect(aspect)
         self.children.append(im)
         return im
@@ -955,15 +1129,14 @@ class Axes:
         rec["lines"] = [ch.record() for ch in self.children if isinstance(ch, Line)]
         rec["scatters"] = [ch.record() for ch in self.children if isinstance(ch, Scatter)]
         rec["bars"] = [ch.record() for ch in self.children if isinstance(ch, Rect)]
-        rec["patches"] = [ch.record() for ch in self.children
-                          if isinstance(ch, (Circle, PathPatch))]
+        rec["patches"] = [ch.record() for ch in self.children if isinstance(ch, Patch)]
         rec["texts"] = [ch.record() for ch in self.children if isinstance(ch, Text)]
         rec["collections"] = [ch.record() for ch in self.children
                               if isinstance(ch, COLLECTIONS)]
         rec["images"] = [ch.record() for ch in self.children if isinstance(ch, Image)]
-        if self.kind == "3d":                  # a 3-D scatter's edges are shaded when drawn
-            for r in rec["scatters"]:
-                r["edgecolors"] = None
+        if self.kind == "3d":                  # a 3-D scatter's edges are shaded when drawn,
+            for r in rec["scatters"]:          # its draw order set by its depth
+                r["edgecolors"] = r["zorder"] = None
         return rec
 
     # ---- view --------------------------------------------------------------
@@ -984,8 +1157,8 @@ class Axes:
                     sticky.append(ch.base[1])
             elif isinstance(ch, Circle):
                 vals.append([ch.center[k] - ch.radius, ch.center[k] + ch.radius])
-            elif isinstance(ch, PathPatch):
-                vals.append(ch.vertices[:, k])
+            elif isinstance(ch, Patch):
+                vals.append(ch.outline()[:, k])
             elif isinstance(ch, Poly):
                 vals += [p[:, k] for p in ch.polys]
             elif isinstance(ch, Segments):
@@ -1006,14 +1179,15 @@ class Axes:
         a = self.dims[name]
         if a.lim is not None:
             return a.lim
-        group = self.share if name == "y" else [self]
+        group = self.share if name == "y" else self.share_x
         vals, sticky = [], []
         for ax in group:
             v, s = ax._data(name)
             vals += [_arr(x) for x in v]
             sticky += s
         lo, hi = sc.autoscale(a.scale, np.concatenate(vals) if vals else np.zeros(0), sticky)
-        if name == "y" and any(isinstance(ch, Image) for ch in self.children):
+        if name == "y" and any(isinstance(ch, Image) and ch.origin == "upper"
+                               for ch in self.children):
             lo, hi = hi, lo
         return lo, hi
 
@@ -1036,6 +1210,12 @@ class Axes:
         alone."""
         return len(self.share) == 1 or (self.spec[2] - 1) % self.spec[1] == 0
 
+    def _shows_xlabels(self) -> bool:
+        """An x axis shared down a column labels its ticks in the last row
+        alone."""
+        nr, nc, idx = self.spec
+        return len(self.share_x) == 1 or (idx - 1) // nc == nr - 1
+
     def decorations(self, box) -> tuple[float, float, float, float]:
         """The room (left, right, top, bottom) in points that the axes'
         labels, ticks, title and colorbar take outside ``box``."""
@@ -1044,8 +1224,8 @@ class Axes:
             return 0.0, 0.0, top, 0.0
         plot_box = self._plot_box(box)
         xa, ya = self.dims["x"], self.dims["y"]
-        xt = [text_extent(t, xa.tick_size, xa.tick_rotation)
-              for _, t in self._ticks("x", plot_box)]
+        xt = ([text_extent(t, xa.tick_size, xa.tick_rotation)
+               for _, t in self._ticks("x", plot_box)] if self._shows_xlabels() else [])
         yt = ([text_extent(t, ya.tick_size, ya.tick_rotation)
                for _, t in self._ticks("y", plot_box)] if self._shows_ylabels() else [])
         left = TICK_LEN + TICK_PAD + max((w for w, _ in yt), default=0.0)
@@ -1165,11 +1345,15 @@ class Axes:
                 ops.append(Fill([quad], ch.facecolor, clip))
             if ch.edgecolor[3] > 0:
                 ops.append(Stroke([np.vstack([quad, quad[:1]])], ch.edgecolor, ch.lw, clip=clip))
-        elif isinstance(ch, (Circle, PathPatch)):
+        elif isinstance(ch, Patch):
             pts = ch.outline()
             poly = np.column_stack([tx(pts[:, 0]), ty(pts[:, 1])])
-            ops.append(Fill([poly], ch.facecolor, clip))
-            ops.append(Stroke([np.vstack([poly, poly[:1]])], ch.edgecolor, ch.lw, clip=clip))
+            if ch.closed and ch.facecolor[3] > 0:
+                ops.append(Fill([poly], ch.facecolor, clip))
+            if ch.edgecolor[3] > 0 and ch.lw > 0:
+                dash = None if ch.ls == "-" else tuple(d * ch.lw for d in DASH)
+                line = np.vstack([poly, poly[:1]]) if ch.closed else poly
+                ops.append(Stroke([line], ch.edgecolor, ch.lw, dash, clip))
         elif isinstance(ch, Poly):
             polys = [np.column_stack([tx(p[:, 0]), ty(p[:, 1])]) for p in ch.polys]
             polys = [p for p in polys if np.isfinite(p).all()]
@@ -1236,7 +1420,15 @@ class Axes:
                     nrm = np.array([-u[1], u[0]]) * head * 0.35
                     ops.append(Fill([np.array([b, b - u * head + nrm, b - u * head - nrm])],
                                     color))
-        rgb = t.color
+        rgb = t.color if t.alpha is None else to_rgba(t.color, t.alpha)
+        if t.bbox is not None and t.text:
+            x0, y0, x1, y1 = text_rect(t.text, qx, qy, t.size, t.ha, t.va)
+            p = t.bbox["pad"] * t.size
+            outline = round_box(x0 - p, y0 - p, x1 - x0 + 2 * p, y1 - y0 + 2 * p, p)
+            if t.bbox["color"][3] > 0:
+                ops.append(Fill([outline], t.bbox["color"]))
+            if t.bbox["edgecolor"][3] > 0:
+                ops.append(Stroke([np.vstack([outline, outline[:1]])], t.bbox["edgecolor"], 1.0))
         ops.append(text_op(t.text, qx, qy, t.size, t.ha, t.va, 0.0, rgb))
         if t.weight == "bold" and t.text:
             ops.append(text_op(t.text, qx + 0.3, qy, t.size, t.ha, t.va, 0.0, rgb))
@@ -1251,10 +1443,11 @@ class Axes:
                           [np.array([[x0 - TICK_LEN, ty(v)], [x0, ty(v)]]) for v, _ in yt],
                           BLACK, SPINE_W))
         label_y = y0 + h + TICK_LEN + TICK_PAD
-        for v, t in xt:
+        shown = xt if self._shows_xlabels() else []
+        for v, t in shown:
             ops.append(text_op(t, float(tx(v)), label_y, xa.tick_size, xa.tick_ha, "top",
                                xa.tick_rotation))
-        xt_h = max((text_extent(t, xa.tick_size, xa.tick_rotation)[1] for _, t in xt),
+        xt_h = max((text_extent(t, xa.tick_size, xa.tick_rotation)[1] for _, t in shown),
                    default=0.0)
         if xa.label:
             ops.append(text_op(xa.label, x0 + w / 2, label_y + xt_h + LABEL_PAD, xa.label_size,
@@ -1738,10 +1931,11 @@ class Figure:
 
 
 def subplots(nrows: int = 1, ncols: int = 1, figsize=(6.4, 4.8), dpi: float = 100.0,
-             sharey: bool = False, squeeze: bool = True):
+             sharey: bool = False, squeeze: bool = True, sharex: bool = False):
     """A figure and its grid of axes (an object array (nrows, ncols), or
     squeezed as matplotlib's ``plt.subplots``); ``sharey`` autoscales
-    every axes' y together and labels the first column's alone."""
+    every axes' y together and labels the first column's alone,
+    ``sharex`` every axes' x and labels the last row's alone."""
     fig = Figure(figsize, dpi)
     axes = np.empty((nrows, ncols), dtype=object)
     for i in range(nrows * ncols):
@@ -1750,6 +1944,10 @@ def subplots(nrows: int = 1, ncols: int = 1, figsize=(6.4, 4.8), dpi: float = 10
         group = list(axes.flat)
         for ax in group:
             ax.share = group
+    if sharex:
+        group = list(axes.flat)
+        for ax in group:
+            ax.share_x = group
     if not squeeze:
         return fig, axes
     if axes.size == 1:

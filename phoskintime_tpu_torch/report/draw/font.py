@@ -7,7 +7,8 @@ height of 12 units is 0.73 of the font size (a sans-serif's proportion),
 so a unit is ``size * 0.73 / 12`` points. The font covers printable ASCII
 and the characters the figure writers print beyond it (``—``, ``²``,
 ``χ``, ``≤``, ``≥``, ``α``, ``β``, ``λ``, ``Σ``, ``ŷ``, ``₀``, ``→``,
-``←``); any other character raises.
+``←``, ``∈``, ``·``, a thin space, a kept space and a hat over the
+character before it); any other character raises.
 
 Text may carry superscripts as ``^{...}`` runs (the log axes' ``10^{3}``)
 and subscripts as ``_{...}`` runs; :func:`runs` splits them out. A label
@@ -138,6 +139,11 @@ _GLYPHS = {
     "ŷ": (9, "0,8 3.5,0 | 7,8 2,-4 0,-4 | 1.5,10 3.5,12 5.5,10"),
     "₀": (6, "2,-2 4,-2 5,-1 5,3 4,4 2,4 1,3 1,-1 2,-2"),
     "→": (11, "0,5 9,5 | 6,8 9,5 6,2"),
+    "∈": (9, "7,8 3,8 1,7 0,5 0,3 1,1 3,0 7,0 | 0,4 6,4"),
+    "·": (4, "1,4 1,4.8"),
+    "\u2009": (2, ""),                 # a thin space (mathtext's ``\,``)
+    "\u00a0": (5, ""),                 # a space that mathtext keeps (``\ ``)
+    "\u0302": (0, "-8,13 -5,15 -2,13"),  # a hat over the character before it
     "←": (11, "9,5 0,5 | 3,8 0,5 3,2"),
 }
 
@@ -156,7 +162,8 @@ GLYPHS = {ch: _parse(spec) for ch, spec in _GLYPHS.items()}
 _SCRIPT = re.compile(r"([\^_])\{([^}]*)\}")
 SUB_RISE = -0.2                       # a subscript's rise (of the size)
 _MATH_NAMES = {r"\alpha": "α", r"\beta": "β", r"\lambda": "λ", r"\sum": "Σ",
-               r"\chi": "χ", r"\leq": "≤", r"\geq": "≥"}
+               r"\Sigma": "Σ", r"\chi": "χ", r"\leq": "≤", r"\geq": "≥", r"\in": "∈",
+               r"\cdot": "·", r"\,": "\u2009", "\\ ": "\u00a0"}
 
 
 def glyph(ch: str) -> tuple[float, list[np.ndarray]]:
@@ -170,6 +177,7 @@ def _math(expr: str) -> str:
     its sub- and superscripts as ``_{...}`` and ``^{...}`` runs."""
     expr = re.sub(r"\\mathrm\{([^{}]*)\}", r"\1", expr)
     expr = re.sub(r"\\hat\s*\{?y\}?", "ŷ", expr)
+    expr = re.sub(r"\\hat\s*\{(.)\}", "\\1\u0302", expr)
     for name, ch in sorted(_MATH_NAMES.items(), key=lambda kv: -len(kv[0])):
         expr = expr.replace(name, ch)
     expr = re.sub(r"\\frac\{([^{}]*)\}\{([^{}]*)\}", r"\1/\2", expr)

@@ -133,7 +133,7 @@ class Canvas:
         glyphs, rotation = op.glyphs
         placed = []
         for ch, x, y, size in glyphs:
-            if ch == " ":
+            if not font.glyph(ch)[1]:             # a space
                 continue
             px, py = self.px((x, y))
             ix, iy = int(np.floor(px)), int(np.floor(py))

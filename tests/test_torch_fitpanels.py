@@ -312,15 +312,19 @@ def test_signal_readout_figures_match_jax(tmp_path, weight_problems, which):  # 
 
 
 def test_network_tools_part3_raises():
+    """The tools that raised until part 3 of the report layer was ported
+    resolve now, in the module and in ``analysis`` (each held to JAX's in
+    ``tests/test_torch_network_tools.py`` and ``tests/test_torch_thermal.py``);
+    an unknown name raises AttributeError."""
     from phoskintime_tpu_torch import analysis
     from phoskintime_tpu_torch.analysis import network_tools as nt
+    from phoskintime_tpu_torch.analysis import thermal
 
     for name in ("kinopt_network_readout", "plot_network_dag", "cluster_curves"):
-        with pytest.raises(NotImplementedError, match="8d-figures, part 3"):
-            getattr(nt, name)
-    for name in ("thermalize", "plot_identity_band", "compare_thermal_standard"):
-        with pytest.raises(NotImplementedError, match="8d-figures, part 3"):
-            getattr(analysis, name)
+        assert callable(getattr(nt, name)) and getattr(analysis, name) is getattr(nt, name)
+    for name in ("thermalize", "compare_thermal_standard"):
+        assert getattr(analysis, name) is getattr(thermal, name)
+    assert analysis.plot_identity_band is nt.plot_identity_band
     with pytest.raises(AttributeError):
         nt.nothing_here  # noqa: B018
 

@@ -86,7 +86,8 @@ def test_package_imports_without_jax():
                 "report.draw.figure", "report.draw.raster", "report.draw.png",
                 "report.draw.pdf", "report.draw.gif", "report.draw.font",
                 "report.draw.colors", "report.plotter", "report.dashboard",
-                "report.diagram", "analysis.fitpanels", "analysis.embed"):
+                "report.diagram", "analysis.fitpanels", "analysis.embed",
+                "analysis.thermal", "report.apps", "report.schematic"):
         assert f"phoskintime_tpu_torch.{new}" in mods, new
     code = ("import importlib, sys; "
             f"[importlib.import_module(m) for m in {mods!r}]; "

@@ -432,8 +432,9 @@ def test_live_monitor_serves_state():
 
 def test_report_package_exports_the_html_half():
     """``report`` exports the writers the port has (the HTML half, the
-    per-gene and global model's figures, the diagram and the dashboard);
-    the names part 3 of item 8d-figures owes raise naming it."""
+    per-gene and global model's figures, the diagram and the dashboard),
+    the optimization-network schematics and the kinopt/tfopt apps; an
+    unknown name raises AttributeError."""
     for name in ("create_report", "table_html", "write_interactive_explorer",
                  "write_pareto_explorer", "pareto_explorer_from_frames",
                  "write_live_model_explorer", "LiveMonitor", "dataframe_to_latex",
@@ -441,9 +442,12 @@ def test_report_package_exports_the_html_half():
                  "plot_parallel_coords_pareto", "save_dashboard_bundle", "render_dashboard",
                  "Plotter", "illustrate"):
         assert callable(getattr(report, name)), name
-    for name in ("schematic", "apps", "render_kinopt_app", "render_tfopt_app"):
-        with pytest.raises(NotImplementedError, match="item 8d-figures, part 3"):
-            getattr(report, name)
+    for name in ("render_kinopt_app", "render_tfopt_app"):
+        assert callable(getattr(report, name)), name
+        assert getattr(report, name) is getattr(report.apps, name)
+    for name in ("render_all_schematics", "fitted_network_schematic", "kinopt_schematic",
+                 "tfopt_schematic", "global_schematic", "Diagram"):
+        assert callable(getattr(report.schematic, name)), name
     with pytest.raises(AttributeError):
         report.nothing_here        # noqa: B018
 

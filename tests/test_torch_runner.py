@@ -575,9 +575,15 @@ def test_clean_removes_pycache(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["diagram"]])
-def test_figure_commands_raise(argv):
-    with pytest.raises(NotImplementedError, match="item 8d-figures, part 3"):
-        cli.main(argv)
+def test_figure_commands_raise(argv, project, tmp_path):
+    """The figure command that raised until the schematics were ported now
+    writes its six figures (``tests/test_torch_schematic.py`` holds them
+    to the JAX command's); without a config.toml it raises as JAX's."""
+    paths = cli.main([*argv, "--config", str(project / "config.toml"), "--out-dir",
+                      str(tmp_path / "d")])
+    assert written(tmp_path / "d") == {f"{k}.png" for k in paths} and len(paths) == 6
+    with pytest.raises(FileNotFoundError, match="config.toml not found"):
+        in_dir(tmp_path, cli.main, argv)
 
 
 def test_global_model_needs_the_card_by_default(project):

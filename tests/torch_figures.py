@@ -8,12 +8,14 @@ records the port's figures through :meth:`Figure.record` the same way. Both
 give {path: [record, ...]} (one record a PNG, a page, a frame) in the
 structure :meth:`phoskintime_tpu_torch.report.draw.figure.Figure.record`
 documents: lines (with their drawstyle and marker colours), scatters (each
-point's colour and edge), bars (rectangles), patches (circles, closed
-paths), texts and annotations, collections (fills, segments, filled
-contours' levels) and images, with the axes' ticks (explicit or
-categorical). :func:`assert_same_record` holds two records equal: strings
-exactly except the numbers printed in them (rtol 1e-9), colours exactly,
-data at rtol 1e-9 (with ``scaled``, also within that share of each array's
+point's colour and edge), bars (rectangles), patches (circles, paths with
+their codes, rounded boxes; each with its edge's width and style), texts
+and annotations (with their boxes), collections (fills, segments, filled
+contours' levels) and images (with their origin), each with its draw
+order where it has one, and the axes' ticks (explicit or categorical).
+:func:`assert_same_record` holds two records equal: strings exactly
+except the numbers printed in them (rtol 1e-9), colours exactly, data at
+rtol 1e-9 (with ``scaled``, also within that share of each array's
 largest magnitude or of 1, for the figures of two fits);
 :func:`without_points` blanks a figure's scatter points (a t-SNE the two
 packages compute by different methods).
@@ -41,7 +43,7 @@ from matplotlib.collections import LineCollection, PathCollection, PolyCollectio
 from matplotlib.contour import ContourSet  # noqa: E402
 from matplotlib.figure import Figure as MplFigure  # noqa: E402
 from matplotlib.markers import MarkerStyle  # noqa: E402
-from matplotlib.patches import Circle, PathPatch, Rectangle  # noqa: E402
+from matplotlib.patches import Circle, FancyBboxPatch, PathPatch, Rectangle  # noqa: E402
 from matplotlib.text import Annotation  # noqa: E402
 from matplotlib.ticker import FixedFormatter, FixedLocator, FuncFormatter  # noqa: E402
 
@@ -82,8 +84,21 @@ def _rgba_rows(colors) -> np.ndarray:
     return np.asarray(mcolors.to_rgba_array(colors), float).reshape(-1, 4)
 
 
+LINESTYLES = {"solid": "-", "dashed": "--"}
+
+
+def _boxstyle_record(style) -> tuple[str, float]:
+    return type(style).__name__.lower(), float(style.pad)
+
+
 def _text_record(t) -> dict:
     ann = isinstance(t, Annotation)
+    bp = t.get_bbox_patch()
+    bbox = None
+    if bp is not None:
+        name, pad = _boxstyle_record(bp.get_boxstyle())
+        bbox = {"style": name, "pad": pad, "color": tuple(bp.get_facecolor()),
+                "edgecolor": tuple(bp.get_edgecolor())}
     props = getattr(t, "arrowprops", None) if ann else None
     arrow = None if props is None else {
         "style": props.get("arrowstyle", "-|>"), "lw": float(props.get("lw", 1.0)),
@@ -93,7 +108,8 @@ def _text_record(t) -> dict:
             "xytext": tuple(float(v) for v in t.xyann) if ann else xy,
             "coords": t.anncoords if ann else "data", "arrow": arrow, "ha": t.get_ha(),
             "va": t.get_va(), "color": mcolors.to_rgba(t.get_color()),
-            "size": float(t.get_fontsize()), "weight": str(t.get_fontweight())}
+            "size": float(t.get_fontsize()), "weight": str(t.get_fontweight()),
+            "alpha": t.get_alpha(), "zorder": float(t.get_zorder()), "bbox": bbox}
 
 
 def _collection_record(c) -> dict:
@@ -114,13 +130,25 @@ def _collection_record(c) -> dict:
 
 
 def _patch_record(p) -> dict:
+    style = {"color": tuple(p.get_facecolor()), "edgecolor": tuple(p.get_edgecolor()),
+             "lw": float(p.get_linewidth()),
+             "ls": LINESTYLES.get(p.get_linestyle(), p.get_linestyle()),
+             "zorder": float(p.get_zorder())}
     if isinstance(p, Circle):
         return {"kind": "circle", "center": tuple(float(v) for v in p.get_center()),
-                "radius": float(p.get_radius()), "color": tuple(p.get_facecolor()),
-                "edgecolor": tuple(p.get_edgecolor())}
+                "radius": float(p.get_radius()), **style}
     if isinstance(p, PathPatch):
-        return {"kind": "path", "vertices": np.asarray(p.get_path().vertices, float),
-                "color": tuple(p.get_facecolor()), "edgecolor": tuple(p.get_edgecolor())}
+        path = p.get_path()
+        codes = (np.full(len(path.vertices), 2.0) if path.codes is None
+                 else np.asarray(path.codes, float))
+        codes[0] = 1.0                                   # a path without codes starts MOVETO
+        return {"kind": "path", "vertices": np.asarray(path.vertices, float), "codes": codes,
+                **style}
+    if isinstance(p, FancyBboxPatch):
+        name, pad = _boxstyle_record(p.get_boxstyle())
+        return {"kind": "fancybox", "bounds": (float(p.get_x()), float(p.get_y()),
+                                               float(p.get_width()), float(p.get_height())),
+                "style": name, "pad": pad, **style}
     raise AssertionError(f"unrecorded patch {type(p).__name__}")
 
 
@@ -173,7 +201,8 @@ def _axes_record(ax) -> dict:
                      "ms": float(ln.get_markersize()), "alpha": ln.get_alpha(),
                      "label": _label(ln), "drawstyle": ln.get_drawstyle(),
                      "markeredgecolor": mcolors.to_rgba(ln.get_markeredgecolor()),
-                     "markerfacecolor": mcolors.to_rgba(ln.get_markerfacecolor())}
+                     "markerfacecolor": mcolors.to_rgba(ln.get_markerfacecolor()),
+                     "zorder": float(ln.get_zorder())}
                     for ln in ax.get_lines()]
     scatters = []
     for c in ax.collections:
@@ -187,7 +216,8 @@ def _axes_record(ax) -> dict:
             "colors": _rgba_rows(c._facecolors),
             "edgecolors": None if is3d else _rgba_rows(c.get_edgecolor()),
             "linewidths": np.asarray(c.get_linewidths(), float), "alpha": c.get_alpha(),
-            "marker": _scatter_marker(c), "label": _label(c)})
+            "marker": _scatter_marker(c), "label": _label(c),
+            "zorder": None if is3d else float(c.get_zorder())})
     rec["scatters"] = scatters
     rec["bars"] = [{"x": float(p.get_x()), "y": float(p.get_y()),
                     "width": float(p.get_width()), "height": float(p.get_height()),
@@ -200,7 +230,8 @@ def _axes_record(ax) -> dict:
                           if not isinstance(c, PathCollection)]
     rec["images"] = [{"array": np.ma.filled(np.ma.asarray(im.get_array(), float), np.nan),
                       "cmap": im.get_cmap().name, "vmin": float(im.get_clim()[0]),
-                      "vmax": float(im.get_clim()[1])} for im in ax.images]
+                      "vmax": float(im.get_clim()[1]), "origin": im.origin}
+                     for im in ax.images]
     return rec
 
 
