@@ -7,7 +7,7 @@ non-zero:
 
 1. device: the card, its power limit, CUDA and nvcc versions; full-float32
    matmuls (TF32 off);
-2. build: compile the six hand-written kernel sources from
+2. build: compile the seven hand-written kernel sources from
    ``phoskintime_tpu_torch/csrc``, one ``nvcc`` per source, all started
    together, and print each instance's registers and spills;
 3f. the FP32 FMA peak: ``sq_chain`` (the port of ``benchmarks/vpu_peak.py``)
@@ -75,7 +75,8 @@ The RK45 oracle path and the steady states:
    the steady state's own shape (45 chains of 5) beside one chain of 2
    (the launch floor), at a population's chains (368,640 of 5) and at
    n = 2..17; times and bound;
-4d. main path, RK45: ``make_objective(solver="rk45")`` on the model-2
+4d. (its float64 CPU run starts before phase 4, in a worker of its own)
+   main path, RK45: ``make_objective(solver="rk45")`` on the model-2
    bench network at pop 2048, float32, alone on the card: 7 flux launches
    a loop iteration plus 2, evals/s, steps, and the idle share of a
    profiled window; then, in worker processes started together (each RK45
@@ -102,8 +103,9 @@ The RK45 oracle path and the steady states:
    1e-9), with its launches;
 7. the global fit: ``run_global_fit`` on the north-star network
    (``build_demo_network(150, 24, seed=1)``, float32, N = 150, 1,103
-   parameters) at pop 10,000, by the all-device loop (``gens_per_dispatch=5``,
-   one block; two before phase 14 came in) and by the default route (device
+   parameters) at pop 10,000, by the all-device loop (``gens_per_dispatch=3``,
+   one block; two blocks of 5 before phase 14 came in, one of 5 before
+   phases 3h and 16) and by the default route (device
    variation, host survival)
    for 1 generation (2 before phase 12 came in): launches, evals/s,
    seconds a generation, the ideal
@@ -194,7 +196,8 @@ recorded as 0 for every kernel and asserted so):
    idle share); the float64 card fits of n = 2 against the port's float64
    CPU fit of one of its genes, made in worker processes (the same lambda
    and weight, score, error and params within 1e-6);
-10c. the JAX package's recovery gate (distmod, n = 2, seed 5, no
+10c. (10c and 10d run while 10b's float64 cohorts run in their workers)
+   the JAX package's recovery gate (distmod, n = 2, seed 5, no
    regularisation, 24 starts, 120 iterations): float64 error < 1e-8 and
    params within rtol 5e-2; float32 printed and held to rtol 5e-2;
 10d. ``run_model_pipeline`` on a column-dict cohort (distmod, one gene a
@@ -324,7 +327,9 @@ The fit commands' figures (``report/plotter.py``, ``report/diagram.py``,
 ``analysis/fitpanels.py``, ``analysis/embed.py``, the readout, KKT and scan
 figures; drawn on the host, no kernel):
 
-14. on the bench inputs of phases 12-13 (the same files, config.toml with
+14. (in a spawned worker on the card, beside phases 13 and 15: it
+   launches no kernel and is host-bound) on the bench inputs of phases
+   12-13 (the same files, config.toml with
    the weight fits' sections), each through ``cli.main`` on the card with
    the counts set to 0 just before and read just after: ``model`` on two
    genes of 1 and 2 sites (two one-gene cohorts), ``model`` on a gene of
@@ -373,12 +378,40 @@ references of 15a and 15b in two spawned workers started before phase 13):
    CPU's within 1e-12, ``cluster_curves`` and ``export_subnetwork`` around
    the busiest protein; no launch.
 
+The last slice (``phi_tables_xwide``, population sharding):
+
+3h. the widest table kernel, ``csrc/phi_tables_xwide.cu`` (18 <= w <= 65), on
+   model 2 at mechanisms' default cap of 6 sites (width classes 2, 3, 33,
+   65) and model 0 with a protein of 20 sites (w = 22), both cut to six
+   proteins (their observations by RK45 on the CPU in two spawned workers
+   started after the build): the objective at pop 2048 (float32; its
+   launches, one a width class, each class to its kernel by width, against
+   the prediction from ``width_classes``; F on 8 members within 1e-3 of the
+   port's float64 on the CPU) and at pop 256 (float64, within 1e-9); the
+   kernel against its plain version at each class wider than 17 on the
+   first chunk's own inputs, float32 (2e-5 scaled) and float64 (1e-12),
+   timed beside its FMA bound, the plain version and ``matrix_exp``; a NaN
+   lane that leaves every other lane's bits as they were;
+16. population sharding on the card (``parallel/mesh.py``): two gloo ranks
+   in spawned processes sharing the card, CUDA tensors (NCCL refuses two
+   ranks on one device), started beside phases 13-15, on the bench model-0
+   network: ``evaluate_population`` at pop 8192 against this process's
+   unsharded call (bit for bit, else the largest relative difference gated
+   at 1e-6), 2 ``phi_tables`` launches a rank, the column-sharded ranks of
+   that F equal to the replicated ones, a short sharded
+   ``run_unsga3_device`` (pop 512, 4 generations) whose ideal point is the
+   unsharded run's within 1e-3 (the JAX package's tolerance), the ranks'
+   populations the same; and NCCL over a one-rank group, bit for bit. Two
+   ranks on one card measure no speed: their seconds are printed as what
+   they are.
+
 ``python3 chip_smoke.py --pergene-only`` runs phase 1 and phase 10 alone
 (no kernel build, no JSON lines); ``--sensitivity-kinopt-only`` runs
 phases 1, 2 and 11, ``--hyperscan-only`` phases 1, 2 and 12,
 ``--runner-only`` phases 1, 2 and 13, ``--fitfigures-only`` phases 1, 2
 and 14, ``--part3-only`` phases 1, 2 and 15 (15c at the phase-11 problems'
-exact weights, in place of phase 11's fits; no JSON lines).
+exact weights, in place of phase 11's fits; no JSON lines), ``--xwide-only``
+phases 1, 2 and 3h, ``--mesh-only`` phases 1, 2 and 16.
 
 The line before the last is a JSON summary of each kernel (the float64
 instances and ``sq_chain`` included, each with the launches of its own main
@@ -426,7 +459,7 @@ from phoskintime_tpu_torch.network.bounds import calculate_bio_bounds
 from phoskintime_tpu_torch.network.kinase_input import build_kinase_matrix
 from phoskintime_tpu_torch.network.lossdata import prepare_loss_data
 from phoskintime_tpu_torch.network.objective import (_auto_pop_chunk, _scorer,
-                                                     make_objective,
+                                                     evaluate_population, make_objective,
                                                      make_population_objective,
                                                      make_residual_fn)
 from phoskintime_tpu_torch.network.optimize import run_global_fit
@@ -450,11 +483,13 @@ from phoskintime_tpu_torch.ops.linear import affine_augment, expm
 from phoskintime_tpu_torch.ops.nsga import (das_dennis, fast_non_dominated_sort,
                                             make_device_ga_step, nsga3_survival)
 from phoskintime_tpu_torch.network.weights import build_weight_functions
-from phoskintime_tpu_torch.ops.nsga_device import make_device_ga_blocks, run_unsga3_device
+from phoskintime_tpu_torch.ops.nsga_device import (device_nd_ranks, make_device_ga_blocks,
+                                                   run_unsga3_device)
 from phoskintime_tpu_torch.ops.tridiag import thomas_solve_batched, thomas_solve_reference
 from phoskintime_tpu_torch.ops import phi_tables as phi_mod
 from phoskintime_tpu_torch.ops.phi_tables import (phi_tables, phi_tables_reference,
-                                                  phi_tables_wide, phi_vectors)
+                                                  phi_tables_wide, phi_tables_xwide,
+                                                  phi_vectors)
 from phoskintime_tpu_torch.ops.scan_kernel import (etd2rk_scan, etd2rk_scan_reference,
                                                    random_scan_problem, scan_launch_shape)
 from phoskintime_tpu_torch.ops.stiff import batched_jacobian
@@ -492,8 +527,33 @@ MEASURED = {"fp32_flops": None}
 # threads a block in 3f's sweep (the module's full sweep adds 128 and 1024;
 # on the H100 the best arm was at 256 or 512 threads)
 SWEEP_THREADS = (256, 512)
-KERNELS = (phi_tables, phi_tables_wide, etd2rk_scan, hypercube_flux, thomas_solve_batched,
-           fma_peak.sq_chain)
+KERNELS = (phi_tables, phi_tables_wide, phi_tables_xwide, etd2rk_scan, hypercube_flux,
+           thomas_solve_batched, fma_peak.sq_chain)
+# 3h: networks whose blocks pass w = 17, cut to a few proteins (their
+# observations come from RK45 on the CPU, in a worker): model 2 at
+# mechanisms' default cap of 6 sites (width classes 2, 3, 33, 65) and model
+# 0 with a protein of 20 sites (w = 22); the float32 objective at XWIDE_POP
+# (as 4b), the float64 one at XWIDE_POP_F64
+XWIDE_NETWORKS = {"model2-6sites": dict(n_proteins=6, n_kinases=3, max_sites=6, model=2, seed=0),
+                  "model0-20sites": dict(n_proteins=5, n_kinases=3, max_sites=20, model=0,
+                                         seed=5)}
+XWIDE_POP, XWIDE_POP_F64 = 2048, 256
+# lanes of a class held against the plain version (lane 37 made NaN)
+XWIDE_CHECK_LANES = 256
+# the objective's arguments after the system in a host bundle
+HOST_ARGS = ("slices", "loss_data", "defaults", "lambdas", "grid")
+# 16: population sharding on the one card: gloo ranks in spawned processes
+# (NCCL refuses two ranks on one device) on the bench model-0 network,
+# evaluate_population at MESH_POP (each rank's block in whole chunks of
+# 2048, so its F is expected bit for bit; MESH_F_RTOL gates it otherwise),
+# and a short sharded all-device GA held to the unsharded run's ideal point
+# at the JAX package's tolerance (tests/test_nsga_device.py:357-359)
+MESH_RANKS, MESH_POP = 2, 8192
+MESH_GA = dict(pop_size=512, n_gen=4, gens_per_block=2, seed=0, ftol=0.0, n_max_evals=None)
+MESH_F_RTOL, MESH_IDEAL_RTOL = 1e-6, 1e-3
+# the seconds phases 3h and 16 may take in the whole script (printed beside
+# their own; phase 16's ranks run beside phases 13-15)
+PHASE_BUDGET_S = {"3h": 30, "16": 40}
 # float64 on the card (3g): tables against their plain versions scaled as
 # the float64 kernels; the scan elementwise; an objective against the
 # port's float64 result on the CPU
@@ -501,9 +561,10 @@ F64_SCAN_RTOL, F64_SCAN_ATOL, F64_OBJECTIVE_RTOL = 1e-10, 1e-12, 1e-9
 # the global fit (7): the north-star network and population (bench.py:407-412)
 NORTHSTAR = dict(n_proteins=150, n_kinases=24, seed=1)
 NORTHSTAR_POP = 10_000
-# the all-device route's generations: one block of 5 (two blocks before
-# phase 14 came in, cut to keep the script's time)
-NORTHSTAR_GENS = 5
+# the all-device route's generations: one block of 3 (two blocks of 5
+# before phase 14 came in, one of 5 before phases 3h and 16; cut to keep
+# the script's time)
+NORTHSTAR_GENS = 3
 FIT_F_RTOL = 1e-3         # survivors' F against a re-evaluation of their X
 # the new kernels against their plain versions, scaled by the largest entry:
 # float32 as the table kernels; float64 rounding only
@@ -1776,7 +1837,6 @@ def start_rk45_workers(b, b1, b2, thetas, thetas1, thetas2) -> tuple:
     th2 = thetas2.cpu().numpy()
     jobs = {
         "4d plain flux": ("objective", hb2, "float32", "cuda", (th2[:8], False)),
-        "4d float64 cpu": ("objective", hb2, "float64", "cpu", (th2[:8], None)),
         "4d model0": ("objective", hb0, "float32", "cuda", (thetas[:POP2].cpu().numpy(), None)),
         "4d model1": ("objective", hb1, "float32", "cuda", (thetas1.cpu().numpy(), None)),
         **{f"5c model{hb['topo'].model} {dt}": ("fold_changes", hb, dt, "cuda")
@@ -1785,6 +1845,19 @@ def start_rk45_workers(b, b1, b2, thetas, thetas1, thetas2) -> tuple:
     }
     pool = ProcessPoolExecutor(max_workers=len(jobs), mp_context=get_context("spawn"))
     return pool, {name: pool.submit(worker_job, *spec) for name, spec in jobs.items()}
+
+
+def start_cpu_reference(b2, thetas2):
+    """4d's float64 RK45 run on the CPU (8 members), the longest of the RK45
+    workers (~70 s, host-bound), in a spawned worker of its own started
+    before phase 4 so that it is done when 4d's checks read it. Returns
+    (pool, future)."""
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=get_context("spawn"))
+    return pool, pool.submit(worker_job, "objective", host_bundle(b2), "float64", "cpu",
+                             (thetas2[:8].cpu().numpy(), None))
 
 
 def phase_rk45_path(b2, thetas2, card) -> dict:
@@ -1823,14 +1896,15 @@ def phase_rk45_path(b2, thetas2, card) -> dict:
     return {"model2-rk45-pop2048": launches}, F
 
 
-def finish_rk45_workers(pool, futures, F, oracles, card) -> None:
+def finish_rk45_workers(pools, futures, F, oracles, card) -> None:
     """4d, 5c and 6's worker runs: F against the plain flux and against
     float64 on the CPU, models 0 and 1, the accuracy gates against the
     LSODA ``oracles`` ({model: fold changes}), and simulate_until_steady."""
     try:
         got = {name: fut.result() for name, fut in futures.items()}
     finally:
-        pool.shutdown()
+        for pool in pools:
+            pool.shutdown()
     for name, ref in (("4d plain flux", "plain flux (use_kernel=False)"),
                       ("4d float64 cpu", "float64 on the CPU")):
         Fr, steps, secs = got[name]
@@ -2150,7 +2224,7 @@ def fit_route(label, ns, card, n_gen, n_chunks, **kw) -> tuple:
 def phase_global_fit(b, card) -> dict:
     """7: run_global_fit at full width on the north-star network
     (``build_demo_network(150, 24, seed=1)``, float32, bench.py:407-412) at
-    pop 10,000: the all-device loop (gens_per_dispatch=5, one block), then
+    pop 10,000: the all-device loop (gens_per_dispatch=3, one block), then
     the default route (device variation, host survival) for 1 generation;
     then one generation of each route profiled; then, on the bench network,
     pop 256 for 5 generations with one refinement round and the Fréchet
@@ -2161,7 +2235,7 @@ def phase_global_fit(b, card) -> dict:
     say("7 setup", N=ns["topo"].N, K=ns["topo"].K, n_theta=len(ns["theta0"]),
         chunks=n_chunks, seconds=f"{time.perf_counter() - t0:.2f}")
     dev, dev_launches = fit_route("7 global fit all-device", ns, card, NORTHSTAR_GENS, n_chunks,
-                                  gens_per_dispatch=5)
+                                  gens_per_dispatch=NORTHSTAR_GENS)
     host, host_launches = fit_route("7 global fit default", ns, card, 1, n_chunks)
 
     # one generation of each route, as run_global_fit runs it
@@ -3232,7 +3306,8 @@ def phase_pergene(card) -> dict:
     run 10b's float64 cohorts on the card (randmod in one, distmod and
     succmod in another) and make 10a's float64 CPU references and 10b's
     float64 CPU fits, beside the main process's work; 10a is checked after
-    the float32 cohorts."""
+    the float32 cohorts, then 10c and 10d run before the float64 cohorts
+    are read."""
     from concurrent.futures import ProcessPoolExecutor
     from multiprocessing import get_context
 
@@ -3245,14 +3320,18 @@ def phase_pergene(card) -> dict:
         refs = {key: pool.submit(pergene_solve_job, P, *key) for key, P in draws.items()}
         futures = {m: pool.submit(pergene_cpu_job, m) for m in PG_MODELS}
         paths, solves = phase_pergene_solves(draws, card)
-        cohort_paths, f64_fits = phase_pergene_cohort(
-            f64_jobs, card, after_f32=lambda: check_pergene_solves(draws, solves, refs))
+
+        def after_f32():
+            # 10a's check, then 10c and 10d while the float64 cohorts run
+            check_pergene_solves(draws, solves, refs)
+            paths.update(phase_pergene_recovery(card))
+            paths.update(phase_pergene_pipeline(card))
+
+        cohort_paths, f64_fits = phase_pergene_cohort(f64_jobs, card, after_f32=after_f32)
         paths.update(cohort_paths)
         check_pergene_cpu(futures, f64_fits, card)
     finally:
         pool.shutdown(cancel_futures=True)
-    paths.update(phase_pergene_recovery(card))
-    paths.update(phase_pergene_pipeline(card))
     say("10 per-gene", seconds=f"{time.perf_counter() - t0:.1f}", card=repr(card))
     return paths
 
@@ -3826,8 +3905,8 @@ class MotpeClock:
 
         real_eval = optimize_mod.make_batched_evaluate
 
-        def timed_eval(objective):
-            evaluate = real_eval(objective)
+        def timed_eval(objective, **kw):
+            evaluate = real_eval(objective, **kw)
 
             def run(X):
                 before, t0 = phi_tables.launches, time.perf_counter()
@@ -4034,16 +4113,17 @@ def phase_entry_subprocess(card) -> None:
         raise AssertionError(f"13a: {helped.stderr[-2000:]} {imported.stderr[-2000:]}")
 
 
-def tables_per_call(topo) -> tuple[int, int]:
-    """(phi_tables, phi_tables_wide) launches of one population-objective
-    chunk or one batched ETD2RK simulation: one a width class (the
-    classes of ``expo.width_classes``, or the full width), none for model
-    4 (its exponential-Rosenbrock path builds no table)."""
-    if topo.model == 4:
-        return 0, 0
-    widths = [wc for wc, _ in expo.width_classes(topo)] or [topo.width]
-    narrow = sum(w <= 8 for w in widths)
-    return narrow, len(widths) - narrow
+def tables_per_call(topo) -> dict:
+    """{kernel: launches} of the table kernels in one population-objective
+    chunk or one batched ETD2RK simulation: one a width class (the classes
+    of ``expo.width_classes``, or the full width), each to its kernel by
+    width (``phi_tables`` w <= 8, ``phi_tables_wide`` 9..17,
+    ``phi_tables_xwide`` 18..65); none for model 4 (its
+    exponential-Rosenbrock path builds no table)."""
+    widths = [] if topo.model == 4 else [wc for wc, _ in expo.width_classes(topo)] or [topo.width]
+    return {"phi_tables": sum(w <= 8 for w in widths),
+            "phi_tables_wide": sum(8 < w <= 17 for w in widths),
+            "phi_tables_xwide": sum(w > 17 for w in widths)}
 
 
 class Solve(NamedTuple):
@@ -4110,16 +4190,13 @@ class EntrySpy:
         class a chunk of each objective call and of each topology's picks
         (``picks``: [topo], one batched ETD2RK simulation each), the flux 7
         times an iteration plus 2 in each model-2 RK45 simulation."""
-        phi = wide = 0
-        for topo, members in self.calls:
-            n, w = tables_per_call(topo)
-            chunks = -(-members // _auto_pop_chunk(topo.N))
-            phi, wide = phi + n * chunks, wide + w * chunks
-        for topo in picks:
-            n, w = tables_per_call(topo)
-            phi, wide = phi + n, wide + w
+        tables = dict.fromkeys(("phi_tables", "phi_tables_wide", "phi_tables_xwide"), 0)
+        for topo, chunks in ([(topo, -(-members // _auto_pop_chunk(topo.N)))
+                              for topo, members in self.calls] + [(t, 1) for t in picks]):
+            for k, n in tables_per_call(topo).items():
+                tables[k] += n * chunks
         flux = sum(7 * s.steps + 2 for s in self.solves if s.model == 2)
-        return expect(phi_tables=phi, phi_tables_wide=wide, hypercube_flux=flux)
+        return expect(**tables, hypercube_flux=flux)
 
 
 class WriterSpy:
@@ -4768,6 +4845,37 @@ class FigureClock:
             setattr(owner, name, real)
 
 
+def fit_figures_job(card: str) -> float:
+    """Phase 14 in a spawned worker on the card, on the bench bundle built
+    anew there (the same draws and observations): it launches no kernel
+    and is host-bound, so it runs beside phases 13 and 15. Returns its
+    seconds."""
+    t0 = time.perf_counter()
+    b = build_demo_network(N_PROTEINS, N_KINASES, seed=0, dtype=torch.float32, device="cpu")
+    phase_fit_figures(card, b)
+    return time.perf_counter() - t0
+
+
+def start_fit_figures(card: str):
+    """Starts :func:`fit_figures_job`; returns (pool, future)."""
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=get_context("spawn"))
+    return pool, pool.submit(fit_figures_job, card)
+
+
+def finish_fit_figures(job) -> None:
+    """Reads phase 14's worker (its checks raise there)."""
+    pool, future = job
+    t0 = time.perf_counter()
+    try:
+        seconds = future.result()
+    finally:
+        pool.shutdown()
+    say("14 worker", seconds=f"{seconds:.1f}", waited=f"{time.perf_counter() - t0:.1f}")
+
+
 def pick_genes(b) -> list:
     """Three proteins of the bench network with different site counts
     (1-5), the fewest sites first."""
@@ -5018,8 +5126,7 @@ def phase_thermal_expo(b, b2, card, cpu) -> dict:
         system, topo = bb["system"], bb["topo"]
         times = np.asarray(bb["grid"], float)
         sys_T, p_T = thermalize(system, bb["true"], THERMAL_T, melting_temperatures(topo.N))
-        phi, wide = tables_per_call(topo)
-        want = expect(phi_tables=phi, phi_tables_wide=wide)
+        want = expect(**tables_per_call(topo))
         reset_counts()
         t0 = time.perf_counter()
         got = port_fold_changes(sys_T, p_T, times)
@@ -5240,12 +5347,310 @@ def phase_part3(card, b, b2, fits, references) -> dict:
     return paths
 
 
-def population(b, pop: int) -> torch.Tensor:
+# --- 3h: the widest tables ------------------------------------------------------------
+
+
+def xwide_cpu_job(name: str) -> tuple:
+    """3h's CPU side, in a spawned worker: the network ``name`` of
+    XWIDE_NETWORKS at float32 with its observations by RK45 on the CPU (as
+    every demo bundle's), as host data with theta0 and the bounds; its
+    XWIDE_POP members; and the port's float64 objective of the first 8 on
+    the CPU."""
+    torch.set_num_threads(1)
+    b = build_demo_network(**XWIDE_NETWORKS[name], dtype=torch.float32, device="cpu")
+    hb = {**host_bundle(b), **{k: b[k] for k in ("theta0", "xl", "xu")}}
+    thetas = members(b["theta0"], XWIDE_POP)
+    cpu = GlobalSystem(hb["topo"], hb["kin_grid"], hb["Kmat"], dtype=torch.float64,
+                       device="cpu")
+    F64 = make_population_objective(cpu, *(hb[k] for k in HOST_ARGS))(thetas[:8])
+    return hb, thetas, F64.numpy()
+
+
+def start_xwide_references():
+    """The two :func:`xwide_cpu_job` runs, each in its own spawned worker,
+    beside phases 3f-3g; returns (pool, {name: future})."""
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    pool = ProcessPoolExecutor(max_workers=len(XWIDE_NETWORKS), mp_context=get_context("spawn"))
+    return pool, {name: pool.submit(xwide_cpu_job, name) for name in XWIDE_NETWORKS}
+
+
+def card_system(hb, dtype=torch.float32):
+    """The system of host data ``hb`` on the card at ``dtype``, and the
+    objective's other arguments."""
+    system = GlobalSystem(hb["topo"], hb["kin_grid"], hb["Kmat"], dtype=dtype, device="cuda")
+    return (system, *(hb[k] for k in HOST_ARGS))
+
+
+def check_xwide(label, L, binv, h_u, ladder, card) -> dict:
+    """3h's check of one class: the kernel against its plain version on the
+    first XWIDE_CHECK_LANES lanes (scaled tolerance by type) and a NaN lane
+    there, then on the whole class the kernel (CUDA events, kernel, kernel;
+    and on the device), the plain version once and ``matrix_exp``, and the
+    FMA bound. The plain version repeats the kernel's arithmetic one
+    launch an operation: one call of it at w = 65 takes ~1-2 s."""
+    sub = L[..., :XWIDE_CHECK_LANES].contiguous()
+    got, want = phi_tables(sub, binv, h_u, ladder), phi_tables_reference(sub, binv, h_u, ladder)
+    torch.cuda.synchronize()
+    errs = [scaled_err(g, w) for g, w in zip(got, want)]
+    max_abs, worst = max(e[0] for e in errs), max(e[1] for e in errs)
+    tol = SCALED_TOL[L.dtype]
+    say(f"{label} check", shape=tuple(L.shape), lanes_checked=sub.shape[-1], pairs=len(binv),
+        ladder=ladder, max_abs_err=f"{max_abs:.3e}", max_scaled_err=f"{worst:.3e}", tol=tol)
+    if not worst <= tol:
+        raise AssertionError(f"{label}: kernel disagrees with the plain version: {worst:.3e}")
+    nan_lane_check(label, sub, binv, h_u, ladder)
+    run_k = lambda: phi_tables(L, binv, h_u, ladder)  # noqa: E731
+    k1, k2 = cuda_ms(run_k, 5), cuda_ms(run_k, 5)
+    plain_ms = cuda_ms(lambda: phi_tables_reference(L, binv, h_u, ladder), 1)
+    M = augmented(L, binv, h_u)
+    lib_ms = cuda_ms(lambda: torch.linalg.matrix_exp(M), 3)
+    del M
+    b = table_bound(L, binv, h_u, ladder)
+    dev_ms = kernel_ms_on_device(run_k, "phi_tables_xwide_kernel", 5)
+    ms = (k1 + k2) / 2
+    say(f"{label} timing", ms=f"{ms:.4f}", device_ms=measured(dev_ms),
+        plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}", **bound_fields(b, dev_ms),
+        runs_ms=[round(x, 4) for x in (k1, k2)], card=repr(card))
+    return {"max_abs_err": max_abs, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": b.ms, "bound_by": b.by, "bound_ms_measured_peak": b.ms_measured,
+            "library_ms": lib_ms}
+
+
+def nan_lane_check(label, L, binv, h_u, ladder) -> None:
+    """A NaN in one lane (37, inside a block of the widest kernel's lanes)
+    gives that lane NaN tables and leaves every other lane's bits as they
+    were."""
+    clean = phi_tables(L, binv, h_u, ladder)
+    Ln = L.clone()
+    Ln[..., 37] = float("nan")
+    dirty = phi_tables(Ln, binv, h_u, ladder)
+    torch.cuda.synchronize()
+    keep = torch.arange(L.shape[-1], device=L.device) != 37
+    same = all(torch.equal(c[..., keep], d[..., keep]) for c, d in zip(clean, dirty))
+    nan = all(bool(torch.isnan(d[..., 37]).all()) for d in dirty)
+    say(f"{label} nan lane", lanes=L.shape[-1], others_unchanged=same, lane_all_nan=nan)
+    if not (same and nan):
+        raise AssertionError(f"{label}: a NaN lane leaked into its neighbours or kept numbers")
+
+
+def xwide_objective(label, args, thetas, F64, card, want) -> dict:
+    """One population-objective call through the widest kernel: its launches
+    against ``want``, F of the first 8 members against the CPU's float64
+    (PRECISION_GATE at float32, F64_OBJECTIVE_RTOL at float64), evals/s."""
+    objective = make_population_objective(*args)
+    objective(thetas[:8])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    F = objective(thetas)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = counts()
+    F64 = torch.as_tensor(F64)
+    rel = float(torch.max(torch.abs(F[:8].cpu().double() - F64) / torch.abs(F64)))
+    tol = PRECISION_GATE if thetas.dtype == torch.float32 else F64_OBJECTIVE_RTOL
+    say(f"{label} objective", pop=len(thetas), launches=launches, predicted=want,
+        vs_f64_cpu=f"{rel:.3e}", tol=tol, seconds=f"{sec:.3f}",
+        evals_per_s=f"{len(thetas) / sec:.1f}", card=repr(card))
+    if tuple(F.shape) != (len(thetas), 3) or not bool(torch.isfinite(F).all()):
+        raise AssertionError(f"{label}: non-finite or misshapen objectives")
+    if launches != want or not launches["phi_tables_xwide"]:
+        raise AssertionError(f"{label}: kernel launches {launches}, predicted {want}")
+    if not rel <= tol:
+        raise AssertionError(f"{label}: {rel:.3e} from the CPU's float64")
+    return launches
+
+
+def phase_xwide_kernel(card, references) -> tuple[list, dict, dict]:
+    """3h: the widest table kernel (18 <= w <= 65). On model 2 at 6 sites
+    (classes 2, 3, 33, 65) and model 0 with a 20-site protein (w = 22), pop
+    XWIDE_POP: the objective's launches, one a width class and chunk, each
+    class to its kernel by width, against the prediction from
+    ``width_classes``; F against the CPU's float64 on 8 members; then the
+    kernel at every class wider than 17 on the first chunk's own inputs,
+    float32 and float64 (:func:`check_xwide`: against its plain version and
+    a NaN lane on a lane subset; times, the FMA bound and share and
+    ``matrix_exp`` on the whole class), and a float64 objective on the card.
+    Returns (its two entries, float32 paths, float64 paths)."""
+    t0 = time.perf_counter()
+    pool, futures = references
+    try:
+        refs = {name: f.result() for name, f in futures.items()}
+    finally:
+        pool.shutdown(cancel_futures=True)
+    say("3h references", seconds_waited=f"{time.perf_counter() - t0:.1f}")
+    out = {torch.float32: {}, torch.float64: {}}
+    paths32, paths64 = {}, {}
+    for name, (hb, thetas_np, F64) in refs.items():
+        topo = hb["topo"]
+        chunks = -(-XWIDE_POP // _auto_pop_chunk(topo.N))
+        want = expect(**{k: n * chunks for k, n in tables_per_call(topo).items()})
+        say("3h network", name=name, N=topo.N, sites=[len(x) for x in topo.sites],
+            width_classes=[wc for wc, _ in expo.width_classes(topo)] or [topo.width],
+            chunks=chunks)
+        for dtype in (torch.float32, torch.float64):
+            args = card_system(hb, dtype)
+            thetas = torch.as_tensor(thetas_np, dtype=dtype, device="cuda")
+            if dtype == torch.float32:
+                paths32[f"{name}-pop{XWIDE_POP}"] = xwide_objective(
+                    f"3h {name}", args, thetas, F64, card, want)
+            else:
+                few = thetas[:XWIDE_POP_F64]
+                paths64[f"{name}-f64-pop{XWIDE_POP_F64}"] = xwide_objective(
+                    f"3h {name} f64", args, few, F64, card,
+                    expect(**tables_per_call(topo)))
+            params_b = unpack_params(thetas[:_auto_pop_chunk(topo.N)], hb["slices"], topo)
+            for L, binv, h_u, ladder in expo.table_inputs(args[0], params_b, hb["grid"]):
+                w = L.shape[1]
+                if w > 17:
+                    label = f"3h xwide {name} w={w} {str(dtype).split('.')[-1]}"
+                    out[dtype][w] = check_xwide(label, L, binv, h_u, ladder, card)
+                del L
+    say("3h xwide", seconds=f"{time.perf_counter() - t0:.1f}", budget_s=PHASE_BUDGET_S["3h"],
+        card=repr(card))
+    entries = []
+    for dtype, suffix in ((torch.float32, ""), (torch.float64, "_f64")):
+        by_w = out[dtype]
+        entries.append({"name": f"phi_tables_xwide{suffix}", "counter": "phi_tables_xwide",
+                        "route": "cuda", "source": "phoskintime_tpu_torch/csrc/phi_tables_xwide.cu",
+                        "replaces": "phoskintime_tpu/ops/phi_pallas.py:406", **by_w[65],
+                        **{f"w{w}": by_w[w] for w in sorted(by_w) if w != 65}})
+    return entries, paths32, paths64
+
+
+# --- 16: population sharding ----------------------------------------------------------
+
+
+def mesh_rank_job(rank: int, world: int, init: str, hb: dict, backend: str,
+                  fit: bool = True) -> dict:
+    """One rank of phase 16, in a spawned process on the card: a group of
+    ``world`` ranks over ``backend`` (gloo with CUDA tensors, two ranks
+    sharing the card; or NCCL over a one-rank group), a
+    :class:`PopulationMesh` of it, and on the bench model-0 network
+    ``evaluate_population`` at MESH_POP, the column-sharded ranks of that F
+    and (``fit``) a short sharded ``run_unsga3_device``. Returns the
+    results on the host with each part's seconds and the launches."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from phoskintime_tpu_torch.parallel.mesh import PopulationMesh
+
+    torch.set_num_threads(1)
+    dist.init_process_group(backend, init_method=init, rank=rank, world_size=world,
+                            timeout=timedelta(seconds=600))
+    try:
+        mesh = PopulationMesh(None, rank, world, torch.device("cuda", 0))
+        args = card_system(hb)
+        objective = make_population_objective(*args)
+        thetas = torch.as_tensor(members(hb["theta0"], MESH_POP), dtype=torch.float32,
+                                 device="cuda")
+        evaluate_population(objective, thetas[:8 * world], mesh)         # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        F = evaluate_population(objective, thetas, mesh)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = counts()
+        ranks = device_nd_ranks(F, mesh)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = {"F": F.cpu().numpy(), "ranks": ranks.cpu().numpy(), "launches": launches,
+               "seconds": {"evaluate": t1 - t0, "ranks": t2 - t1}}
+        if fit:
+            res = run_unsga3_device(objective, hb["xl"], hb["xu"], device="cuda", mesh=mesh,
+                                    **MESH_GA)
+            out["ideal"] = res.pareto_F.min(axis=0)
+            out["X"] = res.X
+            out["seconds"]["run_unsga3_device"] = time.perf_counter() - t2
+        dist.barrier()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def start_mesh_ranks(b):
+    """Phase 16's ranks, all started together beside phases 13-15: MESH_RANKS
+    gloo ranks and one NCCL rank, each its own spawned process; their group
+    files in a temporary directory. Returns (pool, {name: future})."""
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    hb = {**host_bundle(b), **{k: b[k] for k in ("theta0", "xl", "xu")}}
+    pool = ProcessPoolExecutor(max_workers=MESH_RANKS + 1, mp_context=get_context("spawn"))
+    futures = {f"gloo{r}": pool.submit(mesh_rank_job, r, MESH_RANKS, f"file://{d}/gloo", hb,
+                                       "gloo") for r in range(MESH_RANKS)}
+    futures["nccl"] = pool.submit(mesh_rank_job, 0, 1, f"file://{d}/nccl", hb, "nccl", False)
+    return pool, futures
+
+
+def phase_mesh(b, card, ranks) -> None:
+    """16: population sharding on the card. The unsharded references in this
+    process: F at MESH_POP, its replicated ranks, the GA unsharded; then each
+    rank's results: F bit for bit (else the largest relative difference,
+    gated at MESH_F_RTOL), ranks equal, the sharded GA's ideal point within
+    MESH_IDEAL_RTOL, the same on every rank; and the NCCL one-rank group's
+    F and ranks bit for bit. Two ranks on one card measure nothing about
+    speed: their seconds are printed as what they are."""
+    t0 = time.perf_counter()
+    pool, futures = ranks
+    args = bundle_args(b)
+    objective = make_population_objective(*args)
+    thetas = torch.as_tensor(members(b["theta0"], MESH_POP), dtype=torch.float32, device="cuda")
+    reset_counts()
+    F = objective(thetas)
+    torch.cuda.synchronize()
+    launches = counts()
+    r_ref = device_nd_ranks(F).cpu().numpy()
+    ref = run_unsga3_device(objective, b["xl"], b["xu"], device="cuda", **MESH_GA)
+    F = F.cpu().numpy()
+    try:
+        got = {name: f.result() for name, f in futures.items()}
+    finally:
+        pool.shutdown(cancel_futures=True)
+    chunks = -(-MESH_POP // MESH_RANKS // _auto_pop_chunk(b["topo"].N))
+    for name, g in got.items():
+        diff = float(np.max(np.abs(g["F"] - F) / np.abs(F)))
+        bits = bool(np.array_equal(g["F"], F))
+        fields = {"F_bit_for_bit": bits, "F_max_rel_diff": f"{diff:.3e}",
+                  "ranks_equal": bool(np.array_equal(g["ranks"], r_ref)),
+                  "launches": g["launches"],
+                  "seconds": {k: f"{v:.3f}" for k, v in g["seconds"].items()}}
+        if "ideal" in g:
+            fields["ideal_rel_diff"] = f"{float(np.max(np.abs(g['ideal'] - ref.pareto_F.min(axis=0)) / np.abs(ref.pareto_F.min(axis=0)))):.3e}"
+        say(f"16 mesh {name}", pop=MESH_POP, **fields, card=repr(card))
+        if not (bits or (name != "nccl" and diff <= MESH_F_RTOL)):
+            raise AssertionError(f"16 {name}: F {diff:.3e} from the unsharded call")
+        if not fields["ranks_equal"]:
+            raise AssertionError(f"16 {name}: sharded ranks differ from the replicated ones")
+        if name.startswith("gloo") and g["launches"] != expect(phi_tables=chunks):
+            raise AssertionError(f"16 {name}: launches {g['launches']}, want {chunks} a rank")
+        if "ideal" in g:
+            np.testing.assert_allclose(g["ideal"], ref.pareto_F.min(axis=0), rtol=MESH_IDEAL_RTOL,
+                                       atol=1e-6, err_msg=f"16 {name}: ideal point")
+    gloo = [got[f"gloo{r}"] for r in range(MESH_RANKS)]
+    if not all(np.array_equal(g["X"], gloo[0]["X"]) and np.array_equal(g["F"], gloo[0]["F"])
+               for g in gloo):
+        raise AssertionError("16: the ranks ended with different populations")
+    say("16 mesh", ranks=MESH_RANKS, unsharded_launches=launches,
+        seconds=f"{time.perf_counter() - t0:.1f}", budget_s=PHASE_BUDGET_S["16"],
+        card=repr(card))
+
+
+def members(theta0, pop: int) -> np.ndarray:
     """theta0 plus seeded noise, as bench.py and benchmarks/model_rates.py."""
     rng = np.random.default_rng(0)
-    return torch.as_tensor(
-        b["theta0"][None] + 0.05 * rng.normal(size=(pop, len(b["theta0"]))),
-        dtype=torch.float32, device="cuda")
+    return theta0[None] + 0.05 * rng.normal(size=(pop, len(theta0)))
+
+
+def population(b, pop: int) -> torch.Tensor:
+    """:func:`members` of the bundle's theta0, float32 on the card."""
+    return torch.as_tensor(members(b["theta0"], pop), dtype=torch.float32, device="cuda")
 
 
 def main() -> int:
@@ -5290,6 +5695,18 @@ def main() -> int:
         phase_sensitivity_kinopt(card, b2)
         say("done", seconds=f"{time.perf_counter() - T_START:.1f}", card=repr(card))
         return 0
+    if "--xwide-only" in sys.argv[1:]:
+        phase_build()
+        phase_xwide_kernel(card, start_xwide_references())
+        say("done", seconds=f"{time.perf_counter() - T_START:.1f}", card=repr(card))
+        return 0
+    if "--mesh-only" in sys.argv[1:]:
+        phase_build()
+        b = build_demo_network(N_PROTEINS, N_KINASES, seed=0, dtype=torch.float32,
+                               device="cuda")
+        phase_mesh(b, card, start_mesh_ranks(b))
+        say("done", seconds=f"{time.perf_counter() - T_START:.1f}", card=repr(card))
+        return 0
     phase_build()
     probe, probe_paths = phase_fma_peak(card)
     t0 = time.perf_counter()
@@ -5301,28 +5718,50 @@ def main() -> int:
         say("setup", model=topo.model, N=topo.N, K=topo.K, w=topo.width,
             n_theta=len(bb["theta0"]), T=len(bb["grid"]))
     say("setup", seconds=f"{time.perf_counter() - t0:.2f}")
+    # 3h's CPU references build beside phases 3-3g (after the bench
+    # bundles, whose RK45 they would slow)
+    xwide_refs = start_xwide_references()
+    try:
+        return run_all_phases(card, probe, probe_paths, b, b1, b2, thetas, thetas1, thetas2,
+                              xwide_refs)
+    except BaseException:
+        xwide_refs[0].shutdown(cancel_futures=True)
+        raise
+
+
+def run_all_phases(card, probe, probe_paths, b, b1, b2, thetas, thetas1, thetas2,
+                   xwide_refs) -> int:
+    """Every phase after the setup, in order (3h's references building in
+    their workers since the setup; 4d's float64 CPU run in its own since
+    the end of 3h)."""
     kernel = phase_kernel(b, thetas, card)
     wide = phase_wide_kernel(b2, thetas2, card)
     scan = phase_scan_kernel(b, thetas, b2, thetas2, card)
     flux = phase_flux_kernel(card)
     thomas = phase_thomas_kernel(card)
     f64_entries, paths64 = phase_float64(b, thetas, b2, thetas2, card)
-    paths = {"model0-pop8192": phase_main_path(b, thetas, card),
-             "model2-pop2048": phase_main_path_model2(b2, thetas2, card),
-             **phase_scan_paths(b, thetas, b2, thetas2, card)}
-    rk45_paths, F_rk45 = phase_rk45_path(b2, thetas2, card)
-    paths.update(rk45_paths)
-    pool, futures = start_rk45_workers(b, b1, b2, thetas, thetas1, thetas2)
+    (xwide, xwide64), xpaths, xpaths64 = phase_xwide_kernel(card, xwide_refs)
+    cpu_ref = start_cpu_reference(b2, thetas2)
+    pools = [cpu_ref[0]]
     try:
+        paths = {"model0-pop8192": phase_main_path(b, thetas, card),
+                 "model2-pop2048": phase_main_path_model2(b2, thetas2, card),
+                 **phase_scan_paths(b, thetas, b2, thetas2, card)}
+        rk45_paths, F_rk45 = phase_rk45_path(b2, thetas2, card)
+        paths.update(rk45_paths)
+        pool, futures = start_rk45_workers(b, b1, b2, thetas, thetas1, thetas2)
+        pools.append(pool)
+        futures["4d float64 cpu"] = cpu_ref[1]
         phase_accuracy(b)
         phase_accuracy(b, use_scan_kernel=True)
         phase_precision_model2(b2)
         paths.update(phase_steady_states(b1))
     except BaseException:
-        pool.shutdown(cancel_futures=True)
+        for wp in pools:
+            wp.shutdown(cancel_futures=True)
         raise
-    finish_rk45_workers(pool, futures, F_rk45, {0: lsoda_fold_changes(b),
-                                                 2: lsoda_fold_changes(b2)}, card)
+    finish_rk45_workers(pools, futures, F_rk45, {0: lsoda_fold_changes(b),
+                                                  2: lsoda_fold_changes(b2)}, card)
     paths.update(phase_global_fit(b, card))
     model4_paths, b4 = phase_model4(card)
     paths.update(model4_paths)
@@ -5337,22 +5776,27 @@ def main() -> int:
     paths.update(phase_sensitivity_kinopt(card, b2, fits))
     paths.update(phase_hyperscan_motpe(card, b))
     references = start_part3_references(b, b2)
+    ranks = start_mesh_ranks(b)
+    fit_figures = start_fit_figures(card)
     try:
         paths.update(phase_entry_points(card, b))
-        phase_fit_figures(card, b)
+        paths.update(phase_part3(card, b, b2, fits, references))
+        finish_fit_figures(fit_figures)
     except BaseException:
-        references[0].shutdown(cancel_futures=True)
+        for pool in (references[0], ranks[0], fit_figures[0]):
+            pool.shutdown(cancel_futures=True)
         raise
-    paths.update(phase_part3(card, b, b2, fits, references))
+    phase_mesh(b, card, ranks)
     for group, group_paths in (([kernel, wide, scan, flux, thomas], paths),
-                               (f64_entries, paths64), ([probe], probe_paths)):
+                               (f64_entries, paths64), ([xwide], xpaths),
+                               ([xwide64], xpaths64), ([probe], probe_paths)):
         for entry in group:
             counter = entry.pop("counter", entry["name"])
             entry["launches_by_path"] = {p: n[counter] for p, n in group_paths.items()}
             entry["launches"] = sum(entry["launches_by_path"].values())
             if not entry["launches"]:
                 raise AssertionError(f"{entry['name']}: no launch on its main path")
-    entries = [kernel, wide, scan, flux, thomas, probe, *f64_entries]
+    entries = [kernel, wide, xwide, scan, flux, thomas, probe, *f64_entries, xwide64]
     say("done", seconds=f"{time.perf_counter() - T_START:.1f}", card=repr(card))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

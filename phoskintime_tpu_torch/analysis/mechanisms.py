@@ -33,6 +33,7 @@ from phoskintime_tpu_torch.network.params import init_raw_params, unpack_params
 from phoskintime_tpu_torch.network.simulate import simulate_and_measure
 from phoskintime_tpu_torch.network.system import GlobalSystem, default_params
 from phoskintime_tpu_torch.network.topology import build_topology
+from phoskintime_tpu_torch.parallel.mesh import is_writer, on_root
 
 MECHANISMS = {0: "distributive", 1: "sequential", 2: "combinatorial", 4: "saturating"}
 
@@ -180,7 +181,11 @@ def fit_all_mechanisms(df_kin, df_tf, df_prot, df_rna, df_pho, tp, *,
     ``device``, one :func:`run_global_fit` with the Fréchet pick, then an
     RK45 simulation of the pick; AIC = n ln(RSS/n) + 2k, AICc, BIC = n
     ln(RSS/n) + k ln(n), Akaike weights and per-modality R^2, RMSE and MAE.
-    ``tp``: (t_points_protein, t_points_rna, t_points_phospho)."""
+    ``tp``: (t_points_protein, t_points_rna, t_points_phospho). ``mesh``:
+    every rank calls this alike; each fit is sharded over its ranks
+    (:func:`run_global_fit`), the pick's simulation and the files run on
+    rank 0 (the others wait for the simulation's result), and every rank
+    returns the same selection."""
     from phoskintime_tpu_torch.network.bounds import calculate_bio_bounds
     from phoskintime_tpu_torch.network.lossdata import prepare_loss_data
     from phoskintime_tpu_torch.network.optimize import run_global_fit
@@ -206,8 +211,9 @@ def fit_all_mechanisms(df_kin, df_tf, df_prot, df_rna, df_pho, tp, *,
                              df_prot=dfp, df_rna=dfr, df_pho=dfh,
                              t_points=(tp_p, tp_r, tp_ph))
         fits[model] = res
-        pred = simulate_and_measure(system, _member(res.pareto_X[res.best_idx], slices, topo,
-                                                    system), tp_p, tp_r, tp_ph)
+        pred = on_root(mesh, lambda: simulate_and_measure(
+            system, _member(res.pareto_X[res.best_idx], slices, topo, system),
+            tp_p, tp_r, tp_ph))
         trajs[model] = pred
 
         rss, tss, n, per_mod = _gof_stats((df_prot, df_rna, df_pho), pred)
@@ -223,7 +229,7 @@ def fit_all_mechanisms(df_kin, df_tf, df_prot, df_rna, df_pho, tp, *,
             row[f"rmse_{mname}"] = st["rmse"]
             row[f"mae_{mname}"] = st["mae"]
         rows.append(row)
-        if logger is not None:
+        if logger is not None and is_writer(mesh):
             logger.info(f"[Mech] {MECHANISMS[model]}: AIC={aic:.1f} BIC={bic:.1f} "
                         f"R2={row['r2']:.3f}")
 
@@ -234,8 +240,8 @@ def fit_all_mechanisms(df_kin, df_tf, df_prot, df_rna, df_pho, tp, *,
     w = np.exp(-0.5 * d)
     table["akaike_weight"] = w / w.sum()
     best = int(table["model"][0])
-    paths = (_write_selection_artifacts(table, trajs, (df_prot, df_rna, df_pho), out_dir)
-             if out_dir else None)
+    paths = (on_root(mesh, lambda: _write_selection_artifacts(
+        table, trajs, (df_prot, df_rna, df_pho), out_dir)) if out_dir else None)
     return MechanismSelection(table, fits, trajs, best, paths)
 
 

@@ -277,10 +277,17 @@ def make_objective(system, slices, loss_data, defaults, lambdas, time_grid,
     return objective
 
 
-def evaluate_population(objective, thetas):
-    """Evaluate a (P, n) population on one device. The JAX package's mesh
-    sharding is ROADMAP.md queue 1 item 1b, "Population sharding"."""
-    return objective(thetas)
+def evaluate_population(objective, thetas, mesh=None):
+    """Evaluate a (P, n) population; with a ``mesh``
+    (:class:`~phoskintime_tpu_torch.parallel.mesh.PopulationMesh`) each
+    rank evaluates its contiguous block of P / n rows on its own device and
+    every rank gets the whole (P, 3) F, the blocks gathered in rank order.
+    P must be a multiple of the mesh (``ValueError``), as the JAX package's
+    sharding requires; :func:`~phoskintime_tpu_torch.network.optimize.make_batched_evaluate`
+    pads."""
+    if mesh is None:
+        return objective(thetas)
+    return mesh.gather_rows(objective(thetas[mesh.block(len(thetas))]))
 
 
 def make_residual_fn(system, slices, loss_data, defaults, lambdas, time_grid, *,

@@ -19,8 +19,12 @@ distance, to the data.
 ``optimizer="optuna"`` runs the port's MOTPE
 (:class:`~phoskintime_tpu_torch.ops.tpe.MOTPESampler`): batches of 16 asked
 on the host, scored by the batched objective on the device and told back.
-A ``mesh`` (population sharding) is not ported yet and raises
-``NotImplementedError`` naming ROADMAP.md queue 1 item 1b.
+
+A ``mesh`` (:class:`~phoskintime_tpu_torch.parallel.mesh.PopulationMesh`)
+shards every route's evaluations, the all-device loop's ranking, the polish
+and the refinement over its ranks; every rank runs the same fit with the
+same seed and ends with the same result, and only rank 0 writes
+checkpoints and logs.
 
 The pick reads the observation tables by column (``np.asarray(df[col])``
 for ``protein``, ``psite``, ``time`` and ``fc``), so a pandas DataFrame and
@@ -50,18 +54,19 @@ from phoskintime_tpu_torch.ops.nsga_device import make_device_ga_blocks, run_uns
 from phoskintime_tpu_torch.ops.tpe import MOTPESampler
 from phoskintime_tpu_torch.parallel.checkpoint import (GACheckpointer, load_sampler,
                                                        save_sampler)
+from phoskintime_tpu_torch.parallel.mesh import is_writer, on_root, pad_rows
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1 item {item})")
-
-
-def make_batched_evaluate(objective):
-    """numpy (P, n) -> float64 numpy (P, 3) around a batched objective."""
+def make_batched_evaluate(objective, mesh=None):
+    """numpy (P, n) -> float64 numpy (P, 3) around a batched objective.
+    With a ``mesh`` the population is padded with copies of its last row
+    to a multiple of it (which divides it evenly over the ranks); the
+    padding's rows are dropped from F."""
 
     def evaluate(X):
-        F = evaluate_population(objective, np.asarray(X, float))
-        return torch.as_tensor(F).to("cpu", torch.float64).numpy()
+        X = np.asarray(X, float)
+        F = evaluate_population(objective, pad_rows(X, mesh), mesh=mesh)
+        return torch.as_tensor(F).to("cpu", torch.float64).numpy()[:len(X)]
     return evaluate
 
 
@@ -128,10 +133,18 @@ def run_global_fit(system, slices, loss_data, defaults, lambdas, time_grid,
     with that many :func:`lm_refine` iterations (counted as 30 evaluations
     each) and merges it likewise.
 
+    mesh: a :class:`~phoskintime_tpu_torch.parallel.mesh.PopulationMesh`;
+    every rank calls this with the same arguments. The evaluations of
+    every route (the host loop's and MOTPE's padded to the mesh), the
+    all-device loop's ranking, the polish and the gradient multistart split
+    over its ranks; the rest runs the same on every rank, so each returns
+    the same result. Only rank 0 writes checkpoints and logs; the others
+    read a checkpoint to resume. The LM finish and the Fréchet pick, which
+    the JAX package does not shard, run on rank 0 while the others wait
+    for their results.
+
     ``n_trials``, ``rtol``/``atol``/``max_steps`` (expo) are accepted for
     the JAX package's signature and read only where they apply."""
-    if mesh is not None:
-        raise _not_ported("population sharding (mesh=...)", "1b, 'Population sharding'")
     if solver == "auto":
         solver = "expo"
     args = (system, slices, loss_data, defaults, lambdas, time_grid)
@@ -140,12 +153,14 @@ def run_global_fit(system, slices, loss_data, defaults, lambdas, time_grid,
     else:
         objective = make_objective(*args, loss_mode=loss_mode, rtol=rtol, atol=atol,
                                    max_steps=max_steps, y0=y0, solver=solver)
-    evaluate = make_batched_evaluate(objective)
+    evaluate = make_batched_evaluate(objective, mesh=mesh)
     dtype, device = system.rhs.Kmat.dtype, system.rhs.Kmat.device
+    if not is_writer(mesh):
+        logger = None
 
     ck = None
     if checkpoint_path is not None:
-        ck = GACheckpointer(checkpoint_path, every=checkpoint_every)
+        ck = GACheckpointer(checkpoint_path, every=checkpoint_every, write=is_writer(mesh))
         if ck.resume_state() is not None and logger is not None:
             logger.info(f"[Fit] resuming from {checkpoint_path} (gen {ck.start_gen})")
 
@@ -163,23 +178,25 @@ def run_global_fit(system, slices, loss_data, defaults, lambdas, time_grid,
     if optimizer == "gradient":
         steps = max(100, polish_steps or 300)
         Xg, Fg = gradient_multistart(*args, xl, xu, pop=pop, steps=steps, lr=polish_lr,
-                                     loss_mode=loss_mode, y0=y0, seed=seed)
+                                     loss_mode=loss_mode, y0=y0, seed=seed, mesh=mesh)
         pf = fast_non_dominated_sort(Fg)[0]
         res = MOOResult(Xg, Fg, Xg[pf], Fg[pf], [], 0, pop * 3 * steps)
     elif optimizer == "optuna":
         res = _run_motpe_fit(evaluate, xl, xu, n_trials, seed, checkpoint_path,
-                             checkpoint_every)
+                             checkpoint_every, is_writer(mesh))
     elif population and gens_per_dispatch > 1:
         ga_prebuilt = make_device_ga_blocks(objective, len(np.asarray(xl)), pop, dtype=dtype,
-                                            device=device, gens_per_block=gens_per_dispatch)
+                                            device=device, gens_per_block=gens_per_dispatch,
+                                            mesh=mesh)
         res = run_unsga3_device(
             objective, xl, xu, pop_size=pop, n_gen=n_gen, seed=seed, ftol=ftol,
             ftol_period=ftol_period, n_max_evals=n_max_evals,
             gens_per_block=gens_per_dispatch, callback=cb, logger=logger,
-            prebuilt=ga_prebuilt, device=device, checkpoint=ck)
+            prebuilt=ga_prebuilt, device=device, checkpoint=ck, mesh=mesh)
     else:
         if population and device_variation:
-            device_step = make_device_ga_step(objective, xl, xu, pop, dtype=dtype, device=device)
+            device_step = make_device_ga_step(objective, xl, xu, pop, dtype=dtype, device=device,
+                                              mesh=mesh)
         res = run_unsga3(evaluate, xl, xu, pop_size=pop, n_gen=n_gen, seed=seed, callback=cb,
                          logger=logger, verbose=logger is not None, ftol=ftol,
                          ftol_period=ftol_period, n_max_evals=n_max_evals,
@@ -202,7 +219,8 @@ def run_global_fit(system, slices, loss_data, defaults, lambdas, time_grid,
                 # reuses the same block function
                 nxt = run_unsga3_device(objective, new_xl, new_xu,
                                         gens_per_block=gens_per_dispatch,
-                                        prebuilt=ga_prebuilt, device=device, **rounds)
+                                        prebuilt=ga_prebuilt, device=device, mesh=mesh,
+                                        **rounds)
             else:
                 nxt = run_unsga3(evaluate, new_xl, new_xu, device_step=device_step,
                                  dtype=numpy_dtype(dtype), **rounds)
@@ -217,7 +235,7 @@ def run_global_fit(system, slices, loss_data, defaults, lambdas, time_grid,
     if polish_steps > 0 and optimizer != "gradient" and len(res.pareto_X):
         pX, pF = polish_solutions(*args, res.pareto_X, xl, xu,
                                   weights=simplex_weights(res.pareto_F), steps=polish_steps,
-                                  lr=polish_lr, loss_mode=loss_mode, y0=y0)
+                                  lr=polish_lr, loss_mode=loss_mode, y0=y0, mesh=mesh)
         if logger is not None:
             logger.info(f"[Polish] ideal {res.pareto_F.min(axis=0)} -> {pF.min(axis=0)} "
                         f"({polish_steps} Adam steps)")
@@ -226,8 +244,8 @@ def run_global_fit(system, slices, loss_data, defaults, lambdas, time_grid,
     # ---- the LM (Gauss-Newton) finish of the best-by-sum member ------------
     if gn_iters > 0 and len(res.pareto_X) and loss_mode == 0:
         bi = int(np.argmin(res.pareto_F.sum(axis=1)))
-        th_gn, sse = lm_refine(*args, res.pareto_X[bi], xl, xu, iters=gn_iters, y0=y0,
-                               logger=logger)
+        th_gn, sse = on_root(mesh, lambda: lm_refine(*args, res.pareto_X[bi], xl, xu,
+                                                     iters=gn_iters, y0=y0, logger=logger))
         res = _merged(res, th_gn[None], evaluate(th_gn[None]), gn_iters * 30)
         if logger is not None:
             logger.info(f"[GN] best-by-sum sse -> {sse:.6g}")
@@ -235,8 +253,8 @@ def run_global_fit(system, slices, loss_data, defaults, lambdas, time_grid,
     # ---- Frechet-distance solution picking --------------------------------
     best_idx, scores = 0, np.zeros(len(res.pareto_X))
     if frechet_pick and df_prot is not None and t_points is not None:
-        best_idx, scores = pick_solution_frechet(
-            system, slices, res.pareto_X, df_prot, df_rna, df_pho, t_points, lambdas)
+        best_idx, scores = on_root(mesh, lambda: pick_solution_frechet(
+            system, slices, res.pareto_X, df_prot, df_rna, df_pho, t_points, lambdas))
 
     return GlobalFitResult(res.X, res.F, res.pareto_X, res.pareto_F, best_idx, scores,
                            res.history, res.n_evals, pop_history)
@@ -246,9 +264,10 @@ MOTPE_BATCH = 16
 
 
 def _run_motpe_fit(evaluate, xl, xu, n_trials, seed, checkpoint_path,
-                   checkpoint_every) -> MOOResult:
+                   checkpoint_every, write: bool = True) -> MOOResult:
     """MOTPE: ask a batch, score it on the device, tell it; X and F of
-    every finite trial, their Pareto set, no generation history."""
+    every finite trial, their Pareto set, no generation history. The
+    sampler is stored only where ``write``."""
     sampler = MOTPESampler(xl, xu, seed=seed)
     path = None if checkpoint_path is None else checkpoint_path + ".tpe"
     if path is not None:
@@ -259,7 +278,7 @@ def _run_motpe_fit(evaluate, xl, xu, n_trials, seed, checkpoint_path,
         Xb = sampler.ask_batch(bsz)
         sampler.tell_batch(Xb, evaluate(Xb))
         done += bsz
-        if path is not None and done % (MOTPE_BATCH * checkpoint_every) < MOTPE_BATCH:
+        if write and path is not None and done % (MOTPE_BATCH * checkpoint_every) < MOTPE_BATCH:
             save_sampler(path, sampler)
     pX, pF = sampler.pareto
     X_all, F_all = np.asarray(sampler.X), np.asarray(sampler.F)

@@ -22,8 +22,12 @@ sharpened by descent instead of re-sampling:
   in float64; :func:`lm_refine_mixed` runs it at float32, then at float64
   on the same device.
 
-The JAX package shards the member axis over a device mesh; here a ``mesh``
-raises (ROADMAP.md queue 1 item 1b, "Population sharding").
+With a ``mesh`` (:class:`~phoskintime_tpu_torch.parallel.mesh.PopulationMesh`)
+the polish and the multistart shard the member axis over its ranks, as the
+JAX package over its device mesh: each chunk of members, padded with
+copies of its last row to a multiple of the mesh, splits into one block a
+rank, and the polished members and their objectives are gathered onto
+every rank. The LM finish is one member and takes no mesh.
 """
 
 from __future__ import annotations
@@ -33,20 +37,16 @@ import math
 import numpy as np
 import torch
 
-from phoskintime_tpu_torch.network.objective import (make_population_objective,
+from phoskintime_tpu_torch.network.objective import (evaluate_population,
+                                                     make_population_objective,
                                                      make_residual_fn)
 from phoskintime_tpu_torch.ops.nsga import das_dennis, lhs_sampling
+from phoskintime_tpu_torch.parallel.mesh import pad_rows
 
 # Adam's moment decays and the LM's initial damping, the JAX package's
 # defaults
 ADAM_B1, ADAM_B2 = 0.9, 0.999
 MU0 = 1e-3
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("a mesh (sharding the members over devices) is not ported "
-                                  "yet (ROADMAP.md queue 1 item 1b, 'Population sharding')")
 
 
 def simplex_weights(F: np.ndarray, floor: float = 0.05) -> np.ndarray:
@@ -74,7 +74,10 @@ def polish_solutions(system, slices, loss_data, defaults, lambdas, time_grid,
         criterion).
       steps: Adam steps; the learning rate decays by cosine to 10%.
       chunk: members a pass; a population above it runs in chunks, the
-        last at its own size.
+        last at its own size. With a ``mesh`` it must be a multiple of the
+        mesh size (``ValueError``), as in the JAX package.
+      mesh: shards each chunk's members over its ranks (see the module
+        docstring); every rank returns the same arrays.
 
     The iterate is float32, as in the JAX package, and is clipped to
     [xl, xu] after every step. Each step scores its incoming iterate with
@@ -85,7 +88,9 @@ def polish_solutions(system, slices, loss_data, defaults, lambdas, time_grid,
     F by the production objective: no member ends worse than its input
     under its own weights, as far as the two objectives agree.
     """
-    _no_mesh(mesh)
+    if mesh is not None and chunk % mesh.size:
+        raise ValueError(f"polish: chunk ({chunk}) must be a multiple of the mesh size "
+                         f"({mesh.size})")
     thetas = np.asarray(thetas, float)
     P = thetas.shape[0]
     weights = np.full((P, 3), 1.0 / 3.0) if weights is None else np.asarray(weights, float)
@@ -124,15 +129,20 @@ def polish_solutions(system, slices, loss_data, defaults, lambdas, time_grid,
 
     out_X = np.empty(thetas.shape, np.float32)
     for c0 in range(0, P, chunk):
-        Xc, Wc = (torch.as_tensor(a[c0:c0 + chunk].astype(np.float32), **f32)
-                  for a in (thetas, weights))
-        out_X[c0:c0 + chunk] = polish_chunk(Xc, Wc).cpu().numpy()
+        n = min(chunk, P - c0)
+        Xc, Wc = (pad_rows(a[c0:c0 + n], mesh).astype(np.float32) for a in (thetas, weights))
+        rows = slice(None) if mesh is None else mesh.block(len(Xc))
+        best = polish_chunk(torch.as_tensor(Xc[rows], **f32), torch.as_tensor(Wc[rows], **f32))
+        if mesh is not None:
+            best = mesh.gather_rows(best)
+        out_X[c0:c0 + n] = best[:n].cpu().numpy()
 
     # the polished members through the production objective (the table
     # kernel on the card)
     production = make_population_objective(*args, loss_mode=loss_mode, y0=y0)
-    F_out = production(torch.as_tensor(out_X, **f32)).to("cpu", torch.float64).numpy()
-    return out_X.astype(float), F_out
+    X_prod = torch.as_tensor(pad_rows(out_X, mesh), **f32)
+    F_out = evaluate_population(production, X_prod, mesh)[:P]
+    return out_X.astype(float), F_out.to("cpu", torch.float64).numpy()
 
 
 def multistart_draws(xl, xu, pop: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
@@ -154,12 +164,11 @@ def gradient_multistart(system, slices, loss_data, defaults, lambdas, time_grid,
     """A gradient-only multistart fit: :func:`polish_solutions` of the
     starts of :func:`multistart_draws`, each along its own direction.
     Returns (X (pop, n), F (pop, 3)); non-dominated sorting of them gives a
-    Pareto set."""
-    _no_mesh(mesh)
+    Pareto set. ``mesh``: the polish sharded (:func:`polish_solutions`)."""
     X0, W = multistart_draws(xl, xu, pop, seed)
     return polish_solutions(system, slices, loss_data, defaults, lambdas, time_grid, X0,
                             xl, xu, weights=W, steps=steps, lr=lr, loss_mode=loss_mode,
-                            y0=y0, chunk=chunk)
+                            y0=y0, chunk=chunk, mesh=mesh)
 
 
 def forward_jacobian(residuals, theta: torch.Tensor, chunk: int = 256) -> torch.Tensor:

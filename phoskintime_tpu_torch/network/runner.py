@@ -29,7 +29,11 @@ can be called on their own:
 Each stage is timed by :func:`~phoskintime_tpu_torch.parallel.profile.timed`
 (ended by a synchronize of the card); the figure writers' seconds add up
 under ``figures``. The pickles hold numpy arrays, so a JAX user can read
-the fit's. A ``mesh`` raises (item 1b).
+the fit's. With a ``mesh``
+(:class:`~phoskintime_tpu_torch.parallel.mesh.PopulationMesh`) every rank
+runs :func:`main` alike: :func:`prepare` on each, the scan and the fit
+sharded over the ranks, and :func:`write_outputs` on rank 0 alone, the
+others waiting for its results; only rank 0 writes files and logs.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import torch
 from phoskintime_tpu_torch.config.logconf import setup_logger
 from phoskintime_tpu_torch.config.numerics import DEFAULT_DEVICE, numpy_dtype, resolve_device
 from phoskintime_tpu_torch.io.utils import host, take, write_csv
+from phoskintime_tpu_torch.parallel.mesh import is_writer, on_root
 from phoskintime_tpu_torch.parallel.profile import timed
 
 logger = setup_logger()
@@ -158,14 +163,16 @@ def fit(problem: Problem, out_dir: str, mesh=None):
 
     cfg, p = problem.cfg, problem
     args = (p.system, p.slices, p.loss_data, p.defaults)
+    log = logger if is_writer(mesh) else None
     if cfg.hyperparam_scan:
         scan_dir = os.path.join(out_dir, "hyperparam_scan")
         p.lambdas, _ = run_hyperparameter_scan(
             *args, p.grid, p.xl, p.xu, n_outer=cfg.scan_trials,
             inner_gens=cfg.scan_inner_gens, inner_pop=cfg.scan_inner_pop, seed=cfg.seed,
-            loss_mode=cfg.loss, mesh=mesh, logger=logger, out_dir=scan_dir,
+            loss_mode=cfg.loss, mesh=mesh, logger=log, out_dir=scan_dir,
             checkpoint_path=os.path.join(scan_dir, "scan_state.json"))
-        logger.info(f"[Scan] selected lambdas {p.lambdas}")
+        if log is not None:
+            log.info(f"[Scan] selected lambdas {p.lambdas}")
     res = run_global_fit(
         *args, p.lambdas, p.grid, p.xl, p.xu, optimizer=cfg.optimizer, pop=cfg.pop,
         n_gen=cfg.n_gen, n_trials=cfg.n_trials, seed=cfg.seed, loss_mode=cfg.loss, mesh=mesh,
@@ -173,9 +180,10 @@ def fit(problem: Problem, out_dir: str, mesh=None):
         num_refinements=cfg.num_refinements, polish_steps=cfg.polish_steps,
         polish_lr=cfg.polish_lr, gens_per_dispatch=cfg.gens_per_dispatch,
         gn_iters=cfg.gn_iters, frechet_pick=True, df_prot=p.df_prot, df_rna=p.df_rna,
-        df_pho=p.df_pho, t_points=(p.tp_p, p.tp_r, p.tp_p), logger=logger)
-    logger.info(f"[Fit] done: {res.n_evals} evaluations, {len(res.pareto_X)} Pareto "
-                f"solutions, picked {res.best_idx}")
+        df_pho=p.df_pho, t_points=(p.tp_p, p.tp_r, p.tp_p), logger=log)
+    if log is not None:
+        log.info(f"[Fit] done: {res.n_evals} evaluations, {len(res.pareto_X)} Pareto "
+                 f"solutions, picked {res.best_idx}")
     return res
 
 
@@ -325,19 +333,24 @@ def main(cfg, mesh=None, out_dir=None, weighting=None, device=DEFAULT_DEVICE,
     (default: the card; raises where there is none) into ``out_dir``
     (default: the config's ``output_dir`` under its root). Returns the
     result bundle with ``seconds``, each stage's wall clock: prepare, fit,
-    exports, figures, sensitivity, steady_state, analyses."""
-    if mesh is not None:
-        raise NotImplementedError("population sharding (mesh=...) is not ported yet "
-                                  "(ROADMAP.md queue 1 item 1b)")
+    exports, figures, sensitivity, steady_state, analyses. ``mesh``: every
+    rank calls this alike (see the module docstring) and returns the same
+    results; the output stages' seconds are rank 0's."""
     device = resolve_device(device)
     out_dir = str(out_dir or os.path.join(cfg._root, cfg.output_dir))
-    os.makedirs(out_dir, exist_ok=True)
-    seconds = {}
-    with timed("prepare", logger, device, seconds):
-        problem = prepare(cfg, device=device, dtype=dtype, weighting=weighting)
-    with timed("fit", logger, device, seconds):
-        res = fit(problem, out_dir)
-    out = write_outputs(problem, res, out_dir)
+    quiet, logger.disabled = logger.disabled, not is_writer(mesh)
+    try:
+        if is_writer(mesh):
+            os.makedirs(out_dir, exist_ok=True)
+        seconds = {}
+        with timed("prepare", logger, device, seconds):
+            problem = prepare(cfg, device=device, dtype=dtype, weighting=weighting)
+        with timed("fit", logger, device, seconds):
+            res = fit(problem, out_dir, mesh)
+        out = on_root(mesh, lambda: write_outputs(problem, res, out_dir),
+                      device=problem.system.device)
+    finally:
+        logger.disabled = quiet
     seconds.update(out.pop("seconds"))
     return dict(result=res, system=problem.system, topo=problem.topo, slices=problem.slices,
                 loss_data=problem.loss_data, out_dir=out_dir, problem=problem,

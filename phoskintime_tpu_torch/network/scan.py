@@ -20,8 +20,11 @@ host GA loop (:func:`~phoskintime_tpu_torch.ops.nsga.run_unsga3`).
 
 ``out_dir`` writes the per-trial results table and its three plots (the
 history, the lambdas' importance, the parallel coordinates:
-:func:`scan_report`). A ``mesh`` raises ``NotImplementedError`` naming
-item 1b.
+:func:`scan_report`). A ``mesh``
+(:class:`~phoskintime_tpu_torch.parallel.mesh.PopulationMesh`) shards each
+inner fit's evaluations (and the all-device loop's ranking) over its ranks;
+every rank runs the same scan and returns the same trials, and only rank 0
+writes the state, the report and the log.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from phoskintime_tpu_torch.network.optimize import make_batched_evaluate
 from phoskintime_tpu_torch.ops.nsga import run_unsga3
 from phoskintime_tpu_torch.ops.nsga_device import run_unsga3_device
 from phoskintime_tpu_torch.ops.tpe import MOTPESampler
+from phoskintime_tpu_torch.parallel.mesh import is_writer
 from phoskintime_tpu_torch.parallel.checkpoint import load_sampler, save_sampler
 
 KEYS = ("protein", "rna", "phospho", "prior")
@@ -186,10 +190,12 @@ def run_hyperparameter_scan(system, slices, loss_data, defaults, time_grid,
     ``checkpoint_path``: a JSON file of the trials (the sampler in
     ``checkpoint_path + ".sampler"``), written after every trial; a scan
     started where it exists continues from its trials to ``n_outer``.
-    ``out_dir``: the results table there (:func:`scan_report`)."""
-    if mesh is not None:
-        raise NotImplementedError("population sharding (mesh=...) is not ported yet "
-                                  "(ROADMAP.md queue 1 item 1b)")
+    ``out_dir``: the results table there (:func:`scan_report`). ``mesh``:
+    see the module docstring (``inner_pop`` a multiple of it on the
+    ``"expo"`` route)."""
+    writer = is_writer(mesh)
+    if not writer:
+        logger = None
     if lambda_ranges is None:
         lambda_ranges = {"protein": (0.1, 10.0), "rna": (0.1, 10.0),
                          "phospho": (0.1, 10.0), "prior": (0.01, 1.0)}
@@ -234,10 +240,11 @@ def run_hyperparameter_scan(system, slices, loss_data, defaults, time_grid,
         if solver == "expo":
             objective = make_population_objective(*args, lambdas, time_grid,
                                                   loss_mode=loss_mode)
-            res = run_unsga3_device(objective, xl, xu, gens_per_block=gen_step, **f, **inner)
+            res = run_unsga3_device(objective, xl, xu, gens_per_block=gen_step, mesh=mesh, **f,
+                                    **inner)
         else:
             objective = make_objective(*args, lambdas, time_grid, loss_mode=loss_mode)
-            res = run_unsga3(make_batched_evaluate(objective), xl, xu, **inner)
+            res = run_unsga3(make_batched_evaluate(objective, mesh=mesh), xl, xu, **inner)
         trial.n_gen = res.n_gen
         trial.score, bi = _weighted_score(res.pareto_F)
         trial.components = tuple(float(v) for v in res.pareto_F[bi])
@@ -245,7 +252,7 @@ def run_hyperparameter_scan(system, slices, loss_data, defaults, time_grid,
         # pruned trial's last reported value
         sampler.tell(x, np.asarray([trial.score]))
         trials.append(trial)
-        if checkpoint_path:
+        if checkpoint_path and writer:
             _save_state(checkpoint_path, trials, sampler)
         if logger is not None:
             logger.info(f"[Scan] trial {it}: {lambdas} -> {trial.score:.4g}"
@@ -253,6 +260,6 @@ def run_hyperparameter_scan(system, slices, loss_data, defaults, time_grid,
 
     done = [t for t in trials if t.state == "complete"] or trials
     best = min(done, key=lambda t: t.score)
-    if out_dir:
+    if out_dir and writer:
         scan_report(trials, out_dir)
     return best.lambdas, trials

@@ -24,8 +24,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = tuple(CSRC / f"{stem}.cu" for stem in (
-    "phi_tables", "phi_tables_wide", "etd2rk_scan", "hypercube_flux", "thomas",
-    "sq_chain"))
+    "phi_tables", "phi_tables_wide", "phi_tables_xwide", "etd2rk_scan", "hypercube_flux",
+    "thomas", "sq_chain"))
 BUILD_DIR = _PKG / "_build"
 # dynamic shared memory one thread block may opt into on the H100 (227 KB)
 MAX_SHARED_BYTES = 232448

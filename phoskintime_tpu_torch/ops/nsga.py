@@ -877,7 +877,7 @@ def run_de(evaluate, xl, xu, pop_size=100, n_gen=1000, seed=42,
 # ---------------------------------------------------------------------------
 
 def make_device_ga_step(pop_objective, xl, xu, pop_size: int, *, dtype: torch.dtype,
-                        device, sbx_prob=0.9, sbx_eta=15.0, pm_eta=10.0):
+                        device, sbx_prob=0.9, sbx_eta=15.0, pm_eta=10.0, mesh=None):
     """Variation and the population objective on ``device``, one call a
     generation: binary tournament, SBX, polynomial mutation, clone repair
     (:func:`~phoskintime_tpu_torch.ops.nsga_device.variation`) and
@@ -887,8 +887,15 @@ def make_device_ga_step(pop_objective, xl, xu, pop_size: int, *, dtype: torch.dt
 
     pop_objective: batched objective (P, n) -> (P, n_obj) on ``device``.
     Returns step(X, rank, nd, seed, xl=None, xu=None) -> (off, F_off) as
-    float64 numpy; the bounds default to the ones given here."""
+    float64 numpy; the bounds default to the ones given here. ``mesh``:
+    every rank draws the same offspring and evaluates its block of them,
+    F gathered onto all (``pop_size`` a multiple of the mesh)."""
+    from phoskintime_tpu_torch.network.objective import evaluate_population
     from phoskintime_tpu_torch.ops.nsga_device import variation, variation_draws
+
+    if mesh is not None and pop_size % mesh.size:
+        raise ValueError(f"device GA step: pop_size ({pop_size}) must be a multiple of the "
+                         f"mesh size ({mesh.size})")
 
     f = dict(dtype=dtype, device=device)
     xl0, xu0 = np.asarray(xl, float), np.asarray(xu, float)
@@ -904,7 +911,7 @@ def make_device_ga_step(pop_objective, xl, xu, pop_size: int, *, dtype: torch.dt
                         torch.as_tensor(np.asarray(nd), **f),
                         variation_draws(gen, pop_size, n_var, dtype, device), lo, hi,
                         sbx_prob=sbx_prob, sbx_eta=sbx_eta, pm_eta=pm_eta)
-        F = pop_objective(off)
+        F = evaluate_population(pop_objective, off, mesh)
         return (off.to("cpu", torch.float64).numpy(),
                 torch.as_tensor(F).to("cpu", torch.float64).numpy())
 

@@ -27,8 +27,10 @@ import numpy as np
 import torch
 
 from phoskintime_tpu_torch.config.numerics import DEFAULT_DEVICE, resolve_device, working_dtype
+from phoskintime_tpu_torch.network.objective import evaluate_population
 from phoskintime_tpu_torch.ops.nsga import (MOOResult, _ideal_stop, das_dennis,
                                             fast_non_dominated_sort, lhs_sampling)
+from phoskintime_tpu_torch.parallel.mesh import is_writer
 
 # ---------------------------------------------------------------------------
 # variation
@@ -118,7 +120,7 @@ def variation(X, rank, nd, draws: VariationDraws, xl, xu, *, sbx_prob=0.9,
 _RANK_CHECK_EVERY = 4
 
 
-def device_nd_ranks(F):
+def device_nd_ranks(F, mesh=None):
     """Non-dominated front index of each row, on F's device: the longest
     dominator chain, front(j) = max over dominators i of front(i) + 1 (0
     if none), a max-plus fixpoint that settles in as many iterations as
@@ -126,13 +128,21 @@ def device_nd_ranks(F):
     a time (no (Q, Q, m) temporaries). The host reads whether the ranks
     moved once every ``_RANK_CHECK_EVERY`` iterations (past the fixpoint an
     iteration changes nothing), so a call makes about fronts / 4
-    synchronizing reads."""
-    le = F[:, None, 0] <= F[None, :, 0]
-    lt = F[:, None, 0] < F[None, :, 0]
+    synchronizing reads.
+
+    With a ``mesh`` the matrix is column-sharded, as in the JAX package:
+    each rank builds only its column block dom[:, cols] (Q x Q / n, Q a
+    multiple of the mesh), updates r[cols] from the whole r and gathers the
+    (Q,) ranks at every iteration: the replicated result, exactly, at 1 / n
+    of the matrix a rank."""
+    cols = slice(None) if mesh is None else mesh.block(F.shape[0], "device_nd_ranks: Q")
+    Fc = F[cols]
+    le = F[:, None, 0] <= Fc[None, :, 0]
+    lt = F[:, None, 0] < Fc[None, :, 0]
     for k in range(1, F.shape[1]):
-        le &= F[:, None, k] <= F[None, :, k]
-        lt |= F[:, None, k] < F[None, :, k]
-    dom = le & lt                                   # dom[i, j]: i dominates j
+        le &= F[:, None, k] <= Fc[None, :, k]
+        lt |= F[:, None, k] < Fc[None, :, k]
+    dom = le & lt                                   # dom[i, j]: i dominates column j
     del le, lt
     zero = torch.zeros((), dtype=torch.int32, device=F.device)
     r = torch.zeros(F.shape[0], dtype=torch.int32, device=F.device)
@@ -140,6 +150,8 @@ def device_nd_ranks(F):
         prev = r
         for _ in range(_RANK_CHECK_EVERY):
             r = torch.where(dom, r[:, None] + 1, zero).amax(dim=0)
+            if mesh is not None:
+                r = mesh.gather_rows(r)
         if torch.equal(r, prev):
             return r
 
@@ -197,7 +209,8 @@ def _segment_min(values, ids, n, fill):
     return out.scatter_reduce(0, ids, values, "amin", include_self=True)
 
 
-def device_survival(X_all, F_all, n_survive: int, unit_refs, draws: SurvivalDraws):
+def device_survival(X_all, F_all, n_survive: int, unit_refs, draws: SurvivalDraws,
+                    mesh=None):
     """NSGA-III environmental selection on the device, the port of the JAX
     package's water-filling niching.
 
@@ -212,10 +225,11 @@ def device_survival(X_all, F_all, n_survive: int, unit_refs, draws: SurvivalDraw
     random; one segmented sort picks the members within each niche. Ties
     break as JAX's stable sorts do (``torch.sort(stable=True)``, twice for
     the lexicographic order). Returns (X, F, rank, niche, nd) of the
-    survivors, ordered by front."""
+    survivors, ordered by front. ``mesh``: the ranking column-sharded
+    (:func:`device_nd_ranks`); the rest is the same on every rank."""
     Q, R = F_all.shape[0], unit_refs.shape[0]
     dev = F_all.device
-    rank = device_nd_ranks(F_all).long()
+    rank = device_nd_ranks(F_all, mesh).long()
     niche, nd = _device_associate(_device_normalize(F_all), unit_refs)
 
     # splitting front L: the first rank whose cumulative count reaches the cap
@@ -308,12 +322,13 @@ def device_crowding(F, rank):
     return crowd
 
 
-def device_nsga2_survival(X_all, F_all, n_survive: int):
+def device_nsga2_survival(X_all, F_all, n_survive: int, mesh=None):
     """NSGA-II environmental selection on the device, (rank ascending,
     crowding descending): the host :func:`~phoskintime_tpu_torch.ops.nsga.nsga2_survival`'s
     semantics, deterministic; members equal in both keys keep their order.
-    Returns (X, F, rank, crowd) of the survivors."""
-    rank = device_nd_ranks(F_all)
+    Returns (X, F, rank, crowd) of the survivors. ``mesh``: the ranking
+    column-sharded."""
+    rank = device_nd_ranks(F_all, mesh)
     crowd = device_crowding(F_all, rank)
     by_crowd = torch.argsort(-crowd, stable=True)
     order = by_crowd[torch.argsort(rank[by_crowd], stable=True)]   # rank, then -crowd
@@ -340,11 +355,12 @@ def run_nsga2_device(pop_objective, xl, xu, *, pop_size: int = 100,
     draws from a ``torch.Generator`` seeded from the host rng (the JAX
     package's ``PRNGKey`` a block); the host reads the block's ideal and
     mean history once. Whole blocks run, so the generation count rounds up
-    to a multiple of the block, as in the JAX package. ``mesh`` is not
-    ported (it raises)."""
-    if mesh is not None:
-        raise NotImplementedError("population sharding (mesh=...) is not ported yet "
-                                  "(ROADMAP.md queue 1 item 1b, 'Population sharding')")
+    to a multiple of the block, as in the JAX package. ``mesh``: the
+    objective's evaluations and the ranking sharded over its ranks
+    (``pop_size`` a multiple of it), every rank with the same state."""
+    if mesh is not None and pop_size % mesh.size:
+        raise ValueError(f"device NSGA-II: pop_size ({pop_size}) must be a multiple of the "
+                         f"mesh size ({mesh.size})")
     device = resolve_device(device)
     dtype = dtype or working_dtype(device)
     f = dict(dtype=dtype, device=device)
@@ -355,7 +371,7 @@ def run_nsga2_device(pop_objective, xl, xu, *, pop_size: int = 100,
     bl, bu = torch.as_tensor(xl, **f), torch.as_tensor(xu, **f)
 
     def eval_all(Xb):
-        F = pop_objective(Xb)
+        F = evaluate_population(pop_objective, Xb, mesh)
         if constraint_fn is not None:
             G = constraint_fn(Xb)
             F = F + 1e6 * torch.clamp(G, min=0.0).sum(dim=1)[:, None]
@@ -370,7 +386,7 @@ def run_nsga2_device(pop_objective, xl, xu, *, pop_size: int = 100,
             if repair_fn is not None:
                 off = repair_fn(off)
             X, F, rank, crowd = device_nsga2_survival(
-                torch.cat([X, off]), torch.cat([F, eval_all(off)]), pop_size)
+                torch.cat([X, off]), torch.cat([F, eval_all(off)]), pop_size, mesh)
             ideals.append(torch.amin(F, dim=0))
             means.append(torch.mean(F, dim=0))
         return X, F, rank, crowd, torch.stack(ideals), torch.stack(means)
@@ -380,7 +396,7 @@ def run_nsga2_device(pop_objective, xl, xu, *, pop_size: int = 100,
         X0 = torch.as_tensor(X0, **f)
         if repair_fn is not None:
             X0 = repair_fn(X0)
-        carry = device_nsga2_survival(X0, eval_all(X0), pop_size)
+        carry = device_nsga2_survival(X0, eval_all(X0), pop_size, mesh)
     n_evals = pop_size
     history: list = []
     gen = 0
@@ -407,7 +423,7 @@ def run_nsga2_device(pop_objective, xl, xu, *, pop_size: int = 100,
 
 def make_device_ga_blocks(pop_objective, n_var: int, pop_size: int, *, dtype, device,
                           n_obj: int = 3, n_partitions: int = 20, sbx_prob=0.9,
-                          sbx_eta=15.0, pm_eta=10.0, gens_per_block: int = 10):
+                          sbx_eta=15.0, pm_eta=10.0, gens_per_block: int = 10, mesh=None):
     """(init_fn, block_fn, dtype) of the all-device GA at ``dtype`` on
     ``device`` (the system's).
 
@@ -418,7 +434,17 @@ def make_device_ga_blocks(pop_objective, n_var: int, pop_size: int, *, dtype, de
     of ``gens_per_block`` whole generations, its draws from the
     ``torch.Generator`` ``gen``; ideals and means are the (gens_per_block,
     n_obj) history, still on the device. The bounds are arguments, so
-    refinement rounds with zoomed boxes reuse the same functions."""
+    refinement rounds with zoomed boxes reuse the same functions.
+
+    ``mesh``: each generation's evaluations split over its ranks and the
+    ranking column-sharded; the draws, the variation and the rest of the
+    survival run the same on every rank, so the population stays the same
+    on all. ``pop_size`` must be a multiple of the mesh (as in the JAX
+    package, where the population stays sharded across generations)."""
+    if mesh is not None and pop_size % mesh.size:
+        raise ValueError(
+            f"all-device GA loop: pop_size ({pop_size}) must be a multiple of the mesh size "
+            f"({mesh.size}); use pop_size={-(-pop_size // mesh.size) * mesh.size}")
     refs = das_dennis(n_obj, n_partitions)
     unit = torch.as_tensor(refs / np.linalg.norm(refs, axis=1, keepdims=True),
                            dtype=dtype, device=device)
@@ -430,10 +456,10 @@ def make_device_ga_blocks(pop_objective, n_var: int, pop_size: int, *, dtype, de
         for _ in range(gens_per_block):
             off = variation(X, rank, nd, variation_draws(gen, pop_size, n_var, dtype, device),
                             bl, bu, sbx_prob=sbx_prob, sbx_eta=sbx_eta, pm_eta=pm_eta)
-            F_off = pop_objective(off)
+            F_off = evaluate_population(pop_objective, off, mesh)
             X, F, rank, niche, nd = device_survival(
                 torch.cat([X, off]), torch.cat([F, F_off]), pop_size, unit,
-                survival_draws(gen, 2 * pop_size, R, dtype, device))
+                survival_draws(gen, 2 * pop_size, R, dtype, device), mesh)
             ideals.append(torch.amin(F, dim=0))
             means.append(torch.mean(F, dim=0))
         return X, F, rank, niche, nd, torch.stack(ideals), torch.stack(means)
@@ -442,8 +468,8 @@ def make_device_ga_blocks(pop_objective, n_var: int, pop_size: int, *, dtype, de
     def init(X0):
         X0 = torch.as_tensor(np.asarray(X0), dtype=dtype, device=device)
         gen = torch.Generator(device=device).manual_seed(0)
-        return device_survival(X0, pop_objective(X0), pop_size, unit,
-                               survival_draws(gen, pop_size, R, dtype, device))
+        return device_survival(X0, evaluate_population(pop_objective, X0, mesh), pop_size,
+                               unit, survival_draws(gen, pop_size, R, dtype, device), mesh)
 
     return init, block, dtype
 
@@ -462,7 +488,7 @@ def run_unsga3_device(pop_objective, xl, xu, *, pop_size: int = 300,
                       gens_per_block: int = 10,
                       callback=None, logger=None, prebuilt=None,
                       device=DEFAULT_DEVICE, dtype=None,
-                      checkpoint=None) -> MOOResult:
+                      checkpoint=None, mesh=None) -> MOOResult:
     """U-NSGA-III with the whole generation loop on ``device`` (default:
     the card; raises where there is none), at ``dtype`` (default: the
     device's working dtype).
@@ -481,6 +507,9 @@ def run_unsga3_device(pop_objective, xl, xu, *, pop_size: int = 300,
     generator's state included, at block ends whose generation is a
     multiple of its ``every``, and a run given one that holds a state
     continues from it to ``n_gen``.
+    mesh: the evaluations and the ranking sharded over its ranks
+    (:func:`make_device_ga_blocks`; a ``prebuilt`` carries its own); every
+    rank returns the same result, and only rank 0 logs.
     """
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
@@ -490,7 +519,7 @@ def run_unsga3_device(pop_objective, xl, xu, *, pop_size: int = 300,
         prebuilt = make_device_ga_blocks(
             pop_objective, len(xl), pop_size, dtype=dtype or working_dtype(device),
             device=device, n_obj=n_obj, n_partitions=n_partitions, sbx_prob=sbx_prob,
-            sbx_eta=sbx_eta, pm_eta=pm_eta, gens_per_block=gens_per_block)
+            sbx_eta=sbx_eta, pm_eta=pm_eta, gens_per_block=gens_per_block, mesh=mesh)
     init_fn, block_fn, dtype = prebuilt
     f = dict(dtype=dtype, device=device)
     bl, bu = torch.as_tensor(xl, **f), torch.as_tensor(xu, **f)
@@ -535,7 +564,7 @@ def run_unsga3_device(pop_objective, xl, xu, *, pop_size: int = 300,
                 "gen": gen})
         if callback is not None and callback(gen, _host(X), _host(F)):
             stop = True
-        if logger is not None:
+        if logger is not None and is_writer(mesh):
             logger.info(f"[UNSGA3/device] gen {gen}: ideal={ideals[-1]}")
         # the host loop's window, on the exact per-generation ideal history
         # (block granularity bounds only how late the loop can stop)

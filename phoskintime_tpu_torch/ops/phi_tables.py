@@ -9,8 +9,11 @@ Counterpart of ``phoskintime_tpu/ops/phi_pallas.py``:
   (the port of ``phi_vectors_pallas_pages``; one more in
   ``phi_tables.launches``), or, through :func:`phi_tables_wide`,
   ``csrc/phi_tables_wide.cu`` for 9 <= w <= 17 (the port of
-  ``phi_vectors_pallas_all``; one more in ``phi_tables_wide.launches``).
-  On a CPU tensor it runs the plain version.
+  ``phi_vectors_pallas_all``; one more in ``phi_tables_wide.launches``),
+  or, through :func:`phi_tables_xwide`, ``csrc/phi_tables_xwide.cu`` for
+  18 <= w <= 65 (the same Pallas entry at the widest blocks, model 2 at 5
+  and 6 sites; one more in ``phi_tables_xwide.launches``). On a CPU tensor
+  it runs the plain version.
 * :func:`phi_vectors` — one pair, the port of ``phi_vectors_pallas``: the
   same kernels with U = 1.
 * :func:`phi_tables_reference` — the plain PyTorch version at any width,
@@ -28,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from phoskintime_tpu_torch.ops.cuda_build import CSRC, entry, launch_on
+from phoskintime_tpu_torch.ops.cuda_build import CSRC, MAX_SHARED_BYTES, entry, launch_on
 
 # kernel (float32) series: 8 Taylor terms after scaling to radius 0.5
 _TAYLOR_TERMS = 8
@@ -38,9 +41,11 @@ _RATE_CAP = 32.0
 _MAX_SQUARINGS = 24
 _MAX_KERNEL_WIDTH = 8           # csrc/phi_tables.cu
 _MAX_WIDE_WIDTH = 17            # csrc/phi_tables_wide.cu: model 2 up to Smax = 4
+_MAX_XWIDE_WIDTH = 65           # csrc/phi_tables_xwide.cu: model 2 up to Smax = 6
 
 SOURCE = CSRC / "phi_tables.cu"
 WIDE_SOURCE = CSRC / "phi_tables_wide.cu"
+XWIDE_SOURCE = CSRC / "phi_tables_xwide.cu"
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _WIDE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
@@ -54,8 +59,13 @@ _WIDE_WARPS = 2
 _ENTRY_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 _NOT_COVERED = ("the phi_tables kernels take float32 or float64 with 2 <= w <= {}; "
-                "got {} at w = {} (wider blocks, model 2 at Smax >= 5, are "
-                "ROADMAP.md queue 2, kernel 1b: 'phi_tables_wide above w = 17')")
+                "got {} at w = {} (wider blocks, model 2 at Smax >= 7, are "
+                "ROADMAP.md queue 2, kernel 1b: 'phi_tables_wide above w = 65')")
+_OUTSIDE = "csrc/{} takes float32 or float64 with {} <= w <= {}; got {} at w = {}"
+# csrc/phi_tables_xwide.cu: a thread's tile of a product (rows x columns),
+# the threads a block at most, and the (tile, lane) items a block aims at
+_XWIDE_TILE = 4
+_XWIDE_MAX_THREADS = 512
 
 
 def ladder_len(w: int, h: float, max_squarings: int = _MAX_SQUARINGS) -> int:
@@ -208,12 +218,38 @@ def wide_launch_shape(w: int, itemsize: int = 4) -> WideShape:
     two E planes and four vectors of its lanes, ``2 w^2 + 4 w`` words a
     lane. Raises NotImplementedError outside the kernel's domain."""
     if not _MAX_KERNEL_WIDTH < w <= _MAX_WIDE_WIDTH:
-        raise NotImplementedError(_NOT_COVERED.format(_MAX_WIDE_WIDTH, "a width", w))
+        raise NotImplementedError(_OUTSIDE.format("phi_tables_wide.cu", _MAX_KERNEL_WIDTH + 1,
+                                                  _MAX_WIDE_WIDTH, "a width", w))
     R = {4: _WIDE_ROWS, 8: _WIDE_ROWS_F64}[itemsize][w]
     T = -(-w // R)
     lw = 32 // T
     return WideShape(R, T, lw, _WIDE_WARPS,
                      itemsize * _WIDE_WARPS * lw * (2 * w * w + 4 * w))
+
+
+class XWideShape(NamedTuple):
+    """The launch shape of ``csrc/phi_tables_xwide.cu`` at one width."""
+    lanes: int              # LB: lanes a block, all its threads sharing them
+    threads: int            # threads a block
+    shared_bytes: int       # dynamic shared memory a block
+
+
+def xwide_launch_shape(w: int, itemsize: int = 4) -> XWideShape:
+    """The widest kernel's launch shape at width ``w`` (18..65) for elements
+    of ``itemsize`` bytes (4 or 8). A lane takes ``4 w^2 + 8 w + 2`` words
+    and one int of shared memory (A, A/k, two E planes, the vectors); a
+    block takes as many lanes as give it about 512 (4 x 4 tile, lane)
+    product items, within the 227 KB a block may use, and one thread an
+    item up to 512. Raises NotImplementedError outside the domain."""
+    if not _MAX_WIDE_WIDTH < w <= _MAX_XWIDE_WIDTH or itemsize not in (4, 8):
+        raise NotImplementedError(_OUTSIDE.format("phi_tables_xwide.cu", _MAX_WIDE_WIDTH + 1,
+                                                  _MAX_XWIDE_WIDTH, f"{itemsize}-byte items",
+                                                  w))
+    lane_bytes = itemsize * (4 * w * w + 8 * w + 2) + 4
+    tiles = (-(-w // _XWIDE_TILE)) ** 2
+    lanes = max(1, min(MAX_SHARED_BYTES // lane_bytes, _XWIDE_MAX_THREADS // tiles))
+    threads = min(_XWIDE_MAX_THREADS, -(-lanes * tiles // 32) * 32)
+    return XWideShape(lanes, threads, lanes * lane_bytes)
 
 
 def _launch(source, name: str, L, binv, h_u, ladder: int, argtypes=_ARGTYPES,
@@ -267,11 +303,13 @@ def phi_tables(L: torch.Tensor, binv, h_u, ladder: int, *,
         use_kernel = L.is_cuda
     if not use_kernel:
         return phi_tables_reference(L, binv, h_u, ladder, static_ladder)
+    w = L.shape[1]
+    if L.dtype not in _ENTRY_SUFFIX or not 2 <= w <= _MAX_XWIDE_WIDTH:
+        raise NotImplementedError(_NOT_COVERED.format(_MAX_XWIDE_WIDTH, L.dtype, w))
     if not L.is_cuda:
         raise ValueError("use_kernel=True needs a CUDA tensor")
-    w = L.shape[1]
-    if L.dtype not in _ENTRY_SUFFIX or not 2 <= w <= _MAX_WIDE_WIDTH:
-        raise NotImplementedError(_NOT_COVERED.format(_MAX_WIDE_WIDTH, L.dtype, w))
+    if w > _MAX_WIDE_WIDTH:
+        return phi_tables_xwide(L, binv, h_u, ladder)
     if w > _MAX_KERNEL_WIDTH:
         return phi_tables_wide(L, binv, h_u, ladder)
     out = _launch(SOURCE, "phi_tables", L, binv, h_u, ladder)
@@ -292,7 +330,8 @@ def phi_tables_wide(L: torch.Tensor, binv, h_u, ladder: int):
     if not L.is_cuda:
         raise ValueError("phi_tables_wide needs a CUDA tensor")
     if L.dtype not in _ENTRY_SUFFIX or not _MAX_KERNEL_WIDTH < w <= _MAX_WIDE_WIDTH:
-        raise NotImplementedError(_NOT_COVERED.format(_MAX_WIDE_WIDTH, L.dtype, w))
+        raise NotImplementedError(_OUTSIDE.format("phi_tables_wide.cu", _MAX_KERNEL_WIDTH + 1,
+                                                  _MAX_WIDE_WIDTH, L.dtype, w))
     shape = wide_launch_shape(w, L.element_size())
     out = _launch(WIDE_SOURCE, "phi_tables_wide", L, binv, h_u, ladder,
                   _WIDE_ARGTYPES, (shape.rows, shape.warps))
@@ -301,6 +340,30 @@ def phi_tables_wide(L: torch.Tensor, binv, h_u, ladder: int):
 
 
 phi_tables_wide.launches = 0
+
+
+def phi_tables_xwide(L: torch.Tensor, binv, h_u, ladder: int):
+    """The widest-block kernel ``csrc/phi_tables_xwide.cu`` (18 <= w <= 65,
+    float32 or float64, CUDA), the port of ``phi_vectors_pallas_all`` at
+    these widths. Arguments and results as :func:`phi_tables`, which routes
+    these widths here."""
+    binv, h_u = _check(L, binv, h_u)
+    w = L.shape[1]
+    if not L.is_cuda:
+        raise ValueError("phi_tables_xwide needs a CUDA tensor")
+    if L.dtype not in _ENTRY_SUFFIX or not _MAX_WIDE_WIDTH < w <= _MAX_XWIDE_WIDTH:
+        raise NotImplementedError(_NOT_COVERED.format(_MAX_XWIDE_WIDTH, L.dtype, w)
+                                  if w > _MAX_XWIDE_WIDTH else
+                                  _OUTSIDE.format("phi_tables_xwide.cu", _MAX_WIDE_WIDTH + 1,
+                                                  _MAX_XWIDE_WIDTH, L.dtype, w))
+    shape = xwide_launch_shape(w, L.element_size())
+    out = _launch(XWIDE_SOURCE, "phi_tables_xwide", L, binv, h_u, ladder,
+                  _WIDE_ARGTYPES, (shape.lanes, shape.threads))
+    phi_tables_xwide.launches += 1
+    return out
+
+
+phi_tables_xwide.launches = 0
 
 
 def phi_vectors(L: torch.Tensor, h: float, ladder: int, *,

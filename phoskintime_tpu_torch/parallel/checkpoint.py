@@ -48,12 +48,14 @@ class GACheckpointer:
 
     Every ``every`` generations it stores the generation, X, F and the
     loop's state; :meth:`resume_state` hands that state back to a loop,
-    which then continues from it.
+    which then continues from it. ``write=False`` reads a stored state but
+    never writes (the ranks of a sharded run but rank 0).
     """
 
-    def __init__(self, path: str, every: int = 10):
+    def __init__(self, path: str, every: int = 10, write: bool = True):
         self.path = str(path)
         self.every = int(every)
+        self.write = bool(write)
         self.state = load_checkpoint(self.path)
 
     def resume_state(self) -> dict | None:
@@ -65,7 +67,7 @@ class GACheckpointer:
         return 0 if self.state is None else int(self.state["gen"])
 
     def __call__(self, gen, X, F, loop: dict | None = None):
-        if gen % self.every == 0:
+        if self.write and gen % self.every == 0:
             save_checkpoint(self.path, {"gen": gen, "X": np.asarray(X),
                                         "F": np.asarray(F), "loop": loop})
 

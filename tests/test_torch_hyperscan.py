@@ -233,10 +233,3 @@ def test_expo_scan_objective_matches_jax(problem):
         got = make_population_objective(*targs[:4], t.lambdas, targs[4])(torch.as_tensor(X))
         np.testing.assert_allclose(got.numpy(), want, rtol=RTOL_F64)
 
-
-@pytest.mark.parametrize("kw, item", [({"mesh": object()}, "1b"),
-                                      ({"mesh": object(), "solver": "rk45"}, "1b")])
-def test_scan_raises_for_unported(problem, kw, item):
-    _, targs = problem
-    with pytest.raises(NotImplementedError, match=item):
-        run_hyperparameter_scan(*targs, **kw)

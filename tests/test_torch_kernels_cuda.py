@@ -32,7 +32,8 @@ from phoskintime_tpu_torch.ops.hypercube_flux import _launch as flux_launch
 from phoskintime_tpu_torch.ops.tridiag import thomas_solve_batched, thomas_solve_reference
 from phoskintime_tpu_torch.ops.phi_tables import (ladder_len, phi_tables,
                                                   phi_tables_reference,
-                                                  phi_tables_wide, phi_vectors)
+                                                  phi_tables_wide, phi_tables_xwide,
+                                                  phi_vectors)
 from phoskintime_tpu_torch.ops.scan_kernel import (etd2rk_scan, etd2rk_scan_reference,
                                                    random_scan_problem, scan_launch_shape,
                                                    scan_runs)
@@ -147,6 +148,108 @@ def test_nan_lane_stays_in_its_lane(cuda_device, w):
         assert bool(torch.isnan(d[..., 37]).all())
 
 
+def table_counts() -> tuple:
+    return phi_tables.launches, phi_tables_wide.launches, phi_tables_xwide.launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("w", [18, 22, 29, 33, 47, 65])
+def test_xwide_kernel_matches_plain(cuda_device, w, dtype):
+    """The widest kernel (18 <= w <= 65) against the plain version: lanes
+    no multiple of a block's, three pairs over two buckets, one launch of
+    its own counter and none of the others; phi_vectors (U = 1) too."""
+    rng = np.random.default_rng(w)
+    L = torch.as_tensor(compartmental_blocks(rng, 2, w, 301), dtype=dtype, device=cuda_device)
+    binv, h_u = np.asarray([0, 1, 1]), np.asarray([0.0625, 2.0, 16.0])
+    lad = max(ladder_len(w, h) for h in h_u)
+    before = table_counts()
+    got = phi_tables(L, binv, h_u, lad)              # routes w > 17 to the widest kernel
+    torch.cuda.synchronize()
+    assert table_counts() == (before[0], before[1], before[2] + 1)
+    tol = SCALED_ATOL_F32 if dtype == torch.float32 else SCALED_ATOL_F64
+    for g, r in zip(got, phi_tables_reference(L, binv, h_u, lad)):
+        assert g.shape == r.shape and g.dtype == dtype
+        assert_scaled_close(g, r, tol)
+    for g, r in zip(phi_vectors(L[1], 2.0, lad), phi_vectors(L[1], 2.0, lad, use_kernel=False)):
+        assert_scaled_close(g, r, tol)
+
+
+def test_xwide_kernel_every_width(cuda_device):
+    """Every width 18..65 at float32, 97 lanes, one pair at h = 2."""
+    rng = np.random.default_rng(18)
+    for w in range(18, 66):
+        L = torch.as_tensor(compartmental_blocks(rng, 1, w, 97), dtype=torch.float32,
+                            device=cuda_device)
+        lad = ladder_len(w, 2.0)
+        got = phi_tables_xwide(L, [0], [2.0], lad)
+        torch.cuda.synchronize()
+        for g, r in zip(got, phi_tables_reference(L, [0], [2.0], lad)):
+            assert_scaled_close(g, r)
+
+
+@pytest.mark.parametrize("w", [22, 33, 65])
+def test_xwide_kernel_mixed_squaring_counts(cuda_device, w):
+    """Lanes whose squaring counts run from 0 to the ladder's clip side by
+    side in every block (the block's trip count is its largest lane's, each
+    lane stepping only to its own), against the plain version."""
+    rng = np.random.default_rng(w)
+    B, lad = 320, ladder_len(w, 16.0)
+    L = compartmental_blocks(rng, 1, w, B)
+    norm = np.abs(L[0]).sum(axis=1).max(axis=0)                # (B,)
+    want_s = np.arange(B) % (lad + 3) - 1                      # -1 .. lad + 1, clipped
+    L = L * (0.5 * 2.0 ** want_s / norm * rng.uniform(0.6, 0.95, B))[None, None, None]
+    L = torch.as_tensor(L, dtype=torch.float32, device=cuda_device)
+    A = L[0].double()
+    s = torch.clamp(torch.ceil(torch.log2(torch.amax(torch.sum(torch.abs(A), dim=1), dim=0)
+                                          / 0.5)), 0, lad)
+    assert set(s.long().tolist()) == set(range(lad + 1))
+    got = phi_tables(L, [0], [1.0], lad)
+    torch.cuda.synchronize()
+    for g, r in zip(got, phi_tables_reference(L, [0], [1.0], lad)):
+        assert_scaled_close(g, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("w", [22, 65])
+def test_xwide_nan_lane_stays_in_its_lane(cuda_device, w, dtype):
+    """A NaN member gets NaN tables and leaves every other lane, those of
+    its own block included, exactly as it was."""
+    rng = np.random.default_rng(0)
+    L = torch.as_tensor(compartmental_blocks(rng, 1, w, 64), dtype=dtype, device=cuda_device)
+    binv, h_u = np.asarray([0, 0]), np.asarray([1.0, 16.0])
+    lad = max(ladder_len(w, h) for h in h_u)
+    clean = phi_tables(L, binv, h_u, lad)
+    L[..., 37] = float("nan")
+    dirty = phi_tables(L, binv, h_u, lad)
+    torch.cuda.synchronize()
+    keep = torch.arange(64, device=cuda_device) != 37
+    for c, d in zip(clean, dirty):
+        assert torch.equal(c[..., keep], d[..., keep])
+        assert bool(torch.isnan(d[..., 37]).all())
+
+
+def test_model2_objective_at_six_sites_goes_through_the_kernels(cuda_device):
+    """Model 2 at ``mechanisms``' default cap (classes up to w = 65): one
+    launch a width class, each class to its kernel by width, F within 1e-3
+    of the plain tables' route."""
+    b = build_demo_network(n_proteins=6, n_kinases=3, max_sites=6, model=2, seed=0,
+                           dtype=torch.float32, device=cuda_device)
+    widths = [wc for wc, _ in width_classes(b["topo"])]
+    assert {33, 65} <= set(widths)
+    args = (b["system"], b["slices"], b["loss_data"], b["defaults"],
+            b["lambdas"], b["grid"])
+    rng = np.random.default_rng(0)
+    thetas = b["theta0"][None] + 0.05 * rng.normal(size=(4, len(b["theta0"])))
+    phi_tables.launches = phi_tables_wide.launches = phi_tables_xwide.launches = 0
+    F = make_population_objective(*args, pop_chunk=4)(thetas)
+    assert table_counts() == (sum(wc <= 8 for wc in widths),
+                              sum(8 < wc <= 17 for wc in widths),
+                              sum(wc > 17 for wc in widths))
+    Fp = make_population_objective(*args, pop_chunk=4, use_kernel=False)(thetas)
+    assert F.shape == (4, 3) and bool(torch.isfinite(F).all())
+    assert float(torch.max(torch.abs(F - Fp) / torch.abs(Fp))) <= 1e-3
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("w", range(2, 9))
 def test_kernel_many_blocks_matches_plain(cuda_device, w, dtype):
@@ -181,7 +284,7 @@ def test_kernel_many_blocks_matches_plain(cuda_device, w, dtype):
 
 @pytest.mark.parametrize("bad, err", [
     (dict(dtype=torch.float16), NotImplementedError),
-    (dict(w=18), NotImplementedError),
+    (dict(w=66), NotImplementedError),
     (dict(strided=True), ValueError),
 ])
 def test_kernel_rejects(cuda_device, bad, err):

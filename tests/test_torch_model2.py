@@ -292,6 +292,22 @@ def test_population_objective_matches_jax(demo, bucketed):
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL_RUN)
 
 
+def test_population_objective_matches_jax_at_six_sites():
+    """Model 2 at ``mechanisms``' default cap of 6 sites: width classes
+    3, 33 and 65 (the last two those of ``csrc/phi_tables_xwide.cu`` on
+    the card), bucketed as by default, pop 3 in one chunk."""
+    bj = jax_demo(n_proteins=6, n_kinases=3, max_sites=6, model=2, seed=0, dtype=np.float64)
+    bt = from_reference({k: bj[k] for k in KEYS + ("topo",)}, device="cpu")
+    assert {33, 65} <= {wc for wc, _ in expo.width_classes(bt["topo"])}
+    rng = np.random.default_rng(6)
+    thetas = bj["theta0"][None] + 0.05 * rng.normal(size=(3, len(bj["theta0"])))
+    f_j = jax_objective(*(bj[k] for k in KEYS), use_pallas=False, pop_chunk=None)
+    want = np.asarray(jax.jit(f_j)(jnp.asarray(thetas)))
+    got = make_population_objective(*(bt[k] for k in KEYS), pop_chunk=None)(thetas)
+    assert got.shape == (3, 3) and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL_RUN)
+
+
 def test_demo_bundle_model2(demo):
     """The port's model-2 demo: the JAX package's draws, and observations
     from RK45 at the bundle's dtype (float64 here) on the CPU, as the JAX

@@ -19,6 +19,7 @@ from phoskintime_tpu_torch import native
 from phoskintime_tpu_torch.ops import indicators, nsga, sobol
 from phoskintime_tpu_torch.ops.nsga_device import (device_crowding, device_nd_ranks,
                                                    device_nsga2_survival, run_nsga2_device)
+from phoskintime_tpu_torch.parallel.mesh import PopulationMesh
 
 torch.set_num_threads(2)
 
@@ -176,8 +177,9 @@ def test_device_nsga2_loop_on_dtlz2():
     assert np.all(np.diff(ideals, axis=0) <= 1e-12)          # elitist: the ideal never rises
     r = np.linalg.norm(res.pareto_F, axis=1)
     assert r.min() < 1.2 and np.isfinite(res.F).all()
-    with pytest.raises(NotImplementedError, match="1b"):
-        run_nsga2_device(dtlz2_torch, np.zeros(3), np.ones(3), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="multiple of the mesh"):
+        run_nsga2_device(dtlz2_torch, np.zeros(3), np.ones(3), pop_size=30, device="cpu",
+                         mesh=PopulationMesh(None, 0, 4, torch.device("cpu")))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run_nsga2_device(dtlz2_torch, np.zeros(3), np.ones(3), pop_size=8, n_gen=1)

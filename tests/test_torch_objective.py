@@ -62,6 +62,22 @@ def test_population_objective_matches_jax(bundles, loss_mode):
     np.testing.assert_allclose(one[0], got[4].numpy(), rtol=RTOL_F64)
 
 
+def test_population_objective_matches_jax_at_twenty_sites():
+    """Model 0 with a protein of 20 sites: blocks of w = 2 + 20 = 22, the
+    width of ``csrc/phi_tables_xwide.cu`` on the card (JAX's lane build
+    here, the plain version in the port), pop 3 in one chunk."""
+    bj = jax_demo(n_proteins=5, n_kinases=3, max_sites=20, model=0, seed=5,
+                  dtype=np.float64)
+    bt = from_reference({k: bj[k] for k in KEYS}, device="cpu")
+    assert bt["system"].topo.width == 22
+    thetas = thetas_for(bj, 3)
+    f_j = jax_objective(*(bj[k] for k in KEYS), use_pallas=False, pop_chunk=None)
+    want = np.asarray(jax.jit(f_j)(jnp.asarray(thetas)))
+    got = make_population_objective(*(bt[k] for k in KEYS), pop_chunk=None)(thetas)
+    assert got.shape == (3, 3) and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL_F64)
+
+
 def test_failed_member_stays_in_its_row(bundles):
     """A NaN member gets fail_value and leaves its chunk-mates untouched.
     (The JAX CPU path does not: its traced squaring trip count is the max

@@ -125,18 +125,6 @@ def test_fit_resumes_from_its_checkpoint(tmp_path):
     assert [g for g, _ in resumed.pop_history] == [3, 4]
 
 
-@pytest.mark.parametrize("kw, item", [
-    (dict(optimizer="optuna", mesh=object()), "item 1b"),
-    (dict(mesh=object()), "item 1b"),
-], ids=["optuna", "mesh"])
-def test_routes_not_ported_raise(bundles, kw, item):
-    """MOTPE runs (tests/test_torch_hyperscan.py); a mesh, on its route as
-    on the GA's, still raises naming its item."""
-    _, bt = bundles
-    with pytest.raises(NotImplementedError, match=item):
-        run_global_fit(*fit_args(bt), np.zeros(3), np.ones(3), pop=4, n_gen=1, **kw)
-
-
 def test_batched_evaluate_and_population_flag(bundles):
     bj, bt = bundles
     objective = make_population_objective(*fit_args(bt))

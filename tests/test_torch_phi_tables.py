@@ -47,6 +47,16 @@ def random_blocks(rng, Bu, w, B):
     return L
 
 
+def compartmental_blocks(rng, Bu, w, B):
+    """Blocks like the model's: non-negative transfer rates off the
+    diagonal, each column's outflow plus its own decay on the diagonal."""
+    L = rng.uniform(0.0, 2.0, (Bu, w, w, B))
+    L[:, np.arange(w), np.arange(w), :] = 0.0
+    decay = rng.uniform(0.01, 4.0, (Bu, w, B))
+    L[:, np.arange(w), np.arange(w), :] = -(L.sum(axis=1) + decay)
+    return L
+
+
 def assert_scaled_close(got, want, atol):
     got, want = np.asarray(got, float), np.asarray(want, float)
     scale = np.max(np.abs(want)) + 1e-30
@@ -87,7 +97,8 @@ def test_package_imports_without_jax():
                 "report.draw.pdf", "report.draw.gif", "report.draw.font",
                 "report.draw.colors", "report.plotter", "report.dashboard",
                 "report.diagram", "analysis.fitpanels", "analysis.embed",
-                "analysis.thermal", "report.apps", "report.schematic"):
+                "analysis.thermal", "report.apps", "report.schematic", "parallel",
+                "parallel.mesh"):
         assert f"phoskintime_tpu_torch.{new}" in mods, new
     code = ("import importlib, sys; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
@@ -137,6 +148,71 @@ def test_reference_matches_jax_lanes(dtype):
                     atol=RTOL_F64 * np.max(np.abs(ref)))
             else:
                 assert_scaled_close(got.numpy(), ref, SCALED_ATOL_F32)
+
+
+@pytest.mark.parametrize("w", [18, 22, 33, 65])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_reference_matches_jax_lanes_wide_blocks(w, dtype):
+    """The widths of ``csrc/phi_tables_xwide.cu`` (model 2 at 5 and 6
+    sites, w = 33 and 65; models 0/1 past 15 sites): the plain version
+    against JAX's lane build, which ``network/expo.py`` reaches for every
+    w > 8, at the ladder's clip of 24, as at the narrow widths. Float64 on
+    arbitrary blocks; float32 on blocks like the model's own (transfer
+    rates off the diagonal, each column's outflow and decay on it), whose
+    exponentials contract: on arbitrary blocks each of the ~10 squarings
+    at h = 8 doubles the two builds' rounding difference past the JAX
+    package's 2e-5 (5.3e-5 at w = 33)."""
+    rng = np.random.default_rng(w)
+    B = 24
+    blocks = random_blocks if dtype == np.float64 else compartmental_blocks
+    L = blocks(rng, 2, w, B).astype(dtype)
+    binv = np.asarray([0, 1, 1], np.int32)
+    h_u = np.asarray([0.0625, 1.0, 8.0])
+    E, p1, p2 = phi_tables_reference(torch.as_tensor(L), binv, h_u, 24)
+    assert E.shape == (3, w, w, B) and p1.shape == p2.shape == (3, w, B)
+    for u in range(len(binv)):
+        want = _phi_vectors_lanes(jnp.asarray(L[binv[u]]), jnp.full((B,), h_u[u], dtype))
+        for got, ref in zip((E[u], p1[u], p2[u]), want):
+            ref = np.asarray(ref)
+            if dtype == np.float64:
+                np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL_F64,
+                                           atol=RTOL_F64 * np.max(np.abs(ref)))
+            else:
+                assert_scaled_close(got.numpy(), ref, SCALED_ATOL_F32)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_xwide_launch_shape(itemsize):
+    """Every width 18..65 in both types: whole lanes a block, at most 512
+    threads in whole warps and one (4 x 4 tile, lane) item a thread where
+    a lane's tiles fit, within the 227 KB of shared memory a block may
+    opt into (the kernel's own layout: 4 w^2 + 8 w + 2 words and an int a
+    lane); outside 18..65 it raises."""
+    for w in range(18, 66):
+        shape = pm.xwide_launch_shape(w, itemsize)
+        tiles = (-(-w // 4)) ** 2
+        assert shape.lanes >= 1 and shape.threads % 32 == 0 and 32 <= shape.threads <= 512
+        assert shape.threads >= min(512, shape.lanes * tiles)
+        assert shape.lanes * tiles <= 512 or shape.lanes == 1
+        assert shape.shared_bytes == shape.lanes * (itemsize * (4 * w * w + 8 * w + 2) + 4)
+        assert shape.shared_bytes <= cuda_build.MAX_SHARED_BYTES
+    assert pm.xwide_launch_shape(65, itemsize).lanes == 1
+    for bad in (17, 66):
+        with pytest.raises(NotImplementedError):
+            pm.xwide_launch_shape(bad, itemsize)
+
+
+def test_width_66_raises_naming_the_roadmap_item():
+    """Above w = 65 the kernels stop: asking for one raises, naming the
+    ROADMAP item; the plain version takes any width."""
+    rng = np.random.default_rng(66)
+    L = torch.as_tensor(random_blocks(rng, 1, 66, 3))
+    with pytest.raises(NotImplementedError, match="phi_tables_wide above w = 65"):
+        phi_tables(L, [0], [1.0], 8, use_kernel=True)
+    E, p1, p2 = phi_tables(L, [0], [1.0], 8)
+    assert E.shape == (1, 66, 66, 3) and bool(torch.isfinite(E).all())
+    with pytest.raises(ValueError, match="CUDA"):
+        pm.phi_tables_xwide(L[:, :33, :33].contiguous(), [0], [1.0], 8)
 
 
 def test_reference_matches_pallas_pages_interpret():
@@ -195,8 +271,9 @@ def test_library_path_is_keyed_by_source():
     assert path.parent == cuda_build.BUILD_DIR and path.suffix == ".so"
     assert "csrc" in str(pm.SOURCE) and pm.SOURCE.exists()
     assert pm.SOURCE in cuda_build.SOURCES and all(s.exists() for s in cuda_build.SOURCES)
-    assert len(cuda_build.SOURCES) == 6
-    assert len({cuda_build.library_path(s) for s in cuda_build.SOURCES}) == 6
+    assert pm.XWIDE_SOURCE in cuda_build.SOURCES
+    assert len(cuda_build.SOURCES) == 7
+    assert len({cuda_build.library_path(s) for s in cuda_build.SOURCES}) == 7
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
 
 

@@ -366,15 +366,6 @@ def test_polish_chunks_match_one_pass(demo):
     np.testing.assert_allclose(chunked[1], one[1], rtol=1e-5)
 
 
-def test_gradient_stage_mesh_raises(demo):
-    bj, bt = demo
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        polish_solutions(*args(bt), bj["theta0"][None], bj["xl"], bj["xu"], steps=1,
-                         mesh=object())
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        gradient_multistart(*args(bt), bj["xl"], bj["xu"], pop=2, steps=1, mesh=object())
-
-
 # --- the LM finish --------------------------------------------------------------
 
 

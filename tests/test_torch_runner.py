@@ -434,11 +434,6 @@ def test_chip_smoke_expects_the_cpu_file_set(global_runs):
     assert {f"gene_timeseries/ts_{p}.png" for p in global_runs.out["topo"].proteins} <= got
 
 
-def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="1b"):
-        runner.main(PhosKinConfig(), mesh=object(), device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # the CLI
 # ---------------------------------------------------------------------------
