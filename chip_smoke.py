@@ -380,18 +380,24 @@ references of 15a and 15b in two spawned workers started before phase 13):
 
 The last slice (``phi_tables_xwide``, population sharding):
 
-3h. the widest table kernel, ``csrc/phi_tables_xwide.cu`` (18 <= w <= 65), on
-   model 2 at mechanisms' default cap of 6 sites (width classes 2, 3, 33,
-   65) and model 0 with a protein of 20 sites (w = 22), both cut to six
-   proteins (their observations by RK45 on the CPU in two spawned workers
-   started after the build): the objective at pop 2048 (float32; its
+3h. the widest table kernel, ``csrc/phi_tables_xwide.cu`` (18 <= w <= 129),
+   on model 2 at mechanisms' default cap of 6 sites (width classes 2, 3, 33,
+   65), model 2 with a protein of 7 sites (classes 2, 3, 5, 129; float64
+   there through a cluster of two blocks a lane) and model 0 with a protein
+   of 20 sites (w = 22), each cut to six proteins (their observations by
+   RK45 on the CPU in spawned workers, the 7-site one's from the start): its
+   ptxas report (no spill in either instance), the objective at pop 2048
+   (float32; its
    launches, one a width class, each class to its kernel by width, against
    the prediction from ``width_classes``; F on 8 members within 1e-3 of the
    port's float64 on the CPU) and at pop 256 (float64, within 1e-9); the
    kernel against its plain version at each class wider than 17 on the
    first chunk's own inputs, float32 (2e-5 scaled) and float64 (1e-12),
-   timed beside its FMA bound, the plain version and ``matrix_exp``; a NaN
-   lane that leaves every other lane's bits as they were;
+   timed beside its FMA bound (float64: at the FP64 tensor cores' rate,
+   and at the FP64 FMA pipes' beside it), the plain version (at w = 129 on the first
+   XWIDE_CHECK_LANES lanes: the whole class would take seconds) and
+   ``matrix_exp``; a NaN lane that leaves every other lane's bits as they
+   were;
 16. population sharding on the card (``parallel/mesh.py``): two gloo ranks
    in spawned processes sharing the card, CUDA tensors (NCCL refuses two
    ranks on one device), started beside phases 13-15, on the bench model-0
@@ -504,6 +510,7 @@ from phoskintime_tpu_torch.tfopt import optimize as tfopt_opt
 from phoskintime_tpu_torch.tfopt.model import TfoptProblem
 from phoskintime_tpu_torch.tfopt.optimize import run_evolutionary as tfopt_run_evolutionary
 from phoskintime_tpu_torch.tfopt.optimize import run_local as tfopt_run_local
+from tools.smoke_cases import XWIDE_NETWORKS, augmented
 
 POP, CHUNK, N_PROTEINS, N_KINASES = 8192, 2048, 40, 12
 POP2 = 2048               # model 2: one chunk, as benchmarks/model_rates.py
@@ -519,8 +526,11 @@ PRECISION_GATE = 1e-3     # model 2: float32 on the card vs float64 on the CPU
 # (tests/test_pallas.py:262-263)
 SCAN_RTOL, SCAN_ATOL = 2e-3, 1e-5
 # the card's published peaks (H100 SXM data sheet): FP32 and FP64 outside
-# the tensor cores, and HBM bandwidth; every bound_ms is taken against them
+# the tensor cores, and HBM bandwidth; every bound_ms is taken against them,
+# but that of a kernel whose float64 products run on the FP64 tensor cores
+# (phi_tables_xwide), taken against their rate
 PEAK_FP32_FLOPS, PEAK_FP64_FLOPS, PEAK_HBM_BYTES = 67e12, 34e12, 3.35e12
+PEAK_FP64_TC_FLOPS = 67e12
 # the FP32 FMA peak this run measures in phase 3f (sq_chain's best arm),
 # beside which every FP32 bound is printed a second time
 MEASURED = {"fp32_flops": None}
@@ -529,17 +539,14 @@ MEASURED = {"fp32_flops": None}
 SWEEP_THREADS = (256, 512)
 KERNELS = (phi_tables, phi_tables_wide, phi_tables_xwide, etd2rk_scan, hypercube_flux,
            thomas_solve_batched, fma_peak.sq_chain)
-# 3h: networks whose blocks pass w = 17, cut to a few proteins (their
-# observations come from RK45 on the CPU, in a worker): model 2 at
-# mechanisms' default cap of 6 sites (width classes 2, 3, 33, 65) and model
-# 0 with a protein of 20 sites (w = 22); the float32 objective at XWIDE_POP
-# (as 4b), the float64 one at XWIDE_POP_F64
-XWIDE_NETWORKS = {"model2-6sites": dict(n_proteins=6, n_kinases=3, max_sites=6, model=2, seed=0),
-                  "model0-20sites": dict(n_proteins=5, n_kinases=3, max_sites=20, model=0,
-                                         seed=5)}
+# 3h: the networks of tools/smoke_cases.py::XWIDE_NETWORKS (their
+# observations come from RK45 on the CPU, in a worker); the float32
+# objective at XWIDE_POP (as 4b), the float64 one at XWIDE_POP_F64
 XWIDE_POP, XWIDE_POP_F64 = 2048, 256
-# lanes of a class held against the plain version (lane 37 made NaN)
+# lanes of a class held against the plain version (lane 37 made NaN), and
+# the widest class whose plain version is timed whole (past it, on these)
 XWIDE_CHECK_LANES = 256
+XWIDE_PLAIN_WHOLE_MAX_W = 65
 # the objective's arguments after the system in a host bundle
 HOST_ARGS = ("slices", "loss_data", "defaults", "lambdas", "grid")
 # 16: population sharding on the one card: gloo ranks in spawned processes
@@ -553,7 +560,7 @@ MESH_GA = dict(pop_size=512, n_gen=4, gens_per_block=2, seed=0, ftol=0.0, n_max_
 MESH_F_RTOL, MESH_IDEAL_RTOL = 1e-6, 1e-3
 # the seconds phases 3h and 16 may take in the whole script (printed beside
 # their own; phase 16's ranks run beside phases 13-15)
-PHASE_BUDGET_S = {"3h": 30, "16": 40}
+PHASE_BUDGET_S = {"3h": 50, "16": 40}
 # float64 on the card (3g): tables against their plain versions scaled as
 # the float64 kernels; the scan elementwise; an objective against the
 # port's float64 result on the CPU
@@ -829,11 +836,16 @@ class Bound(NamedTuple):
     ms_measured: float      # the same with this run's measured FP32 peak (FP64: data sheet)
 
 
-def bound(nbytes: float, ops: float, itemsize: int = 4) -> Bound:
+def bound(nbytes: float, ops: float, itemsize: int = 4, peak: float | None = None) -> Bound:
     """The least time of a function that moves ``nbytes`` and does ``ops``
-    operations of the type of ``itemsize`` (4: FP32, 8: FP64)."""
-    peak = PEAK_FP32_FLOPS if itemsize == 4 else PEAK_FP64_FLOPS
-    measured = (MEASURED["fp32_flops"] or PEAK_FP32_FLOPS) if itemsize == 4 else PEAK_FP64_FLOPS
+    operations of the type of ``itemsize`` (4: FP32, 8: FP64) on its FMA
+    pipes, or at ``peak`` where another unit does them (the FP64 tensor
+    cores; no measured rate then)."""
+    if peak is None:
+        peak = PEAK_FP32_FLOPS if itemsize == 4 else PEAK_FP64_FLOPS
+        measured = (MEASURED["fp32_flops"] or PEAK_FP32_FLOPS) if itemsize == 4 else peak
+    else:
+        measured = peak
     t_ops, t_bytes = ops / peak, nbytes / PEAK_HBM_BYTES
     return Bound(1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
                  1e3 * max(ops / measured, t_bytes))
@@ -847,12 +859,13 @@ def bound_fields(b: Bound, dev_ms) -> dict:
             "share_of_measured_bound": share(b.ms_measured, dev_ms)}
 
 
-def table_bound(L, binv, h_u, ladder) -> Bound:
+def table_bound(L, binv, h_u, ladder, peak: float | None = None) -> Bound:
     """The bound of a table build on these inputs: the bytes it must move
-    (L read once, the tables written once) and its FMAs. FMAs per (pair,
-    lane), n the series' terms (8 in float32, 12 in float64): (n - 1) w^3
-    (Horner) + (n - 1) w^2 (series) + s (w^3 + 2 w^2) (ladder), with s the
-    lane's own squaring count on this data."""
+    (L read once, the tables written once) and its FMAs, on the type's FMA
+    pipes or at ``peak`` (:func:`bound`). FMAs per (pair, lane), n the
+    series' terms (8 in float32, 12 in float64): (n - 1) w^3 (Horner) +
+    (n - 1) w^2 (series) + s (w^3 + 2 w^2) (ladder), with s the lane's own
+    squaring count on this data."""
     w, B = L.shape[1], L.shape[3]
     isz = L.element_size()
     terms, radius = (8, 0.5) if isz == 4 else (12, 0.25)
@@ -865,21 +878,7 @@ def table_bound(L, binv, h_u, ladder) -> Bound:
         steps = float(torch.nan_to_num(s, nan=0.0).sum())
         fmas += B * (terms - 1) * (w ** 3 + w ** 2) + steps * (w ** 3 + 2 * w ** 2)
     nbytes = float(isz) * (L.numel() + len(binv) * (w * w + 2 * w) * B)
-    return bound(nbytes, 2.0 * fmas, isz)
-
-
-def augmented(L, binv, h_u) -> torch.Tensor:
-    """(U*B, w+2, w+2) matrices [[L h, e0, 0], [0, 0, 1], [0, 0, 0]] whose
-    exponential holds E, phi1(L h) e0 and phi2(L h) e0: the input of the
-    library yardstick ``torch.linalg.matrix_exp``."""
-    U, w, B = len(binv), L.shape[1], L.shape[3]
-    h = torch.as_tensor(np.asarray(h_u), dtype=L.dtype, device=L.device)
-    M = L.new_zeros((U, B, w + 2, w + 2))
-    M[:, :, :w, :w] = (L[torch.as_tensor(np.asarray(binv, np.int64), device=L.device)]
-                       * h[:, None, None, None]).permute(0, 3, 1, 2)
-    M[:, :, 0, w] = 1.0
-    M[:, :, w, w + 1] = 1.0
-    return M.reshape(U * B, w + 2, w + 2)
+    return bound(nbytes, 2.0 * fmas, isz, peak)
 
 
 def library_check(X, want, h_u) -> float:
@@ -4118,7 +4117,7 @@ def tables_per_call(topo) -> dict:
     chunk or one batched ETD2RK simulation: one a width class (the classes
     of ``expo.width_classes``, or the full width), each to its kernel by
     width (``phi_tables`` w <= 8, ``phi_tables_wide`` 9..17,
-    ``phi_tables_xwide`` 18..65); none for model 4 (its
+    ``phi_tables_xwide`` 18..129); none for model 4 (its
     exponential-Rosenbrock path builds no table)."""
     widths = [] if topo.model == 4 else [wc for wc, _ in expo.width_classes(topo)] or [topo.width]
     return {"phi_tables": sum(w <= 8 for w in widths),
@@ -5366,14 +5365,19 @@ def xwide_cpu_job(name: str) -> tuple:
     return hb, thetas, F64.numpy()
 
 
-def start_xwide_references():
-    """The two :func:`xwide_cpu_job` runs, each in its own spawned worker,
-    beside phases 3f-3g; returns (pool, {name: future})."""
-    from concurrent.futures import ProcessPoolExecutor
-    from multiprocessing import get_context
+def start_xwide_references(names=tuple(XWIDE_NETWORKS), refs=None):
+    """Submit the :func:`xwide_cpu_job` runs of the networks ``names``, each
+    in its own spawned worker of one pool (made where ``refs`` is None);
+    returns ``refs``, (pool, {name: future})."""
+    if refs is None:
+        from concurrent.futures import ProcessPoolExecutor
+        from multiprocessing import get_context
 
-    pool = ProcessPoolExecutor(max_workers=len(XWIDE_NETWORKS), mp_context=get_context("spawn"))
-    return pool, {name: pool.submit(xwide_cpu_job, name) for name in XWIDE_NETWORKS}
+        refs = (ProcessPoolExecutor(max_workers=len(XWIDE_NETWORKS),
+                                    mp_context=get_context("spawn")), {})
+    pool, futures = refs
+    futures.update({name: pool.submit(xwide_cpu_job, name) for name in names})
+    return refs
 
 
 def card_system(hb, dtype=torch.float32):
@@ -5383,13 +5387,27 @@ def card_system(hb, dtype=torch.float32):
     return (system, *(hb[k] for k in HOST_ARGS))
 
 
+def xwide_ptxas() -> None:
+    """The compiler's report of ``csrc/phi_tables_xwide.cu``'s instances
+    (kept beside its library): registers and spills of each; fails on a
+    spill."""
+    log = cuda_build.library_path(phi_mod.XWIDE_SOURCE).with_suffix(".log").read_text()
+    kernels = re.findall(r"Compiling entry function '(\w+)'", log)
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+    say("3h ptxas", instances=len(kernels), registers=regs, spill_stores=spills)
+    if not kernels or len(spills) < len(kernels) or any(spills):
+        raise AssertionError(f"3h: phi_tables_xwide.cu spills or was not reported: {spills}")
+
+
 def check_xwide(label, L, binv, h_u, ladder, card) -> dict:
     """3h's check of one class: the kernel against its plain version on the
     first XWIDE_CHECK_LANES lanes (scaled tolerance by type) and a NaN lane
     there, then on the whole class the kernel (CUDA events, kernel, kernel;
     and on the device), the plain version once and ``matrix_exp``, and the
     FMA bound. The plain version repeats the kernel's arithmetic one
-    launch an operation: one call of it at w = 65 takes ~1-2 s."""
+    launch an operation: one call of it at w = 65 takes ~1-2 s, so past
+    XWIDE_PLAIN_WHOLE_MAX_W it is timed on the checked lanes alone."""
     sub = L[..., :XWIDE_CHECK_LANES].contiguous()
     got, want = phi_tables(sub, binv, h_u, ladder), phi_tables_reference(sub, binv, h_u, ladder)
     torch.cuda.synchronize()
@@ -5403,19 +5421,30 @@ def check_xwide(label, L, binv, h_u, ladder, card) -> dict:
     nan_lane_check(label, sub, binv, h_u, ladder)
     run_k = lambda: phi_tables(L, binv, h_u, ladder)  # noqa: E731
     k1, k2 = cuda_ms(run_k, 5), cuda_ms(run_k, 5)
-    plain_ms = cuda_ms(lambda: phi_tables_reference(L, binv, h_u, ladder), 1)
+    plain_L = L if L.shape[1] <= XWIDE_PLAIN_WHOLE_MAX_W else sub
+    plain_ms = cuda_ms(lambda: phi_tables_reference(plain_L, binv, h_u, ladder), 1)
     M = augmented(L, binv, h_u)
     lib_ms = cuda_ms(lambda: torch.linalg.matrix_exp(M), 3)
     del M
-    b = table_bound(L, binv, h_u, ladder)
+    # float64's products run on the FP64 tensor cores: its bound at their
+    # rate, and beside it the FP64 FMA pipes' (the first version's unit)
+    f64 = L.dtype == torch.float64
+    b = table_bound(L, binv, h_u, ladder, PEAK_FP64_TC_FLOPS if f64 else None)
+    fma = {"bound_ms_fp64_fma": table_bound(L, binv, h_u, ladder).ms} if f64 else {}
     dev_ms = kernel_ms_on_device(run_k, "phi_tables_xwide_kernel", 5)
     ms = (k1 + k2) / 2
     say(f"{label} timing", ms=f"{ms:.4f}", device_ms=measured(dev_ms),
-        plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}", **bound_fields(b, dev_ms),
+        plain_ms=f"{plain_ms:.4f}", plain_lanes=plain_L.shape[-1],
+        library_ms=f"{lib_ms:.4f}", **bound_fields(b, dev_ms),
+        **{k: f"{v:.4f}" for k, v in fma.items()},
+        **({"share_of_fp64_fma_bound": share(fma["bound_ms_fp64_fma"], dev_ms)} if f64 else {}),
         runs_ms=[round(x, 4) for x in (k1, k2)], card=repr(card))
+    # matrix_exp's workspace at w = 129 (tens of GB in float64) freed from
+    # the allocator's cache: the RK45 workers of phase 4d share the card
+    torch.cuda.empty_cache()
     return {"max_abs_err": max_abs, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-            "bound_ms": b.ms, "bound_by": b.by, "bound_ms_measured_peak": b.ms_measured,
-            "library_ms": lib_ms}
+            "plain_lanes": plain_L.shape[-1], "bound_ms": b.ms, "bound_by": b.by,
+            "bound_ms_measured_peak": b.ms_measured, **fma, "library_ms": lib_ms}
 
 
 def nan_lane_check(label, L, binv, h_u, ladder) -> None:
@@ -5464,8 +5493,9 @@ def xwide_objective(label, args, thetas, F64, card, want) -> dict:
 
 
 def phase_xwide_kernel(card, references) -> tuple[list, dict, dict]:
-    """3h: the widest table kernel (18 <= w <= 65). On model 2 at 6 sites
-    (classes 2, 3, 33, 65) and model 0 with a 20-site protein (w = 22), pop
+    """3h: the widest table kernel (18 <= w <= 129): first its ptxas report,
+    no spill in either instance. On model 2 at 6 sites (classes 2, 3, 33,
+    65) and at 7 (2, 3, 5, 129) and model 0 with a 20-site protein (w = 22), pop
     XWIDE_POP: the objective's launches, one a width class and chunk, each
     class to its kernel by width, against the prediction from
     ``width_classes``; F against the CPU's float64 on 8 members; then the
@@ -5475,15 +5505,34 @@ def phase_xwide_kernel(card, references) -> tuple[list, dict, dict]:
     ``matrix_exp`` on the whole class), and a float64 objective on the card.
     Returns (its two entries, float32 paths, float64 paths)."""
     t0 = time.perf_counter()
+    xwide_ptxas()
     pool, futures = references
     try:
-        refs = {name: f.result() for name, f in futures.items()}
+        out, paths32, paths64 = xwide_networks(card, futures)
     finally:
         pool.shutdown(cancel_futures=True)
-    say("3h references", seconds_waited=f"{time.perf_counter() - t0:.1f}")
+    say("3h xwide", seconds=f"{time.perf_counter() - t0:.1f}", budget_s=PHASE_BUDGET_S["3h"],
+        card=repr(card))
+    entries = []
+    for dtype, suffix in ((torch.float32, ""), (torch.float64, "_f64")):
+        by_w = out[dtype]
+        entries.append({"name": f"phi_tables_xwide{suffix}", "counter": "phi_tables_xwide",
+                        "route": "cuda", "source": "phoskintime_tpu_torch/csrc/phi_tables_xwide.cu",
+                        "replaces": "phoskintime_tpu/ops/phi_pallas.py:406", **by_w[65],
+                        **{f"w{w}": by_w[w] for w in sorted(by_w) if w != 65}})
+    return entries, paths32, paths64
+
+
+def xwide_networks(card, futures) -> tuple[dict, dict, dict]:
+    """3h's checks of each network of XWIDE_NETWORKS, in their order, each
+    as soon as its CPU reference is in (the 7-site one, the slowest, last).
+    Returns ({dtype: {w: check}}, float32 paths, float64 paths)."""
     out = {torch.float32: {}, torch.float64: {}}
     paths32, paths64 = {}, {}
-    for name, (hb, thetas_np, F64) in refs.items():
+    for name in XWIDE_NETWORKS:
+        t0 = time.perf_counter()
+        hb, thetas_np, F64 = futures[name].result()
+        say("3h references", name=name, seconds_waited=f"{time.perf_counter() - t0:.1f}")
         topo = hb["topo"]
         chunks = -(-XWIDE_POP // _auto_pop_chunk(topo.N))
         want = expect(**{k: n * chunks for k, n in tables_per_call(topo).items()})
@@ -5508,16 +5557,7 @@ def phase_xwide_kernel(card, references) -> tuple[list, dict, dict]:
                     label = f"3h xwide {name} w={w} {str(dtype).split('.')[-1]}"
                     out[dtype][w] = check_xwide(label, L, binv, h_u, ladder, card)
                 del L
-    say("3h xwide", seconds=f"{time.perf_counter() - t0:.1f}", budget_s=PHASE_BUDGET_S["3h"],
-        card=repr(card))
-    entries = []
-    for dtype, suffix in ((torch.float32, ""), (torch.float64, "_f64")):
-        by_w = out[dtype]
-        entries.append({"name": f"phi_tables_xwide{suffix}", "counter": "phi_tables_xwide",
-                        "route": "cuda", "source": "phoskintime_tpu_torch/csrc/phi_tables_xwide.cu",
-                        "replaces": "phoskintime_tpu/ops/phi_pallas.py:406", **by_w[65],
-                        **{f"w{w}": by_w[w] for w in sorted(by_w) if w != 65}})
-    return entries, paths32, paths64
+    return out, paths32, paths64
 
 
 # --- 16: population sharding ----------------------------------------------------------
@@ -5707,21 +5747,24 @@ def main() -> int:
         phase_mesh(b, card, start_mesh_ranks(b))
         say("done", seconds=f"{time.perf_counter() - T_START:.1f}", card=repr(card))
         return 0
-    phase_build()
-    probe, probe_paths = phase_fma_peak(card)
-    t0 = time.perf_counter()
-    b, b1, b2 = (build_demo_network(N_PROTEINS, N_KINASES, model=m, seed=0,
-                                    dtype=torch.float32, device="cuda") for m in (0, 1, 2))
-    thetas, thetas1, thetas2 = population(b, POP), population(b1, POP2), population(b2, POP2)
-    for bb in (b, b1, b2):
-        topo = bb["topo"]
-        say("setup", model=topo.model, N=topo.N, K=topo.K, w=topo.width,
-            n_theta=len(bb["theta0"]), T=len(bb["grid"]))
-    say("setup", seconds=f"{time.perf_counter() - t0:.2f}")
-    # 3h's CPU references build beside phases 3-3g (after the bench
-    # bundles, whose RK45 they would slow)
-    xwide_refs = start_xwide_references()
+    # 3h's CPU references, one worker a network: the 7-site network's (RK45
+    # observations, then the float64 objective at w = 129; about two minutes
+    # on a busy host) from the start, beside the build; the other two after
+    # the bench bundles, whose RK45 they would slow, beside phases 3-3g
+    xwide_refs = start_xwide_references(("model2-7sites",))
     try:
+        phase_build()
+        probe, probe_paths = phase_fma_peak(card)
+        t0 = time.perf_counter()
+        b, b1, b2 = (build_demo_network(N_PROTEINS, N_KINASES, model=m, seed=0,
+                                        dtype=torch.float32, device="cuda") for m in (0, 1, 2))
+        thetas, thetas1, thetas2 = population(b, POP), population(b1, POP2), population(b2, POP2)
+        for bb in (b, b1, b2):
+            topo = bb["topo"]
+            say("setup", model=topo.model, N=topo.N, K=topo.K, w=topo.width,
+                n_theta=len(bb["theta0"]), T=len(bb["grid"]))
+        say("setup", seconds=f"{time.perf_counter() - t0:.2f}")
+        start_xwide_references(("model2-6sites", "model0-20sites"), xwide_refs)
         return run_all_phases(card, probe, probe_paths, b, b1, b2, thetas, thetas1, thetas2,
                               xwide_refs)
     except BaseException:
@@ -5732,8 +5775,8 @@ def main() -> int:
 def run_all_phases(card, probe, probe_paths, b, b1, b2, thetas, thetas1, thetas2,
                    xwide_refs) -> int:
     """Every phase after the setup, in order (3h's references building in
-    their workers since the setup; 4d's float64 CPU run in its own since
-    the end of 3h)."""
+    their workers since the start or the setup; 4d's float64 CPU run in its
+    own since the end of 3h)."""
     kernel = phase_kernel(b, thetas, card)
     wide = phase_wide_kernel(b2, thetas2, card)
     scan = phase_scan_kernel(b, thetas, b2, thetas2, card)

@@ -11,9 +11,10 @@ Counterpart of ``phoskintime_tpu/ops/phi_pallas.py``:
   ``csrc/phi_tables_wide.cu`` for 9 <= w <= 17 (the port of
   ``phi_vectors_pallas_all``; one more in ``phi_tables_wide.launches``),
   or, through :func:`phi_tables_xwide`, ``csrc/phi_tables_xwide.cu`` for
-  18 <= w <= 65 (the same Pallas entry at the widest blocks, model 2 at 5
-  and 6 sites; one more in ``phi_tables_xwide.launches``). On a CPU tensor
-  it runs the plain version.
+  18 <= w <= 129 (the same Pallas entry at the widest blocks, model 2 at
+  5, 6 and 7 sites; one more in ``phi_tables_xwide.launches``). Wider
+  blocks raise ``NotImplementedError``. On a CPU tensor it runs the plain
+  version at any width.
 * :func:`phi_vectors` — one pair, the port of ``phi_vectors_pallas``: the
   same kernels with U = 1.
 * :func:`phi_tables_reference` — the plain PyTorch version at any width,
@@ -41,13 +42,14 @@ _RATE_CAP = 32.0
 _MAX_SQUARINGS = 24
 _MAX_KERNEL_WIDTH = 8           # csrc/phi_tables.cu
 _MAX_WIDE_WIDTH = 17            # csrc/phi_tables_wide.cu: model 2 up to Smax = 4
-_MAX_XWIDE_WIDTH = 65           # csrc/phi_tables_xwide.cu: model 2 up to Smax = 6
+_MAX_XWIDE_WIDTH = 129          # csrc/phi_tables_xwide.cu: model 2 up to Smax = 7
 
 SOURCE = CSRC / "phi_tables.cu"
 WIDE_SOURCE = CSRC / "phi_tables_wide.cu"
 XWIDE_SOURCE = CSRC / "phi_tables_xwide.cu"
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _WIDE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_XWIDE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 # csrc/phi_tables_wide.cu: R, the rows of a lane's products one thread
 # owns, at each width (T = ceil(w / R) threads a lane, 32 // T lanes a
@@ -59,13 +61,22 @@ _WIDE_WARPS = 2
 _ENTRY_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 _NOT_COVERED = ("the phi_tables kernels take float32 or float64 with 2 <= w <= {}; "
-                "got {} at w = {} (wider blocks, model 2 at Smax >= 7, are "
-                "ROADMAP.md queue 2, kernel 1b: 'phi_tables_wide above w = 65')")
+                "got {} at w = {} (wider blocks, model 2 at Smax >= 8, are "
+                "ROADMAP.md queue 2, kernel 1b: 'phi_tables_wide above w = 129')")
 _OUTSIDE = "csrc/{} takes float32 or float64 with {} <= w <= {}; got {} at w = {}"
-# csrc/phi_tables_xwide.cu: a thread's tile of a product (rows x columns),
-# the threads a block at most, and the (tile, lane) items a block aims at
-_XWIDE_TILE = 4
+# csrc/phi_tables_xwide.cu: the threads a block at most (its launch bound),
+# the threads a block aims at, the words after each plane, and a float64
+# warp's tile: 2 (up to w = 48) or 1 (above) blocks of 16 rows by 3 blocks
+# of 8 columns
 _XWIDE_MAX_THREADS = 512
+_XWIDE_TARGET_THREADS = 256
+_XWIDE_MARGIN = 8
+_XWIDE_TALL_MAX_W = 48
+_XWIDE_TILE_COLS_F64 = 3
+# an H100 SM's shared memory (228 KB), of which each resident block takes
+# 1 KB for itself
+_SM_SHARED_BYTES = 233472
+_BLOCK_RESERVED_BYTES = 1024
 
 
 def ladder_len(w: int, h: float, max_squarings: int = _MAX_SQUARINGS) -> int:
@@ -232,24 +243,67 @@ class XWideShape(NamedTuple):
     lanes: int              # LB: lanes a block, all its threads sharing them
     threads: int            # threads a block
     shared_bytes: int       # dynamic shared memory a block
+    cluster: int            # blocks a lane: 1, or 2 (float64 past one block's memory)
+
+
+def xwide_layout(w: int, cluster: int = 1) -> tuple[int, int, int, int]:
+    """(K, rows, ld, plane) of the widest kernel's planes at width ``w``:
+    K rows of a plane (w rounded up to 4, or to 8 in a cluster of two), the
+    rows one block holds (K / cluster), the row stride (the least ld >= K + 2
+    with ld = 4 mod 8) and the words of a plane in a block (rows ld and a
+    margin of 8)."""
+    K = -(-w // (4 * cluster)) * 4 * cluster
+    ld = (K + 5) // 8 * 8 + 4
+    rows = K // cluster
+    return K, rows, ld, rows * ld + _XWIDE_MARGIN
+
+
+def xwide_shared_bytes(w: int, lanes: int, cluster: int, itemsize: int) -> int:
+    """A block's shared memory: the lanes' three planes (A and two E), two
+    words a lane (h / 2^s, 2^-s), four the cluster's blocks exchange, and
+    two ints a lane (the step count, the quotient route)."""
+    plane = xwide_layout(w, cluster)[3]
+    return itemsize * (3 * lanes * plane + 2 * lanes + 4) + 4 * 2 * lanes
+
+
+def _xwide_lane_threads(w: int, itemsize: int, cluster: int) -> int:
+    """Threads the widest product of one lane (the ladder's, K + 2 columns)
+    gives work to: a thread a 4 x 8 tile in float32; in float64 a warp a
+    tile of 2 x 3 (w <= 48) or 1 x 3 blocks of 16 x 8 over the rows a block
+    holds."""
+    K, rows, _, _ = xwide_layout(w, cluster)
+    if itemsize == 4:
+        return (K // 4) * -(-(K + 2) // 8)
+    mb, nb = -(-min(rows, w) // 16), -(-(K + 2) // 8)
+    tm = 2 if w <= _XWIDE_TALL_MAX_W else 1
+    return 32 * -(-mb // tm) * -(-nb // _XWIDE_TILE_COLS_F64)
 
 
 def xwide_launch_shape(w: int, itemsize: int = 4) -> XWideShape:
-    """The widest kernel's launch shape at width ``w`` (18..65) for elements
-    of ``itemsize`` bytes (4 or 8). A lane takes ``4 w^2 + 8 w + 2`` words
-    and one int of shared memory (A, A/k, two E planes, the vectors); a
-    block takes as many lanes as give it about 512 (4 x 4 tile, lane)
-    product items, within the 227 KB a block may use, and one thread an
-    item up to 512. Raises NotImplementedError outside the domain."""
+    """The widest kernel's launch shape at width ``w`` (18..129) for
+    elements of ``itemsize`` bytes (4 or 8). A lane takes three planes of
+    shared memory (:func:`xwide_layout`); where one lane passes the 227 KB a
+    block may use (float64 from w = 97) a cluster of two blocks holds it,
+    each half the rows. Otherwise a block takes as many lanes as give it
+    about 256 threads of work, and no more than let two blocks share an SM,
+    at least one. Threads: one a piece of work (a tile, or a warp a tile)
+    in whole warps, or, past 512, the fewest warps that take the work in
+    equal passes. Raises NotImplementedError outside the domain."""
     if not _MAX_WIDE_WIDTH < w <= _MAX_XWIDE_WIDTH or itemsize not in (4, 8):
         raise NotImplementedError(_OUTSIDE.format("phi_tables_xwide.cu", _MAX_WIDE_WIDTH + 1,
                                                   _MAX_XWIDE_WIDTH, f"{itemsize}-byte items",
                                                   w))
-    lane_bytes = itemsize * (4 * w * w + 8 * w + 2) + 4
-    tiles = (-(-w // _XWIDE_TILE)) ** 2
-    lanes = max(1, min(MAX_SHARED_BYTES // lane_bytes, _XWIDE_MAX_THREADS // tiles))
-    threads = min(_XWIDE_MAX_THREADS, -(-lanes * tiles // 32) * 32)
-    return XWideShape(lanes, threads, lanes * lane_bytes)
+    cluster = 1 if xwide_shared_bytes(w, 1, 1, itemsize) <= MAX_SHARED_BYTES else 2
+    work = _xwide_lane_threads(w, itemsize, cluster)
+    lanes = 1
+    if cluster == 1:
+        half_sm = _SM_SHARED_BYTES // 2 - _BLOCK_RESERVED_BYTES
+        while (lanes + 1) * work <= _XWIDE_TARGET_THREADS and \
+                xwide_shared_bytes(w, lanes + 1, 1, itemsize) <= half_sm:
+            lanes += 1
+    passes = -(-lanes * work // _XWIDE_MAX_THREADS)
+    threads = -(-lanes * work // passes // 32) * 32
+    return XWideShape(lanes, threads, xwide_shared_bytes(w, lanes, cluster, itemsize), cluster)
 
 
 def _launch(source, name: str, L, binv, h_u, ladder: int, argtypes=_ARGTYPES,
@@ -343,7 +397,7 @@ phi_tables_wide.launches = 0
 
 
 def phi_tables_xwide(L: torch.Tensor, binv, h_u, ladder: int):
-    """The widest-block kernel ``csrc/phi_tables_xwide.cu`` (18 <= w <= 65,
+    """The widest-block kernel ``csrc/phi_tables_xwide.cu`` (18 <= w <= 129,
     float32 or float64, CUDA), the port of ``phi_vectors_pallas_all`` at
     these widths. Arguments and results as :func:`phi_tables`, which routes
     these widths here."""
@@ -358,7 +412,7 @@ def phi_tables_xwide(L: torch.Tensor, binv, h_u, ladder: int):
                                                   _MAX_XWIDE_WIDTH, L.dtype, w))
     shape = xwide_launch_shape(w, L.element_size())
     out = _launch(XWIDE_SOURCE, "phi_tables_xwide", L, binv, h_u, ladder,
-                  _WIDE_ARGTYPES, (shape.lanes, shape.threads))
+                  _XWIDE_ARGTYPES, (shape.lanes, shape.threads, shape.cluster))
     phi_tables_xwide.launches += 1
     return out
 

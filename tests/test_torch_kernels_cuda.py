@@ -153,11 +153,13 @@ def table_counts() -> tuple:
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("w", [18, 22, 29, 33, 47, 65])
+@pytest.mark.parametrize("w", [18, 22, 29, 33, 47, 65, 66, 96, 97, 98, 113, 129])
 def test_xwide_kernel_matches_plain(cuda_device, w, dtype):
-    """The widest kernel (18 <= w <= 65) against the plain version: lanes
+    """The widest kernel (18 <= w <= 129) against the plain version: lanes
     no multiple of a block's, three pairs over two buckets, one launch of
-    its own counter and none of the others; phi_vectors (U = 1) too."""
+    its own counter and none of the others; phi_vectors (U = 1) too. In
+    float64 w = 96 is the widest lane one block holds; from 97 a cluster of
+    two blocks holds each lane (xwide_launch_shape)."""
     rng = np.random.default_rng(w)
     L = torch.as_tensor(compartmental_blocks(rng, 2, w, 301), dtype=dtype, device=cuda_device)
     binv, h_u = np.asarray([0, 1, 1]), np.asarray([0.0625, 2.0, 16.0])
@@ -175,9 +177,9 @@ def test_xwide_kernel_matches_plain(cuda_device, w, dtype):
 
 
 def test_xwide_kernel_every_width(cuda_device):
-    """Every width 18..65 at float32, 97 lanes, one pair at h = 2."""
+    """Every width 18..129 at float32, 97 lanes, one pair at h = 2."""
     rng = np.random.default_rng(18)
-    for w in range(18, 66):
+    for w in range(18, 130):
         L = torch.as_tensor(compartmental_blocks(rng, 1, w, 97), dtype=torch.float32,
                             device=cuda_device)
         lad = ladder_len(w, 2.0)
@@ -187,30 +189,34 @@ def test_xwide_kernel_every_width(cuda_device):
             assert_scaled_close(g, r)
 
 
-@pytest.mark.parametrize("w", [22, 33, 65])
-def test_xwide_kernel_mixed_squaring_counts(cuda_device, w):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("w", [22, 33, 65, 98, 129])
+def test_xwide_kernel_mixed_squaring_counts(cuda_device, w, dtype):
     """Lanes whose squaring counts run from 0 to the ladder's clip side by
     side in every block (the block's trip count is its largest lane's, each
-    lane stepping only to its own), against the plain version."""
+    lane stepping only to its own), against the plain version; in float64
+    at 98 and 129 through the cluster of two blocks."""
     rng = np.random.default_rng(w)
     B, lad = 320, ladder_len(w, 16.0)
     L = compartmental_blocks(rng, 1, w, B)
     norm = np.abs(L[0]).sum(axis=1).max(axis=0)                # (B,)
     want_s = np.arange(B) % (lad + 3) - 1                      # -1 .. lad + 1, clipped
     L = L * (0.5 * 2.0 ** want_s / norm * rng.uniform(0.6, 0.95, B))[None, None, None]
-    L = torch.as_tensor(L, dtype=torch.float32, device=cuda_device)
+    L = torch.as_tensor(L, dtype=dtype, device=cuda_device)
     A = L[0].double()
+    radius = 0.5 if dtype == torch.float32 else 0.25
     s = torch.clamp(torch.ceil(torch.log2(torch.amax(torch.sum(torch.abs(A), dim=1), dim=0)
-                                          / 0.5)), 0, lad)
+                                          / radius)), 0, lad)
     assert set(s.long().tolist()) == set(range(lad + 1))
     got = phi_tables(L, [0], [1.0], lad)
     torch.cuda.synchronize()
+    tol = SCALED_ATOL_F32 if dtype == torch.float32 else SCALED_ATOL_F64
     for g, r in zip(got, phi_tables_reference(L, [0], [1.0], lad)):
-        assert_scaled_close(g, r)
+        assert_scaled_close(g, r, tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("w", [22, 65])
+@pytest.mark.parametrize("w", [22, 65, 97, 129])
 def test_xwide_nan_lane_stays_in_its_lane(cuda_device, w, dtype):
     """A NaN member gets NaN tables and leaves every other lane, those of
     its own block included, exactly as it was."""

@@ -57,6 +57,23 @@ def compartmental_blocks(rng, Bu, w, B):
     return L
 
 
+def hypercube_blocks(rng, Bu, sites, B):
+    """Blocks shaped like model 2's at ``sites`` sites (w = 2^sites + 1):
+    state 0 feeds state 1, and states 1..2^sites, the phospho-states, each
+    pass to the states one site away (a phosphorylation one way, a
+    dephosphorylation back); rates uniform on (0, 2), each column's outflow
+    plus its own decay on the diagonal."""
+    w = 2 ** sites + 1
+    L = np.zeros((Bu, w, w, B))
+    L[:, 1, 0] = rng.uniform(0.0, 2.0, (Bu, B))
+    for m in range(2 ** sites):
+        for b in range(sites):
+            L[:, 1 + (m ^ (1 << b)), 1 + m] = rng.uniform(0.0, 2.0, (Bu, B))
+    d = np.arange(w)
+    L[:, d, d, :] = -(L.sum(axis=1) + rng.uniform(0.01, 4.0, (Bu, w, B)))
+    return L
+
+
 def assert_scaled_close(got, want, atol):
     got, want = np.asarray(got, float), np.asarray(want, float)
     scale = np.max(np.abs(want)) + 1e-30
@@ -150,22 +167,31 @@ def test_reference_matches_jax_lanes(dtype):
                 assert_scaled_close(got.numpy(), ref, SCALED_ATOL_F32)
 
 
-@pytest.mark.parametrize("w", [18, 22, 33, 65])
+@pytest.mark.parametrize("w", [18, 22, 33, 65, 129])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_reference_matches_jax_lanes_wide_blocks(w, dtype):
-    """The widths of ``csrc/phi_tables_xwide.cu`` (model 2 at 5 and 6
-    sites, w = 33 and 65; models 0/1 past 15 sites): the plain version
+    """The widths of ``csrc/phi_tables_xwide.cu`` (model 2 at 5, 6 and 7
+    sites, w = 33, 65 and 129, the last at 8 lanes; models 0/1 past 15
+    sites): the plain version
     against JAX's lane build, which ``network/expo.py`` reaches for every
     w > 8, at the ladder's clip of 24, as at the narrow widths. Float64 on
     arbitrary blocks; float32 on blocks like the model's own (transfer
     rates off the diagonal, each column's outflow and decay on it), whose
     exponentials contract: on arbitrary blocks each of the ~10 squarings
     at h = 8 doubles the two builds' rounding difference past the JAX
-    package's 2e-5 (5.3e-5 at w = 33)."""
+    package's 2e-5 (5.3e-5 at w = 33). At w = 129 float32 takes blocks
+    shaped like model 2's own at 7 sites (:func:`hypercube_blocks`): on
+    dense blocks that wide float32 itself is 7e-5 to 9e-5 of the largest
+    entry from float64 at h = 8 (either build), so no two float32 builds
+    agree to 2e-5; on the model's shape both are 1.5e-5 from it."""
     rng = np.random.default_rng(w)
-    B = 24
-    blocks = random_blocks if dtype == np.float64 else compartmental_blocks
-    L = blocks(rng, 2, w, B).astype(dtype)
+    B = 24 if w <= 65 else 8
+    if dtype == np.float64:
+        L = random_blocks(rng, 2, w, B)
+    elif w == 129:
+        L = hypercube_blocks(rng, 2, 7, B).astype(dtype)
+    else:
+        L = compartmental_blocks(rng, 2, w, B).astype(dtype)
     binv = np.asarray([0, 1, 1], np.int32)
     h_u = np.asarray([0.0625, 1.0, 8.0])
     E, p1, p2 = phi_tables_reference(torch.as_tensor(L), binv, h_u, 24)
@@ -183,34 +209,55 @@ def test_reference_matches_jax_lanes_wide_blocks(w, dtype):
 
 @pytest.mark.parametrize("itemsize", [4, 8])
 def test_xwide_launch_shape(itemsize):
-    """Every width 18..65 in both types: whole lanes a block, at most 512
-    threads in whole warps and one (4 x 4 tile, lane) item a thread where
-    a lane's tiles fit, within the 227 KB of shared memory a block may
-    opt into (the kernel's own layout: 4 w^2 + 8 w + 2 words and an int a
-    lane); outside 18..65 it raises."""
-    for w in range(18, 66):
+    """Every width 18..129 in both types: three planes a lane of K rows (w
+    rounded up to 4, or to 8 in a cluster) at a stride ld >= K + 2 with ld
+    = 4 (mod 8), within the 227 KB of shared memory a block may opt into;
+    a cluster of two blocks, each half the rows, exactly where one lane
+    would pass it (float64 from w = 97, float32 never); whole warps, at
+    most 512 threads, which take the work (a tile a thread, or a tile a
+    warp) in equal passes; lanes that give a block about 256 threads of
+    work, and no more than let two blocks share an SM's 228 KB; outside
+    18..129 it raises."""
+    for w in range(18, 130):
         shape = pm.xwide_launch_shape(w, itemsize)
-        tiles = (-(-w // 4)) ** 2
-        assert shape.lanes >= 1 and shape.threads % 32 == 0 and 32 <= shape.threads <= 512
-        assert shape.threads >= min(512, shape.lanes * tiles)
-        assert shape.lanes * tiles <= 512 or shape.lanes == 1
-        assert shape.shared_bytes == shape.lanes * (itemsize * (4 * w * w + 8 * w + 2) + 4)
+        K, rows, ld, plane = pm.xwide_layout(w, shape.cluster)
+        assert K % (4 * shape.cluster) == 0 and w <= K < w + 4 * shape.cluster
+        assert rows * shape.cluster == K and ld >= K + 2 and ld % 8 == 4 and ld < K + 10
+        assert plane == rows * ld + 8
+        words = 3 * shape.lanes * plane + 2 * shape.lanes + 4
+        assert shape.shared_bytes == itemsize * words + 4 * 2 * shape.lanes
         assert shape.shared_bytes <= cuda_build.MAX_SHARED_BYTES
+        single = pm.xwide_shared_bytes(w, 1, 1, itemsize)
+        assert shape.cluster == (1 if single <= cuda_build.MAX_SHARED_BYTES else 2)
+        assert shape.cluster == (2 if itemsize == 8 and w >= 97 else 1)
+        assert shape.cluster == 1 or shape.lanes == 1
+        assert shape.lanes >= 1 and shape.threads % 32 == 0 and 32 <= shape.threads <= 512
+        work = pm._xwide_lane_threads(w, itemsize, shape.cluster)
+        passes = -(-shape.lanes * work // 512)
+        assert shape.threads == -(-shape.lanes * work // passes // 32) * 32
+        assert shape.threads * passes >= shape.lanes * work
+        assert shape.lanes == 1 or (shape.lanes * work <= 256
+                                    and 2 * (shape.shared_bytes + 1024) <= 233472)
     assert pm.xwide_launch_shape(65, itemsize).lanes == 1
-    for bad in (17, 66):
+    assert pm.xwide_launch_shape(129, itemsize).lanes == 1
+    # the largest blocks: float32 at 129 in one block, float64 in two
+    assert pm.xwide_launch_shape(129, 4).shared_bytes > 200 * 1024
+    for bad in (17, 130):
         with pytest.raises(NotImplementedError):
             pm.xwide_launch_shape(bad, itemsize)
 
 
 def test_width_66_raises_naming_the_roadmap_item():
-    """Above w = 65 the kernels stop: asking for one raises, naming the
-    ROADMAP item; the plain version takes any width."""
+    """Above the kernels' widest width (w = 65 once, hence the name; w = 129
+    now) asking for one raises, naming the ROADMAP item; the plain version
+    takes any width."""
     rng = np.random.default_rng(66)
-    L = torch.as_tensor(random_blocks(rng, 1, 66, 3))
-    with pytest.raises(NotImplementedError, match="phi_tables_wide above w = 65"):
+    L = torch.as_tensor(random_blocks(rng, 1, 130, 2))
+    with pytest.raises(NotImplementedError, match="phi_tables_wide above w = 129"):
         phi_tables(L, [0], [1.0], 8, use_kernel=True)
     E, p1, p2 = phi_tables(L, [0], [1.0], 8)
-    assert E.shape == (1, 66, 66, 3) and bool(torch.isfinite(E).all())
+    assert E.shape == (1, 130, 130, 2) and bool(torch.isfinite(E).all())
+    assert pm.xwide_launch_shape(66, 8).lanes == 1          # 66 is a kernel width now
     with pytest.raises(ValueError, match="CUDA"):
         pm.phi_tables_xwide(L[:, :33, :33].contiguous(), [0], [1.0], 8)
 
@@ -315,3 +362,24 @@ def test_markstein_division_is_correctly_rounded(k):
         assert residual == fx - q * k
         assert _round_f32(q + residual * rk) == _round_f32(fx / k), (k, float(x))
 
+
+
+@pytest.mark.parametrize("k", [2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 20, 30, 42, 56, 72, 90,
+                               110, 132, 156, 182])
+def test_markstein_division_is_correctly_rounded_float64(k):
+    """csrc/phi_tables_xwide.cu divides by its float64 constants (the
+    Horner steps' k = 11..2 and the series' k, k + 1 and (k + 1)(k + 2))
+    the same way, each step a float64 fma, inside [2^-1000, 2^1000]: in
+    exact rational arithmetic that is the correctly rounded x / k, the
+    division operator's result, for seeded x over 500 decades (float() of
+    a Fraction rounds correctly to the nearest double)."""
+    rng = np.random.default_rng(100 + k)
+    xs = np.concatenate([rng.uniform(-1, 1, 300),
+                         rng.uniform(-1, 1, 300) * 10.0 ** rng.integers(-250, 250, 300)])
+    rk = Fraction(float(Fraction(1, k)))
+    for x in xs:
+        fx = Fraction(float(x))
+        q = Fraction(float(fx * rk))
+        residual = Fraction(float(fx - q * k))                # fma(-q, k, x): exact
+        assert residual == fx - q * k
+        assert float(q + residual * rk) == float(x) / k, (k, float(x))

@@ -23,15 +23,17 @@ def tool(name: str):
 @pytest.mark.parametrize("source, marks, stamp", [
     ("phi_tables_wide.cu", "MARKS", "MARK("),
     ("phi_tables.cu", "TABLE_MARKS", "PHASE("),
+    ("phi_tables_xwide.cu", "XWIDE_MARKS", "XMARK("),
 ])
 def test_stamps_apply_to_the_kernel_sources(source, marks, stamp):
     """Every phase marker finds its text in the kernel source exactly once,
     so a change to a kernel that moves a marked line fails here first."""
     pc = tool("phase_clocks")
     marks = getattr(pc, marks)
-    src = pc.stamped(source, marks, pc.CLOCK_PRELUDE if stamp == "PHASE(" else "")
+    prelude = {"PHASE(": pc.CLOCK_PRELUDE, "XMARK(": pc.XWIDE_PRELUDE}.get(stamp, "")
+    src = pc.stamped(source, marks, prelude)
     plain = (pc.ROOT / "phoskintime_tpu_torch/csrc" / source).read_text()
-    added = src.count(stamp) - plain.count(stamp) - pc.CLOCK_PRELUDE.count(stamp) * (stamp == "PHASE(")
+    added = src.count(stamp) - plain.count(stamp) - prelude.count(stamp)
     assert added == sum(new.count(stamp) - old.count(stamp) for old, new in marks) > 0
 
 

@@ -3,6 +3,7 @@ hold two checkouts of the port against each other on one card.
 
     python tools/kernel_ab.py tune
     python tools/kernel_ab.py ab PARENT_DIR [--rk45] [--repeats N] [--rounds N] [--sections ...]
+    python tools/kernel_ab.py ab PARENT_DIR --sections xwide
 
 ``tune`` sweeps the launch shape of ``csrc/phi_tables_wide.cu`` (rows a
 thread owns, warps a block) at w = 9 and 17 (the model-2 bench chunk's own
@@ -23,7 +24,12 @@ tables; ``scan``: the model-0 and unbucketed model-2 scan chunks; ``phi``:
 the fit's chunk, ``build_demo_network(150, 24, seed=1)`` with 512 members;
 ``flux``: the edge flux at 92,160 x 16 in both types, with the wrapper's
 host µs a call, and at smax 1-6, its device time on back-to-back calls and
-with L2 flushed before each call), a digest of each output, and the
+with L2 flushed before each call; ``xwide``: ``csrc/phi_tables_xwide.cu`` at
+chip_smoke.py phase 3h's classes, model 2 at 6 sites, w = 33 and 65, and
+model 0 with a 20-site protein, w = 22, float32 and float64, beside
+``torch.linalg.matrix_exp`` on the same tables' augmented matrices; the
+inputs are made once, by this checkout, and every arm reads them from
+one file), a digest of each output, and the
 end-to-end rates that ``chip_smoke.py`` prints (section ``rates``: model
 0 eager at pop 8192, model 2 bucketed at pop 2048, both through the scan
 kernel; with ``--rk45`` also the RK45 model-2 objective at pop 2048;
@@ -233,25 +239,62 @@ def flux_cases() -> dict:
     return out
 
 
-SECTIONS = ("wide", "scan", "phi", "flux", "rates")
+def xwide_inputs(path: Path) -> Path:
+    """Write the ``xwide`` section's inputs to ``path``: chip_smoke.py 3h's
+    networks of XWIDE_AB_NETWORKS at float32 and float64 on the card, the
+    first objective chunk of its members, and of each table build the
+    classes wider than 17 as {label: (L, binv, h_u, ladder)}."""
+    from phoskintime_tpu_torch.demo import build_demo_network
+    from phoskintime_tpu_torch.network import expo
+    from phoskintime_tpu_torch.network.objective import _auto_pop_chunk
+    from phoskintime_tpu_torch.network.params import unpack_params
+    from smoke_cases import XWIDE_NETWORKS
+
+    cases = {}
+    for name in XWIDE_AB_NETWORKS:
+        kw = XWIDE_NETWORKS[name]
+        for dtype in (torch.float32, torch.float64):
+            b = build_demo_network(**kw, dtype=dtype, device="cuda")
+            rng = np.random.default_rng(0)
+            th = b["theta0"][None] + 0.05 * rng.normal(size=(POP2, len(b["theta0"])))
+            th = torch.as_tensor(th[:_auto_pop_chunk(b["topo"].N)], dtype=dtype, device="cuda")
+            for L, binv, h_u, ladder in expo.table_inputs(
+                    b["system"], unpack_params(th, b["slices"], b["topo"]), b["grid"]):
+                if L.shape[1] > 17:
+                    label = f"{name} w={L.shape[1]} {str(dtype)[-7:]}"
+                    cases[label] = (L.cpu(), np.asarray(binv), np.asarray(h_u), int(ladder))
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(cases, path)
+    return path
 
 
-def arm(rk45: bool, repeats: int, sections=SECTIONS) -> dict:
-    """One tree's measurements (the tree whose package is imported)."""
+SECTIONS = ("wide", "scan", "phi", "flux", "rates", "xwide")
+# the networks of chip_smoke.py's phase 3h (tools/smoke_cases.py) that the
+# xwide section times: w = 33 and 65, and w = 22. The 7-site network's class
+# w = 129 is left out on purpose: a checkout whose kernel stops at w = 65
+# raises there, so the A/B could not hold it against such a parent
+XWIDE_AB_NETWORKS = ("model2-6sites", "model0-20sites")
+
+
+def arm(rk45: bool, repeats: int, sections=SECTIONS, inputs: Path | None = None) -> dict:
+    """One tree's measurements (the tree whose package is imported);
+    ``inputs``: the ``xwide`` section's file (:func:`xwide_inputs`), made
+    here where none is given."""
     import phoskintime_tpu_torch
     from phoskintime_tpu_torch.ops import cuda_build
     from phoskintime_tpu_torch.ops.hypercube_flux import hypercube_flux
     from phoskintime_tpu_torch.ops.phi_tables import phi_tables
     from phoskintime_tpu_torch.ops.scan_kernel import etd2rk_scan
+    from smoke_cases import augmented
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     cuda_build.build_libraries()
     out = {"package": str(Path(phoskintime_tpu_torch.__file__).parent),
            "build_s": time.perf_counter() - t0, "tables": {}, "scan": {}, "phi": {},
-           "flux": {}}
-    bs = bundles(() if set(sections) <= {"flux"} else
-                 (0,) if set(sections) <= {"phi", "flux"} else (0, 2))
+           "flux": {}, "xwide": {}}
+    bs = bundles(() if set(sections) <= {"flux", "xwide"} else
+                 (0,) if set(sections) <= {"phi", "flux", "xwide"} else (0, 2))
     if "wide" in sections:
         for label, (L, binv, h_u, ladder) in table_cases(bs).items():
             run = lambda: phi_tables(L, binv, h_u, ladder)
@@ -284,6 +327,17 @@ def arm(rk45: bool, repeats: int, sections=SECTIONS) -> dict:
                                   "digest": digests((run(),))}
             if smax == 4:
                 out["flux"][label].update(host_us(run))
+    if "xwide" in sections:
+        path = inputs or xwide_inputs(HERE / "results_ab" / f"xwide_inputs_{os.getpid()}.pt")
+        for label, (L, binv, h_u, ladder) in torch.load(path, weights_only=False).items():
+            L = L.cuda()
+            run = lambda: phi_tables(L, binv, h_u, ladder)
+            M = augmented(L, binv, h_u)
+            out["xwide"][label] = {"ms": cuda_ms(run, 5),
+                                   "device_ms": device_ms(run, "phi_tables_xwide_kernel", 5),
+                                   "matrix_exp_ms": cuda_ms(lambda: torch.linalg.matrix_exp(M), 3),
+                                   "digest": digests(run())}
+            del M
     if "rates" in sections:
         out["evals_per_s"] = rates(bs, rk45, repeats)
     return out
@@ -393,10 +447,15 @@ def ab(parent: Path, rk45: bool, repeats: int, sections=SECTIONS, rounds: int = 
     """parent, change, change, parent, ``rounds`` times: one process each."""
     trees = [("parent", parent.resolve()), ("change", HERE), ("change", HERE),
              ("parent", parent.resolve())] * rounds
+    extra = []
+    if "xwide" in sections:                # one set of inputs for every arm
+        path = xwide_inputs(HERE / "results_ab" / "xwide_inputs.pt")
+        extra = ["--xwide-inputs", str(path)]
     arms = []
     for name, root in trees:
         cmd = [sys.executable, str(Path(__file__).resolve()), "arm", "--repeats",
-               str(repeats), "--sections", ",".join(sections)] + (["--rk45"] if rk45 else [])
+               str(repeats), "--sections", ",".join(sections)] + (["--rk45"] if rk45 else []) \
+            + extra
         env = dict(os.environ, PYTHONPATH=str(root))
         done = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
                               timeout=1500)
@@ -407,7 +466,7 @@ def ab(parent: Path, rk45: bool, repeats: int, sections=SECTIONS, rounds: int = 
         arms.append(res)
         log(json.dumps(res))
     same, spreads = {}, {}
-    for kind in ("tables", "scan", "phi", "flux"):
+    for kind in ("tables", "scan", "phi", "flux", "xwide"):
         for label in arms[0][kind]:
             d = {name: [a[kind][label]["digest"] for a in arms if a["tree"] == name]
                  for name in ("parent", "change")}
@@ -431,6 +490,8 @@ def main() -> int:
                     help="times ab runs parent, change, change, parent")
     ap.add_argument("--sections", default=",".join(SECTIONS),
                     help="comma-separated parts of an arm: " + ", ".join(SECTIONS))
+    ap.add_argument("--xwide-inputs", type=Path, default=None,
+                    help="the xwide section's inputs (made by ab; an arm alone makes its own)")
     opts = ap.parse_args()
     sections = tuple(opts.sections.split(","))
     if not set(sections) <= set(SECTIONS):
@@ -442,7 +503,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     if opts.mode == "arm":
-        print(json.dumps(arm(opts.rk45, opts.repeats, sections)))
+        print(json.dumps(arm(opts.rk45, opts.repeats, sections, opts.xwide_inputs)))
         return 0
     log(smi)
     if opts.mode == "tune":

@@ -1,6 +1,6 @@
 """Where the table kernels spend their time, phase by phase, on the card.
 
-    python tools/phase_clocks.py [--kernel wide|tables|both]
+    python tools/phase_clocks.py [--kernel wide|tables|xwide|both]
 
 Builds a copy of a table kernel with ``clock64()`` stamps at its phase
 boundaries (lane 0 of every warp; the copy and its library go to the
@@ -21,7 +21,14 @@ path's shapes:
   in the phi series, in the squaring ladder and storing its tables; the SM
   clock in the run; the register report and the resident blocks an SM.
 
-Both sources are stamped by text: a change to the marked lines of a kernel
+* ``xwide``: ``csrc/phi_tables_xwide.cu`` at chip_smoke.py phase 3h's
+  classes w = 22, 33, 65 in float32 and float64 (the inputs of
+  ``tools/kernel_ab.py``'s xwide section): the mean cycles a block spends
+  zeroing its planes and loading L and the norm, scaling, in the Horner
+  steps (with the series beside them), in the ladder and storing, and the
+  cycles of one Horner phase and one ladder product.
+
+The sources are stamped by text: a change to the marked lines of a kernel
 needs the same change here. The stamps cost a few instructions a phase;
 the numbers locate time, they are not the kernel's time.
 """
@@ -30,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import json
 import re
 import subprocess
@@ -278,9 +286,96 @@ def table_clocks() -> None:
             "max_scaled_err_vs_plain": err}), flush=True)
 
 
+# csrc/phi_tables_xwide.cu: a warp's stamps at its block's phase boundaries
+# (every warp of a block passes them together), its block's ladder trips
+XWIDE_PHASES = ["zero+load+norm", "scale", "series setup", "horner+series", "ladder", "store"]
+XWIDE_PRELUDE = r"""
+__device__ unsigned long long* g_phase_clk;
+#define XMARK(k)                                                                       \
+  if ((threadIdx.x & 31) == 0)                                                         \
+    g_phase_clk[(((size_t)blockIdx.y * gridDim.x + blockIdx.x) * (blockDim.x / 32)     \
+                 + threadIdx.x / 32) * 8 + (k)] = clock64();
+extern "C" int phase_clocks_set(void* p) {
+  return static_cast<int>(cudaMemcpyToSymbol(g_phase_clk, &p, sizeof(p)));
+}
+"""
+XWIDE_MARKS = [
+    ("  for (int e = tid; e < LB * lanestride * static_cast<int>(sizeof(Real)) / 16; e += nth)",
+     "  XMARK(0)\n"
+     "  for (int e = tid; e < LB * lanestride * static_cast<int>(sizeof(Real)) / 16; e += nth)"),
+    ("  // A /= 2^s; E = I + A/n into plane 1",
+     "  XMARK(1)\n  // A /= 2^s; E = I + A/n into plane 1"),
+    ("  // phi1 / phi2 e0: term", "  XMARK(2)\n  // phi1 / phi2 e0: term"),
+    ("  // E = expm(A) by Horner", "  XMARK(3)\n  // E = expm(A) by Horner"),
+    ("  // p1 = v1 hs, p2 = v2 hs^2 into columns K, K+1 of E",
+     "  XMARK(4)\n  // p1 = v1 hs, p2 = v2 hs^2 into columns K, K+1 of E"),
+    ("    barrier<kCluster>();\n  }\n\n  for (int e = tid; e < LB * nrow * w; e += nth) {",
+     "    barrier<kCluster>();\n  }\n  XMARK(5)\n  if ((threadIdx.x & 31) == 0) g_phase_clk["
+     "(((size_t)blockIdx.y * gridDim.x + blockIdx.x) * (blockDim.x / 32) + threadIdx.x / 32) * 8"
+     " + 7] = n_block;\n\n  for (int e = tid; e < LB * nrow * w; e += nth) {"),
+    ("  if constexpr (kCluster == 2) barrier<2>();   // no block leaves",
+     "  XMARK(6)\n  if constexpr (kCluster == 2) barrier<2>();   // no block leaves"),
+]
+
+
+def xwide_clocks() -> None:
+    """The ``xwide`` measurement: a stamped copy of csrc/phi_tables_xwide.cu
+    through its C entries at kernel_ab.py's xwide inputs (chip_smoke.py
+    3h's classes w = 22, 33, 65 in both types): the mean cycles a block
+    spends in each phase, a Horner product's and a ladder product's."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import kernel_ab
+    from phoskintime_tpu_torch.ops import phi_tables as pm
+
+    so, log = nvcc_build("phi_tables_xwide_clocks",
+                         stamped("phi_tables_xwide.cu", XWIDE_MARKS, XWIDE_PRELUDE))
+    so.phase_clocks_set.argtypes = [ctypes.c_void_p]
+    print(json.dumps({"ptxas": re.findall(r"Used \d+ registers|\d+ bytes spill stores", log)}))
+    path = kernel_ab.xwide_inputs(ROOT / "results_ab" / "xwide_clock_inputs.pt")
+    cases = torch.load(path, weights_only=False)
+    for (label, (L, binv, h_u, ladder)), alone in itertools.product(cases.items(), (False, True)):
+        shape = pm.xwide_launch_shape(L.shape[1], L.element_size())
+        if alone:                          # one block an SM: no other block beside it
+            L = L[..., :132 // (len(binv) * shape.cluster) * shape.lanes].contiguous()
+        L = L.cuda()
+        w, U, B = L.shape[1], len(binv), L.shape[3]
+        blocks = U * shape.cluster * -(-B // shape.lanes)
+        clk = torch.zeros(blocks * (shape.threads // 32) * 8, dtype=torch.int64, device="cuda")
+        if so.phase_clocks_set(clk.data_ptr()) != 0:
+            raise SystemExit("phase_clocks.py: could not set the stamp buffer")
+        fn = getattr(so, f"phi_tables_xwide_{'f32' if L.dtype == torch.float32 else 'f64'}")
+        fn.argtypes = pm._XWIDE_ARGTYPES
+        fn.restype = ctypes.c_int
+        f = dict(dtype=L.dtype, device="cuda")
+        binv_d = torch.as_tensor(binv, dtype=torch.int32, device="cuda")
+        h_d = torch.as_tensor(h_u, **f)
+        E, p1, p2 = (torch.empty((U, w, w, B), **f), torch.empty((U, w, B), **f),
+                     torch.empty((U, w, B), **f))
+        for _ in range(2):
+            rc = fn(L.data_ptr(), binv_d.data_ptr(), h_d.data_ptr(), E.data_ptr(),
+                    p1.data_ptr(), p2.data_ptr(), w, U, B, int(ladder), shape.lanes,
+                    shape.threads, shape.cluster, torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+            if rc != 0:
+                raise SystemExit(f"phase_clocks.py: launch failed ({rc})")
+        ck = clk.reshape(-1, 8).cpu().numpy().astype(np.int64)[:: shape.threads // 32]
+        d = np.diff(ck[:, :7], axis=1)
+        trips = ck[:, 7]
+        terms = 8 if L.dtype == torch.float32 else 12
+        print(json.dumps({
+            "kernel": "phi_tables_xwide", "case": label, "lanes": B, "alone": alone,
+            "shape": shape._asdict(),
+            "blocks": int(len(ck)),
+            "mean_cycles_a_block": dict(zip(XWIDE_PHASES, d.mean(axis=0).round(0).tolist())),
+            "ladder_trips_mean": float(trips.mean()),
+            "cycles_a_horner_product": float(d[:, 3].mean() / (terms - 1)),
+            "cycles_a_ladder_product": float(d[:, 4].sum() / max(trips.sum(), 1)),
+            "cycles_a_block_total": float(d.sum(axis=1).mean())}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("wide", "tables", "both"), default="both")
+    ap.add_argument("--kernel", choices=("wide", "tables", "xwide", "both"), default="both")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("phase_clocks.py: needs an NVIDIA GPU")
@@ -291,6 +386,8 @@ def main() -> int:
         table_clocks()
     if opts.kernel in ("wide", "both"):
         wide_clocks()
+    if opts.kernel == "xwide":
+        xwide_clocks()
     return 0
 
 
