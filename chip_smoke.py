@@ -378,7 +378,7 @@ references of 15a and 15b in two spawned workers started before phase 13):
    CPU's within 1e-12, ``cluster_curves`` and ``export_subnetwork`` around
    the busiest protein; no launch.
 
-The last slice (``phi_tables_xwide``, population sharding):
+The last slices (``phi_tables_xwide``, population sharding, the wide scan):
 
 3h. the widest table kernel, ``csrc/phi_tables_xwide.cu`` (18 <= w <= 129),
    on model 2 at mechanisms' default cap of 6 sites (width classes 2, 3, 33,
@@ -398,6 +398,23 @@ The last slice (``phi_tables_xwide``, population sharding):
    XWIDE_CHECK_LANES lanes: the whole class would take seconds) and
    ``matrix_exp``; a NaN lane that leaves every other lane's bits as they
    were;
+3i. the scan kernel past w = 17 and N = 256 (``csrc/etd2rk_scan.cu``'s wide
+   kernel, 2 <= w <= 129, members over clusters of up to 8 blocks): ptxas's
+   report of its six builds (no spill); the kernel (one launch) against
+   its plain version at w = 18, 22, 32, 33, 64, 65, 96, 97, 128 and 129 (N =
+   7), at N = 257, 1,024 and 4,096 for w = 6 and 22, and at (65, 257) and
+   (65, 4,096), in both types (rtol 2e-3 / atol 1e-5 float32, 1e-10 /
+   1e-12 float64), each with its variant, threads a lane and cluster; a NaN
+   member at w = 65 and at N = 1,024 that leaves every other member's bits
+   as they were; then the objective unbucketed with ``use_scan_kernel=True``
+   on 3h's three networks (w = 22, 65, 129) and on
+   ``build_demo_network(300, 24, seed=1)`` (N = 285, w = 6) at pop 2048
+   float32 and 256 float64: one ``etd2rk_scan`` and one table launch a
+   chunk against the prediction, F within 1e-3 / 1e-9 of the eager scan's
+   and of the CPU's float64 (3h's references, the 285-protein one in a
+   worker beside them), and the scan of all those members by the 3c
+   fields (kernel, device, plain, eager and CUDA-graph ms, the bound and
+   its share);
 16. population sharding on the card (``parallel/mesh.py``): two gloo ranks
    in spawned processes sharing the card, CUDA tensors (NCCL refuses two
    ranks on one device), started beside phases 13-15, on the bench model-0
@@ -417,7 +434,8 @@ phases 1, 2 and 11, ``--hyperscan-only`` phases 1, 2 and 12,
 ``--runner-only`` phases 1, 2 and 13, ``--fitfigures-only`` phases 1, 2
 and 14, ``--part3-only`` phases 1, 2 and 15 (15c at the phase-11 problems'
 exact weights, in place of phase 11's fits; no JSON lines), ``--xwide-only``
-phases 1, 2 and 3h, ``--mesh-only`` phases 1, 2 and 16.
+phases 1, 2 and 3h, ``--scan-wide-only`` phases 1, 2 and 3i, ``--mesh-only``
+phases 1, 2 and 16.
 
 The line before the last is a JSON summary of each kernel (the float64
 instances and ``sq_chain`` included, each with the launches of its own main
@@ -496,6 +514,8 @@ from phoskintime_tpu_torch.ops import phi_tables as phi_mod
 from phoskintime_tpu_torch.ops.phi_tables import (phi_tables, phi_tables_reference,
                                                   phi_tables_wide, phi_tables_xwide,
                                                   phi_vectors)
+from phoskintime_tpu_torch.ops.scan_kernel import SOURCE as SCAN_SOURCE
+from phoskintime_tpu_torch.ops.scan_kernel import VARIANTS as SCAN_VARIANTS
 from phoskintime_tpu_torch.ops.scan_kernel import (etd2rk_scan, etd2rk_scan_reference,
                                                    random_scan_problem, scan_launch_shape)
 from phoskintime_tpu_torch.ops.stiff import batched_jacobian
@@ -558,9 +578,27 @@ HOST_ARGS = ("slices", "loss_data", "defaults", "lambdas", "grid")
 MESH_RANKS, MESH_POP = 2, 8192
 MESH_GA = dict(pop_size=512, n_gen=4, gens_per_block=2, seed=0, ftol=0.0, n_max_evals=None)
 MESH_F_RTOL, MESH_IDEAL_RTOL = 1e-6, 1e-3
-# the seconds phases 3h and 16 may take in the whole script (printed beside
-# their own; phase 16's ranks run beside phases 13-15)
-PHASE_BUDGET_S = {"3h": 50, "16": 40}
+# 3i: the scan kernel past w = 17 and N = 256 (its wide kernel): random
+# problems at these widths (N = 7) and member sizes (w = 6 and 22), and at
+# two more shapes, for the variants that stream E (w = 65, N = 257) and
+# that keep the state in device memory (w = 65, N = 4,096), in both
+# types; the objective unbucketed on 3h's networks and on the 300-protein
+# demo (N = 285, its CPU reference in a worker beside 3h's), at XWIDE_POP
+# (float32) and XWIDE_POP_F64 (float64)
+SCAN_WIDE_WIDTHS = (18, 22, 32, 33, 64, 65, 96, 97, 128, 129)
+SCAN_WIDE_PROTEINS = (257, 1024, 4096)
+SCAN_WIDE_MORE = ((65, 257), (65, 4096))
+# 3i's timing calls (kernel, plain, eager, graph): fewer than 3c's, to keep
+# the phase in its budget
+SCAN_WIDE_REPS = (3, 1, 1, 2)
+# (w, N, members, the NaN member): a member a block at w = 65, a member
+# over a cluster at N = 1,024
+SCAN_WIDE_NAN = ((65, 7, 40, 5), (6, 1024, 3, 1))
+REFERENCE_NETWORKS = {**XWIDE_NETWORKS,
+                      "demo300-N285": dict(n_proteins=300, n_kinases=24, seed=1)}
+# the seconds phases 3h, 3i and 16 may take in the whole script (printed
+# beside their own; phase 16's ranks run beside phases 13-15)
+PHASE_BUDGET_S = {"3h": 50, "3i": 45, "16": 40}
 # float64 on the card (3g): tables against their plain versions scaled as
 # the float64 kernels; the scan elementwise; an objective against the
 # port's float64 result on the CPU
@@ -1091,12 +1129,14 @@ def graph_of(fn):
     return graph.replay, out
 
 
-def check_and_time_scan(label, b, thetas, card, **kw) -> dict:
+def check_and_time_scan(label, b, thetas, card, reps=(10, 3, 3, 5), **kw) -> dict:
     """The scan of one chunk by three routes on the inputs the integrator
     assembles (``expo.ScanSetup``; ``kw``: its options): the kernel against
     the plain version and the eager scan (gated), then times in the order
     plain, kernel, kernel, plain, eager, eager replayed from a CUDA graph,
-    and the bound."""
+    and the bound; ``reps``: the calls each time is taken over (kernel,
+    plain, eager, graph)."""
+    k_reps, p_reps, e_reps, g_reps = reps
     params_b = unpack_params(thetas, b["slices"], b["topo"])
     scan = expo.ScanSetup(b["system"], params_b, b["grid"], **kw)
     args, plan, eager = scan.kernel_args(), scan.plan, scan.run_eager
@@ -1118,18 +1158,19 @@ def check_and_time_scan(label, b, thetas, card, **kw) -> dict:
         snapshots=T, max_abs_err=f"{max_abs:.3e}", max_scaled_err=f"{scaled:.3e}",
         kernel_vs_eager_scaled=f"{scaled_e:.3e}", rtol=rtol, atol=atol)
 
-    p1, k1, k2, p2 = (cuda_ms(run_p, 3), cuda_ms(run_k, 10), cuda_ms(run_k, 10),
-                      cuda_ms(run_p, 3))
-    eager_ms = cuda_ms(eager, 3)
+    p1, k1, k2, p2 = (cuda_ms(run_p, p_reps), cuda_ms(run_k, k_reps), cuda_ms(run_k, k_reps),
+                      cuda_ms(run_p, p_reps))
+    eager_ms = cuda_ms(eager, e_reps)
     replay, ys_g = graph_of(eager)
     replay()
     torch.cuda.synchronize()
     if not torch.equal(ys_g, ys_e):
         raise AssertionError(f"{label}: the CUDA graph's scan differs from the eager one")
-    graph_ms = cuda_ms(replay, 5)
+    graph_ms = cuda_ms(replay, g_reps)
     del replay, ys_g
     b = scan_bound(args, plan)
-    dev_ms = kernel_ms_on_device(run_k, "etd2rk_scan_kernel", 10)
+    dev_ms = kernel_ms_on_device(run_k, "etd2rk_scan_wide_kernel" if variant.startswith("wide")
+                                 else "etd2rk_scan_kernel", k_reps)
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
     say(f"{label} timing", variant=variant, ms=f"{ms:.4f}", device_ms=measured(dev_ms),
         plain_ms=f"{plain_ms:.4f}", eager_ms=f"{eager_ms:.4f}",
@@ -5350,13 +5391,13 @@ def phase_part3(card, b, b2, fits, references) -> dict:
 
 
 def xwide_cpu_job(name: str) -> tuple:
-    """3h's CPU side, in a spawned worker: the network ``name`` of
-    XWIDE_NETWORKS at float32 with its observations by RK45 on the CPU (as
-    every demo bundle's), as host data with theta0 and the bounds; its
+    """3h's and 3i's CPU side, in a spawned worker: the network ``name`` of
+    REFERENCE_NETWORKS at float32 with its observations by RK45 on the CPU
+    (as every demo bundle's), as host data with theta0 and the bounds; its
     XWIDE_POP members; and the port's float64 objective of the first 8 on
     the CPU."""
     torch.set_num_threads(1)
-    b = build_demo_network(**XWIDE_NETWORKS[name], dtype=torch.float32, device="cpu")
+    b = build_demo_network(**REFERENCE_NETWORKS[name], dtype=torch.float32, device="cpu")
     hb = {**host_bundle(b), **{k: b[k] for k in ("theta0", "xl", "xu")}}
     thetas = members(b["theta0"], XWIDE_POP)
     cpu = GlobalSystem(hb["topo"], hb["kin_grid"], hb["Kmat"], dtype=torch.float64,
@@ -5373,7 +5414,7 @@ def start_xwide_references(names=tuple(XWIDE_NETWORKS), refs=None):
         from concurrent.futures import ProcessPoolExecutor
         from multiprocessing import get_context
 
-        refs = (ProcessPoolExecutor(max_workers=len(XWIDE_NETWORKS),
+        refs = (ProcessPoolExecutor(max_workers=len(REFERENCE_NETWORKS),
                                     mp_context=get_context("spawn")), {})
     pool, futures = refs
     futures.update({name: pool.submit(xwide_cpu_job, name) for name in names})
@@ -5492,7 +5533,7 @@ def xwide_objective(label, args, thetas, F64, card, want) -> dict:
     return launches
 
 
-def phase_xwide_kernel(card, references) -> tuple[list, dict, dict]:
+def phase_xwide_kernel(card, references) -> tuple[list, dict, dict, dict]:
     """3h: the widest table kernel (18 <= w <= 129): first its ptxas report,
     no spill in either instance. On model 2 at 6 sites (classes 2, 3, 33,
     65) and at 7 (2, 3, 5, 129) and model 0 with a 20-site protein (w = 22), pop
@@ -5503,12 +5544,14 @@ def phase_xwide_kernel(card, references) -> tuple[list, dict, dict]:
     float32 and float64 (:func:`check_xwide`: against its plain version and
     a NaN lane on a lane subset; times, the FMA bound and share and
     ``matrix_exp`` on the whole class), and a float64 objective on the card.
-    Returns (its two entries, float32 paths, float64 paths)."""
+    Returns (its two entries, float32 paths, float64 paths, {name: every
+    started reference}, for 3i)."""
     t0 = time.perf_counter()
     xwide_ptxas()
     pool, futures = references
     try:
         out, paths32, paths64 = xwide_networks(card, futures)
+        refs = {name: f.result() for name, f in futures.items()}
     finally:
         pool.shutdown(cancel_futures=True)
     say("3h xwide", seconds=f"{time.perf_counter() - t0:.1f}", budget_s=PHASE_BUDGET_S["3h"],
@@ -5520,7 +5563,7 @@ def phase_xwide_kernel(card, references) -> tuple[list, dict, dict]:
                         "route": "cuda", "source": "phoskintime_tpu_torch/csrc/phi_tables_xwide.cu",
                         "replaces": "phoskintime_tpu/ops/phi_pallas.py:406", **by_w[65],
                         **{f"w{w}": by_w[w] for w in sorted(by_w) if w != 65}})
-    return entries, paths32, paths64
+    return entries, paths32, paths64, refs
 
 
 def xwide_networks(card, futures) -> tuple[dict, dict, dict]:
@@ -5557,6 +5600,165 @@ def xwide_networks(card, futures) -> tuple[dict, dict, dict]:
                     label = f"3h xwide {name} w={w} {str(dtype).split('.')[-1]}"
                     out[dtype][w] = check_xwide(label, L, binv, h_u, ladder, card)
                 del L
+    return out, paths32, paths64
+
+
+# --- 3i: the scan kernel past w = 17 and N = 256 ----------------------------------------
+
+
+def scan_wide_ptxas() -> None:
+    """The compiler's report of the wide scan kernel's six builds (three
+    variants, two types), kept beside ``csrc/etd2rk_scan.cu``'s library:
+    registers and spills of each; fails on a spill."""
+    log = cuda_build.library_path(SCAN_SOURCE).with_suffix(".log").read_text()
+    builds = {}
+    for part in log.split("Compiling entry function '")[1:]:
+        inst = re.search(r"etd2rk_scan_wide_kernelI([fd])Li(\d+)E", part.split("'")[0])
+        if inst:
+            regs = re.search(r"Used (\d+) registers", part)
+            spill = re.search(r"(\d+) bytes spill stores", part)
+            key = f"{'float64' if inst.group(1) == 'd' else 'float32'} {SCAN_VARIANTS[int(inst.group(2))]}"
+            builds[key] = (int(regs.group(1)) if regs else None,
+                           int(spill.group(1)) if spill else None)
+    say("3i ptxas", instances=len(builds),
+        builds={k: f"{r} registers, {sp} bytes spilled" for k, (r, sp) in builds.items()})
+    if len(builds) != 6 or any(sp is None or sp for _, sp in builds.values()):
+        raise AssertionError(f"3i: the wide scan kernel spills or was not reported: {builds}")
+
+
+def scan_wide_members(w: int, N: int) -> int:
+    """Members of a 3i random problem: several, but one at N = 4,096."""
+    return 16 if N == 7 else 8 if N < 1024 else 2 if N < 4096 else 1
+
+
+def scan_wide_random() -> None:
+    """3i's random problems: the kernel (one launch) against its plain
+    version at SCAN_WIDE_WIDTHS (N = 7), SCAN_WIDE_PROTEINS (w = 6 and 22)
+    and SCAN_WIDE_MORE, float32 and float64, each with its launch shape."""
+    cases = ([(w, 7) for w in SCAN_WIDE_WIDTHS]
+             + [(w, N) for w in (6, 22) for N in SCAN_WIDE_PROTEINS] + list(SCAN_WIDE_MORE))
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).split(".")[-1]
+        for w, N in cases:
+            P = scan_wide_members(w, N)
+            args, plan = random_scan_problem(w, N=N, P=P, seed=w + N, dtype=dtype, device="cuda")
+            shape = scan_launch_shape(w, N, dtype.itemsize)
+            before = etd2rk_scan.launches
+            got = etd2rk_scan(*args, plan)
+            want = etd2rk_scan_reference(*args, plan)
+            torch.cuda.synchronize()
+            if etd2rk_scan.launches != before + 1:
+                raise AssertionError(f"3i w={w} N={N} {dt}: not one launch")
+            max_abs, scaled = scan_close(f"3i scan w={w} N={N} {dt}", got, want)
+            say("3i scan shape", w=w, proteins=N, lanes=P * N, dtype=dt, variant=shape.variant,
+                group=shape.group, cluster=shape.cluster, members=shape.members,
+                threads=shape.threads, shared_bytes=shape.shared_bytes,
+                max_abs_err=f"{max_abs:.3e}", max_scaled_err=f"{scaled:.3e}")
+            del args, got, want
+
+
+def scan_wide_nan_members() -> None:
+    """3i's NaN members (SCAN_WIDE_NAN), both types: the member's snapshots
+    NaN, every other member's bit-identical."""
+    for w, N, P, member in SCAN_WIDE_NAN:
+        for dtype in (torch.float32, torch.float64):
+            args, plan = random_scan_problem(w, N=N, P=P, seed=w, dtype=dtype, device="cuda")
+            clean = etd2rk_scan(*args, plan)
+            A = args[5].clone()
+            A[N * member:N * (member + 1)] = float("nan")
+            dirty = etd2rk_scan(*args[:5], A, args[6], plan)
+            torch.cuda.synchronize()
+            keep = (torch.arange(N * P, device="cuda") // N) != member
+            same = torch.equal(clean[..., keep], dirty[..., keep])
+            nan = bool(torch.isnan(dirty[1:, 0, ~keep]).all())
+            shape = scan_launch_shape(w, N, dtype.itemsize)
+            say("3i nan member", w=w, proteins=N, members=P, dtype=str(dtype).split(".")[-1],
+                variant=shape.variant, cluster=shape.cluster, others_unchanged=same,
+                member_all_nan=nan)
+            if not (same and nan):
+                raise AssertionError(f"3i w={w} N={N}: a NaN member leaked or kept numbers")
+
+
+def scan_wide_objective(label, args, thetas, F64, card, want) -> dict:
+    """The objective unbucketed through the scan kernel: its launches
+    against ``want``, F against the same objective by the eager scan and,
+    on the first 8 members, against the CPU's float64 (PRECISION_GATE at
+    float32, F64_OBJECTIVE_RTOL at float64), evals/s."""
+    objective = make_population_objective(*args, width_bucketing=False, use_scan_kernel=True)
+    objective(thetas[:8])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    F = objective(thetas)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = counts()
+    Fe = make_population_objective(*args, width_bucketing=False)(thetas)
+    rel_e = float(torch.max(torch.abs(F - Fe) / torch.abs(Fe)))
+    F64 = torch.as_tensor(F64)
+    rel_c = float(torch.max(torch.abs(F[:8].cpu().double() - F64) / torch.abs(F64)))
+    tol = PRECISION_GATE if thetas.dtype == torch.float32 else F64_OBJECTIVE_RTOL
+    say(f"{label} objective", pop=len(thetas), launches=launches, predicted=want,
+        vs_eager_scan=f"{rel_e:.3e}", vs_f64_cpu=f"{rel_c:.3e}", tol=tol,
+        seconds=f"{sec:.3f}", evals_per_s=f"{len(thetas) / sec:.1f}", card=repr(card))
+    if tuple(F.shape) != (len(thetas), 3) or not bool(torch.isfinite(F).all()):
+        raise AssertionError(f"{label}: non-finite or misshapen objectives")
+    if launches != want:
+        raise AssertionError(f"{label}: kernel launches {launches}, predicted {want}")
+    if not (rel_e <= tol and rel_c <= tol):
+        raise AssertionError(f"{label}: {rel_e:.3e} from the eager scan, {rel_c:.3e} from "
+                             "the CPU's float64")
+    return launches
+
+
+def scan_wide_networks(card, refs) -> tuple[dict, dict, dict]:
+    """3i's objectives: each network of REFERENCE_NETWORKS unbucketed at
+    XWIDE_POP (float32) and XWIDE_POP_F64 (float64) through the scan kernel
+    (:func:`scan_wide_objective`: one ``etd2rk_scan`` and one table launch
+    a chunk), then the scan of all those members at once by
+    :func:`check_and_time_scan` (the kernel against the plain version and
+    the eager scan; times, bound). Returns ({dtype: {network: check}},
+    float32 paths, float64 paths)."""
+    out = {torch.float32: {}, torch.float64: {}}
+    paths32, paths64 = {}, {}
+    for name in REFERENCE_NETWORKS:
+        hb, thetas_np, F64 = refs[name]
+        topo = hb["topo"]
+        table = ("phi_tables" if topo.width <= 8 else
+                 "phi_tables_wide" if topo.width <= 17 else "phi_tables_xwide")
+        say("3i network", name=name, N=topo.N, w=topo.width,
+            shape32=scan_launch_shape(topo.width, topo.N, 4)._asdict(),
+            shape64=scan_launch_shape(topo.width, topo.N, 8)._asdict())
+        for dtype, pop in ((torch.float32, XWIDE_POP), (torch.float64, XWIDE_POP_F64)):
+            dt = str(dtype).split(".")[-1]
+            args = card_system(hb, dtype)
+            thetas = torch.as_tensor(thetas_np[:pop], dtype=dtype, device="cuda")
+            chunks = -(-pop // _auto_pop_chunk(topo.N))
+            want = expect(etd2rk_scan=chunks, **{table: chunks})
+            paths = paths32 if dtype == torch.float32 else paths64
+            paths[f"{name}-unbucketed-scan-{dt}-pop{pop}"] = scan_wide_objective(
+                f"3i {name} {dt}", args, thetas, F64, card, want)
+            b = {"system": args[0], "slices": hb["slices"], "topo": topo, "grid": hb["grid"]}
+            out[dtype][name] = check_and_time_scan(f"3i scan {name} {dt}", b, thetas, card,
+                                                   reps=SCAN_WIDE_REPS, width_bucketing=False)
+            del args, b, thetas
+            torch.cuda.empty_cache()
+    return out, paths32, paths64
+
+
+def phase_scan_wide(card, refs) -> tuple[dict, dict, dict]:
+    """3i: the scan kernel past w = 17 and N = 256. Its wide kernel's ptxas
+    report (no spill in any of six builds); random problems against the
+    plain version (:func:`scan_wide_random`); NaN members; then the
+    objective's shapes (:func:`scan_wide_networks`). Returns ({dtype:
+    {network: check}}, float32 paths, float64 paths)."""
+    t0 = time.perf_counter()
+    scan_wide_ptxas()
+    scan_wide_random()
+    scan_wide_nan_members()
+    out, paths32, paths64 = scan_wide_networks(card, refs)
+    say("3i scan wide", seconds=f"{time.perf_counter() - t0:.1f}",
+        budget_s=PHASE_BUDGET_S["3i"], card=repr(card))
     return out, paths32, paths64
 
 
@@ -5740,6 +5942,16 @@ def main() -> int:
         phase_xwide_kernel(card, start_xwide_references())
         say("done", seconds=f"{time.perf_counter() - T_START:.1f}", card=repr(card))
         return 0
+    if "--scan-wide-only" in sys.argv[1:]:
+        refs = start_xwide_references(tuple(REFERENCE_NETWORKS))
+        try:
+            phase_build()
+            got = {name: f.result() for name, f in refs[1].items()}
+        finally:
+            refs[0].shutdown(cancel_futures=True)
+        phase_scan_wide(card, got)
+        say("done", seconds=f"{time.perf_counter() - T_START:.1f}", card=repr(card))
+        return 0
     if "--mesh-only" in sys.argv[1:]:
         phase_build()
         b = build_demo_network(N_PROTEINS, N_KINASES, seed=0, dtype=torch.float32,
@@ -5764,7 +5976,7 @@ def main() -> int:
             say("setup", model=topo.model, N=topo.N, K=topo.K, w=topo.width,
                 n_theta=len(bb["theta0"]), T=len(bb["grid"]))
         say("setup", seconds=f"{time.perf_counter() - t0:.2f}")
-        start_xwide_references(("model2-6sites", "model0-20sites"), xwide_refs)
+        start_xwide_references(("model2-6sites", "model0-20sites", "demo300-N285"), xwide_refs)
         return run_all_phases(card, probe, probe_paths, b, b1, b2, thetas, thetas1, thetas2,
                               xwide_refs)
     except BaseException:
@@ -5774,22 +5986,29 @@ def main() -> int:
 
 def run_all_phases(card, probe, probe_paths, b, b1, b2, thetas, thetas1, thetas2,
                    xwide_refs) -> int:
-    """Every phase after the setup, in order (3h's references building in
-    their workers since the start or the setup; 4d's float64 CPU run in its
-    own since the end of 3h)."""
+    """Every phase after the setup, in order (3h's and 3i's references
+    building in their workers since the start or the setup; 4d's float64
+    CPU run in its own since the end of 3h)."""
     kernel = phase_kernel(b, thetas, card)
     wide = phase_wide_kernel(b2, thetas2, card)
     scan = phase_scan_kernel(b, thetas, b2, thetas2, card)
     flux = phase_flux_kernel(card)
     thomas = phase_thomas_kernel(card)
     f64_entries, paths64 = phase_float64(b, thetas, b2, thetas2, card)
-    (xwide, xwide64), xpaths, xpaths64 = phase_xwide_kernel(card, xwide_refs)
+    (xwide, xwide64), xpaths, xpaths64, refs = phase_xwide_kernel(card, xwide_refs)
     cpu_ref = start_cpu_reference(b2, thetas2)
     pools = [cpu_ref[0]]
     try:
+        scan_wide, spaths32, spaths64 = phase_scan_wide(card, refs)
+        scan["wide"] = scan_wide[torch.float32]
+        scan64, = (e for e in f64_entries if e["name"] == "etd2rk_scan_f64")
+        scan64["wide"] = scan_wide[torch.float64]
+        for group_paths, wide_paths in ((xpaths, spaths32), (xpaths64, spaths64),
+                                        (paths64, spaths64)):
+            group_paths.update(wide_paths)
         paths = {"model0-pop8192": phase_main_path(b, thetas, card),
                  "model2-pop2048": phase_main_path_model2(b2, thetas2, card),
-                 **phase_scan_paths(b, thetas, b2, thetas2, card)}
+                 **phase_scan_paths(b, thetas, b2, thetas2, card), **spaths32}
         rk45_paths, F_rk45 = phase_rk45_path(b2, thetas2, card)
         paths.update(rk45_paths)
         pool, futures = start_rk45_workers(b, b1, b2, thetas, thetas1, thetas2)

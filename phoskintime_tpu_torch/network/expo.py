@@ -428,8 +428,9 @@ def exponential_simulate_batched(system, params_b: dict, t_eval,
     False: the plain versions). ``width_bucketing`` picks the model-2 layout
     (see :func:`width_classes`). ``use_scan_kernel``: None (the default, as
     in the JAX package) or False runs the eager scan; True runs the whole
-    unbucketed scan as one :func:`etd2rk_scan`. The width-bucketed model-2
-    path ignores it.
+    unbucketed scan as one :func:`etd2rk_scan`, on the card at every width
+    the tables take (2 <= w <= 129) and up to 6,144 proteins. The
+    width-bucketed model-2 path ignores it.
 
     Model 4 takes the exponential-Rosenbrock path
     (:func:`_rosenbrock_simulate_batched`) before any table or layout

@@ -11,7 +11,11 @@ Counterpart of ``phoskintime_tpu/ops/scan_pallas.py``:
   ``etd2rk_scan_pallas``; an entry for each type) in the variant
   :func:`scan_launch_shape` picks by (w, N, type), and adds one
   to ``etd2rk_scan.launches``; on a CPU tensor, or with
-  ``use_kernel=False``, it runs the plain version.
+  ``use_kernel=False``, it runs the plain version. The kernel takes every
+  width of the table kernels, 2 <= w <= 129, and members of up to 6,144
+  proteins (a cluster of 8 blocks; 8,192 where the state fits shared
+  memory): the template kernel up to w = 17 and N = 256, the wide kernel
+  past them.
 * :func:`etd2rk_scan_reference` — the plain PyTorch version, segment by
   segment.
 
@@ -19,7 +23,9 @@ The lane layout is the eager scan's (``network/expo.py::_full_scan``):
 member-major, protein-minor lanes, B = P * N, no padding. The Pallas
 kernel pads proteins to a multiple of 8 and turns the TF matvec into lane
 rotations over cyclic diagonals (``tf_diagonals``); both are TPU layout
-devices with no use here, and so are its VMEM budget and diagonal cap.
+devices with no use here, and so are its VMEM budget and diagonal cap
+(past which the JAX package falls back to its XLA scan; the port's kernel
+takes those shapes).
 """
 
 from __future__ import annotations
@@ -32,11 +38,15 @@ import torch
 
 from phoskintime_tpu_torch.network.rhs import synthesis_rate
 from phoskintime_tpu_torch.ops.cuda_build import CSRC, MAX_SHARED_BYTES, entry
+from phoskintime_tpu_torch.ops.phi_tables import _MAX_XWIDE_WIDTH
 
 SOURCE = CSRC / "etd2rk_scan.cu"
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_MIN_WIDTH, _MAX_WIDTH = 2, 17      # the widths of the two table kernels
-_MAX_PROTEINS = 256                 # one member's lanes fit one thread block
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+# the widths of the table kernels (csrc/phi_tables_xwide.cu's widest)
+_MIN_WIDTH, _MAX_WIDTH = 2, _MAX_XWIDE_WIDTH
+# the template kernel's domain: w compiled in, one member a block of at
+# most 256 threads; the wide kernel takes every other shape
+_TEMPLATE_MAX_WIDTH, _TEMPLATE_MAX_PROTEINS = 17, 256
 # E's w^2 entries in a thread's registers, by element size: float64 takes
 # two registers a word
 _MAX_REGISTER_WIDTH = {4: 8, 8: 6}
@@ -44,12 +54,25 @@ _ENTRY = {torch.float32: "etd2rk_scan_f32", torch.float64: "etd2rk_scan_f64"}
 # lanes per thread block, in whole members: the fastest of 64-1024 at the
 # bench chunk on the H100 (PERF.md)
 _BLOCK_LANES = 128
-# csrc/etd2rk_scan.cu's variants, by where a run's E rows stay
-VARIANTS = ("registers", "shared", "stream")
+# the wide kernel: threads a block at most by variant (its launch bounds:
+# the wide-global build stops at 768 threads, 80 registers, where it spills
+# at 64 in float64) and the threads a block holds where several members fit;
+# blocks a member at most (the portable cluster size)
+_WIDE_MAX_THREADS = {"wide-shared": 1024, "wide-stream": 1024, "wide-global": 768}
+_WIDE_THREADS, _MAX_CLUSTER = 256, 8
+# csrc/etd2rk_scan.cu's variants, by where a run's E rows stay: the
+# template kernel's three, then the wide kernel's (E and the state in
+# shared memory; E streamed, the state in shared memory; both in device
+# memory)
+VARIANTS = ("registers", "shared", "stream", "wide-shared", "wide-stream", "wide-global")
+_WIDE_VARIANTS = VARIANTS[3:]
 
-_NOT_COVERED = ("the etd2rk_scan kernel takes float32 or float64 with 2 <= w <= 17 "
-                "and at most 256 proteins; got {} at w = {}, N = {} (ROADMAP.md "
-                "queue 2, kernel 2b: 'etd2rk_scan beyond w = 17 or N = 256')")
+_NOT_COVERED = ("the etd2rk_scan kernel takes float32 or float64 with 2 <= w <= {} and "
+                "N >= 1 proteins; got {} at w = {}, N = {} (wider blocks, model 2 at Smax "
+                ">= 8, are ROADMAP.md queue 2, kernel 1b: 'phi_tables_wide above w = 129')")
+_TOO_MANY = ("the etd2rk_scan kernel holds a member of up to 6,144 proteins (8,192 where "
+             "its state fits shared memory) over a cluster of 8 blocks; got N = {} at "
+             "w = {} in {}")
 
 
 class ScanPlan(NamedTuple):
@@ -92,26 +115,115 @@ def scan_runs(uidx, jb) -> np.ndarray:
 class ScanShape(NamedTuple):
     """The launch shape of ``csrc/etd2rk_scan.cu`` for one (w, N)."""
     variant: str            # where a run's E rows stay: one of VARIANTS
-    members: int            # whole members a thread block
-    threads: int            # threads a block: the members' lanes, in whole warps
+    members: int            # whole members a thread block (1 where a member spans a cluster)
+    threads: int            # threads a block, in whole warps
     shared_bytes: int       # dynamic shared memory a block
+    lanes: int              # lanes a block (a cluster's block: its share of a member)
+    group: int = 1          # threads a lane (the wide kernel)
+    cluster: int = 1        # blocks a member (the wide kernel)
+
+
+def wide_layout(w: int, group: int) -> tuple[int, int, int]:
+    """The wide kernel's shared layout in words, (e_row, e_lane, y_lane): a
+    lane's E rows e_row apart (w rounded up to odd) and lanes e_lane apart,
+    so that the 32 threads of a warp, at thread (g, lq) the row g of lane
+    lq, read 32 banks (e_lane = group * e_row mod 32; odd for one thread a
+    lane); a lane's y and a y_lane (odd) apart."""
+    e_row = w | 1
+    e_lane = w * e_row
+    step = e_row * group % 32 if group > 1 else 1
+    mod = 32 if group > 1 else 2
+    e_lane += (step - e_lane) % mod
+    return e_row, e_lane, w | 1
+
+
+def _wide_lane_bytes(variant: str, w: int, group: int, itemsize: int) -> int:
+    """Shared bytes a lane of the wide kernel: the two Pv buffers, the
+    amplitude, TF scale and TF normaliser, the TF row's two int bounds;
+    y, a, the run's p1 and p2h rows and the totals' weights, y_lane words
+    each (not in wide-global); the run's E rows (in wide-shared)."""
+    e_row, e_lane, y_lane = wide_layout(w, group)
+    words = 5 + (5 * y_lane if variant != "wide-global" else 0) + (
+        e_lane if variant == "wide-shared" else 0)
+    return itemsize * words + 8
+
+
+def _wide_group(w: int, itemsize: int, streamed: bool) -> int:
+    """Threads a lane: about four rows a thread, a warp at most; where E is
+    streamed, at most ``itemsize`` so that a warp reads whole 32-byte
+    sectors (32 / group lanes of each row)."""
+    group = 1
+    while group < 32 and 4 * group < w:
+        group *= 2
+    return min(group, itemsize) if streamed else group
+
+
+def _wide_shape(w: int, N: int, itemsize: int) -> ScanShape | None:
+    """The wide kernel's shape: the first variant of _WIDE_VARIANTS whose
+    lanes fit a block's shared memory and threads, a member in one block
+    (with the whole members that fit _WIDE_THREADS threads) or over the
+    fewest blocks of a cluster that hold it; the threads a lane halved
+    where a block's lanes would take more threads than the variant's bound.
+    None where nothing fits (past N = 6,144, or 8,192 where the state fits
+    shared memory)."""
+    for variant in _WIDE_VARIANTS:
+        max_threads = _WIDE_MAX_THREADS[variant]
+        group0 = _wide_group(w, itemsize, variant != "wide-shared")
+        for split in range(1, _MAX_CLUSTER + 1):
+            lanes = -(-N // split)
+            cluster = -(-N // lanes)
+            group = group0
+            while group > 1 and -(-lanes * group // 32) * 32 > max_threads:
+                group //= 2
+            threads = -(-lanes * group // 32) * 32
+            lane_bytes = _wide_lane_bytes(variant, w, group, itemsize)
+            if threads > max_threads or lanes * lane_bytes > MAX_SHARED_BYTES:
+                continue
+            members = 1
+            if cluster == 1:
+                members = max(1, min(_WIDE_THREADS // (N * group),
+                                     MAX_SHARED_BYTES // (N * lane_bytes),
+                                     max_threads // (-(-N * group // 32) * 32)))
+                lanes = members * N
+                threads = -(-lanes * group // 32) * 32
+            return ScanShape(variant, members, threads, lanes * lane_bytes, lanes, group, cluster)
+    return None
 
 
 def scan_launch_shape(w: int, N: int, itemsize: int = 4) -> ScanShape:
     """The scan kernel's variant and block for width ``w``, ``N`` proteins
     a member and elements of ``itemsize`` bytes (4 or 8), by (w, N,
-    itemsize) alone. Small blocks (w <= 8 in float32, w <= 6 in float64)
-    keep a run's E rows in registers; wider ones keep them in shared
-    memory, itemsize (w^2 + 2) bytes a lane with the totals' two buffers
-    (one word more at even w, whose rows are padded to an odd stride),
-    while one member's fit the block's 232,448 bytes (in float32: w <= 15
-    always, w = 16 up to N = 224, w = 17 up to N = 199; in float64 about
-    half those N), and past that stream them from memory at every segment.
-    A block holds the whole members that fit ``_BLOCK_LANES`` lanes (at
-    least one) and its shared memory. Raises NotImplementedError outside
-    the kernel's domain."""
-    if not (_MIN_WIDTH <= w <= _MAX_WIDTH and 1 <= N <= _MAX_PROTEINS):
-        raise NotImplementedError(_NOT_COVERED.format("a shape", w, N))
+    itemsize) alone.
+
+    Up to w = 17 and N = 256 the template kernel (w compiled in, a thread a
+    lane, whole members a block): small blocks (w <= 8 in float32, w <= 6
+    in float64) keep a run's E rows in registers; wider ones keep them in
+    shared memory, itemsize (w^2 + 2) bytes a lane with the totals' two
+    buffers (one word more at even w, whose rows are padded to an odd
+    stride), while one member's fit the block's 232,448 bytes (in float32:
+    w <= 15 always, w = 16 up to N = 224, w = 17 up to N = 199; in float64
+    about half those N), and past that stream them from memory at every
+    segment. A block holds the whole members that fit ``_BLOCK_LANES``
+    lanes (at least one) and its shared memory.
+
+    Past that the wide kernel (:func:`_wide_shape`): w at run time up to
+    129, ``group`` threads a lane, a member in one block or over a cluster
+    of up to 8 whose blocks read each other's totals; a run's E rows and
+    the state in shared memory where they fit (wide-shared), else E
+    streamed (wide-stream), else the state in device memory too
+    (wide-global), up to N = 6,144 (8,192 where the state fits shared
+    memory). Raises NotImplementedError outside the kernel's domain."""
+    if not (_MIN_WIDTH <= w <= _MAX_WIDTH and N >= 1 and itemsize in (4, 8)):
+        raise NotImplementedError(_NOT_COVERED.format(_MAX_WIDTH, f"{itemsize}-byte items", w, N))
+    if w <= _TEMPLATE_MAX_WIDTH and N <= _TEMPLATE_MAX_PROTEINS:
+        return _template_shape(w, N, itemsize)
+    shape = _wide_shape(w, N, itemsize)
+    if shape is None:
+        raise NotImplementedError(_TOO_MANY.format(N, w, f"{itemsize}-byte items"))
+    return shape
+
+
+def _template_shape(w: int, N: int, itemsize: int) -> ScanShape:
     lane_bytes = itemsize * 2                              # the totals' buffers
     shared_lane = itemsize * (w * w + (w + 1) % 2 + 2)
     if w <= _MAX_REGISTER_WIDTH[itemsize]:
@@ -122,7 +234,7 @@ def scan_launch_shape(w: int, N: int, itemsize: int = 4) -> ScanShape:
         variant = "stream"
     members = max(1, min(_BLOCK_LANES // N, MAX_SHARED_BYTES // (N * lane_bytes)))
     return ScanShape(variant, members, -(-members * N // 32) * 32,
-                     members * N * lane_bytes)
+                     members * N * lane_bytes, members * N)
 
 
 def prepare_scan_plan(rhs, seg_jb, seg_uidx, u_h, out_idx, T):
@@ -248,7 +360,8 @@ def _copy_shared_ends(ys, plan: ScanPlan):
 
 
 def _launch(E, p1, p2h, y0, drv, A, ts, plan: ScanPlan, shape: ScanShape):
-    """Allocate the snapshots and launch the kernel on E's device and stream."""
+    """Allocate the snapshots (and the wide-global variant's state) and
+    launch the kernel on E's device and stream."""
     tensors = (E, p1, p2h, y0, drv, A, ts)
     isz = E.element_size()
     if not all(x.is_contiguous() for x in tensors):
@@ -272,15 +385,19 @@ def _launch(E, p1, p2h, y0, drv, A, ts, plan: ScanPlan, shape: ScanShape):
                              .astype(np.float32 if isz == 4 else np.float64)).to(dev)
     ip = [i_dev.data_ptr() + 4 * int(o) for o in i_off[:-1]]
     fp = [f_dev.data_ptr() + isz * int(o) for o in f_off[:-1]]
+    state = (torch.empty((2, w, B), dtype=E.dtype, device=dev)
+             if shape.variant == "wide-global" else None)
     ptrs = [x.data_ptr() for x in tensors] + [
-        fp[0], ip[0], ip[1], ip[2], fp[1], fp[2], ip[3], ip[4], ip[5]]
+        fp[0], ip[0], ip[1], ip[2], fp[1], fp[2], ip[3], ip[4], ip[5],
+        0 if state is None else state.data_ptr()]
     ys = torch.empty((plan.T, w, B), dtype=E.dtype, device=dev)
+    e_row, e_lane, y_lane = wide_layout(w, shape.group)
     fn, err = entry(SOURCE, _ENTRY[E.dtype], _ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs), ys.data_ptr(), w,
                 VARIANTS.index(shape.variant), shape.members, len(plan.init_slots),
-                len(plan.runs), plan.N, B // plan.N,
-                torch.cuda.current_stream(dev).cuda_stream)
+                len(plan.runs), plan.N, B // plan.N, shape.lanes, shape.group, shape.cluster,
+                e_lane, e_row, y_lane, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("etd2rk_scan kernel launch failed: " + err(rc).decode())
     return ys
@@ -302,7 +419,9 @@ def etd2rk_scan(E, p1, p2h, y0, drv, A, ts, plan: ScanPlan, *,
       plan: :func:`prepare_scan_plan`.
       use_kernel: None routes by device (the kernel on CUDA, the plain
         version on the CPU); False forces the plain version (comparisons).
-    Returns ys (T, w, B), the state at each t_eval point.
+    Returns ys (T, w, B), the state at each t_eval point. On a CUDA tensor
+    the kernel takes float32 and float64 at 2 <= w <= 129 and N <= 6,144
+    (:func:`scan_launch_shape`) and raises NotImplementedError past them.
     """
     _check(E, p1, p2h, y0, drv, A, ts, plan)
     if use_kernel is None:
@@ -311,12 +430,10 @@ def etd2rk_scan(E, p1, p2h, y0, drv, A, ts, plan: ScanPlan, *,
         return etd2rk_scan_reference(E, p1, p2h, y0, drv, A, ts, plan)
     if not E.is_cuda:
         raise ValueError("use_kernel=True needs a CUDA tensor")
-    w = E.shape[1]
-    if (E.dtype not in _ENTRY or not _MIN_WIDTH <= w <= _MAX_WIDTH
-            or plan.N > _MAX_PROTEINS):
-        raise NotImplementedError(_NOT_COVERED.format(E.dtype, w, plan.N))
+    if E.dtype not in _ENTRY:
+        raise NotImplementedError(_NOT_COVERED.format(_MAX_WIDTH, E.dtype, E.shape[1], plan.N))
     ys = _launch(E, p1, p2h, y0, drv, A, ts, plan,
-                 scan_launch_shape(w, plan.N, E.element_size()))
+                 scan_launch_shape(E.shape[1], plan.N, E.element_size()))
     etd2rk_scan.launches += 1
     return _copy_shared_ends(ys, plan)
 

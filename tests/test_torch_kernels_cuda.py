@@ -470,20 +470,137 @@ def test_scan_driven_override_is_a_select(cuda_device):
 
 @pytest.mark.parametrize("bad, err", [
     ("float16", NotImplementedError),
-    ("w18", NotImplementedError),
-    ("proteins", NotImplementedError),
+    ("w130", NotImplementedError),
     ("strided", ValueError),
 ])
 def test_scan_kernel_rejects(cuda_device, bad, err):
-    w, N = (18 if bad == "w18" else 4), (257 if bad == "proteins" else 5)
-    args, plan = random_scan_problem(w, N=N, P=2, S=8)      # built on the CPU
+    """float16, and w = 130 (past the widest tables: the message names
+    kernel 1b), raise NotImplementedError; a strided tensor ValueError."""
+    w = 130 if bad == "w130" else 4
+    args, plan = random_scan_problem(w, N=5, P=2, S=8)      # built on the CPU
     args = [x.to(cuda_device) for x in args]
     if bad == "float16":
         args = [x.half() for x in args]
     if bad == "strided":
         args[0] = args[0].transpose(1, 2)
-    with pytest.raises(err):
+    with pytest.raises(err, match="kernel 1b" if bad == "w130" else ""):
         etd2rk_scan(*args, plan)
+
+
+# the wide kernel's shapes: widths past 17 (a member in a block, or over a
+# cluster of up to 7 at w = 129), members past 256 proteins (over clusters,
+# E streamed, the state in device memory at w = 129), each in both types
+WIDE_SCAN_CASES = [(18, 7), (22, 7), (33, 7), (65, 7), (96, 7), (97, 7), (128, 7), (129, 7),
+                   (6, 257), (6, 1024), (6, 4096), (22, 257), (22, 1024), (22, 4096),
+                   (65, 257), (129, 1024), (129, 4096)]
+SCAN_TOLS = {torch.float32: (SCAN_RTOL, SCAN_ATOL), torch.float64: (1e-10, 1e-12)}
+
+
+def wide_members(w, N):
+    """Members of a wide-kernel test problem: several, but at most ~8,000
+    lanes at the widest blocks."""
+    return 40 if N == 7 else 8 if N < 1024 else 2 if w <= 22 else 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("w, N", WIDE_SCAN_CASES)
+def test_wide_scan_kernel_matches_plain(cuda_device, w, N, dtype):
+    """The wide kernel (w >= 18 or N > 256) in each of its variants against
+    the plain version: one launch, no NotImplementedError."""
+    shape = scan_launch_shape(w, N, dtype.itemsize)
+    assert shape.variant.startswith("wide")
+    args, plan = random_scan_problem(w, N=N, P=wide_members(w, N), seed=w + N, dtype=dtype,
+                                     device=cuda_device)
+    before = etd2rk_scan.launches
+    got = etd2rk_scan(*args, plan)
+    torch.cuda.synchronize()
+    assert etd2rk_scan.launches == before + 1 and got.dtype == dtype
+    rtol, atol = SCAN_TOLS[dtype]
+    torch.testing.assert_close(got, etd2rk_scan_reference(*args, plan), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("w, N, dtype, variant, cluster", [
+    (32, 369, torch.float32, "wide-shared", 8), (56, 1585, torch.float32, "wide-stream", 8),
+    (5, 3177, torch.float64, "wide-shared", 8), (114, 393, torch.float64, "wide-stream", 8),
+    (22, 3836, torch.float32, "wide-global", 5), (10, 4093, torch.float64, "wide-global", 6)])
+def test_wide_scan_kernel_at_its_limits(cuda_device, w, N, dtype, variant, cluster):
+    """The wide kernel's largest launches up to N = 4,096: clusters of 8
+    blocks of ~227 KB of shared memory each (up to 800 threads), and the
+    wide-global variant's widest clusters at 704-768 threads; each
+    schedules and agrees with the plain version."""
+    shape = scan_launch_shape(w, N, dtype.itemsize)
+    assert (shape.variant, shape.cluster) == (variant, cluster)
+    assert variant == "wide-global" or shape.shared_bytes > 220_000
+    args, plan = random_scan_problem(w, N=N, P=2, S=12, seed=w, dtype=dtype, device=cuda_device)
+    got = etd2rk_scan(*args, plan)
+    torch.cuda.synchronize()
+    rtol, atol = SCAN_TOLS[dtype]
+    torch.testing.assert_close(got, etd2rk_scan_reference(*args, plan), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("w, N, P, member", [(65, 7, 40, 5), (6, 1024, 3, 1)])
+def test_wide_scan_nan_member_stays_in_its_lanes(cuda_device, w, N, P, member, dtype):
+    """A NaN member of the wide kernel (w = 65: a member a block, or a
+    cluster of two in float64; N = 1,024: a member over a cluster) leaves
+    every other member's snapshots bit-identical."""
+    args, plan = random_scan_problem(w, N=N, P=P, seed=w, dtype=dtype, device=cuda_device)
+    clean = etd2rk_scan(*args, plan)
+    A = args[5].clone()
+    A[N * member:N * (member + 1)] = float("nan")
+    dirty = etd2rk_scan(*args[:5], A, args[6], plan)
+    torch.cuda.synchronize()
+    keep = (torch.arange(N * P, device=cuda_device) // N) != member
+    assert torch.equal(clean[..., keep], dirty[..., keep])
+    assert bool(torch.isnan(dirty[1:, 0, ~keep]).all())
+
+
+@pytest.mark.parametrize("w, N", [(22, 7), (6, 300)])
+def test_wide_scan_driven_override_is_a_select(cuda_device, w, N):
+    """In the wide kernel too, a non-finite kinase-driven protein reaches
+    none of its member's other proteins (at N = 300 across a block)."""
+    args, plan = random_scan_problem(w, N=N, P=6, seed=w, device=cuda_device)
+    clean = etd2rk_scan(*args, plan)
+    y0 = args[3].clone()
+    y0[1:, N * 4] = float("inf")                       # member 4, protein 0
+    dirty = etd2rk_scan(*args[:3], y0, *args[4:], plan)
+    torch.cuda.synchronize()
+    keep = torch.arange(N * 6, device=cuda_device) != N * 4
+    assert torch.equal(clean[..., keep], dirty[..., keep])
+
+
+@pytest.mark.parametrize("w", [22, 65])
+def test_wide_scan_pairs_out_of_order(cuda_device, w):
+    """The wide kernel reloads each run's rows at its first segment."""
+    args, plan = random_scan_problem(w, N=7, P=20, S=24, seed=w, device=cuda_device)
+    uidx = np.asarray([2, 2, 0, 1, 1, 1, 0, 2, 2, 2, 2, 2, 2, 1, 0, 0, 1, 2, 0, 0, 0, 1, 1, 2],
+                      np.int32)
+    jb = np.asarray([0, 1, 1])[uidx].astype(np.int32)
+    plan = plan._replace(uidx=uidx, jb=jb, runs=scan_runs(uidx, jb))
+    got = etd2rk_scan(*args, plan)
+    torch.testing.assert_close(got, etd2rk_scan_reference(*args, plan),
+                               rtol=SCAN_RTOL, atol=SCAN_ATOL)
+
+
+@pytest.mark.parametrize("model, kw", [(0, dict(max_sites=20)), (0, dict(n_proteins=300))])
+def test_objective_goes_through_the_wide_scan_kernel(cuda_device, model, kw):
+    """The objective unbucketed past w = 17 (a 20-site protein: w = 22) and
+    past N = 256: one scan launch a chunk, F against the eager scan."""
+    b = build_demo_network(**{"n_proteins": 5, "n_kinases": 3, "seed": 5, **kw}, model=model,
+                           dtype=torch.float32, device=cuda_device)
+    assert b["topo"].width > 17 or b["topo"].N > 256
+    args = (b["system"], b["slices"], b["loss_data"], b["defaults"],
+            b["lambdas"], b["grid"])
+    rng = np.random.default_rng(0)
+    thetas = b["theta0"][None] + 0.05 * rng.normal(size=(5, len(b["theta0"])))
+    etd2rk_scan.launches = 0
+    F = make_population_objective(*args, pop_chunk=2, use_scan_kernel=True,
+                                  width_bucketing=False)(thetas)
+    torch.cuda.synchronize()
+    assert etd2rk_scan.launches == 3                 # one per chunk
+    Fe = make_population_objective(*args, pop_chunk=2, width_bucketing=False)(thetas)
+    assert F.shape == (5, 3) and bool(torch.isfinite(F).all())
+    assert float(torch.max(torch.abs(F - Fe) / torch.abs(Fe))) <= 1e-3
 
 
 @pytest.mark.parametrize("model", [0, 2])

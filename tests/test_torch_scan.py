@@ -40,7 +40,7 @@ from phoskintime_tpu_torch.ops.cuda_build import MAX_SHARED_BYTES
 from phoskintime_tpu_torch.ops.scan_kernel import (VARIANTS, etd2rk_scan,
                                                    etd2rk_scan_reference, prepare_scan_plan,
                                                    random_scan_problem, scan_launch_shape,
-                                                   scan_runs)
+                                                   scan_runs, wide_layout)
 
 torch.set_num_threads(2)
 
@@ -181,21 +181,46 @@ def test_simulate_with_scan_kernel_matches_jax(small, scan_calls):
     np.testing.assert_allclose(got.numpy(), eager.numpy(), rtol=RTOL_RUN, atol=1e-14)
 
 
-@pytest.mark.parametrize("model", [0, 2], ids=["model0", "model2"])
-def test_objective_with_scan_kernel_matches_jax(model, scan_calls):
-    """pop 5 in chunks of 2 on the demo network (N = 8, w = 6 or 17,
-    unbucketed; tf_deg in {1, 2}), against JAX's objective by its
-    interpret-mode kernel and by its XLA scan."""
-    bj = jax_demo(n_proteins=6, n_kinases=4, model=model, seed=0, dtype=np.float64)
+# The objective's networks: the demo at N = 8 (w = 6 or 17), and the shapes
+# past the template kernel's domain that the wide kernel takes on the card:
+# chip_smoke.py's phase-3h networks run unbucketed (model 0 with a 20-site
+# protein, w = 22; model 2 at 6 and 7 sites, w = 65 and 129) and the
+# 300-protein demo (N = 285). build_demo_network's arguments, pop, and the
+# (w, N) each must give.
+SCAN_NETWORKS = {
+    "model0": (dict(n_proteins=6, n_kinases=4, model=0, seed=0), 5, (6, 8)),
+    "model2": (dict(n_proteins=6, n_kinases=4, model=2, seed=0), 5, (17, 8)),
+    "model0-20sites": (dict(n_proteins=5, n_kinases=3, max_sites=20, model=0, seed=5), 3,
+                       (22, 6)),
+    "model2-6sites": (dict(n_proteins=6, n_kinases=3, max_sites=6, model=2, seed=0), 3,
+                      (65, 6)),
+    "model2-7sites": (dict(n_proteins=6, n_kinases=3, max_sites=7, model=2, seed=20), 3,
+                      (129, 7)),
+    "N285": (dict(n_proteins=300, n_kinases=24, model=0, seed=1), 3, (6, 285)),
+}
+
+
+@pytest.mark.parametrize("name", list(SCAN_NETWORKS))
+def test_objective_with_scan_kernel_matches_jax(name, scan_calls):
+    """pop 3-5 in chunks of 2, unbucketed (tf_deg in {1, 2}), against JAX's
+    objective by its interpret-mode kernel (or, where its VMEM budget
+    refuses the tile, its fallback) and by its XLA scan; one
+    ``etd2rk_scan`` a chunk."""
+    kw, pop, (w, N) = SCAN_NETWORKS[name]
+    bj = jax_demo(**kw, dtype=np.float64)
     bt = from_reference({k: bj[k] for k in KEYS}, device="cpu")
-    assert_f32_exact(plans(bj["system"], bt["system"], bj["grid"])[0])
+    assert (bt["system"].topo.width, bt["system"].topo.N) == (w, N)
+    mega = plans(bj["system"], bt["system"], bj["grid"])[0]
+    if mega is not None:                               # None: JAX runs its XLA scan
+        assert_f32_exact(mega)
     rng = np.random.default_rng(2)
-    thetas = bj["theta0"][None] + 0.05 * rng.normal(size=(5, len(bj["theta0"])))
+    thetas = bj["theta0"][None] + 0.05 * rng.normal(size=(pop, len(bj["theta0"])))
     f_t = make_population_objective(*(bt[k] for k in KEYS), pop_chunk=2,
                                     width_bucketing=False, use_scan_kernel=True)
     got = f_t(thetas)
-    assert len(scan_calls) == 3                        # one per chunk
-    assert got.shape == (5, 3) and bool(torch.isfinite(got).all())
+    assert len(scan_calls) == -(-pop // 2)             # one per chunk
+    assert all(plan.N == N for plan in scan_calls)
+    assert got.shape == (pop, 3) and bool(torch.isfinite(got).all())
     for scan_kernel in (True, False):
         f_j = jax_objective(*(bj[k] for k in KEYS), use_pallas=False, pop_chunk=2,
                             width_bucketing=False, use_scan_kernel=scan_kernel)
@@ -349,16 +374,84 @@ def test_stale_runs_are_refused():
                                   [[0, 2, 1, 0], [2, 1, 1, 1], [3, 1, 0, 1]])
 
 
-@pytest.mark.parametrize("w", range(2, 18))
+# widths past the template kernel's, each side of a power of two and the
+# widest tables'
+WIDE_WIDTHS = [18, 22, 32, 33, 64, 65, 96, 97, 128, 129]
+WIDE_PROTEINS = [1, 2, 6, 7, 45, 199, 256, 257, 285, 511, 1024, 2048, 4095, 4096, 6144]
+
+
+def fits(variant, w, lanes, itemsize):
+    """Whether a block of the wide kernel's ``variant`` holds ``lanes``
+    lanes: threads a lane from about four rows a thread (a sector's worth
+    of lanes a warp where E is streamed), halved while the block would
+    take more threads than the variant's bound (768 for wide-global, else
+    1,024), and the lanes' shared words."""
+    g = 1
+    while g < 32 and 4 * g < w:
+        g *= 2
+    if variant != "wide-shared":
+        g = min(g, itemsize)
+    most = 768 if variant == "wide-global" else 1024
+    while g > 1 and -(-lanes * g // 32) * 32 > most:
+        g //= 2
+    return (-(-lanes * g // 32) * 32 <= most
+            and lane_bytes(variant, w, g, itemsize) * lanes <= MAX_SHARED_BYTES)
+
+
+def lane_bytes(variant, w, g, itemsize):
+    """Shared bytes a lane: Pv's two buffers and three synthesis constants,
+    the TF row's two int bounds; y, a, p1, p2h and the weights (but in
+    wide-global); E's rows (wide-shared)."""
+    e_row, e_lane, y_lane = wide_layout(w, g)
+    words = 5 + (5 * y_lane if variant != "wide-global" else 0) + (
+        e_lane if variant == "wide-shared" else 0)
+    return itemsize * words + 8
+
+
+def assert_wide_shape(w, N, itemsize):
+    """The wide kernel's shape of (w, N): a variant of the wide kernel, the
+    first (E and state in shared memory, E streamed, both in device
+    memory) whose lanes fit; whole members a block, or one member over the
+    fewest blocks of a cluster of at most 8; at most 1,024 threads (768 in
+    wide-global) and the block's shared memory."""
+    shape = scan_launch_shape(w, N, itemsize)
+    assert shape.variant in VARIANTS[3:], (w, N, itemsize)
+    g = shape.group
+    assert g in (1, 2, 4, 8, 16, 32) and (shape.variant == "wide-shared" or g <= itemsize)
+    assert shape.threads == -(-shape.lanes * g // 32) * 32 <= (
+        768 if shape.variant == "wide-global" else 1024)
+    e_row, e_lane, y_lane = wide_layout(w, g)
+    assert e_row >= w and e_row % 2 and y_lane >= w and y_lane % 2
+    assert e_lane >= w * e_row and (e_lane % 2 if g == 1 else (e_lane - g * e_row) % 32 == 0)
+    assert shape.shared_bytes == lane_bytes(shape.variant, w, g, itemsize) * shape.lanes
+    assert shape.shared_bytes <= MAX_SHARED_BYTES
+    assert 1 <= shape.cluster <= 8
+    if shape.cluster == 1:
+        assert shape.lanes == shape.members * N
+        assert shape.members == 1 or shape.threads <= 256
+    else:
+        assert shape.members == 1 and (shape.cluster - 1) * shape.lanes < N
+        assert shape.cluster * shape.lanes >= N
+        assert not fits(shape.variant, w, -(-N // (shape.cluster - 1)), itemsize)
+    # an earlier variant holds no member at any cluster
+    for v in VARIANTS[3:VARIANTS.index(shape.variant)]:
+        assert not any(fits(v, w, -(-N // c), itemsize) for c in range(1, 9)), (w, N, v)
+    return shape
+
+
+@pytest.mark.parametrize("w", list(range(2, 18)) + WIDE_WIDTHS)
 def test_scan_launch_shape(w):
-    """The kernel's variant and block for every N it takes: E in registers
-    up to w = 8, in shared memory while one member's rows fit a block
-    (every N up to w = 15, N <= 224 at w = 16, N <= 199 at w = 17),
-    streamed past that; whole members, at most 256 threads, and never more
-    shared memory than a block may opt into."""
+    """The kernel's variant and block for every N it takes. The template
+    kernel up to w = 17 and N = 256: E in registers up to w = 8, in shared
+    memory while one member's rows fit a block (every N up to w = 15, N <=
+    224 at w = 16, N <= 199 at w = 17), streamed past that; whole members,
+    at most 256 threads, and never more shared memory than a block may opt
+    into. Past it the wide kernel (:func:`assert_wide_shape`), up to N =
+    6,144 sampled, in both types; w = 1, w = 130 and N = 0 raise naming
+    kernel 1b, N = 8,193 naming the cluster's capacity."""
     last_shared = {9: 256, 10: 256, 11: 256, 12: 256, 13: 256, 14: 256, 15: 256,
                    16: 224, 17: 199}
-    for N in range(1, 257):
+    for N in range(1, 257) if w <= 17 else ():
         shape = scan_launch_shape(w, N)
         want = ("registers" if w <= 8 else "shared" if N <= last_shared[w] else "stream")
         assert shape.variant == want and shape.variant in VARIANTS, (w, N)
@@ -367,9 +460,35 @@ def test_scan_launch_shape(w):
         assert shape.members >= 1 and shape.members * N <= shape.threads <= 256
         assert shape.threads % 32 == 0 and shape.threads - shape.members * N < 32
         assert shape.members == 1 or shape.members * N <= 128
-    for bad in ((w, 0), (w, 257), (1, 7), (18, 7)):
-        with pytest.raises(NotImplementedError):
+        assert shape.lanes == shape.members * N and shape.group == shape.cluster == 1
+    for N in WIDE_PROTEINS:
+        if w > 17 or N > 256:
+            for itemsize in (4, 8):
+                assert_wide_shape(w, N, itemsize)
+    for bad in ((w, 0), (1, 7), (130, 7)):
+        with pytest.raises(NotImplementedError, match="kernel 1b"):
             scan_launch_shape(*bad)
+    with pytest.raises(NotImplementedError, match="up to 6,144 proteins"):
+        scan_launch_shape(w, 8193)
+
+
+def test_wide_shapes_of_the_main_path():
+    """The regimes of the objective's shapes past w = 17 and N = 256 on the
+    card: a member's E rows in shared memory, in one block (w = 22 five
+    members, w = 65 one) or a cluster (w = 129: three blocks in float32,
+    one lane each of seven in float64), and the 285-protein network in one
+    block of 576 threads; at N = 4,096 the rows streamed and the state in
+    device memory at w = 129."""
+    want = {(22, 6, 4): ("wide-shared", 5, 8, 1), (22, 6, 8): ("wide-shared", 5, 8, 1),
+            (65, 6, 4): ("wide-shared", 1, 32, 1), (65, 6, 8): ("wide-shared", 1, 32, 1),
+            (129, 7, 4): ("wide-shared", 1, 32, 3), (129, 7, 8): ("wide-shared", 1, 32, 7),
+            (6, 285, 4): ("wide-shared", 1, 2, 1), (6, 285, 8): ("wide-shared", 1, 2, 1),
+            (129, 4096, 4): ("wide-global", 1, 1, 6), (129, 4096, 8): ("wide-global", 1, 1, 6)}
+    for (w, N, itemsize), (variant, members, group, cluster) in want.items():
+        shape = assert_wide_shape(w, N, itemsize)
+        assert (shape.variant, shape.members, shape.group, shape.cluster) == (
+            variant, members, group, cluster), (w, N, itemsize, shape)
+    assert scan_launch_shape(6, 285).threads == 576
 
 
 def test_mechanism_gate():
@@ -381,18 +500,20 @@ def test_mechanism_gate():
 # --- the wrapper on the CPU -------------------------------------------------------------
 
 
-@pytest.mark.parametrize("w", [2, 6, 17])
-def test_cpu_tensor_takes_the_plain_version(w):
-    """A CPU tensor runs the plain version (no launch); float32 agrees with
-    float64 on the same problem at the card's gate (rtol 2e-3, atol 1e-5,
-    tests/test_pallas.py:262-263)."""
-    args, plan = random_scan_problem(w, seed=w)
+@pytest.mark.parametrize("w, N, P", [(2, 7, 300), (6, 7, 300), (17, 7, 300), (22, 7, 40),
+                                     (65, 7, 6), (129, 7, 2), (6, 300, 3)],
+                         ids=["2", "6", "17", "22", "65", "129", "6-N300"])
+def test_cpu_tensor_takes_the_plain_version(w, N, P):
+    """A CPU tensor runs the plain version (no launch) at every width and
+    N the kernel takes; float32 agrees with float64 on the same problem at
+    the card's gate (rtol 2e-3, atol 1e-5, tests/test_pallas.py:262-263)."""
+    args, plan = random_scan_problem(w, N=N, P=P, seed=w)
     before = etd2rk_scan.launches
     got = etd2rk_scan(*args, plan)
     assert etd2rk_scan.launches == before
     assert torch.equal(got, etd2rk_scan_reference(*args, plan))
-    assert got.shape == (6, w, args[0].shape[3]) and bool(torch.isfinite(got).all())
-    args64, _ = random_scan_problem(w, seed=w, dtype=torch.float64)
+    assert got.shape == (6, w, P * N) and bool(torch.isfinite(got).all())
+    args64, _ = random_scan_problem(w, N=N, P=P, seed=w, dtype=torch.float64)
     np.testing.assert_allclose(got.numpy(), etd2rk_scan(*args64, plan).numpy(),
                                rtol=2e-3, atol=1e-5)
 

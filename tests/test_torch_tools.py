@@ -24,13 +24,15 @@ def tool(name: str):
     ("phi_tables_wide.cu", "MARKS", "MARK("),
     ("phi_tables.cu", "TABLE_MARKS", "PHASE("),
     ("phi_tables_xwide.cu", "XWIDE_MARKS", "XMARK("),
+    ("etd2rk_scan.cu", "SCAN_MARKS", "SCAN_STAMP("),
 ])
 def test_stamps_apply_to_the_kernel_sources(source, marks, stamp):
     """Every phase marker finds its text in the kernel source exactly once,
     so a change to a kernel that moves a marked line fails here first."""
     pc = tool("phase_clocks")
     marks = getattr(pc, marks)
-    prelude = {"PHASE(": pc.CLOCK_PRELUDE, "XMARK(": pc.XWIDE_PRELUDE}.get(stamp, "")
+    prelude = {"PHASE(": pc.CLOCK_PRELUDE, "XMARK(": pc.XWIDE_PRELUDE,
+               "SCAN_STAMP(": pc.SCAN_PRELUDE}.get(stamp, "")
     src = pc.stamped(source, marks, prelude)
     plain = (pc.ROOT / "phoskintime_tpu_torch/csrc" / source).read_text()
     added = src.count(stamp) - plain.count(stamp) - prelude.count(stamp)

@@ -1,6 +1,6 @@
 """Where the table kernels spend their time, phase by phase, on the card.
 
-    python tools/phase_clocks.py [--kernel wide|tables|xwide|both]
+    python tools/phase_clocks.py [--kernel wide|tables|xwide|scan|both]
 
 Builds a copy of a table kernel with ``clock64()`` stamps at its phase
 boundaries (lane 0 of every warp; the copy and its library go to the
@@ -27,6 +27,13 @@ path's shapes:
   zeroing its planes and loading L and the norm, scaling, in the Horner
   steps (with the series beside them), in the ladder and storing, and the
   cycles of one Horner phase and one ladder product.
+
+* ``scan``: the wide kernel of ``csrc/etd2rk_scan.cu`` at phase 3i's shapes
+  (w = 22, 65, 129 at N = 6-7, N = 285 at w = 6; float32 at 2,048
+  members, float64 at 256) on random problems with the main path's run
+  structure: a warp's mean cycles a run copying the run's rows, and a
+  segment in the first synthesis (its barrier included), in E y, in the
+  second synthesis and in the update.
 
 The sources are stamped by text: a change to the marked lines of a kernel
 needs the same change here. The stamps cost a few instructions a phase;
@@ -373,9 +380,114 @@ def xwide_clocks() -> None:
             "cycles_a_block_total": float(d.sum(axis=1).mean())}), flush=True)
 
 
+# csrc/etd2rk_scan.cu's wide kernel: a warp's cycles a run in copying the
+# run's rows (to its wait), and a segment in the first synthesis (its
+# barrier included), E y, the second synthesis and the update; summed by
+# lane 0 of every warp into a device array, with the warps counted
+SCAN_PHASES = ["copy", "synth_y", "E_y", "synth_a", "update"]
+SCAN_PRELUDE = """__device__ unsigned long long g_scan_clk[6];
+#define SCAN_STAMP(k) { const unsigned long long now_ = clock64(); clk_[k] += now_ - tk_; tk_ = now_; }
+"""
+SCAN_MARKS = [
+    ("  T part = T(0);\n  ln.driven = false;",
+     "  unsigned long long clk_[5] = {0, 0, 0, 0, 0}, tk_ = 0;\n"
+     "  T part = T(0);\n  ln.driven = false;"),
+    ("    T drive = T(0);\n    if (ln.active && ln.driven) drive",
+     "    tk_ = clock64();\n    T drive = T(0);\n    if (ln.active && ln.driven) drive"),
+    ("    if constexpr (kSharedState) wait_async();\n    for (int s = s0; s < s1; ++s) {\n"
+     "      const T sn = synth_wide(part, drive, pv, ln, Q, lanes, cluster, cst, rows, tf_col,\n"
+     "                              tf_coef);\n",
+     "    if constexpr (kSharedState) wait_async();\n    SCAN_STAMP(0)\n"
+     "    for (int s = s0; s < s1; ++s) {\n"
+     "      const T sn = synth_wide(part, drive, pv, ln, Q, lanes, cluster, cst, rows, tf_col,\n"
+     "                              tf_coef);\n      SCAN_STAMP(1)\n"),
+    ("      const T sa = synth_wide(part_a,",
+     "      SCAN_STAMP(2)\n      const T sa = synth_wide(part_a,"),
+    ("      part = T(0);\n      if (ln.active) {\n        const T d = sa - sn;",
+     "      SCAN_STAMP(3)\n      part = T(0);\n      if (ln.active) {\n        const T d = sa - sn;"),
+    ("          if (slot >= 0) ys[(static_cast<size_t>(slot) * w + i) * B + lane] = yi;\n"
+     "        }\n      }\n    }\n  }\n",
+     "          if (slot >= 0) ys[(static_cast<size_t>(slot) * w + i) * B + lane] = yi;\n"
+     "        }\n      }\n      SCAN_STAMP(4)\n    }\n  }\n"
+     "  if (t % 32 == 0) {\n    for (int k = 0; k < 5; ++k) atomicAdd(g_scan_clk + k, clk_[k]);\n"
+     "    atomicAdd(g_scan_clk + 5, 1ull);\n  }\n"),
+]
+SCAN_READ = """
+extern "C" int scan_clocks_read(unsigned long long* out, int reset) {
+  cudaError_t rc = cudaMemcpyFromSymbol(out, g_scan_clk, sizeof(g_scan_clk));
+  if (rc == cudaSuccess && reset) {
+    const unsigned long long zero[6] = {0, 0, 0, 0, 0, 0};
+    rc = cudaMemcpyToSymbol(g_scan_clk, zero, sizeof(zero));
+  }
+  return static_cast<int>(rc);
+}
+"""
+# (w, N, members, type) of the scan: phase 3i's shapes (w = 22, 65, 129 at
+# N = 6-7 and N = 285 at w = 6), float32 at pop 2048 and float64 at 256
+SCAN_CASES = [(22, 6, 2048, torch.float32), (65, 6, 2048, torch.float32),
+              (129, 7, 2048, torch.float32), (6, 285, 2048, torch.float32),
+              (65, 6, 256, torch.float64), (129, 7, 256, torch.float64)]
+
+
+def scan_clocks() -> None:
+    """The ``scan`` measurement: a stamped copy of csrc/etd2rk_scan.cu through
+    the wrapper (its library swapped in) on random problems at SCAN_CASES'
+    shapes with the main path's run structure (133 segments in 14 runs of
+    9-10 over three pairs): a warp's mean cycles a run copying the run's
+    rows and a segment in each phase, and the kernel's ms (CUDA events)."""
+    from phoskintime_tpu_torch.ops import scan_kernel as sk
+
+    so, log = nvcc_build("etd2rk_scan_clocks",
+                         stamped("etd2rk_scan.cu", SCAN_MARKS, SCAN_PRELUDE) + SCAN_READ)
+    so.scan_clocks_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    err = so.etd2rk_scan_error_string
+    err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+    wide = [part for part in log.split("Compiling entry function '")[1:]
+            if "etd2rk_scan_wide_kernel" in part.split("'")[0]]
+    print(json.dumps({"ptxas_wide": [re.findall(r"Used \d+ registers|\d+ bytes spill stores", p)
+                                     for p in wide]}))
+    out = np.zeros(6, dtype=np.uint64)
+    for w, N, P, dtype in SCAN_CASES:
+        fn = getattr(so, sk._ENTRY[dtype])
+        fn.argtypes, fn.restype = sk._ARGTYPES, ctypes.c_int
+        saved = sk.entry
+        sk.entry = lambda source, name, argtypes: (fn, err)          # noqa: E731
+        try:
+            args, plan = sk.random_scan_problem(w, N=N, P=P, S=133, seed=w, dtype=dtype,
+                                                device="cuda")
+            lengths = [10] * 7 + [9] * 7
+            uidx = np.repeat(np.arange(14) % 3, lengths).astype(np.int32)
+            jb = np.asarray([0, 1, 1])[uidx].astype(np.int32)
+            plan = plan._replace(uidx=uidx, jb=jb, runs=sk.scan_runs(uidx, jb))
+            sk.etd2rk_scan(*args, plan)
+            torch.cuda.synchronize()
+            so.scan_clocks_read(out.ctypes.data, 1)
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            sk.etd2rk_scan(*args, plan)
+            stop.record()
+            torch.cuda.synchronize()
+            if so.scan_clocks_read(out.ctypes.data, 1) != 0:
+                raise SystemExit("phase_clocks.py: could not read the stamps")
+        finally:
+            sk.entry = saved
+        warps = max(int(out[5]), 1)
+        shape = sk.scan_launch_shape(w, N, args[0].element_size())
+        per = out[:5].astype(np.float64) / warps
+        print(json.dumps({
+            "kernel": "etd2rk_scan_wide", "w": w, "N": N, "members": P,
+            "dtype": str(dtype).split(".")[-1], "shape": shape._asdict(), "warps": warps,
+            "ms": round(start.elapsed_time(stop), 4),
+            "mean_cycles_a_run": {"copy": round(per[0] / len(plan.runs), 1)},
+            "mean_cycles_a_segment": {k: round(v / len(uidx), 1)
+                                      for k, v in zip(SCAN_PHASES[1:], per[1:])},
+            "mean_cycles_a_warp": round(float(per.sum()), 1)}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("wide", "tables", "xwide", "both"), default="both")
+    ap.add_argument("--kernel", choices=("wide", "tables", "xwide", "scan", "both"),
+                    default="both")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("phase_clocks.py: needs an NVIDIA GPU")
@@ -388,6 +500,8 @@ def main() -> int:
         wide_clocks()
     if opts.kernel == "xwide":
         xwide_clocks()
+    if opts.kernel == "scan":
+        scan_clocks()
     return 0
 
 
