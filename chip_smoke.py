@@ -167,6 +167,12 @@ kernel):
    Pareto set the first front of every member (a polished member in it),
    the table launches, each stage's seconds.
 
+Phases 10, 11 and 12 run one after the other in a side lane, a spawned
+worker process on the card started after phase 6, beside phases 7-9 and 13
+in the main process (its lines carry the main process's clock; phase 15
+reads phase 11's fits from it), so "this process" below is that worker and
+its timings are taken with the main process's work on the card too.
+
 The per-gene stack (``fit/``, ``models/``, ``ops/linear.py``, ``ops/lm.py``,
 ``ops/morris.py``; plain PyTorch, no hand-written kernel: its launches are
 recorded as 0 for every kernel and asserted so):
@@ -191,7 +197,7 @@ recorded as 0 for every kernel and asserted so):
    host-bound; randmod at n = 5, the one device-bound cohort, runs first
    here and last in its worker): each stage's host ms, lanes, chunks and
    ms an iteration, peak memory, the LM loops under
-   ``set_sync_debug_mode("error")``; at n = 5 (float32, alone on the card)
+   ``set_sync_debug_mode("error")``; at n = 5 (float32, after the cohorts)
    each stage profiled at 1 and 3 iterations (device events an iteration,
    idle share); the float64 card fits of n = 2 against the port's float64
    CPU fit of one of its genes, made in worker processes (the same lambda
@@ -399,22 +405,25 @@ The last slices (``phi_tables_xwide``, population sharding, the wide scan):
    ``matrix_exp``; a NaN lane that leaves every other lane's bits as they
    were;
 3i. the scan kernel past w = 17 and N = 256 (``csrc/etd2rk_scan.cu``'s wide
-   kernel, 2 <= w <= 129, members over clusters of up to 8 blocks): ptxas's
-   report of its six builds (no spill); the kernel (one launch) against
-   its plain version at w = 18, 22, 32, 33, 64, 65, 96, 97, 128 and 129 (N =
-   7), at N = 257, 1,024 and 4,096 for w = 6 and 22, and at (65, 257) and
-   (65, 4,096), in both types (rtol 2e-3 / atol 1e-5 float32, 1e-10 /
-   1e-12 float64), each with its variant, threads a lane and cluster; a NaN
-   member at w = 65 and at N = 1,024 that leaves every other member's bits
-   as they were; then the objective unbucketed with ``use_scan_kernel=True``
-   on 3h's three networks (w = 22, 65, 129) and on
-   ``build_demo_network(300, 24, seed=1)`` (N = 285, w = 6) at pop 2048
-   float32 and 256 float64: one ``etd2rk_scan`` and one table launch a
-   chunk against the prediction, F within 1e-3 / 1e-9 of the eager scan's
-   and of the CPU's float64 (3h's references, the 285-protein one in a
-   worker beside them), and the scan of all those members by the 3c
-   fields (kernel, device, plain, eager and CUDA-graph ms, the bound and
-   its share);
+   kernel, 2 <= w <= 129, members over clusters of up to 8 blocks, up to
+   N = 16,384): ptxas's report of the wide kernel's eight builds (no
+   spill);
+   the kernel (one launch) against its plain version at w = 18, 22, 32,
+   33, 64, 65, 96, 97, 128 and 129 (N = 7), at N = 257, 1,024, 4,096,
+   8,193 and 16,384 for w = 6 and 22, and at (65, 257) and (65, 4,096), in
+   both types (rtol 2e-3 / atol 1e-5 float32, 1e-10 / 1e-12 float64), each
+   with its variant, threads a lane's rows, column warps, lanes a thread,
+   cluster and push (the members past 6,144 proteins listed in
+   the kernels line); a NaN member at w = 65, at N = 1,024 and at N =
+   16,384 that leaves every other member's bits as they were; then the
+   objective unbucketed with ``use_scan_kernel=True`` on 3h's three
+   networks (w = 22, 65, 129) and on ``build_demo_network(300, 24,
+   seed=1)`` (N = 285, w = 6) at pop 2048 float32 and 256 float64: one
+   ``etd2rk_scan`` and one table launch a chunk against the prediction, F
+   within 1e-3 / 1e-9 of the eager scan's and of the CPU's float64 (3h's
+   references, the 285-protein one in a worker beside them), and the scan
+   of all those members by the 3c fields (kernel, device, plain, eager and
+   CUDA-graph ms, the bound and its share);
 16. population sharding on the card (``parallel/mesh.py``): two gloo ranks
    in spawned processes sharing the card, CUDA tensors (NCCL refuses two
    ranks on one device), started beside phases 13-15, on the bench model-0
@@ -530,7 +539,7 @@ from phoskintime_tpu_torch.tfopt import optimize as tfopt_opt
 from phoskintime_tpu_torch.tfopt.model import TfoptProblem
 from phoskintime_tpu_torch.tfopt.optimize import run_evolutionary as tfopt_run_evolutionary
 from phoskintime_tpu_torch.tfopt.optimize import run_local as tfopt_run_local
-from tools.smoke_cases import XWIDE_NETWORKS, augmented
+from tools.smoke_cases import SCAN_WIDE_NETWORKS, XWIDE_NETWORKS, augmented
 
 POP, CHUNK, N_PROTEINS, N_KINASES = 8192, 2048, 40, 12
 POP2 = 2048               # model 2: one chunk, as benchmarks/model_rates.py
@@ -586,16 +595,15 @@ MESH_F_RTOL, MESH_IDEAL_RTOL = 1e-6, 1e-3
 # demo (N = 285, its CPU reference in a worker beside 3h's), at XWIDE_POP
 # (float32) and XWIDE_POP_F64 (float64)
 SCAN_WIDE_WIDTHS = (18, 22, 32, 33, 64, 65, 96, 97, 128, 129)
-SCAN_WIDE_PROTEINS = (257, 1024, 4096)
+SCAN_WIDE_PROTEINS = (257, 1024, 4096, 8193, 16384)
 SCAN_WIDE_MORE = ((65, 257), (65, 4096))
 # 3i's timing calls (kernel, plain, eager, graph): fewer than 3c's, to keep
 # the phase in its budget
-SCAN_WIDE_REPS = (3, 1, 1, 2)
+SCAN_WIDE_REPS = (2, 1, 1, 1)
 # (w, N, members, the NaN member): a member a block at w = 65, a member
-# over a cluster at N = 1,024
-SCAN_WIDE_NAN = ((65, 7, 40, 5), (6, 1024, 3, 1))
-REFERENCE_NETWORKS = {**XWIDE_NETWORKS,
-                      "demo300-N285": dict(n_proteins=300, n_kinases=24, seed=1)}
+# over a cluster at N = 1,024 and at N = 16,384
+SCAN_WIDE_NAN = ((65, 7, 40, 5), (6, 1024, 3, 1), (6, 16384, 2, 1))
+REFERENCE_NETWORKS = SCAN_WIDE_NETWORKS
 # the seconds phases 3h, 3i and 16 may take in the whole script (printed
 # beside their own; phase 16's ranks run beside phases 13-15)
 PHASE_BUDGET_S = {"3h": 50, "3i": 45, "16": 40}
@@ -5607,36 +5615,43 @@ def xwide_networks(card, futures) -> tuple[dict, dict, dict]:
 
 
 def scan_wide_ptxas() -> None:
-    """The compiler's report of the wide scan kernel's six builds (three
-    variants, two types), kept beside ``csrc/etd2rk_scan.cu``'s library:
-    registers and spills of each; fails on a spill."""
-    log = cuda_build.library_path(SCAN_SOURCE).with_suffix(".log").read_text()
+    """The compiler's report of the wide kernel's eight builds (three
+    variants, two types, wide-shared with a simple and a general build),
+    kept beside ``csrc/etd2rk_scan.cu``'s two libraries: registers and
+    spills of each; fails on a spill."""
+    log = "".join(cuda_build.library_path(SCAN_SOURCE, part).with_suffix(".log").read_text()
+                  for part, _ in cuda_build.parts(SCAN_SOURCE))
     builds = {}
     for part in log.split("Compiling entry function '")[1:]:
-        inst = re.search(r"etd2rk_scan_wide_kernelI([fd])Li(\d+)E", part.split("'")[0])
+        name = part.split("'")[0]
+        inst = re.search(r"etd2rk_scan_wide_kernelI([fd])Li(\d+)ELb([01])E", name)
         if inst:
             regs = re.search(r"Used (\d+) registers", part)
             spill = re.search(r"(\d+) bytes spill stores", part)
-            key = f"{'float64' if inst.group(1) == 'd' else 'float32'} {SCAN_VARIANTS[int(inst.group(2))]}"
+            what = f"{SCAN_VARIANTS[int(inst.group(2))]}{' multi' * (inst.group(3) == '1')}"
+            key = f"{'float64' if inst.group(1) == 'd' else 'float32'} {what}"
             builds[key] = (int(regs.group(1)) if regs else None,
                            int(spill.group(1)) if spill else None)
     say("3i ptxas", instances=len(builds),
         builds={k: f"{r} registers, {sp} bytes spilled" for k, (r, sp) in builds.items()})
-    if len(builds) != 6 or any(sp is None or sp for _, sp in builds.values()):
-        raise AssertionError(f"3i: the wide scan kernel spills or was not reported: {builds}")
+    if len(builds) != 8 or any(sp is None or sp for _, sp in builds.values()):
+        raise AssertionError(f"3i: a wide scan build spills or was not reported: {builds}")
 
 
 def scan_wide_members(w: int, N: int) -> int:
-    """Members of a 3i random problem: several, but one at N = 4,096."""
+    """Members of a 3i random problem: several, but one from N = 4,096."""
     return 16 if N == 7 else 8 if N < 1024 else 2 if N < 4096 else 1
 
 
-def scan_wide_random() -> None:
+def scan_wide_random() -> dict:
     """3i's random problems: the kernel (one launch) against its plain
     version at SCAN_WIDE_WIDTHS (N = 7), SCAN_WIDE_PROTEINS (w = 6 and 22)
-    and SCAN_WIDE_MORE, float32 and float64, each with its launch shape."""
+    and SCAN_WIDE_MORE, float32 and float64, each with its launch shape.
+    Returns {dtype: [the members past 6,144 proteins: shape and error]}
+    for the kernels line."""
     cases = ([(w, 7) for w in SCAN_WIDE_WIDTHS]
              + [(w, N) for w in (6, 22) for N in SCAN_WIDE_PROTEINS] + list(SCAN_WIDE_MORE))
+    past = {torch.float32: [], torch.float64: []}
     for dtype in (torch.float32, torch.float64):
         dt = str(dtype).split(".")[-1]
         for w, N in cases:
@@ -5651,10 +5666,15 @@ def scan_wide_random() -> None:
                 raise AssertionError(f"3i w={w} N={N} {dt}: not one launch")
             max_abs, scaled = scan_close(f"3i scan w={w} N={N} {dt}", got, want)
             say("3i scan shape", w=w, proteins=N, lanes=P * N, dtype=dt, variant=shape.variant,
-                group=shape.group, cluster=shape.cluster, members=shape.members,
+                group=shape.group, cols=shape.cols, per=shape.per, cluster=shape.cluster,
+                push=shape.push, members=shape.members,
                 threads=shape.threads, shared_bytes=shape.shared_bytes,
                 max_abs_err=f"{max_abs:.3e}", max_scaled_err=f"{scaled:.3e}")
+            if N > 6144:
+                past[dtype].append({"w": w, "N": N, "members": P, **shape._asdict(),
+                                    "max_abs_err": max_abs, "max_scaled_err": scaled})
             del args, got, want
+    return past
 
 
 def scan_wide_nan_members() -> None:
@@ -5748,15 +5768,17 @@ def scan_wide_networks(card, refs) -> tuple[dict, dict, dict]:
 
 def phase_scan_wide(card, refs) -> tuple[dict, dict, dict]:
     """3i: the scan kernel past w = 17 and N = 256. Its wide kernel's ptxas
-    report (no spill in any of six builds); random problems against the
+    report (no spill in any of eight builds); random problems against the
     plain version (:func:`scan_wide_random`); NaN members; then the
     objective's shapes (:func:`scan_wide_networks`). Returns ({dtype:
     {network: check}}, float32 paths, float64 paths)."""
     t0 = time.perf_counter()
     scan_wide_ptxas()
-    scan_wide_random()
+    past = scan_wide_random()
     scan_wide_nan_members()
     out, paths32, paths64 = scan_wide_networks(card, refs)
+    for dtype, cases in past.items():
+        out[dtype]["members_past_6144"] = cases
     say("3i scan wide", seconds=f"{time.perf_counter() - t0:.1f}",
         budget_s=PHASE_BUDGET_S["3i"], card=repr(card))
     return out, paths32, paths64
@@ -5984,11 +6006,58 @@ def main() -> int:
         raise
 
 
+def side_lane_job(card: str, t_start: float) -> tuple[dict, dict, float]:
+    """Phases 10, 11 and 12 in a spawned worker on the card, one after the
+    other, beside phases 7-9 and 13 in the main process: each is host-bound
+    and needs nothing of the phases before it but the bench bundles, built
+    anew here (the same draws and observations). Its lines carry the main
+    process's clock (``t_start``). Returns ({path: launches}, {which: phase
+    11's local fit result}, its seconds)."""
+    global T_START
+    T_START = t_start
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    paths = phase_pergene(card)
+    b, b2 = (build_demo_network(N_PROTEINS, N_KINASES, model=m, seed=0, dtype=torch.float32,
+                                device="cuda") for m in (0, 2))
+    fits = {}
+    paths.update(phase_sensitivity_kinopt(card, b2, fits))
+    paths.update(phase_hyperscan_motpe(card, b))
+    # the results are host arrays; the problems are made anew from their seeds
+    return paths, {which: res for which, (_, res) in fits.items()}, time.perf_counter() - t0
+
+
+def start_side_lane(card: str):
+    """Starts :func:`side_lane_job`; returns (pool, future)."""
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=get_context("spawn"))
+    return pool, pool.submit(side_lane_job, card, T_START)
+
+
+def finish_side_lane(job) -> tuple[dict, dict]:
+    """Reads the side lane (its checks raise there): ({path: launches},
+    phase 11's fits as {which: (problem, result)} for phase 15)."""
+    pool, future = job
+    t0 = time.perf_counter()
+    try:
+        paths, results, seconds = future.result()
+    finally:
+        pool.shutdown()
+    say("10-12 side lane", seconds=f"{seconds:.1f}", waited=f"{time.perf_counter() - t0:.1f}")
+    problems = {"kinopt": kinopt_synthetic(*KINOPT_PROBLEMS["bench"]),
+                "tfopt": tfopt_synthetic(*TFOPT_PROBLEM)}
+    return paths, {which: (problems[which], res) for which, res in results.items()}
+
+
 def run_all_phases(card, probe, probe_paths, b, b1, b2, thetas, thetas1, thetas2,
                    xwide_refs) -> int:
     """Every phase after the setup, in order (3h's and 3i's references
     building in their workers since the start or the setup; 4d's float64
-    CPU run in its own since the end of 3h)."""
+    CPU run in its own since the end of 3h; phases 10-12 in a side lane
+    beside 7-9 and 13)."""
     kernel = phase_kernel(b, thetas, card)
     wide = phase_wide_kernel(b2, thetas2, card)
     scan = phase_scan_kernel(b, thetas, b2, thetas2, card)
@@ -6024,28 +6093,30 @@ def run_all_phases(card, probe, probe_paths, b, b1, b2, thetas, thetas1, thetas2
         raise
     finish_rk45_workers(pools, futures, F_rk45, {0: lsoda_fold_changes(b),
                                                   2: lsoda_fold_changes(b2)}, card)
-    paths.update(phase_global_fit(b, card))
-    model4_paths, b4 = phase_model4(card)
-    paths.update(model4_paths)
-    paths.update(phase_esdirk(b, b2, thetas, thetas2, card))
-    phase_expo(b, b4, thetas, card)
-    paths.update(phase_gradients(b, thetas, card))
-    paths.update(phase_polish(b, thetas, card))
-    paths.update(phase_lm(b, card))
-    paths.update(phase_gradient_fits(b, card))
-    paths.update(phase_pergene(card))
-    fits = {}
-    paths.update(phase_sensitivity_kinopt(card, b2, fits))
-    paths.update(phase_hyperscan_motpe(card, b))
-    references = start_part3_references(b, b2)
-    ranks = start_mesh_ranks(b)
-    fit_figures = start_fit_figures(card)
+    torch.cuda.empty_cache()                 # the side lane's cohorts need the card's memory
+    side = start_side_lane(card)
+    pools = [side[0]]
     try:
+        paths.update(phase_global_fit(b, card))
+        model4_paths, b4 = phase_model4(card)
+        paths.update(model4_paths)
+        paths.update(phase_esdirk(b, b2, thetas, thetas2, card))
+        phase_expo(b, b4, thetas, card)
+        paths.update(phase_gradients(b, thetas, card))
+        paths.update(phase_polish(b, thetas, card))
+        paths.update(phase_lm(b, card))
+        paths.update(phase_gradient_fits(b, card))
+        references = start_part3_references(b, b2)
+        ranks = start_mesh_ranks(b)
+        fit_figures = start_fit_figures(card)
+        pools += [references[0], ranks[0], fit_figures[0]]
         paths.update(phase_entry_points(card, b))
+        side_paths, fits = finish_side_lane(side)
+        paths.update(side_paths)
         paths.update(phase_part3(card, b, b2, fits, references))
         finish_fit_figures(fit_figures)
     except BaseException:
-        for pool in (references[0], ranks[0], fit_figures[0]):
+        for pool in pools:
             pool.shutdown(cancel_futures=True)
         raise
     phase_mesh(b, card, ranks)

@@ -429,7 +429,7 @@ def exponential_simulate_batched(system, params_b: dict, t_eval,
     (see :func:`width_classes`). ``use_scan_kernel``: None (the default, as
     in the JAX package) or False runs the eager scan; True runs the whole
     unbucketed scan as one :func:`etd2rk_scan`, on the card at every width
-    the tables take (2 <= w <= 129) and up to 6,144 proteins. The
+    the tables take (2 <= w <= 129) and up to 16,384 proteins. The
     width-bucketed model-2 path ignores it.
 
     Model 4 takes the exponential-Rosenbrock path

@@ -197,7 +197,7 @@ def make_population_objective(system, slices, loss_data, defaults, lambdas,
     ``width_bucketing`` goes to the integrator (None: per-width-class
     tables for the combinatorial mechanism at w >= 9), and so does
     ``use_scan_kernel`` (None: the eager scan; True: the whole unbucketed
-    scan as one kernel, at 2 <= w <= 129 and up to 6,144 proteins on the
+    scan as one kernel, at 2 <= w <= 129 and up to 16,384 proteins on the
     card).
 
     ``differentiable=True``: an objective ``torch.autograd`` differentiates

@@ -1,10 +1,12 @@
 """Build and bind the port's hand-written CUDA kernels.
 
 Each source in :data:`SOURCES` is compiled with ``nvcc`` for ``sm_90a`` on
-first use (one ``nvcc`` per source, all started together), into
+first use (one ``nvcc`` per source, or per part of a source in
+:data:`PARTS`, all started together), into
 ``phoskintime_tpu_torch/_build/`` under a name keyed by a hash of the
 source and flags, and bound with ``ctypes`` through a plain C interface:
-every library exports its launch functions and ``<stem>_error_string``.
+every library exports its launch functions (a part's, those whose names
+end in ``_<part>``) and ``<stem>_error_string``.
 The sources share the headers ``csrc/*.cuh``, whose bytes are part of
 every library's key.
 """
@@ -26,6 +28,9 @@ CSRC = _PKG / "csrc"
 SOURCES = tuple(CSRC / f"{stem}.cu" for stem in (
     "phi_tables", "phi_tables_wide", "phi_tables_xwide", "etd2rk_scan", "hypercube_flux",
     "thomas", "sq_chain"))
+# sources built in parts, {stem: ((part, nvcc flag), ...)}: the scan
+# kernels, the longest compile, one library a type
+PARTS = {"etd2rk_scan": (("f32", "-DETD2RK_SCAN_TYPES=1"), ("f64", "-DETD2RK_SCAN_TYPES=2"))}
 BUILD_DIR = _PKG / "_build"
 # dynamic shared memory one thread block may opt into on the H100 (227 KB)
 MAX_SHARED_BYTES = 232448
@@ -45,33 +50,41 @@ def nvcc_path() -> str:
                        "the CUDA toolkit")
 
 
-def library_path(source: Path) -> Path:
-    """Where the library of ``source`` lives: keyed by the source, the
-    shared headers and the flags."""
+def parts(source: Path) -> tuple:
+    """((part, nvcc flags), ...) of ``source``: ("", ()) where it is built
+    whole."""
+    return tuple((part, (flag,)) for part, flag in PARTS.get(source.stem, ())) or (("", ()),)
+
+
+def library_path(source: Path, part: str = "") -> Path:
+    """Where the library of ``source`` (of its ``part``) lives: keyed by the
+    source, the shared headers and the flags."""
+    flags = dict(parts(source)).get(part, ())
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(source.read_bytes() + headers
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}_{key}.so"
+                         + " ".join(NVCC_FLAGS + flags).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}{'_' * bool(part)}{part}_{key}.so"
 
 
 def build_libraries() -> dict:
-    """Compile every kernel source whose library is not built yet, one
-    ``nvcc`` per source, all started together. Returns {library path:
+    """Compile every kernel source (part) whose library is not built yet,
+    one ``nvcc`` each, all started together. Returns {library path:
     seconds its build took (0 when it was there)}. The compiler's register
     report is kept beside each library as ``.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out, jobs = {}, []
     t0 = time.perf_counter()
     for src in SOURCES:
-        lib = library_path(src)
-        if lib.exists():
-            out[lib] = 0.0
-            continue
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                text=True)
-        jobs.append((lib, tmp, proc))
+        for part, flags in parts(src):
+            lib = library_path(src, part)
+            if lib.exists():
+                out[lib] = 0.0
+                continue
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(src)],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+            jobs.append((lib, tmp, proc))
     failed = []
     for lib, tmp, proc in jobs:
         log = proc.communicate()[0]
@@ -91,10 +104,11 @@ _ENTRIES: dict = {}
 
 def entry(source: Path, name: str, argtypes: list):
     """(launch function, error-string function) of the C entry ``name`` in
-    the library built from ``source``, which returns a CUDA error code;
-    builds the libraries if needed."""
+    the library built from ``source`` (the part that ``name`` ends in),
+    which returns a CUDA error code; builds the libraries if needed."""
     if name not in _ENTRIES:
-        lib_path = library_path(source)
+        part = next((p for p, _ in parts(source) if p and name.endswith("_" + p)), "")
+        lib_path = library_path(source, part)
         if not lib_path.exists():
             build_libraries()
         lib = ctypes.CDLL(str(lib_path))

@@ -12,10 +12,9 @@ Counterpart of ``phoskintime_tpu/ops/scan_pallas.py``:
   :func:`scan_launch_shape` picks by (w, N, type), and adds one
   to ``etd2rk_scan.launches``; on a CPU tensor, or with
   ``use_kernel=False``, it runs the plain version. The kernel takes every
-  width of the table kernels, 2 <= w <= 129, and members of up to 6,144
-  proteins (a cluster of 8 blocks; 8,192 where the state fits shared
-  memory): the template kernel up to w = 17 and N = 256, the wide kernel
-  past them.
+  width of the table kernels, 2 <= w <= 129, and members of up to 16,384
+  proteins (a cluster of 8 blocks): the template kernel up to w = 17 and
+  N = 256, the wide kernel past them.
 * :func:`etd2rk_scan_reference` — the plain PyTorch version, segment by
   segment.
 
@@ -31,6 +30,7 @@ takes those shapes).
 from __future__ import annotations
 
 import ctypes
+import itertools
 from typing import NamedTuple
 
 import numpy as np
@@ -41,7 +41,8 @@ from phoskintime_tpu_torch.ops.cuda_build import CSRC, MAX_SHARED_BYTES, entry
 from phoskintime_tpu_torch.ops.phi_tables import _MAX_XWIDE_WIDTH
 
 SOURCE = CSRC / "etd2rk_scan.cu"
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+# (the tensors' pointers, ys, the launch shape's ints, the stream)
+_ARGTYPES = [ctypes.c_void_p] * 4
 # the widths of the table kernels (csrc/phi_tables_xwide.cu's widest)
 _MIN_WIDTH, _MAX_WIDTH = 2, _MAX_XWIDE_WIDTH
 # the template kernel's domain: w compiled in, one member a block of at
@@ -54,12 +55,23 @@ _ENTRY = {torch.float32: "etd2rk_scan_f32", torch.float64: "etd2rk_scan_f64"}
 # lanes per thread block, in whole members: the fastest of 64-1024 at the
 # bench chunk on the H100 (PERF.md)
 _BLOCK_LANES = 128
-# the wide kernel: threads a block at most by variant (its launch bounds:
-# the wide-global build stops at 768 threads, 80 registers, where it spills
-# at 64 in float64) and the threads a block holds where several members fit;
-# blocks a member at most (the portable cluster size)
-_WIDE_MAX_THREADS = {"wide-shared": 1024, "wide-stream": 1024, "wide-global": 768}
-_WIDE_THREADS, _MAX_CLUSTER = 256, 8
+# the wide kernel: threads a block at most (its launch bound), and the
+# threads a block holds where several members fit; blocks a member at most
+# (the portable cluster size); lanes a thread at most (wide-global); the
+# warps an SM should hold where threads and shared memory allow (2, 4 or 8
+# warps a lane's columns until then, from _COLS_MIN_WIDTH)
+_WIDE_MAX_THREADS, _WIDE_THREADS, _MAX_CLUSTER, _MAX_PER = 512, 256, 8, 4
+_TARGET_WARPS = 8
+# a lane's columns go over several warps only where its rows are more than
+# 3 a thread of a warp (w = 65 float64 measured slower with a second column
+# warp: tools/kernel_ab.py tune-scan-wide)
+_COLS_MIN_WIDTH = 97
+# an SM's shared memory (228 KB), of which each block also takes 1 KB; the
+# threads an SM holds at the 64 registers the wide-shared builds take
+_SM_SHARED_BYTES, _SM_THREADS = 233472, 1024
+# the most proteins a member may have: a cluster of 8 wide-global blocks of
+# 512 threads, 4 lanes a thread
+_MAX_PROTEINS = _MAX_CLUSTER * _WIDE_MAX_THREADS * _MAX_PER
 # csrc/etd2rk_scan.cu's variants, by where a run's E rows stay: the
 # template kernel's three, then the wide kernel's (E and the state in
 # shared memory; E streamed, the state in shared memory; both in device
@@ -70,9 +82,8 @@ _WIDE_VARIANTS = VARIANTS[3:]
 _NOT_COVERED = ("the etd2rk_scan kernel takes float32 or float64 with 2 <= w <= {} and "
                 "N >= 1 proteins; got {} at w = {}, N = {} (wider blocks, model 2 at Smax "
                 ">= 8, are ROADMAP.md queue 2, kernel 1b: 'phi_tables_wide above w = 129')")
-_TOO_MANY = ("the etd2rk_scan kernel holds a member of up to 6,144 proteins (8,192 where "
-             "its state fits shared memory) over a cluster of 8 blocks; got N = {} at "
-             "w = {} in {}")
+_TOO_MANY = ("the etd2rk_scan kernel holds a member of up to 16,384 proteins (a cluster of "
+             "8 blocks of 512 threads, 4 lanes a thread); got N = {} at w = {} in {}")
 
 
 class ScanPlan(NamedTuple):
@@ -117,10 +128,13 @@ class ScanShape(NamedTuple):
     variant: str            # where a run's E rows stay: one of VARIANTS
     members: int            # whole members a thread block (1 where a member spans a cluster)
     threads: int            # threads a block, in whole warps
-    shared_bytes: int       # dynamic shared memory a block
+    shared_bytes: int       # dynamic shared memory a block (without staged TF rows)
     lanes: int              # lanes a block (a cluster's block: its share of a member)
-    group: int = 1          # threads a lane (the wide kernel)
+    group: int = 1          # threads a lane's rows (the wide kernel)
     cluster: int = 1        # blocks a member (the wide kernel)
+    cols: int = 1           # warps a lane's columns (wide-shared, group 32)
+    per: int = 1            # lanes a thread (wide-global)
+    push: bool = False      # a cluster's blocks copy their totals to each other
 
 
 def wide_layout(w: int, group: int) -> tuple[int, int, int]:
@@ -137,56 +151,126 @@ def wide_layout(w: int, group: int) -> tuple[int, int, int]:
     return e_row, e_lane, w | 1
 
 
-def _wide_lane_bytes(variant: str, w: int, group: int, itemsize: int) -> int:
-    """Shared bytes a lane of the wide kernel: the two Pv buffers, the
-    amplitude, TF scale and TF normaliser, the TF row's two int bounds;
-    y, a, the run's p1 and p2h rows and the totals' weights, y_lane words
-    each (not in wide-global); the run's E rows (in wide-shared)."""
+def wide_threads(lanes: int, group: int, cols: int = 1, per: int = 1) -> int:
+    """Threads of a wide block of ``lanes`` lanes: ``group`` threads a
+    lane's rows, 32 / group lanes a warp; a lane's ``cols`` column warps
+    (group 32); or ``per`` lanes a thread (group 1)."""
+    if per > 1:
+        return -(-(-(-lanes // per)) // 32) * 32
+    if group < 32:
+        return -(-lanes // (32 // group)) * 32
+    return 32 * lanes * cols
+
+
+def wide_shared_bytes(variant: str, w: int, lanes: int, group: int, itemsize: int, *,
+                      cols: int = 1, per: int = 1, cluster: int = 1, push: bool = False,
+                      tf_cap: int = 0) -> int:
+    """Dynamic shared bytes of a wide block (the kernel's own sum): two
+    mbarriers; the two totals' buffers (``cols`` partials a lane, padded to
+    16 bytes a block; every block's where the cluster pushes); 3 synthesis
+    constants a lane; in wide-global each thread's sn and drive a lane; but
+    in wide-global, y, a, the run's p1 and p2h rows and the weights, y_lane
+    words each; the column warps' partial rows (cols > 1); the lanes' E
+    rows (wide-shared); the staged TF coefficients; then as
+    ints 3 a lane (the TF row's bounds, the driven flag) and the staged TF
+    columns."""
     e_row, e_lane, y_lane = wide_layout(w, group)
-    words = 5 + (5 * y_lane if variant != "wide-global" else 0) + (
-        e_lane if variant == "wide-shared" else 0)
-    return itemsize * words + 8
+    pad = 16 // itemsize
+    words = 2 * (cluster if push else 1) * cols * (-(-lanes // pad) * pad) + 3 * lanes + tf_cap
+    if variant == "wide-global":
+        words += 2 * per * wide_threads(lanes, group, cols, per)
+    else:
+        words += 5 * lanes * y_lane
+    if cols > 1:
+        words += cols * lanes * y_lane
+    if variant == "wide-shared":
+        words += lanes * e_lane
+    return 16 + itemsize * words + 4 * (3 * lanes + tf_cap)
+
+
+def _blocks_an_sm(threads: int, shared_bytes: int) -> int:
+    """Blocks an SM holds by its shared memory and its threads (at ~64
+    registers a thread)."""
+    return min(_SM_SHARED_BYTES // (shared_bytes + 1024), _SM_THREADS // threads)
 
 
 def _wide_group(w: int, itemsize: int, streamed: bool) -> int:
-    """Threads a lane: about four rows a thread, a warp at most; where E is
-    streamed, at most ``itemsize`` so that a warp reads whole 32-byte
-    sectors (32 / group lanes of each row)."""
+    """Threads a lane's rows: about four rows a thread, a warp at most;
+    where E is streamed, at most ``itemsize`` so that a warp reads whole
+    32-byte sectors (32 / group lanes of each row)."""
     group = 1
     while group < 32 and 4 * group < w:
         group *= 2
     return min(group, itemsize) if streamed else group
 
 
+def _wide_block(variant: str, w: int, lanes: int, cluster: int, itemsize: int,
+                max_per: int = _MAX_PER) -> dict | None:
+    """A block of ``lanes`` lanes in ``variant`` (a cluster's block where
+    ``cluster`` > 1): its group, lanes a thread (at most ``max_per``),
+    threads, whether the cluster pushes its totals (where every block's copy
+    fits) and shared bytes; None where it does not fit."""
+    if variant == "wide-global":
+        group = 1
+        per = next((p for p in range(1, max_per + 1)
+                    if wide_threads(lanes, 1, 1, p) <= _WIDE_MAX_THREADS), None)
+        if per is None:
+            return None
+    else:
+        per = 1
+        group = _wide_group(w, itemsize, variant != "wide-shared")
+        while group > 1 and wide_threads(lanes, group) > _WIDE_MAX_THREADS:
+            group //= 2
+    threads = wide_threads(lanes, group, 1, per)
+    if threads > _WIDE_MAX_THREADS:
+        return None
+    for push in ((True, False) if cluster > 1 else (False,)):
+        shared = wide_shared_bytes(variant, w, lanes, group, itemsize, per=per,
+                                   cluster=cluster, push=push)
+        if shared <= MAX_SHARED_BYTES:
+            return dict(group=group, per=per, threads=threads, push=push, shared=shared)
+    return None
+
+
 def _wide_shape(w: int, N: int, itemsize: int) -> ScanShape | None:
-    """The wide kernel's shape: the first variant of _WIDE_VARIANTS whose
-    lanes fit a block's shared memory and threads, a member in one block
-    (with the whole members that fit _WIDE_THREADS threads) or over the
-    fewest blocks of a cluster that hold it; the threads a lane halved
-    where a block's lanes would take more threads than the variant's bound.
-    None where nothing fits (past N = 6,144, or 8,192 where the state fits
-    shared memory)."""
-    for variant in _WIDE_VARIANTS:
-        max_threads = _WIDE_MAX_THREADS[variant]
-        group0 = _wide_group(w, itemsize, variant != "wide-shared")
-        for split in range(1, _MAX_CLUSTER + 1):
-            lanes = -(-N // split)
-            cluster = -(-N // lanes)
-            group = group0
-            while group > 1 and -(-lanes * group // 32) * 32 > max_threads:
-                group //= 2
-            threads = -(-lanes * group // 32) * 32
-            lane_bytes = _wide_lane_bytes(variant, w, group, itemsize)
-            if threads > max_threads or lanes * lane_bytes > MAX_SHARED_BYTES:
-                continue
-            members = 1
-            if cluster == 1:
-                members = max(1, min(_WIDE_THREADS // (N * group),
-                                     MAX_SHARED_BYTES // (N * lane_bytes),
-                                     max_threads // (-(-N * group // 32) * 32)))
-                lanes = members * N
-                threads = -(-lanes * group // 32) * 32
-            return ScanShape(variant, members, threads, lanes * lane_bytes, lanes, group, cluster)
+    """The wide kernel's shape: the first variant of _WIDE_VARIANTS (in
+    wide-global, the fewest lanes a thread) whose block holds a member, with
+    the whole members that fit _WIDE_THREADS threads, or a cluster's share
+    of one over the fewest blocks of at most 8; then, in wide-shared at
+    group 32 and w >= _COLS_MIN_WIDTH, the fewest warps a lane's columns
+    (2, 4 or 8) that give an SM _TARGET_WARPS warps, or the most it can
+    hold. None past N = 16,384."""
+    tries = [(v, 1) for v in _WIDE_VARIANTS[:2]] + [
+        ("wide-global", p) for p in range(1, _MAX_PER + 1)]
+    for (variant, max_per), split in itertools.product(tries, range(1, _MAX_CLUSTER + 1)):
+        lanes = -(-N // split)
+        cluster = -(-N // lanes)
+        blk = _wide_block(variant, w, lanes, cluster, itemsize, max_per)
+        if blk is None:
+            continue
+        members = 1
+        if cluster == 1:
+            def fits(m):
+                return (wide_threads(m * N, blk["group"], 1, blk["per"]) <= _WIDE_THREADS
+                        and _wide_block(variant, w, m * N, 1, itemsize, max_per) is not None)
+            while fits(members + 1):
+                members += 1
+            lanes = members * N
+            blk = _wide_block(variant, w, lanes, 1, itemsize, max_per)
+        kw = dict(per=blk["per"], cluster=cluster, push=blk["push"])
+        group, cols, threads, shared = blk["group"], 1, blk["threads"], blk["shared"]
+        warps = lambda t, b: _blocks_an_sm(t, b) * t // 32          # noqa: E731
+        if variant == "wide-shared" and group == 32 and w >= _COLS_MIN_WIDTH:
+            for more in (2, 4, 8):
+                if warps(threads, shared) >= _TARGET_WARPS:
+                    break
+                t2 = wide_threads(lanes, 32, more)
+                s2 = wide_shared_bytes(variant, w, lanes, 32, itemsize, cols=more, **kw)
+                if (t2 <= _WIDE_MAX_THREADS and s2 <= MAX_SHARED_BYTES
+                        and warps(t2, s2) > warps(threads, shared)):
+                    cols, threads, shared = more, t2, s2
+        return ScanShape(variant, members, threads, shared, lanes, group, cluster, cols,
+                         blk["per"], blk["push"])
     return None
 
 
@@ -207,17 +291,18 @@ def scan_launch_shape(w: int, N: int, itemsize: int = 4) -> ScanShape:
     lanes (at least one) and its shared memory.
 
     Past that the wide kernel (:func:`_wide_shape`): w at run time up to
-    129, ``group`` threads a lane, a member in one block or over a cluster
-    of up to 8 whose blocks read each other's totals; a run's E rows and
-    the state in shared memory where they fit (wide-shared), else E
-    streamed (wide-stream), else the state in device memory too
-    (wide-global), up to N = 6,144 (8,192 where the state fits shared
-    memory). Raises NotImplementedError outside the kernel's domain."""
+    129, ``group`` threads a lane's rows and ``cols`` warps its columns, a
+    member in one block or over a cluster of up to 8 whose blocks copy
+    their totals to each other (or read each other's, past what a block
+    holds); a run's E rows and the state in shared memory where they fit
+    (wide-shared), else E streamed (wide-stream), else the state in device
+    memory too (wide-global, up to 4 lanes a thread), up to N = 16,384.
+    Raises NotImplementedError outside the kernel's domain."""
     if not (_MIN_WIDTH <= w <= _MAX_WIDTH and N >= 1 and itemsize in (4, 8)):
         raise NotImplementedError(_NOT_COVERED.format(_MAX_WIDTH, f"{itemsize}-byte items", w, N))
     if w <= _TEMPLATE_MAX_WIDTH and N <= _TEMPLATE_MAX_PROTEINS:
         return _template_shape(w, N, itemsize)
-    shape = _wide_shape(w, N, itemsize)
+    shape = _wide_shape(w, N, itemsize) if N <= _MAX_PROTEINS else None
     if shape is None:
         raise NotImplementedError(_TOO_MANY.format(N, w, f"{itemsize}-byte items"))
     return shape
@@ -359,6 +444,23 @@ def _copy_shared_ends(ys, plan: ScanPlan):
     return ys[torch.as_tensor(plan.slot_map, device=ys.device)]
 
 
+def _tf_cap(plan: ScanPlan, shape: ScanShape, itemsize: int) -> int:
+    """TF entries the wide kernel stages in shared memory: its blocks' most
+    (a member's, or a cluster block's proteins'), where they fit beside the
+    block's other words without lowering its blocks an SM; else 0 (read
+    from device memory)."""
+    if shape.variant not in _WIDE_VARIANTS:
+        return 0
+    ptr = np.asarray(plan.tf_ptr, np.int64)
+    starts = np.arange(0, plan.N, shape.lanes)
+    nnz = int(np.max(ptr[np.minimum(starts + shape.lanes, plan.N)] - ptr[starts]))
+    staged = shape.shared_bytes + nnz * (itemsize + 4)
+    if staged > MAX_SHARED_BYTES or (_blocks_an_sm(shape.threads, staged)
+                                     < _blocks_an_sm(shape.threads, shape.shared_bytes)):
+        return 0
+    return nnz
+
+
 def _launch(E, p1, p2h, y0, drv, A, ts, plan: ScanPlan, shape: ScanShape):
     """Allocate the snapshots (and the wide-global variant's state) and
     launch the kernel on E's device and stream."""
@@ -392,12 +494,15 @@ def _launch(E, p1, p2h, y0, drv, A, ts, plan: ScanPlan, shape: ScanShape):
         0 if state is None else state.data_ptr()]
     ys = torch.empty((plan.T, w, B), dtype=E.dtype, device=dev)
     e_row, e_lane, y_lane = wide_layout(w, shape.group)
+    # the launch shape in csrc/etd2rk_scan.cu's order (launch_any)
+    ints = [w, VARIANTS.index(shape.variant), shape.members, len(plan.init_slots),
+            len(plan.runs), plan.N, B // plan.N, shape.lanes, shape.group, shape.cols,
+            shape.per, shape.cluster, int(shape.push), _tf_cap(plan, shape, isz), e_lane, e_row,
+            y_lane]
     fn, err = entry(SOURCE, _ENTRY[E.dtype], _ARGTYPES)
     with torch.cuda.device(dev):
-        rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs), ys.data_ptr(), w,
-                VARIANTS.index(shape.variant), shape.members, len(plan.init_slots),
-                len(plan.runs), plan.N, B // plan.N, shape.lanes, shape.group, shape.cluster,
-                e_lane, e_row, y_lane, torch.cuda.current_stream(dev).cuda_stream)
+        rc = fn((ctypes.c_void_p * len(ptrs))(*ptrs), ys.data_ptr(),
+                (ctypes.c_int * len(ints))(*ints), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("etd2rk_scan kernel launch failed: " + err(rc).decode())
     return ys
@@ -420,7 +525,7 @@ def etd2rk_scan(E, p1, p2h, y0, drv, A, ts, plan: ScanPlan, *,
       use_kernel: None routes by device (the kernel on CUDA, the plain
         version on the CPU); False forces the plain version (comparisons).
     Returns ys (T, w, B), the state at each t_eval point. On a CUDA tensor
-    the kernel takes float32 and float64 at 2 <= w <= 129 and N <= 6,144
+    the kernel takes float32 and float64 at 2 <= w <= 129 and N <= 16,384
     (:func:`scan_launch_shape`) and raises NotImplementedError past them.
     """
     _check(E, p1, p2h, y0, drv, A, ts, plan)
@@ -447,7 +552,9 @@ def random_scan_problem(w: int, N: int = 7, P: int = 300, S: int = 40, *,
     against its plain version at every width: compartmental blocks
     (non-negative transfers, each column's outflow plus a decay on the
     diagonal) over two buckets and three pairs, tables from
-    :func:`phi_tables`, a random TF graph, driven proteins 0 and 3, random
+    :func:`phi_tables`, a random TF graph (each entry present with
+    probability 0.3 up to N = 4,096; past that, as an N x N draw would take
+    gigabytes, 8 entries a row), driven proteins 0 and 3, random
     total-protein masks, S segments with T = 6 snapshots, one of them the
     initial state. Returns (args, plan), ``args + (plan,)`` the arguments
     of :func:`etd2rk_scan`."""
@@ -467,10 +574,17 @@ def random_scan_problem(w: int, N: int = 7, P: int = 300, S: int = 40, *,
     args = (E, p1, p2h, lanes(0.1, 1.5, w), lanes(0.1, 2.0, 2), lanes(0.05, 0.8),
             lanes(0.5, 3.0))
 
-    tfm = (rng.uniform(size=(N, N)) < 0.3) * rng.choice([-1.0, 1.0], (N, N))
-    deg = np.abs(tfm).sum(axis=1)
+    if N <= 4096:
+        tfm = (rng.uniform(size=(N, N)) < 0.3) * rng.choice([-1.0, 1.0], (N, N))
+        rows, cols = np.nonzero(tfm)
+        coef = tfm[rows, cols]
+    else:
+        rows = np.repeat(np.arange(N), 8)
+        cols = np.sort(rng.integers(0, N - 7, (N, 8)), axis=1)
+        cols = (cols + np.arange(8)).ravel()            # 8 distinct columns a row
+        coef = rng.choice([-1.0, 1.0], N * 8)
+    deg = np.bincount(rows, np.abs(coef), minlength=N)
     deg[deg == 0] = 1.0
-    rows, cols = np.nonzero(tfm)
     totw = np.zeros((w, N))
     totw[1] = 1.0
     totw[2:] = rng.uniform(size=(w - 2, N)) < 0.7
@@ -486,5 +600,5 @@ def random_scan_problem(w: int, N: int = 7, P: int = 300, S: int = 40, *,
         init_slots=np.asarray([0], np.int32), slot_map=np.arange(6), totw=totw,
         driven=driven, driver_idx=np.zeros(N, np.int64),
         tf_ptr=np.searchsorted(rows, np.arange(N + 1)).astype(np.int32),
-        tf_col=cols.astype(np.int32), tf_coef=tfm[rows, cols], tf_deg=deg)
+        tf_col=cols.astype(np.int32), tf_coef=coef, tf_deg=deg)
     return args, plan

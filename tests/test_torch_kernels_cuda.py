@@ -34,9 +34,9 @@ from phoskintime_tpu_torch.ops.phi_tables import (ladder_len, phi_tables,
                                                   phi_tables_reference,
                                                   phi_tables_wide, phi_tables_xwide,
                                                   phi_vectors)
-from phoskintime_tpu_torch.ops.scan_kernel import (etd2rk_scan, etd2rk_scan_reference,
-                                                   random_scan_problem, scan_launch_shape,
-                                                   scan_runs)
+from phoskintime_tpu_torch.ops.scan_kernel import (VARIANTS, etd2rk_scan,
+                                                   etd2rk_scan_reference, random_scan_problem,
+                                                   scan_launch_shape, scan_runs)
 
 pytestmark = pytest.mark.cuda
 
@@ -487,28 +487,32 @@ def test_scan_kernel_rejects(cuda_device, bad, err):
         etd2rk_scan(*args, plan)
 
 
-# the wide kernel's shapes: widths past 17 (a member in a block, or over a
-# cluster of up to 7 at w = 129), members past 256 proteins (over clusters,
-# E streamed, the state in device memory at w = 129), each in both types
+# the shapes past the template kernel's: widths past 17 (a member in a
+# block, or over a cluster of up to 7 at w = 129), members past 256 proteins
+# (a member a block at w = 6 and N = 257; over clusters, E streamed, the
+# state in device memory at w = 129; past 6,144 proteins wide-global with
+# several lanes a thread), each in both types
 WIDE_SCAN_CASES = [(18, 7), (22, 7), (33, 7), (65, 7), (96, 7), (97, 7), (128, 7), (129, 7),
                    (6, 257), (6, 1024), (6, 4096), (22, 257), (22, 1024), (22, 4096),
-                   (65, 257), (129, 1024), (129, 4096)]
+                   (65, 257), (129, 1024), (129, 4096), (6, 8193), (22, 8193), (6, 16384),
+                   (22, 16384)]
 SCAN_TOLS = {torch.float32: (SCAN_RTOL, SCAN_ATOL), torch.float64: (1e-10, 1e-12)}
 
 
 def wide_members(w, N):
-    """Members of a wide-kernel test problem: several, but at most ~8,000
-    lanes at the widest blocks."""
+    """Members of a wide-kernel test problem: several, but at most ~33,000
+    lanes at the widest blocks and largest members."""
     return 40 if N == 7 else 8 if N < 1024 else 2 if w <= 22 else 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("w, N", WIDE_SCAN_CASES)
 def test_wide_scan_kernel_matches_plain(cuda_device, w, N, dtype):
-    """The wide kernel (w >= 18 or N > 256) in each of its variants against
-    the plain version: one launch, no NotImplementedError."""
+    """The kernel past the template's domain (w >= 18 or N > 256) in each of
+    its regimes against the plain version: one launch, no
+    NotImplementedError, up to N = 16,384."""
     shape = scan_launch_shape(w, N, dtype.itemsize)
-    assert shape.variant.startswith("wide")
+    assert shape.variant in VARIANTS[3:]
     args, plan = random_scan_problem(w, N=N, P=wide_members(w, N), seed=w + N, dtype=dtype,
                                      device=cuda_device)
     before = etd2rk_scan.launches
@@ -519,18 +523,34 @@ def test_wide_scan_kernel_matches_plain(cuda_device, w, N, dtype):
     torch.testing.assert_close(got, etd2rk_scan_reference(*args, plan), rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("w, N, dtype, variant, cluster", [
-    (32, 369, torch.float32, "wide-shared", 8), (56, 1585, torch.float32, "wide-stream", 8),
-    (5, 3177, torch.float64, "wide-shared", 8), (114, 393, torch.float64, "wide-stream", 8),
-    (22, 3836, torch.float32, "wide-global", 5), (10, 4093, torch.float64, "wide-global", 6)])
-def test_wide_scan_kernel_at_its_limits(cuda_device, w, N, dtype, variant, cluster):
-    """The wide kernel's largest launches up to N = 4,096: clusters of 8
-    blocks of ~227 KB of shared memory each (up to 800 threads), and the
-    wide-global variant's widest clusters at 704-768 threads; each
-    schedules and agrees with the plain version."""
+@pytest.mark.parametrize("w, N, dtype, want", [
+    (8, 461, torch.float32, ("wide-shared", 1, 1, 1, False)),
+    (7, 321, torch.float64, ("wide-shared", 1, 1, 1, False)),
+    (117, 4, torch.float32, ("wide-shared", 1, 2, 1, False)),
+    (116, 7, torch.float32, ("wide-shared", 2, 2, 1, True)),
+    (116, 7, torch.float64, ("wide-shared", 4, 2, 1, True)),
+    (12, 443, torch.float32, ("wide-shared", 2, 1, 1, True)),
+    (8, 427, torch.float64, ("wide-shared", 2, 1, 1, True)),
+    (21, 200, torch.float32, ("wide-shared", 2, 1, 1, False)),
+    (7, 2243, torch.float64, ("wide-shared", 7, 1, 1, False)),
+    (112, 497, torch.float32, ("wide-stream", 5, 1, 1, True)),
+    (104, 325, torch.float32, ("wide-stream", 3, 1, 1, False)),
+    (90, 497, torch.float64, ("wide-global", 1, 1, 1, False)),
+    (2, 16384, torch.float32, ("wide-global", 8, 1, 4, True)),
+    (2, 9809, torch.float64, ("wide-global", 7, 1, 3, True)),
+    (2, 16384, torch.float64, ("wide-global", 8, 1, 4, False))])
+def test_wide_scan_kernel_at_its_limits(cuda_device, w, N, dtype, want):
+    """Each regime past the template's domain at its largest launch
+    (~227 KB of shared memory, or its most threads and lanes): wide-shared
+    with a member in one block of a thread a lane (its simple build), with
+    a lane's columns over 2 warps, with a
+    cluster that copies its totals to each other block (push; also with a
+    lane's rows over 2 threads) or reads them across the cluster (pull);
+    wide-stream both ways; wide-global in one block and over clusters of
+    3-4 lanes a thread. Each schedules and agrees with the plain version."""
     shape = scan_launch_shape(w, N, dtype.itemsize)
-    assert (shape.variant, shape.cluster) == (variant, cluster)
-    assert variant == "wide-global" or shape.shared_bytes > 220_000
+    assert (shape.variant, shape.cluster, shape.cols, shape.per, shape.push) == want
+    assert shape.threads == 512 or shape.shared_bytes > 220_000
     args, plan = random_scan_problem(w, N=N, P=2, S=12, seed=w, dtype=dtype, device=cuda_device)
     got = etd2rk_scan(*args, plan)
     torch.cuda.synchronize()
@@ -539,10 +559,12 @@ def test_wide_scan_kernel_at_its_limits(cuda_device, w, N, dtype, variant, clust
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("w, N, P, member", [(65, 7, 40, 5), (6, 1024, 3, 1)])
+@pytest.mark.parametrize("w, N, P, member", [(65, 7, 40, 5), (6, 1024, 3, 1), (129, 7, 6, 2),
+                                             (6, 16384, 2, 1)])
 def test_wide_scan_nan_member_stays_in_its_lanes(cuda_device, w, N, P, member, dtype):
-    """A NaN member of the wide kernel (w = 65: a member a block, or a
-    cluster of two in float64; N = 1,024: a member over a cluster) leaves
+    """A NaN member of the wide kernel (w = 65: a member a block; N = 1,024
+    and w = 129: a member over a cluster that copies its totals between its
+    blocks; N = 16,384: over 8 blocks of several lanes a thread) leaves
     every other member's snapshots bit-identical."""
     args, plan = random_scan_problem(w, N=N, P=P, seed=w, dtype=dtype, device=cuda_device)
     clean = etd2rk_scan(*args, plan)
@@ -555,10 +577,12 @@ def test_wide_scan_nan_member_stays_in_its_lanes(cuda_device, w, N, P, member, d
     assert bool(torch.isnan(dirty[1:, 0, ~keep]).all())
 
 
-@pytest.mark.parametrize("w, N", [(22, 7), (6, 300)])
+@pytest.mark.parametrize("w, N", [(22, 7), (6, 300), (129, 7), (6, 16384)])
 def test_wide_scan_driven_override_is_a_select(cuda_device, w, N):
-    """In the wide kernel too, a non-finite kinase-driven protein reaches
-    none of its member's other proteins (at N = 300 across a block)."""
+    """Past the template's domain too, a non-finite kinase-driven protein
+    reaches none of its member's other proteins (at N = 300 across a block
+    of a thread a lane, at w = 129 across a cluster that copies its totals
+    between blocks, at N = 16,384 over 8 blocks of 4 lanes a thread)."""
     args, plan = random_scan_problem(w, N=N, P=6, seed=w, device=cuda_device)
     clean = etd2rk_scan(*args, plan)
     y0 = args[3].clone()
@@ -569,7 +593,7 @@ def test_wide_scan_driven_override_is_a_select(cuda_device, w, N):
     assert torch.equal(clean[..., keep], dirty[..., keep])
 
 
-@pytest.mark.parametrize("w", [22, 65])
+@pytest.mark.parametrize("w", [22, 65, 129])
 def test_wide_scan_pairs_out_of_order(cuda_device, w):
     """The wide kernel reloads each run's rows at its first segment."""
     args, plan = random_scan_problem(w, N=7, P=20, S=24, seed=w, device=cuda_device)

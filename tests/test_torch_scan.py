@@ -40,7 +40,8 @@ from phoskintime_tpu_torch.ops.cuda_build import MAX_SHARED_BYTES
 from phoskintime_tpu_torch.ops.scan_kernel import (VARIANTS, etd2rk_scan,
                                                    etd2rk_scan_reference, prepare_scan_plan,
                                                    random_scan_problem, scan_launch_shape,
-                                                   scan_runs, wide_layout)
+                                                   scan_runs, wide_layout, wide_shared_bytes,
+                                                   wide_threads)
 
 torch.set_num_threads(2)
 
@@ -377,65 +378,84 @@ def test_stale_runs_are_refused():
 # widths past the template kernel's, each side of a power of two and the
 # widest tables'
 WIDE_WIDTHS = [18, 22, 32, 33, 64, 65, 96, 97, 128, 129]
-WIDE_PROTEINS = [1, 2, 6, 7, 45, 199, 256, 257, 285, 511, 1024, 2048, 4095, 4096, 6144]
+WIDE_PROTEINS = [1, 2, 6, 7, 45, 199, 256, 257, 285, 320, 321, 511, 1024, 2048, 4095, 4096,
+                 6144, 6145, 8192, 8193, 12288, 16383, 16384]
+# csrc/etd2rk_scan.cu's wide limits: threads a block, blocks a cluster,
+# lanes a thread, warps a lane's columns
+WIDE_MAX_THREADS, MAX_CLUSTER, MAX_PER, MAX_COLS = 512, 8, 4, 8
 
 
-def fits(variant, w, lanes, itemsize):
+def fits(variant, w, lanes, itemsize, cluster=1):
     """Whether a block of the wide kernel's ``variant`` holds ``lanes``
     lanes: threads a lane from about four rows a thread (a sector's worth
-    of lanes a warp where E is streamed), halved while the block would
-    take more threads than the variant's bound (768 for wide-global, else
-    1,024), and the lanes' shared words."""
-    g = 1
-    while g < 32 and 4 * g < w:
-        g *= 2
-    if variant != "wide-shared":
-        g = min(g, itemsize)
-    most = 768 if variant == "wide-global" else 1024
-    while g > 1 and -(-lanes * g // 32) * 32 > most:
-        g //= 2
-    return (-(-lanes * g // 32) * 32 <= most
-            and lane_bytes(variant, w, g, itemsize) * lanes <= MAX_SHARED_BYTES)
-
-
-def lane_bytes(variant, w, g, itemsize):
-    """Shared bytes a lane: Pv's two buffers and three synthesis constants,
-    the TF row's two int bounds; y, a, p1, p2h and the weights (but in
-    wide-global); E's rows (wide-shared)."""
-    e_row, e_lane, y_lane = wide_layout(w, g)
-    words = 5 + (5 * y_lane if variant != "wide-global" else 0) + (
-        e_lane if variant == "wide-shared" else 0)
-    return itemsize * words + 8
+    of lanes a warp where E is streamed), halved while the block would take
+    more than 512 threads; in wide-global a thread a lane, up to 4; and the
+    lanes' shared words, each block's totals in every block or only its
+    own."""
+    if variant == "wide-global":
+        group = 1
+        per = next((p for p in range(1, MAX_PER + 1)
+                    if wide_threads(lanes, 1, 1, p) <= WIDE_MAX_THREADS), None)
+        if per is None:
+            return False
+    else:
+        per, group = 1, 1
+        while group < 32 and 4 * group < w:
+            group *= 2
+        if variant != "wide-shared":
+            group = min(group, itemsize)
+        while group > 1 and wide_threads(lanes, group, 1, 1) > WIDE_MAX_THREADS:
+            group //= 2
+    return (wide_threads(lanes, group, 1, per) <= WIDE_MAX_THREADS
+            and wide_shared_bytes(variant, w, lanes, group, itemsize, per=per, cluster=cluster)
+            <= MAX_SHARED_BYTES)
 
 
 def assert_wide_shape(w, N, itemsize):
-    """The wide kernel's shape of (w, N): a variant of the wide kernel, the
-    first (E and state in shared memory, E streamed, both in device
-    memory) whose lanes fit; whole members a block, or one member over the
-    fewest blocks of a cluster of at most 8; at most 1,024 threads (768 in
-    wide-global) and the block's shared memory."""
+    """The shape of (w, N) past the template kernel's domain, the wide
+    kernel's: the first variant (E and state in shared memory, E streamed,
+    both in device memory) whose
+    lanes fit; whole members a block, or one member over the fewest blocks
+    of a cluster of at most 8; at most 512 threads, a lane's rows over a
+    power of two of threads up to 32, its columns over 1-8 warps (only at
+    32 and w >= 97), or 1-4 lanes a thread (only wide-global); the block's
+    threads and shared memory (the kernel's footprint, at least a lane's
+    state and in wide-shared its E rows) within the kernel's limits;
+    every block's totals in each (push) only in a cluster."""
     shape = scan_launch_shape(w, N, itemsize)
     assert shape.variant in VARIANTS[3:], (w, N, itemsize)
-    g = shape.group
+    g, cols, per = shape.group, shape.cols, shape.per
     assert g in (1, 2, 4, 8, 16, 32) and (shape.variant == "wide-shared" or g <= itemsize)
-    assert shape.threads == -(-shape.lanes * g // 32) * 32 <= (
-        768 if shape.variant == "wide-global" else 1024)
+    assert 1 <= cols <= MAX_COLS and (cols == 1 or (shape.variant == "wide-shared" and g == 32
+                                                    and w >= 97))
+    assert 1 <= per <= MAX_PER and (per == 1 or (shape.variant == "wide-global" and g == 1))
+    assert shape.threads == wide_threads(shape.lanes, g, cols, per) <= WIDE_MAX_THREADS
+    assert shape.threads % 32 == 0 and shape.threads * per >= shape.lanes * g * cols
+    assert per == 1 or wide_threads(shape.lanes, 1, 1, per - 1) > WIDE_MAX_THREADS
     e_row, e_lane, y_lane = wide_layout(w, g)
     assert e_row >= w and e_row % 2 and y_lane >= w and y_lane % 2
     assert e_lane >= w * e_row and (e_lane % 2 if g == 1 else (e_lane - g * e_row) % 32 == 0)
-    assert shape.shared_bytes == lane_bytes(shape.variant, w, g, itemsize) * shape.lanes
-    assert shape.shared_bytes <= MAX_SHARED_BYTES
-    assert 1 <= shape.cluster <= 8
+    assert shape.shared_bytes == wide_shared_bytes(shape.variant, w, shape.lanes, g, itemsize,
+                                                   cols=cols, per=per, cluster=shape.cluster,
+                                                   push=shape.push) <= MAX_SHARED_BYTES
+    # at least the two totals' buffers and, but in wide-global, each lane's
+    # y, a, p1, p2h and weights, and in wide-shared its E rows
+    state = 2 * shape.lanes + (0 if shape.variant == "wide-global" else 5 * shape.lanes * w)
+    e_rows = shape.lanes * w * w if shape.variant == "wide-shared" else 0
+    assert shape.shared_bytes >= itemsize * (state + e_rows)
+    assert 1 <= shape.cluster <= MAX_CLUSTER and not (shape.push and shape.cluster == 1)
     if shape.cluster == 1:
         assert shape.lanes == shape.members * N
-        assert shape.members == 1 or shape.threads <= 256
+        assert shape.members == 1 or shape.threads <= 256 * cols
     else:
         assert shape.members == 1 and (shape.cluster - 1) * shape.lanes < N
         assert shape.cluster * shape.lanes >= N
-        assert not fits(shape.variant, w, -(-N // (shape.cluster - 1)), itemsize)
+        if shape.variant != "wide-global":
+            assert not fits(shape.variant, w, -(-N // (shape.cluster - 1)), itemsize,
+                            shape.cluster - 1)
     # an earlier variant holds no member at any cluster
     for v in VARIANTS[3:VARIANTS.index(shape.variant)]:
-        assert not any(fits(v, w, -(-N // c), itemsize) for c in range(1, 9)), (w, N, v)
+        assert not any(fits(v, w, -(-N // c), itemsize, c) for c in range(1, 9)), (w, N, v)
     return shape
 
 
@@ -447,8 +467,9 @@ def test_scan_launch_shape(w):
     224 at w = 16, N <= 199 at w = 17), streamed past that; whole members,
     at most 256 threads, and never more shared memory than a block may opt
     into. Past it the wide kernel (:func:`assert_wide_shape`), up to N =
-    6,144 sampled, in both types; w = 1, w = 130 and N = 0 raise naming
-    kernel 1b, N = 8,193 naming the cluster's capacity."""
+    16,384 sampled, in both types;
+    w = 1, w = 130 and N = 0 raise naming kernel 1b, N = 16,385 naming the
+    new limit."""
     last_shared = {9: 256, 10: 256, 11: 256, 12: 256, 13: 256, 14: 256, 15: 256,
                    16: 224, 17: 199}
     for N in range(1, 257) if w <= 17 else ():
@@ -468,27 +489,38 @@ def test_scan_launch_shape(w):
     for bad in ((w, 0), (1, 7), (130, 7)):
         with pytest.raises(NotImplementedError, match="kernel 1b"):
             scan_launch_shape(*bad)
-    with pytest.raises(NotImplementedError, match="up to 6,144 proteins"):
-        scan_launch_shape(w, 8193)
+    for itemsize in (4, 8):
+        with pytest.raises(NotImplementedError, match="up to 16,384 proteins"):
+            scan_launch_shape(w, 16385, itemsize)
 
 
 def test_wide_shapes_of_the_main_path():
     """The regimes of the objective's shapes past w = 17 and N = 256 on the
     card: a member's E rows in shared memory, in one block (w = 22 five
-    members, w = 65 one) or a cluster (w = 129: three blocks in float32,
-    one lane each of seven in float64), and the 285-protein network in one
-    block of 576 threads; at N = 4,096 the rows streamed and the state in
-    device memory at w = 129."""
-    want = {(22, 6, 4): ("wide-shared", 5, 8, 1), (22, 6, 8): ("wide-shared", 5, 8, 1),
-            (65, 6, 4): ("wide-shared", 1, 32, 1), (65, 6, 8): ("wide-shared", 1, 32, 1),
-            (129, 7, 4): ("wide-shared", 1, 32, 3), (129, 7, 8): ("wide-shared", 1, 32, 7),
-            (6, 285, 4): ("wide-shared", 1, 2, 1), (6, 285, 8): ("wide-shared", 1, 2, 1),
-            (129, 4096, 4): ("wide-global", 1, 1, 6), (129, 4096, 8): ("wide-global", 1, 1, 6)}
-    for (w, N, itemsize), (variant, members, group, cluster) in want.items():
+    members; w = 65 one) or over a cluster whose
+    blocks copy their totals to each other (w = 129: three blocks of 3
+    lanes, 4 warps a lane, in float32; seven of one lane, 8 warps, in
+    float64), and the 285-protein network in one block of 288 threads, a
+    thread a lane; at N = 4,096 and w = 129 the state in device memory over
+    8 blocks, and at N = 16,384 4 lanes a thread."""
+    want = {(22, 6, 4): ("wide-shared", 5, 8, 1, 1, 1), (22, 6, 8): ("wide-shared", 5, 8, 1, 1, 1),
+            (65, 6, 4): ("wide-shared", 1, 32, 1, 1, 1),
+            (65, 6, 8): ("wide-shared", 1, 32, 1, 1, 1),
+            (129, 7, 4): ("wide-shared", 1, 32, 3, 4, 1),
+            (129, 7, 8): ("wide-shared", 1, 32, 7, 8, 1),
+            (6, 285, 4): ("wide-shared", 1, 1, 1, 1, 1),
+            (6, 285, 8): ("wide-shared", 1, 1, 1, 1, 1),
+            (129, 4096, 4): ("wide-global", 1, 1, 8, 1, 1),
+            (129, 4096, 8): ("wide-global", 1, 1, 8, 1, 1),
+            (22, 16384, 4): ("wide-global", 1, 1, 8, 1, 4),
+            (22, 16384, 8): ("wide-global", 1, 1, 8, 1, 4)}
+    for (w, N, itemsize), expect in want.items():
         shape = assert_wide_shape(w, N, itemsize)
-        assert (shape.variant, shape.members, shape.group, shape.cluster) == (
-            variant, members, group, cluster), (w, N, itemsize, shape)
-    assert scan_launch_shape(6, 285).threads == 576
+        assert (shape.variant, shape.members, shape.group, shape.cluster, shape.cols,
+                shape.per) == expect, (w, N, itemsize, shape)
+    assert scan_launch_shape(6, 285).threads == 288
+    assert scan_launch_shape(129, 7).push and scan_launch_shape(129, 7).threads == 384
+    assert scan_launch_shape(129, 7, 8).push and scan_launch_shape(129, 7, 8).threads == 256
 
 
 def test_mechanism_gate():
@@ -501,8 +533,8 @@ def test_mechanism_gate():
 
 
 @pytest.mark.parametrize("w, N, P", [(2, 7, 300), (6, 7, 300), (17, 7, 300), (22, 7, 40),
-                                     (65, 7, 6), (129, 7, 2), (6, 300, 3)],
-                         ids=["2", "6", "17", "22", "65", "129", "6-N300"])
+                                     (65, 7, 6), (129, 7, 2), (6, 300, 3), (6, 7000, 2)],
+                         ids=["2", "6", "17", "22", "65", "129", "6-N300", "6-N7000"])
 def test_cpu_tensor_takes_the_plain_version(w, N, P):
     """A CPU tensor runs the plain version (no launch) at every width and
     N the kernel takes; float32 agrees with float64 on the same problem at

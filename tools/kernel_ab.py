@@ -2,8 +2,10 @@
 hold two checkouts of the port against each other on one card.
 
     python tools/kernel_ab.py tune
+    python tools/kernel_ab.py tune-scan-wide
     python tools/kernel_ab.py ab PARENT_DIR [--rk45] [--repeats N] [--rounds N] [--sections ...]
     python tools/kernel_ab.py ab PARENT_DIR --sections xwide
+    python tools/kernel_ab.py ab PARENT_DIR --sections scan-wide
 
 ``tune`` sweeps the launch shape of ``csrc/phi_tables_wide.cu`` (rows a
 thread owns, warps a block) at w = 9 and 17 (the model-2 bench chunk's own
@@ -13,6 +15,11 @@ model-2 chunks: each candidate's device time by the profiler, its error
 against the plain version, and whether its output equals the first
 candidate's bit for bit. A candidate the library was not built for (the
 source instantiates the chosen R of each width) is reported as such.
+
+``tune-scan-wide`` times the wide scan kernel's launch choices (the TF
+rows staged or not, the warps an SM it aims at and the widths from which a
+lane's columns split over warps) on the ``scan-wide`` section's scans
+(:func:`tune_scan_wide`).
 
 ``ab`` runs the same measurements (``arm``) in PARENT_DIR, this checkout,
 this checkout and PARENT_DIR, one process each, in that order, ``--rounds``
@@ -29,7 +36,13 @@ chip_smoke.py phase 3h's classes, model 2 at 6 sites, w = 33 and 65, and
 model 0 with a 20-site protein, w = 22, float32 and float64, beside
 ``torch.linalg.matrix_exp`` on the same tables' augmented matrices; the
 inputs are made once, by this checkout, and every arm reads them from
-one file), a digest of each output, and the
+one file; ``scan-wide``: ``csrc/etd2rk_scan.cu`` past the template kernel's
+domain on the objective's own scans at chip_smoke.py phase 3i's networks,
+w = 22, 65, 129 and N = 285, 2,048 members in float32 and 256 in float64:
+the networks are built once, by this checkout, every arm reads them from
+one file and assembles the scans' inputs with its own table kernel, and
+each arm's inputs carry a checksum, equal across arms), a digest of each
+output, and the
 end-to-end rates that ``chip_smoke.py`` prints (section ``rates``: model
 0 eager at pop 8192, model 2 bucketed at pop 2048, both through the scan
 kernel; with ``--rk45`` also the RK45 model-2 objective at pop 2048;
@@ -268,7 +281,31 @@ def xwide_inputs(path: Path) -> Path:
     return path
 
 
-SECTIONS = ("wide", "scan", "phi", "flux", "rates", "xwide")
+def scan_wide_inputs(path: Path) -> Path:
+    """Write the ``scan-wide`` section's networks to ``path``: chip_smoke.py
+    3i's networks as host data (tools/smoke_cases.py: scan_wide_hosts)."""
+    from smoke_cases import scan_wide_hosts
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(scan_wide_hosts(), path)
+    return path
+
+
+def checksum(tensors) -> list:
+    """Sums and sums of squares of each tensor at float64, in chunks of 2^26
+    entries (E at w = 129 is 13 GB): equal across arms whose inputs are
+    equal."""
+    out = []
+    for x in tensors:
+        s1 = s2 = 0.0
+        for part in x.reshape(-1).split(1 << 26):
+            d = part.double()
+            s1, s2 = s1 + float(d.sum()), s2 + float(d.square().sum())
+        out.append([s1, s2])
+    return out
+
+
+SECTIONS = ("wide", "scan", "phi", "flux", "rates", "xwide", "scan-wide")
 # the networks of chip_smoke.py's phase 3h (tools/smoke_cases.py) that the
 # xwide section times: w = 33 and 65, and w = 22. The 7-site network's class
 # w = 129 is left out on purpose: a checkout whose kernel stops at w = 65
@@ -276,10 +313,12 @@ SECTIONS = ("wide", "scan", "phi", "flux", "rates", "xwide")
 XWIDE_AB_NETWORKS = ("model2-6sites", "model0-20sites")
 
 
-def arm(rk45: bool, repeats: int, sections=SECTIONS, inputs: Path | None = None) -> dict:
+def arm(rk45: bool, repeats: int, sections=SECTIONS, inputs: Path | None = None,
+        scan_inputs: Path | None = None) -> dict:
     """One tree's measurements (the tree whose package is imported);
-    ``inputs``: the ``xwide`` section's file (:func:`xwide_inputs`), made
-    here where none is given."""
+    ``inputs``: the ``xwide`` section's file (:func:`xwide_inputs`), and
+    ``scan_inputs`` the ``scan-wide`` section's (:func:`scan_wide_inputs`),
+    each made here where none is given."""
     import phoskintime_tpu_torch
     from phoskintime_tpu_torch.ops import cuda_build
     from phoskintime_tpu_torch.ops.hypercube_flux import hypercube_flux
@@ -292,9 +331,9 @@ def arm(rk45: bool, repeats: int, sections=SECTIONS, inputs: Path | None = None)
     cuda_build.build_libraries()
     out = {"package": str(Path(phoskintime_tpu_torch.__file__).parent),
            "build_s": time.perf_counter() - t0, "tables": {}, "scan": {}, "phi": {},
-           "flux": {}, "xwide": {}}
-    bs = bundles(() if set(sections) <= {"flux", "xwide"} else
-                 (0,) if set(sections) <= {"phi", "flux", "xwide"} else (0, 2))
+           "flux": {}, "xwide": {}, "scan_wide": {}}
+    bs = bundles(() if set(sections) <= {"flux", "xwide", "scan-wide"} else
+                 (0,) if set(sections) <= {"phi", "flux", "xwide", "scan-wide"} else (0, 2))
     if "wide" in sections:
         for label, (L, binv, h_u, ladder) in table_cases(bs).items():
             run = lambda: phi_tables(L, binv, h_u, ladder)
@@ -338,6 +377,23 @@ def arm(rk45: bool, repeats: int, sections=SECTIONS, inputs: Path | None = None)
                                    "matrix_exp_ms": cuda_ms(lambda: torch.linalg.matrix_exp(M), 3),
                                    "digest": digests(run())}
             del M
+    if "scan-wide" in sections:
+        from phoskintime_tpu_torch.ops.scan_kernel import scan_launch_shape
+        from smoke_cases import SCAN_WIDE_NETWORKS, SCAN_WIDE_POP, scan_wide_args
+
+        path = scan_inputs or scan_wide_inputs(
+            HERE / "results_ab" / f"scan_wide_inputs_{os.getpid()}.pt")
+        hosts = torch.load(path, weights_only=False)
+        for dtype, name in itertools.product((torch.float32, torch.float64), SCAN_WIDE_NETWORKS):
+            args, plan = scan_wide_args(hosts[name], dtype, SCAN_WIDE_POP[dtype])
+            run = lambda: etd2rk_scan(*args, plan)
+            w = args[0].shape[1]
+            out["scan_wide"][f"{name} w={w} N={plan.N} {str(dtype)[-7:]}"] = {
+                "ms": cuda_ms(run, 3), "device_ms": device_ms(run, "etd2rk_scan", 3),
+                "shape": str(tuple(scan_launch_shape(w, plan.N, dtype.itemsize))),
+                "inputs": checksum(args), "digest": digests((run(),))}
+            del args, run
+            torch.cuda.empty_cache()
     if "rates" in sections:
         out["evals_per_s"] = rates(bs, rk45, repeats)
     return out
@@ -430,6 +486,47 @@ def tune() -> dict:
     return report
 
 
+def tune_scan_wide() -> dict:
+    """The wide scan kernel's launch choices on the ``scan-wide`` section's
+    scans (this checkout): each shape's device ms by its default shape, with
+    the TF rows read from device memory (none staged), with the warps an SM
+    aimed at 4, 6, 8 and 16 (a lane's column warps), with a lane's columns
+    split from w = 65; each arm's error against the default's output."""
+    from phoskintime_tpu_torch.ops import cuda_build, scan_kernel as sk
+    from smoke_cases import SCAN_WIDE_NETWORKS, SCAN_WIDE_POP, scan_wide_args, scan_wide_hosts
+
+    cuda_build.build_libraries()
+    hosts = scan_wide_hosts()
+    arms = {"default": {}, "tf_rows_unstaged": {"_tf_cap": lambda *a: 0},
+            **{f"target_warps_{n}": {"_TARGET_WARPS": n} for n in (4, 6, 8, 16)},
+            "columns_from_w65": {"_COLS_MIN_WIDTH": 65}}
+    report = []
+    for dtype, name in itertools.product((torch.float32, torch.float64), SCAN_WIDE_NETWORKS):
+        args, plan = scan_wide_args(hosts[name], dtype, SCAN_WIDE_POP[dtype])
+        w = args[0].shape[1]
+        first = None
+        for arm_name, patch in arms.items():
+            saved = {k: getattr(sk, k) for k in patch}
+            for k, v in patch.items():
+                setattr(sk, k, v)
+            try:
+                shape = sk.scan_launch_shape(w, plan.N, dtype.itemsize)
+                run = lambda: sk.etd2rk_scan(*args, plan)
+                got = run()
+                first = got if first is None else first
+                entry = {"case": f"{name} w={w} N={plan.N} {str(dtype)[-7:]}", "arm": arm_name,
+                         "shape": shape._asdict(), "device_ms": device_ms(run, "etd2rk_scan", 3),
+                         "max_scaled_err_vs_default": scaled_err((got,), (first,))}
+            finally:
+                for k, v in saved.items():
+                    setattr(sk, k, v)
+            report.append(entry)
+            log(json.dumps(entry))
+        del args, first, got
+        torch.cuda.empty_cache()
+    return {"scan_wide": report}
+
+
 def spread(arms, tree: str, kind: str) -> dict:
     """{label: {key: (median, least, most)}} of ``tree``'s arms' times in
     section ``kind``."""
@@ -451,6 +548,9 @@ def ab(parent: Path, rk45: bool, repeats: int, sections=SECTIONS, rounds: int = 
     if "xwide" in sections:                # one set of inputs for every arm
         path = xwide_inputs(HERE / "results_ab" / "xwide_inputs.pt")
         extra = ["--xwide-inputs", str(path)]
+    if "scan-wide" in sections:
+        extra += ["--scan-wide-inputs",
+                  str(scan_wide_inputs(HERE / "results_ab" / "scan_wide_inputs.pt"))]
     arms = []
     for name, root in trees:
         cmd = [sys.executable, str(Path(__file__).resolve()), "arm", "--repeats",
@@ -466,7 +566,7 @@ def ab(parent: Path, rk45: bool, repeats: int, sections=SECTIONS, rounds: int = 
         arms.append(res)
         log(json.dumps(res))
     same, spreads = {}, {}
-    for kind in ("tables", "scan", "phi", "flux", "xwide"):
+    for kind in ("tables", "scan", "phi", "flux", "xwide", "scan_wide"):
         for label in arms[0][kind]:
             d = {name: [a[kind][label]["digest"] for a in arms if a["tree"] == name]
                  for name in ("parent", "change")}
@@ -474,6 +574,9 @@ def ab(parent: Path, rk45: bool, repeats: int, sections=SECTIONS, rounds: int = 
                 "bits_equal": d["parent"][0][0] == d["change"][0][0],
                 "values_equal": d["parent"][0][1] == d["change"][0][1],
                 "each_tree_repeats": all(x == v[0] for v in d.values() for x in v)}
+            if kind == "scan_wide":
+                sums = [a[kind][label]["inputs"] for a in arms]
+                same[f"{kind} {label}"]["inputs_equal"] = all(x == sums[0] for x in sums)
         if arms[0][kind]:
             spreads[kind] = {name: spread(arms, name, kind) for name in ("parent", "change")}
     return {"arms": arms, "parent_vs_change": same, "median_least_most": spreads}
@@ -481,7 +584,7 @@ def ab(parent: Path, rk45: bool, repeats: int, sections=SECTIONS, rounds: int = 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=("tune", "ab", "arm"))
+    ap.add_argument("mode", choices=("tune", "tune-scan-wide", "ab", "arm"))
     ap.add_argument("parent", nargs="?", type=Path)
     ap.add_argument("--rk45", action="store_true")
     ap.add_argument("--repeats", type=int, default=1,
@@ -492,6 +595,9 @@ def main() -> int:
                     help="comma-separated parts of an arm: " + ", ".join(SECTIONS))
     ap.add_argument("--xwide-inputs", type=Path, default=None,
                     help="the xwide section's inputs (made by ab; an arm alone makes its own)")
+    ap.add_argument("--scan-wide-inputs", type=Path, default=None,
+                    help="the scan-wide section's networks (made by ab; an arm alone makes its "
+                         "own)")
     opts = ap.parse_args()
     sections = tuple(opts.sections.split(","))
     if not set(sections) <= set(SECTIONS):
@@ -503,11 +609,14 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     if opts.mode == "arm":
-        print(json.dumps(arm(opts.rk45, opts.repeats, sections, opts.xwide_inputs)))
+        print(json.dumps(arm(opts.rk45, opts.repeats, sections, opts.xwide_inputs,
+                             opts.scan_wide_inputs)))
         return 0
     log(smi)
     if opts.mode == "tune":
         out = tune()
+    elif opts.mode == "tune-scan-wide":
+        out = tune_scan_wide()
     else:
         if opts.parent is None:
             ap.error("ab needs PARENT_DIR")

@@ -28,12 +28,14 @@ path's shapes:
   steps (with the series beside them), in the ladder and storing, and the
   cycles of one Horner phase and one ladder product.
 
-* ``scan``: the wide kernel of ``csrc/etd2rk_scan.cu`` at phase 3i's shapes
-  (w = 22, 65, 129 at N = 6-7, N = 285 at w = 6; float32 at 2,048
-  members, float64 at 256) on random problems with the main path's run
-  structure: a warp's mean cycles a run copying the run's rows, and a
-  segment in the first synthesis (its barrier included), in E y, in the
-  second synthesis and in the update.
+* ``scan``: the wide kernel of ``csrc/etd2rk_scan.cu`` on the objective's
+  own scans at phase 3i's networks (``tools/smoke_cases.py``; w = 22, 65,
+  129 at N = 6-7, N = 285 at w = 6; float32 at 2,048 members, float64 at
+  256): a warp's mean cycles a run issuing the copy of the run's rows and
+  waiting for it, and a segment in each synthesis (split into its wait,
+  the barrier or the cluster's signal, and the rest), in E y and in the
+  update. ``--tree DIR`` clocks the kernel and wrapper of another checkout
+  (a ``git archive`` of the parent, unpacked in a git-ignored directory).
 
 The sources are stamped by text: a change to the marked lines of a kernel
 needs the same change here. The stamps cost a few instructions a phase;
@@ -132,11 +134,11 @@ TABLE_MARKS = [
 ]
 
 
-def stamped(name: str, marks, prelude: str = "") -> str:
-    """The text of ``csrc/<name>`` with each (old, new) of ``marks``
-    replaced (each old text must be there exactly once) and ``prelude``
-    put after its include of real.cuh."""
-    src = (ROOT / "phoskintime_tpu_torch/csrc" / name).read_text()
+def stamped(name: str, marks, prelude: str = "", root: Path = ROOT) -> str:
+    """The text of ``csrc/<name>`` in the checkout ``root`` with each (old,
+    new) of ``marks`` replaced (each old text must be there exactly once)
+    and ``prelude`` put after its include of real.cuh."""
+    src = (root / "phoskintime_tpu_torch/csrc" / name).read_text()
     src = src.replace('#include "real.cuh"\n', '#include "real.cuh"\n' + prelude, 1)
     for old, new in marks:
         if src.count(old) != 1:
@@ -380,115 +382,185 @@ def xwide_clocks() -> None:
             "cycles_a_block_total": float(d.sum(axis=1).mean())}), flush=True)
 
 
-# csrc/etd2rk_scan.cu's wide kernel: a warp's cycles a run in copying the
-# run's rows (to its wait), and a segment in the first synthesis (its
-# barrier included), E y, the second synthesis and the update; summed by
-# lane 0 of every warp into a device array, with the warps counted
-SCAN_PHASES = ["copy", "synth_y", "E_y", "synth_a", "update"]
-SCAN_PRELUDE = """__device__ unsigned long long g_scan_clk[6];
+# csrc/etd2rk_scan.cu's wide kernel: a warp's cycles, summed by lane 0 of
+# every warp into a device array with the warps counted, in these slots: a
+# run's copy of its rows, issuing it and waiting for it; a segment's first
+# synthesis, E y, second synthesis and update; and, inside each synthesis,
+# its wait (the barrier, or the signal of the cluster's other blocks)
+SCAN_SLOTS = ["copy_issue", "copy_wait", "synth_y", "E_y", "synth_a", "update",
+              "synth_y_wait", "synth_a_wait"]
+SCAN_PRELUDE = """__device__ unsigned long long g_scan_clk[9];
 #define SCAN_STAMP(k) { const unsigned long long now_ = clock64(); clk_[k] += now_ - tk_; tk_ = now_; }
 """
+SCAN_TAIL = ("  if (t % 32 == 0) {\n"
+             "    for (int k = 0; k < 8; ++k) atomicAdd(g_scan_clk + k, clk_[k]);\n"
+             "    atomicAdd(g_scan_clk + 8, 1ull);\n  }\n")
+# the marks of the kernel in this checkout: the copies issued at a run's
+# start (its p1 and p2h rows, its E rows by wide_copy_rows); the
+# synthesis's wait in wide_wait; its gathers after it
 SCAN_MARKS = [
+    ("  T drive1 = T(0);",
+     "  unsigned long long clk_[8] = {0, 0, 0, 0, 0, 0, 0, 0}, tk_ = clock64();\n"
+     "  T drive1 = T(0);"),
+    ("    for (int s = s0; s < s1; ++s) {\n      // --- the first synthesis",
+     "    SCAN_STAMP(0)\n    for (int s = s0; s < s1; ++s) {\n      // --- the first synthesis"),
+    ("        if (s == s0) wait_async();\n      }\n",
+     "        if (s == s0) wait_async();\n      }\n      SCAN_STAMP(1)\n"),
+    ("      wide_wait(0);\n",
+     "      { const unsigned long long w0_ = clock64(); wide_wait(0); "
+     "clk_[6] += clock64() - w0_; }\n"),
+    ("        const T sn = act ? gather(0, l, lane_base(l)) : T(0);\n",
+     "        const T sn = act ? gather(0, l, lane_base(l)) : T(0);\n        SCAN_STAMP(2)\n"),
+    ("        put(1, l, act, act && is_driven(l), part_a);\n",
+     "        put(1, l, act, act && is_driven(l), part_a);\n        SCAN_STAMP(3)\n"),
+    ("      wide_wait(1);\n",
+     "      { const unsigned long long w0_ = clock64(); wide_wait(1); "
+     "clk_[7] += clock64() - w0_; }\n"),
+    ("          const T d = gather(1, l, lane_base(l)) - sn;\n",
+     "          const T d = gather(1, l, lane_base(l)) - sn;\n          SCAN_STAMP(4)\n"),
+    ("        put(0, l, act, act && is_driven(l), part);\n      }\n    }\n  }\n",
+     "        put(0, l, act, act && is_driven(l), part);\n        SCAN_STAMP(5)\n      }\n    }\n"
+     "  }\n" + SCAN_TAIL),
+]
+# the marks of the first wide kernel (a warp a lane, a cluster barrier; this
+# one's parent), to clock a checkout of it with --tree: the copy issued in
+# the run's prologue, the synthesis's wait in wide_barrier
+SCAN_MARKS_FIRST = [
+    ("                                        const T* __restrict__ tf_coef) {\n"
+     "  for (int off = Q;",
+     "                                        const T* __restrict__ tf_coef,"
+     " unsigned long long& bar_) {\n  for (int off = Q;"),
+    ("  wide_barrier(cluster);\n  if (!ln.active) return T(0);",
+     "  const unsigned long long b0_ = clock64();\n  wide_barrier(cluster);\n"
+     "  bar_ += clock64() - b0_;\n  if (!ln.active) return T(0);"),
     ("  T part = T(0);\n  ln.driven = false;",
-     "  unsigned long long clk_[5] = {0, 0, 0, 0, 0}, tk_ = 0;\n"
+     "  unsigned long long clk_[8] = {0, 0, 0, 0, 0, 0, 0, 0}, tk_ = 0;\n"
      "  T part = T(0);\n  ln.driven = false;"),
     ("    T drive = T(0);\n    if (ln.active && ln.driven) drive",
      "    tk_ = clock64();\n    T drive = T(0);\n    if (ln.active && ln.driven) drive"),
     ("    if constexpr (kSharedState) wait_async();\n    for (int s = s0; s < s1; ++s) {\n"
      "      const T sn = synth_wide(part, drive, pv, ln, Q, lanes, cluster, cst, rows, tf_col,\n"
      "                              tf_coef);\n",
-     "    if constexpr (kSharedState) wait_async();\n    SCAN_STAMP(0)\n"
+     "    SCAN_STAMP(0)\n    if constexpr (kSharedState) wait_async();\n    SCAN_STAMP(1)\n"
      "    for (int s = s0; s < s1; ++s) {\n"
      "      const T sn = synth_wide(part, drive, pv, ln, Q, lanes, cluster, cst, rows, tf_col,\n"
-     "                              tf_coef);\n      SCAN_STAMP(1)\n"),
-    ("      const T sa = synth_wide(part_a,",
-     "      SCAN_STAMP(2)\n      const T sa = synth_wide(part_a,"),
-    ("      part = T(0);\n      if (ln.active) {\n        const T d = sa - sn;",
-     "      SCAN_STAMP(3)\n      part = T(0);\n      if (ln.active) {\n        const T d = sa - sn;"),
+     "                              tf_coef, clk_[6]);\n      SCAN_STAMP(2)\n"),
+    ("      const T sa = synth_wide(part_a, drive, pv + lanes, ln, Q, lanes, cluster, cst, rows,\n"
+     "                              tf_col, tf_coef);\n",
+     "      SCAN_STAMP(3)\n"
+     "      const T sa = synth_wide(part_a, drive, pv + lanes, ln, Q, lanes, cluster, cst, rows,\n"
+     "                              tf_col, tf_coef, clk_[7]);\n      SCAN_STAMP(4)\n"),
     ("          if (slot >= 0) ys[(static_cast<size_t>(slot) * w + i) * B + lane] = yi;\n"
      "        }\n      }\n    }\n  }\n",
      "          if (slot >= 0) ys[(static_cast<size_t>(slot) * w + i) * B + lane] = yi;\n"
-     "        }\n      }\n      SCAN_STAMP(4)\n    }\n  }\n"
-     "  if (t % 32 == 0) {\n    for (int k = 0; k < 5; ++k) atomicAdd(g_scan_clk + k, clk_[k]);\n"
-     "    atomicAdd(g_scan_clk + 5, 1ull);\n  }\n"),
+     "        }\n      }\n      SCAN_STAMP(5)\n    }\n  }\n" + SCAN_TAIL),
 ]
 SCAN_READ = """
 extern "C" int scan_clocks_read(unsigned long long* out, int reset) {
   cudaError_t rc = cudaMemcpyFromSymbol(out, g_scan_clk, sizeof(g_scan_clk));
   if (rc == cudaSuccess && reset) {
-    const unsigned long long zero[6] = {0, 0, 0, 0, 0, 0};
+    const unsigned long long zero[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};
     rc = cudaMemcpyToSymbol(g_scan_clk, zero, sizeof(zero));
   }
   return static_cast<int>(rc);
 }
 """
-# (w, N, members, type) of the scan: phase 3i's shapes (w = 22, 65, 129 at
-# N = 6-7 and N = 285 at w = 6), float32 at pop 2048 and float64 at 256
-SCAN_CASES = [(22, 6, 2048, torch.float32), (65, 6, 2048, torch.float32),
-              (129, 7, 2048, torch.float32), (6, 285, 2048, torch.float32),
-              (65, 6, 256, torch.float64), (129, 7, 256, torch.float64)]
 
 
-def scan_clocks() -> None:
-    """The ``scan`` measurement: a stamped copy of csrc/etd2rk_scan.cu through
-    the wrapper (its library swapped in) on random problems at SCAN_CASES'
-    shapes with the main path's run structure (133 segments in 14 runs of
-    9-10 over three pairs): a warp's mean cycles a run copying the run's
-    rows and a segment in each phase, and the kernel's ms (CUDA events)."""
+def scan_marks(src: str) -> list:
+    """The mark set whose every text is in ``src`` exactly once: this
+    checkout's kernel's or the first wide kernel's."""
+    for marks in (SCAN_MARKS, SCAN_MARKS_FIRST):
+        if marks and all(src.count(old) == 1 for old, _ in marks):
+            return marks
+    raise SystemExit("phase_clocks.py: the scan kernel's text matches no mark set")
+
+
+def scan_clocks(tree: Path) -> None:
+    """The ``scan`` measurement: a stamped copy of ``tree``'s
+    csrc/etd2rk_scan.cu through ``tree``'s wrapper (its library swapped in)
+    on the objective's own scans at phase 3i's networks
+    (tools/smoke_cases.py: SCAN_WIDE_NETWORKS unbucketed, ``expo.ScanSetup``
+    at 2,048 members in float32 and 256 in float64): a warp's mean cycles a
+    run issuing the run's copy and waiting for it, and a segment in each
+    synthesis (its wait and the rest), E y and the update; and the stamped
+    kernel's ms (CUDA events). A shape that runs the template kernel (no
+    stamps) reports its ms alone."""
     from phoskintime_tpu_torch.ops import scan_kernel as sk
+    from smoke_cases import SCAN_WIDE_NETWORKS, SCAN_WIDE_POP, scan_wide_args, scan_wide_hosts
 
+    src = (tree / "phoskintime_tpu_torch/csrc/etd2rk_scan.cu").read_text()
+    marks = scan_marks(src)
     so, log = nvcc_build("etd2rk_scan_clocks",
-                         stamped("etd2rk_scan.cu", SCAN_MARKS, SCAN_PRELUDE) + SCAN_READ)
+                         stamped("etd2rk_scan.cu", marks, SCAN_PRELUDE, root=tree) + SCAN_READ)
     so.scan_clocks_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     err = so.etd2rk_scan_error_string
     err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
     wide = [part for part in log.split("Compiling entry function '")[1:]
             if "etd2rk_scan_wide_kernel" in part.split("'")[0]]
-    print(json.dumps({"ptxas_wide": [re.findall(r"Used \d+ registers|\d+ bytes spill stores", p)
-                                     for p in wide]}))
-    out = np.zeros(6, dtype=np.uint64)
-    for w, N, P, dtype in SCAN_CASES:
-        fn = getattr(so, sk._ENTRY[dtype])
-        fn.argtypes, fn.restype = sk._ARGTYPES, ctypes.c_int
-        saved = sk.entry
-        sk.entry = lambda source, name, argtypes: (fn, err)          # noqa: E731
-        try:
-            args, plan = sk.random_scan_problem(w, N=N, P=P, S=133, seed=w, dtype=dtype,
-                                                device="cuda")
-            lengths = [10] * 7 + [9] * 7
-            uidx = np.repeat(np.arange(14) % 3, lengths).astype(np.int32)
-            jb = np.asarray([0, 1, 1])[uidx].astype(np.int32)
-            plan = plan._replace(uidx=uidx, jb=jb, runs=sk.scan_runs(uidx, jb))
+    print(json.dumps({"tree": str(tree), "marks": "this checkout" if marks is SCAN_MARKS
+                      else "first wide kernel", "ptxas_wide": [
+                          re.findall(r"Used \d+ registers|\d+ bytes spill stores", p)
+                          for p in wide]}), flush=True)
+
+    def fake_entry(source, name, argtypes):
+        fn = getattr(so, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        return fn, err
+
+    hosts = scan_wide_hosts()
+    out = np.zeros(9, dtype=np.uint64)
+    saved = sk.entry
+    sk.entry = fake_entry
+    try:
+        for dtype, name in itertools.product((torch.float32, torch.float64), SCAN_WIDE_NETWORKS):
+            args, plan = scan_wide_args(hosts[name], dtype, SCAN_WIDE_POP[dtype])
             sk.etd2rk_scan(*args, plan)
             torch.cuda.synchronize()
             so.scan_clocks_read(out.ctypes.data, 1)
-            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start, stop = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
             start.record()
             sk.etd2rk_scan(*args, plan)
             stop.record()
             torch.cuda.synchronize()
             if so.scan_clocks_read(out.ctypes.data, 1) != 0:
                 raise SystemExit("phase_clocks.py: could not read the stamps")
-        finally:
-            sk.entry = saved
-        warps = max(int(out[5]), 1)
-        shape = sk.scan_launch_shape(w, N, args[0].element_size())
-        per = out[:5].astype(np.float64) / warps
-        print(json.dumps({
-            "kernel": "etd2rk_scan_wide", "w": w, "N": N, "members": P,
-            "dtype": str(dtype).split(".")[-1], "shape": shape._asdict(), "warps": warps,
-            "ms": round(start.elapsed_time(stop), 4),
-            "mean_cycles_a_run": {"copy": round(per[0] / len(plan.runs), 1)},
-            "mean_cycles_a_segment": {k: round(v / len(uidx), 1)
-                                      for k, v in zip(SCAN_PHASES[1:], per[1:])},
-            "mean_cycles_a_warp": round(float(per.sum()), 1)}), flush=True)
+            w, B = args[0].shape[1], args[0].shape[3]
+            warps, S, R = int(out[8]), len(plan.uidx), len(plan.runs)
+            per = dict(zip(SCAN_SLOTS, out[:8].astype(np.float64) / max(warps, 1)))
+            row = {"kernel": "etd2rk_scan", "network": name, "w": w, "N": plan.N,
+                   "members": B // plan.N, "dtype": str(dtype).split(".")[-1],
+                   "segments": S, "runs": R,
+                   "shape": sk.scan_launch_shape(w, plan.N, args[0].element_size())._asdict(),
+                   "warps_stamped": warps, "ms": round(start.elapsed_time(stop), 4)}
+            if warps:
+                row["mean_cycles_a_run"] = {k: round(per[k] / R, 1)
+                                            for k in ("copy_issue", "copy_wait")}
+                row["mean_cycles_a_segment"] = {
+                    "synth_y_wait": round(per["synth_y_wait"] / S, 1),
+                    "synth_y_rest": round((per["synth_y"] - per["synth_y_wait"]) / S, 1),
+                    "E_y": round(per["E_y"] / S, 1),
+                    "synth_a_wait": round(per["synth_a_wait"] / S, 1),
+                    "synth_a_rest": round((per["synth_a"] - per["synth_a_wait"]) / S, 1),
+                    "update": round(per["update"] / S, 1)}
+                row["mean_cycles_a_warp"] = round(float(sum(per[k] for k in SCAN_SLOTS[:6])), 1)
+            print(json.dumps(row), flush=True)
+            del args
+            torch.cuda.empty_cache()
+    finally:
+        sk.entry = saved
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=("wide", "tables", "xwide", "scan", "both"),
                     default="both")
+    ap.add_argument("--tree", type=Path, default=ROOT,
+                    help="scan: the checkout whose kernel and wrapper are clocked "
+                         "(default this one; a git archive of another commit to clock its)")
     opts = ap.parse_args()
+    sys.path.insert(0, str(opts.tree.resolve()))
     if not torch.cuda.is_available():
         raise SystemExit("phase_clocks.py: needs an NVIDIA GPU")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -501,7 +573,7 @@ def main() -> int:
     if opts.kernel == "xwide":
         xwide_clocks()
     if opts.kernel == "scan":
-        scan_clocks()
+        scan_clocks(opts.tree.resolve())
     return 0
 
 

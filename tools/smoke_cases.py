@@ -1,8 +1,9 @@
-"""Inputs of the table kernels that ``chip_smoke.py`` and the tools share:
-phase 3h's networks, whose width classes pass w = 17, and the augmented
-matrices of the ``torch.linalg.matrix_exp`` yardstick. Imports numpy and
-torch only, so that a tool can take it whichever checkout's package it
-times."""
+"""Inputs of the table and scan kernels that ``chip_smoke.py`` and the tools
+share: phase 3h's networks, whose width classes pass w = 17, the augmented
+matrices of the ``torch.linalg.matrix_exp`` yardstick, and phase 3i's
+networks with the scan kernel's arguments at their members. Imports numpy
+and torch only at the top (the package inside the functions that need
+it), so that a tool can take it whichever checkout's package it times."""
 
 from __future__ import annotations
 
@@ -32,3 +33,60 @@ def augmented(L, binv, h_u) -> torch.Tensor:
     M[:, :, 0, w] = 1.0
     M[:, :, w, w + 1] = 1.0
     return M.reshape(U * B, w + 2, w + 2)
+
+
+# phase 3i's networks, the wide scan kernel's shapes on the objective's own
+# plans: the three above unbucketed (w = 22, 65, 129) and the 300-protein
+# demo (N = 285, w = 6); their members by type
+SCAN_WIDE_NETWORKS = {**XWIDE_NETWORKS,
+                      "demo300-N285": dict(n_proteins=300, n_kinases=24, seed=1)}
+SCAN_WIDE_POP = {torch.float32: 2048, torch.float64: 256}
+
+
+def members(theta0, pop: int) -> np.ndarray:
+    """theta0 plus seeded noise, as bench.py and benchmarks/model_rates.py."""
+    rng = np.random.default_rng(0)
+    return theta0[None] + 0.05 * rng.normal(size=(pop, len(theta0)))
+
+
+def scan_wide_host(name: str) -> dict:
+    """The network ``name`` of SCAN_WIDE_NETWORKS, built on the CPU at
+    float32, as host data: its topology, kinase grid and matrix, time grid,
+    theta0 and parameter slices (what a scan of its members needs on either
+    device and in either type)."""
+    from phoskintime_tpu_torch.demo import build_demo_network
+
+    torch.set_num_threads(1)
+    b = build_demo_network(**SCAN_WIDE_NETWORKS[name], dtype=torch.float32, device="cpu")
+    s = b["system"]
+    return {"topo": s.topo, "kin_grid": s.kin_grid, "Kmat": s.Kmat, "grid": b["grid"],
+            "slices": b["slices"], "theta0": b["theta0"]}
+
+
+def scan_wide_hosts(names=tuple(SCAN_WIDE_NETWORKS)) -> dict:
+    """{name: :func:`scan_wide_host`}, each built in its own spawned worker,
+    all at once (their observations come from RK45 on the CPU: ~10-25 s
+    each)."""
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    with ProcessPoolExecutor(max_workers=len(names), mp_context=get_context("spawn")) as pool:
+        futures = {name: pool.submit(scan_wide_host, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
+
+
+def scan_wide_args(host: dict, dtype, pop: int, device="cuda") -> tuple:
+    """(args, plan) of ``etd2rk_scan`` for the first ``pop`` of
+    :func:`members` of ``host``'s network at ``dtype`` on ``device``: the
+    objective's unbucketed scan (``expo.ScanSetup``) with its tables."""
+    from phoskintime_tpu_torch.network import expo
+    from phoskintime_tpu_torch.network.params import unpack_params
+    from phoskintime_tpu_torch.network.system import GlobalSystem
+
+    system = GlobalSystem(host["topo"], host["kin_grid"], host["Kmat"], dtype=dtype,
+                          device=device)
+    thetas = torch.as_tensor(members(host["theta0"], max(SCAN_WIDE_POP.values()))[:pop],
+                             dtype=dtype, device=device)
+    scan = expo.ScanSetup(system, unpack_params(thetas, host["slices"], host["topo"]),
+                          host["grid"], width_bucketing=False)
+    return scan.kernel_args(), scan.plan
