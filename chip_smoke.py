@@ -167,11 +167,14 @@ kernel):
    Pareto set the first front of every member (a polished member in it),
    the table launches, each stage's seconds.
 
-Phases 10, 11 and 12 run one after the other in a side lane, a spawned
+Phases 10, 11, 12 and 3j run one after the other in a side lane, a spawned
 worker process on the card started after phase 6, beside phases 7-9 and 13
 in the main process (its lines carry the main process's clock; phase 15
 reads phase 11's fits from it), so "this process" below is that worker and
-its timings are taken with the main process's work on the card too.
+its timings are taken with the main process's work on the card too. 3j
+runs beside phase 13: its float32 stream-kernel calls hold the whole card
+for ~1.7 s each, so both phases' seconds are taken under the other's load
+(``--runner-only`` and ``--stream-only`` take each alone).
 
 The per-gene stack (``fit/``, ``models/``, ``ops/linear.py``, ``ops/lm.py``,
 ``ops/morris.py``; plain PyTorch, no hand-written kernel: its launches are
@@ -424,6 +427,27 @@ The last slices (``phi_tables_xwide``, population sharding, the wide scan):
    references, the 285-protein one in a worker beside them), and the scan
    of all those members by the 3c fields (kernel, device, plain, eager and
    CUDA-graph ms, the bound and its share);
+3j. past w = 129, off the main lane (in the side lane after phase 12; its
+   CPU reference in a worker of its own from the side lane's start): the
+   stream table kernel ``csrc/phi_tables_stream.cu`` (w >= 130) and the
+   flux's spans kernel, their ptxas reports (no spill);
+   model 2 with a protein of 8 sites (``build_demo_network(4, 3,
+   max_sites=8, model=2, seed=7)``, classes 2, 3, 9, 257): the bucketed
+   objective at pop 2048 float32 and pop 256 float64 (one table launch a
+   class, the 257 class to the stream kernel; F on 8 members within 1e-3
+   / 1e-9 of the port's float64 on the CPU), the kernel at the first
+   chunk's w = 257 class against its plain version on 64 lanes (2e-5 /
+   1e-12 scaled, a NaN lane), timed on the whole class (two calls after a
+   warm-up, one on the device) beside its FMA bound, the plain version and
+   ``matrix_exp`` (in chunks of 4,096 matrices); the unbucketed objective through the scan kernel at pop 256
+   float32 and 64 float64 (one ``etd2rk_scan`` and one stream launch a
+   chunk, F against the eager scan's and the CPU's; the scan against the
+   plain version and the eager scan, rtol 2e-3 / atol 1e-5 and 1e-10 /
+   1e-12, timed); tables and scan at w = 513 on 56 lanes; the flux at 11,
+   12 and 13 sites (2^22 states) against its plain version beside its
+   bytes bound; ``use_kron=True`` on the bench model-2 network at substep
+   0.5 against the dense path (rtol 2e-2 / atol 1e-4, no launch); the
+   peak device memory;
 16. population sharding on the card (``parallel/mesh.py``): two gloo ranks
    in spawned processes sharing the card, CUDA tensors (NCCL refuses two
    ranks on one device), started beside phases 13-15, on the bench model-0
@@ -443,8 +467,9 @@ phases 1, 2 and 11, ``--hyperscan-only`` phases 1, 2 and 12,
 ``--runner-only`` phases 1, 2 and 13, ``--fitfigures-only`` phases 1, 2
 and 14, ``--part3-only`` phases 1, 2 and 15 (15c at the phase-11 problems'
 exact weights, in place of phase 11's fits; no JSON lines), ``--xwide-only``
-phases 1, 2 and 3h, ``--scan-wide-only`` phases 1, 2 and 3i, ``--mesh-only``
-phases 1, 2 and 16.
+phases 1, 2 and 3h, ``--scan-wide-only`` phases 1, 2 and 3i,
+``--stream-only`` phases 1, 2 and 3j (the stream kernel's entries as its
+JSON line), ``--mesh-only`` phases 1, 2 and 16.
 
 The line before the last is a JSON summary of each kernel (the float64
 instances and ``sq_chain`` included, each with the launches of its own main
@@ -511,6 +536,7 @@ from phoskintime_tpu_torch.network.topology import build_topology
 from phoskintime_tpu_torch.ops import constrained, cuda_build
 from phoskintime_tpu_torch.ops import fma_peak
 from phoskintime_tpu_torch.ops.de_jit import DEDraws, de_draws, de_generation, de_init_draws
+from phoskintime_tpu_torch.ops.hypercube_flux import SOURCE as FLUX_SOURCE
 from phoskintime_tpu_torch.ops.hypercube_flux import hypercube_flux, hypercube_flux_reference
 from phoskintime_tpu_torch.ops.linear import affine_augment, expm
 from phoskintime_tpu_torch.ops.nsga import (das_dennis, fast_non_dominated_sort,
@@ -521,8 +547,8 @@ from phoskintime_tpu_torch.ops.nsga_device import (device_nd_ranks, make_device_
 from phoskintime_tpu_torch.ops.tridiag import thomas_solve_batched, thomas_solve_reference
 from phoskintime_tpu_torch.ops import phi_tables as phi_mod
 from phoskintime_tpu_torch.ops.phi_tables import (phi_tables, phi_tables_reference,
-                                                  phi_tables_wide, phi_tables_xwide,
-                                                  phi_vectors)
+                                                  phi_tables_stream, phi_tables_wide,
+                                                  phi_tables_xwide, phi_vectors)
 from phoskintime_tpu_torch.ops.scan_kernel import SOURCE as SCAN_SOURCE
 from phoskintime_tpu_torch.ops.scan_kernel import VARIANTS as SCAN_VARIANTS
 from phoskintime_tpu_torch.ops.scan_kernel import (etd2rk_scan, etd2rk_scan_reference,
@@ -539,7 +565,8 @@ from phoskintime_tpu_torch.tfopt import optimize as tfopt_opt
 from phoskintime_tpu_torch.tfopt.model import TfoptProblem
 from phoskintime_tpu_torch.tfopt.optimize import run_evolutionary as tfopt_run_evolutionary
 from phoskintime_tpu_torch.tfopt.optimize import run_local as tfopt_run_local
-from tools.smoke_cases import SCAN_WIDE_NETWORKS, XWIDE_NETWORKS, augmented
+from tools.smoke_cases import (SCAN_WIDE_NETWORKS, STREAM_NETWORK, XWIDE_NETWORKS, augmented,
+                               hypercube_blocks)
 
 POP, CHUNK, N_PROTEINS, N_KINASES = 8192, 2048, 40, 12
 POP2 = 2048               # model 2: one chunk, as benchmarks/model_rates.py
@@ -566,8 +593,8 @@ MEASURED = {"fp32_flops": None}
 # threads a block in 3f's sweep (the module's full sweep adds 128 and 1024;
 # on the H100 the best arm was at 256 or 512 threads)
 SWEEP_THREADS = (256, 512)
-KERNELS = (phi_tables, phi_tables_wide, phi_tables_xwide, etd2rk_scan, hypercube_flux,
-           thomas_solve_batched, fma_peak.sq_chain)
+KERNELS = (phi_tables, phi_tables_wide, phi_tables_xwide, phi_tables_stream, etd2rk_scan,
+           hypercube_flux, thomas_solve_batched, fma_peak.sq_chain)
 # 3h: the networks of tools/smoke_cases.py::XWIDE_NETWORKS (their
 # observations come from RK45 on the CPU, in a worker); the float32
 # objective at XWIDE_POP (as 4b), the float64 one at XWIDE_POP_F64
@@ -604,6 +631,24 @@ SCAN_WIDE_REPS = (2, 1, 1, 1)
 # over a cluster at N = 1,024 and at N = 16,384
 SCAN_WIDE_NAN = ((65, 7, 40, 5), (6, 1024, 3, 1), (6, 16384, 2, 1))
 REFERENCE_NETWORKS = SCAN_WIDE_NETWORKS
+# 3h's networks: tools/smoke_cases.py's up to w = 129 (3j takes STREAM_NETWORK)
+XWIDE_3H = tuple(n for n in XWIDE_NETWORKS if n != STREAM_NETWORK)
+# 3j, past w = 129, in the side lane after phase 12: the 8-site network's
+# bucketed objective at STREAM_POP (float32) and STREAM_POP_F64 (float64);
+# the stream kernel against its plain version on STREAM_CHECK_LANES lanes
+# of its class, timed over STREAM_REPS calls after a warm-up (one pass, one
+# call on the device: a float32 w = 257 call holds the whole card for ~1.7
+# s, and 3j runs beside phase 13) beside matrix_exp in chunks of
+# STREAM_LIBRARY_CHUNK matrices; the unbucketed objective through the scan
+# kernel at STREAM_SCAN_POP members (E alone 4.7 GB at pop 256 float32); w
+# = 513 on STREAM_513_LANES lanes; the flux at STREAM_FLUX_SITES sites;
+# use_kron=True on the bench model-2 network at STREAM_KRON_POP members
+STREAM_POP, STREAM_POP_F64 = 2048, 256
+STREAM_CHECK_LANES, STREAM_REPS, STREAM_LIBRARY_CHUNK = 64, 2, 4096
+STREAM_SCAN_POP = {torch.float32: 256, torch.float64: 64}
+STREAM_513_LANES = 56
+STREAM_FLUX_SITES = (11, 12, 13)
+STREAM_KRON_POP = 64
 # the seconds phases 3h, 3i and 16 may take in the whole script (printed
 # beside their own; phase 16's ranks run beside phases 13-15)
 PHASE_BUDGET_S = {"3h": 50, "3i": 45, "16": 40}
@@ -4166,12 +4211,13 @@ def tables_per_call(topo) -> dict:
     chunk or one batched ETD2RK simulation: one a width class (the classes
     of ``expo.width_classes``, or the full width), each to its kernel by
     width (``phi_tables`` w <= 8, ``phi_tables_wide`` 9..17,
-    ``phi_tables_xwide`` 18..129); none for model 4 (its
-    exponential-Rosenbrock path builds no table)."""
+    ``phi_tables_xwide`` 18..129, ``phi_tables_stream`` past 129); none for
+    model 4 (its exponential-Rosenbrock path builds no table)."""
     widths = [] if topo.model == 4 else [wc for wc, _ in expo.width_classes(topo)] or [topo.width]
     return {"phi_tables": sum(w <= 8 for w in widths),
             "phi_tables_wide": sum(8 < w <= 17 for w in widths),
-            "phi_tables_xwide": sum(w > 17 for w in widths)}
+            "phi_tables_xwide": sum(17 < w <= 129 for w in widths),
+            "phi_tables_stream": sum(w > 129 for w in widths)}
 
 
 class Solve(NamedTuple):
@@ -4238,7 +4284,8 @@ class EntrySpy:
         class a chunk of each objective call and of each topology's picks
         (``picks``: [topo], one batched ETD2RK simulation each), the flux 7
         times an iteration plus 2 in each model-2 RK45 simulation."""
-        tables = dict.fromkeys(("phi_tables", "phi_tables_wide", "phi_tables_xwide"), 0)
+        tables = dict.fromkeys(("phi_tables", "phi_tables_wide", "phi_tables_xwide",
+                                "phi_tables_stream"), 0)
         for topo, chunks in ([(topo, -(-members // _auto_pop_chunk(topo.N)))
                               for topo, members in self.calls] + [(t, 1) for t in picks]):
             for k, n in tables_per_call(topo).items():
@@ -5405,7 +5452,8 @@ def xwide_cpu_job(name: str) -> tuple:
     XWIDE_POP members; and the port's float64 objective of the first 8 on
     the CPU."""
     torch.set_num_threads(1)
-    b = build_demo_network(**REFERENCE_NETWORKS[name], dtype=torch.float32, device="cpu")
+    b = build_demo_network(**{**REFERENCE_NETWORKS, **XWIDE_NETWORKS}[name], dtype=torch.float32,
+                           device="cpu")
     hb = {**host_bundle(b), **{k: b[k] for k in ("theta0", "xl", "xu")}}
     thetas = members(b["theta0"], XWIDE_POP)
     cpu = GlobalSystem(hb["topo"], hb["kin_grid"], hb["Kmat"], dtype=torch.float64,
@@ -5414,7 +5462,7 @@ def xwide_cpu_job(name: str) -> tuple:
     return hb, thetas, F64.numpy()
 
 
-def start_xwide_references(names=tuple(XWIDE_NETWORKS), refs=None):
+def start_xwide_references(names=XWIDE_3H, refs=None):
     """Submit the :func:`xwide_cpu_job` runs of the networks ``names``, each
     in its own spawned worker of one pool (made where ``refs`` is None);
     returns ``refs``, (pool, {name: future})."""
@@ -5513,10 +5561,11 @@ def nan_lane_check(label, L, binv, h_u, ladder) -> None:
         raise AssertionError(f"{label}: a NaN lane leaked into its neighbours or kept numbers")
 
 
-def xwide_objective(label, args, thetas, F64, card, want) -> dict:
-    """One population-objective call through the widest kernel: its launches
-    against ``want``, F of the first 8 members against the CPU's float64
-    (PRECISION_GATE at float32, F64_OBJECTIVE_RTOL at float64), evals/s."""
+def xwide_objective(label, args, thetas, F64, card, want, kernel="phi_tables_xwide") -> dict:
+    """One population-objective call through the widest kernel (``kernel``):
+    its launches against ``want``, F of the first 8 members against the
+    CPU's float64 (PRECISION_GATE at float32, F64_OBJECTIVE_RTOL at
+    float64), evals/s."""
     objective = make_population_objective(*args)
     objective(thetas[:8])
     torch.cuda.synchronize()
@@ -5534,7 +5583,7 @@ def xwide_objective(label, args, thetas, F64, card, want) -> dict:
         evals_per_s=f"{len(thetas) / sec:.1f}", card=repr(card))
     if tuple(F.shape) != (len(thetas), 3) or not bool(torch.isfinite(F).all()):
         raise AssertionError(f"{label}: non-finite or misshapen objectives")
-    if launches != want or not launches["phi_tables_xwide"]:
+    if launches != want or not launches[kernel]:
         raise AssertionError(f"{label}: kernel launches {launches}, predicted {want}")
     if not rel <= tol:
         raise AssertionError(f"{label}: {rel:.3e} from the CPU's float64")
@@ -5575,12 +5624,12 @@ def phase_xwide_kernel(card, references) -> tuple[list, dict, dict, dict]:
 
 
 def xwide_networks(card, futures) -> tuple[dict, dict, dict]:
-    """3h's checks of each network of XWIDE_NETWORKS, in their order, each
+    """3h's checks of each network of XWIDE_3H, in their order, each
     as soon as its CPU reference is in (the 7-site one, the slowest, last).
     Returns ({dtype: {w: check}}, float32 paths, float64 paths)."""
     out = {torch.float32: {}, torch.float64: {}}
     paths32, paths64 = {}, {}
-    for name in XWIDE_NETWORKS:
+    for name in XWIDE_3H:
         t0 = time.perf_counter()
         hb, thetas_np, F64 = futures[name].result()
         say("3h references", name=name, seconds_waited=f"{time.perf_counter() - t0:.1f}")
@@ -5784,6 +5833,289 @@ def phase_scan_wide(card, refs) -> tuple[dict, dict, dict]:
     return out, paths32, paths64
 
 
+# --- 3j: past w = 129 (the stream table kernel, the scan and flux past it, kron) --------
+
+
+def stream_ptxas() -> None:
+    """The compiler's report of ``csrc/phi_tables_stream.cu``'s two
+    instances and of the flux's spans kernel (rows past 1,024 states):
+    registers and spills of each; fails on a spill."""
+    out = {}
+    for source, pattern in ((phi_mod.STREAM_SOURCE, "phi_tables_stream_kernel"),
+                            (FLUX_SOURCE, "hypercube_flux_kernel_spans")):
+        log = cuda_build.library_path(source).with_suffix(".log").read_text()
+        for part in log.split("Compiling entry function '")[1:]:
+            name = part.split("'")[0]
+            if pattern in name:
+                regs = re.search(r"Used (\d+) registers", part)
+                spill = re.search(r"(\d+) bytes spill stores", part)
+                out[name] = (int(regs.group(1)) if regs else None,
+                             int(spill.group(1)) if spill else None)
+    say("3j ptxas", instances=len(out),
+        builds={k: f"{r} registers, {sp} bytes spilled" for k, (r, sp) in out.items()})
+    if len(out) != 6 or any(sp is None or sp for _, sp in out.values()):
+        raise AssertionError(f"3j: a stream or spans build spills or was not reported: {out}")
+
+
+def check_stream(label, L, binv, h_u, ladder, card) -> dict:
+    """3j's check of one class past w = 129: the stream kernel against its
+    plain version on the first STREAM_CHECK_LANES lanes (scaled tolerance
+    by type) with a NaN lane there, then on the whole class the kernel
+    (CUDA events over STREAM_REPS calls; one call on the device), the
+    plain version on the checked lanes, ``matrix_exp`` in chunks of at
+    most STREAM_LIBRARY_CHUNK matrices (the whole class at once needs tens
+    of GB), and the FMA bound (float64 at the FP64 tensor cores' rate)."""
+    sub = L[..., :STREAM_CHECK_LANES].contiguous()
+    before = phi_tables_stream.launches
+    got, want = phi_tables(sub, binv, h_u, ladder), phi_tables_reference(sub, binv, h_u, ladder)
+    torch.cuda.synchronize()
+    if phi_tables_stream.launches != before + 1:
+        raise AssertionError(f"{label}: not one stream kernel launch")
+    errs = [scaled_err(g, w) for g, w in zip(got, want)]
+    max_abs, worst = max(e[0] for e in errs), max(e[1] for e in errs)
+    tol = SCALED_TOL[L.dtype]
+    say(f"{label} check", shape=tuple(L.shape), lanes_checked=sub.shape[-1], pairs=len(binv),
+        ladder=ladder, max_abs_err=f"{max_abs:.3e}", max_scaled_err=f"{worst:.3e}", tol=tol)
+    if not worst <= tol:
+        raise AssertionError(f"{label}: kernel disagrees with the plain version: {worst:.3e}")
+    nan_lane_check(label, sub, binv, h_u, ladder)
+    run_k = lambda: phi_tables(L, binv, h_u, ladder)  # noqa: E731
+    ms = cuda_ms(run_k, STREAM_REPS)
+    plain_ms = cuda_ms(lambda: phi_tables_reference(sub, binv, h_u, ladder), 1)
+    M = augmented(L, binv, h_u)
+
+    def library():
+        for c in range(0, M.shape[0], STREAM_LIBRARY_CHUNK):
+            torch.linalg.matrix_exp(M[c:c + STREAM_LIBRARY_CHUNK])
+
+    lib_ms = cuda_ms(library, 1)
+    del M
+    f64 = L.dtype == torch.float64
+    b = table_bound(L, binv, h_u, ladder, PEAK_FP64_TC_FLOPS if f64 else None)
+    dev_ms = kernel_ms_on_device(run_k, "phi_tables_stream_kernel", 1)
+    shape = phi_mod.stream_launch_shape(L.shape[1], L.element_size(), len(binv) * L.shape[3],
+                                        phi_mod.resident_clusters(L.device, L.dtype))
+    say(f"{label} timing", ms=f"{ms:.4f}", device_ms=measured(dev_ms),
+        plain_ms=f"{plain_ms:.4f}", plain_lanes=sub.shape[-1], library_ms=f"{lib_ms:.4f}",
+        library_chunk=STREAM_LIBRARY_CHUNK, **bound_fields(b, dev_ms),
+        reps=STREAM_REPS, slots=shape.slots,
+        scratch_mb=f"{shape.slots * shape.slot_words * L.element_size() / 1e6:.1f}",
+        card=repr(card))
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max_abs, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "plain_lanes": sub.shape[-1], "bound_ms": b.ms, "bound_by": b.by,
+            "bound_ms_measured_peak": b.ms_measured, "library_ms": lib_ms,
+            "lanes": L.shape[3], "pairs": len(binv)}
+
+
+def stream_objectives(hb, thetas_np, F64, card) -> tuple[dict, dict, dict]:
+    """3j's objectives on the 8-site network: bucketed at STREAM_POP
+    (float32) and STREAM_POP_F64 (float64), one table launch a width class
+    and chunk against the prediction (the w = 257 class to the stream
+    kernel), F on 8 members against the CPU's float64; the stream kernel
+    at the first float32 and float64 chunk's w = 257 class
+    (:func:`check_stream`). Returns ({dtype: check}, float32 paths,
+    float64 paths)."""
+    topo = hb["topo"]
+    out, paths32, paths64 = {}, {}, {}
+    for dtype, pop in ((torch.float32, STREAM_POP), (torch.float64, STREAM_POP_F64)):
+        dt = str(dtype).split(".")[-1]
+        args = card_system(hb, dtype)
+        thetas = torch.as_tensor(thetas_np[:pop], dtype=dtype, device="cuda")
+        chunks = -(-pop // _auto_pop_chunk(topo.N))
+        want = expect(**{k: n * chunks for k, n in tables_per_call(topo).items()})
+        paths = paths32 if dtype == torch.float32 else paths64
+        paths[f"{STREAM_NETWORK}-{dt}-pop{pop}"] = xwide_objective(
+            f"3j {STREAM_NETWORK} {dt}", args, thetas, F64, card, want, "phi_tables_stream")
+        params_b = unpack_params(thetas[:_auto_pop_chunk(topo.N)], hb["slices"], topo)
+        for L, binv, h_u, ladder in expo.table_inputs(args[0], params_b, hb["grid"]):
+            if L.shape[1] > 129:
+                out[dtype] = check_stream(f"3j stream {STREAM_NETWORK} w={L.shape[1]} {dt}",
+                                          L, binv, h_u, ladder, card)
+            del L
+        del args, params_b
+        torch.cuda.empty_cache()
+    return out, paths32, paths64
+
+
+def stream_scan(hb, F64, card) -> tuple[dict, dict]:
+    """3j's unbucketed objective through the scan kernel (w = 257, every
+    protein at the full width) at STREAM_SCAN_POP members of each type: one
+    ``etd2rk_scan`` and one stream table launch a chunk, F against the
+    eager scan's and the CPU's float64; then the scan of those members by
+    :func:`check_and_time_scan` (kernel against plain and eager, times,
+    bound). E is U w^2 P N words: at pop 256 float32 14 x 66,049 x 1,280 x
+    4 B = 4.7 GB, and L about the same. Returns ({dtype: check}, {path:
+    launches})."""
+    topo = hb["topo"]
+    thetas_np = members(hb["theta0"], max(STREAM_SCAN_POP.values()))
+    out, paths = {}, {}
+    for dtype, pop in STREAM_SCAN_POP.items():
+        dt = str(dtype).split(".")[-1]
+        args = card_system(hb, dtype)
+        thetas = torch.as_tensor(thetas_np[:pop], dtype=dtype, device="cuda")
+        chunks = -(-pop // _auto_pop_chunk(topo.N))
+        want = expect(etd2rk_scan=chunks, phi_tables_stream=chunks)
+        paths[f"{STREAM_NETWORK}-unbucketed-scan-{dt}-pop{pop}"] = scan_wide_objective(
+            f"3j {STREAM_NETWORK} scan {dt}", args, thetas, F64, card, want)
+        b = {"system": args[0], "slices": hb["slices"], "topo": topo, "grid": hb["grid"]}
+        out[dtype] = check_and_time_scan(f"3j scan {STREAM_NETWORK} {dt}", b, thetas, card,
+                                         reps=SCAN_WIDE_REPS, width_bucketing=False)
+        del args, b, thetas
+        torch.cuda.empty_cache()
+    return out, paths
+
+
+def stream_513(card) -> dict:
+    """3j at w = 513 (model 2's class of 9 sites), STREAM_513_LANES lanes,
+    both types: the stream kernel on blocks shaped like model 2's
+    (:func:`check_stream`), and the scan (one launch, wide kernel, E
+    streamed) against its plain version on a random problem of its own
+    tables. Returns {dtype: check}."""
+    out = {}
+    rng = np.random.default_rng(513)
+    L_np = hypercube_blocks(rng, 2, 9, STREAM_513_LANES)
+    binv, h_u = np.asarray([0, 1, 1]), np.asarray([0.0625, 2.0, 16.0])
+    ladder = max(phi_mod.ladder_len(513, h) for h in h_u)
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).split(".")[-1]
+        L = torch.as_tensor(L_np, dtype=dtype, device="cuda")
+        out[dtype] = check_stream(f"3j stream w=513 {dt}", L, binv, h_u, ladder, card)
+        del L
+        args, plan = random_scan_problem(513, N=7, P=STREAM_513_LANES // 7, seed=513,
+                                         dtype=dtype, device="cuda")
+        shape = scan_launch_shape(513, 7, dtype.itemsize)
+        before = etd2rk_scan.launches
+        got = etd2rk_scan(*args, plan)
+        want = etd2rk_scan_reference(*args, plan)
+        torch.cuda.synchronize()
+        if etd2rk_scan.launches != before + 1:
+            raise AssertionError(f"3j scan w=513 {dt}: not one launch")
+        max_abs, scaled = scan_close(f"3j scan w=513 {dt}", got, want)
+        k_ms = cuda_ms(lambda: etd2rk_scan(*args, plan), 3)
+        say("3j scan w=513", dtype=dt, lanes=args[3].shape[1], variant=shape.variant,
+            group=shape.group, cols=shape.cols, cluster=shape.cluster, threads=shape.threads,
+            shared_bytes=shape.shared_bytes, max_abs_err=f"{max_abs:.3e}",
+            max_scaled_err=f"{scaled:.3e}", ms=f"{k_ms:.4f}", card=repr(card))
+        out[dtype]["scan"] = {"max_abs_err": max_abs, "ms": k_ms, "variant": shape.variant}
+        del args, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def stream_flux(card) -> dict:
+    """3j's flux past 10 sites (rows over several blocks): at 11, 12 and 13
+    sites, 2^22 states a call, both types, the kernel (one launch) against
+    the plain version (2e-5 scaled float32, 1e-12 float64) and timed beside
+    the bytes bound (each state read once and written once, the rates read
+    once). Returns {dtype: {smax: check}}."""
+    out = {torch.float32: {}, torch.float64: {}}
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).split(".")[-1]
+        f = dict(dtype=dtype, device="cuda")
+        for smax in STREAM_FLUX_SITES:
+            rows = (1 << 22) >> smax
+            rng = np.random.default_rng(smax)
+            X = torch.as_tensor(rng.uniform(0, 1, (rows, 1 << smax)), **f)
+            S = torch.as_tensor(rng.uniform(0.1, 2.0, (rows, smax)), **f)
+            E = torch.as_tensor(rng.uniform(0.1, 2.0, rows), **f)
+            before = hypercube_flux.launches
+            got = hypercube_flux(X, S, E, smax)
+            want = hypercube_flux_reference(X, S, E, smax)
+            torch.cuda.synchronize()
+            if hypercube_flux.launches != before + 1:
+                raise AssertionError(f"3j flux smax={smax} {dt}: not one launch")
+            max_abs, scaled = scaled_err(got, want)
+            if not scaled <= SCALED_TOL[dtype]:
+                raise AssertionError(f"3j flux smax={smax} {dt}: {scaled:.3e} from plain")
+            k_ms = cuda_ms(lambda: hypercube_flux(X, S, E, smax), 20)
+            p_ms = cuda_ms(lambda: hypercube_flux_reference(X, S, E, smax), 2)
+            isz = X.element_size()
+            b = bound(isz * (2.0 * X.numel() + S.numel() + E.numel()), 4.0 * smax * X.numel(),
+                      isz)
+            dev_ms = kernel_ms_on_device(lambda: hypercube_flux(X, S, E, smax),
+                                         "hypercube_flux_kernel_spans", 5)
+            say("3j flux", smax=smax, rows=rows, dtype=dt, max_abs_err=f"{max_abs:.3e}",
+                max_scaled_err=f"{scaled:.3e}", ms=f"{k_ms:.4f}", device_ms=measured(dev_ms),
+                plain_ms=f"{p_ms:.4f}", **bound_fields(b, dev_ms), card=repr(card))
+            out[dtype][smax] = {"rows": rows, "max_abs_err": max_abs, "ms": k_ms,
+                                "device_ms": dev_ms, "plain_ms": p_ms, "bound_ms": b.ms,
+                                "bound_by": b.by}
+            del X, S, E, got, want
+    return out
+
+
+def stream_kron(b2, card) -> None:
+    """3j's Kronecker-factorized model-2 path (``use_kron=True``, plain
+    PyTorch on the card) on the bench model-2 network at STREAM_KRON_POP
+    members, substep 0.5 (its stable regime), against the dense path at
+    the same substep (rtol 2e-2 / atol 1e-4, the JAX package's gate for
+    the two splittings); no table or scan launch."""
+    params_b = unpack_params(population(b2, STREAM_KRON_POP), b2["slices"], b2["topo"])
+    reset_counts()
+    t0 = time.perf_counter()
+    ys_k, ok_k = expo.exponential_simulate_batched(b2["system"], params_b, b2["grid"],
+                                                   substep=0.5, use_kron=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = counts()
+    ys_d, ok_d = expo.exponential_simulate_batched(b2["system"], params_b, b2["grid"],
+                                                   substep=0.5)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    bad = torch.abs(ys_k - ys_d) > 1e-4 + 2e-2 * torch.abs(ys_d)
+    say("3j kron", pop=STREAM_KRON_POP, substep=0.5, segments=len(expo._plan(
+        b2["system"], b2["grid"], 0.5)[0]), kron_s=f"{t1 - t0:.3f}", dense_s=f"{t2 - t1:.3f}",
+        outside=int(bad.sum()), max_rel=f"{float(torch.max(torch.abs(ys_k - ys_d) / (torch.abs(ys_d) + 1e-4))):.3e}",
+        launches=launches, card=repr(card))
+    if not (bool(ok_k.all()) and bool(ok_d.all())) or bool(bad.any()):
+        raise AssertionError("3j kron: the factorized path left the dense one's tolerance")
+    if any(launches.values()):
+        raise AssertionError(f"3j kron: kernel launches {launches}, none expected")
+
+
+def phase_stream(card, b2, reference) -> tuple[list, dict]:
+    """3j: past w = 129, in the side lane after phase 12. The stream
+    table kernel's and the flux spans kernel's ptxas reports (no spill);
+    on the 8-site network (classes 2, 3, 9, 257; its CPU reference, the
+    observations by RK45 and the float64 objective of 8 members, from a
+    worker started with the side lane) the bucketed objectives and the
+    kernel at its w = 257 class (:func:`stream_objectives`), the
+    unbucketed objective through the scan kernel (:func:`stream_scan`);
+    tables and scan at w = 513 (:func:`stream_513`); the flux at 11-13
+    sites (:func:`stream_flux`); ``use_kron=True`` against the dense path
+    (:func:`stream_kron`); the peak device memory of all of it. Returns
+    (the kernels line's entries of the stream kernel, float32 and float64,
+    {path: launches} of the scan paths)."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    stream_ptxas()
+    hb, thetas_np, F64 = reference.result()
+    say("3j references", seconds_waited=f"{time.perf_counter() - t0:.1f}")
+    tables, paths32, paths64 = stream_objectives(hb, thetas_np, F64, card)
+    scans, scan_paths = stream_scan(hb, F64, card)
+    at513 = stream_513(card)
+    flux = stream_flux(card)
+    stream_kron(b2, card)
+    peak = torch.cuda.max_memory_allocated()
+    say("3j past w = 129", seconds=f"{time.perf_counter() - t0:.1f}",
+        max_memory_allocated_gb=f"{peak / 1e9:.2f}", card=repr(card))
+    entries = []
+    for dtype, suffix, paths in ((torch.float32, "", paths32), (torch.float64, "_f64", paths64)):
+        by_path = {p: n["phi_tables_stream"] for p, n in paths.items()}
+        by_path.update({p: n["phi_tables_stream"] for p, n in scan_paths.items()
+                        if p.endswith(f"{str(dtype).split('.')[-1]}-pop"
+                                      f"{STREAM_SCAN_POP[dtype]}")})
+        entries.append({"name": f"phi_tables_stream{suffix}", "route": "cuda",
+                        "source": "phoskintime_tpu_torch/csrc/phi_tables_stream.cu",
+                        "replaces": "phoskintime_tpu/ops/phi_pallas.py:406",
+                        **tables[dtype], "w513": at513[dtype], "scan_w257": scans[dtype],
+                        "flux": flux[dtype], "launches_by_path": by_path,
+                        "launches": sum(by_path.values()),
+                        "max_memory_allocated": peak})
+    return entries, scan_paths
+
+
 # --- 16: population sharding ----------------------------------------------------------
 
 
@@ -5974,6 +6306,18 @@ def main() -> int:
         phase_scan_wide(card, got)
         say("done", seconds=f"{time.perf_counter() - T_START:.1f}", card=repr(card))
         return 0
+    if "--stream-only" in sys.argv[1:]:
+        pool, reference = start_stream_reference()
+        try:
+            phase_build()
+            b2 = build_demo_network(N_PROTEINS, N_KINASES, model=2, seed=0, dtype=torch.float32,
+                                    device="cuda")
+            entries, _ = phase_stream(card, b2, reference)
+        finally:
+            pool.shutdown(cancel_futures=True)
+        say("done", seconds=f"{time.perf_counter() - T_START:.1f}", card=repr(card))
+        print(json.dumps({"kernels": entries}, default=str))
+        return 0
     if "--mesh-only" in sys.argv[1:]:
         phase_build()
         b = build_demo_network(N_PROTEINS, N_KINASES, seed=0, dtype=torch.float32,
@@ -6006,26 +6350,44 @@ def main() -> int:
         raise
 
 
-def side_lane_job(card: str, t_start: float) -> tuple[dict, dict, float]:
-    """Phases 10, 11 and 12 in a spawned worker on the card, one after the
-    other, beside phases 7-9 and 13 in the main process: each is host-bound
-    and needs nothing of the phases before it but the bench bundles, built
-    anew here (the same draws and observations). Its lines carry the main
-    process's clock (``t_start``). Returns ({path: launches}, {which: phase
-    11's local fit result}, its seconds)."""
+def side_lane_job(card: str, t_start: float) -> tuple[dict, dict, float, list, dict]:
+    """Phases 10, 11, 12 and 3j in a spawned worker on the card, one after
+    the other, beside phases 7-9 and 13 in the main process: each is
+    host-bound or needs nothing of the phases before it but the bench
+    bundles, built anew here (the same draws and observations); 3j's CPU
+    reference builds in a worker of its own from the start. Its lines
+    carry the main process's clock (``t_start``). Returns ({path:
+    launches}, {which: phase 11's local fit result}, its seconds, 3j's
+    kernels-line entries, 3j's {path: launches})."""
     global T_START
     T_START = t_start
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    paths = phase_pergene(card)
-    b, b2 = (build_demo_network(N_PROTEINS, N_KINASES, model=m, seed=0, dtype=torch.float32,
-                                device="cuda") for m in (0, 2))
-    fits = {}
-    paths.update(phase_sensitivity_kinopt(card, b2, fits))
-    paths.update(phase_hyperscan_motpe(card, b))
+    pool, reference = start_stream_reference()
+    try:
+        paths = phase_pergene(card)
+        b, b2 = (build_demo_network(N_PROTEINS, N_KINASES, model=m, seed=0, dtype=torch.float32,
+                                    device="cuda") for m in (0, 2))
+        fits = {}
+        paths.update(phase_sensitivity_kinopt(card, b2, fits))
+        paths.update(phase_hyperscan_motpe(card, b))
+        stream_entries, stream_paths = phase_stream(card, b2, reference)
+    finally:
+        pool.shutdown(cancel_futures=True)
     # the results are host arrays; the problems are made anew from their seeds
-    return paths, {which: res for which, (_, res) in fits.items()}, time.perf_counter() - t0
+    return (paths, {which: res for which, (_, res) in fits.items()}, time.perf_counter() - t0,
+            stream_entries, stream_paths)
+
+
+def start_stream_reference():
+    """3j's CPU reference (:func:`xwide_cpu_job` of STREAM_NETWORK) in a
+    spawned worker of its own; returns (pool, future)."""
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=get_context("spawn"))
+    return pool, pool.submit(xwide_cpu_job, STREAM_NETWORK)
 
 
 def start_side_lane(card: str):
@@ -6037,26 +6399,29 @@ def start_side_lane(card: str):
     return pool, pool.submit(side_lane_job, card, T_START)
 
 
-def finish_side_lane(job) -> tuple[dict, dict]:
+def finish_side_lane(job) -> tuple[dict, dict, list, dict]:
     """Reads the side lane (its checks raise there): ({path: launches},
-    phase 11's fits as {which: (problem, result)} for phase 15)."""
+    phase 11's fits as {which: (problem, result)} for phase 15, 3j's
+    kernels-line entries, 3j's {path: launches})."""
     pool, future = job
     t0 = time.perf_counter()
     try:
-        paths, results, seconds = future.result()
+        paths, results, seconds, stream_entries, stream_paths = future.result()
     finally:
         pool.shutdown()
-    say("10-12 side lane", seconds=f"{seconds:.1f}", waited=f"{time.perf_counter() - t0:.1f}")
+    say("10-12, 3j side lane", seconds=f"{seconds:.1f}",
+        waited=f"{time.perf_counter() - t0:.1f}")
     problems = {"kinopt": kinopt_synthetic(*KINOPT_PROBLEMS["bench"]),
                 "tfopt": tfopt_synthetic(*TFOPT_PROBLEM)}
-    return paths, {which: (problems[which], res) for which, res in results.items()}
+    return (paths, {which: (problems[which], res) for which, res in results.items()},
+            stream_entries, stream_paths)
 
 
 def run_all_phases(card, probe, probe_paths, b, b1, b2, thetas, thetas1, thetas2,
                    xwide_refs) -> int:
     """Every phase after the setup, in order (3h's and 3i's references
     building in their workers since the start or the setup; 4d's float64
-    CPU run in its own since the end of 3h; phases 10-12 in a side lane
+    CPU run in its own since the end of 3h; phases 10-12 and 3j in a side lane
     beside 7-9 and 13)."""
     kernel = phase_kernel(b, thetas, card)
     wide = phase_wide_kernel(b2, thetas2, card)
@@ -6111,7 +6476,7 @@ def run_all_phases(card, probe, probe_paths, b, b1, b2, thetas, thetas1, thetas2
         fit_figures = start_fit_figures(card)
         pools += [references[0], ranks[0], fit_figures[0]]
         paths.update(phase_entry_points(card, b))
-        side_paths, fits = finish_side_lane(side)
+        side_paths, fits, stream_entries, stream_paths = finish_side_lane(side)
         paths.update(side_paths)
         paths.update(phase_part3(card, b, b2, fits, references))
         finish_fit_figures(fit_figures)
@@ -6129,7 +6494,12 @@ def run_all_phases(card, probe, probe_paths, b, b1, b2, thetas, thetas1, thetas2
             entry["launches"] = sum(entry["launches_by_path"].values())
             if not entry["launches"]:
                 raise AssertionError(f"{entry['name']}: no launch on its main path")
-    entries = [kernel, wide, xwide, scan, flux, thomas, probe, *f64_entries, xwide64]
+    for entry in stream_entries:
+        if not entry["launches"]:
+            raise AssertionError(f"{entry['name']}: no launch on its main path")
+    scan["wide"]["past_129"] = stream_paths
+    entries = [kernel, wide, xwide, *stream_entries[:1], scan, flux, thomas, probe, *f64_entries,
+               xwide64, *stream_entries[1:]]
     say("done", seconds=f"{time.perf_counter() - T_START:.1f}", card=repr(card))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 // The whole ETD2RK segment scan of the population objective in one launch,
-// float32 and float64, block widths 2 <= w <= 129 (the widest tables), a
-// member of up to 16,384 proteins. For each segment s of the static plan,
+// float32 and float64, every block width w >= 2 the tables take (the wide
+// kernel streams a run's E rows past w = 129), a member of up to 16,384
+// proteins. For each segment s of the static plan,
 // with u = uidx[s] its (bucket, h) pair and b = jb[s] its kinase bucket,
 //   a  = E[u] y + p1[u] g(y)
 //   y' = a + p2h[u] (g(a) - g(y))
@@ -137,7 +138,11 @@
 //   * wide-stream: where even a cluster cannot hold a member's E rows, E
 //     is read from device memory at every segment, `group` at most the
 //     item size so that a warp reads whole 32-byte sectors; the state stays
-//     in shared memory.
+//     in shared memory. Past w = 129 (every w the stream table kernel
+//     takes: a lane's rows are 257 / 4 = 64 a thread at w = 257 in
+//     float32) a block holds one member and a lane's columns go over
+//     `cols` warps (up to 8) as in wide-shared, so that the card has warps
+//     enough to keep its reads of E in flight.
 //   * wide-global: where the state does not fit either, y and a live in
 //     device memory (2 w B words the wrapper allocates) and p1, p2h and the
 //     weights are read from it; a thread a lane, or `per` lanes a thread
@@ -426,7 +431,7 @@ int launch(const void* const* in, void* ys, int n_init, int n_runs, int N, int P
 
 
 // The wide kernel: every shape past the template's (w >= 18, or N > 256),
-// w at run time up to 129, a member in one block or over a cluster of up to
+// w at run time (any w the table kernels take), a member in one block or over a cluster of up to
 // 8. A block's shared memory, in order: two
 // mbarriers (push); the two Pv buffers (each `cols` partials of
 // `lanes_pad` words a block slice, every block's slice where the cluster
@@ -438,7 +443,6 @@ int launch(const void* const* in, void* ys, int n_init, int n_runs, int N, int P
 // (e_lane words a lane, e_row a row); the staged TF
 // coefficients (tf_cap); then as ints the TF row bounds and the driven flag
 // (3 a lane) and the staged TF columns (tf_cap).
-constexpr int kWideMaxWidth = 129;
 constexpr int kWideMaxThreads = 512;
 constexpr int kMaxCluster = 8;
 constexpr int kMaxPer = 4;
@@ -571,18 +575,26 @@ etd2rk_scan_wide_kernel(const T* __restrict__ E, const T* __restrict__ p1,
   // the thread's lane (per == 1), its rank g among the lane's row threads
   // and its column chunk c; wide-global with per > 1 takes lanes t,
   // t + threads, ...
+  // (a lane's `cols` column warps are consecutive warps; wide-shared takes
+  // them only at group 32, wide-stream at any group)
   const int Q = group < 32 ? 32 / group : 1;
   int l1, g, c;
   if (group < 32) {
-    l1 = (t >> 5) * Q + (t & 31) % Q;
+    if constexpr (V == kWideStream) {
+      l1 = ((t >> 5) / cols) * Q + (t & 31) % Q;
+      c = (t >> 5) % cols;
+    } else {
+      l1 = (t >> 5) * Q + (t & 31) % Q;
+      c = 0;
+    }
     g = (t & 31) / Q;
-    c = 0;
   } else {
     l1 = (t >> 5) / cols;
     c = (t >> 5) % cols;
     g = t & 31;
   }
-  const int rank_in_lane = c * 32 + g;                 // own rows: this, + group * cols, ...
+  // own rows: this, + group * cols, ...
+  const int rank_in_lane = V == kWideStream ? c * group + g : c * 32 + g;
   const int own_step = group * cols;
 
   // the block's lanes: a cluster block's share of one member, or whole members
@@ -847,23 +859,25 @@ etd2rk_scan_wide_kernel(const T* __restrict__ E, const T* __restrict__ p1,
               }
             }
         };
-        if constexpr (V == kWideShared) {
+        if constexpr (V != kWideGlobal) {
           if (cols > 1) {
-            // wide-shared, a warp a column chunk: its partial rows (g, g + 32,
-            // ...) over columns [j0, j1), met in shared memory
+            // a warp a column chunk (wide-shared, or wide-stream past w =
+            // 129): its partial rows (g, g + group, ...) over columns [j0,
+            // j1), met in shared memory
             T* const S = part_rows + l * cols * y_lane;
+            const int rs = V == kWideShared ? 32 : group;   // a lane's row threads
             if (act) {
               const int j0 = c * w / cols, j1 = (c + 1) * w / cols;
               int i = g;
-              for (; i + (R - 1) * 32 < w; i += R * 32) {
+              for (; i + (R - 1) * rs < w; i += R * rs) {
                 T acc[R];
-                dot_rows<T, V, R>(acc, i, 32, j0, j1, Eb, erow, B, Y, ystep);
+                dot_rows<T, V, R>(acc, i, rs, j0, j1, Eb, erow, B, Y, ystep);
   #pragma unroll
-                for (int q = 0; q < R; ++q) S[c * y_lane + i + q * 32] = acc[q];
+                for (int q = 0; q < R; ++q) S[c * y_lane + i + q * rs] = acc[q];
               }
-              for (; i < w; i += 32) {
+              for (; i < w; i += rs) {
                 T acc[1];
-                dot_rows<T, V, 1>(acc, i, 32, j0, j1, Eb, erow, B, Y, ystep);
+                dot_rows<T, V, 1>(acc, i, rs, j0, j1, Eb, erow, B, Y, ystep);
                 S[c * y_lane + i] = acc[0];
               }
             }
@@ -942,8 +956,7 @@ template <typename T, int V>
 void wide_footprint(const WideShape& sh, long* threads, size_t* shared) {
   const int Q = sh.group < 32 ? 32 / sh.group : 1;
   if (sh.per > 1) *threads = ((sh.lanes + sh.per - 1L) / sh.per + 31L) / 32 * 32;
-  else if (sh.group < 32) *threads = (sh.lanes + Q - 1L) / Q * 32;
-  else *threads = 32L * sh.lanes * sh.cols;
+  else *threads = (sh.lanes + Q - 1L) / Q * 32 * sh.cols;
   const size_t pad = 16 / sizeof(T), lanes = static_cast<size_t>(sh.lanes);
   const size_t lanes_pad = (lanes + pad - 1) / pad * pad;
   size_t words = 2 * static_cast<size_t>(sh.push ? sh.cluster : 1) * sh.cols * lanes_pad
@@ -963,10 +976,11 @@ int launch_wide(const void* const* in, void* ys, const WideShape& sh, cudaStream
                      && lanes >= 1 && (sh.cluster - 1) * lanes < N && sh.cluster * lanes >= N;
   const bool group_ok = sh.group >= 1 && sh.group <= 32 && !(sh.group & (sh.group - 1));
   const bool cols_ok = sh.cols >= 1 && sh.cols <= 8
-                       && (sh.cols == 1 || (V == kWideShared && sh.group == 32));
+                       && (sh.cols == 1 || (V == kWideShared && sh.group == 32)
+                           || V == kWideStream);
   const bool per_ok = sh.per >= 1 && sh.per <= kMaxPer
                       && (sh.per == 1 || (V == kWideGlobal && sh.group == 1));
-  if (w < 2 || w > kWideMaxWidth || N < 1 || sh.P < 1 || !group_ok || !cols_ok || !per_ok
+  if (w < 2 || N < 1 || sh.P < 1 || !group_ok || !cols_ok || !per_ok
       || !(whole || split) || (sh.push && sh.cluster == 1) || sh.tf_cap < 0
       || (V != kWideGlobal && sh.y_lane < w)
       || (V == kWideShared && (sh.e_row < w || sh.e_lane < (w - 1) * sh.e_row + w))

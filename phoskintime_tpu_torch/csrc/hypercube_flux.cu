@@ -36,10 +36,16 @@
 // the thread's own registers; site j >= 2 is quad q ^ 2^(j-2), a
 // __shfl_xor_sync at that lane distance while a row fits a warp (smax <= 7),
 // and shared memory across the warps of the block beyond (smax 8..10, a
-// block of 256 threads holding whole rows of up to 1024 states). Rows of 1
+// block of 256 threads holding whole rows of up to 1024 states). Rows of
+// 2,048 states and more (smax >= 11, no cap) run over several blocks, each
+// an aligned span of 1,024 states of one row: sites 0..9 as at smax 10,
+// inside the span; a site j >= 10, whose neighbour quad q ^ 2^(j-2) lies in
+// another block's span, reads that quad from device memory (L2 holds the
+// row: the flux reduces nothing across states, so no block waits on
+// another). Rows of 1
 // and 2 states (smax 0 and 1) take one thread a row. The grid walks the
 // work in strides of at most the resident blocks, so a launch is at most
-// one wave. The sums are the first design's, term for term.
+// one wave. The sums are the first design's, term for term, at every smax.
 
 #include <cuda_runtime.h>
 
@@ -48,7 +54,9 @@
 namespace {
 
 constexpr int kThreads = 256;     // a block
-constexpr int kMaxSites = 10;     // rows of up to 1024 states: 256 quads, one block
+constexpr int kBlockSites = 10;   // rows of up to 1024 states: 256 quads, one block
+// a launch's states, rows << smax, stay below 2^62 (64-bit indices)
+constexpr int kMaxStateBits = 62;
 
 // the most items (rows or quads) a thread takes a step at each site count:
 // rows of 1 and 2 states 4 rows, rows of 4 to 128 states 2 quads (1 where
@@ -220,6 +228,65 @@ hypercube_flux_kernel(const T* __restrict__ X, const T* __restrict__ S,
   }
 }
 
+// Rows of 2^smax >= 2048 states (smax >= 11, a runtime argument): a block
+// step covers one aligned span of kThreads quads (1024 states) of a row, a
+// thread one quad. Sites 0..9 as hypercube_flux_kernel<T, 10, 1, VEC>'s;
+// sites 10..smax-1 read the neighbour quad q ^ 2^(j-2), in another span, from
+// device memory. quads is a multiple of kThreads.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+hypercube_flux_kernel_spans(const T* __restrict__ X, const T* __restrict__ S,
+                            const T* __restrict__ E, T* __restrict__ out, long long quads,
+                            int smax) {
+  __shared__ T xs[4 * kThreads];
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  const long long qr_mask = (1LL << (smax - 2)) - 1;   // quads a row, less one
+  for (long long base = static_cast<long long>(blockIdx.x) * kThreads; base < quads;
+       base += stride) {
+    const long long q = base + threadIdx.x;
+    const long long row = q >> (smax - 2), qr = q & qr_mask;
+    const T* const srow = S + row * smax;
+    T x[4];
+    load_quad<T>(X + 4 * q, VEC, x);
+    const T e = __ldg(E + row);
+    __syncthreads();                              // the last step's reads are done
+#pragma unroll
+    for (int v = 0; v < 4; ++v) xs[v * kThreads + threadIdx.x] = x[v];
+    __syncthreads();
+    T acc[4] = {T(0), T(0), T(0), T(0)};
+#pragma unroll
+    for (int j = 0; j < kBlockSites; ++j) {
+      const T s = __ldg(srow + j);
+      T xn[4];
+      if (j == 0) {
+        xn[0] = x[1]; xn[1] = x[0]; xn[2] = x[3]; xn[3] = x[2];
+      } else if (j == 1) {
+        xn[0] = x[2]; xn[1] = x[3]; xn[2] = x[0]; xn[3] = x[1];
+      } else if (j < 7) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) xn[v] = __shfl_xor_sync(0xffffffffu, x[v], 1 << (j - 2));
+      } else {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) xn[v] = xs[v * kThreads + (threadIdx.x ^ (1 << (j - 2)))];
+      }
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const bool set = j < 2 ? ((v >> j) & 1) : ((qr >> (j - 2)) & 1);
+        acc[v] = edge(acc[v], set, s, e, xn[v], x[v]);
+      }
+    }
+    for (int j = kBlockSites; j < smax; ++j) {
+      const T s = __ldg(srow + j);
+      T xn[4];
+      load_quad<T>(X + 4 * (q ^ (1LL << (j - 2))), VEC, xn);
+      const bool set = (qr >> (j - 2)) & 1;
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[v] = edge(acc[v], set, s, e, xn[v], x[v]);
+    }
+    store_quad<T>(out + 4 * q, VEC, acc);
+  }
+}
+
 // The resident blocks of ``kernel`` on the current device (its SMs times
 // its blocks an SM by the occupancy API), cached per instance and device;
 // 0 if the runtime cannot say.
@@ -292,10 +359,26 @@ int launch_sites(const T* X, const T* S, const T* E, T* out, long long rows,
   }
 }
 
+template <typename T, bool VEC> struct Spans {};
+
+// one launch of hypercube_flux_kernel_spans over `quads` quads
+template <typename T, bool VEC>
+int launch_spans(const T* X, const T* S, const T* E, T* out, long long quads, int smax,
+                 cudaStream_t stream) {
+  const auto kernel = hypercube_flux_kernel_spans<T, VEC>;
+  const int wave = wave_blocks<Spans<T, VEC>>(kernel);
+  if (wave <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long need = quads / kThreads;
+  kernel<<<static_cast<int>(need < wave ? need : wave), kThreads, 0, stream>>>(X, S, E, out,
+                                                                              quads, smax);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* Xv, const void* Sv, const void* Ev, void* outv, long long rows,
            int smax, void* stream) {
-  if (smax < 0 || smax > kMaxSites || rows <= 0 || rows > (1LL << 40))
+  if (smax < 0 || smax >= kMaxStateBits || rows <= 0 || rows > (1LL << 40)
+      || rows > ((1LL << kMaxStateBits) >> smax))
     return static_cast<int>(cudaErrorInvalidValue);
   const T* X = static_cast<const T*>(Xv);
   const T* S = static_cast<const T*>(Sv);
@@ -313,15 +396,22 @@ int launch(const void* Xv, const void* Sv, const void* Ev, void* outv, long long
     case 7: return launch_sites<T, 7>(X, S, E, out, rows, st);
     case 8: return launch_sites<T, 8>(X, S, E, out, rows, st);
     case 9: return launch_sites<T, 9>(X, S, E, out, rows, st);
-    default: return launch_sites<T, 10>(X, S, E, out, rows, st);
+    case 10: return launch_sites<T, 10>(X, S, E, out, rows, st);
+    default: {
+      const long long quads = rows << (smax - 2);
+      if (reinterpret_cast<std::uintptr_t>(X) % 16 == 0 &&
+          reinterpret_cast<std::uintptr_t>(out) % 16 == 0)
+        return launch_spans<T, true>(X, S, E, out, quads, smax, st);
+      return launch_spans<T, false>(X, S, E, out, quads, smax, st);
+    }
   }
 }
 
 }  // namespace
 
 // X (rows, 2^smax), S (rows, smax), E (rows,), out (rows, 2^smax), all
-// contiguous on the device, float32 (_f32) or float64 (_f64); the entry
-// picks the launch shape. Launches on `stream` without synchronising and
+// contiguous on the device, float32 (_f32) or float64 (_f64), any smax with
+// rows 2^smax < 2^62; the entry picks the launch shape. Launches on `stream` without synchronising and
 // returns cudaGetLastError() (0 on success); cudaErrorInvalidValue for a
 // size the kernel does not take.
 extern "C" int hypercube_flux_f32(const void* X, const void* S, const void* E, void* out,

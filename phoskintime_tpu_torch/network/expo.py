@@ -414,12 +414,25 @@ class ScanSetup:
                 .reshape(P, plan.T, rhs.N * rhs.width))
 
 
+def _obs_from_ys(system, ys):
+    """(R, TOT, PHO) observables of a batched padded trajectory ys (P, T,
+    N*w): ``extract_observables`` over the population axis, as every return
+    path of :func:`exponential_simulate_batched` takes them with
+    ``return_observables=True``."""
+    from phoskintime_tpu_torch.network.simulate import extract_observables
+
+    obs = extract_observables(system, ys)
+    return obs.R, obs.TOT, obs.PHO
+
+
 def exponential_simulate_batched(system, params_b: dict, t_eval,
                                  substep: float = 16.0, y0=None,
                                  use_kernel: bool | None = None,
                                  differentiable: bool = False,
                                  width_bucketing: bool | None = None,
-                                 use_scan_kernel: bool | None = None):
+                                 use_scan_kernel: bool | None = None,
+                                 use_kron: bool | None = None,
+                                 return_observables: bool = False):
     """Batched ETD2RK over a population: ``params_b`` leaves carry a leading
     axis P. Returns (ys (P, T, N*w), success (P,)) on the system's device.
 
@@ -429,13 +442,24 @@ def exponential_simulate_batched(system, params_b: dict, t_eval,
     (see :func:`width_classes`). ``use_scan_kernel``: None (the default, as
     in the JAX package) or False runs the eager scan; True runs the whole
     unbucketed scan as one :func:`etd2rk_scan`, on the card at every width
-    the tables take (2 <= w <= 129) and up to 16,384 proteins. The
+    the tables take (w >= 2) and up to 16,384 proteins. The
     width-bucketed model-2 path ignores it.
+
+    ``use_kron=True`` runs model 2 through the Kronecker-factorized
+    splitting (:func:`~phoskintime_tpu_torch.network.kron.kron_simulate_batched`,
+    plain PyTorch on the system's device; no table or scan kernel). It is
+    opt-in, as in the JAX package: stable only while h D <~ 2 (substep 0.5
+    agrees with the dense path, substep 4 diverges); None or False keeps
+    the dense path, and other models ignore it.
+
+    ``return_observables=True`` returns ((R, TOT, PHO), success) with R and
+    TOT (P, T, N) and PHO (P, T, N, Smax), ``extract_observables`` of the
+    trajectory, on every path.
 
     Model 4 takes the exponential-Rosenbrock path
     (:func:`_rosenbrock_simulate_batched`) before any table or layout
-    choice, so ``use_kernel``, ``width_bucketing`` and ``use_scan_kernel``
-    do not apply to it, as in the JAX package.
+    choice, so ``use_kernel``, ``width_bucketing``, ``use_scan_kernel`` and
+    ``use_kron`` do not apply to it, as in the JAX package.
 
     ``differentiable=True``: a route that ``torch.autograd`` and
     ``torch.func`` can differentiate, on the CPU and on the card alike, as
@@ -443,7 +467,8 @@ def exponential_simulate_batched(system, params_b: dict, t_eval,
     ladder and the eager scan (the kernels carry no derivative, so
     ``use_kernel=True`` and ``use_scan_kernel=True`` raise), and for
     model 4 the static masked ladder of its phi builds. No host read
-    depends on the parameters.
+    depends on the parameters. The Kronecker path is differentiable as it
+    is (static ladders, no kernel).
     """
     if differentiable and (use_kernel or use_scan_kernel):
         raise ValueError("differentiable=True takes the plain tables and the eager scan; "
@@ -453,15 +478,26 @@ def exponential_simulate_batched(system, params_b: dict, t_eval,
         params_b, y0 = _setup(system, params_b, y0)
         P, d = params_b["c_k"].shape[0], y0.numel()
         seg_t0, seg_h, seg_jb, out_idx = _plan(system, t_eval, substep)[:4]
-        return _rosenbrock_simulate_batched(system, params_b, y0.reshape(1, d).expand(P, d),
-                                            seg_t0, seg_h, seg_jb, out_idx, differentiable)
-    scan = ScanSetup(system, params_b, t_eval, substep, y0, use_kernel, width_bucketing,
-                     differentiable)
-    if use_scan_kernel and not scan.classes:
-        ys = scan.run_kernel(use_kernel)
+        ys, success = _rosenbrock_simulate_batched(system, params_b,
+                                                   y0.reshape(1, d).expand(P, d), seg_t0,
+                                                   seg_h, seg_jb, out_idx, differentiable)
+    elif system.topo.model == 2 and use_kron:
+        from phoskintime_tpu_torch.network.kron import kron_simulate_batched
+
+        params_b, y0 = _setup(system, params_b, y0)
+        P, d = params_b["c_k"].shape[0], y0.numel()
+        ys, success = kron_simulate_batched(system, params_b, y0.reshape(1, d).expand(P, d),
+                                            _plan(system, t_eval, substep), y0.dtype)
     else:
-        ys = scan.run_eager()
-    success = torch.isfinite(ys).all(dim=2).all(dim=1)
+        scan = ScanSetup(system, params_b, t_eval, substep, y0, use_kernel, width_bucketing,
+                         differentiable)
+        if use_scan_kernel and not scan.classes:
+            ys = scan.run_kernel(use_kernel)
+        else:
+            ys = scan.run_eager()
+        success = torch.isfinite(ys).all(dim=2).all(dim=1)
+    if return_observables:
+        return _obs_from_ys(system, ys), success
     return ys, success
 
 

@@ -26,8 +26,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = tuple(CSRC / f"{stem}.cu" for stem in (
-    "phi_tables", "phi_tables_wide", "phi_tables_xwide", "etd2rk_scan", "hypercube_flux",
-    "thomas", "sq_chain"))
+    "phi_tables", "phi_tables_wide", "phi_tables_xwide", "phi_tables_stream", "etd2rk_scan",
+    "hypercube_flux", "thomas", "sq_chain"))
 # sources built in parts, {stem: ((part, nvcc flag), ...)}: the scan
 # kernels, the longest compile, one library a type
 PARTS = {"etd2rk_scan": (("f32", "-DETD2RK_SCAN_TYPES=1"), ("f64", "-DETD2RK_SCAN_TYPES=2"))}

@@ -4,7 +4,8 @@ Counterpart of ``hypercube_flux_pallas`` and ``hypercube_flux_reference``
 in ``phoskintime_tpu/ops/pallas_kernels.py``:
 
 * :func:`hypercube_flux` — the entry point. On a CUDA tensor it launches
-  ``csrc/hypercube_flux.cu`` (float32 or float64) and adds one to
+  ``csrc/hypercube_flux.cu`` (float32 or float64, any site count: rows of
+  2,048 states and more over several blocks) and adds one to
   ``hypercube_flux.launches``; on a CPU tensor, or with
   ``use_kernel=False``, it runs the plain version.
 * :func:`hypercube_flux_reference` — the plain PyTorch version, site by
@@ -41,7 +42,8 @@ from phoskintime_tpu_torch.ops.cuda_build import CSRC, entry, launch_on
 
 SOURCE = CSRC / "hypercube_flux.cu"
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-_MAX_SITES = 10                 # rows of up to 1024 states: one thread block
+# a launch's states (rows * 2^smax) stay below 2^62: the kernel's 64-bit indices
+_MAX_STATE_BITS = 62
 
 
 @lru_cache(maxsize=None)
@@ -80,10 +82,11 @@ hypercube_flux_reference.calls = 0
 
 def _launch(X, S, E, smax: int) -> torch.Tensor:
     """One launch of ``csrc/hypercube_flux.cu`` on plain CUDA tensors."""
-    if X.dtype not in (torch.float32, torch.float64) or smax > _MAX_SITES:
+    if X.dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(
-            f"the hypercube_flux kernel takes float32 or float64 with at most "
-            f"{_MAX_SITES} sites (one thread block a row); got {X.dtype}, smax {smax}")
+            f"the hypercube_flux kernel takes float32 or float64; got {X.dtype}")
+    if X.shape[0] and X.shape[0].bit_length() + smax > _MAX_STATE_BITS:
+        raise ValueError(f"{X.shape[0]} rows of 2^{smax} states pass the kernel's 2^62 states")
     if not (S.dtype == E.dtype == X.dtype and S.device == E.device == X.device):
         raise ValueError("X, S and E must share a dtype and a device")
     if not (X.is_contiguous() and S.is_contiguous() and E.is_contiguous()):

@@ -12,9 +12,11 @@ Counterpart of ``phoskintime_tpu/ops/phi_pallas.py``:
   ``phi_vectors_pallas_all``; one more in ``phi_tables_wide.launches``),
   or, through :func:`phi_tables_xwide`, ``csrc/phi_tables_xwide.cu`` for
   18 <= w <= 129 (the same Pallas entry at the widest blocks, model 2 at
-  5, 6 and 7 sites; one more in ``phi_tables_xwide.launches``). Wider
-  blocks raise ``NotImplementedError``. On a CPU tensor it runs the plain
-  version at any width.
+  5, 6 and 7 sites; one more in ``phi_tables_xwide.launches``), or,
+  through :func:`phi_tables_stream`, ``csrc/phi_tables_stream.cu`` for
+  every w >= 130 (a lane's planes in device memory, model 2 at 8 sites
+  and past; one more in ``phi_tables_stream.launches``). On a CPU tensor
+  it runs the plain version at any width.
 * :func:`phi_vectors` — one pair, the port of ``phi_vectors_pallas``: the
   same kernels with U = 1.
 * :func:`phi_tables_reference` — the plain PyTorch version at any width,
@@ -42,14 +44,19 @@ _RATE_CAP = 32.0
 _MAX_SQUARINGS = 24
 _MAX_KERNEL_WIDTH = 8           # csrc/phi_tables.cu
 _MAX_WIDE_WIDTH = 17            # csrc/phi_tables_wide.cu: model 2 up to Smax = 4
-_MAX_XWIDE_WIDTH = 129          # csrc/phi_tables_xwide.cu: model 2 up to Smax = 7
+_MAX_XWIDE_WIDTH = 129          # csrc/phi_tables_xwide.cu: model 2 up to Smax = 7; wider
+                                # blocks to csrc/phi_tables_stream.cu
 
 SOURCE = CSRC / "phi_tables.cu"
 WIDE_SOURCE = CSRC / "phi_tables_wide.cu"
 XWIDE_SOURCE = CSRC / "phi_tables_xwide.cu"
+STREAM_SOURCE = CSRC / "phi_tables_stream.cu"
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _WIDE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _XWIDE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_STREAM_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                    + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+_CLUSTERS_ARGTYPES = [ctypes.POINTER(ctypes.c_int)]
 
 # csrc/phi_tables_wide.cu: R, the rows of a lane's products one thread
 # owns, at each width (T = ceil(w / R) threads a lane, 32 // T lanes a
@@ -60,10 +67,10 @@ _WIDE_ROWS_F64 = {9: 3, 10: 3, 11: 3, 12: 3, 13: 2, 14: 2, 15: 2, 16: 2, 17: 2}
 _WIDE_WARPS = 2
 _ENTRY_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
-_NOT_COVERED = ("the phi_tables kernels take float32 or float64 with 2 <= w <= {}; "
-                "got {} at w = {} (wider blocks, model 2 at Smax >= 8, are "
-                "ROADMAP.md queue 2, kernel 1b: 'phi_tables_wide above w = 129')")
+_NOT_COVERED = "the phi_tables kernels take float32 or float64 with w >= 2; got {} at w = {}"
 _OUTSIDE = "csrc/{} takes float32 or float64 with {} <= w <= {}; got {} at w = {}"
+_STREAM_OUTSIDE = ("csrc/phi_tables_stream.cu takes float32 or float64 with w >= 130; "
+                   "got {} at w = {}")
 # csrc/phi_tables_xwide.cu: the threads a block at most (its launch bound),
 # the threads a block aims at, the words after each plane, and a float64
 # warp's tile: 2 (up to w = 48) or 1 (above) blocks of 16 rows by 3 blocks
@@ -77,6 +84,13 @@ _XWIDE_TILE_COLS_F64 = 3
 # 1 KB for itself
 _SM_SHARED_BYTES = 233472
 _BLOCK_RESERVED_BYTES = 1024
+# csrc/phi_tables_stream.cu: threads a block, a tile's rows and columns (the
+# planes' unit), the words of a slot's head, blocks a lane (the kernel's
+# kCluster, the portable cluster size), and the clusters an H100 80GB HBM3
+# holds at once where the card is not asked (the occupancy API's count
+# there: its GPCs hold 15 clusters of 8 at one block an SM, not 132 / 8)
+_STREAM_THREADS, _STREAM_TILE, _STREAM_HEAD = 256, 64, 64
+_STREAM_CLUSTER, _H100_CLUSTERS = 8, 15
 
 
 def ladder_len(w: int, h: float, max_squarings: int = _MAX_SQUARINGS) -> int:
@@ -92,7 +106,13 @@ def ladder_len(w: int, h: float, max_squarings: int = _MAX_SQUARINGS) -> int:
 
 
 def _mm_lanes(x, y):
-    """(w, w, B) @ (w, w, B) block matmul with the batch on the last axis."""
+    """(w, w, B) @ (w, w, B) block matmul with the batch on the last axis:
+    the JAX package's j-loop of w elementwise products up to w = 129, one
+    batched product over the lanes past it (the j-loop's w operations a
+    product made the CPU's float64 objective of 8 members at w = 257 take
+    minutes)."""
+    if x.shape[0] > _MAX_XWIDE_WIDTH:
+        return torch.bmm(x.permute(2, 0, 1), y.permute(2, 0, 1)).permute(1, 2, 0)
     acc = x[:, 0, None, :] * y[None, 0, :, :]
     for j in range(1, x.shape[0]):
         acc = acc + x[:, j, None, :] * y[None, j, :, :]
@@ -358,10 +378,12 @@ def phi_tables(L: torch.Tensor, binv, h_u, ladder: int, *,
     if not use_kernel:
         return phi_tables_reference(L, binv, h_u, ladder, static_ladder)
     w = L.shape[1]
-    if L.dtype not in _ENTRY_SUFFIX or not 2 <= w <= _MAX_XWIDE_WIDTH:
-        raise NotImplementedError(_NOT_COVERED.format(_MAX_XWIDE_WIDTH, L.dtype, w))
+    if L.dtype not in _ENTRY_SUFFIX or w < 2:
+        raise NotImplementedError(_NOT_COVERED.format(L.dtype, w))
     if not L.is_cuda:
         raise ValueError("use_kernel=True needs a CUDA tensor")
+    if w > _MAX_XWIDE_WIDTH:
+        return phi_tables_stream(L, binv, h_u, ladder)
     if w > _MAX_WIDE_WIDTH:
         return phi_tables_xwide(L, binv, h_u, ladder)
     if w > _MAX_KERNEL_WIDTH:
@@ -406,9 +428,7 @@ def phi_tables_xwide(L: torch.Tensor, binv, h_u, ladder: int):
     if not L.is_cuda:
         raise ValueError("phi_tables_xwide needs a CUDA tensor")
     if L.dtype not in _ENTRY_SUFFIX or not _MAX_WIDE_WIDTH < w <= _MAX_XWIDE_WIDTH:
-        raise NotImplementedError(_NOT_COVERED.format(_MAX_XWIDE_WIDTH, L.dtype, w)
-                                  if w > _MAX_XWIDE_WIDTH else
-                                  _OUTSIDE.format("phi_tables_xwide.cu", _MAX_WIDE_WIDTH + 1,
+        raise NotImplementedError(_OUTSIDE.format("phi_tables_xwide.cu", _MAX_WIDE_WIDTH + 1,
                                                   _MAX_XWIDE_WIDTH, L.dtype, w))
     shape = xwide_launch_shape(w, L.element_size())
     out = _launch(XWIDE_SOURCE, "phi_tables_xwide", L, binv, h_u, ladder,
@@ -418,6 +438,89 @@ def phi_tables_xwide(L: torch.Tensor, binv, h_u, ladder: int):
 
 
 phi_tables_xwide.launches = 0
+
+
+class StreamShape(NamedTuple):
+    """The launch shape of ``csrc/phi_tables_stream.cu`` at one width."""
+    K: int                  # the k extent: w rounded up to a k-step of 128 bytes
+    R: int                  # a plane's rows: w rounded up to the 64-row tile
+    ld: int                 # a plane's columns: K + 3 rounded up to 64
+    slot_words: int         # a slot: its head (64 words) and three planes
+    cluster: int            # blocks a lane
+    threads: int            # threads a block
+    slots: int              # clusters of the grid, a slot of scratch each
+
+
+def stream_layout(w: int, itemsize: int = 4) -> tuple[int, int, int, int]:
+    """(K, R, ld, slot_words) of the stream kernel's planes at width ``w``
+    for elements of ``itemsize`` bytes: the kernel's ``layout``."""
+    bk = 128 // itemsize
+    K = -(-w // bk) * bk
+    R = -(-w // _STREAM_TILE) * _STREAM_TILE
+    ld = -(-(K + 3) // _STREAM_TILE) * _STREAM_TILE
+    return K, R, ld, _STREAM_HEAD + 3 * R * ld
+
+
+def stream_launch_shape(w: int, itemsize: int = 4, items: int | None = None,
+                        clusters: int = _H100_CLUSTERS) -> StreamShape:
+    """The stream kernel's launch shape at width ``w`` (any w >= 130) for
+    elements of ``itemsize`` bytes: a cluster of 8 blocks of 256 threads a
+    lane, and as many clusters as the card holds at once (``clusters``:
+    :func:`resident_clusters` on the card), so that the grid runs in one
+    wave, at most one a (pair, lane) item. The
+    scratch is ``slots * slot_words`` words. Raises NotImplementedError
+    outside the kernel's domain."""
+    if w <= _MAX_XWIDE_WIDTH or itemsize not in (4, 8):
+        raise NotImplementedError(_STREAM_OUTSIDE.format(f"{itemsize}-byte items", w))
+    K, R, ld, slot_words = stream_layout(w, itemsize)
+    slots = max(1, int(clusters) if items is None else min(int(clusters), int(items)))
+    return StreamShape(K, R, ld, slot_words, _STREAM_CLUSTER, _STREAM_THREADS, slots)
+
+
+_RESIDENT: dict = {}
+
+
+def resident_clusters(device: torch.device, dtype) -> int:
+    """The clusters of the stream kernel (8 blocks each) ``device`` holds at
+    once, by the occupancy API (cached a device and type). Where the API
+    gives no count, a cluster for every 8 SMs: the grid's size sets only
+    how many items run side by side, never the tables."""
+    key = (device.index, dtype)
+    if key not in _RESIDENT:
+        fn, _ = entry(STREAM_SOURCE, f"phi_tables_stream_clusters_{_ENTRY_SUFFIX[dtype]}",
+                      _CLUSTERS_ARGTYPES)
+        n = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = fn(ctypes.byref(n))
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _RESIDENT[key] = n.value if rc == 0 and n.value >= 1 else max(1, sms // _STREAM_CLUSTER)
+    return _RESIDENT[key]
+
+
+def phi_tables_stream(L: torch.Tensor, binv, h_u, ladder: int):
+    """The streaming table kernel ``csrc/phi_tables_stream.cu`` (w >= 130,
+    float32 or float64, CUDA; :func:`phi_tables` routes these widths here), the
+    port of ``phi_vectors_pallas_all`` at these widths: a lane's planes in
+    a slot of device memory, ``stream_launch_shape``'s slots of it
+    allocated a call. Arguments and results as :func:`phi_tables`."""
+    binv, h_u = _check(L, binv, h_u)
+    w = L.shape[1]
+    if not L.is_cuda:
+        raise ValueError("phi_tables_stream needs a CUDA tensor")
+    if L.dtype not in _ENTRY_SUFFIX or w <= _MAX_XWIDE_WIDTH:
+        raise NotImplementedError(_STREAM_OUTSIDE.format(L.dtype, w))
+    shape = stream_launch_shape(w, L.element_size(), len(binv) * L.shape[3],
+                                resident_clusters(L.device, L.dtype))
+    scratch = torch.empty(shape.slots * shape.slot_words, dtype=L.dtype, device=L.device)
+    # freed on return: the caching allocator reuses it only for work queued
+    # after the kernel on this stream
+    out = _launch(STREAM_SOURCE, "phi_tables_stream", L, binv, h_u, ladder, _STREAM_ARGTYPES,
+                  (scratch.data_ptr(), shape.slot_words, shape.slots))
+    phi_tables_stream.launches += 1
+    return out
+
+
+phi_tables_stream.launches = 0
 
 
 def phi_vectors(L: torch.Tensor, h: float, ladder: int, *,

@@ -12,7 +12,7 @@ Counterpart of ``phoskintime_tpu/ops/scan_pallas.py``:
   :func:`scan_launch_shape` picks by (w, N, type), and adds one
   to ``etd2rk_scan.launches``; on a CPU tensor, or with
   ``use_kernel=False``, it runs the plain version. The kernel takes every
-  width of the table kernels, 2 <= w <= 129, and members of up to 16,384
+  width of the table kernels, w >= 2, and members of up to 16,384
   proteins (a cluster of 8 blocks): the template kernel up to w = 17 and
   N = 256, the wide kernel past them.
 * :func:`etd2rk_scan_reference` — the plain PyTorch version, segment by
@@ -38,13 +38,12 @@ import torch
 
 from phoskintime_tpu_torch.network.rhs import synthesis_rate
 from phoskintime_tpu_torch.ops.cuda_build import CSRC, MAX_SHARED_BYTES, entry
-from phoskintime_tpu_torch.ops.phi_tables import _MAX_XWIDE_WIDTH
 
 SOURCE = CSRC / "etd2rk_scan.cu"
 # (the tensors' pointers, ys, the launch shape's ints, the stream)
 _ARGTYPES = [ctypes.c_void_p] * 4
-# the widths of the table kernels (csrc/phi_tables_xwide.cu's widest)
-_MIN_WIDTH, _MAX_WIDTH = 2, _MAX_XWIDE_WIDTH
+# the narrowest width of the table kernels (which take every wider one)
+_MIN_WIDTH = 2
 # the template kernel's domain: w compiled in, one member a block of at
 # most 256 threads; the wide kernel takes every other shape
 _TEMPLATE_MAX_WIDTH, _TEMPLATE_MAX_PROTEINS = 17, 256
@@ -64,8 +63,10 @@ _WIDE_MAX_THREADS, _WIDE_THREADS, _MAX_CLUSTER, _MAX_PER = 512, 256, 8, 4
 _TARGET_WARPS = 8
 # a lane's columns go over several warps only where its rows are more than
 # 3 a thread of a warp (w = 65 float64 measured slower with a second column
-# warp: tools/kernel_ab.py tune-scan-wide)
+# warp: tools/kernel_ab.py tune-scan-wide); in wide-stream past the
+# shared-memory table kernels' widths, where a block holds one member
 _COLS_MIN_WIDTH = 97
+_STREAM_COLS_MIN_WIDTH = 130
 # an SM's shared memory (228 KB), of which each block also takes 1 KB; the
 # threads an SM holds at the 64 registers the wide-shared builds take
 _SM_SHARED_BYTES, _SM_THREADS = 233472, 1024
@@ -79,9 +80,8 @@ _MAX_PROTEINS = _MAX_CLUSTER * _WIDE_MAX_THREADS * _MAX_PER
 VARIANTS = ("registers", "shared", "stream", "wide-shared", "wide-stream", "wide-global")
 _WIDE_VARIANTS = VARIANTS[3:]
 
-_NOT_COVERED = ("the etd2rk_scan kernel takes float32 or float64 with 2 <= w <= {} and "
-                "N >= 1 proteins; got {} at w = {}, N = {} (wider blocks, model 2 at Smax "
-                ">= 8, are ROADMAP.md queue 2, kernel 1b: 'phi_tables_wide above w = 129')")
+_NOT_COVERED = ("the etd2rk_scan kernel takes float32 or float64 with w >= 2 and N >= 1 "
+                "proteins; got {} at w = {}, N = {}")
 _TOO_MANY = ("the etd2rk_scan kernel holds a member of up to 16,384 proteins (a cluster of "
              "8 blocks of 512 threads, 4 lanes a thread); got N = {} at w = {} in {}")
 
@@ -153,13 +153,11 @@ def wide_layout(w: int, group: int) -> tuple[int, int, int]:
 
 def wide_threads(lanes: int, group: int, cols: int = 1, per: int = 1) -> int:
     """Threads of a wide block of ``lanes`` lanes: ``group`` threads a
-    lane's rows, 32 / group lanes a warp; a lane's ``cols`` column warps
-    (group 32); or ``per`` lanes a thread (group 1)."""
+    lane's rows, 32 / group lanes a warp, and a lane's ``cols`` column
+    warps; or ``per`` lanes a thread (group 1)."""
     if per > 1:
         return -(-(-(-lanes // per)) // 32) * 32
-    if group < 32:
-        return -(-lanes // (32 // group)) * 32
-    return 32 * lanes * cols
+    return -(-lanes // (32 // group)) * 32 * cols
 
 
 def wide_shared_bytes(variant: str, w: int, lanes: int, group: int, itemsize: int, *,
@@ -257,6 +255,8 @@ def _wide_shape(w: int, N: int, itemsize: int) -> ScanShape | None:
                 members += 1
             lanes = members * N
             blk = _wide_block(variant, w, lanes, 1, itemsize, max_per)
+        if variant == "wide-stream" and cluster == 1 and w >= _STREAM_COLS_MIN_WIDTH:
+            return _stream_cols_shape(w, N, itemsize, blk["group"])
         kw = dict(per=blk["per"], cluster=cluster, push=blk["push"])
         group, cols, threads, shared = blk["group"], 1, blk["threads"], blk["shared"]
         warps = lambda t, b: _blocks_an_sm(t, b) * t // 32          # noqa: E731
@@ -272,6 +272,23 @@ def _wide_shape(w: int, N: int, itemsize: int) -> ScanShape | None:
         return ScanShape(variant, members, threads, shared, lanes, group, cluster, cols,
                          blk["per"], blk["push"])
     return None
+
+
+def _stream_cols_shape(w: int, N: int, itemsize: int, group: int) -> ScanShape:
+    """wide-stream past the shared-memory table kernels' widths, a member in
+    one block: one member a block, a lane's columns over the most warps (2,
+    4 or 8) whose threads (512 at most) and shared memory fit; a lane's
+    rows are tens a thread there, and E's reads need every warp the card
+    can hold."""
+    cols = 1
+    for more in (2, 4, 8):
+        if (wide_threads(N, group, more) <= _WIDE_MAX_THREADS
+                and wide_shared_bytes("wide-stream", w, N, group, itemsize, cols=more)
+                <= MAX_SHARED_BYTES):
+            cols = more
+    return ScanShape("wide-stream", 1, wide_threads(N, group, cols),
+                     wide_shared_bytes("wide-stream", w, N, group, itemsize, cols=cols), N,
+                     group, 1, cols)
 
 
 def scan_launch_shape(w: int, N: int, itemsize: int = 4) -> ScanShape:
@@ -290,16 +307,18 @@ def scan_launch_shape(w: int, N: int, itemsize: int = 4) -> ScanShape:
     segment. A block holds the whole members that fit ``_BLOCK_LANES``
     lanes (at least one) and its shared memory.
 
-    Past that the wide kernel (:func:`_wide_shape`): w at run time up to
-    129, ``group`` threads a lane's rows and ``cols`` warps its columns, a
+    Past that the wide kernel (:func:`_wide_shape`): w at run time, any
+    w the tables take, ``group`` threads a lane's rows and ``cols`` warps its columns, a
     member in one block or over a cluster of up to 8 whose blocks copy
     their totals to each other (or read each other's, past what a block
     holds); a run's E rows and the state in shared memory where they fit
     (wide-shared), else E streamed (wide-stream), else the state in device
     memory too (wide-global, up to 4 lanes a thread), up to N = 16,384.
+    Past w = 129 a wide-stream member in one block takes the block alone
+    and its lanes' columns over up to 8 warps (:func:`_stream_cols_shape`).
     Raises NotImplementedError outside the kernel's domain."""
-    if not (_MIN_WIDTH <= w <= _MAX_WIDTH and N >= 1 and itemsize in (4, 8)):
-        raise NotImplementedError(_NOT_COVERED.format(_MAX_WIDTH, f"{itemsize}-byte items", w, N))
+    if not (_MIN_WIDTH <= w and N >= 1 and itemsize in (4, 8)):
+        raise NotImplementedError(_NOT_COVERED.format(f"{itemsize}-byte items", w, N))
     if w <= _TEMPLATE_MAX_WIDTH and N <= _TEMPLATE_MAX_PROTEINS:
         return _template_shape(w, N, itemsize)
     shape = _wide_shape(w, N, itemsize) if N <= _MAX_PROTEINS else None
@@ -525,7 +544,7 @@ def etd2rk_scan(E, p1, p2h, y0, drv, A, ts, plan: ScanPlan, *,
       use_kernel: None routes by device (the kernel on CUDA, the plain
         version on the CPU); False forces the plain version (comparisons).
     Returns ys (T, w, B), the state at each t_eval point. On a CUDA tensor
-    the kernel takes float32 and float64 at 2 <= w <= 129 and N <= 16,384
+    the kernel takes float32 and float64 at every w >= 2 and N <= 16,384
     (:func:`scan_launch_shape`) and raises NotImplementedError past them.
     """
     _check(E, p1, p2h, y0, drv, A, ts, plan)
@@ -536,7 +555,7 @@ def etd2rk_scan(E, p1, p2h, y0, drv, A, ts, plan: ScanPlan, *,
     if not E.is_cuda:
         raise ValueError("use_kernel=True needs a CUDA tensor")
     if E.dtype not in _ENTRY:
-        raise NotImplementedError(_NOT_COVERED.format(_MAX_WIDTH, E.dtype, E.shape[1], plan.N))
+        raise NotImplementedError(_NOT_COVERED.format(E.dtype, E.shape[1], plan.N))
     ys = _launch(E, p1, p2h, y0, drv, A, ts, plan,
                  scan_launch_shape(E.shape[1], plan.N, E.element_size()))
     etd2rk_scan.launches += 1

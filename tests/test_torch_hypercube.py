@@ -36,7 +36,7 @@ def flux_inputs(smax, B=37, seed=0):
             rng.uniform(0.1, 2.0, B))
 
 
-@pytest.mark.parametrize("smax", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("smax", [1, 2, 3, 4, 5, 11, 12])
 def test_reference_matches_jax(smax):
     X, S, E = flux_inputs(smax)
     got = hypercube_flux_reference(*(torch.as_tensor(v) for v in (X, S, E)), smax)
@@ -87,13 +87,17 @@ def emulate_flux_kernel(X, S, E, smax, blocks, items):
     or 2) for rows of 4 to 128 states, 1 quad beyond. For each block and
     step of its grid-stride loop, each thread's quads (or rows), the
     neighbours it reads (its own registers for sites 0 and 1, the lane
-    q ^ 2^(j-2) of its warp, or the block's shared quads), and the terms in
+    q ^ 2^(j-2) of its warp, the block's shared quads, or, past 10 sites,
+    the quad of another block's span in device memory), and the terms in
     the kernel's order. Checks that every state is written exactly once
-    and that a row fits a warp (4-128 states) or a block (256-1024)."""
+    and that a row fits a warp (4-128 states) or a block (256-1024), or
+    spans whole blocks (2,048 and more)."""
     rows, M = X.shape
     T, Q = FLUX_THREADS, 4 if smax < 2 else (items if smax < 8 else 1)
-    if smax >= 2:
+    if 2 <= smax <= 10:
         assert (32 if smax < 8 else T) % (M // 4) == 0
+    elif smax > 10:
+        assert (M // 4) % T == 0
     out = np.full(X.size, np.nan)
     written = np.zeros(X.size, int)
     flat = X.reshape(-1)
@@ -134,7 +138,11 @@ def emulate_flux_kernel(X, S, E, smax, blocks, items):
                         partner = np.arange(T) ^ d
                         if j < 7:                            # within the warp
                             assert (partner // 32 == np.arange(T) // 32).all()
-                        xn = x[partner]
+                        if j < 10:                           # within the block
+                            xn = x[partner]
+                        else:                                # another block's span
+                            xn = flat[(q ^ d)[:, None] * 4 + np.arange(4)]
+                            assert ((q ^ d) // T != q // T).all() and ((q ^ d) // QR == row).all()
                     for v in range(4):
                         bit = (v >> j) & 1 if j < 2 else ((q % QR) >> (j - 2)) & 1
                         a = np.where(bit, s[:, j], e)
@@ -150,7 +158,7 @@ def emulate_flux_kernel(X, S, E, smax, blocks, items):
 @pytest.mark.parametrize("items", [1, 2])
 @pytest.mark.parametrize("smax, rows, blocks", [
     (0, 1001, 1), (1, 1001, 2), (1, 3000, 1), (2, 1001, 3), (4, 1001, 2), (4, 37, 5),
-    (6, 301, 2), (7, 65, 1), (8, 9, 2), (10, 3, 1)])
+    (6, 301, 2), (7, 65, 1), (8, 9, 2), (10, 3, 1), (11, 3, 2), (12, 2, 3), (13, 1, 4)])
 def test_flux_work_map_matches_reference(smax, rows, blocks, items):
     """Rows that are no multiple of what a step covers, and grids of fewer
     blocks than the work (the grid-stride loop) or more."""

@@ -31,12 +31,14 @@ from phoskintime_tpu_torch.ops.hypercube_flux import (FluxKernel, hypercube_flux
 from phoskintime_tpu_torch.ops.hypercube_flux import _launch as flux_launch
 from phoskintime_tpu_torch.ops.tridiag import thomas_solve_batched, thomas_solve_reference
 from phoskintime_tpu_torch.ops.phi_tables import (ladder_len, phi_tables,
-                                                  phi_tables_reference,
+                                                  phi_tables_reference, phi_tables_stream,
                                                   phi_tables_wide, phi_tables_xwide,
-                                                  phi_vectors)
+                                                  phi_vectors, resident_clusters,
+                                                  stream_launch_shape)
 from phoskintime_tpu_torch.ops.scan_kernel import (VARIANTS, etd2rk_scan,
                                                    etd2rk_scan_reference, random_scan_problem,
                                                    scan_launch_shape, scan_runs)
+from tools.smoke_cases import hypercube_blocks
 
 pytestmark = pytest.mark.cuda
 
@@ -149,7 +151,60 @@ def test_nan_lane_stays_in_its_lane(cuda_device, w):
 
 
 def table_counts() -> tuple:
-    return phi_tables.launches, phi_tables_wide.launches, phi_tables_xwide.launches
+    return (phi_tables.launches, phi_tables_wide.launches, phi_tables_xwide.launches,
+            phi_tables_stream.launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("w", [130, 257, 513])
+def test_stream_kernel_matches_plain(cuda_device, w, dtype):
+    """The stream kernel (w >= 130) against the plain version on a few
+    lanes (11, no multiple of anything), three pairs over two buckets: one
+    launch of its own counter and none of the others, a NaN lane all NaN
+    with the others' bits unchanged, and phi_vectors (U = 1). Blocks shaped
+    like model 2's at 8 and 9 sites (w = 257, 513), compartmental at 130."""
+    rng = np.random.default_rng(w)
+    L = (compartmental_blocks(rng, 2, w, 11) if w == 130
+         else hypercube_blocks(rng, 2, w.bit_length() - 1, 11))
+    L = torch.as_tensor(L, dtype=dtype, device=cuda_device)
+    binv, h_u = np.asarray([0, 1, 1]), np.asarray([0.0625, 2.0, 16.0])
+    lad = max(ladder_len(w, h) for h in h_u)
+    before = table_counts()
+    got = phi_tables(L, binv, h_u, lad)              # routes w > 129 to the stream kernel
+    torch.cuda.synchronize()
+    assert table_counts() == before[:3] + (before[3] + 1,)
+    tol = SCALED_ATOL_F32 if dtype == torch.float32 else SCALED_ATOL_F64
+    for g, r in zip(got, phi_tables_reference(L, binv, h_u, lad)):
+        assert g.shape == r.shape and g.dtype == dtype
+        assert_scaled_close(g, r, tol)
+    L[..., 7] = float("nan")
+    dirty = phi_tables(L, binv, h_u, lad)
+    torch.cuda.synchronize()
+    keep = torch.arange(11, device=cuda_device) != 7
+    for c, d in zip(got, dirty):
+        assert torch.equal(c[..., keep], d[..., keep]) and bool(torch.isnan(d[..., 7]).all())
+    L[..., 7] = 0.0
+    for g, r in zip(phi_vectors(L[1], 2.0, lad), phi_vectors(L[1], 2.0, lad, use_kernel=False)):
+        assert_scaled_close(g, r, tol)
+
+
+def test_stream_kernel_many_items_few_slots(cuda_device):
+    """More (pair, lane) items than the grid's clusters (each cluster walks
+    its items in strides of the grid's), 2 pairs x 300 lanes at w = 130,
+    float32; phi_tables_stream itself takes no width the xwide kernel
+    takes."""
+    rng = np.random.default_rng(3)
+    L = torch.as_tensor(compartmental_blocks(rng, 1, 130, 300), dtype=torch.float32,
+                        device=cuda_device)
+    clusters = resident_clusters(L.device, torch.float32)
+    shape = stream_launch_shape(130, 4, 600, clusters)
+    assert 1 <= clusters == shape.slots < 600
+    got = phi_tables(L, [0, 0], [0.5, 4.0], ladder_len(130, 4.0))
+    torch.cuda.synchronize()
+    for g, r in zip(got, phi_tables_reference(L, [0, 0], [0.5, 4.0], ladder_len(130, 4.0))):
+        assert_scaled_close(g, r)
+    with pytest.raises(NotImplementedError, match="w >= 130"):
+        phi_tables_stream(L[:, :129, :129, :20].contiguous(), [0], [1.0], 8)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
@@ -167,7 +222,7 @@ def test_xwide_kernel_matches_plain(cuda_device, w, dtype):
     before = table_counts()
     got = phi_tables(L, binv, h_u, lad)              # routes w > 17 to the widest kernel
     torch.cuda.synchronize()
-    assert table_counts() == (before[0], before[1], before[2] + 1)
+    assert table_counts() == (before[0], before[1], before[2] + 1, before[3])
     tol = SCALED_ATOL_F32 if dtype == torch.float32 else SCALED_ATOL_F64
     for g, r in zip(got, phi_tables_reference(L, binv, h_u, lad)):
         assert g.shape == r.shape and g.dtype == dtype
@@ -247,10 +302,11 @@ def test_model2_objective_at_six_sites_goes_through_the_kernels(cuda_device):
     rng = np.random.default_rng(0)
     thetas = b["theta0"][None] + 0.05 * rng.normal(size=(4, len(b["theta0"])))
     phi_tables.launches = phi_tables_wide.launches = phi_tables_xwide.launches = 0
+    phi_tables_stream.launches = 0
     F = make_population_objective(*args, pop_chunk=4)(thetas)
     assert table_counts() == (sum(wc <= 8 for wc in widths),
                               sum(8 < wc <= 17 for wc in widths),
-                              sum(wc > 17 for wc in widths))
+                              sum(wc > 17 for wc in widths), 0)
     Fp = make_population_objective(*args, pop_chunk=4, use_kernel=False)(thetas)
     assert F.shape == (4, 3) and bool(torch.isfinite(F).all())
     assert float(torch.max(torch.abs(F - Fp) / torch.abs(Fp))) <= 1e-3
@@ -470,20 +526,19 @@ def test_scan_driven_override_is_a_select(cuda_device):
 
 @pytest.mark.parametrize("bad, err", [
     ("float16", NotImplementedError),
-    ("w130", NotImplementedError),
     ("strided", ValueError),
 ])
 def test_scan_kernel_rejects(cuda_device, bad, err):
-    """float16, and w = 130 (past the widest tables: the message names
-    kernel 1b), raise NotImplementedError; a strided tensor ValueError."""
-    w = 130 if bad == "w130" else 4
-    args, plan = random_scan_problem(w, N=5, P=2, S=8)      # built on the CPU
+    """float16 raises NotImplementedError, a strided tensor ValueError
+    (w = 130 raised here until the stream table kernel: it runs now,
+    test_wide_scan_kernel_matches_plain)."""
+    args, plan = random_scan_problem(4, N=5, P=2, S=8)      # built on the CPU
     args = [x.to(cuda_device) for x in args]
     if bad == "float16":
         args = [x.half() for x in args]
     if bad == "strided":
         args[0] = args[0].transpose(1, 2)
-    with pytest.raises(err, match="kernel 1b" if bad == "w130" else ""):
+    with pytest.raises(err):
         etd2rk_scan(*args, plan)
 
 
@@ -495,14 +550,15 @@ def test_scan_kernel_rejects(cuda_device, bad, err):
 WIDE_SCAN_CASES = [(18, 7), (22, 7), (33, 7), (65, 7), (96, 7), (97, 7), (128, 7), (129, 7),
                    (6, 257), (6, 1024), (6, 4096), (22, 257), (22, 1024), (22, 4096),
                    (65, 257), (129, 1024), (129, 4096), (6, 8193), (22, 8193), (6, 16384),
-                   (22, 16384)]
+                   (22, 16384), (130, 7), (257, 7), (257, 300), (513, 7)]
 SCAN_TOLS = {torch.float32: (SCAN_RTOL, SCAN_ATOL), torch.float64: (1e-10, 1e-12)}
 
 
 def wide_members(w, N):
     """Members of a wide-kernel test problem: several, but at most ~33,000
     lanes at the widest blocks and largest members."""
-    return 40 if N == 7 else 8 if N < 1024 else 2 if w <= 22 else 1
+    return (40 if N == 7 and w <= 129 else 4 if N == 7 else 8 if N < 257 or w <= 129 and N < 1024
+            else 2 if w <= 22 else 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
@@ -662,11 +718,12 @@ def flux_inputs(rng, rows, smax, dtype, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("smax", range(0, 11))
+@pytest.mark.parametrize("smax", range(0, 14))
 def test_hypercube_kernel_matches_plain(cuda_device, smax, dtype):
     """1,001 rows (no multiple of the rows or quads a thread owns, the last
     warp ragged): smax 0-1 a thread a row, 2-7 by registers and warp
-    shuffles, 8-10 through shared memory as well."""
+    shuffles, 8-10 through shared memory as well, 11-13 over several blocks
+    a row (a neighbour past the block's span from device memory)."""
     X, S, E = flux_inputs(np.random.default_rng(smax), 1001, smax, dtype, cuda_device)
     before = hypercube_flux.launches
     got = hypercube_flux(X, S, E, smax)
@@ -692,6 +749,20 @@ def test_hypercube_kernel_many_waves(cuda_device, offset, dtype):
     got = hypercube_flux(X, S, E, smax)
     torch.cuda.synchronize()
     assert hypercube_flux.launches == before + 1
+    assert_scaled_close(got, hypercube_flux_reference(X, S, E, smax),
+                        SCALED_ATOL_F32 if dtype == torch.float32 else SCALED_ATOL_F64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_hypercube_kernel_spans_unaligned(cuda_device, dtype):
+    """12 sites (rows of 4,096 states over four blocks) with X and dX one
+    element off 16 bytes (the scalar loads of the spans' kernel)."""
+    rows, smax = 37, 12
+    X, S, E = flux_inputs(np.random.default_rng(12), rows, smax, dtype, cuda_device)
+    X = torch.cat([X.new_zeros(1), X.reshape(-1)])[1:].view(rows, 1 << smax)
+    assert X.is_contiguous() and X.data_ptr() % 16
+    got = hypercube_flux(X, S, E, smax)
+    torch.cuda.synchronize()
     assert_scaled_close(got, hypercube_flux_reference(X, S, E, smax),
                         SCALED_ATOL_F32 if dtype == torch.float32 else SCALED_ATOL_F64)
 

@@ -325,6 +325,23 @@ def test_population_objective_matches_jax_at_seven_sites():
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL_RUN)
 
 
+def test_population_objective_matches_jax_at_eight_sites():
+    """Model 2 with a protein of 8 sites (seed 7: width classes 2, 3, 9 and
+    257, the last the stream kernel's on the card; the JAX package takes
+    any width), bucketed as by default, pop 3 in one chunk, float64,
+    against JAX's objective without Pallas."""
+    bj = jax_demo(n_proteins=4, n_kinases=3, max_sites=8, model=2, seed=7, dtype=np.float64)
+    bt = from_reference({k: bj[k] for k in KEYS + ("topo",)}, device="cpu")
+    assert 257 in {wc for wc, _ in expo.width_classes(bt["topo"])}
+    rng = np.random.default_rng(8)
+    thetas = bj["theta0"][None] + 0.05 * rng.normal(size=(3, len(bj["theta0"])))
+    f_j = jax_objective(*(bj[k] for k in KEYS), use_pallas=False, pop_chunk=None)
+    want = np.asarray(jax.jit(f_j)(jnp.asarray(thetas)))
+    got = make_population_objective(*(bt[k] for k in KEYS), pop_chunk=None)(thetas)
+    assert got.shape == (3, 3) and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL_RUN)
+
+
 def test_demo_bundle_model2(demo):
     """The port's model-2 demo: the JAX package's draws, and observations
     from RK45 at the bundle's dtype (float64 here) on the CPU, as the JAX

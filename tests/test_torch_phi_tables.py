@@ -25,6 +25,7 @@ from phoskintime_tpu_torch.ops import cuda_build
 from phoskintime_tpu_torch.ops import phi_tables as pm
 from phoskintime_tpu_torch.ops.phi_tables import (ladder_len, phi_tables,
                                                   phi_tables_reference)
+from tools.smoke_cases import hypercube_blocks
 
 torch.set_num_threads(2)
 
@@ -54,23 +55,6 @@ def compartmental_blocks(rng, Bu, w, B):
     L[:, np.arange(w), np.arange(w), :] = 0.0
     decay = rng.uniform(0.01, 4.0, (Bu, w, B))
     L[:, np.arange(w), np.arange(w), :] = -(L.sum(axis=1) + decay)
-    return L
-
-
-def hypercube_blocks(rng, Bu, sites, B):
-    """Blocks shaped like model 2's at ``sites`` sites (w = 2^sites + 1):
-    state 0 feeds state 1, and states 1..2^sites, the phospho-states, each
-    pass to the states one site away (a phosphorylation one way, a
-    dephosphorylation back); rates uniform on (0, 2), each column's outflow
-    plus its own decay on the diagonal."""
-    w = 2 ** sites + 1
-    L = np.zeros((Bu, w, w, B))
-    L[:, 1, 0] = rng.uniform(0.0, 2.0, (Bu, B))
-    for m in range(2 ** sites):
-        for b in range(sites):
-            L[:, 1 + (m ^ (1 << b)), 1 + m] = rng.uniform(0.0, 2.0, (Bu, B))
-    d = np.arange(w)
-    L[:, d, d, :] = -(L.sum(axis=1) + rng.uniform(0.01, 4.0, (Bu, w, B)))
     return L
 
 
@@ -115,7 +99,7 @@ def test_package_imports_without_jax():
                 "report.draw.colors", "report.plotter", "report.dashboard",
                 "report.diagram", "analysis.fitpanels", "analysis.embed",
                 "analysis.thermal", "report.apps", "report.schematic", "parallel",
-                "parallel.mesh"):
+                "parallel.mesh", "network.kron"):
         assert f"phoskintime_tpu_torch.{new}" in mods, new
     code = ("import importlib, sys; "
             f"[importlib.import_module(m) for m in {mods!r}]; "
@@ -248,18 +232,165 @@ def test_xwide_launch_shape(itemsize):
 
 
 def test_width_66_raises_naming_the_roadmap_item():
-    """Above the kernels' widest width (w = 65 once, hence the name; w = 129
-    now) asking for one raises, naming the ROADMAP item; the plain version
-    takes any width."""
+    """Past the widest shared-memory kernel (w = 65 once, hence the name;
+    w = 129 since) the stream kernel takes every width: its launch shape at
+    w = 130, 257, 513 and 1,025 in both types (planes of R rows, w rounded
+    up to the 64-row tile, ld columns, K + 3 rounded up to 64, K the k
+    extent, w rounded up to 128 bytes of row; a slot its 64-word head and
+    three planes; clusters of 8 blocks of 256 threads, R a multiple of the
+    cluster; as many clusters as the card holds at once, 15 on an H100 at
+    one block an SM, at most one an item).
+    The raises that stay: no kernel below w = 2 or for another dtype, none
+    on a CPU tensor; the xwide and stream wrappers keep their own domains
+    (w <= 129 is not the stream kernel's). The plain version takes any
+    width."""
+    for itemsize in (4, 8):
+        bk = 128 // itemsize
+        for w in (130, 257, 513, 1025):
+            shape = pm.stream_launch_shape(w, itemsize)
+            K, R, ld, slot = pm.stream_layout(w, itemsize)
+            assert (shape.K, shape.R, shape.ld, shape.slot_words) == (K, R, ld, slot)
+            assert K % bk == 0 and w <= K < w + bk
+            assert R % 64 == 0 and w <= R < w + 64 and K <= R
+            assert ld % 64 == 0 and K + 3 <= ld < K + 67
+            assert slot == 64 + 3 * R * ld and slot % 4 == 0
+            assert shape.cluster == 8 and R % shape.cluster == 0 and shape.threads == 256
+            assert shape.slots == 15
+            assert pm.stream_launch_shape(w, itemsize, items=5).slots == 5
+            assert pm.stream_launch_shape(w, itemsize, 600, clusters=3).slots == 3
+        assert pm.stream_layout(257, itemsize)[1:3] == (320, 320)
+    assert pm.stream_layout(257, 4)[0] == 288 and pm.stream_layout(257, 8)[0] == 272
+    # 15 slots at w = 257: 18.4 MB of scratch in float32, inside the 50 MB L2
+    assert 15 * pm.stream_layout(257, 4)[3] * 4 < 18.5e6
+    for bad in (129, 1, 0):
+        with pytest.raises(NotImplementedError):
+            pm.stream_launch_shape(bad, 4)
+    with pytest.raises(NotImplementedError):
+        pm.stream_launch_shape(257, 2)
     rng = np.random.default_rng(66)
     L = torch.as_tensor(random_blocks(rng, 1, 130, 2))
-    with pytest.raises(NotImplementedError, match="phi_tables_wide above w = 129"):
+    with pytest.raises(ValueError, match="CUDA"):
         phi_tables(L, [0], [1.0], 8, use_kernel=True)
+    with pytest.raises(NotImplementedError, match="w >= 2"):
+        phi_tables(L.to(torch.float16), [0], [1.0], 8, use_kernel=True)
+    with pytest.raises(NotImplementedError, match="w >= 2"):
+        phi_tables(L[:, :1, :1].contiguous(), [0], [1.0], 8, use_kernel=True)
     E, p1, p2 = phi_tables(L, [0], [1.0], 8)
     assert E.shape == (1, 130, 130, 2) and bool(torch.isfinite(E).all())
     assert pm.xwide_launch_shape(66, 8).lanes == 1          # 66 is a kernel width now
     with pytest.raises(ValueError, match="CUDA"):
         pm.phi_tables_xwide(L[:, :33, :33].contiguous(), [0], [1.0], 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        pm.phi_tables_stream(L, [0], [1.0], 8)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_reference_matches_jax_lanes_at_257(dtype):
+    """Model 2 at 8 sites (w = 257, the stream kernel's class): the plain
+    tables at 2 pairs x 2 lanes against JAX's lane build
+    (``network/expo.py::_phi_vectors_lanes``), which the JAX package takes
+    at any width, at the ladder's clip of 24; float64 at rtol 1e-9,
+    float32 at the scaled 2e-5, on blocks shaped like model 2's own. JAX
+    takes both pairs in one call, their lanes side by side (h a lane; its
+    eager j-loop over 257 columns costs seconds a call)."""
+    rng = np.random.default_rng(257)
+    L = hypercube_blocks(rng, 2, 8, 2).astype(dtype)
+    binv, h_u = np.asarray([0, 1], np.int32), np.asarray([0.5, 8.0])
+    E, p1, p2 = phi_tables_reference(torch.as_tensor(L), binv, h_u, 24)
+    assert E.shape == (2, 257, 257, 2)
+    want = _phi_vectors_lanes(jnp.asarray(np.concatenate([L[b] for b in binv], axis=-1)),
+                              jnp.asarray(np.repeat(h_u, 2), dtype))
+    for u in range(2):
+        for got, ref in zip((E[u], p1[u], p2[u]), want):
+            ref = np.asarray(ref)[..., 2 * u:2 * u + 2]
+            if dtype == np.float64:
+                np.testing.assert_allclose(got.numpy(), ref, rtol=1e-9,
+                                           atol=1e-9 * np.max(np.abs(ref)))
+            else:
+                assert_scaled_close(got.numpy(), ref, SCALED_ATOL_F32)
+
+
+def stream_emulation(L: np.ndarray, binv, h_u, ladder: int):
+    """csrc/phi_tables_stream.cu's arithmetic in numpy, lane by lane, on its
+    padded planes (``stream_layout``): A = L h unscaled, E = I + A 2^-s / n
+    with the series' term, v1 and v2 in columns K..K+2, each Horner step E'
+    = I + (A E) 2^-s / k over k < K with the series' step in the same
+    product's columns K..K+2 and p1 = v1 hs, p2 = v2 hs^2 at the last, then
+    the lane's own s ladder steps on [E | p1 | p2]."""
+    dt = L.dtype.type
+    _, w, _, B = L.shape
+    K, R, ld, _ = pm.stream_layout(w, L.dtype.itemsize)
+    terms, rad = (12, 0.25) if dt == np.float64 else (8, 0.5)
+    U = len(binv)
+    E_out, p1_out, p2_out = (np.empty((U, w, w, B), dt), np.empty((U, w, B), dt),
+                             np.empty((U, w, B), dt))
+    eye = np.eye(w, dtype=dt)
+    e0 = eye[:, 0]
+    for u, (b, h) in enumerate(zip(binv, h_u)):
+        h = dt(h)
+        for lane in range(B):
+            A = np.zeros((R, ld), dt)
+            A[:w, :w] = L[b, :, :, lane] * h
+            rows = np.abs(A).sum(axis=1)
+            nan = bool(np.isnan(rows).any())
+            norm = np.nanmax(rows) if not nan else dt(0)
+            s = min(max(np.ceil(np.log2(max(norm, dt(1e-30)) / dt(rad))), 0), ladder)
+            steps, inv = (0, dt(np.nan)) if nan else (int(s), dt(2.0 ** -s))
+            hs = h * inv
+            E = np.zeros((R, ld), dt)
+            E[:w, :w] = (A[:w, :w] * inv) / dt(terms) + eye
+            term = A[:w, 0] * inv
+            E[:w, K], E[:w, K + 1], E[:w, K + 2] = term, e0 + term / dt(2), e0 / 2 + term / dt(6)
+            for k in range(terms - 1, 0, -1):
+                ks = dt(terms + 1 - k)
+                raw = A[:, :K] @ E[:K]
+                nxt = np.zeros((R, ld), dt)
+                nxt[:w, :w] = (raw[:w, :w] * inv) / dt(k) + eye
+                term = (raw[:w, K] * inv) / ks
+                v1 = E[:w, K + 1] + term / (ks + 1)
+                v2 = E[:w, K + 2] + term / ((ks + 1) * (ks + 2))
+                if k == 1:
+                    nxt[:w, K], nxt[:w, K + 1] = v1 * hs, v2 * (hs * hs)
+                else:
+                    nxt[:w, K], nxt[:w, K + 1], nxt[:w, K + 2] = term, v1, v2
+                E = nxt
+            for it in range(steps):
+                raw = E[:, :K] @ E[:K]
+                nxt = np.zeros((R, ld), dt)
+                nxt[:w, :w] = raw[:w, :w]
+                p1, p2 = E[:w, K], E[:w, K + 1]
+                nxt[:w, K] = p1 + raw[:w, K]
+                nxt[:w, K + 1] = p2 + raw[:w, K + 1] + p1 * (hs * dt(2.0 ** it))
+                E = nxt
+            E_out[u, :, :, lane] = E[:w, :w]
+            p1_out[u, :, lane], p2_out[u, :, lane] = E[:w, K], E[:w, K + 1]
+    return E_out, p1_out, p2_out
+
+
+@pytest.mark.parametrize("w", [130, 257])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_stream_arithmetic_matches_reference(w, dtype):
+    """The stream kernel's padded planes and epilogues (the series carried
+    in columns K..K+2 of the Horner products, p1 and p2 in columns K, K+1 of
+    the ladder's), emulated in numpy, against the plain version at 2 pairs
+    x 3 lanes, one lane NaN (all NaN in both): float64 within 1e-12 of the
+    largest entry, float32 within the scaled 2e-5 (the card's gates)."""
+    rng = np.random.default_rng(w)
+    L = (hypercube_blocks(rng, 2, 8, 3) if w == 257
+         else compartmental_blocks(rng, 2, w, 3)).astype(dtype)
+    L[1, 5, 7, 2] = np.nan
+    binv, h_u = np.asarray([0, 1], np.int32), np.asarray([0.25, 8.0])
+    got = stream_emulation(L, binv, h_u, 24)
+    want = phi_tables_reference(torch.as_tensor(L), binv, h_u, 24)
+    for g, r in zip(got, want):
+        r = r.numpy()
+        assert np.isnan(g[1, ..., 2]).all() and np.isnan(r[1, ..., 2]).all()
+        g, r = g.copy(), r.copy()
+        g[1, ..., 2] = r[1, ..., 2] = 0.0
+        if dtype == np.float64:
+            np.testing.assert_allclose(g, r, rtol=0, atol=1e-12 * np.max(np.abs(r)))
+        else:
+            assert_scaled_close(g, r, SCALED_ATOL_F32)
 
 
 def test_reference_matches_pallas_pages_interpret():
@@ -318,9 +449,9 @@ def test_library_path_is_keyed_by_source():
     assert path.parent == cuda_build.BUILD_DIR and path.suffix == ".so"
     assert "csrc" in str(pm.SOURCE) and pm.SOURCE.exists()
     assert pm.SOURCE in cuda_build.SOURCES and all(s.exists() for s in cuda_build.SOURCES)
-    assert pm.XWIDE_SOURCE in cuda_build.SOURCES
-    assert len(cuda_build.SOURCES) == 7
-    assert len({cuda_build.library_path(s) for s in cuda_build.SOURCES}) == 7
+    assert pm.XWIDE_SOURCE in cuda_build.SOURCES and pm.STREAM_SOURCE in cuda_build.SOURCES
+    assert len(cuda_build.SOURCES) == 8
+    assert len({cuda_build.library_path(s) for s in cuda_build.SOURCES}) == 8
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
 
 

@@ -185,7 +185,8 @@ def test_simulate_with_scan_kernel_matches_jax(small, scan_calls):
 # The objective's networks: the demo at N = 8 (w = 6 or 17), and the shapes
 # past the template kernel's domain that the wide kernel takes on the card:
 # chip_smoke.py's phase-3h networks run unbucketed (model 0 with a 20-site
-# protein, w = 22; model 2 at 6 and 7 sites, w = 65 and 129) and the
+# protein, w = 22; model 2 at 6 and 7 sites, w = 65 and 129), model 2 at 8
+# sites (w = 257, the stream table kernel's and a streamed E) and the
 # 300-protein demo (N = 285). build_demo_network's arguments, pop, and the
 # (w, N) each must give.
 SCAN_NETWORKS = {
@@ -197,6 +198,8 @@ SCAN_NETWORKS = {
                       (65, 6)),
     "model2-7sites": (dict(n_proteins=6, n_kinases=3, max_sites=7, model=2, seed=20), 3,
                       (129, 7)),
+    "model2-8sites": (dict(n_proteins=4, n_kinases=3, max_sites=8, model=2, seed=7), 2,
+                      (257, 5)),
     "N285": (dict(n_proteins=300, n_kinases=24, model=0, seed=1), 3, (6, 285)),
 }
 
@@ -222,7 +225,9 @@ def test_objective_with_scan_kernel_matches_jax(name, scan_calls):
     assert len(scan_calls) == -(-pop // 2)             # one per chunk
     assert all(plan.N == N for plan in scan_calls)
     assert got.shape == (pop, 3) and bool(torch.isfinite(got).all())
-    for scan_kernel in (True, False):
+    # past w = 129 JAX's kernel refuses the tile (mega None) and both of its
+    # calls would run the same XLA scan: it runs once there
+    for scan_kernel in (True, False) if mega is not None or w <= 129 else (False,):
         f_j = jax_objective(*(bj[k] for k in KEYS), use_pallas=False, pop_chunk=2,
                             width_bucketing=False, use_scan_kernel=scan_kernel)
         want = np.asarray(jax.jit(f_j)(jnp.asarray(thetas)))
@@ -377,7 +382,7 @@ def test_stale_runs_are_refused():
 
 # widths past the template kernel's, each side of a power of two and the
 # widest tables'
-WIDE_WIDTHS = [18, 22, 32, 33, 64, 65, 96, 97, 128, 129]
+WIDE_WIDTHS = [18, 22, 32, 33, 64, 65, 96, 97, 128, 129, 130, 257, 513]
 WIDE_PROTEINS = [1, 2, 6, 7, 45, 199, 256, 257, 285, 320, 321, 511, 1024, 2048, 4095, 4096,
                  6144, 6145, 8192, 8193, 12288, 16383, 16384]
 # csrc/etd2rk_scan.cu's wide limits: threads a block, blocks a cluster,
@@ -418,7 +423,9 @@ def assert_wide_shape(w, N, itemsize):
     lanes fit; whole members a block, or one member over the fewest blocks
     of a cluster of at most 8; at most 512 threads, a lane's rows over a
     power of two of threads up to 32, its columns over 1-8 warps (only at
-    32 and w >= 97), or 1-4 lanes a thread (only wide-global); the block's
+    32 and w >= 97 in wide-shared, and in wide-stream past w = 129 with
+    one member alone in its block, the most warps that fit), or 1-4 lanes
+    a thread (only wide-global); the block's
     threads and shared memory (the kernel's footprint, at least a lane's
     state and in wide-shared its E rows) within the kernel's limits;
     every block's totals in each (push) only in a cluster."""
@@ -427,7 +434,15 @@ def assert_wide_shape(w, N, itemsize):
     g, cols, per = shape.group, shape.cols, shape.per
     assert g in (1, 2, 4, 8, 16, 32) and (shape.variant == "wide-shared" or g <= itemsize)
     assert 1 <= cols <= MAX_COLS and (cols == 1 or (shape.variant == "wide-shared" and g == 32
-                                                    and w >= 97))
+                                                    and w >= 97)
+                                      or (shape.variant == "wide-stream" and w >= 130
+                                          and shape.members == shape.cluster == 1))
+    if shape.variant == "wide-stream" and w >= 130 and shape.cluster == 1:
+        assert shape.members == 1 and shape.lanes == N
+        more = 2 * cols
+        assert cols == MAX_COLS or not (
+            wide_threads(N, g, more) <= WIDE_MAX_THREADS
+            and wide_shared_bytes("wide-stream", w, N, g, itemsize, cols=more) <= MAX_SHARED_BYTES)
     assert 1 <= per <= MAX_PER and (per == 1 or (shape.variant == "wide-global" and g == 1))
     assert shape.threads == wide_threads(shape.lanes, g, cols, per) <= WIDE_MAX_THREADS
     assert shape.threads % 32 == 0 and shape.threads * per >= shape.lanes * g * cols
@@ -467,9 +482,10 @@ def test_scan_launch_shape(w):
     224 at w = 16, N <= 199 at w = 17), streamed past that; whole members,
     at most 256 threads, and never more shared memory than a block may opt
     into. Past it the wide kernel (:func:`assert_wide_shape`), up to N =
-    16,384 sampled, in both types;
-    w = 1, w = 130 and N = 0 raise naming kernel 1b, N = 16,385 naming the
-    new limit."""
+    16,384 sampled, in both types, at every width the tables take (130,
+    257 and 513 past the shared-memory table kernels: E streamed); w = 1
+    and N = 0 raise naming the domain (w >= 2), N = 16,385 naming the
+    member limit."""
     last_shared = {9: 256, 10: 256, 11: 256, 12: 256, 13: 256, 14: 256, 15: 256,
                    16: 224, 17: 199}
     for N in range(1, 257) if w <= 17 else ():
@@ -486,8 +502,8 @@ def test_scan_launch_shape(w):
         if w > 17 or N > 256:
             for itemsize in (4, 8):
                 assert_wide_shape(w, N, itemsize)
-    for bad in ((w, 0), (1, 7), (130, 7)):
-        with pytest.raises(NotImplementedError, match="kernel 1b"):
+    for bad in ((w, 0), (1, 7)):
+        with pytest.raises(NotImplementedError, match="w >= 2"):
             scan_launch_shape(*bad)
     for itemsize in (4, 8):
         with pytest.raises(NotImplementedError, match="up to 16,384 proteins"):

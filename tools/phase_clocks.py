@@ -1,6 +1,6 @@
 """Where the table kernels spend their time, phase by phase, on the card.
 
-    python tools/phase_clocks.py [--kernel wide|tables|xwide|scan|both]
+    python tools/phase_clocks.py [--kernel wide|tables|xwide|scan|stream|both]
 
 Builds a copy of a table kernel with ``clock64()`` stamps at its phase
 boundaries (lane 0 of every warp; the copy and its library go to the
@@ -36,6 +36,12 @@ path's shapes:
   the barrier or the cluster's signal, and the rest), in E y and in the
   update. ``--tree DIR`` clocks the kernel and wrapper of another checkout
   (a ``git archive`` of the parent, unpacked in a git-ignored directory).
+
+* ``stream``: ``csrc/phi_tables_stream.cu`` at chip_smoke.py phase 3j's w =
+  257 class (the 8-site network, 2,048 members in float32, 256 in
+  float64): a warp's mean cycles in an item's load and norm, its start, the
+  products' tiled sums and epilogues, the cluster barrier after each
+  product and the store, and the cycles a product.
 
 The sources are stamped by text: a change to the marked lines of a kernel
 needs the same change here. The stamps cost a few instructions a phase;
@@ -552,9 +558,140 @@ def scan_clocks(tree: Path) -> None:
         sk.entry = saved
 
 
+# csrc/phi_tables_stream.cu: a warp's cycles, summed by lane 0 of every warp
+# into a device array with the warps counted, in these slots: an item's L h
+# with its norm and first cluster barrier, its E and series start with the
+# second; the products' tiled sums (copies and multiply-adds) and their
+# epilogues; the cluster barrier after each product (a block with no tile
+# in a product's last round waits here); the tables' store; the products
+# and the items a warp ran
+STREAM_SLOTS = ["load_norm", "init", "tile_sums", "epilogue", "product_barrier", "store",
+                "products", "items"]
+STREAM_PRELUDE = """__device__ unsigned long long g_stream_clk[9];
+#define SSTAMP(k) { const unsigned long long now_ = clock64(); clk_[k] += now_ - tk_; tk_ = now_; }
+"""
+STREAM_MARKS = [
+    ("                        int rank, const Step<T>& sp) {",
+     "                        int rank, const Step<T>& sp, unsigned long long& sums_,\n"
+     "                        unsigned long long& epi_) {"),
+    ("    tile_sums(sm, X, Y, ld, K, m0, n0);\n",
+     "    const unsigned long long g0_ = clock64();\n    tile_sums(sm, X, Y, ld, K, m0, n0);\n"
+     "    const unsigned long long g1_ = clock64();\n    sums_ += g1_ - g0_;\n"),
+    ("    __syncthreads();   // the tile's sums are read before the next tile's copies land\n",
+     "    __syncthreads();   // the tile's sums are read before the next tile's copies land\n"
+     "    epi_ += clock64() - g1_;\n"),
+    ("  const long long items = static_cast<long long>(U) * B;\n",
+     "  const long long items = static_cast<long long>(U) * B;\n"
+     "  unsigned long long clk_[8] = {0, 0, 0, 0, 0, 0, 0, 0}, tk_ = clock64();\n"),
+    ("    // the lane's squaring count s from every block's share",
+     "    SSTAMP(0)\n    // the lane's squaring count s from every block's share"),
+    ("    // Horner, E = I + (A E) 2^-s / k", "    SSTAMP(1)\n    // Horner, E = I + (A E) 2^-s / k"),
+    ("      product<kHorner>(sm, planeA, plane[cur], plane[cur ^ 1], g, w, rank, sp);\n"
+     "      cluster_barrier();\n",
+     "      product<kHorner>(sm, planeA, plane[cur], plane[cur ^ 1], g, w, rank, sp, clk_[2],\n"
+     "                       clk_[3]);\n      tk_ = clock64();\n      cluster_barrier();\n"
+     "      SSTAMP(4)\n      clk_[6] += 1;\n"),
+    ("      product<kLadder>(sm, plane[cur], plane[cur], plane[cur ^ 1], g, w, rank, sp);\n"
+     "      cluster_barrier();\n",
+     "      product<kLadder>(sm, plane[cur], plane[cur], plane[cur ^ 1], g, w, rank, sp, clk_[2],\n"
+     "                       clk_[3]);\n      tk_ = clock64();\n      cluster_barrier();\n"
+     "      SSTAMP(4)\n      clk_[6] += 1;\n"),
+    ("      p2_out[row] = __ldcg(fin + static_cast<size_t>(i) * ld + K + 1);\n    }\n  }\n}\n",
+     "      p2_out[row] = __ldcg(fin + static_cast<size_t>(i) * ld + K + 1);\n    }\n"
+     "    SSTAMP(5)\n    clk_[7] += 1;\n  }\n"
+     "  if (threadIdx.x % 32 == 0) {\n"
+     "    for (int k = 0; k < 8; ++k) atomicAdd(g_stream_clk + k, clk_[k]);\n"
+     "    atomicAdd(g_stream_clk + 8, 1ull);\n  }\n}\n"),
+]
+STREAM_READ = SCAN_READ.replace("scan_clocks_read", "stream_clocks_read").replace(
+    "g_scan_clk", "g_stream_clk")
+
+
+def stream_clocks() -> None:
+    """The ``stream`` measurement: a stamped copy of
+    csrc/phi_tables_stream.cu through the wrapper (its library swapped in)
+    at chip_smoke.py phase 3j's w = 257 class (tools/smoke_cases.py's
+    STREAM_NETWORK, 2,048 members in float32 and 256 in float64, the
+    objective's first chunk): a warp's mean cycles in each slot, the share
+    of the products' tiled sums, epilogues and barriers, the cycles a
+    product, the stamped kernel's ms (CUDA events) and its largest scaled
+    difference from the plain version on 16 lanes."""
+    from phoskintime_tpu_torch.demo import build_demo_network
+    from phoskintime_tpu_torch.network import expo
+    from phoskintime_tpu_torch.network.params import unpack_params
+    from phoskintime_tpu_torch.ops import phi_tables as pm
+    from smoke_cases import STREAM_NETWORK, XWIDE_NETWORKS
+
+    so, log = nvcc_build("phi_tables_stream_clocks",
+                         stamped("phi_tables_stream.cu", STREAM_MARKS, STREAM_PRELUDE)
+                         + STREAM_READ)
+    so.stream_clocks_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    err = so.phi_tables_stream_error_string
+    err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+    print(json.dumps({"ptxas": re.findall(r"Used \d+ registers|\d+ bytes spill stores", log)}),
+          flush=True)
+
+    def fake_entry(source, name, argtypes):
+        fn = getattr(so, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        return fn, err
+
+    out = np.zeros(9, dtype=np.uint64)
+    saved = pm.entry
+    pm.entry = fake_entry
+    try:
+        for dtype, pop in ((torch.float32, 2048), (torch.float64, 256)):
+            b = build_demo_network(**XWIDE_NETWORKS[STREAM_NETWORK], dtype=dtype, device="cuda")
+            params = unpack_params(bench_population(b, pop).to(dtype), b["slices"], b["topo"])
+            (L, binv, h_u, ladder), = [t for t in expo.table_inputs(b["system"], params, b["grid"])
+                                       if t[0].shape[1] > 129]
+            pm.phi_tables_stream(L, binv, h_u, ladder)
+            torch.cuda.synchronize()
+            so.stream_clocks_read(out.ctypes.data, 1)
+            start, stop = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            start.record()
+            pm.phi_tables_stream(L, binv, h_u, ladder)
+            stop.record()
+            torch.cuda.synchronize()
+            if so.stream_clocks_read(out.ctypes.data, 1) != 0:
+                raise SystemExit("phase_clocks.py: could not read the stamps")
+            sub = L[..., :16].contiguous()
+            got, want = pm.phi_tables_stream(sub, binv, h_u, ladder), pm.phi_tables_reference(
+                sub, binv, h_u, ladder)
+            scaled = max(float(torch.max(torch.abs(g - r)) / torch.max(torch.abs(r)))
+                         for g, r in zip(got, want))
+            w = L.shape[1]
+            K, R, ld, _ = pm.stream_layout(w, L.element_size())
+            tiles = (R // pm._STREAM_TILE) * (ld // pm._STREAM_TILE)
+            warps = int(out[8])
+            per = dict(zip(STREAM_SLOTS, out[:8].astype(np.float64) / max(warps, 1)))
+            timed = sum(per[k] for k in STREAM_SLOTS[:6])
+            products = max(per["products"], 1.0)
+            print(json.dumps({
+                "kernel": "phi_tables_stream", "network": STREAM_NETWORK,
+                "dtype": str(dtype).split(".")[-1], "w": w, "pairs": len(binv),
+                "lanes": L.shape[3], "ladder": int(ladder),
+                "tiles_a_product": tiles, "tile_rounds": -(-tiles // pm._STREAM_CLUSTER),
+                "idle_tile_slots_a_product": -(-tiles // pm._STREAM_CLUSTER) * pm._STREAM_CLUSTER
+                - tiles, "warps_stamped": warps,
+                "items_a_warp": round(per["items"], 2),
+                "products_an_item": round(per["products"] / max(per["items"], 1.0), 3),
+                "mean_cycles_a_warp": {k: round(per[k], 1) for k in STREAM_SLOTS[:6]},
+                "share": {k: round(per[k] / timed, 4) for k in STREAM_SLOTS[:6]},
+                "cycles_a_product": {k: round(per[k] / products, 1)
+                                     for k in ("tile_sums", "epilogue", "product_barrier")},
+                "ms_stamped": round(start.elapsed_time(stop), 4),
+                "max_scaled_err_vs_plain_16_lanes": scaled}), flush=True)
+            del L, params, b
+            torch.cuda.empty_cache()
+    finally:
+        pm.entry = saved
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("wide", "tables", "xwide", "scan", "both"),
+    ap.add_argument("--kernel", choices=("wide", "tables", "xwide", "scan", "stream", "both"),
                     default="both")
     ap.add_argument("--tree", type=Path, default=ROOT,
                     help="scan: the checkout whose kernel and wrapper are clocked "
@@ -574,6 +711,8 @@ def main() -> int:
         xwide_clocks()
     if opts.kernel == "scan":
         scan_clocks(opts.tree.resolve())
+    if opts.kernel == "stream":
+        stream_clocks()
     return 0
 
 

@@ -11,14 +11,37 @@ import numpy as np
 import torch
 
 # model 2 at mechanisms' default cap of 6 sites (width classes 2, 3, 33, 65),
-# model 0 with a protein of 20 sites (w = 22) and model 2 with a protein of
-# 7 sites (classes 2, 3, 5, 129), each cut to a few proteins:
-# build_demo_network's arguments
+# model 0 with a protein of 20 sites (w = 22), model 2 with a protein of 7
+# sites (classes 2, 3, 5, 129) and model 2 with a protein of 8 sites (five
+# proteins, classes 2, 3, 9, 257: the stream table kernel's), each cut to a
+# few proteins: build_demo_network's arguments
 XWIDE_NETWORKS = {"model2-6sites": dict(n_proteins=6, n_kinases=3, max_sites=6, model=2, seed=0),
                   "model0-20sites": dict(n_proteins=5, n_kinases=3, max_sites=20, model=0,
                                          seed=5),
                   "model2-7sites": dict(n_proteins=6, n_kinases=3, max_sites=7, model=2,
-                                        seed=20)}
+                                        seed=20),
+                  "model2-8sites": dict(n_proteins=4, n_kinases=3, max_sites=8, model=2,
+                                        seed=7)}
+# the network past w = 129: chip_smoke.py's phase 3j takes it (off the main
+# lane), phases 3h and 3i the others
+STREAM_NETWORK = "model2-8sites"
+
+
+def hypercube_blocks(rng, Bu, sites, B) -> np.ndarray:
+    """(Bu, w, w, B) blocks shaped like model 2's at ``sites`` sites (w =
+    2^sites + 1): state 0 feeds state 1, and each phospho-state passes to
+    the states one site away (a phosphorylation one way, a
+    dephosphorylation back); rates uniform on (0, 2), each column's outflow
+    plus its own decay on the diagonal."""
+    w = 2 ** sites + 1
+    L = np.zeros((Bu, w, w, B))
+    L[:, 1, 0] = rng.uniform(0.0, 2.0, (Bu, B))
+    for m in range(2 ** sites):
+        for b in range(sites):
+            L[:, 1 + (m ^ (1 << b)), 1 + m] = rng.uniform(0.0, 2.0, (Bu, B))
+    d = np.arange(w)
+    L[:, d, d, :] = -(L.sum(axis=1) + rng.uniform(0.01, 4.0, (Bu, w, B)))
+    return L
 
 
 def augmented(L, binv, h_u) -> torch.Tensor:
@@ -36,9 +59,9 @@ def augmented(L, binv, h_u) -> torch.Tensor:
 
 
 # phase 3i's networks, the wide scan kernel's shapes on the objective's own
-# plans: the three above unbucketed (w = 22, 65, 129) and the 300-protein
+# plans: the first three above unbucketed (w = 22, 65, 129) and the 300-protein
 # demo (N = 285, w = 6); their members by type
-SCAN_WIDE_NETWORKS = {**XWIDE_NETWORKS,
+SCAN_WIDE_NETWORKS = {**{k: v for k, v in XWIDE_NETWORKS.items() if k != STREAM_NETWORK},
                       "demo300-N285": dict(n_proteins=300, n_kinases=24, seed=1)}
 SCAN_WIDE_POP = {torch.float32: 2048, torch.float64: 256}
 
